@@ -1,0 +1,391 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (an H100: the kernels are built for sm_90a) and
+``nvcc``; exits non-zero without them.  Phases, each printed as it ends:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
+3. each kernel (``pack_rows``, ``row_checksums``, ``gather_blocks``) at the
+   shapes the serving path gives it and on edge cases, held bitwise
+   against its plain PyTorch version, with CUDA-event medians of the
+   kernel, the plain version and (where one exists) a one-call PyTorch
+   library equivalent, next to the bytes bound at 3.35 TB/s;
+4. the smoke-size model on the card against the same code on the CPU
+   (prefill and decode logits within the reference's f32 tolerance);
+5. the main path: full-width iterpro-100m served through
+   ``ServingEngine`` — 8 requests, prompt 128, 32 new tokens, 4 slots,
+   block size 16, canary K=4, TF32 off — once clean and once under a
+   fault storm (one bit flip every 8 accepted tokens).  Asserts detected
+   == injected > 0, recovered == detected, nothing dropped, storm tokens
+   identical to clean tokens, and a launch count above 0 for every kernel;
+6. one JSON line describing every kernel, then the device line.
+
+Any failure raises; nothing is caught.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
+SCALAR_OPS_PER_S = 67e12      # H100 SXM 32-bit rate outside tensor cores
+F32_TOL = 2e-5                # the reference's f32 tolerance
+SPIN_CYCLES = 20_000_000      # ~10 ms device spin that hides host enqueue
+
+N_REQUESTS, PROMPT, GEN, SLOTS, BLOCK, K, INJECT = 8, 128, 32, 4, 16, 4, 8
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _median_ms(fn, torch, flush, *, queued: bool, iters: int = 15,
+               warmup: int = 3) -> float:
+    """Median CUDA-event time of one call of ``fn``, with L2 flushed (a
+    64 MiB write) before each call.  ``queued``: a device-side spin holds
+    the stream while the host enqueues the call, so the events time the
+    device's work alone; otherwise the host's enqueue time is included
+    (what a caller of the wrapper waits)."""
+    for _ in range(warmup):
+        fn()
+    ts = []
+    for _ in range(iters):
+        flush.zero_()
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    ts.sort()
+    return ts[len(ts) // 2]
+
+
+def _times(fn, torch, flush):
+    """(device ms, per-call ms including the host's enqueue)."""
+    return (_median_ms(fn, torch, flush, queued=True),
+            _median_ms(fn, torch, flush, queued=False))
+
+
+def _bound_ms(n_bytes: float, n_ops: float = 0.0):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _max_err(torch, a, b) -> int:
+    """Largest word difference of two int32 views (0 == bitwise equal)."""
+    d = (a.reshape(-1).to(torch.int64) - b.reshape(-1).to(torch.int64)).abs()
+    return int(d.max()) if d.numel() else 0
+
+
+def _rand_bits(torch, shape, dtype, gen):
+    x = torch.randint(-2**31, 2**31, shape, dtype=torch.int64,
+                      device="cuda", generator=gen).to(torch.int32)
+    return x.view(dtype)
+
+
+def check_kernels(torch, eng, flush):
+    """Phase 3: bitwise checks and timings at the main path's shapes."""
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import digest as kd
+    from repro_torch.kernels import paged_kv as pkv
+    from repro_torch.kernels import ref
+    from repro_torch.serving import paged as pgd
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    # a pool and pos of the engine's shapes, filled with random bits
+    pool = {"groups": [[{n: _rand_bits(torch, leaf.shape, leaf.dtype, gen)
+                         for n, leaf in eng.pool["groups"][0][0].items()}]]}
+    pos = _rand_bits(torch, (eng.S,), torch.int32, gen)
+    view = pgd.paged_canary_view(pool, pos, eng.n_blocks, eng.S)
+    plan = kd.plan_for(view)
+    assert plan is eng.plan, "random view must share the engine's plan"
+    core = eng._rotation(0)
+    leaves = plan.leaves(view)
+    flats = [ref.to_i32(leaves[i]) for i in core.union]
+    starts = plan.layout(core.union).starts
+    n_words = sum(f.numel() for f in flats)
+    rows = plan.layout(core.union).padded_rows
+    desc = ck.pack_descriptors(flats, starts, "cuda")
+
+    def fresh():
+        return torch.zeros(rows * ck.LANES, dtype=torch.int32, device="cuda")
+
+    out = {}
+    # -- pack_rows ---------------------------------------------------------
+    bk, bp = fresh(), fresh()
+    ck.pack_rows(bk, flats, starts, desc=desc)
+    ref.pack_rows_ref(bp, flats, starts)
+    err = _max_err(torch, bk, bp)
+    # edge cases: size-1 and ragged leaves, unaligned sources, int32 extremes
+    edge = [torch.tensor([2**31 - 1], dtype=torch.int32, device="cuda"),
+            torch.full((3,), -2**31, dtype=torch.int32, device="cuda"),
+            _rand_bits(torch, (129,), torch.int32, gen),
+            _rand_bits(torch, (1031,), torch.int32, gen)[1:],
+            _rand_bits(torch, (5000,), torch.int32, gen)]
+    e_starts, r = [], 0
+    for f in edge:
+        e_starts.append(r * ck.LANES)
+        r += max(1, -(-f.numel() // ck.LANES))
+    r = -(-r // ck.TILE_ROWS) * ck.TILE_ROWS
+    ek = torch.zeros(r * ck.LANES, dtype=torch.int32, device="cuda")
+    ep = ek.clone()
+    ck.pack_rows(ek, edge, e_starts)
+    ref.pack_rows_ref(ep, edge, e_starts)
+    err = max(err, _max_err(torch, ek, ep))
+    assert err == 0, f"pack_rows differs from its plain version ({err})"
+    b = fresh()
+    t_bytes, t_by = _bound_ms(2 * 4 * n_words)
+    ms, call_ms = _times(lambda: ck.pack_rows(b, flats, starts, desc=desc),
+                         torch, flush)
+    plain_ms, plain_call_ms = _times(
+        lambda: ref.pack_rows_ref(b, flats, starts), torch, flush)
+    out["pack_rows"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/checksum.cu",
+        replaces="src/repro/kernels/checksum.py:85", max_abs_err=err,
+        ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        plain_call_ms=plain_call_ms, bound_ms=t_bytes, bound_by=t_by,
+        library_ms=None,
+        shape=f"{len(flats)} leaves, {n_words} words")
+
+    # -- row_checksums -----------------------------------------------------
+    x = bk.view(-1, ck.LANES)
+    err = _max_err(torch, ck.row_checksums(x), ref.row_checksums_ref(x))
+    ext = torch.tensor([2**31 - 1, -2**31, -1, 0], dtype=torch.int32,
+                       device="cuda").repeat(ck.TILE_ROWS * ck.LANES // 4)
+    xe = torch.cat([ek, ext]).view(-1, ck.LANES)
+    err = max(err, _max_err(torch, ck.row_checksums(xe),
+                            ref.row_checksums_ref(xe)))
+    assert err == 0, f"row_checksums differs from its plain version ({err})"
+    t_bound, t_by = _bound_ms(rows * (ck.LANES * 4 + 8),
+                              rows * ck.LANES * 3)
+    ms, call_ms = _times(lambda: ck.row_checksums(x), torch, flush)
+    plain_ms, plain_call_ms = _times(lambda: ref.row_checksums_ref(x),
+                                     torch, flush)
+    out["row_checksums"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/checksum.cu",
+        replaces="src/repro/kernels/checksum.py:136", max_abs_err=err,
+        ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        plain_call_ms=plain_call_ms, bound_ms=t_bound, bound_by=t_by,
+        library_ms=None,
+        shape=f"({rows}, {ck.LANES}) int32")
+
+    # -- gather_blocks -----------------------------------------------------
+    leaf = pool["groups"][0][0]["k"]
+    perm = torch.randperm(eng.n_blocks - 1, generator=gen, device="cuda")
+    bt = (perm[:eng.S * eng.max_blocks] + 1).view(
+        eng.S, eng.max_blocks).to(torch.int32)
+    bt[-1, -3:] = 0                              # unallocated -> scratch 0
+    err = _max_err(torch, pkv.gather_blocks(leaf, bt).view(torch.int32),
+                   ref.gather_blocks_ref(leaf, bt).view(torch.int32))
+    small = _rand_bits(torch, (5, 3, 7), torch.float32, gen)   # 21 words
+    sbt = torch.tensor([[4, 0], [2, 2]], dtype=torch.int32, device="cuda")
+    err = max(err, _max_err(
+        torch, pkv.gather_blocks(small, sbt).view(torch.int32),
+        ref.gather_blocks_ref(small, sbt).view(torch.int32)))
+    assert err == 0, f"gather_blocks differs from its plain version ({err})"
+    block_bytes = leaf[0].numel() * leaf.element_size()
+    distinct = int(torch.unique(bt).numel())
+    g_bound, g_by = _bound_ms((distinct + bt.numel()) * block_bytes)
+    flat_bt = bt.reshape(-1).to(torch.int64)
+    ms, call_ms = _times(lambda: pkv.gather_blocks(leaf, bt), torch, flush)
+    plain_ms, plain_call_ms = _times(lambda: ref.gather_blocks_ref(leaf, bt),
+                                     torch, flush)
+    out["gather_blocks"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_kv.cu",
+        replaces="src/repro/kernels/paged_kv.py:52", max_abs_err=err,
+        ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        plain_call_ms=plain_call_ms, bound_ms=g_bound, bound_by=g_by,
+        library_ms=_median_ms(lambda: leaf.index_select(0, flat_bt),
+                              torch, flush, queued=True),
+        shape=f"pool {tuple(leaf.shape)}, bt {tuple(bt.shape)}")
+    for name, r in out.items():
+        print(f"[kernel] {name}: bitwise equal to plain (max_abs_err "
+              f"{r['max_abs_err']}), {r['shape']}: device time kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); per call with host enqueue: kernel "
+              f"{r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms")
+    return out
+
+
+def check_reference(torch):
+    """Phase 4: the smoke model on the card against the same code on the
+    CPU, prefill + 4 decode steps, within the reference's f32 tolerance."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    m = get_config("iterpro-100m").smoke().model
+    p_cpu = T.init_lm(m, 0, "cpu")
+    p_gpu = tree_map(lambda t: t.to("cuda"), p_cpu)
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, m.vocab_size, (1, 12))
+        .astype(np.int32))
+    worst = 0.0
+    lc, cc = T.prefill(p_cpu, m, {"tokens": toks}, max_len=24)
+    lg, cg = T.prefill(p_gpu, m, {"tokens": toks.cuda()}, max_len=24)
+    for step in range(5):
+        torch.testing.assert_close(lg.cpu(), lc, atol=F32_TOL, rtol=F32_TOL)
+        assert bool(torch.isfinite(lg).all()) and lg.shape == (1,
+                                                               m.vocab_size)
+        worst = max(worst, float((lg.cpu() - lc).abs().max()))
+        if step < 4:
+            t = lc.argmax(-1).to(torch.int32)
+            lc, cc = T.decode_step(p_cpu, m, cc, t)
+            lg, cg = T.decode_step(p_gpu, m, cg, t.cuda())
+    print(f"[reference] smoke prefill + 4 decode steps on the card vs the "
+          f"CPU: max |dlogit| {worst:.3e} (tolerance {F32_TOL})")
+
+
+def profile_steps(torch, eng, reqs, steps: int = 8) -> None:
+    """Phase 6: where a steady-state engine step's time goes — host wall
+    time against the device's kernel time (torch.profiler) over ``steps``
+    engine steps with every slot decoding."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for u, rq in enumerate(reqs[:eng.S]):
+        eng.admit(rq, u)
+    for _ in range(eng.K or 1):          # one full canary rotation first
+        eng.engine_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.engine_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # device-side events only: a CPU op's entry repeats its kernels' time
+    stats = [(e.key, e.self_device_time_total / 1e3 / steps, e.count)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in stats)
+    stats.sort(key=lambda s: -s[1])
+    print(f"[profile] {steps} steady engine steps: wall {wall_ms:.3f} "
+          f"ms/step, device busy {busy:.3f} ms/step "
+          f"({100 * busy / wall_ms:.1f}%), {sum(c for *_, c in stats)/steps:.0f}"
+          f" device kernels/step (host time under the profiler)")
+    for key, t, count in stats[:8]:
+        print(f"[profile]   {t:.4f} ms/step  x{count // steps:<4d} {key[:90]}")
+    for name in ("pack_rows_kernel", "row_checksums_kernel",
+                 "gather_blocks_kernel"):
+        t = sum(tt for key, tt, _ in stats if name in key)
+        print(f"[profile]   {name}: {t:.4f} ms/step")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import digest as kd
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tree import leaves
+    import numpy as np
+
+    smi = _smi()
+    print(f"[card] {smi}")
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.lib()
+    print(f"[build] {len(_build.sources())} CUDA sources -> {lib_path.name} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    for line in (lib_path.parent / "build.log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build] {line.strip()}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("iterpro-100m")
+    common = dict(n_slots=SLOTS, max_len=PROMPT + GEN + 1, canary_slices=K,
+                  block_size=BLOCK, max_replays=10**6, device="cuda")
+    clean_eng = ServingEngine(cfg, seed=0, **common)
+    storm_eng = ServingEngine(cfg, params=clean_eng.params, **common)
+    print(f"[engine] iterpro-100m: {clean_eng.n_blocks} pool blocks of "
+          f"{BLOCK}, {clean_eng.plan.n_leaves} canary units, "
+          f"{sum(t.numel() for t in leaves(clean_eng.params))} params")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    kernels = check_kernels(torch, clean_eng, flush)
+    check_reference(torch)
+
+    def reqs():
+        return make_requests(cfg, N_REQUESTS, PROMPT, GEN,
+                             np.random.default_rng(0))
+
+    clean_eng.warm()
+    storm_eng.warm()
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    kd.STATS.reset()
+    clean = clean_eng.run(reqs())
+    storm = storm_eng.run(reqs(), inject_every=INJECT,
+                          inject_rng=random.Random(0))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+
+    cs, ss = clean.summary(), storm.summary()
+    f = ss["faults"]
+    print(f"[serve] clean: {cs['completed']}/{cs['requests']} completed, "
+          f"{cs['engine_steps']} steps, decode p50 {cs['p50_decode_ms']:.3f}"
+          f" ms p99 {cs['p99_decode_ms']:.3f} ms")
+    print(f"[serve] storm: {ss['completed']}/{ss['requests']} completed, "
+          f"{ss['engine_steps']} steps, faults {f}, dropped "
+          f"{ss['dropped']}, replay tokens {ss['replay_tokens']}, decode "
+          f"p50 {ss['p50_decode_ms']:.3f} ms p99 {ss['p99_decode_ms']:.3f} "
+          f"ms, recovery p50 {ss['p50_recovery_ms']:.3f} ms")
+    assert cs["completed"] == N_REQUESTS and cs["dropped"] == 0, cs
+    assert f["injected"] > 0 and f["detected"] == f["injected"], f
+    assert f["recovered"] == f["detected"], f
+    assert ss["dropped"] == 0 and ss["completed"] == N_REQUESTS, ss
+    for rid, rec in clean.per_request.items():
+        toks = rec["tokens"]
+        assert len(toks) == GEN and all(0 <= t < cfg.model.vocab_size
+                                        for t in toks), (rid, toks)
+        assert storm.per_request[rid]["tokens"] == toks, (
+            f"rid {rid}: storm tokens differ from clean tokens")
+    print(f"[serve] storm tokens == clean tokens for all {N_REQUESTS} "
+          f"requests; launches on the main path: {launches}")
+    for name in kernels:
+        assert launches.get(name, 0) > 0, f"{name} never launched"
+    profile_steps(torch, ServingEngine(cfg, params=clean_eng.params,
+                                       **common), reqs())
+
+    print(json.dumps({"kernels": [
+        {"name": name, "route": r["route"], "source": r["source"],
+         "replaces": r["replaces"], "launches": launches[name],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        for name, r in kernels.items()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

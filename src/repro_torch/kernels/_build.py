@@ -1,0 +1,145 @@
+"""Build and load the port's CUDA kernels (plain C interface + ctypes).
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, for ``sm_90a``; the objects link into one shared library that is
+loaded with ``ctypes``.  The library lives in ``build/kernels/<hash>/`` at
+the repository root, keyed by a hash of the sources and flags, so a fresh
+checkout builds at first use and an edited source rebuilds.  Nothing here
+runs at import time: the CPU tests import every module of the port.
+
+``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
+it launches its kernel and nowhere else — the evidence that a run went
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LIB_NAME = "librepro_torch_kernels.so"
+
+LAUNCHES: Counter = Counter()
+
+_LIB = None
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # buf, desc, n_leaves, max_words, stream
+    "repro_pack_rows": (_P, _P, ctypes.c_int, ctypes.c_longlong, _P),
+    # rows_in, out, rows, stream
+    "repro_row_checksums": (_P, _P, ctypes.c_longlong, _P),
+    # pool, bt, out, n_blocks, pairs, block_words, stream
+    "repro_gather_blocks": (_P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+                            ctypes.c_longlong, _P),
+}
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (Path(home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                       "kernels are built on the machine with the card")
+
+
+def build() -> Path:
+    """Compile the sources (one nvcc each, in parallel) and link them into
+    one shared library; returns its path.  A no-op when the library for
+    the current sources already exists."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = nvcc_path()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        procs = []
+        for src in sources():
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        for src, _, p in procs:
+            text, _ = p.communicate()
+            log.append(f"== {src.name} (rc={p.returncode})\n{text}")
+        (out_dir / "build.log").write_text("\n".join(log))
+        failed = [src.name for src, _, p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+        link = [nvcc, "-shared", "-o", str(tmp / LIB_NAME)] + \
+            [str(obj) for _, obj, _ in procs]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
+        os.replace(tmp / LIB_NAME, lib)   # atomic: concurrent builds race safely
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        handle.repro_error_string.argtypes = [ctypes.c_int]
+        handle.repro_error_string.restype = ctypes.c_char_p
+        _LIB = handle
+    return _LIB
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` from a launch."""
+    if rc != 0:
+        msg = lib().repro_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """The kernel route's argument checks: one CUDA device, contiguous
+    tensors whose base is 16-byte aligned."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor base must be 16-byte aligned")

@@ -1,0 +1,98 @@
+// Digest-engine kernels for Hopper (sm_90a): pack_rows and row_checksums.
+//
+// pack_rows replaces the Pallas kernel src/repro/kernels/checksum.py:85
+// (`pack_rows`): it writes the int32 bit-streams of many leaves into one
+// persistent packing buffer at row-aligned (512 B) element offsets, in one
+// launch, leaving fill and pad words untouched (they stay zero for the
+// buffer's life).  On the TPU the leaves were separate kernel operands
+// aliased into the output; here a device descriptor table holds
+// (src_ptr, n_words, dst_start) per leaf, so one launch covers every leaf
+// of a canary slice without any per-leaf host work.
+//   Bound: bytes.  Each leaf word is read once and written once; there is
+//   no arithmetic.  Design: grid.y = leaf, grid.x strides over the leaf in
+//   16-byte (int4) copies, neighbouring threads on neighbouring addresses.
+//   A leaf whose source is not 16-byte aligned (a `pos[u]` scalar view)
+//   takes the scalar path; destinations are always row aligned.
+//
+// row_checksums replaces src/repro/kernels/checksum.py:136 (`row_checksums`,
+// kernel bodies :57 and :68): for every 128-lane int32 row it computes
+// s1 = sum(x) and s2 = sum((lane+1) * x), both mod 2^32.
+//   Bound: bytes (512 B read and 8 B written per row; 3 integer operations
+//   per word).  Design: one warp per row — each lane loads one int4 (the
+//   whole 512 B row in one coalesced transaction per warp), accumulates in
+//   uint32_t (unsigned wraparound is defined; signed overflow is not), and
+//   the warp reduces with shuffles.  Warps stride over rows, so a fixed
+//   grid covers any buffer.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+struct PackDesc {          // mirrors the wrapper's (n_leaves, 3) int64 table
+  const int32_t* src;
+  long long n_words;
+  long long dst_start;
+};
+
+__global__ void pack_rows_kernel(int32_t* __restrict__ buf,
+                                 const PackDesc* __restrict__ desc) {
+  const PackDesc d = desc[blockIdx.y];
+  const int32_t* __restrict__ src = d.src;
+  int32_t* __restrict__ dst = buf + d.dst_start;
+  const long long n = d.n_words;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long n4 =
+      ((reinterpret_cast<uintptr_t>(src) & 15) == 0) ? n / 4 : 0;
+  const int4* __restrict__ s4 = reinterpret_cast<const int4*>(src);
+  int4* __restrict__ d4 = reinterpret_cast<int4*>(dst);
+  for (long long i = tid; i < n4; i += stride) d4[i] = s4[i];
+  for (long long i = n4 * 4 + tid; i < n; i += stride) dst[i] = src[i];
+}
+
+__global__ void row_checksums_kernel(const int4* __restrict__ x,
+                                     int2* __restrict__ out,
+                                     long long rows) {
+  const unsigned lane = threadIdx.x & 31u;
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  const uint32_t w = lane * 4u + 1u;   // weight of the lane's first word
+  for (long long r = warp; r < rows; r += n_warps) {
+    const int4 v = x[r * 32 + lane];
+    const uint32_t a = (uint32_t)v.x, b = (uint32_t)v.y;
+    const uint32_t c = (uint32_t)v.z, e = (uint32_t)v.w;
+    uint32_t s1 = a + b + c + e;
+    uint32_t s2 = a * w + b * (w + 1u) + c * (w + 2u) + e * (w + 3u);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    if (lane == 0) out[r] = make_int2((int)s1, (int)s2);
+  }
+}
+
+extern "C" int repro_pack_rows(void* buf, const void* desc, int n_leaves,
+                               long long max_words, void* stream) {
+  if (n_leaves <= 0) return 0;
+  long long blocks = (max_words / 4 + 255) / 256;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 1024) blocks = 1024;
+  dim3 grid((unsigned)blocks, (unsigned)n_leaves);
+  pack_rows_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (int32_t*)buf, (const PackDesc*)desc);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_row_checksums(const void* x, void* out, long long rows,
+                                   void* stream) {
+  if (rows <= 0) return 0;
+  long long blocks = (rows + 7) / 8;      // 8 warps (rows) per block
+  if (blocks > 132 * 32) blocks = 132 * 32;
+  row_checksums_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const int4*)x, (int2*)out, rows);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* repro_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,339 @@
+"""Fused state digesting — the DigestPlan engine (single device).
+
+Counterpart of ``repro/kernels/digest.py``.  A ``DigestPlan`` is computed
+once per state structure (sorted leaf keys, shapes, dtypes, device): a flat
+int32 packing layout where every leaf owns a private row-aligned
+(128-element / 512 B) range, plus the row→leaf segment map and per-row
+offsets the exact combine needs.  A digest is
+
+  1. ``checksum.pack_rows`` — every selected leaf's int32 bits into one
+     persistent packing buffer, in place (one launch per call);
+  2. ONE ``checksum.row_checksums`` launch over the whole buffer;
+  3. the exact combine into per-leaf Fletcher pairs, in int64 masked to
+     32 bits: ``s1 = Σ_r s1_r`` and ``s2 = Σ_r (s2_r + off_r·s1_r)``.
+
+The (L, 2) int32 table equals the reference's bit for bit on the same
+bytes, with the same sorted key order, so the two packages' canaries line
+up row for row.
+
+The reference built the check+arm of one canary rotation as one jitted
+subcomputation; XLA scheduled the check slice's reads before the step's
+in-place writes.  PyTorch runs eagerly, so ``check_arm_subcomputation``
+returns an object whose phases the caller orders by hand: ``pack_check``
+before any write to the state, ``pack_arm`` after the step, then
+``finish`` (one ``row_checksums`` launch, the combine, the on-device
+compare and the in-place arm of the write table).
+
+``STATS`` counts logical digest launches and host syncs; every
+device→host crossing of the subsystem goes through ``fetch``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import tree as _tree
+from repro_torch.kernels import checksum as _ck
+from repro_torch.kernels import ref as _ref
+
+LANES = _ck.LANES
+TILE_ROWS = _ck.TILE_ROWS
+_MASK32 = 0xFFFFFFFF
+
+leaf_key = _tree.leaf_key
+
+
+@dataclass
+class DigestStats:
+    """Hot-path accounting for the detection-cost model."""
+    launches: int = 0   # logical digest invocations
+    syncs: int = 0      # device→host transfers
+
+    def reset(self) -> None:
+        self.launches = self.syncs = 0
+
+    def snapshot(self) -> Tuple[int, int]:
+        return (self.launches, self.syncs)
+
+
+STATS = DigestStats()
+
+
+def fetch(x: torch.Tensor) -> np.ndarray:
+    """The ONLY device→host crossing in the digest subsystem — counted."""
+    STATS.syncs += 1
+    return x.detach().cpu().numpy()
+
+
+@dataclass(frozen=True)
+class LeafSpec:
+    key: str
+    index: int          # position in the plan's canonical (sorted-key) order
+    size: int           # int32 words (== element count; to_i32 is 1:1)
+    n_rows: int         # row-aligned footprint: max(1, ceil(size/LANES))
+
+
+class _Layout:
+    """Packing layout of one leaf subset: element ``starts`` per leaf and,
+    per row of the padded buffer, its segment (subset position) and its
+    element offset within its leaf.  Fill and pad rows map to segment 0
+    with offset 0; they stay all-zero, so they add nothing."""
+
+    def __init__(self, specs: Sequence[LeafSpec]):
+        n_rows = sum(sp.n_rows for sp in specs)
+        self.padded_rows = -(-n_rows // TILE_ROWS) * TILE_ROWS
+        self.n_seg = len(specs)
+        seg = np.zeros(self.padded_rows, np.int64)
+        off = np.zeros(self.padded_rows, np.int64)
+        self.starts: List[int] = []
+        r = 0
+        for j, sp in enumerate(specs):
+            seg[r:r + sp.n_rows] = j
+            off[r:r + sp.n_rows] = np.arange(sp.n_rows) * LANES
+            self.starts.append(r * LANES)
+            r += sp.n_rows
+        self._host = (seg, off)
+        self._dev: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def maps(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = tuple(torch.from_numpy(a).to(device)
+                                   for a in self._host)
+        return self._dev[key]
+
+
+class DigestPlan:
+    """Packing layout + digest machinery for one state structure.
+
+    The canonical leaf order is sorted-by-path, as in the reference."""
+
+    def __init__(self, keys: Tuple[str, ...], sizes: Tuple[int, ...],
+                 device: torch.device):
+        self.keys = keys                       # sorted
+        self.device = device
+        self.specs = tuple(
+            LeafSpec(key=k, index=i, size=s, n_rows=max(1, -(-s // LANES)))
+            for i, (k, s) in enumerate(zip(keys, sizes)))
+        self.n_leaves = len(keys)
+        self.n_rows = sum(sp.n_rows for sp in self.specs)
+        self._key_to_index = {k: i for i, k in enumerate(keys)}
+        self._layouts: Dict[Tuple[int, ...], _Layout] = {}
+        self._pack_bufs: Dict[Tuple[int, ...], torch.Tensor] = {}
+        self._descs: Dict[Tuple, Tuple[Tuple[int, ...], torch.Tensor]] = {}
+        self._check_arm: Dict[Tuple, "CheckArm"] = {}
+
+    # -- leaf extraction ---------------------------------------------------
+
+    def leaves(self, tree) -> List[torch.Tensor]:
+        """Tree leaves in the plan's canonical (sorted-key) order; rejects a
+        tree whose leaf paths differ from the plan's."""
+        by_key = {leaf_key(p): x for p, x in _tree.flatten_with_path(tree)}
+        if len(by_key) != self.n_leaves or any(k not in by_key
+                                               for k in self.keys):
+            raise ValueError("tree structure does not match DigestPlan")
+        return [by_key[k] for k in self.keys]
+
+    def index_of(self, key: str) -> int:
+        return self._key_to_index[key]
+
+    def layout(self, idx: Tuple[int, ...]) -> _Layout:
+        lay = self._layouts.get(idx)
+        if lay is None:
+            lay = _Layout([self.specs[i] for i in idx])
+            self._layouts[idx] = lay
+        return lay
+
+    # -- persistent packing buffers ----------------------------------------
+
+    def _new_buffer(self, idx: Tuple[int, ...]) -> torch.Tensor:
+        return torch.zeros(self.layout(idx).padded_rows * LANES,
+                           dtype=torch.int32, device=self.device)
+
+    def take_buffer(self, indices: Optional[Sequence[int]] = None
+                    ) -> torch.Tensor:
+        """The subset's persistent packing buffer.  Taking it REGISTERS the
+        subset as hot-path-persistent (the canary's rotating slices);
+        other subsets digest through a transient buffer.  The pack and the
+        digest write it in place, so there is nothing to put back."""
+        idx = tuple(range(self.n_leaves)) if indices is None \
+            else tuple(indices)
+        buf = self._pack_bufs.get(idx)
+        if buf is None:
+            buf = self._new_buffer(idx)
+            self._pack_bufs[idx] = buf
+        return buf
+
+    def buffer_pointer(self, indices: Optional[Sequence[int]] = None):
+        """Device address of the subset's packing buffer (None before first
+        use) — the steady-state buffer-reuse probe."""
+        idx = tuple(range(self.n_leaves)) if indices is None \
+            else tuple(indices)
+        buf = self._pack_bufs.get(idx)
+        return None if buf is None else buf.data_ptr()
+
+    # -- the three digest phases -------------------------------------------
+
+    def pack(self, buf: torch.Tensor, idx: Tuple[int, ...],
+             leaves: Sequence[torch.Tensor], first: int = 0) -> None:
+        """Pack ``leaves`` — subset positions ``first .. first+len-1`` of
+        ``idx`` — into ``buf`` (one ``pack_rows`` launch).  On the card the
+        descriptor table is cached per (subset, part) and re-uploaded only
+        when a leaf's base pointer changed."""
+        if not leaves:
+            return
+        flats = [_ref.to_i32(x) for x in leaves]
+        starts = self.layout(idx).starts[first:first + len(flats)]
+        desc = None
+        if buf.device.type == "cuda":
+            ptrs = tuple(f.data_ptr() for f in flats)
+            key = (idx, first, len(flats))
+            hit = self._descs.get(key)
+            if hit is None or hit[0] != ptrs:
+                hit = (ptrs, _ck.pack_descriptors(flats, starts, buf.device))
+                self._descs[key] = hit
+            desc = hit[1]
+        _ck.pack_rows(buf, flats, starts, desc=desc)
+
+    def combine(self, buf: torch.Tensor, lay: _Layout) -> torch.Tensor:
+        """ONE ``row_checksums`` launch over ``buf`` and the exact combine
+        into the subset's (n_seg, 2) int32 digest table."""
+        d = _ck.row_checksums(buf.view(-1, LANES))
+        seg, off = lay.maps(buf.device)
+        s1 = d[:, 0].to(torch.int64)
+        # |off·s1| < 2^62: the product is exact in int64 before the mask
+        t2 = (d[:, 1].to(torch.int64) + off * s1) & _MASK32
+        out = torch.zeros((2, lay.n_seg), dtype=torch.int64, device=buf.device)
+        out[0].index_add_(0, seg, s1)
+        out[1].index_add_(0, seg, t2)
+        return _ref.wrap_i32(out).t().contiguous()
+
+    def _run(self, idx: Tuple[int, ...], leaves) -> torch.Tensor:
+        STATS.launches += 1
+        buf = self._pack_bufs.get(idx)
+        if buf is None:
+            # off-hot-path digests (canary init / refresh) use a transient
+            # buffer instead of pinning one per subset for the plan's life
+            buf = self._new_buffer(idx)
+        self.pack(buf, idx, leaves)
+        return self.combine(buf, self.layout(idx))
+
+    # -- public digesting --------------------------------------------------
+
+    def digest_table(self, tree) -> torch.Tensor:
+        """(n_leaves, 2) int32 digest table, on the device."""
+        return self._run(tuple(range(self.n_leaves)), self.leaves(tree))
+
+    def digest_subset(self, tree, indices: Sequence[int]) -> torch.Tensor:
+        """(len(indices), 2) digest table of the selected leaves."""
+        idx = tuple(indices)
+        if not idx:
+            return torch.zeros((0, 2), dtype=torch.int32, device=self.device)
+        leaves = self.leaves(tree)
+        return self._run(idx, [leaves[i] for i in idx])
+
+
+# ---------------------------------------------------------------------------
+# plan cache
+# ---------------------------------------------------------------------------
+
+_PLAN_CACHE: Dict[Tuple, DigestPlan] = {}
+
+
+def plan_for(tree) -> DigestPlan:
+    """The cached DigestPlan for ``tree``'s structure (leaf paths, shapes,
+    dtypes) on its device."""
+    flat = _tree.flatten_with_path(tree)
+    if not flat:
+        raise ValueError("plan_for: empty tree")
+    device = flat[0][1].device
+    sig = tuple(sorted((leaf_key(p), tuple(x.shape), str(x.dtype))
+                       for p, x in flat))
+    key = (str(device), sig)
+    plan = _PLAN_CACHE.get(key)
+    if plan is None:
+        keys = tuple(k for k, _, _ in sig)
+        sizes = tuple(int(np.prod(shape, dtype=np.int64))
+                      for _, shape, _ in sig)
+        plan = DigestPlan(keys, sizes, device)
+        _PLAN_CACHE[key] = plan
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# check+arm of one canary rotation
+# ---------------------------------------------------------------------------
+
+class CheckArm:
+    """The fused check+arm digest of one canary rotation, in phases.
+
+    The packing buffer of ``union = chk + arm`` holds the check-slice
+    leaves first and the arm-slice leaves after them.  A caller that
+    updates the state in place runs ``pack_check`` before its first write,
+    ``pack_arm`` after its last, then ``finish``."""
+
+    def __init__(self, plan: DigestPlan, chk: Sequence[int],
+                 arm: Sequence[int]):
+        self.plan = plan
+        self.chk = tuple(chk)
+        self.arm = tuple(arm)
+        self.union = self.chk + self.arm
+        self.nc = len(self.chk)
+        self._rows: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def pack_check(self, buf, leaves) -> None:
+        self.plan.pack(buf, self.union, leaves, first=0)
+
+    def pack_arm(self, buf, leaves) -> None:
+        self.plan.pack(buf, self.union, leaves, first=self.nc)
+
+    def finish(self, buf, ref_read, ref_write):
+        """Digest the packed buffer, compare the check rows against
+        ``ref_read`` on the device, and arm the rest into ``ref_write`` in
+        place.  Returns ``(any_mismatch, bad_mask)``, both on the device."""
+        table = self.plan.combine(buf, self.plan.layout(self.union))
+        key = str(buf.device)
+        if key not in self._rows:
+            self._rows[key] = tuple(
+                torch.tensor(r, dtype=torch.int64, device=buf.device)
+                for r in (self.chk, self.arm))
+        chk_rows, arm_rows = self._rows[key]
+        bad = (table[:self.nc] != ref_read[chk_rows]).any(dim=1)
+        if self.arm:
+            ref_write.index_copy_(0, arm_rows, table[self.nc:])
+        return bad.any(), bad
+
+
+def check_arm_subcomputation(plan: DigestPlan, chk: Sequence[int],
+                             arm: Sequence[int]):
+    """``(core, union)`` for one canary rotation; ``core`` is the plan's
+    cached ``CheckArm`` and ``union = tuple(chk) + tuple(arm)`` names its
+    packing buffer (``plan.take_buffer(union)``)."""
+    key = (tuple(chk), tuple(arm))
+    core = plan._check_arm.get(key)
+    if core is None:
+        core = CheckArm(plan, chk, arm)
+        plan._check_arm[key] = core
+    return core, core.union
+
+
+# ---------------------------------------------------------------------------
+# host digest path — numpy uint32 arithmetic wraps mod 2^32 exactly like the
+# device math, so host copies are certified without a device round trip
+# ---------------------------------------------------------------------------
+
+def host_checksum(x) -> np.ndarray:
+    """Fletcher digest int32[2] of a host array of a 4-byte dtype —
+    bit-identical to the device digest of the same bytes."""
+    a = np.ascontiguousarray(np.asarray(x))
+    if a.dtype.itemsize != 4:
+        raise TypeError(f"host_checksum: dtype {a.dtype} is not ported")
+    f = a.reshape(-1).view(np.uint32)
+    idx = np.arange(1, f.shape[0] + 1, dtype=np.uint32)
+    s1 = np.add.reduce(f, dtype=np.uint32)
+    s2 = np.add.reduce(f * idx, dtype=np.uint32)
+    return np.array([s1, s2], dtype=np.uint32).view(np.int32)

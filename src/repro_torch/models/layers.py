@@ -1,0 +1,193 @@
+"""Model building blocks — the dense-decoder part of ``repro/models/layers.py``.
+
+Params are plain dicts of tensors with the reference's leaf names and
+shapes.  Layouts follow the reference: q ``(B, S, H, Dh)``, k/v
+``(B, S, KV, Dh)``.  Projections and logits are plain f32 matrix products
+(the reference left them to XLA, outside any Pallas kernel); callers keep
+TF32 off so they stay within the reference's f32 tolerance.
+
+Only full causal attention is ported: windows, soft-capping, m-rope and
+the chunked (flash) path wait for a configuration that needs them; prompts
+stay at or below ``FLASH_THRESHOLD`` keys.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+FLASH_THRESHOLD = 4096      # the reference's direct-attention limit
+NEG_INF = -2.0 ** 30        # the reference's mask value (layers.py:32)
+
+
+# ---------------------------------------------------------------------------
+# initialisers (the port's own seeded init; values differ from JAX's)
+# ---------------------------------------------------------------------------
+
+def _normal(gen, shape, dtype, scale, device):
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * scale).to(dtype)
+
+
+def dense_init(gen, d_in: int, d_out: int, dtype, device, *,
+               scale: Optional[float] = None, count: int = 0):
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    shape = ((count,) if count else ()) + (d_in, d_out)
+    return {"w": _normal(gen, shape, dtype, scale, device)}
+
+
+def rmsnorm_init(dim: int, dtype, device, count: int = 0):
+    shape = ((count,) if count else ()) + (dim,)
+    return {"scale": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def embed_init(gen, vocab: int, d_model: int, dtype, device,
+               scale: float = 0.02):
+    return {"table": _normal(gen, (vocab, d_model), dtype, scale, device)}
+
+
+# ---------------------------------------------------------------------------
+# ops
+# ---------------------------------------------------------------------------
+
+def dense(p, x):
+    return x @ p["w"].to(x.dtype)
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    """``(1 + scale)`` parameterisation, f32 statistics."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + p["scale"].to(torch.float32))).to(dt)
+
+
+def apply_rope(x, positions, theta: float):
+    """x (B, S, H, Dh); positions (B, S) absolute positions."""
+    dt = x.dtype
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    ang = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).split(half, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(dt)
+
+
+def attention_direct(q, k, v, qpos, kpos):
+    """Causal GQA attention.  q (B,Sq,H,D), k/v (B,Sk,KV,D); qpos (B,Sq),
+    kpos (B,Sk) with kpos < 0 marking unwritten keys."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Sq, KV, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * scale
+    qq = qpos[:, None, None, :, None]
+    kk = kpos[:, None, None, None, :]
+    m = (kk >= 0) & (qq >= kk)
+    s = torch.where(m, s, torch.full((), NEG_INF, dtype=s.dtype,
+                                     device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return o.reshape(B, Sq, H, D)
+
+
+def attention(q, k, v, qpos, kpos):
+    if k.shape[1] > FLASH_THRESHOLD and q.shape[1] > 1:
+        raise NotImplementedError(
+            f"{k.shape[1]} keys: the chunked attention path is not ported "
+            f"(limit {FLASH_THRESHOLD})")
+    return attention_direct(q, k, v, qpos, kpos)
+
+
+def attn_init(gen, cfg, dtype, device, count: int):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {
+        "wq": dense_init(gen, d, cfg.n_heads * hd, dtype, device,
+                         count=count),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device,
+                         count=count),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device,
+                         count=count),
+        "wo": dense_init(gen, cfg.n_heads * hd, d, dtype, device,
+                         scale=1.0 / math.sqrt(cfg.n_heads * hd),
+                         count=count),
+    }
+
+
+def attn_qkv(p, cfg, x, positions, *, theta: float = 0.0):
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    theta = theta or cfg.rope_theta
+    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
+
+
+def attn_apply(p, cfg, x, positions, *, theta: float = 0.0):
+    """Full-sequence causal attention (prefill).  Returns (y, (k, v))."""
+    q, k, v = attn_qkv(p, cfg, x, positions, theta=theta)
+    o = attention(q, k, v, positions, positions)
+    y = dense(p["wo"], o.reshape(x.shape[0], x.shape[1], -1))
+    return y, (k, v)
+
+
+def cache_kpos(pos, capacity: int):
+    """Key positions held by a linear cache of ``capacity`` rows when each
+    row of the batch decodes at ``pos`` (B,): row j holds position j for
+    j <= pos; later rows are unwritten (-1)."""
+    j = torch.arange(capacity, dtype=torch.int32, device=pos.device)[None, :]
+    return torch.where(j <= pos[:, None], j, torch.full_like(j, -1))
+
+
+def attn_decode(p, cfg, x, pos, k_cache, v_cache, *, theta: float = 0.0):
+    """Single-token decode over a linear cache, written IN PLACE.
+
+    x (B,1,d); pos (B,) int32, each row's absolute position;
+    k_cache/v_cache (B,C,KV,Dh) — the new key and value are written at row
+    ``min(pos, C-1)`` of each batch row (the reference's clamped
+    ``dynamic_update_slice``).  Returns y (B,1,d)."""
+    B = x.shape[0]
+    positions = pos[:, None].to(torch.int32)
+    q, k, v = attn_qkv(p, cfg, x, positions, theta=theta)
+    C = k_cache.shape[1]
+    rows = torch.arange(B, device=x.device)
+    slot = pos.to(torch.int64).clamp(0, C - 1)
+    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+    kpos = cache_kpos(pos, C)
+    o = attention_direct(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                         positions, kpos)
+    return dense(p["wo"], o.reshape(B, 1, -1))
+
+
+def mlp_init(gen, d_model: int, d_ff: int, dtype, device, count: int):
+    return {
+        "gate": dense_init(gen, d_model, d_ff, dtype, device, count=count),
+        "up": dense_init(gen, d_model, d_ff, dtype, device, count=count),
+        "down": dense_init(gen, d_ff, d_model, dtype, device,
+                           scale=1.0 / math.sqrt(d_ff), count=count),
+    }
+
+
+def mlp_apply(p, x):
+    """SwiGLU."""
+    return dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
+
+
+def embed(p, tokens, compute_dtype):
+    return p["table"][tokens.to(torch.int64)].to(compute_dtype)
+
+
+def unembed(p_embed, x):
+    """Tied f32 logits: ``x @ table.T``."""
+    return torch.einsum("bsd,vd->bsv", x.to(torch.float32),
+                        p_embed["table"].to(torch.float32))

@@ -1,0 +1,25 @@
+"""Model registry: one uniform API per architecture family (dense only).
+
+    model = get_model(cfg.model)
+    params = model.init(cfg.model, seed, device)
+    logits, cache = model.prefill(params, cfg.model, batch, max_len=...)
+    logits, cache = model.decode_step(params, cfg.model, cache, token)
+    cache = model.make_decode_cache(cfg.model, B, max_len, device)
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+from repro_torch.models import transformer
+
+
+def get_model(model_cfg) -> SimpleNamespace:
+    transformer.check_supported(model_cfg)
+    return SimpleNamespace(
+        init=transformer.init_lm,
+        prefill=transformer.prefill,
+        decode_step=transformer.decode_step,
+        make_decode_cache=transformer.make_decode_cache,
+        module=transformer,
+    )

@@ -1,0 +1,194 @@
+"""Decoder-only transformer, dense family — the part of
+``repro/models/transformer.py`` the serving slice runs.
+
+Params are stacked ``(count, ...)`` per pattern position exactly as in the
+reference (``params["groups"][g][j]`` holds ``count`` layers), so leaf
+paths, shapes and dtypes match the JAX tree.  Where the reference scanned
+over the stacked layers, a Python loop walks them.
+
+Decode caches: ``{"groups": [[{"k", "v"}]], "pos": (B,) int32}`` with
+leaves ``(count, B, cap, KV, Dh)``.  The reference's per-lane scalar
+``pos`` becomes a per-row vector, which is what lets one batched decode
+advance every serving slot at its own depth (the reference vmapped a B=1
+decode over the slots).  ``decode_step`` writes the new key and value
+rows into the cache IN PLACE.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
+
+
+class LayerDesc(NamedTuple):
+    window: int      # 0 = full attention
+    theta: float     # rope theta for this layer
+    moe: bool        # MoE FFN instead of dense MLP
+
+
+_UNPORTED = ("n_experts", "local_global_ratio", "sliding_window",
+             "sandwich_norm", "parallel_block", "qk_norm", "use_bias",
+             "m_rope", "patch_dim", "logit_softcap", "attn_softcap")
+
+
+def check_supported(cfg) -> None:
+    """Raise for model options this port does not implement yet."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    on = [name for name in _UNPORTED if getattr(cfg, name)]
+    if on or not cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"model options not ported: {on or ['untied head']}")
+
+
+def derive_groups(cfg) -> Tuple[Tuple[int, Tuple[LayerDesc, ...]], ...]:
+    """(count, pattern) groups covering cfg.n_layers in order (dense)."""
+    check_supported(cfg)
+    return ((cfg.n_layers, (LayerDesc(0, cfg.rope_theta, False),)),)
+
+
+def _layer(stacked, l: int):
+    return tree_map(lambda t: t[l], stacked)
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_lm(cfg, seed: int, device) -> dict:
+    """Random params from ``seed`` (the port's own generator; values differ
+    from the reference's ``init_lm``, shapes and paths do not)."""
+    dt = _dtype(cfg.param_dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt,
+                                    device),
+              "final_norm": L.rmsnorm_init(cfg.d_model, dt, device)}
+    groups = []
+    for count, pattern in derive_groups(cfg):
+        groups.append([{
+            "ln1": L.rmsnorm_init(cfg.d_model, dt, device, count),
+            "attn": L.attn_init(gen, cfg, dt, device, count),
+            "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device, count),
+            "ln2": L.rmsnorm_init(cfg.d_model, dt, device, count),
+        } for _ in pattern])
+    params["groups"] = groups
+    return params
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def block_apply(p, cfg, desc: LayerDesc, x, positions):
+    """Full-sequence block.  Returns (x, (k, v))."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    attn_out, kv = L.attn_apply(p["attn"], cfg, h, positions,
+                                theta=desc.theta)
+    x = x + attn_out
+    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(p["ffn"], h2), kv
+
+
+def block_decode(p, cfg, desc: LayerDesc, x, pos, k_cache, v_cache):
+    """Single-token block; writes the caches in place.  Returns x."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x = x + L.attn_decode(p["attn"], cfg, h, pos, k_cache, v_cache,
+                          theta=desc.theta)
+    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(p["ffn"], h2)
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg, x, positions, *, collect_cache: bool = False,
+            capacity: int = 0):
+    """Walk every layer.  Returns (hidden, caches|None); with
+    ``collect_cache`` each group yields ``[{"k", "v"}]`` leaves
+    ``(count, B, capacity, KV, Dh)``, zero-padded past the sequence."""
+    caches = [] if collect_cache else None
+    for gi, (count, pattern) in enumerate(derive_groups(cfg)):
+        stacked = params["groups"][gi]
+        outs = [{"k": [], "v": []} for _ in pattern]
+        for l in range(count):
+            for j, desc in enumerate(pattern):
+                x, (k, v) = block_apply(_layer(stacked[j], l), cfg, desc, x,
+                                        positions)
+                if collect_cache:
+                    outs[j]["k"].append(k)
+                    outs[j]["v"].append(v)
+        if collect_cache:
+            caches.append([{n: _pad_cache(torch.stack(o[n]), capacity)
+                            for n in ("k", "v")} for o in outs])
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, caches
+
+
+def _pad_cache(kv, capacity: int):
+    """(count, B, S, KV, D) -> (count, B, capacity, KV, D)."""
+    S = kv.shape[2]
+    if S >= capacity:
+        return kv[:, :, :capacity]
+    return F.pad(kv, (0, 0, 0, 0, 0, capacity - S))
+
+
+def logits_fn(params, cfg, hidden):
+    return L.unembed(params["embed"], hidden)
+
+
+def prefill(params, cfg, batch, *, max_len: Optional[int] = None):
+    """Build a decode cache from a full prompt.  batch["tokens"] (B, S).
+    Returns (last-position logits (B, V), cache)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.embed(params["embed"], tokens, _dtype(cfg.compute_dtype))
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None, :].expand(B, S)
+    hidden, caches = forward(params, cfg, x, positions, collect_cache=True,
+                             capacity=max_len or S)
+    logits = logits_fn(params, cfg, hidden[:, -1:, :])[:, 0]
+    pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return logits, {"groups": caches, "pos": pos}
+
+
+def decode_step(params, cfg, cache, token):
+    """One serving step: token (B,) -> (logits (B, V), cache').
+
+    Each batch row decodes at its own ``cache["pos"]``; the key/value
+    leaves of ``cache`` are updated in place and returned in ``cache'``
+    with ``pos + 1``."""
+    x = L.embed(params["embed"], token[:, None], _dtype(cfg.compute_dtype))
+    pos = cache["pos"].to(torch.int32)
+    for gi, (count, pattern) in enumerate(derive_groups(cfg)):
+        stacked = params["groups"][gi]
+        cache_g = cache["groups"][gi]
+        for l in range(count):
+            for j, desc in enumerate(pattern):
+                x = block_decode(_layer(stacked[j], l), cfg, desc, x, pos,
+                                 cache_g[j]["k"][l], cache_g[j]["v"][l])
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = logits_fn(params, cfg, x)[:, 0]
+    return logits, {"groups": cache["groups"], "pos": pos + 1}
+
+
+def make_decode_cache(cfg, batch_size: int, max_len: int, device,
+                      dtype=None):
+    """Zero-initialised linear decode cache."""
+    dt = dtype or _dtype(cfg.param_dtype)
+    KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
+    groups = [[{n: torch.zeros((count, batch_size, max_len, KV, D),
+                               dtype=dt, device=device) for n in ("k", "v")}
+               for _ in pattern] for count, pattern in derive_groups(cfg)]
+    return {"groups": groups,
+            "pos": torch.zeros((batch_size,), dtype=torch.int32,
+                               device=device)}

@@ -1,0 +1,46 @@
+"""Nested-container helpers — the port's counterpart of ``jax.tree_util``.
+
+A tree is a nest of dicts, lists and tuples whose leaves are tensors (or
+any non-container).  Flattening follows JAX's order: dict entries by
+sorted key, sequences by index.  A leaf's path renders as JAX's
+``leaf_key`` does: dict keys and list indices joined by ``/``, so
+``{"groups": [[{"k": t}]]}`` names its leaf ``groups/0/0/k``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+
+def leaf_key(path) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def flatten_with_path(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
+    """``[(path, leaf), ...]`` in JAX's flattening order."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(flatten_with_path(tree[k], prefix + (k,)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, x in enumerate(tree):
+            out.extend(flatten_with_path(x, prefix + (i,)))
+        return out
+    return [(prefix, tree)]
+
+
+def leaves(tree) -> List[Any]:
+    return [x for _, x in flatten_with_path(tree)]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` leafwise over one or more trees of the same shape."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, x, *(r[i] for r in rest))
+                          for i, x in enumerate(tree))
+    return fn(tree, *rest)
