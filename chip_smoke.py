@@ -8,20 +8,39 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
-3. each kernel (``pack_rows``, ``row_checksums``, ``gather_blocks``) at the
-   shapes the serving path gives it and on edge cases, held bitwise
-   against its plain PyTorch version, with CUDA-event medians of the
-   kernel, the plain version and (where one exists) a one-call PyTorch
-   library equivalent, next to the bytes bound at 3.35 TB/s;
+3. each serving kernel (``pack_rows``, ``row_checksums``,
+   ``gather_blocks``) at the shapes the serving path gives it and on edge
+   cases, held bitwise against its plain PyTorch version, with CUDA-event
+   medians of the kernel, the plain version and (where one exists) a
+   one-call PyTorch library equivalent, next to the bytes bound at
+   3.35 TB/s;
 4. the smoke-size model on the card against the same code on the CPU
    (prefill and decode logits within the reference's f32 tolerance);
-5. the main path: full-width iterpro-100m served through
+5. the serving path: full-width iterpro-100m served through
    ``ServingEngine`` — 8 requests, prompt 128, 32 new tokens, 4 slots,
    block size 16, canary K=4, TF32 off — once clean and once under a
    fault storm (one bit flip every 8 accepted tokens).  Asserts detected
    == injected > 0, recovered == detected, nothing dropped, storm tokens
-   identical to clean tokens, and a launch count above 0 for every kernel;
-6. one JSON line describing every kernel, then the device line.
+   identical to clean tokens, and a launch count above 0 for every
+   serving kernel; then a profiled engine step;
+6. the training kernels (``checksum_tiles``, ``vote3_tiles``) at the
+   training path's shapes (the embedding leaf, an FFN leaf, a norm scale)
+   and on edge cases, bitwise against their plain versions, timed as in
+   phase 3; every wrapper refuses a non-contiguous CUDA operand;
+7. the training path: full-width iterpro-100m through
+   ``repro_torch.launch.train.train`` — batch 8, seq 128, 20 steps,
+   snapshot every 4, canary K=1, a disk checkpoint every 10 steps, TF32
+   off, deterministic algorithms on — once clean, once with a bit flip in
+   the params every 6 steps and once in the ``iv`` block.  Asserts
+   detected == injected == recovered > 0, recovery rate 1, the params
+   storm's final state bitwise equal to the clean run's, the ``iv`` storm
+   repaired through ``eq1``; then the ``replica_vote`` rung
+   (``RecoveryRuntime(replicas=...)``) on a flipped embedding leaf and
+   the ``checkpoint`` rung from the storm's checkpoint, both bitwise
+   against the clean state, and a corrupted checkpoint refused at load.
+   A launch count above 0 for every kernel of the path; then a profiled
+   window of 4 steady train steps;
+8. one JSON line describing every kernel, then the device line.
 
 Any failure raises; nothing is caught.
 """
@@ -29,7 +48,9 @@ Any failure raises; nothing is caught.
 from __future__ import annotations
 
 import json
+import os
 import random
+import shutil
 import subprocess
 import sys
 import time
@@ -44,6 +65,8 @@ F32_TOL = 2e-5                # the reference's f32 tolerance
 SPIN_CYCLES = 20_000_000      # ~10 ms device spin that hides host enqueue
 
 N_REQUESTS, PROMPT, GEN, SLOTS, BLOCK, K, INJECT = 8, 128, 32, 4, 16, 4, 8
+T_BATCH, T_SEQ, T_STEPS, T_SNAP, T_CKPT, T_INJECT = 8, 128, 20, 4, 10, 6
+WORK = ROOT / "build" / "chip_smoke"     # checkpoints (ignored by git)
 
 
 def _smi() -> str:
@@ -158,12 +181,17 @@ def check_kernels(torch, eng, flush):
                          torch, flush)
     plain_ms, plain_call_ms = _times(
         lambda: ref.pack_rows_ref(b, flats, starts), torch, flush)
+    # one PyTorch call computing the same function: a fused multi-tensor
+    # copy of every flat onto its slice view of the buffer
+    dst = [b[st:st + f.numel()] for f, st in zip(flats, starts)]
+    lib_ms = _median_ms(lambda: torch._foreach_copy_(dst, flats), torch,
+                        flush, queued=True)
     out["pack_rows"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/checksum.cu",
         replaces="src/repro/kernels/checksum.py:85", max_abs_err=err,
         ms=ms, call_ms=call_ms, plain_ms=plain_ms,
         plain_call_ms=plain_call_ms, bound_ms=t_bytes, bound_by=t_by,
-        library_ms=None,
+        library_ms=lib_ms, library="torch._foreach_copy_",
         shape=f"{len(flats)} leaves, {n_words} words")
 
     # -- row_checksums -----------------------------------------------------
@@ -216,15 +244,22 @@ def check_kernels(torch, eng, flush):
         plain_call_ms=plain_call_ms, bound_ms=g_bound, bound_by=g_by,
         library_ms=_median_ms(lambda: leaf.index_select(0, flat_bt),
                               torch, flush, queued=True),
+        library="index_select",
         shape=f"pool {tuple(leaf.shape)}, bt {tuple(bt.shape)}")
+    _print_kernels(out)
+    return out
+
+
+def _print_kernels(out) -> None:
     for name, r in out.items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms ({r['library']})"
         print(f"[kernel] {name}: bitwise equal to plain (max_abs_err "
               f"{r['max_abs_err']}), {r['shape']}: device time kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms "
+              f"{lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}); per call with host enqueue: kernel "
               f"{r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms")
-    return out
 
 
 def check_reference(torch):
@@ -257,10 +292,9 @@ def check_reference(torch):
 
 
 def profile_steps(torch, eng, reqs, steps: int = 8) -> None:
-    """Phase 6: where a steady-state engine step's time goes — host wall
+    """Phase 5b: where a steady-state engine step's time goes — host wall
     time against the device's kernel time (torch.profiler) over ``steps``
     engine steps with every slot decoding."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for u, rq in enumerate(reqs[:eng.S]):
         eng.admit(rq, u)
@@ -274,26 +308,332 @@ def profile_steps(torch, eng, reqs, steps: int = 8) -> None:
             eng.engine_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    _report_profile(prof, steps, wall_ms, "engine step",
+                    ("pack_rows_kernel", "row_checksums_kernel",
+                     "gather_blocks_kernel"))
+
+
+def _expect(exc, fn, what: str) -> str:
+    """Run ``fn`` and require it to raise ``exc``; returns the message."""
+    try:
+        fn()
+    except exc as e:
+        return str(e)
+    raise AssertionError(f"{what} did not raise {exc.__name__}")
+
+
+def check_train_kernels(torch, flush, state):
+    """Phase 6: ``checksum_tiles`` and ``vote3_tiles`` bitwise against
+    their plain versions at the training path's shapes and on edge cases,
+    timed; every wrapper refuses a non-contiguous CUDA operand."""
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_kv as pkv
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import vote as vk
+    from repro_torch.tree import leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    p = state["params"]
+    shapes = {"embedding": tuple(p["embed"]["table"].shape),
+              "ffn": tuple(p["groups"][0][0]["ffn"]["up"]["w"].shape),
+              "norm": tuple(p["final_norm"]["scale"].shape)}
+    main = {k: _rand_bits(torch, v, torch.float32, gen)
+            for k, v in shapes.items()}
+    big = _rand_bits(torch, (2 * ck.TILE + 8,), torch.int32, gen)
+    edge = {"int32 extremes": torch.tensor(
+                [2**31 - 1, -2**31, -1, 0], dtype=torch.int32,
+                device="cuda").repeat(ck.TILE // 2),
+            "1 word": big[:1], "tile-ragged": big[:ck.TILE + 5],
+            "unaligned source": big[1:]}
+    assert edge["unaligned source"].data_ptr() % 16
+
+    out = {}
+    # -- checksum_tiles ----------------------------------------------------
+    err = 0
+    for x in list(main.values()) + list(edge.values()):
+        flat = ref.to_i32(x)
+        err = max(err, _max_err(torch, ck.checksum_tiles(flat),
+                                ref.checksum_tiles_ref(flat)),
+                  _max_err(torch, ops.checksum(x), ref.checksum_ref(x)))
+    assert err == 0, f"checksum_tiles differs from its plain version ({err})"
+    flat = ref.to_i32(main["embedding"])
+    n, nt = flat.numel(), -(-flat.numel() // ck.TILE)
+    t_bound, t_by = _bound_ms(4 * n + 8 * nt, 3 * n)
+    ms, call_ms = _times(lambda: ck.checksum_tiles(flat), torch, flush)
+    plain_ms, plain_call_ms = _times(lambda: ref.checksum_tiles_ref(flat),
+                                     torch, flush)
+    out["checksum_tiles"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/checksum.cu",
+        replaces="src/repro/kernels/checksum.py:122", max_abs_err=err,
+        ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        plain_call_ms=plain_call_ms, bound_ms=t_bound, bound_by=t_by,
+        library_ms=None, shape=f"embedding leaf {shapes['embedding']} f32, "
+        f"{nt} tiles")
+    # a whole-state pass (what one checkpoint save launches)
+    flats = [ref.to_i32(t) for t in leaves(state)]
+    words = sum(f.numel() for f in flats)
+    tiles = sum(max(1, -(-f.numel() // ck.TILE)) for f in flats)
+    w_bound, _ = _bound_ms(4 * words + 8 * tiles, 3 * words)
+    w_ms = _median_ms(lambda: [ck.checksum_tiles(f) for f in flats], torch,
+                      flush, queued=True, iters=7)
+    print(f"[kernel] checksum_tiles whole-state pass: {len(flats)} leaves, "
+          f"{tiles} tiles, {4 * words / 1e9:.3f} GB: device time "
+          f"{w_ms:.4f} ms, bound {w_bound:.4f} ms (bytes)")
+
+    # -- vote3_tiles -------------------------------------------------------
+    err = 0
+    for x in list(main.values()) + list(edge.values()):
+        a = ref.to_i32(x)
+        b, c = a.clone(), a.clone()
+        n_flip = max(1, a.numel() // 1000)
+        for t, seed in ((b, 1), (c, 2)):
+            pos = torch.randint(0, a.numel(), (n_flip,), device="cuda",
+                                generator=gen)
+            t[pos] ^= 1 << seed
+        got = vk.vote3_tiles(a, b, c)
+        err = max(err, _max_err(torch, got, ref.vote3_tiles_ref(a, b, c)))
+        if a.numel() > 1:
+            unaligned = vk.vote3_tiles(a[1:], b[1:], c[1:])
+            err = max(err, _max_err(torch, unaligned,
+                                    ref.vote3_tiles_ref(a[1:], b[1:], c[1:])))
+        err = max(err, _max_err(torch,
+                                ref.to_i32(ops.vote3(x, x.clone(), x.clone())),
+                                ref.to_i32(x)))
+    assert err == 0, f"vote3_tiles differs from its plain version ({err})"
+    a = ref.to_i32(main["embedding"])
+    b, c = a.clone(), a.clone()
+    n = a.numel()
+    t_bound, t_by = _bound_ms(16 * n, 5 * n)
+    ms, call_ms = _times(lambda: vk.vote3_tiles(a, b, c), torch, flush)
+    plain_ms, plain_call_ms = _times(lambda: ref.vote3_tiles_ref(a, b, c),
+                                     torch, flush)
+    out["vote3_tiles"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/vote.cu",
+        replaces="src/repro/kernels/vote.py:27", max_abs_err=err,
+        ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        plain_call_ms=plain_call_ms, bound_ms=t_bound, bound_by=t_by,
+        library_ms=None, shape=f"embedding leaf {shapes['embedding']} f32 "
+        f"x 3")
+    _print_kernels(out)
+
+    # -- every wrapper refuses a non-contiguous CUDA operand --------------
+    rows = _rand_bits(torch, (512, 2 * ck.LANES), torch.int32, gen)
+    strided = rows[:, :ck.LANES]                   # (512, 128), stride 256
+    assert not strided.is_contiguous()
+    pool = _rand_bits(torch, (6, 4, 8), torch.float32, gen)
+    bt = torch.zeros((3, 2), dtype=torch.int32, device="cuda")
+    buf = torch.zeros(4 * ck.TILE_ROWS * ck.LANES, dtype=torch.int32,
+                      device="cuda")
+    refusals = {
+        "pack_rows": lambda: ck.pack_rows(buf, [strided.reshape(-1)[::2]],
+                                          [0]),
+        "row_checksums": lambda: ck.row_checksums(strided),
+        "gather_blocks (pool)": lambda: pkv.gather_blocks(
+            pool.transpose(1, 2), bt),
+        "gather_blocks (table)": lambda: pkv.gather_blocks(
+            pool, torch.zeros((2, 3), dtype=torch.int32, device="cuda").t()),
+        "checksum_tiles": lambda: ck.checksum_tiles(rows.reshape(-1)[::2]),
+        "vote3_tiles": lambda: vk.vote3_tiles(*(rows.reshape(-1)[::2],) * 3),
+    }
+    for name, fn in refusals.items():
+        _expect(ValueError, fn, name)
+    print(f"[kernel] non-contiguous CUDA operands refused by "
+          f"{', '.join(refusals)}")
+    return out
+
+
+def _same_state(torch, a, b) -> bool:
+    from repro_torch.tree import flatten_with_path, leaf_key
+    fa = {leaf_key(p): t for p, t in flatten_with_path(a)}
+    fb = {leaf_key(p): t for p, t in flatten_with_path(b)}
+    return fa.keys() == fb.keys() and all(
+        torch.equal(fa[k].reshape(-1).view(torch.uint8),
+                    fb[k].reshape(-1).view(torch.uint8)) for k in fa)
+
+
+def run_training(torch, cfg):
+    """Phase 7a: clean, params-storm and iv-storm runs of the training
+    entry point; returns {name: (summary, final state)}."""
+    from repro_torch.launch.train import train
+    from repro_torch.tree import leaves
+    common = dict(steps=T_STEPS, global_batch=T_BATCH, seq_len=T_SEQ,
+                  seed=0, snapshot_interval=T_SNAP, canary_slices=1,
+                  checkpoint_interval=T_CKPT, verbose=False, device="cuda",
+                  return_state=True)
+    runs = {}
+    for name, kw in (("clean", {}),
+                     ("params storm", dict(inject_every=T_INJECT)),
+                     ("iv storm", dict(inject_every=T_INJECT,
+                                       inject_target="iv"))):
+        d = WORK / name.replace(" ", "_")
+        shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        out, state = train(cfg, checkpoint_dir=str(d), **common, **kw)
+        rec = out["recovery"]
+        print(f"[train] {name}: {out['steps']} steps in "
+              f"{time.perf_counter() - t0:.1f} s, final loss "
+              f"{out['final_loss']:.6f}, step p50 {out['p50_step_ms']:.3f} "
+              f"ms (mean {out['mean_step_ms']:.3f}), faults injected "
+              f"{out['faults_injected']} detected {out['faults_detected']} "
+              f"recovered {out['faults_recovered']}, recovery p50 "
+              f"{out['p50_recovery_ms']:.3f} ms, rate "
+              f"{rec['recovery_rate']}, rungs {rec['by_rung']}")
+        runs[name] = (out, state)
+    clean, clean_state = runs["clean"]
+    assert clean["steps"] == T_STEPS and clean["faults_detected"] == 0
+    assert clean["recovery"]["events"] == 0
+    for name in ("params storm", "iv storm"):
+        out, state = runs[name]
+        assert out["steps"] == T_STEPS, out
+        assert out["faults_injected"] > 0, out
+        assert out["faults_detected"] == out["faults_injected"], out
+        assert out["faults_recovered"] == out["faults_detected"], out
+        assert out["recovery"]["recovery_rate"] == 1.0, out
+    assert runs["iv storm"][0]["recovery"]["by_rung"] == {
+        "eq1": runs["iv storm"][0]["faults_detected"]}
+    assert _same_state(torch, runs["params storm"][1], clean_state), \
+        "params storm final state differs from the clean run's"
+    print(f"[train] params storm final state == clean final state, bitwise "
+          f"({sum(t.numel() for t in leaves(clean_state))} elements); "
+          f"iv storm == clean: "
+          f"{_same_state(torch, runs['iv storm'][1], clean_state)}")
+    return runs
+
+
+def recover_on_card(torch, cfg, clean_state):
+    """Phase 7b: the replica_vote and checkpoint rungs on the card, and a
+    corrupted checkpoint refused at load."""
+    import numpy as np
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core.detect import FaultReport
+    from repro_torch.core.faults import InjectionPlan, inject
+    from repro_torch.core.icp import promote
+    from repro_torch.core.microcheckpoint import MicroCheckpointer
+    from repro_torch.core.recover import RecoveryRuntime
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import cuda_numerics
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.tree import tree_map
+
+    ckpt_dir = WORK / "params_storm"
+    pipe = TokenPipeline(cfg.model.vocab_size, T_SEQ, T_BATCH, seed=0)
+    clone = lambda tree: tree_map(torch.clone, tree)
+    with cuda_numerics(torch.device("cuda")):
+        rt = RecoveryRuntime(
+            step_fn=make_train_step(cfg, global_batch=T_BATCH),
+            batch_fn=lambda s: {k: v.cuda()
+                                for k, v in pipe.batch_at(s).items()},
+            iv_registry=promote(cfg, T_BATCH),
+            micro=MicroCheckpointer(T_SNAP),
+            replicas=lambda s: [clone(clean_state), clone(clean_state)],
+            checkpoint=lambda: load_checkpoint(str(ckpt_dir), clean_state))
+        bad = clone(clean_state)
+        table = clean_state["params"]["embed"]["table"]
+        inject(bad, InjectionPlan("embed/table", table.numel() // 3, 30,
+                                  T_STEPS))
+        assert not _same_state(torch, bad, clean_state)
+        fixed, ev = rt.recover(bad, FaultReport(
+            T_STEPS, "checksum", leaves=["params/embed/table"]), T_STEPS)
+        assert ev.rung == "replica_vote", ev
+        assert _same_state(torch, fixed, clean_state)
+        print(f"[recover] replica_vote on a flipped embedding leaf: "
+              f"{ev.wall_seconds * 1e3:.3f} ms, attempted {ev.attempted}, "
+              f"result == clean state, bitwise")
+        fixed, ev = rt.recover(bad, FaultReport(T_STEPS, "external"),
+                               T_STEPS, ladder=["checkpoint"])
+        assert ev.rung == "checkpoint" and ev.steps_replayed == T_STEPS - \
+            T_CKPT, ev
+        assert _same_state(torch, fixed, clean_state)
+        print(f"[recover] checkpoint rung: digest-verified load of step "
+              f"{T_CKPT} + {ev.steps_replayed} replayed steps in "
+              f"{ev.wall_seconds * 1e3:.1f} ms, result == clean state, "
+              f"bitwise")
+    # a payload rewritten with one flipped byte is a valid zip with wrong
+    # bytes: only the digest check can refuse it
+    bad_dir = WORK / "corrupt"
+    shutil.rmtree(bad_dir, ignore_errors=True)
+    shutil.copytree(ckpt_dir, bad_dir)
+    manifest = json.loads((bad_dir / "manifest.json").read_text())
+    payload = bad_dir / manifest["payload"]
+    with np.load(payload) as z:
+        arrays = {k: z[k] for k in z.files}
+    victim = "params/groups/0/0/ffn/down/w"
+    arrays[victim] = arrays[victim].copy()
+    arrays[victim].view(np.uint8).reshape(-1)[1001] ^= 0x10
+    with open(payload, "wb") as f:
+        np.savez(f, **arrays)
+    del arrays
+    msg = _expect(ValueError,
+                  lambda: load_checkpoint(str(bad_dir), clean_state),
+                  "load_checkpoint of a corrupted payload")
+    assert "digest mismatch" in msg and victim in msg, msg
+    print(f"[recover] corrupted checkpoint refused at load: {msg}")
+    shutil.rmtree(WORK, ignore_errors=True)
+
+
+def profile_train(torch, cfg, state, steps: int = 4) -> None:
+    """Phase 7c: where a steady train step's time goes (torch.profiler
+    over ``steps`` steps of the training hot path: the step, the metric
+    fetch and the K=1 canary's check_and_arm)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import cuda_numerics
+    from repro_torch.train.loop import make_train_step
+
+    pipe = TokenPipeline(cfg.model.vocab_size, T_SEQ, T_BATCH, seed=0)
+    with cuda_numerics(torch.device("cuda")):
+        step_fn = make_train_step(cfg, global_batch=T_BATCH)
+        canary = ChecksumCanary(state, n_slices=1)
+
+        def one(s, st):
+            new, m = step_fn(st, {k: v.cuda()
+                                  for k, v in pipe.batch_at(s).items()})
+            torch.stack([m["loss"], m["grad_norm"]]).tolist()
+            assert canary.check_and_arm(s, st, new) is None
+            return new
+
+        for s in range(T_STEPS, T_STEPS + 2):            # warm
+            state = one(s, state)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for s in range(T_STEPS + 2, T_STEPS + 2 + steps):
+                state = one(s, state)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    _report_profile(prof, steps, wall_ms, "train step",
+                    ("pack_rows_kernel", "row_checksums_kernel"))
+
+
+def _report_profile(prof, steps, wall_ms, what, names) -> None:
+    from torch.autograd import DeviceType
     # device-side events only: a CPU op's entry repeats its kernels' time
     stats = [(e.key, e.self_device_time_total / 1e3 / steps, e.count)
              for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA
              and e.self_device_time_total > 0]
     busy = sum(t for _, t, _ in stats)
-    stats.sort(key=lambda s: -s[1])
-    print(f"[profile] {steps} steady engine steps: wall {wall_ms:.3f} "
+    stats.sort(key=lambda st: -st[1])
+    print(f"[profile] {steps} steady {what}s: wall {wall_ms:.3f} "
           f"ms/step, device busy {busy:.3f} ms/step "
-          f"({100 * busy / wall_ms:.1f}%), {sum(c for *_, c in stats)/steps:.0f}"
-          f" device kernels/step (host time under the profiler)")
+          f"({100 * busy / wall_ms:.1f}%), "
+          f"{sum(c for *_, c in stats) / steps:.0f} device kernels/step "
+          f"(host time under the profiler)")
     for key, t, count in stats[:8]:
-        print(f"[profile]   {t:.4f} ms/step  x{count // steps:<4d} {key[:90]}")
-    for name in ("pack_rows_kernel", "row_checksums_kernel",
-                 "gather_blocks_kernel"):
+        print(f"[profile]   {t:.4f} ms/step  x{count // steps:<4d} "
+              f"{key[:90]}")
+    for name in names:
         t = sum(tt for key, tt, _ in stats if name in key)
         print(f"[profile]   {name}: {t:.4f} ms/step")
 
 
 def main() -> int:
+    # deterministic cuBLAS for the training phase: read when the first
+    # cuBLAS workspace is made, so before anything touches the card
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -373,7 +713,30 @@ def main() -> int:
         assert launches.get(name, 0) > 0, f"{name} never launched"
     profile_steps(torch, ServingEngine(cfg, params=clean_eng.params,
                                        **common), reqs())
+    del clean_eng, storm_eng
+    torch.cuda.empty_cache()
 
+    # -- training path ----------------------------------------------------
+    from repro_torch.train.loop import make_train_state
+    fresh = make_train_state(cfg, 0, global_batch=T_BATCH, device="cuda")
+    train_kernels = check_train_kernels(torch, flush, fresh)
+    del fresh
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    runs = run_training(torch, cfg)
+    clean_state = runs["clean"][1]
+    recover_on_card(torch, cfg, clean_state)
+    torch.cuda.synchronize()
+    train_launches = dict(_build.LAUNCHES)
+    print(f"[train] launches on the training path (3 runs + recovery "
+          f"phase): {train_launches}")
+    for name in ("pack_rows", "row_checksums", *train_kernels):
+        assert train_launches.get(name, 0) > 0, f"{name} never launched"
+    profile_train(torch, cfg, clean_state)
+
+    for name, r in train_kernels.items():
+        kernels[name] = r
+        launches[name] = train_launches[name]
     print(json.dumps({"kernels": [
         {"name": name, "route": r["route"], "source": r["source"],
          "replaces": r["replaces"], "launches": launches[name],

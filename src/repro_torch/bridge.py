@@ -1,8 +1,9 @@
-"""Bit-preserving bridge from host (numpy) param trees to the port.
+"""Bit-preserving bridge from host (numpy) state trees to the port.
 
-The JAX package's params, fetched to the host (``np.asarray`` per leaf),
-are nested dicts and lists of numpy arrays; ``params_from_numpy`` turns
-such a tree into the port's params on a given device with the same
+The JAX package's params or whole train state ``{params, opt, iv}``,
+fetched to the host (``np.asarray`` per leaf), are nested dicts and lists
+of numpy arrays, 0-dim counters included; ``state_from_numpy`` turns such
+a tree into the port's tensors on a given device with the same
 structure, shapes, dtypes and bits.  A bf16 array arrives as an
 ``ml_dtypes`` array that ``torch.from_numpy`` rejects, so it crosses as
 its ``uint16`` bits and is viewed back as ``torch.bfloat16``.
@@ -24,6 +25,6 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_numpy(tree, device="cpu"):
+def state_from_numpy(tree, device="cpu"):
     """Same-structure tree of tensors on ``device`` (copies the bytes)."""
     return tree_map(lambda a: tensor_from_numpy(a, device), tree)

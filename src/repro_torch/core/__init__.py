@@ -1,1 +1,4 @@
-"""Detection, fault injection and the serving recovery policy."""
+"""IterPro's contribution in the port: detection (``detect``), fault
+injection (``faults``), diagnosis (``induction``, ``icp``,
+``recovery_table``) and repair (``recover`` via ``microcheckpoint`` and
+``replay``), exact-or-abort."""

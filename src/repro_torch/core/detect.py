@@ -1,10 +1,19 @@
-"""Detectors — the serving slice of ``repro/core/detect.py``.
+"""Detectors — ``repro/core/detect.py`` for the serving and training
+slices.
 
-The rotating checksum canary digests a rotating 1/K slice of the protected
-state per step through the fused digest engine (``kernels/digest.py``),
-keeps its reference digests in a double-buffered pair of on-device tables
-and fetches one scalar "any mismatch?" flag per check; leaf attribution
-runs on the fault path only.
+Ordered by cost:
+
+1. ``trap_nonfinite`` — free: inspects the already-fetched loss and
+   grad-norm scalars.
+2. ``trap_loss_spike`` — free: an order-of-magnitude loss jump over the
+   median of the last ``LOSS_WINDOW`` losses.
+3. the rotating checksum canary — digests a rotating 1/K slice of the
+   protected state per step through the fused digest engine
+   (``kernels/digest.py``), keeps its reference digests in a
+   double-buffered pair of on-device tables and fetches one scalar "any
+   mismatch?" flag per check; leaf attribution runs on the fault path
+   only.  ``check_and_arm`` is the training loop's form: 1
+   ``row_checksums`` launch and 1 ``fetch`` per step.
 
 The serving engine builds it over a *view* of its state: per-block views
 of the paged KV pool (``blockNNNN/<leaf>``) and per-slot views of the
@@ -14,6 +23,7 @@ position vector (``slotNNN/pos``), so digest units are (leaf, block) and
 
 from __future__ import annotations
 
+import math
 import re
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -24,6 +34,10 @@ import torch
 from repro_torch.kernels import digest as kdigest
 from repro_torch.kernels.ops import rotating_slice
 from repro_torch.tree import tree_map
+
+#: window of the loss-spike trap; callers keep a bounded
+#: ``deque(maxlen=LOSS_WINDOW)`` history
+LOSS_WINDOW = 8
 
 _SLOT_RE = re.compile(r"^slot(\d+)/")
 #: owned pool blocks appear as ``slotNNN/blockNNNN/<leaf>`` after
@@ -72,13 +86,19 @@ def block_of_leaf(key: str) -> Optional[int]:
 @dataclass
 class FaultReport:
     step: int
-    detector: str               # 'nonfinite' | 'checksum' | 'external'
+    #: 'nonfinite' | 'loss_spike' | 'checksum' | 'external'
+    detector: str
     leaves: List[str] = field(default_factory=list)  # suspected leaf paths
     detail: str = ""
     #: deferred attribution: the hot path fetches only the scalar flag;
     #: the mismatch mask stays on the device until ``resolve``
     resolver: Optional[Callable] = \
         field(default=None, repr=False, compare=False)
+    #: True when the faulting state version was consumed by the step that
+    #: detected it (in-place update): its buffers are gone, so in-place
+    #: rungs must abort to snapshot + replay.  The port's training step is
+    #: functional, so its reports keep ``False``.
+    consumed: bool = False
 
     def resolve(self) -> List[str]:
         """Materialise ``leaves`` from a deferred attribution."""
@@ -103,6 +123,35 @@ class FaultReport:
                 f"{self.detail})")
 
 
+def trap_nonfinite(step: int, metrics: Dict) -> Optional[FaultReport]:
+    """A non-finite loss or grad norm (host floats or 0-dim tensors)."""
+    for name in ("loss", "grad_norm"):
+        v = metrics.get(name)
+        if v is None:
+            continue
+        fv = float(v)
+        if not math.isfinite(fv):
+            return FaultReport(step, "nonfinite", detail=f"{name}={fv}")
+    return None
+
+
+def trap_loss_spike(step: int, metrics: Dict, history: Sequence[float],
+                    factor: float = 10.0,
+                    window: int = LOSS_WINDOW) -> Optional[FaultReport]:
+    """Loss above ``factor`` × the median of the last ``window`` losses."""
+    if len(history) < window:
+        return None
+    v = metrics.get("loss")
+    if v is None:
+        return None
+    fv = float(v)
+    ref = float(np.median(list(history)[-window:]))
+    if math.isfinite(fv) and fv > factor * max(ref, 1e-6):
+        return FaultReport(step, "loss_spike",
+                           detail=f"loss={fv:.3g} median={ref:.3g}")
+    return None
+
+
 class ChecksumCanary:
     """Rotating-slice checksum detector over a state tree.
 
@@ -114,7 +163,13 @@ class ChecksumCanary:
     step).  A full ``refresh`` re-digests everything and bumps the
     generation; a ``refresh(keys=)`` patches the named rows in BOTH tables
     and leaves the generation alone, so rows of other units armed earlier
-    still verify."""
+    still verify.
+
+    The training loop's per-step form is ``check_and_arm(s, state,
+    new_state)``: the check slice of the pre-step state (intact, because
+    the port's step is functional) and the arm slice of the fresh output
+    go into ONE packing buffer, ONE ``row_checksums`` launch and ONE
+    scalar ``fetch``."""
 
     def __init__(self, tree, n_slices: int = 4):
         self.n_slices = max(1, n_slices)
@@ -123,6 +178,12 @@ class ChecksumCanary:
         table = self.plan.digest_table(tree)
         self._tables = [table, table.clone()]
         self._gen = 0
+        #: the read table that served the most recent FIRED check (a
+        #: copy: the live tables are armed in place).  ``check_and_arm``
+        #: commits the generation bump before the flag is fetched, so
+        #: after a fault ``reference`` is one generation ahead; repairs
+        #: certify against these rows.  Set on the fault path only.
+        self._fault_reference: Optional[torch.Tensor] = None
 
     @property
     def generation(self) -> int:
@@ -142,6 +203,74 @@ class ChecksumCanary:
         mask = np.atleast_1d(kdigest.fetch(bad_mask))
         return sorted(self._keys[i] for i, b in zip(chk, mask) if b)
 
+    def _report(self, step: int, chk: Sequence[int], bad_mask,
+                read: torch.Tensor) -> FaultReport:
+        self._fault_reference = read.clone()
+        return FaultReport(step, "checksum",
+                           leaves=self._attribute(chk, bad_mask))
+
+    def _run(self, step: int, chk: Sequence[int], arm: Sequence[int],
+             tree, armed_tree) -> Optional[FaultReport]:
+        """Pack slice ``chk`` of ``tree`` and slice ``arm`` of
+        ``armed_tree`` into the rotation's buffer, digest it once, compare
+        the check rows against the read generation, arm the rest into the
+        write generation in place and fetch the one flag."""
+        core, union = kdigest.check_arm_subcomputation(self.plan, chk, arm)
+        if not union:
+            return None
+        kdigest.STATS.launches += 1
+        buf = self.plan.take_buffer(union)
+        read, write = self.begin_update()
+        leaves = self.plan.leaves(tree)
+        core.pack_check(buf, [leaves[i] for i in chk])
+        leaves = self.plan.leaves(armed_tree)
+        core.pack_arm(buf, [leaves[i] for i in arm])
+        flag, bad = core.finish(buf, read, write)
+        self.commit_update(write)
+        if chk and bool(kdigest.fetch(flag)):     # the step's ONE host sync
+            return self._report(step, chk, bad, read)
+        return None
+
+    def check_and_arm(self, step: int, tree, armed_tree=None
+                      ) -> Optional[FaultReport]:
+        """Verify slice ``step % K`` of ``tree`` against the generation
+        armed last step and digest slice ``(step+1) % K`` of
+        ``armed_tree`` (default ``tree``) into the next generation — one
+        ``row_checksums`` launch, one scalar fetch.  In a training loop:
+        ``(pre_step_state, post_step_state)``."""
+        if armed_tree is None:
+            armed_tree = tree
+        return self._run(step, self._slice_indices(step),
+                         self._slice_indices(step + 1), tree, armed_tree)
+
+    def arm(self, step: int, tree) -> None:
+        """Digest the slice ``check_and_arm(step+1, ...)`` will verify into
+        the next generation (one launch, no host sync)."""
+        self._run(step, (), self._slice_indices(step + 1), tree, tree)
+
+    def check_full(self, step: int, tree) -> Optional[FaultReport]:
+        """Verify every leaf against the read generation (one digest, one
+        fetch; meaningful right after init or refresh)."""
+        table = self.plan.digest_table(tree)
+        bad = (table != self.reference).any(dim=-1)
+        if bool(kdigest.fetch(bad.any())):
+            return self._report(step, range(len(self._keys)), bad,
+                                self.reference)
+        return None
+
+    def reference_digests(self) -> Dict[str, np.ndarray]:
+        """Host copy of the read-generation table (one fetch)."""
+        table = kdigest.fetch(self.reference)
+        return {k: table[i] for i, k in enumerate(self._keys)}
+
+    def fault_reference_digests(self) -> Dict[str, np.ndarray]:
+        """Host copy of the table that served the most recent FIRED check
+        — what a repair must certify against; the read generation when no
+        check has fired since the last full refresh."""
+        table = self._fault_reference
+        table = kdigest.fetch(self.reference if table is None else table)
+        return {k: table[i] for i, k in enumerate(self._keys)}
+
     def begin_update(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(read_table, write_table) for one check+arm generation."""
         return self._tables[self._gen & 1], self._tables[(self._gen + 1) & 1]
@@ -157,6 +286,7 @@ class ChecksumCanary:
         if keys is None:
             self._gen += 1
             self._tables[self._gen & 1] = self.plan.digest_table(tree)
+            self._fault_reference = None
             return
         idx = sorted(self.plan.index_of(k) for k in keys)
         if not idx:

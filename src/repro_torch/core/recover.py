@@ -1,5 +1,27 @@
-"""Serving recovery policy — ``plan_serving_recovery`` of
-``repro/core/recover.py``.
+"""Recovery — ``repro/core/recover.py``: the training runtime's ladder
+(single device) and the serving recovery policy.
+
+``RecoveryRuntime`` is the paper's §3.5 runtime for the training loop: it
+does nothing until a ``FaultReport`` arrives, then walks the leaf's
+recovery ladder, and every repair is verified before the loop resumes (a
+rung that cannot certify an exact repair escalates — exact-or-abort):
+
+    rung 1  eq1 / opt_iv  induction-state partner recovery (Eq. (1)): the
+                          ``iv`` counters and the optimizer's ``t``
+                          (affine), ``bc1``/``bc2`` recomputed from the
+                          consensus iteration
+    rung 3  replica_vote  bitwise TMR vote across DP replicas
+                          (``ops.vote3`` → the ``vote3_tiles`` kernel);
+                          reached when the caller hands the runtime
+                          ``replicas=`` — ``launch/train.py`` has none
+    rung 5  replay        pure-step replay from a verified micro-snapshot
+    rung 6  checkpoint    classic disk restore + replay
+
+Not ported yet, each aborting into the rest of the ladder with "not
+ported": triage (rung 0), shard_patch (2), parity_xor (4) and remesh; the
+constructor arguments that would enable them raise ``NotImplementedError``.
+
+``plan_serving_recovery`` is the serving engine's policy:
 
 * ``slots`` — evict ONLY the injured slots to prefix replay; healthy slots
   keep decoding the very next engine step.
@@ -18,11 +40,307 @@
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Optional, Sequence
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
 
 from repro_torch.core.detect import FaultReport, block_of_leaf
+from repro_torch.core.induction import IVRegistry, RecoveryAbort
+from repro_torch.core.microcheckpoint import MicroCheckpointer
+from repro_torch.core.recovery_table import (
+    RUNG_CHECKPOINT,
+    RUNG_EQ1,
+    RUNG_OPT_IV,
+    RUNG_PARITY,
+    RUNG_REMESH,
+    RUNG_REPLAY,
+    RUNG_REPLICA,
+    RUNG_SHARD,
+    RUNG_TRIAGE,
+    RecoveryTable,
+)
+from repro_torch.core.replay import replay
+from repro_torch.kernels import digest as kdigest
+from repro_torch.kernels import ops as kops
+from repro_torch.tree import flatten_with_path, leaf_key, replace_leaves
 
+#: what each unported rung (and its constructor argument) waits for
+_NOT_PORTED = {
+    RUNG_TRIAGE: "triage (ROADMAP.md queue 1, 'Parity layer, off-mesh' "
+                 "then '--triage')",
+    RUNG_SHARD: "shard_patch (ROADMAP.md queue 1, 'Mesh and elastic')",
+    RUNG_PARITY: "parity_xor (ROADMAP.md queue 1, 'Parity layer, "
+                 "off-mesh')",
+    RUNG_REMESH: "remesh (ROADMAP.md queue 1, 'Mesh and elastic')",
+}
+
+
+@dataclass
+class RecoveryEvent:
+    """Telemetry for one recovery."""
+    step: int
+    report: FaultReport
+    rung: str = ""                 # rung that succeeded
+    attempted: List[str] = field(default_factory=list)
+    wall_seconds: float = 0.0
+    steps_replayed: int = 0
+    bytes_moved: int = 0
+    recovered: bool = False
+    phase_seconds: Dict[str, float] = field(default_factory=dict)
+
+
+class RecoveryFailed(RuntimeError):
+    """Every rung exhausted — the job must fall back to cold restart."""
+
+
+class RecoveryRuntime:
+    """Off-hot-path recovery engine for a functional training loop.
+
+    step_fn     : step(state, batch) -> (state, metrics), functional
+    batch_fn    : batch_fn(step) -> batch on the state's device
+    iv_registry : ``IVRegistry`` from ``core.icp.promote``
+    micro       : ``MicroCheckpointer`` (host snapshots)
+    replicas    : optional ``step -> [≥2 healthy replica state trees]``
+                  (pure-DP deployments); enables the replica_vote rung
+    checkpoint  : optional ``() -> (state, step)`` — disk restore
+    table       : optional ``RecoveryTable`` choosing each leaf's ladder
+    parity, triage, donated, shardings, elastic : not ported; raise
+    """
+
+    def __init__(self, *, step_fn, batch_fn, iv_registry: IVRegistry,
+                 micro: MicroCheckpointer,
+                 replicas: Optional[Callable] = None,
+                 checkpoint: Optional[Callable] = None,
+                 table: Optional[RecoveryTable] = None,
+                 parity=None, triage: bool = False, donated: bool = False,
+                 shardings=None, elastic=None):
+        unported = {"parity": (parity, _NOT_PORTED[RUNG_PARITY]),
+                    "triage": (triage, _NOT_PORTED[RUNG_TRIAGE]),
+                    "donated": (donated, "donation (ROADMAP.md queue 1, "
+                                         "'In-step fused detection')"),
+                    "shardings": (shardings, _NOT_PORTED[RUNG_SHARD]),
+                    "elastic": (elastic, _NOT_PORTED[RUNG_REMESH])}
+        for name, (value, what) in unported.items():
+            if value:
+                raise NotImplementedError(f"RecoveryRuntime({name}=...): "
+                                          f"not ported yet: {what}")
+        self.step_fn = step_fn
+        self.batch_fn = batch_fn
+        self.ivs = iv_registry
+        self.micro = micro
+        self.replicas = replicas
+        self.checkpoint = checkpoint
+        self.table = table
+        self.events: List[RecoveryEvent] = []
+        self._last_replayed = 0
+
+    # -- rungs: each returns (repaired state, detail) or raises
+    #    RecoveryAbort; the ladder driver verifies and escalates ---------
+
+    def _rung_eq1(self, state, report: FaultReport, step: int):
+        """Repair induction state from healthy partners (registered as
+        both ``eq1`` and ``opt_iv``): one Eq. (1) majority diagnosis over
+        every affine counter, then affine outliers are rewritten to their
+        value at the consensus iteration n*, and derived entries whose
+        bits differ from their recomputation at n* are rewritten.  Scalar
+        work only: zero snapshot bytes, zero replayed steps."""
+        live = {leaf_key(p): t for p, t in flatten_with_path(state)}
+        names = [n for n in self.ivs.specs if n in live]
+        if not names:
+            raise RecoveryAbort("no registered induction leaves in state")
+        # one transfer for every counter
+        vals = dict(zip(names, torch.stack([live[n] for n in names])
+                        .cpu().tolist()))
+        n_star, bad = self.ivs.diagnose(vals)
+        if n_star is None:
+            raise RecoveryAbort("no consensus among induction variables")
+        swap: Dict[str, torch.Tensor] = {}
+        for name in bad:
+            leaf = live[name]
+            swap[name] = torch.tensor(self.ivs.specs[name].value_at(n_star),
+                                      dtype=leaf.dtype, device=leaf.device)
+        derived_bad: List[str] = []
+        for name in self.ivs.derived:
+            leaf = live.get(name)
+            if leaf is None:
+                continue
+            want = self.ivs.derived_value(name, n_star, leaf.device) \
+                .to(leaf.dtype)
+            if not _same_bits(want, leaf):
+                derived_bad.append(name)
+                swap[name] = want
+        if not swap:
+            raise RecoveryAbort(
+                "induction state consistent — fault is elsewhere")
+        repaired = sorted(bad) + sorted(derived_bad)
+        return replace_leaves(state, swap), (
+            f"repaired {repaired} via Eq.(1) consensus n={n_star}"
+            + (f" (derived recompute: {sorted(derived_bad)})"
+               if derived_bad else ""))
+
+    def _rung_replica(self, state, report: FaultReport, step: int):
+        """Bitwise TMR vote across DP replicas of the corrupted leaves
+        (every leaf when the report names none)."""
+        if self.replicas is None:
+            raise RecoveryAbort("no replicas maintained")
+        reps = self.replicas(step)
+        if reps is None or len(reps) < 2:
+            raise RecoveryAbort("fewer than 2 healthy replicas")
+        bad = set(report.leaves)
+        b, c = ({leaf_key(p): t for p, t in flatten_with_path(r)}
+                for r in reps[:2])
+        voted = {}
+        for path, a in flatten_with_path(state):
+            k = leaf_key(path)
+            if not bad or k in bad:
+                voted[k] = kops.vote3(a, b[k], c[k])
+        return replace_leaves(state, voted), \
+            f"replica vote over {len(reps)} replicas"
+
+    def _rung_replay(self, state, report: FaultReport, step: int):
+        """Replay from the newest digest-verified snapshot ≤ step."""
+        snap = self.micro.latest(before=step)
+        if snap is None:
+            raise RecoveryAbort("no snapshot available")
+        rotten = self.micro.verify(snap)
+        if rotten:
+            raise RecoveryAbort(f"snapshot failed verification: {rotten[:3]}")
+        res = replay(self.step_fn, self.batch_fn, snap.state, snap.step, step,
+                     like_state=state)
+        self._last_replayed = res.steps_replayed
+        return res.state, f"replayed {res.steps_replayed} steps from " \
+                          f"{snap.step}"
+
+    def _rung_checkpoint(self, state, report: FaultReport, step: int):
+        """Classic restore (digest-verified at load) + replay to ``step``."""
+        if self.checkpoint is None:
+            raise RecoveryAbort("no checkpoint loader configured")
+        ck_state, ck_step = self.checkpoint()
+        res = replay(self.step_fn, self.batch_fn, ck_state, ck_step, step,
+                     like_state=state)
+        self._last_replayed = res.steps_replayed
+        return res.state, f"restored step {ck_step} + replayed to {step}"
+
+    def _rung_not_ported(self, state, report: FaultReport, step: int):
+        raise RecoveryAbort("not ported")
+
+    _RUNGS = {
+        RUNG_TRIAGE: _rung_not_ported,
+        RUNG_EQ1: _rung_eq1,
+        RUNG_OPT_IV: _rung_eq1,     # same consensus engine, opt-IV ladder
+        RUNG_SHARD: _rung_not_ported,
+        RUNG_REPLICA: _rung_replica,
+        RUNG_PARITY: _rung_not_ported,
+        RUNG_REPLAY: _rung_replay,
+        RUNG_REMESH: _rung_not_ported,
+        RUNG_CHECKPOINT: _rung_checkpoint,
+    }
+
+    # -- ladder driver ---------------------------------------------------
+
+    def recover(self, state, report: FaultReport, step: int,
+                verify: Optional[Callable] = None,
+                ladder: Optional[Sequence[str]] = None):
+        """Walk the ladder; return (repaired_state, RecoveryEvent).
+
+        ``verify(state) -> List[str]`` names still-corrupt leaves (empty =
+        verified); default: a non-finite scan over float leaves."""
+        report.resolve()
+        ladder = list(ladder) if ladder is not None else self._ladder(report)
+        verify = verify or _default_verify
+        ev = RecoveryEvent(step=step, report=report)
+        t0 = time.perf_counter()
+        for rung in ladder:
+            fn = self._RUNGS.get(rung)
+            if fn is None:
+                continue
+            ev.attempted.append(rung)
+            self._last_replayed = 0
+            tr = time.perf_counter()
+            try:
+                cand, detail = fn(self, state, report, step)
+            except RecoveryAbort as e:
+                ev.phase_seconds[rung] = time.perf_counter() - tr
+                ev.report.detail += f" | {rung}: {e}"
+                continue
+            bad = verify(cand)
+            ev.phase_seconds[rung] = time.perf_counter() - tr
+            if bad:
+                # exact-or-abort: the repair did not certify — escalate
+                ev.report.detail += f" | {rung}: post-verify failed {bad[:2]}"
+                continue
+            ev.rung = rung
+            ev.recovered = True
+            ev.steps_replayed = self._last_replayed
+            ev.wall_seconds = time.perf_counter() - t0
+            ev.report.detail += f" | {rung}: {detail}"
+            self.events.append(ev)
+            return cand, ev
+        ev.wall_seconds = time.perf_counter() - t0
+        self.events.append(ev)
+        raise RecoveryFailed(str(report))
+
+    def _ladder(self, report: FaultReport) -> List[str]:
+        """The ladder from the Recovery Table, else by leaf class."""
+        if self.table is not None and report.leaves:
+            entry = self.table.lookup(report.leaves[0])
+            if entry is not None:
+                return list(entry.ladder)
+        if report.leaves and all(k.startswith("iv/") for k in report.leaves):
+            return [RUNG_EQ1, RUNG_REPLAY, RUNG_CHECKPOINT]
+        if report.leaves and all(k in self.ivs.specs or k in self.ivs.derived
+                                 for k in report.leaves):
+            # optimizer-owned induction leaves (opt/t, bias corrections)
+            return [RUNG_OPT_IV, RUNG_REPLAY, RUNG_CHECKPOINT]
+        return [RUNG_EQ1, RUNG_REPLICA, RUNG_PARITY, RUNG_REPLAY,
+                RUNG_CHECKPOINT]
+
+    # -- telemetry -------------------------------------------------------
+
+    def summary(self) -> Dict:
+        n = len(self.events)
+        rec = [e for e in self.events if e.recovered]
+        by_rung: Dict[str, int] = {}
+        for e in rec:
+            by_rung[e.rung] = by_rung.get(e.rung, 0) + 1
+        return {
+            "events": n,
+            "recovered": len(rec),
+            "recovery_rate": len(rec) / n if n else 1.0,
+            "by_rung": by_rung,
+            "mean_wall_ms": 1e3 * float(np.mean([e.wall_seconds
+                                                 for e in rec]))
+            if rec else 0.0,
+            "mean_steps_replayed": float(np.mean([e.steps_replayed
+                                                  for e in rec]))
+            if rec else 0.0,
+        }
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality (a value compare would call -0.0 == 0.0)."""
+    return torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8))
+
+
+def _default_verify(state) -> List[str]:
+    """Non-finite scan over float leaves, one flag per leaf and ONE
+    ``fetch``; names the corrupt leaves."""
+    flat = [(leaf_key(p), t) for p, t in flatten_with_path(state)
+            if t.is_floating_point()]
+    if not flat:
+        return []
+    mask = kdigest.fetch(torch.stack([~torch.isfinite(t).all()
+                                      for _, t in flat]))
+    return sorted(k for (k, _), b in zip(flat, mask) if b)
+
+
+# ---------------------------------------------------------------------------
+# serving recovery policy
+# ---------------------------------------------------------------------------
 
 @dataclass
 class ServingRecoveryPlan:

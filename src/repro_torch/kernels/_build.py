@@ -44,6 +44,11 @@ _SIGNATURES = {
     # pool, bt, out, n_blocks, pairs, block_words, stream
     "repro_gather_blocks": (_P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                             ctypes.c_longlong, _P),
+    # x, n_words, out, n_tiles, stream
+    "repro_checksum_tiles": (_P, ctypes.c_longlong, _P, ctypes.c_longlong,
+                             _P),
+    # a, b, c, out, n_words, stream
+    "repro_vote3_tiles": (_P, _P, _P, _P, ctypes.c_longlong, _P),
 }
 
 
@@ -132,14 +137,18 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """The kernel route's argument checks: one CUDA device, contiguous
-    tensors whose base is 16-byte aligned."""
+def require_cuda(name: str, *tensors: torch.Tensor,
+                 aligned: bool = True) -> None:
+    """The kernel route's argument checks: one CUDA device and contiguous
+    tensors (a kernel reads dense row-major memory from ``data_ptr()``,
+    so a strided view would be read wrong, not copied); with ``aligned``
+    each base must also be 16-byte aligned (kernels whose every access
+    is 16 bytes wide)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor must be contiguous")
-        if t.data_ptr() % 16:
+        if aligned and t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor base must be 16-byte aligned")

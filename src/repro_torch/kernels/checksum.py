@@ -1,4 +1,5 @@
-"""Wrappers of the digest-engine kernels: ``pack_rows`` and ``row_checksums``.
+"""Wrappers of the digest kernels: ``pack_rows``, ``row_checksums`` and
+``checksum_tiles``.
 
 Counterparts of ``repro/kernels/checksum.py``.  Dispatch is by the
 tensor's device: a CPU tensor takes the plain version (``kernels/ref.py``);
@@ -18,6 +19,7 @@ from repro_torch.kernels import ref as _ref
 
 LANES = _ref.LANES
 TILE_ROWS = _ref.TILE_ROWS
+TILE = _ref.TILE
 
 
 def pack_descriptors(flats: Sequence[torch.Tensor], starts: Sequence[int],
@@ -87,4 +89,32 @@ def row_checksums(rows: torch.Tensor) -> torch.Tensor:
                                           n_rows, _build.stream_of(rows))
     _build.check(rc, "row_checksums")
     _build.LAUNCHES["row_checksums"] += 1
+    return out
+
+
+def checksum_tiles(flat: torch.Tensor) -> torch.Tensor:
+    """Per-tile Fletcher pairs of a flat int32 vector: ``(nt, 2)`` int32,
+    ``nt = max(1, ceil(n / TILE))``, ``s1 = Σ x`` and ``s2 = Σ (i+1)·x``
+    over each ``TILE``-word tile with tile-local ``i`` (mod 2^32); the
+    ragged last tile counts as zero-padded.  ``ops.checksum`` combines
+    the tiles into one digest.
+
+    flat : contiguous 1-D int32 (a ``ref.to_i32`` view); any base
+           alignment (an unaligned base takes the kernel's scalar path).
+    """
+    if flat.device.type == "cpu":
+        return _ref.checksum_tiles_ref(flat)
+    if flat.device.type != "cuda":
+        raise ValueError(f"checksum_tiles: unsupported device {flat.device}")
+    if flat.dtype != torch.int32 or flat.dim() != 1:
+        raise ValueError("checksum_tiles: need a 1-D int32 tensor")
+    _build.require_cuda("checksum_tiles", flat, aligned=False)
+    n = flat.numel()
+    nt = max(1, -(-n // TILE))
+    out = torch.empty((nt, 2), dtype=torch.int32, device=flat.device)
+    rc = _build.lib().repro_checksum_tiles(flat.data_ptr(), n,
+                                           out.data_ptr(), nt,
+                                           _build.stream_of(flat))
+    _build.check(rc, "checksum_tiles")
+    _build.LAUNCHES["checksum_tiles"] += 1
     return out

@@ -23,6 +23,23 @@
 //   uint32_t (unsigned wraparound is defined; signed overflow is not), and
 //   the warp reduces with shuffles.  Warps stride over rows, so a fixed
 //   grid covers any buffer.
+//
+// checksum_tiles replaces src/repro/kernels/checksum.py:122
+// (`checksum_tiles`, kernel body `_checksum_kernel` at :50): one Fletcher
+// pair per 32,768-word tile of a flat int32 vector, s1 = sum(x) and
+// s2 = sum((i+1) * x) with tile-local i, mod 2^32.  The disk checkpoint
+// digests every state leaf through it (ops.checksum).  On the TPU the
+// wrapper padded the leaf to whole tiles (jnp.pad) and the grid walked
+// the tiles in order; here the wrapper passes the unpadded flat view and
+// its length, and the kernel masks the ragged last tile itself.
+//   Bound: bytes (4 B read per word, 8 B written per tile; 3 integer
+//   operations per word, ~27x below the bytes bound on this card).
+//   Design: one CTA per tile (tiles are independent, so 132 SMs take
+//   them in any order), 256 threads each loading int4 words (16 B, the
+//   CTA reads the 128 KiB tile in fully coalesced sweeps), uint32_t
+//   accumulation (unsigned wraparound is defined), a warp-shuffle
+//   reduction and a shared-memory pass across the CTA's 8 warps.  A
+//   source that is not 16-byte aligned takes the scalar path.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,6 +88,58 @@ __global__ void row_checksums_kernel(const int4* __restrict__ x,
   }
 }
 
+constexpr int kTile = 256 * 128;        // words per checksum tile
+
+__global__ void checksum_tiles_kernel(const int32_t* __restrict__ x,
+                                      long long n,
+                                      int2* __restrict__ out) {
+  const long long base = (long long)blockIdx.x * kTile;
+  const long long left = n - base;
+  const int valid = left >= kTile ? kTile : (left > 0 ? (int)left : 0);
+  const int32_t* __restrict__ t = x + base;
+  uint32_t s1 = 0u, s2 = 0u;
+  const int n4 =
+      ((reinterpret_cast<uintptr_t>(t) & 15) == 0) ? valid / 4 : 0;
+  const int4* __restrict__ t4 = reinterpret_cast<const int4*>(t);
+#pragma unroll 4
+  for (int j = threadIdx.x; j < n4; j += blockDim.x) {
+    const int4 v = t4[j];
+    const uint32_t a = (uint32_t)v.x, b = (uint32_t)v.y;
+    const uint32_t c = (uint32_t)v.z, e = (uint32_t)v.w;
+    const uint32_t w = 4u * (uint32_t)j + 1u;   // weight of word 4j
+    s1 += a + b + c + e;
+    s2 += a * w + b * (w + 1u) + c * (w + 2u) + e * (w + 3u);
+  }
+  for (int i = n4 * 4 + threadIdx.x; i < valid; i += blockDim.x) {
+    const uint32_t v = (uint32_t)t[i];
+    s1 += v;
+    s2 += v * (uint32_t)(i + 1);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  __shared__ uint32_t part1[32], part2[32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+    part1[warp] = s1;
+    part2[warp] = s2;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = blockDim.x >> 5;
+    s1 = lane < n_warps ? part1[lane] : 0u;
+    s2 = lane < n_warps ? part2[lane] : 0u;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    if (lane == 0) out[blockIdx.x] = make_int2((int)s1, (int)s2);
+  }
+}
+
 extern "C" int repro_pack_rows(void* buf, const void* desc, int n_leaves,
                                long long max_words, void* stream) {
   if (n_leaves <= 0) return 0;
@@ -90,6 +159,14 @@ extern "C" int repro_row_checksums(const void* x, void* out, long long rows,
   if (blocks > 132 * 32) blocks = 132 * 32;
   row_checksums_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
       (const int4*)x, (int2*)out, rows);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_checksum_tiles(const void* x, long long n, void* out,
+                                    long long n_tiles, void* stream) {
+  if (n_tiles <= 0) return 0;
+  checksum_tiles_kernel<<<(unsigned)n_tiles, 256, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x, n, (int2*)out);
   return (int)cudaGetLastError();
 }
 

@@ -236,6 +236,18 @@ class DigestPlan:
         leaves = self.leaves(tree)
         return self._run(idx, [leaves[i] for i in idx])
 
+    def digest_dict(self, tree) -> Dict[str, np.ndarray]:
+        """Host-side per-leaf digests: one digest + ONE ``fetch``."""
+        table = fetch(self.digest_table(tree))
+        return {k: table[i] for i, k in enumerate(self.keys)}
+
+    def verify(self, tree, reference: Dict[str, np.ndarray]) -> List[str]:
+        """Leaf paths whose digest no longer matches ``reference``."""
+        current = self.digest_dict(tree)
+        return sorted(k for k, d in reference.items()
+                      if k not in current
+                      or not np.array_equal(current[k], d))
+
 
 # ---------------------------------------------------------------------------
 # plan cache
@@ -326,14 +338,58 @@ def check_arm_subcomputation(plan: DigestPlan, chk: Sequence[int],
 # device math, so host copies are certified without a device round trip
 # ---------------------------------------------------------------------------
 
+def host_bits(x) -> np.ndarray:
+    """Host numpy array holding the raw bits of a host tensor or array
+    (bf16, which numpy lacks, crosses as its int16 bits; a tensor that
+    lies on the card is refused — this is the device-free path)."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            raise ValueError("host digests take host tensors")
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
+        return x.numpy()
+    return np.asarray(x)
+
+
+def _host_i32(x) -> np.ndarray:
+    """Host mirror of ``ref.to_i32``: flat int32 view of the raw bits."""
+    a = np.ascontiguousarray(host_bits(x))
+    if a.dtype.itemsize == 4:          # float32 / int32 / uint32: bit view
+        return a.reshape(-1).view(np.int32)
+    if a.dtype.itemsize == 2:          # bf16 / f16 / i16 / u16: zero-extend
+        return a.reshape(-1).view(np.uint16).astype(np.int32)
+    if a.dtype.itemsize == 1:          # i8 / u8: zero-extend
+        return a.reshape(-1).view(np.uint8).astype(np.int32)
+    if a.dtype == np.int64:            # truncate
+        return a.reshape(-1).astype(np.int32)
+    if a.dtype.kind == "c":
+        raise TypeError(f"host digest: complex dtype {a.dtype} has no "
+                        f"int32 view")
+    return np.ascontiguousarray(
+        a.astype(np.float32)).reshape(-1).view(np.int32)
+
+
 def host_checksum(x) -> np.ndarray:
-    """Fletcher digest int32[2] of a host array of a 4-byte dtype —
-    bit-identical to the device digest of the same bytes."""
-    a = np.ascontiguousarray(np.asarray(x))
-    if a.dtype.itemsize != 4:
-        raise TypeError(f"host_checksum: dtype {a.dtype} is not ported")
-    f = a.reshape(-1).view(np.uint32)
+    """Fletcher digest int32[2] of a host tensor or array — bit-identical
+    to the device digest of the same bytes, with no device work."""
+    f = _host_i32(x).view(np.uint32)
     idx = np.arange(1, f.shape[0] + 1, dtype=np.uint32)
     s1 = np.add.reduce(f, dtype=np.uint32)
     s2 = np.add.reduce(f * idx, dtype=np.uint32)
     return np.array([s1, s2], dtype=np.uint32).view(np.int32)
+
+
+def host_tree_checksums(tree) -> Dict[str, np.ndarray]:
+    """Per-leaf host digests keyed by path — certifies a host copy (a
+    micro-snapshot) where it lives."""
+    return {leaf_key(p): host_checksum(x)
+            for p, x in _tree.flatten_with_path(tree)}
+
+
+def host_verify_tree(tree, reference: Dict[str, np.ndarray]) -> List[str]:
+    """Leaf paths of a HOST tree whose digest no longer matches
+    ``reference`` — snapshot verification, device-free."""
+    current = host_tree_checksums(tree)
+    return sorted(k for k, d in reference.items()
+                  if k not in current or not np.array_equal(current[k], d))

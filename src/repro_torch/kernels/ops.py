@@ -1,9 +1,57 @@
 """Public kernel-level helpers — the part of ``repro/kernels/ops.py`` the
-serving slice runs."""
+serving and training slices run: whole-leaf digests through the
+``checksum_tiles`` kernel, the TMR vote through ``vote3_tiles``, and the
+rotating-canary schedule.
+
+Unlike the reference there is no padded copy of the leaf: the kernels
+take the flat int32 view and its length and mask the ragged tail.
+"""
 
 from __future__ import annotations
 
 from typing import List
+
+import torch
+
+from repro_torch.kernels import checksum as _ck
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import vote as _vk
+
+TILE = _ck.TILE  # int32 words per checksum tile
+
+
+def combine_tiles(d: torch.Tensor) -> torch.Tensor:
+    """Exact combine of ``(nt, 2)`` tile digests into one int32[2]:
+    ``s1 = Σ_t s1_t`` and ``s2 = Σ_t (s2_t + offset_t · s1_t)`` mod 2^32,
+    ``offset_t = t · TILE`` — in int64 masked to 32 bits, since
+    ``torch.sum`` of int32 widens to int64."""
+    s1 = d[:, 0].to(torch.int64)
+    offsets = torch.arange(d.shape[0], dtype=torch.int64,
+                           device=d.device) * TILE
+    # |offset·s1| < 2^62 for any leaf below 2^31 tiles: exact in int64
+    s2 = (d[:, 1].to(torch.int64) + ((offsets * s1) & 0xFFFFFFFF)).sum()
+    return _ref.wrap_i32(torch.stack([s1.sum(), s2]))
+
+
+def checksum(x: torch.Tensor) -> torch.Tensor:
+    """Two-term Fletcher digest int32[2] of the raw bits of ``x`` (one
+    ``checksum_tiles`` launch on the card), equal to ``ref.checksum_ref``
+    and to the reference's ``ops.checksum`` of the same bytes."""
+    return combine_tiles(_ck.checksum_tiles(_ref.to_i32(x)))
+
+
+def blocked_checksum(x: torch.Tensor) -> torch.Tensor:
+    """Per-tile digests int32[nt, 2] (localisation granularity: one
+    ``TILE`` = 32,768 words = 128 KiB)."""
+    return _ck.checksum_tiles(_ref.to_i32(x))
+
+
+def vote3(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Bitwise majority of three equal-shaped tensors, ``a``'s dtype out."""
+    if not (a.shape == b.shape == c.shape and a.dtype == b.dtype == c.dtype):
+        raise ValueError("vote3: copies differ in shape or dtype")
+    out = _vk.vote3_tiles(_ref.to_i32(a), _ref.to_i32(b), _ref.to_i32(c))
+    return _ref.from_i32(out, a)
 
 
 def rotating_slice(step: int, n_slices: int, n_leaves: int) -> List[int]:

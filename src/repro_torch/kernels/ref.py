@@ -2,9 +2,9 @@
 
 They define the semantics the CUDA kernels must match bit for bit (the
 algorithms are integer or pure copies, so tests assert equality, never
-closeness).  The wrappers in ``checksum.py`` and ``paged_kv.py`` run these
-for tensors that lie on the CPU; ``chip_smoke.py`` holds each kernel
-against them on the card.
+closeness).  The wrappers in ``checksum.py``, ``vote.py`` and
+``paged_kv.py`` run these for tensors that lie on the CPU;
+``chip_smoke.py`` holds each kernel against them on the card.
 
 Pitfall carried over from the reference: ``torch.sum`` of int32 returns
 int64, so every mod-2^32 reduction below is taken in int64 and wrapped
@@ -19,35 +19,103 @@ import torch
 
 LANES = 128
 TILE_ROWS = 256
+TILE = TILE_ROWS * LANES        # int32 words per checksum tile (128 KiB)
+CHECKSUM_BLOCK = 4096           # words per block of ``blocked_checksum_ref``
 
 _MASK32 = 0xFFFFFFFF
+_TWO_BYTE = (torch.bfloat16, torch.float16, torch.int16, torch.uint16)
+_FOUR_BYTE = (torch.float32, torch.uint32)
 
 
 def to_i32(x: torch.Tensor) -> torch.Tensor:
-    """Flat int32 view of the raw bits of a 4-byte tensor (the checksum
-    domain; the reference's ``ref.to_i32`` 4-byte branches).  Other dtypes
-    raise until a configuration that uses them is ported."""
+    """Flat int32 vector of the raw bits of ``x`` — the reference's
+    ``ref.to_i32``: 4-byte dtypes are bit views, 2- and 1-byte dtypes are
+    zero-extended, int64 is truncated, any other real dtype goes through
+    float32."""
     if x.dtype == torch.int32:
         return x.reshape(-1)
-    if x.dtype in (torch.float32, torch.uint32):
+    if x.dtype in _FOUR_BYTE:
         return x.contiguous().view(torch.int32).reshape(-1)
-    raise TypeError(f"to_i32: dtype {x.dtype} is not ported "
-                    f"(4-byte dtypes only)")
+    if x.dtype in _TWO_BYTE:
+        i16 = x.contiguous().view(torch.int16).reshape(-1)
+        return i16.to(torch.int32) & 0xFFFF
+    if x.dtype in (torch.int8, torch.uint8):
+        return x.reshape(-1).to(torch.int32) & 0xFF
+    if x.dtype == torch.int64:
+        return x.reshape(-1).to(torch.int32)
+    if x.is_complex():
+        raise TypeError(f"to_i32: complex dtype {x.dtype} has no int32 view")
+    return x.to(torch.float32).contiguous().view(torch.int32).reshape(-1)
 
 
 def from_i32(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """Inverse of ``to_i32`` for the 4-byte dtypes."""
+    """Inverse of ``to_i32`` for the dtypes of state trees."""
     if like.dtype == torch.int32:
         return flat.reshape(like.shape)
-    if like.dtype in (torch.float32, torch.uint32):
+    if like.dtype in _FOUR_BYTE:
         return flat.contiguous().view(like.dtype).reshape(like.shape)
-    raise TypeError(f"from_i32: dtype {like.dtype} is not ported")
+    if like.dtype in _TWO_BYTE:
+        return flat.to(torch.int16).view(like.dtype).reshape(like.shape)
+    if like.dtype in (torch.int8, torch.uint8):
+        return flat.to(like.dtype).reshape(like.shape)
+    raise TypeError(f"from_i32: unsupported dtype {like.dtype}")
 
 
 def wrap_i32(v: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 modulo 2^32 (two's complement), exactly."""
     v = v & _MASK32
     return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+def _fletcher(words: torch.Tensor) -> torch.Tensor:
+    """``(..., n)`` int32 -> ``(..., 2)`` int32: ``s1 = Σ x`` and
+    ``s2 = Σ (i+1)·x`` along the last axis, mod 2^32.  Each product is
+    masked to 32 bits before the sum, so the int64 sum cannot overflow."""
+    x = words.to(torch.int64)
+    idx = torch.arange(1, x.shape[-1] + 1, dtype=torch.int64,
+                       device=x.device)
+    s1 = x.sum(-1)
+    s2 = ((x * idx) & _MASK32).sum(-1)
+    return torch.stack([wrap_i32(s1), wrap_i32(s2)], dim=-1)
+
+
+def checksum_ref(x: torch.Tensor) -> torch.Tensor:
+    """Two-term Fletcher digest int32[2] of the raw bits of ``x``:
+    ``s1 = Σ x_i`` and ``s2 = Σ (i+1)·x_i`` mod 2^32."""
+    return _fletcher(to_i32(x))
+
+
+def blocked_checksum_ref(x: torch.Tensor,
+                         block: int = CHECKSUM_BLOCK) -> torch.Tensor:
+    """Per-block digests int32[nb, 2] with block-local weights, the tail
+    block zero-padded."""
+    flat = to_i32(x)
+    nb = -(-flat.numel() // block)
+    flat = torch.nn.functional.pad(flat, (0, nb * block - flat.numel()))
+    return _fletcher(flat.view(nb, block))
+
+
+def checksum_tiles_ref(flat: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``checksum_tiles`` kernel: per ``TILE``-word
+    tile of a flat int32 vector, ``(s1, s2)`` with tile-local weights
+    1..TILE; the ragged last tile counts as zero-padded.  Returns
+    ``(max(1, ceil(n / TILE)), 2)`` int32."""
+    nt = max(1, -(-flat.numel() // TILE))
+    padded = torch.nn.functional.pad(flat, (0, nt * TILE - flat.numel()))
+    return _fletcher(padded.view(nt, TILE))
+
+
+def vote3_tiles_ref(a: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``vote3_tiles`` kernel: bitwise majority of
+    three flat int32 vectors."""
+    return (a & b) | (a & c) | (b & c)
+
+
+def vote3_ref(a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor) -> torch.Tensor:
+    """Bitwise triple-modular-redundancy majority in ``a``'s dtype."""
+    return from_i32(vote3_tiles_ref(to_i32(a), to_i32(b), to_i32(c)), a)
 
 
 def pack_rows_ref(buf: torch.Tensor, flats: Sequence[torch.Tensor],
@@ -63,11 +131,7 @@ def row_checksums_ref(rows: torch.Tensor) -> torch.Tensor:
     """Per 128-lane row ``s1 = Σ x`` and ``s2 = Σ (lane+1)·x`` mod 2^32.
 
     rows : (..., LANES) int32.  Returns (..., 2) int32."""
-    x = rows.to(torch.int64)
-    lane = torch.arange(1, LANES + 1, dtype=torch.int64, device=rows.device)
-    s1 = x.sum(-1)
-    s2 = (x * lane).sum(-1)
-    return torch.stack([wrap_i32(s1), wrap_i32(s2)], dim=-1)
+    return _fletcher(rows)
 
 
 def gather_blocks_ref(pool: torch.Tensor,

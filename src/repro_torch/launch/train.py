@@ -1,0 +1,309 @@
+"""Fault-tolerant training driver of the port — counterpart of
+``repro/launch/train.py``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch iterpro-100m \\
+        --ckpt-dir /tmp/ckpt --inject 5
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --steps 10 --batch 2 --seq 32 --inject 4 --canary-slices 1
+
+It runs on the CUDA card unless ``--device`` names another device, and
+raises when there is no card and no device is named.  Hot path per step,
+in order:
+
+    1. the functional train step                       — the work
+    2. one transfer of (loss, grad_norm); the free traps on them
+    3. ``canary.check_and_arm(s, state, new_state)``   — slice s%K of the
+       pre-step state checked, slice (s+1)%K of the new state armed: one
+       ``row_checksums`` launch, one scalar fetch
+    4. micro-checkpoint bookkeeping (an IV log every step, a host snapshot
+       every ``snapshot_interval`` steps) and the async disk checkpoint
+
+On a ``FaultReport`` the step's output is discarded and the recovery
+ladder repairs the pre-step state; the step is then retried.
+
+On the card the driver turns TF32 off (f32 parity with the reference) and
+PyTorch's deterministic algorithms on (with ``CUBLAS_WORKSPACE_CONFIG``):
+the embedding and tied-logits backward would otherwise accumulate with
+atomics in a varying order, and a replayed step would not reproduce the
+clean trajectory bit for bit.
+
+Not ported yet, each raising ``NotImplementedError``: ``--donate``,
+``--fused-detect``, ``--parity``, ``--triage``, ``--mesh``, ``--elastic``
+and ``--kill-row-at`` (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import random
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.core.detect import (LOSS_WINDOW, ChecksumCanary,
+                                     trap_loss_spike, trap_nonfinite)
+from repro_torch.core.faults import inject, sample_plan
+from repro_torch.core.icp import promote
+from repro_torch.core.microcheckpoint import MicroCheckpointer
+from repro_torch.core.recover import RecoveryFailed, RecoveryRuntime
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.serving.engine import resolve_device
+from repro_torch.train.loop import make_train_state, make_train_step
+
+_UNPORTED = {
+    "donate": "in-place (donated) state update (ROADMAP.md queue 1, "
+              "'In-step fused detection')",
+    "fused_detect": "in-step fused detection (ROADMAP.md queue 1, 'In-step "
+                    "fused detection')",
+    "parity": "the XOR parity layer (ROADMAP.md queue 1, 'Parity layer, "
+              "off-mesh')",
+    "triage": "recovery rung 0 (ROADMAP.md queue 1, 'Parity layer, "
+              "off-mesh' then '--triage')",
+    "mesh": "mesh training (ROADMAP.md queue 1, 'Mesh and elastic')",
+    "elastic": "elastic remesh (ROADMAP.md queue 1, 'Mesh and elastic')",
+    "kill_row_at": "the row-loss drill (ROADMAP.md queue 1, 'Mesh and "
+                   "elastic')",
+}
+
+
+@dataclass
+class LoopReport:
+    steps: int = 0
+    faults_injected: int = 0
+    faults_detected: int = 0
+    faults_recovered: int = 0
+    losses: List[float] = field(default_factory=list)
+    recovery_ms: List[float] = field(default_factory=list)
+    step_seconds: List[float] = field(default_factory=list)
+
+    def summary(self) -> Dict:
+        step_ms = 1e3 * np.asarray(self.step_seconds, np.float64)
+        rec_ms = np.asarray(self.recovery_ms, np.float64)
+        return {
+            "steps": self.steps,
+            "final_loss": self.losses[-1] if self.losses else None,
+            "faults_injected": self.faults_injected,
+            "faults_detected": self.faults_detected,
+            "faults_recovered": self.faults_recovered,
+            "mean_recovery_ms": float(rec_ms.mean()) if rec_ms.size else 0.0,
+            "p50_recovery_ms": float(np.median(rec_ms)) if rec_ms.size
+            else 0.0,
+            "mean_step_ms": float(step_ms.mean()) if step_ms.size else 0.0,
+            "p50_step_ms": float(np.median(step_ms)) if step_ms.size
+            else 0.0,
+        }
+
+
+@contextlib.contextmanager
+def cuda_numerics(device: torch.device):
+    """On the card: TF32 off, deterministic algorithms on (restored on
+    exit).  A no-op elsewhere."""
+    if device.type != "cuda":
+        yield
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.utils.deterministic.fill_uninitialized_memory)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    # every output the port allocates is written in full: NaN-filling
+    # torch.empty would only add launches
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved[:2]
+        torch.use_deterministic_algorithms(saved[2])
+        torch.utils.deterministic.fill_uninitialized_memory = saved[3]
+
+
+def train(cfg, *, steps: int, global_batch: int, seq_len: int,
+          seed: int = 0, snapshot_interval: int = 8,
+          checkpoint_dir: Optional[str] = None, checkpoint_interval: int = 50,
+          inject_every: int = 0, inject_target: str = "params",
+          canary_slices: int = 4, donate: bool = False,
+          fused_detect: bool = False, mesh: Optional[str] = None,
+          parity: bool = False,
+          triage: bool = False, elastic: bool = False,
+          kill_row_at: Optional[int] = None, verbose: bool = True,
+          device=None, return_state: bool = False):
+    """Run the recovery-wrapped loop; returns the loop report dict (and
+    the final state with ``return_state``).  ``seed`` seeds the params
+    init, the data and the injection storm."""
+    asked = {"donate": donate, "fused_detect": fused_detect,
+             "parity": parity, "triage": triage, "mesh": bool(mesh),
+             "elastic": elastic, "kill_row_at": kill_row_at is not None}
+    for name, on in asked.items():
+        if on:
+            raise NotImplementedError(f"not ported yet: {_UNPORTED[name]}")
+    device = resolve_device(device)
+    with cuda_numerics(device):
+        return _train(cfg, steps=steps, global_batch=global_batch,
+                      seq_len=seq_len, seed=seed,
+                      snapshot_interval=snapshot_interval,
+                      checkpoint_dir=checkpoint_dir,
+                      checkpoint_interval=checkpoint_interval,
+                      inject_every=inject_every, inject_target=inject_target,
+                      canary_slices=canary_slices, verbose=verbose,
+                      device=device, return_state=return_state)
+
+
+def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
+           checkpoint_dir, checkpoint_interval, inject_every, inject_target,
+           canary_slices, verbose, device, return_state):
+    pipe = TokenPipeline(cfg.model.vocab_size, seq_len, global_batch,
+                         seed=seed)
+    state = make_train_state(cfg, seed, global_batch=global_batch,
+                             device=device)
+    step_fn = make_train_step(cfg, global_batch=global_batch)
+
+    def bfn(s):
+        return {k: v.to(device) for k, v in pipe.batch_at(s).items()}
+
+    micro = MicroCheckpointer(interval=snapshot_interval)
+    ckpt = CheckpointManager(checkpoint_dir, interval=checkpoint_interval) \
+        if checkpoint_dir else None
+    canary = ChecksumCanary(state, n_slices=canary_slices)
+    runtime = RecoveryRuntime(
+        step_fn=step_fn, batch_fn=bfn,
+        iv_registry=promote(cfg, global_batch), micro=micro,
+        checkpoint=ckpt.loader(state) if ckpt else None)
+
+    rng = random.Random(seed + 7)
+    rep = LoopReport()
+    history = deque(maxlen=LOSS_WINDOW)   # the spike trap's window
+    last_inject = -1
+
+    s = 0
+    while s < steps:
+        micro.record_iv(s, state["iv"])
+        micro.maybe_snapshot(s, state)
+        if ckpt:
+            ckpt.maybe_save(s, state)
+
+        # adversary: one bit flip before the step (evaluation only; once
+        # per step — a recovery retry must not be hit again)
+        if inject_every and s and s % inject_every == 0 and last_inject != s:
+            inject(state, sample_plan(rng, state, max_step=1,
+                                      target=inject_target))
+            rep.faults_injected += 1
+            last_inject = s
+
+        t0 = time.perf_counter()
+        new_state, metrics = step_fn(state, bfn(s))
+        loss, grad_norm = torch.stack(
+            [metrics["loss"], metrics["grad_norm"]]).tolist()
+        rep.step_seconds.append(time.perf_counter() - t0)
+
+        host = {"loss": loss, "grad_norm": grad_norm}
+        report = trap_nonfinite(s, host) or \
+            trap_loss_spike(s, host, history)
+        if report is None:
+            # slice s%K of the pre-step state (armed last step) and slice
+            # (s+1)%K of the fresh output: 1 launch + 1 sync
+            report = canary.check_and_arm(s, state, new_state)
+
+        if report is None:
+            state = new_state
+            history.append(loss)
+            rep.losses.append(loss)
+            if verbose and s % max(1, steps // 10) == 0:
+                print(f"[train] step {s:5d} loss {loss:.4f}")
+            s += 1
+            rep.steps += 1
+            continue
+
+        # ---------------- recovery path (off the hot path) --------------
+        del new_state                       # corrupt-derived
+        rep.faults_detected += 1
+        if verbose:
+            print(f"[train] FAULT at step {s}: {report}")
+        try:
+            t0 = time.perf_counter()
+            state, ev = runtime.recover(state, report, s)
+            rep.faults_recovered += 1
+            rep.recovery_ms.append(1e3 * (time.perf_counter() - t0))
+            canary.refresh(state)
+            if verbose:
+                print(f"[train] recovered via {ev.rung} in "
+                      f"{rep.recovery_ms[-1]:.1f} ms")
+        except RecoveryFailed:
+            if ckpt is None:
+                raise
+            state, s = ckpt.restore(state)
+            # the restored state is the new reference; stale digests
+            # would fire a spurious fault on the next step
+            canary.refresh(state)
+            if verbose:
+                print(f"[train] cold restore to step {s}")
+
+    if ckpt:
+        ckpt.wait()
+    out = rep.summary()
+    out["recovery"] = runtime.summary()
+    return (out, state) if return_state else out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="iterpro-100m")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the params init, the data and the storm")
+    ap.add_argument("--inject", type=int, default=0,
+                    help="inject a bit flip every N steps")
+    ap.add_argument("--inject-target", default="params",
+                    choices=["params", "opt", "iv"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--snapshot-interval", type=int, default=8)
+    ap.add_argument("--canary-slices", type=int, default=4,
+                    help="canary rotation period K (1 = digest the whole "
+                         "state every step)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    ap.add_argument("--json", action="store_true")
+    for flag in ("--donate", "--fused-detect", "--parity", "--triage",
+                 "--elastic"):
+        ap.add_argument(flag, action="store_true", help="not ported yet "
+                        "(raises)")
+    ap.add_argument("--mesh", default=None, help="not ported yet (raises)")
+    ap.add_argument("--kill-row-at", type=int, default=None,
+                    help="not ported yet (raises)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    out = train(cfg, steps=args.steps, global_batch=args.batch,
+                seq_len=args.seq, seed=args.seed,
+                snapshot_interval=args.snapshot_interval,
+                checkpoint_dir=args.ckpt_dir, inject_every=args.inject,
+                inject_target=args.inject_target,
+                canary_slices=args.canary_slices, donate=args.donate,
+                fused_detect=args.fused_detect, mesh=args.mesh,
+                parity=args.parity, triage=args.triage,
+                elastic=args.elastic, kill_row_at=args.kill_row_at,
+                device=args.device)
+    print(json.dumps(out, indent=1) if args.json else out)
+    return out
+
+
+if __name__ == "__main__":
+    main()

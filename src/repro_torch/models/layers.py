@@ -1,4 +1,5 @@
-"""Model building blocks — the dense-decoder part of ``repro/models/layers.py``.
+"""Model building blocks — the dense-decoder part of ``repro/models/layers.py``
+and its cross-entropy loss.
 
 Params are plain dicts of tensors with the reference's leaf names and
 shapes.  Layouts follow the reference: q ``(B, S, H, Dh)``, k/v
@@ -191,3 +192,20 @@ def unembed(p_embed, x):
     """Tied f32 logits: ``x @ table.T``."""
     return torch.einsum("bsd,vd->bsv", x.to(torch.float32),
                         p_embed["table"].to(torch.float32))
+
+
+def cross_entropy(logits, labels, mask=None):
+    """logits (B,S,V) f32, labels (B,S) int.  Mean NLL (f32), masked
+    positions excluded."""
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def make_positions(B: int, S: int, device):
+    return torch.arange(S, dtype=torch.int32, device=device)[None, :] \
+        .expand(B, S)

@@ -5,6 +5,7 @@
     logits, cache = model.prefill(params, cfg.model, batch, max_len=...)
     logits, cache = model.decode_step(params, cfg.model, cache, token)
     cache = model.make_decode_cache(cfg.model, B, max_len, device)
+    loss, metrics = model.train_loss(params, cfg.model, batch, remat=...)
 """
 
 from __future__ import annotations
@@ -21,5 +22,6 @@ def get_model(model_cfg) -> SimpleNamespace:
         prefill=transformer.prefill,
         decode_step=transformer.decode_step,
         make_decode_cache=transformer.make_decode_cache,
+        train_loss=transformer.train_loss,
         module=transformer,
     )

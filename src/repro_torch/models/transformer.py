@@ -1,10 +1,14 @@
 """Decoder-only transformer, dense family — the part of
-``repro/models/transformer.py`` the serving slice runs.
+``repro/models/transformer.py`` the serving and training slices run.
 
 Params are stacked ``(count, ...)`` per pattern position exactly as in the
 reference (``params["groups"][g][j]`` holds ``count`` layers), so leaf
 paths, shapes and dtypes match the JAX tree.  Where the reference scanned
-over the stacked layers, a Python loop walks them.
+over the stacked layers, a Python loop walks them; the full-sequence
+forward unbinds each stacked leaf once, so autograd's backward stacks the
+per-layer gradients in one pass.  ``remat`` (the reference's
+``jax.checkpoint`` of the scanned body) recomputes each layer in the
+backward through ``torch.utils.checkpoint``.
 
 Decode caches: ``{"groups": [[{"k", "v"}]], "pos": (B,) int32}`` with
 leaves ``(count, B, cap, KV, Dh)``.  The reference's per-lane scalar
@@ -20,9 +24,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten_with_path, leaf_key, map_with_path, \
+    tree_map
+
+LOSS_CHUNK = 2048  # sequence chunking of the CE loss (memory knob)
 
 
 class LayerDesc(NamedTuple):
@@ -54,6 +62,14 @@ def derive_groups(cfg) -> Tuple[Tuple[int, Tuple[LayerDesc, ...]], ...]:
 
 def _layer(stacked, l: int):
     return tree_map(lambda t: t[l], stacked)
+
+
+def _unbind(stacked, count: int):
+    """The ``count`` per-layer trees of a stacked tree, via one
+    ``unbind`` per leaf."""
+    parts = {leaf_key(p): t.unbind(0) for p, t in flatten_with_path(stacked)}
+    return [map_with_path(lambda p, _: parts[leaf_key(p)][l], stacked)
+            for l in range(count)]
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -112,17 +128,22 @@ def block_decode(p, cfg, desc: LayerDesc, x, pos, k_cache, v_cache):
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg, x, positions, *, collect_cache: bool = False,
-            capacity: int = 0):
+            capacity: int = 0, remat: bool = False):
     """Walk every layer.  Returns (hidden, caches|None); with
     ``collect_cache`` each group yields ``[{"k", "v"}]`` leaves
     ``(count, B, capacity, KV, Dh)``, zero-padded past the sequence."""
     caches = [] if collect_cache else None
     for gi, (count, pattern) in enumerate(derive_groups(cfg)):
-        stacked = params["groups"][gi]
+        per_layer = [_unbind(p, count) for p in params["groups"][gi]]
         outs = [{"k": [], "v": []} for _ in pattern]
         for l in range(count):
             for j, desc in enumerate(pattern):
-                x, (k, v) = block_apply(_layer(stacked[j], l), cfg, desc, x,
+                if remat:
+                    x = checkpoint(lambda p, h, d=desc: block_apply(
+                        p, cfg, d, h, positions)[0], per_layer[j][l], x,
+                        use_reentrant=False)
+                    continue
+                x, (k, v) = block_apply(per_layer[j][l], cfg, desc, x,
                                         positions)
                 if collect_cache:
                     outs[j]["k"].append(k)
@@ -144,6 +165,47 @@ def _pad_cache(kv, capacity: int):
 
 def logits_fn(params, cfg, hidden):
     return L.unembed(params["embed"], hidden)
+
+
+def chunked_ce(params, cfg, hidden, targets, mask=None, chunk=LOSS_CHUNK):
+    """Cross-entropy over sequence chunks, so (B, S, V) logits are never
+    materialised for the whole sequence.  The label log-prob is an
+    iota-compare-reduce, as in the reference (no gather: its backward is
+    elementwise, hence deterministic on the card)."""
+    B, S, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    chunk = min(chunk, S)
+    table = params["embed"]["table"].to(torch.float32)
+    vocab = torch.arange(table.shape[0], device=hidden.device)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, S, chunk):
+        h = hidden[:, s0:s0 + chunk].to(torch.float32)
+        t = targets[:, s0:s0 + chunk].to(torch.int64)
+        m = mask[:, s0:s0 + chunk].to(torch.float32)
+        logits = torch.einsum("bsd,vd->bsv", h, table)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.where(vocab == t[..., None], logits,
+                         torch.zeros((), dtype=logits.dtype,
+                                     device=logits.device)).sum(-1)
+        tot = tot + ((logz - ll) * m).sum()
+        cnt = cnt + m.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def train_loss(params, cfg, batch, *, remat: bool = False):
+    """batch: tokens (B,S), targets (B,S) [, loss_mask].  Returns
+    (loss, metrics) with the reference's metric keys."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.embed(params["embed"], tokens, _dtype(cfg.compute_dtype))
+    positions = L.make_positions(B, S, x.device)
+    hidden, _ = forward(params, cfg, x, positions, remat=remat)
+    ce = chunked_ce(params, cfg, hidden, batch["targets"],
+                    batch.get("loss_mask"))
+    return ce, {"ce": ce, "lb": torch.zeros((), dtype=torch.float32,
+                                            device=ce.device)}
 
 
 def prefill(params, cfg, batch, *, max_len: Optional[int] = None):

@@ -1,0 +1,103 @@
+"""Train-step builder and the TrainState — counterpart of
+``repro/train/loop.py``.
+
+TrainState = {
+    'params': model params,
+    'opt':    optimizer state (m, v like params; t, bc1, bc2 scalars),
+    'iv':     induction-variable block — the IterPro-protected loop state,
+}
+
+The ``iv`` block is the heart of the paper adaptation: each counter is
+updated independently (``x += s_x``) rather than derived from ``step``
+(the Independent Compute Promotion of ``core/icp.py``), so any single
+corrupted counter is recoverable from any healthy partner via Eq. (1).
+
+The step is FUNCTIONAL: ``step(state, batch)`` writes new tensors and
+leaves every tensor of ``state`` intact.  The training loop relies on it:
+after the step it still reads the pre-step ``state`` for the canary's
+check slice, and on a fault every recovery rung starts from it.  The
+reference's ``donate_argnums`` (in-place update) is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.models.registry import get_model
+from repro_torch.optim import make_optimizer
+from repro_torch.tree import flatten_with_path, leaf_key, map_with_path
+
+
+def iv_step_sizes(arch_cfg, global_batch: int) -> Dict[str, int]:
+    """Per-IV (name -> step size); init values are all 0."""
+    n_micro = max(arch_cfg.train.microbatch, 1)
+    return {
+        "step": 1,
+        "data_offset": global_batch,   # sequences consumed
+        "rng_counter": 1,
+        "sched_pos": 1,
+        "micro_count": n_micro,
+    }
+
+
+def init_iv(arch_cfg, global_batch: int, device="cpu"):
+    return {name: torch.zeros((), dtype=torch.int32, device=device)
+            for name in iv_step_sizes(arch_cfg, global_batch)}
+
+
+def advance_iv(iv, steps: Dict[str, int]):
+    """ICP: each counter advances by its own literal increment — no counter
+    is derived from another, so they are independent recovery partners."""
+    return {name: iv[name] + steps[name] for name in steps}
+
+
+def make_train_state(arch_cfg, seed: int = 0, global_batch: int = 0,
+                     total_steps: int = 100_000, device="cpu"):
+    """Fresh state on ``device``; params from the port's seeded init."""
+    model = get_model(arch_cfg.model)
+    opt = make_optimizer(arch_cfg.train, total_steps)
+    params = model.init(arch_cfg.model, seed, device)
+    return {"params": params,
+            "opt": opt.init(params),
+            "iv": init_iv(arch_cfg, global_batch or 256, device)}
+
+
+def make_train_step(arch_cfg, global_batch: int = 0,
+                    total_steps: int = 100_000) -> Callable:
+    """Returns the functional ``step(state, batch) -> (state', metrics)``;
+    backward is autograd."""
+    tp = arch_cfg.train
+    if tp.microbatch > 1:
+        raise NotImplementedError(
+            "microbatch accumulation is not ported (ROADMAP.md queue 1, "
+            "'Other families and optimizers')")
+    model = get_model(arch_cfg.model)
+    mcfg = arch_cfg.model
+    opt = make_optimizer(tp, total_steps)
+    remat = tp.remat != "none"
+    steps = iv_step_sizes(arch_cfg, global_batch or 256)
+
+    def train_step(state, batch):
+        params = state["params"]
+        # fresh leaf views that require grad: the state's own tensors are
+        # neither written nor marked
+        flat = flatten_with_path(params)
+        req = {leaf_key(p): t.detach().requires_grad_(True) for p, t in flat}
+        with torch.enable_grad():
+            loss, metrics = model.train_loss(
+                map_with_path(lambda p, _: req[leaf_key(p)], params), mcfg,
+                batch, remat=remat)
+            grads = torch.autograd.grad(loss, list(req.values()))
+        by_key = dict(zip(req, grads))
+        grads = map_with_path(lambda p, _: by_key[leaf_key(p)], params)
+        new_params, new_opt, stats = opt.update(
+            grads, state["opt"], params, state["iv"]["sched_pos"])
+        new_state = {"params": new_params, "opt": new_opt,
+                     "iv": advance_iv(state["iv"], steps)}
+        out = {"loss": loss.detach(), **stats}
+        out.update({k: v.detach() for k, v in metrics.items()})
+        return new_state, out
+
+    return train_step

@@ -44,3 +44,20 @@ def tree_map(fn: Callable, tree, *rest):
         return type(tree)(tree_map(fn, x, *(r[i] for r in rest))
                           for i, x in enumerate(tree))
     return fn(tree, *rest)
+
+
+def map_with_path(fn: Callable, tree, prefix: Tuple = ()):
+    """``fn(path, leaf)`` leafwise, same structure out — the counterpart
+    of ``jax.tree_util.tree_map_with_path``."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, tree[k], prefix + (k,)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, x, prefix + (i,))
+                          for i, x in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def replace_leaves(tree, new: dict):
+    """Same tree with the leaves whose ``leaf_key`` is in ``new`` swapped
+    for ``new[key]``; every other leaf is kept (not copied)."""
+    return map_with_path(lambda p, x: new.get(leaf_key(p), x), tree)

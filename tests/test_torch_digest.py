@@ -177,4 +177,4 @@ def test_canary_attribution_fetches_the_mask_once():
 
 def test_host_checksum_rejects_unported_dtypes():
     with pytest.raises(TypeError):
-        tdg.host_checksum(np.zeros(3, np.float16))
+        tdg.host_checksum(np.zeros(3, np.complex64))

@@ -7,25 +7,50 @@ the same wrappers are held against those plain versions on the card by
 generator (NaN and Inf payloads included) plus int32 extremes.
 """
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
 from repro.kernels import checksum as jck
+from repro.kernels import ops as jops
 from repro.kernels import paged_kv as jpk
 from repro.kernels import ref as jref
+from repro.kernels import vote as jvote
 from repro_torch.kernels import _build
 from repro_torch.kernels import checksum as tck
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_kv as tpk
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import vote as tvote
 
 RAGGED = (1, 1, 3, 127, 128, 129, 1000, 4101)
+# the reference's kernel sweep (tests/test_kernels.py:16-17)
+SHAPES = [(7,), (128,), (4096,), (33333,), (17, 9), (128, 128), (3, 5, 7)]
+DTYPES = ["float32", "bfloat16", "float16", "int32", "int8"]
+ALL_DTYPES = DTYPES + ["uint8", "int16", "uint32"]
 
 
 def _bits(rng, shape):
     return rng.integers(-2**31, 2**31, size=shape,
                         dtype=np.int64).astype(np.int32)
+
+
+def _pair(rng, shape, dtype):
+    """The same random bits of ``dtype`` as a jax array and a tensor (NaN
+    and Inf payloads included for the float dtypes)."""
+    size = np.dtype(ml_dtypes.bfloat16 if dtype == "bfloat16"
+                    else dtype).itemsize
+    raw = rng.integers(0, 256, size=int(np.prod(shape)) * size,
+                       dtype=np.uint8)
+    if dtype == "bfloat16":
+        a = raw.view(ml_dtypes.bfloat16).reshape(shape)
+        t = torch.from_numpy(raw.view(np.int16).copy()).view(
+            torch.bfloat16).reshape(shape)
+        return jnp.asarray(a), t
+    a = raw.view(dtype).reshape(shape)
+    return jnp.asarray(a), torch.from_numpy(a.copy())
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int32, np.uint32])
@@ -39,9 +64,27 @@ def test_to_i32_matches_reference(dtype):
     assert np.array_equal(back.numpy().view(np.int32), a.view(np.int32))
 
 
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+def test_to_i32_every_dtype_round_trips_like_reference(dtype):
+    ja, ta = _pair(np.random.default_rng(len(dtype)), (5, 7), dtype)
+    ours = tref.to_i32(ta)
+    assert ours.dtype == torch.int32
+    assert np.array_equal(ours.numpy(), np.asarray(jref.to_i32(ja)))
+    back = tref.from_i32(ours, ta)
+    assert back.dtype == ta.dtype and back.shape == ta.shape
+    assert np.array_equal(back.reshape(-1).view(torch.uint8).numpy(),
+                          ta.reshape(-1).view(torch.uint8).numpy())
+
+
+def test_to_i32_truncates_int64_like_reference():
+    a = np.array([0, -1, 2**31, 2**33 + 5, -2**40 - 7], np.int64)
+    assert np.array_equal(tref.to_i32(torch.from_numpy(a)).numpy(),
+                          np.asarray(jref.to_i32(a)))
+
+
 def test_to_i32_rejects_unported_dtypes():
     with pytest.raises(TypeError):
-        tref.to_i32(torch.zeros(4, dtype=torch.bfloat16))
+        tref.to_i32(torch.zeros(4, dtype=torch.complex64))
 
 
 def test_wrap_i32_is_mod_2_32():
@@ -127,6 +170,74 @@ def test_gather_blocks_matches_reference(pool_shape, S, mb):
                           ).view(np.int32))
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_checksum_matches_reference(shape, dtype):
+    """``ref.checksum_ref``, ``ops.checksum`` (tiles + combine) and
+    ``ops.blocked_checksum`` against the reference's oracle and Pallas
+    path, exactly."""
+    ja, ta = _pair(np.random.default_rng(sum(shape)), shape, dtype)
+    want = np.asarray(jref.checksum_ref(ja))
+    assert np.array_equal(tref.checksum_ref(ta).numpy(), want)
+    assert np.array_equal(tops.checksum(ta).numpy(), want)
+    assert np.array_equal(np.asarray(jops.checksum(ja)), want)
+    assert np.array_equal(tops.blocked_checksum(ta).numpy(),
+                          np.asarray(jops.blocked_checksum(ja)))
+    assert np.array_equal(tref.blocked_checksum_ref(ta).numpy(),
+                          np.asarray(jref.blocked_checksum_ref(ja)))
+
+
+@pytest.mark.parametrize("n", [0, 1, tck.TILE - 1, tck.TILE, tck.TILE + 3])
+def test_checksum_tiles_matches_the_pallas_kernel(n):
+    """The kernel's plain version takes the unpadded flat view; the
+    Pallas kernel took zero-padded (nt, 256, 128) tiles."""
+    flat = _bits(np.random.default_rng(n), (n,))
+    flat[:1] = 2**31 - 1
+    nt = max(1, -(-n // tck.TILE))
+    tiles = np.zeros(nt * tck.TILE, np.int32)
+    tiles[:n] = flat
+    theirs = np.asarray(jck.checksum_tiles(
+        jnp.asarray(tiles.reshape(nt, tck.TILE_ROWS, tck.LANES)),
+        interpret=True))
+    ours = tck.checksum_tiles(torch.from_numpy(flat))
+    assert ours.shape == (nt, 2) and np.array_equal(ours.numpy(), theirs)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vote3_matches_reference(shape, dtype):
+    rng = np.random.default_rng(len(shape) + len(dtype))
+    (ja, ta), (jb, tb), (jc, tc) = (_pair(rng, shape, dtype)
+                                    for _ in range(3))
+    want = np.asarray(jops.vote3(ja, jb, jc))
+    for ours in (tops.vote3(ta, tb, tc), tref.vote3_ref(ta, tb, tc)):
+        assert ours.dtype == ta.dtype and tuple(ours.shape) == shape
+        assert np.array_equal(ours.reshape(-1).view(torch.uint8).numpy(),
+                              want.reshape(-1).view(np.uint8))
+    assert np.array_equal(
+        np.asarray(jref.vote3_ref(ja, jb, jc)).reshape(-1).view(np.uint8),
+        want.reshape(-1).view(np.uint8))
+
+
+def test_vote3_tiles_matches_the_pallas_kernel():
+    rng = np.random.default_rng(9)
+    a, b, c = (_bits(rng, (2, tck.TILE_ROWS, tck.LANES)) for _ in range(3))
+    theirs = np.asarray(jvote.vote3_tiles(jnp.asarray(a), jnp.asarray(b),
+                                          jnp.asarray(c), interpret=True))
+    ours = tvote.vote3_tiles(*(torch.from_numpy(x.reshape(-1))
+                               for x in (a, b, c)))
+    assert np.array_equal(ours.numpy(), theirs.reshape(-1))
+
+
+def test_vote3_heals_any_single_corruption():
+    a = torch.randn(300, 7, generator=torch.Generator().manual_seed(0))
+    bad = a.clone()
+    bad[13, 2] = 1e30
+    assert torch.equal(tops.vote3(bad, a.clone(), a.clone()), a)
+    with pytest.raises(ValueError):
+        tops.vote3(a, a[:10], a)
+
+
 def test_cpu_wrappers_launch_no_kernel():
     _build.LAUNCHES.clear()
     x = torch.zeros((2, tck.LANES), dtype=torch.int32)
@@ -134,12 +245,15 @@ def test_cpu_wrappers_launch_no_kernel():
     tck.pack_rows(x.view(-1), [torch.ones(3, dtype=torch.int32)], [0])
     tpk.gather_blocks(torch.zeros((2, 4)), torch.zeros((1, 1),
                                                       dtype=torch.int32))
+    tck.checksum_tiles(x.view(-1))
+    tvote.vote3_tiles(x.view(-1), x.view(-1), x.view(-1))
     assert sum(_build.LAUNCHES.values()) == 0
 
 
 def test_kernel_sources_export_the_bound_entry_points():
     srcs = _build.sources()
-    assert [p.name for p in srcs] == ["checksum.cu", "paged_kv.cu"]
+    assert [p.name for p in srcs] == ["checksum.cu", "paged_kv.cu",
+                                      "vote.cu"]
     text = "".join(p.read_text() for p in srcs)
     for name in _build._SIGNATURES:
         assert f'extern "C" int {name}(' in text, name

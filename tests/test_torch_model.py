@@ -1,5 +1,5 @@
 """The port's dense transformer against the JAX package's, on the same
-params (copied through ``bridge.params_from_numpy``) at smoke size.
+params (copied through ``bridge.state_from_numpy``) at smoke size.
 
 Tolerance: atol = rtol = 2e-5, the reference's own f32 tolerance
 (tests/test_kernels.py); both sides compute in f32 on the CPU and differ
@@ -17,7 +17,7 @@ import torch
 
 from repro.configs import get_config as jget
 from repro.models import transformer as JT
-from repro_torch.bridge import params_from_numpy
+from repro_torch.bridge import state_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as TT
 from repro_torch.models.registry import get_model
@@ -32,7 +32,7 @@ def setup():
     tcfg = get_config("iterpro-100m").smoke().model
     jp = JT.init_lm(jcfg, jax.random.PRNGKey(0))
     host = jax.tree_util.tree_map(np.asarray, jp)
-    return jcfg, tcfg, jp, host, params_from_numpy(host)
+    return jcfg, tcfg, jp, host, state_from_numpy(host)
 
 
 def _sig(tree):
@@ -134,7 +134,7 @@ def test_make_decode_cache_matches_reference_layout(setup):
 
 def test_bridge_bf16_goes_through_uint16_bits():
     a = np.array([1.5, -2.25, np.inf, 3e-39], dtype=ml_dtypes.bfloat16)
-    out = params_from_numpy({"w": [a]})["w"][0]
+    out = state_from_numpy({"w": [a]})["w"][0]
     assert out.dtype == torch.bfloat16
     assert np.array_equal(out.view(torch.int16).numpy().view(np.uint16),
                           a.view(np.uint16))
@@ -142,7 +142,7 @@ def test_bridge_bf16_goes_through_uint16_bits():
 
 def test_bridge_copies_the_bytes():
     a = np.arange(4, dtype=np.float32)
-    out = params_from_numpy({"x": a})["x"]
+    out = state_from_numpy({"x": a})["x"]
     out[0] = 9.0
     assert a[0] == 0.0
 

@@ -13,7 +13,7 @@ import torch
 from repro.configs import get_config as jget
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JEngine
-from repro_torch.bridge import params_from_numpy
+from repro_torch.bridge import state_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.core.detect import (FaultReport, block_leaf_prefix,
                                      block_of_leaf, block_view,
@@ -81,7 +81,7 @@ def test_greedy_tokens_match_jax_engine():
     tcfg = get_config("iterpro-100m").smoke()
     teng = ServingEngine(tcfg, n_slots=S, max_len=24, canary_slices=K,
                          block_size=8, device="cpu",
-                         params=params_from_numpy(host))
+                         params=state_from_numpy(host))
     trep = teng.run(reqs(Request, tcfg.model.vocab_size))
     assert trep.completed == len(plens) and trep.dropped == 0
     assert tokens_of(trep) == tokens_of(jrep)
