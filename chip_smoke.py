@@ -23,10 +23,22 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    == injected > 0, recovered == detected, nothing dropped, storm tokens
    identical to clean tokens, and a launch count above 0 for every
    serving kernel; then a profiled engine step;
+5c. at-rest parity over the served params: ``ServingEngine(parity=True)``
+   over the same params, one bit of the embedding flipped with
+   ``corrupt_param`` (the other engines, which share the params, keep
+   theirs), ``scrub_params`` repairs it bitwise; launch counts of that
+   path;
 6. the training kernels (``checksum_tiles``, ``vote3_tiles``) at the
    training path's shapes (the embedding leaf, an FFN leaf, a norm scale)
    and on edge cases, bitwise against their plain versions, timed as in
    phase 3; every wrapper refuses a non-contiguous CUDA operand;
+6b. the parity kernels (``xor_update_tiles``, ``xor_fold_tiles``) at the
+   parity plans' shapes (training: D = 4 over 2,291 tiles; serving: 764
+   tiles) and on edge cases (1 tile, D = 1, R in {2, 5}, int32
+   extremes), bitwise against their plain versions; ``xor_update_tiles``
+   keeps the parity's ``data_ptr`` and equals the fold on a zero parity;
+   timed as in phase 3, with the per-step pieces of the update (the delta
+   build, the fault gate, the whole ``update_leaves``);
 7. the training path: full-width iterpro-100m through
    ``repro_torch.launch.train.train`` — batch 8, seq 128, 20 steps,
    snapshot every 4, canary K=1, a disk checkpoint every 10 steps, TF32
@@ -39,8 +51,15 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    the ``checkpoint`` rung from the storm's checkpoint, both bitwise
    against the clean state, and a corrupted checkpoint refused at load.
    A launch count above 0 for every kernel of the path; then a profiled
-   window of 4 steady train steps;
-8. one JSON line describing every kernel, then the device line.
+   window of 4 steady train steps, without and with the parity attached;
+7d. the parity path: the params storm again with ``parity=True`` (same
+   settings).  Asserts detected == injected == recovered > 0, only the
+   ``parity_xor`` and ``replay`` rungs, at least one ``parity_xor``, and
+   the final state bitwise equal to the clean run's; the launches per
+   step; then, at full width, a low-mantissa flip of the embedding
+   repaired by ``parity_xor`` alone (0 steps replayed, bitwise), and 4
+   canary steps whose incrementally kept parity equals a fresh build;
+8. one JSON line describing every kernel (7), then the device line.
 
 Any failure raises; nothing is caught.
 """
@@ -329,6 +348,7 @@ def check_train_kernels(torch, flush, state):
     from repro_torch.kernels import checksum as ck
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_kv as pkv
+    from repro_torch.kernels import parity as pk
     from repro_torch.kernels import ref
     from repro_torch.kernels import vote as vk
     from repro_torch.tree import leaves
@@ -425,6 +445,10 @@ def check_train_kernels(torch, flush, state):
     bt = torch.zeros((3, 2), dtype=torch.int32, device="cuda")
     buf = torch.zeros(4 * ck.TILE_ROWS * ck.LANES, dtype=torch.int32,
                       device="cuda")
+    wide = _rand_bits(torch, (2, 1, ck.TILE_ROWS, 2 * ck.LANES), torch.int32,
+                      gen)
+    tiles = wide[..., :ck.LANES]                   # (2, 1, 256, 128), strided
+    assert not tiles.is_contiguous()
     refusals = {
         "pack_rows": lambda: ck.pack_rows(buf, [strided.reshape(-1)[::2]],
                                           [0]),
@@ -435,11 +459,121 @@ def check_train_kernels(torch, flush, state):
             pool, torch.zeros((2, 3), dtype=torch.int32, device="cuda").t()),
         "checksum_tiles": lambda: ck.checksum_tiles(rows.reshape(-1)[::2]),
         "vote3_tiles": lambda: vk.vote3_tiles(*(rows.reshape(-1)[::2],) * 3),
+        "xor_fold_tiles": lambda: pk.xor_fold_tiles(tiles),
+        "xor_update_tiles (x)": lambda: pk.xor_update_tiles(
+            tiles, torch.zeros_like(tiles[0])),
+        "xor_update_tiles (parity)": lambda: pk.xor_update_tiles(
+            tiles.contiguous(), tiles[0]),
     }
     for name, fn in refusals.items():
         _expect(ValueError, fn, name)
     print(f"[kernel] non-contiguous CUDA operands refused by "
           f"{', '.join(refusals)}")
+    return out
+
+
+def check_parity_kernels(torch, flush, state, params):
+    """Phase 6b: ``xor_update_tiles`` and ``xor_fold_tiles`` bitwise against
+    their plain versions at the parity plans' shapes and on edge cases,
+    timed; then the per-step pieces of ``ParityPlan.update_leaves`` on the
+    full-width state."""
+    from repro_torch.core.parity import parity_plan_for
+    from repro_torch.kernels import parity as pk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    tplan, splan = parity_plan_for(state), parity_plan_for(params)
+    print(f"[parity] plans: training {len(tplan.keys)} leaves, "
+          f"{tplan.stream_len} words, {tplan.n_tiles} tiles, "
+          f"{tplan.memory_bytes} B; serving {len(splan.keys)} leaves, "
+          f"{splan.stream_len} words, {splan.n_tiles} tiles, "
+          f"{splan.memory_bytes} B; D = {tplan.n_shards}")
+
+    def tiles(d, nt):
+        return _rand_bits(torch, (d, nt, pk.TILE_ROWS, pk.LANES),
+                          torch.int32, gen)
+
+    ext = torch.tensor([2**31 - 1, -2**31, -1, 0], dtype=torch.int32,
+                       device="cuda").repeat(pk.TILE_ROWS * pk.LANES // 4)
+    ext = ext.view(1, 1, pk.TILE_ROWS, pk.LANES)
+    cases = {"training": tiles(tplan.n_shards, tplan.n_tiles),
+             "serving": tiles(splan.n_shards, splan.n_tiles),
+             "1 tile": tiles(4, 1), "D = 1": tiles(1, 3),
+             "R = 2": tiles(2, 2), "R = 5": tiles(5, 2),
+             "int32 extremes": torch.cat([ext, ~ext, ext.roll(1, -1)])}
+    err = 0
+    for name, x in cases.items():
+        err = max(err, _max_err(torch, pk.xor_fold_tiles(x),
+                                ref.xor_fold_tiles_ref(x)))
+        p = _rand_bits(torch, x.shape[1:], torch.int32, gen)
+        plain, ptr = p.clone(), p.data_ptr()
+        got = pk.xor_update_tiles(x, p)
+        assert got is p and p.data_ptr() == ptr, name
+        err = max(err, _max_err(torch, p, ref.xor_update_tiles_ref(x, plain)))
+        z = pk.xor_update_tiles(x, torch.zeros_like(p))
+        err = max(err, _max_err(torch, z, pk.xor_fold_tiles(x)))
+        del p, plain, z
+    assert err == 0, f"parity kernels differ from their plain versions ({err})"
+    print(f"[parity] xor_fold_tiles and xor_update_tiles bitwise equal to "
+          f"their plain versions on {', '.join(cases)}; the update keeps "
+          f"the parity's data_ptr and equals the fold on a zero parity")
+
+    out = {}
+    x = cases["training"]
+    d, nt = x.shape[0], x.shape[1]
+    n = nt * pk.TILE_ROWS * pk.LANES
+    p = torch.zeros(x.shape[1:], dtype=torch.int32, device="cuda")
+    shape = f"D = {d}, {nt} tiles ({4 * n / 1e6:.1f} MB each)"
+    t_bound, t_by = _bound_ms((d + 2) * 4 * n, d * n)
+    ms, call_ms = _times(lambda: pk.xor_update_tiles(x, p), torch, flush)
+    plain_ms, plain_call_ms = _times(
+        lambda: ref.xor_update_tiles_ref(x, p), torch, flush)
+    out["xor_update_tiles"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/parity.cu",
+        replaces="src/repro/kernels/parity.py:52", max_abs_err=err,
+        ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        plain_call_ms=plain_call_ms, bound_ms=t_bound, bound_by=t_by,
+        library_ms=None, shape=shape)
+    t_bound, t_by = _bound_ms((d + 1) * 4 * n, (d - 1) * n)
+    ms, call_ms = _times(lambda: pk.xor_fold_tiles(x), torch, flush)
+    plain_ms, plain_call_ms = _times(lambda: ref.xor_fold_tiles_ref(x),
+                                     torch, flush)
+    out["xor_fold_tiles"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/parity.cu",
+        replaces="src/repro/kernels/parity.py:30", max_abs_err=err,
+        ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        plain_call_ms=plain_call_ms, bound_ms=t_bound, bound_by=t_by,
+        library_ms=None, shape=f"R = {shape}")
+    _print_kernels(out)
+    xs = cases["serving"]
+    ns = xs.shape[1] * pk.TILE_ROWS * pk.LANES
+    s_ms = _median_ms(lambda: pk.xor_fold_tiles(xs), torch, flush,
+                      queued=True)
+    print(f"[kernel] xor_fold_tiles at the serving shape (R = "
+          f"{xs.shape[0]}, {xs.shape[1]} tiles): device time {s_ms:.4f} ms, "
+          f"bound {_bound_ms((xs.shape[0] + 1) * 4 * ns)[0]:.4f} ms (bytes)")
+    del cases, x, xs, p
+
+    # the per-step pieces of the gated incremental update on the real
+    # full-width state (contents do not matter for the time)
+    old = tplan.leaves(state)
+    new = [t.clone() for t in old]
+    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+    parity = tplan.rebuild_leaves(old)
+    delta = tplan.stream_mat(old, new)
+    words = sum(t.numel() for t in old)
+    build_ms, build_call_ms = _times(lambda: tplan.stream_mat(old, new),
+                                     torch, flush)
+    gate_ms = _median_ms(lambda: delta.masked_fill_(flag, 0), torch, flush,
+                         queued=True)
+    upd_ms, upd_call_ms = _times(
+        lambda: tplan.update_leaves(parity, old, new, flag), torch, flush)
+    print(f"[parity] update_leaves on the full-width state ({words} words "
+          f"in {len(old)} leaves): delta build {build_ms:.4f} ms device "
+          f"({build_call_ms:.4f} ms per call), fault gate {gate_ms:.4f} ms, "
+          f"whole update {upd_ms:.4f} ms device ({upd_call_ms:.4f} ms per "
+          f"call); bytes bound of the delta build "
+          f"{_bound_ms(3 * 4 * words)[0]:.4f} ms")
     return out
 
 
@@ -452,34 +586,42 @@ def _same_state(torch, a, b) -> bool:
                     fb[k].reshape(-1).view(torch.uint8)) for k in fa)
 
 
+def train_run(torch, cfg, name, **kw):
+    """One full-width run of the training entry point with the storm
+    settings of phase 7 (checkpoints under ``WORK/<name>``); prints its
+    summary and returns ``(summary, final state)``."""
+    from repro_torch.launch.train import train
+    d = WORK / name.replace(" ", "_")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    out, state = train(cfg, steps=T_STEPS, global_batch=T_BATCH,
+                       seq_len=T_SEQ, seed=0, snapshot_interval=T_SNAP,
+                       canary_slices=1, checkpoint_dir=str(d),
+                       checkpoint_interval=T_CKPT, verbose=False,
+                       device="cuda", return_state=True, **kw)
+    rec = out["recovery"]
+    print(f"[train] {name}: {out['steps']} steps in "
+          f"{time.perf_counter() - t0:.1f} s, final loss "
+          f"{out['final_loss']:.6f}, step p50 {out['p50_step_ms']:.3f} "
+          f"ms (mean {out['mean_step_ms']:.3f}), faults injected "
+          f"{out['faults_injected']} detected {out['faults_detected']} "
+          f"recovered {out['faults_recovered']}, recovery p50 "
+          f"{out['p50_recovery_ms']:.3f} ms, rate "
+          f"{rec['recovery_rate']}, rungs {rec['by_rung']}, p50 by rung "
+          f"{rec['p50_wall_ms_by_rung']}")
+    return out, state
+
+
 def run_training(torch, cfg):
     """Phase 7a: clean, params-storm and iv-storm runs of the training
     entry point; returns {name: (summary, final state)}."""
-    from repro_torch.launch.train import train
     from repro_torch.tree import leaves
-    common = dict(steps=T_STEPS, global_batch=T_BATCH, seq_len=T_SEQ,
-                  seed=0, snapshot_interval=T_SNAP, canary_slices=1,
-                  checkpoint_interval=T_CKPT, verbose=False, device="cuda",
-                  return_state=True)
     runs = {}
     for name, kw in (("clean", {}),
                      ("params storm", dict(inject_every=T_INJECT)),
                      ("iv storm", dict(inject_every=T_INJECT,
                                        inject_target="iv"))):
-        d = WORK / name.replace(" ", "_")
-        shutil.rmtree(d, ignore_errors=True)
-        t0 = time.perf_counter()
-        out, state = train(cfg, checkpoint_dir=str(d), **common, **kw)
-        rec = out["recovery"]
-        print(f"[train] {name}: {out['steps']} steps in "
-              f"{time.perf_counter() - t0:.1f} s, final loss "
-              f"{out['final_loss']:.6f}, step p50 {out['p50_step_ms']:.3f} "
-              f"ms (mean {out['mean_step_ms']:.3f}), faults injected "
-              f"{out['faults_injected']} detected {out['faults_detected']} "
-              f"recovered {out['faults_recovered']}, recovery p50 "
-              f"{out['p50_recovery_ms']:.3f} ms, rate "
-              f"{rec['recovery_rate']}, rungs {rec['by_rung']}")
-        runs[name] = (out, state)
+        runs[name] = train_run(torch, cfg, name, **kw)
     clean, clean_state = runs["clean"]
     assert clean["steps"] == T_STEPS and clean["faults_detected"] == 0
     assert clean["recovery"]["events"] == 0
@@ -572,12 +714,15 @@ def recover_on_card(torch, cfg, clean_state):
     shutil.rmtree(WORK, ignore_errors=True)
 
 
-def profile_train(torch, cfg, state, steps: int = 4) -> None:
+def profile_train(torch, cfg, state, steps: int = 4,
+                  parity: bool = False) -> None:
     """Phase 7c: where a steady train step's time goes (torch.profiler
     over ``steps`` steps of the training hot path: the step, the metric
-    fetch and the K=1 canary's check_and_arm)."""
+    fetch and the K=1 canary's check_and_arm, with ``parity`` its gated
+    parity update)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.core.parity import ParityStore
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch.train import cuda_numerics
     from repro_torch.train.loop import make_train_step
@@ -586,6 +731,10 @@ def profile_train(torch, cfg, state, steps: int = 4) -> None:
     with cuda_numerics(torch.device("cuda")):
         step_fn = make_train_step(cfg, global_batch=T_BATCH)
         canary = ChecksumCanary(state, n_slices=1)
+        if parity:
+            store = ParityStore(state)
+            store.build(state)
+            canary.attach_parity(store)
 
         def one(s, st):
             new, m = step_fn(st, {k: v.cuda()
@@ -604,8 +753,132 @@ def profile_train(torch, cfg, state, steps: int = 4) -> None:
                 state = one(s, state)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    _report_profile(prof, steps, wall_ms, "train step",
-                    ("pack_rows_kernel", "row_checksums_kernel"))
+    _report_profile(prof, steps, wall_ms,
+                    ("parity " if parity else "") + "train step",
+                    ("pack_rows_kernel", "row_checksums_kernel")
+                    + (("xor_update_tiles_kernel", "BitwiseXor",
+                        "masked_fill") if parity else ()))
+
+
+def run_parity_storm(torch, cfg, runs):
+    """Phase 7d: the params storm with ``parity=True``; returns its
+    summary."""
+    from repro_torch.tree import leaves
+    out, state = train_run(torch, cfg, "parity storm",
+                           inject_every=T_INJECT, parity=True)
+    rec = out["recovery"]
+    assert out["steps"] == T_STEPS, out
+    assert out["faults_injected"] > 0, out
+    assert out["faults_detected"] == out["faults_injected"], out
+    assert out["faults_recovered"] == out["faults_detected"], out
+    assert rec["recovery_rate"] == 1.0, out
+    assert set(rec["by_rung"]) <= {"parity_xor", "replay"}, rec
+    assert rec["by_rung"].get("parity_xor", 0) > 0, rec
+    clean_state = runs["clean"][1]
+    assert _same_state(torch, state, clean_state), \
+        "parity storm final state differs from the clean run's"
+    replay = runs["params storm"][0]
+    print(f"[parity] parity storm final state == clean final state, "
+          f"bitwise ({sum(t.numel() for t in leaves(state))} elements); "
+          f"recovery p50 {out['p50_recovery_ms']:.3f} ms (by rung "
+          f"{rec['p50_wall_ms_by_rung']}) against the params storm's "
+          f"{replay['p50_recovery_ms']:.3f} ms through replay")
+    return out
+
+
+def check_parity_recovery(torch, cfg, clean_state):
+    """Phase 7e: at full width, a low-mantissa flip of the embedding
+    repaired by ``parity_xor`` alone, and 4 canary steps whose
+    incrementally kept parity equals a fresh build."""
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.core.faults import InjectionPlan, inject
+    from repro_torch.core.icp import promote
+    from repro_torch.core.microcheckpoint import MicroCheckpointer
+    from repro_torch.core.parity import ParityStore
+    from repro_torch.core.recover import RecoveryRuntime
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import cuda_numerics
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.tree import tree_map
+
+    pipe = TokenPipeline(cfg.model.vocab_size, T_SEQ, T_BATCH, seed=0)
+
+    def bfn(s):
+        return {k: v.cuda() for k, v in pipe.batch_at(s).items()}
+
+    with cuda_numerics(torch.device("cuda")):
+        step_fn = make_train_step(cfg, global_batch=T_BATCH)
+        canary = ChecksumCanary(clean_state, n_slices=1)
+        store = ParityStore(clean_state)
+        store.build(clean_state, T_STEPS)
+        bad = tree_map(torch.clone, clean_state)
+        table = clean_state["params"]["embed"]["table"]
+        inject(bad, InjectionPlan("embed/table", table.numel() // 3, 2,
+                                  T_STEPS))
+        report = canary.check_full(T_STEPS, bad)
+        assert report is not None and \
+            report.leaves == ["params/embed/table"], report
+        rt = RecoveryRuntime(step_fn=step_fn, batch_fn=bfn,
+                             iv_registry=promote(cfg, T_BATCH),
+                             micro=MicroCheckpointer(T_SNAP),
+                             parity=store, canary=canary)
+        fixed, ev = rt.recover(bad, report, T_STEPS, ladder=["parity_xor"])
+        assert ev.rung == "parity_xor" and ev.steps_replayed == 0, ev
+        assert _same_state(torch, fixed, clean_state)
+        print(f"[recover] parity_xor on a flipped embedding leaf (bit 2): "
+              f"{ev.wall_seconds * 1e3:.3f} ms, {ev.bytes_moved} B "
+              f"reconstructed, 0 steps replayed, result == clean state, "
+              f"bitwise")
+        del bad, fixed
+
+        canary = ChecksumCanary(clean_state, n_slices=2)
+        store = ParityStore(clean_state)
+        store.build(clean_state, T_STEPS)
+        canary.attach_parity(store)
+        ptr = store.parity.data_ptr()
+        state = clean_state
+        for s in range(T_STEPS, T_STEPS + 4):
+            new, _ = step_fn(state, bfn(s))
+            assert canary.check_and_arm(s, state, new) is None
+            state = new
+        fresh = ParityStore(state)
+        fresh.build(state, T_STEPS + 4)
+        assert store.version == T_STEPS + 4
+        assert store.parity.data_ptr() == ptr
+        assert torch.equal(store.parity, fresh.parity), \
+            "incremental parity differs from a fresh build"
+    print(f"[parity] 4 canary steps (K=2) with parity attached: the "
+          f"incrementally kept parity ({store.memory_bytes} B, updated in "
+          f"place) == a fresh build of the final state, bitwise")
+
+
+def check_serving_parity(torch, cfg, eng, common):
+    """Phase 5c: at-rest parity over the served params; returns the
+    launch counts of that path."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving import ServingEngine
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    par = ServingEngine(cfg, params=eng.params, parity=True, **common)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    key, bit = par.corrupt_param(random.Random(0), key="embed/table", bit=3)
+    assert not _same_state(torch, par.params, eng.params)
+    t0 = time.perf_counter()
+    stats = par.scrub_params()
+    scrub_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    assert stats["repaired"] == 1 and stats["failed"] == [], stats
+    assert _same_state(torch, par.params, eng.params), \
+        "scrubbed params differ from the served params"
+    print(f"[serve] parity: engine with parity built in {build_ms:.1f} ms "
+          f"({stats['memory_bytes']} B of parity); bit {bit} of {key} "
+          f"flipped (the engines sharing the params keep theirs), scrub "
+          f"{stats} in {scrub_ms:.1f} ms, params == served params, "
+          f"bitwise; launches {launches}")
+    assert launches.get("xor_fold_tiles", 0) > 0, launches
+    return launches
 
 
 def _report_profile(prof, steps, wall_ms, what, names) -> None:
@@ -711,6 +984,7 @@ def main() -> int:
           f"requests; launches on the main path: {launches}")
     for name in kernels:
         assert launches.get(name, 0) > 0, f"{name} never launched"
+    check_serving_parity(torch, cfg, clean_eng, common)
     profile_steps(torch, ServingEngine(cfg, params=clean_eng.params,
                                        **common), reqs())
     del clean_eng, storm_eng
@@ -720,7 +994,10 @@ def main() -> int:
     from repro_torch.train.loop import make_train_state
     fresh = make_train_state(cfg, 0, global_batch=T_BATCH, device="cuda")
     train_kernels = check_train_kernels(torch, flush, fresh)
+    parity_kernels = check_parity_kernels(torch, flush, fresh,
+                                          fresh["params"])
     del fresh
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
     runs = run_training(torch, cfg)
@@ -732,11 +1009,31 @@ def main() -> int:
           f"phase): {train_launches}")
     for name in ("pack_rows", "row_checksums", *train_kernels):
         assert train_launches.get(name, 0) > 0, f"{name} never launched"
+
+    # -- parity path (train --parity) --------------------------------------
+    _build.LAUNCHES.clear()
+    par = run_parity_storm(torch, cfg, runs)
+    torch.cuda.synchronize()
+    parity_launches = dict(_build.LAUNCHES)
+    attempts = par["steps"] + par["faults_detected"]
+    print(f"[parity] launches on the parity path ({attempts} step attempts "
+          f"+ {par['faults_recovered']} recoveries): {parity_launches}; per "
+          f"step attempt: " + ", ".join(
+              f"{k} {v / attempts:.2f}"
+              for k, v in sorted(parity_launches.items())))
+    for name in ("pack_rows", "row_checksums", *parity_kernels):
+        assert parity_launches.get(name, 0) > 0, f"{name} never launched"
+    shutil.rmtree(WORK, ignore_errors=True)
+    check_parity_recovery(torch, cfg, clean_state)
     profile_train(torch, cfg, clean_state)
+    profile_train(torch, cfg, clean_state, parity=True)
 
     for name, r in train_kernels.items():
         kernels[name] = r
         launches[name] = train_launches[name]
+    for name, r in parity_kernels.items():
+        kernels[name] = r
+        launches[name] = parity_launches[name]
     print(json.dumps({"kernels": [
         {"name": name, "route": r["route"], "source": r["source"],
          "replaces": r["replaces"], "launches": launches[name],

@@ -1,4 +1,8 @@
 """IterPro's contribution in the port: detection (``detect``), fault
 injection (``faults``), diagnosis (``induction``, ``icp``,
-``recovery_table``) and repair (``recover`` via ``microcheckpoint`` and
-``replay``), exact-or-abort."""
+``recovery_table``) and repair (``recover`` via ``microcheckpoint``,
+``replay`` and the XOR ``parity`` layer), exact-or-abort."""
+
+from repro_torch.core.parity import ParityPlan, ParityStore, parity_plan_for
+
+__all__ = ["ParityPlan", "ParityStore", "parity_plan_for"]

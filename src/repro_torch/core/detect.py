@@ -90,6 +90,10 @@ class FaultReport:
     detector: str
     leaves: List[str] = field(default_factory=list)  # suspected leaf paths
     detail: str = ""
+    #: leaf path -> injured shard ids.  Off the mesh a shard id is a
+    #: parity block id; only an external report fills it (the port's
+    #: canary attributes whole leaves).
+    shards: Dict[str, List[int]] = field(default_factory=dict)
     #: deferred attribution: the hot path fetches only the scalar flag;
     #: the mismatch mask stays on the device until ``resolve``
     resolver: Optional[Callable] = \
@@ -178,12 +182,26 @@ class ChecksumCanary:
         table = self.plan.digest_table(tree)
         self._tables = [table, table.clone()]
         self._gen = 0
+        #: optional ``core.parity.ParityStore`` over the same state, kept
+        #: current by every arm (see ``attach_parity``)
+        self._parity = None
         #: the read table that served the most recent FIRED check (a
         #: copy: the live tables are armed in place).  ``check_and_arm``
         #: commits the generation bump before the flag is fetched, so
         #: after a fault ``reference`` is one generation ahead; repairs
         #: certify against these rows.  Set on the fault path only.
         self._fault_reference: Optional[torch.Tensor] = None
+
+    def attach_parity(self, store) -> None:
+        """Keep ``store`` current from now on: ``check_and_arm`` applies
+        the gated incremental update ``old ^ new`` and ``arm`` rebuilds the
+        parity of the armed tree, each committed as version ``step + 1``.
+        The store's plan must cover the same state structure."""
+        self._parity = store
+
+    @property
+    def parity_store(self):
+        return self._parity
 
     @property
     def generation(self) -> int:
@@ -210,11 +228,13 @@ class ChecksumCanary:
                            leaves=self._attribute(chk, bad_mask))
 
     def _run(self, step: int, chk: Sequence[int], arm: Sequence[int],
-             tree, armed_tree) -> Optional[FaultReport]:
+             tree, armed_tree, incremental: bool) -> Optional[FaultReport]:
         """Pack slice ``chk`` of ``tree`` and slice ``arm`` of
         ``armed_tree`` into the rotation's buffer, digest it once, compare
         the check rows against the read generation, arm the rest into the
-        write generation in place and fetch the one flag."""
+        write generation in place, bring an attached parity up to
+        ``armed_tree`` (``incremental``: the update gated on the check's
+        flag; else a rebuild) and fetch the one flag."""
         core, union = kdigest.check_arm_subcomputation(self.plan, chk, arm)
         if not union:
             return None
@@ -227,6 +247,15 @@ class ChecksumCanary:
         core.pack_arm(buf, [leaves[i] for i in arm])
         flag, bad = core.finish(buf, read, write)
         self.commit_update(write)
+        if self._parity is not None:
+            pp = self._parity.plan
+            if incremental:
+                parity = pp.update_leaves(self._parity.parity,
+                                          pp.leaves(tree),
+                                          pp.leaves(armed_tree), flag)
+            else:
+                parity = pp.rebuild_leaves(pp.leaves(armed_tree))
+            self._parity.commit(parity, step + 1)
         if chk and bool(kdigest.fetch(flag)):     # the step's ONE host sync
             return self._report(step, chk, bad, read)
         return None
@@ -236,17 +265,21 @@ class ChecksumCanary:
         """Verify slice ``step % K`` of ``tree`` against the generation
         armed last step and digest slice ``(step+1) % K`` of
         ``armed_tree`` (default ``tree``) into the next generation — one
-        ``row_checksums`` launch, one scalar fetch.  In a training loop:
+        ``row_checksums`` launch, one scalar fetch (and, with parity
+        attached, one ``xor_update_tiles`` launch).  In a training loop:
         ``(pre_step_state, post_step_state)``."""
         if armed_tree is None:
             armed_tree = tree
         return self._run(step, self._slice_indices(step),
-                         self._slice_indices(step + 1), tree, armed_tree)
+                         self._slice_indices(step + 1), tree, armed_tree,
+                         incremental=True)
 
     def arm(self, step: int, tree) -> None:
         """Digest the slice ``check_and_arm(step+1, ...)`` will verify into
-        the next generation (one launch, no host sync)."""
-        self._run(step, (), self._slice_indices(step + 1), tree, tree)
+        the next generation (one launch, no host sync); an attached parity
+        is rebuilt over ``tree``."""
+        self._run(step, (), self._slice_indices(step + 1), tree, tree,
+                  incremental=False)
 
     def check_full(self, step: int, tree) -> Optional[FaultReport]:
         """Verify every leaf against the read generation (one digest, one

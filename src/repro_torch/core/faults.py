@@ -44,6 +44,11 @@ def dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).replace("torch.", "")
 
 
+def bit_width(t: torch.Tensor) -> int:
+    """Bits a flip of ``t``'s dtype samples from, as the reference."""
+    return _WIDTH.get(dtype_name(t), 32)
+
+
 def _leaf_catalog(tree) -> List[Tuple[str, int, str]]:
     """[(key, size, dtype_name)] for every leaf, in flatten order."""
     return [(leaf_key(p), t.numel(), dtype_name(t))

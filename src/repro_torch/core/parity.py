@@ -1,0 +1,380 @@
+"""Device-resident XOR parity, off the mesh — the single-device half of
+``repro/core/parity.py`` (the ICP analogue at tensor level).
+
+Every covered state leaf (params and optimizer state) is cut into D equal
+chunks of its flat ``to_i32`` view, its "blocks" (``block_len`` words,
+the last one zero-padded), and ``parity = XOR_d block_d`` over the raw
+bits.  Any single lost or corrupt block is then exactly reconstructible
+from its surviving peers and the parity —
+``block_j = parity ^ XOR_{d != j} block_d`` — with no host snapshot and no
+replay.  XOR is bit-exact, so exact-or-abort holds with no floating-point
+caveat.
+
+Layout, bit for bit the reference's: the leaves' block rows sit side by
+side in plan-key order in a ``(D, stream_len)`` int32 stream, padded to
+whole ``(256, 128)`` tiles; the parity is ONE ``(nt, 256, 128)`` buffer,
+so the build is one ``xor_fold_tiles`` launch and the per-step update one
+``xor_update_tiles`` launch with the parity updated in place.
+
+The reference built the stream (or the delta ``stream(old) ^ stream(new)``)
+as fresh arrays inside one jitted program.  PyTorch runs eagerly, so the
+plan keeps ONE pointer-stable ``(D, nt, 256, 128)`` scratch buffer per
+device and writes each leaf's blocks into their column range in place
+(``torch.bitwise_xor(..., out=...)`` for a delta, ``copy_`` for a
+build).  Only those ranges are ever written, so the padding stays zero.
+
+The update is gated on the canary's device-side fault flag: a detected
+fault zeroes the delta before the kernel, so the parity keeps describing
+the last healthy certified state version — the one reconstruction must
+produce — and the host learns of the fault from the canary's one fetch.
+
+Mesh layouts (slice maps, replica dedup, row-safe groups) and the hard-loss
+host helpers are not ported; they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import digest as kdigest
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import parity as _pk
+from repro_torch.kernels import ref as _ref
+from repro_torch.tree import flatten_with_path, leaf_key, replace_leaves
+
+LANES = _pk.LANES
+TILE_ROWS = _pk.TILE_ROWS
+TILE = TILE_ROWS * LANES
+
+_MESH = "not ported yet: mesh parity (ROADMAP.md queue 1, 'Mesh and elastic')"
+
+#: dtypes whose ``to_i32`` view is invertible (``from_i32`` restores the
+#: exact bits).  int64/float64 views are lossy, so leaves of those dtypes
+#: are not covered — a fault there escalates past the parity rung.
+_INVERTIBLE = (torch.int32, torch.float32, torch.uint32, torch.bfloat16,
+               torch.float16, torch.int16, torch.uint16, torch.int8,
+               torch.uint8)
+
+
+def _covered(key: str, dtype, shape=None) -> bool:
+    """Parity coverage: params and optimizer state in invertible dtypes —
+    everything but induction state, which Eq. (1) repairs for free (the
+    ``iv`` block and the 0-d optimizer counters ``opt/t``/``bc1``/
+    ``bc2``)."""
+    if shape is not None and tuple(shape) == ():
+        return False
+    return not key.startswith("iv") and dtype in _INVERTIBLE
+
+
+class ParityPlan:
+    """Block layout and parity math for one state structure off the mesh.
+    Cached by ``parity_plan_for``, so every store over the same structure
+    shares the layout and the scratch buffer."""
+
+    def __init__(self, keys: Tuple[str, ...],
+                 shapes: Dict[str, Tuple[int, ...]],
+                 dtypes: Dict[str, torch.dtype], n_shards: int):
+        self.keys = keys
+        self.key_set = frozenset(keys)
+        self.shapes = shapes
+        self.dtypes = dtypes
+        self.slices = None          # mesh slice maps: not ported
+        self.n_shards = n_shards
+        #: per-key block length (int32 words; the last block is padded)
+        self.block_len: Dict[str, int] = {}
+        #: per-key per-block true (unpadded) sizes and shapes
+        self.block_sizes: Dict[str, Tuple[int, ...]] = {}
+        self.block_shapes: Dict[str, Tuple[Tuple[int, ...], ...]] = {}
+        self.n_blocks: Dict[str, int] = {}
+        #: device-coordinate shard id -> block id: the identity off-mesh
+        self.device_block: Dict[str, Tuple[int, ...]] = {}
+        #: fold groups: one group holding every block (the flat fold)
+        self.groups: Dict[str, Tuple[Tuple[int, ...], ...]] = {}
+        self.block_group: Dict[str, Tuple[Tuple[int, int], ...]] = {}
+        self.offsets: Dict[str, int] = {}
+        off = 0
+        for k in keys:
+            size = int(np.prod(shapes[k], dtype=np.int64))
+            c = max(1, -(-size // n_shards))
+            self.block_len[k] = c
+            self.block_sizes[k] = tuple(max(0, min(c, size - d * c))
+                                        for d in range(n_shards))
+            self.block_shapes[k] = tuple((b,) for b in self.block_sizes[k])
+            self.n_blocks[k] = n_shards
+            self.device_block[k] = tuple(range(n_shards))
+            self.groups[k] = (tuple(range(n_shards)),)
+            self.block_group[k] = tuple((0, d) for d in range(n_shards))
+            self.offsets[k] = off
+            off += c
+        #: parity stream length (int32 words)
+        self.stream_len = off
+        self.n_tiles = max(1, -(-off // TILE))
+        self.buffer_shape = (self.n_tiles, TILE_ROWS, LANES)
+        self._scratch: Dict[str, torch.Tensor] = {}
+
+    # -- layout helpers ----------------------------------------------------
+
+    @property
+    def memory_bytes(self) -> int:
+        return int(np.prod(self.buffer_shape, dtype=np.int64)) * 4
+
+    def leaves(self, tree) -> List[torch.Tensor]:
+        """Covered leaves in plan-key order."""
+        by_key = {leaf_key(p): x for p, x in flatten_with_path(tree)}
+        return [by_key[k] for k in self.keys]
+
+    def make_buffer(self, device) -> torch.Tensor:
+        """A zero parity buffer."""
+        return torch.zeros(self.buffer_shape, dtype=torch.int32,
+                           device=device)
+
+    # -- stream construction -----------------------------------------------
+
+    def _leaf_blocks(self, key: str, leaf: torch.Tensor) -> torch.Tensor:
+        """``(D, block_len)`` int32: the leaf's blocks, zero-padded (a
+        copy; the fault path's form)."""
+        c = self.block_len[key]
+        flat = _ref.to_i32(leaf)
+        return torch.nn.functional.pad(
+            flat, (0, self.n_shards * c - flat.numel())).view(
+                self.n_shards, c)
+
+    def stream_mat(self, leaves: Sequence[torch.Tensor],
+                   other: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+        """The fold input: ``(D, n_tiles * TILE)`` int32 — the reference's
+        ``(D, stream_len)`` stream with its tile padding — written in place
+        into the plan's scratch buffer, which it returns.  With ``other``
+        the stream of ``leaves`` XOR the stream of ``other`` (the per-step
+        delta)."""
+        dev = leaves[0].device
+        buf = self._scratch.get(str(dev))
+        if buf is None:
+            buf = torch.zeros((self.n_shards, self.n_tiles * TILE),
+                              dtype=torch.int32, device=dev)
+            self._scratch[str(dev)] = buf
+        for i, k in enumerate(self.keys):
+            c, off = self.block_len[k], self.offsets[k]
+            a = _ref.to_i32(leaves[i])
+            b = _ref.to_i32(other[i]) if other else None
+            full = a.numel() // c           # whole blocks, one op for all
+            rest = a.numel() - full * c     # the last, partial block
+            for rows, lo, hi, w in ((slice(0, full), 0, full * c, c),
+                                    (slice(full, full + 1), full * c,
+                                     a.numel(), rest)):
+                if hi <= lo:
+                    continue
+                dst = buf[rows, off:off + w]
+                src = a[lo:hi].view(-1, w)
+                if b is None:
+                    dst.copy_(src)
+                else:
+                    torch.bitwise_xor(src, b[lo:hi].view(-1, w), out=dst)
+        return buf
+
+    def _to_tiles(self, mat: torch.Tensor) -> torch.Tensor:
+        """``(D, n_tiles * TILE)`` -> ``(D, nt, TILE_ROWS, LANES)`` (a
+        view: the stream is already tile-padded)."""
+        return mat.view(self.n_shards, self.n_tiles, TILE_ROWS, LANES)
+
+    # -- hot-path entry points ---------------------------------------------
+
+    def rebuild_leaves(self, leaves: Sequence[torch.Tensor],
+                       device=None) -> torch.Tensor:
+        """Parity from scratch: one ``xor_fold_tiles`` launch."""
+        if not self.keys:
+            return self.make_buffer(device)
+        return _pk.xor_fold_tiles(self._to_tiles(self.stream_mat(leaves)))
+
+    def update_leaves(self, parity: torch.Tensor,
+                      old_leaves: Sequence[torch.Tensor],
+                      new_leaves: Sequence[torch.Tensor],
+                      fault: torch.Tensor) -> torch.Tensor:
+        """``parity ^= XOR_d (old_d ^ new_d)`` in place, gated: when
+        ``fault`` (the canary's device-side mismatch flag, 0-d bool) is set
+        the delta is zeroed first, so the parity keeps describing the last
+        healthy version.  One ``xor_update_tiles`` launch, no host sync."""
+        if not self.keys:
+            return parity
+        delta = self.stream_mat(old_leaves, new_leaves)
+        delta.masked_fill_(fault, 0)
+        return _pk.xor_update_tiles(self._to_tiles(delta), parity)
+
+    # -- fault path: reconstruction -----------------------------------------
+
+    def _parity_segment(self, parity: torch.Tensor, key: str) -> torch.Tensor:
+        off = self.offsets[key]
+        return parity.reshape(-1)[off:off + self.block_len[key]]
+
+    def _survivor_fold(self, parity: torch.Tensor, leaf: torch.Tensor,
+                       key: str, shard: int) -> torch.Tensor:
+        """parity segment ^ XOR of the surviving blocks: the injured
+        block's exact bits (padded to ``block_len``)."""
+        acc = self._parity_segment(parity, key).clone()
+        blocks = self._leaf_blocks(key, leaf)
+        for d in range(self.n_blocks[key]):
+            if d != shard:
+                acc.bitwise_xor_(blocks[d])
+        return acc
+
+    def reconstruct_leaf(self, parity: torch.Tensor, leaf: torch.Tensor,
+                         key: str, shard: int) -> torch.Tensor:
+        """A new leaf: ``leaf`` with block ``shard`` reconstructed from the
+        parity and the other blocks (``leaf`` is not written)."""
+        c = self.block_len[key]
+        bsize = self.block_sizes[key][shard]
+        acc = self._survivor_fold(parity, leaf, key, shard)
+        flat = _ref.to_i32(leaf).clone()
+        flat[shard * c:shard * c + bsize] = acc[:bsize]
+        return _ref.from_i32(flat, leaf)
+
+    def reconstruct_shard(self, key: str, shard: int):
+        raise NotImplementedError(_MESH)
+
+    # -- hard-loss host helpers (mesh only) ---------------------------------
+
+    def host_parity_flat(self, parity, dead=frozenset()):
+        raise NotImplementedError(_MESH)
+
+    def host_surviving_blocks(self, key, leaf, dead=frozenset()):
+        raise NotImplementedError(_MESH)
+
+    def host_reconstruct_block(self, key, blk, parity_flat, blocks):
+        raise NotImplementedError(_MESH)
+
+    def host_assemble_leaf(self, key, leaf, dead=frozenset()):
+        raise NotImplementedError(_MESH)
+
+
+_PARITY_PLAN_CACHE: Dict[Tuple, ParityPlan] = {}
+
+
+def parity_plan_for(tree, *, mesh=None, n_shards: int = 4,
+                    row_safe: bool = False,
+                    batch_axes: Tuple[str, ...] = ()) -> ParityPlan:
+    """The cached ParityPlan for ``tree``'s structure (covered leaf paths,
+    shapes, dtypes) off the mesh; D = ``max(2, n_shards)``."""
+    if mesh is not None or row_safe or batch_axes:
+        raise NotImplementedError(_MESH)
+    entries = sorted(
+        (leaf_key(p), tuple(x.shape), x.dtype)
+        for p, x in flatten_with_path(tree)
+        if _covered(leaf_key(p), x.dtype, x.shape))
+    d = max(2, n_shards)
+    key = (d, tuple(entries))
+    plan = _PARITY_PLAN_CACHE.get(key)
+    if plan is None:
+        plan = ParityPlan(keys=tuple(e[0] for e in entries),
+                          shapes={e[0]: e[1] for e in entries},
+                          dtypes={e[0]: e[2] for e in entries},
+                          n_shards=d)
+        _PARITY_PLAN_CACHE[key] = plan
+    return plan
+
+
+def _tree_device(tree) -> torch.device:
+    flat = flatten_with_path(tree)
+    return flat[0][1].device if flat else torch.device("cpu")
+
+
+class ParityStore:
+    """The live parity: one device-resident buffer and the state version it
+    describes.
+
+    The canary keeps it current on the hot path (``plan.update_leaves`` /
+    ``plan.rebuild_leaves`` inside its check+arm, then ``commit``); the
+    store's own methods are the off-hot-path half: ``build``/``rebuild``
+    after init or recovery, reconstruction and ``scrub`` on the fault
+    path."""
+
+    def __init__(self, tree, *, ctx=None, n_shards: int = 4,
+                 row_safe: bool = False):
+        if (ctx is not None and getattr(ctx, "enabled", False)) or row_safe:
+            raise NotImplementedError(_MESH)
+        self.plan = parity_plan_for(tree, n_shards=n_shards)
+        self.device = _tree_device(tree)
+        self.parity = self.plan.make_buffer(self.device)
+        self.version = -1
+
+    # -- coverage ------------------------------------------------------------
+
+    def covers(self, key: str) -> bool:
+        return key in self.plan.key_set
+
+    @property
+    def n_shards(self) -> int:
+        return self.plan.n_shards
+
+    @property
+    def memory_bytes(self) -> int:
+        return self.plan.memory_bytes
+
+    # -- off-hot-path maintenance ------------------------------------------
+
+    def build(self, tree, step: int = 0) -> None:
+        """(Re)build the parity from scratch — at init and after a
+        recovery (a replayed or restored state is a new version)."""
+        self.parity = self.plan.rebuild_leaves(self.plan.leaves(tree),
+                                               self.device)
+        self.version = step
+
+    rebuild = build
+
+    def commit(self, new_parity: torch.Tensor, step: int) -> None:
+        """Install the buffer the canary's check+arm updated."""
+        self.parity = new_parity
+        self.version = step
+
+    # -- fault path ------------------------------------------------------------
+
+    def reconstruct_shard(self, leaf, key: str, shard: int):
+        raise NotImplementedError(_MESH)
+
+    def reconstruct_leaf(self, leaf: torch.Tensor, key: str,
+                         shard: int) -> torch.Tensor:
+        """The leaf with block ``shard`` reconstructed."""
+        return self.plan.reconstruct_leaf(self.parity, leaf, key, shard)
+
+    def scrub(self, tree, refs: Dict[str, np.ndarray]):
+        """At-rest verify-and-repair sweep (the serving-side use: params
+        never change while serving, so one parity build at load time and
+        this sweep detect AND repair silent at-rest corruption with no
+        reload).
+
+        ``refs`` holds each leaf's healthy whole-leaf digest pair, recorded
+        at build time.  A leaf whose digest differs is repaired by trial
+        reconstruction: the candidate block whose repair digests back to
+        ``refs``.  Exactly one candidate must match — the reference takes
+        the first match, but a Fletcher collision of the XOR-mirrored
+        repair (see ``RecoveryRuntime._locate_shards``) would then install
+        a wrong leaf; the port reports the leaf in ``stats['failed']``
+        instead and leaves it untouched (exact-or-abort: the caller
+        escalates to a reload).  Returns ``(repaired_tree, stats)``."""
+        plan = self.plan
+        stats = {"checked": 0, "repaired": 0, "bytes_moved": 0,
+                 "failed": []}
+        repaired: Dict[str, torch.Tensor] = {}
+        for key, leaf in zip(plan.keys, plan.leaves(tree)):
+            ref = refs.get(key)
+            if ref is None:
+                continue
+            stats["checked"] += 1
+            ref = np.asarray(ref)
+            if np.array_equal(kdigest.fetch(kops.checksum(leaf)), ref):
+                continue
+            matches = []
+            for d in range(plan.n_blocks[key]):
+                cand = self.reconstruct_leaf(leaf, key, d)
+                if np.array_equal(kdigest.fetch(kops.checksum(cand)), ref):
+                    matches.append((d, cand))
+            if len(matches) != 1:
+                stats["failed"].append(key)
+                continue
+            d, repaired[key] = matches[0]
+            stats["bytes_moved"] += 4 * plan.block_sizes[key][d]
+            stats["repaired"] += 1
+        if not repaired:
+            return tree, stats
+        return replace_leaves(tree, repaired), stats

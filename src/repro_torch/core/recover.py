@@ -14,12 +14,15 @@ rung that cannot certify an exact repair escalates — exact-or-abort):
                           (``ops.vote3`` → the ``vote3_tiles`` kernel);
                           reached when the caller hands the runtime
                           ``replicas=`` — ``launch/train.py`` has none
+    rung 4  parity_xor    XOR parity reconstruction of the injured block
+                          (``core/parity.py``), off the mesh: no snapshot
+                          read, no step replayed
     rung 5  replay        pure-step replay from a verified micro-snapshot
     rung 6  checkpoint    classic disk restore + replay
 
 Not ported yet, each aborting into the rest of the ladder with "not
-ported": triage (rung 0), shard_patch (2), parity_xor (4) and remesh; the
-constructor arguments that would enable them raise ``NotImplementedError``.
+ported": triage (rung 0), shard_patch (2) and remesh; the constructor
+arguments that would enable them raise ``NotImplementedError``.
 
 ``plan_serving_recovery`` is the serving engine's policy:
 
@@ -47,9 +50,10 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.detect import FaultReport, block_of_leaf
+from repro_torch.core.detect import ChecksumCanary, FaultReport, block_of_leaf
 from repro_torch.core.induction import IVRegistry, RecoveryAbort
 from repro_torch.core.microcheckpoint import MicroCheckpointer
+from repro_torch.core.parity import ParityStore
 from repro_torch.core.recovery_table import (
     RUNG_CHECKPOINT,
     RUNG_EQ1,
@@ -69,11 +73,8 @@ from repro_torch.tree import flatten_with_path, leaf_key, replace_leaves
 
 #: what each unported rung (and its constructor argument) waits for
 _NOT_PORTED = {
-    RUNG_TRIAGE: "triage (ROADMAP.md queue 1, 'Parity layer, off-mesh' "
-                 "then '--triage')",
+    RUNG_TRIAGE: "triage (ROADMAP.md queue 1, '--triage')",
     RUNG_SHARD: "shard_patch (ROADMAP.md queue 1, 'Mesh and elastic')",
-    RUNG_PARITY: "parity_xor (ROADMAP.md queue 1, 'Parity layer, "
-                 "off-mesh')",
     RUNG_REMESH: "remesh (ROADMAP.md queue 1, 'Mesh and elastic')",
 }
 
@@ -87,7 +88,7 @@ class RecoveryEvent:
     attempted: List[str] = field(default_factory=list)
     wall_seconds: float = 0.0
     steps_replayed: int = 0
-    bytes_moved: int = 0
+    bytes_moved: int = 0           # bytes reconstructed (parity_xor rung)
     recovered: bool = False
     phase_seconds: Dict[str, float] = field(default_factory=dict)
 
@@ -103,22 +104,30 @@ class RecoveryRuntime:
     batch_fn    : batch_fn(step) -> batch on the state's device
     iv_registry : ``IVRegistry`` from ``core.icp.promote``
     micro       : ``MicroCheckpointer`` (host snapshots)
+    parity      : optional ``ParityStore`` over the state's params and
+                  optimizer leaves, kept current by the canary; enables
+                  the parity_xor rung
     replicas    : optional ``step -> [≥2 healthy replica state trees]``
                   (pure-DP deployments); enables the replica_vote rung
     checkpoint  : optional ``() -> (state, step)`` — disk restore
     table       : optional ``RecoveryTable`` choosing each leaf's ladder
-    parity, triage, donated, shardings, elastic : not ported; raise
+    canary      : optional ``ChecksumCanary`` over the same state — the
+                  parity rung localises a finite flip against the
+                  digests its fired check compared with, and certifies
+                  every reconstruction against them before resume
+    triage, donated, shardings, elastic : not ported; raise
     """
 
     def __init__(self, *, step_fn, batch_fn, iv_registry: IVRegistry,
                  micro: MicroCheckpointer,
+                 parity: Optional[ParityStore] = None,
                  replicas: Optional[Callable] = None,
                  checkpoint: Optional[Callable] = None,
                  table: Optional[RecoveryTable] = None,
-                 parity=None, triage: bool = False, donated: bool = False,
+                 canary: Optional[ChecksumCanary] = None,
+                 triage: bool = False, donated: bool = False,
                  shardings=None, elastic=None):
-        unported = {"parity": (parity, _NOT_PORTED[RUNG_PARITY]),
-                    "triage": (triage, _NOT_PORTED[RUNG_TRIAGE]),
+        unported = {"triage": (triage, _NOT_PORTED[RUNG_TRIAGE]),
                     "donated": (donated, "donation (ROADMAP.md queue 1, "
                                          "'In-step fused detection')"),
                     "shardings": (shardings, _NOT_PORTED[RUNG_SHARD]),
@@ -131,11 +140,14 @@ class RecoveryRuntime:
         self.batch_fn = batch_fn
         self.ivs = iv_registry
         self.micro = micro
+        self.parity = parity
         self.replicas = replicas
         self.checkpoint = checkpoint
         self.table = table
+        self.canary = canary
         self.events: List[RecoveryEvent] = []
         self._last_replayed = 0
+        self._last_patched_bytes = 0
 
     # -- rungs: each returns (repaired state, detail) or raises
     #    RecoveryAbort; the ladder driver verifies and escalates ---------
@@ -200,6 +212,107 @@ class RecoveryRuntime:
         return replace_leaves(state, voted), \
             f"replica vote over {len(reps)} replicas"
 
+    def _rung_parity(self, state, report: FaultReport, step: int):
+        """Reconstruct the injured block of each covered injured leaf from
+        the XOR parity: 0 snapshot bytes read, 0 steps replayed, one
+        block's bytes reconstructed.  Gates (abort → escalate, never
+        guess): a parity store and live faulting buffers (a ``consumed``
+        report aborts); at least one injured leaf covered; exactly ONE
+        injured block per leaf (single parity reconstructs one); checksum
+        and external reports are digest-certified against the canary's
+        fault-time reference before resume."""
+        store = self.parity
+        if store is None:
+            raise RecoveryAbort("no parity maintained")
+        if report.consumed:
+            raise RecoveryAbort(
+                "faulting version consumed by the detecting step — "
+                "survivors are dead, replay instead")
+        injured = list(report.shards or ()) or list(report.leaves or ())
+        if not injured:
+            # free traps carry no leaf attribution: name suspects by the
+            # non-finite scan (the only evidence a trap leaves)
+            injured = _default_verify(state)
+        covered = [k for k in injured if store.covers(k)]
+        if not covered:
+            raise RecoveryAbort("no injured leaf is parity-covered")
+        # the table generation the fired check compared against — not the
+        # current read table, which check_and_arm has already advanced
+        refs = self.canary.fault_reference_digests() \
+            if self.canary is not None else None
+        certifiable = report.detector in ("checksum", "external")
+        live = {leaf_key(p): t for p, t in flatten_with_path(state)}
+        moved = 0
+        repaired: Dict[str, torch.Tensor] = {}
+        for key in covered:
+            leaf = live.get(key)
+            if leaf is None:
+                raise RecoveryAbort(f"injured leaf {key} not in state")
+            shards = self._locate_shards(leaf, key, report, refs)
+            if not shards:
+                raise RecoveryAbort(
+                    f"cannot localise the injured shard of {key}")
+            if len(shards) > 1:
+                raise RecoveryAbort(
+                    f"{len(shards)} injured shards of {key} — a single "
+                    f"parity shard reconstructs exactly one")
+            d = shards[0]
+            new_leaf = store.reconstruct_leaf(leaf, key, d)
+            moved += 4 * store.plan.block_sizes[key][d]
+            if certifiable and refs is not None and key in refs:
+                if not np.array_equal(_digest(new_leaf), refs[key]):
+                    raise RecoveryAbort(
+                        f"reconstruction of {key} shard {d} failed digest "
+                        f"certification — escalating")
+            repaired[key] = new_leaf
+        self._last_patched_bytes = moved
+        return replace_leaves(state, repaired), (
+            f"parity reconstruction of {len(repaired)} shard(s) of "
+            f"{len(covered)} leaf/leaves ({moved} B, no snapshot, no "
+            f"replay)")
+
+    def _locate_shards(self, leaf: torch.Tensor, key: str,
+                       report: FaultReport, refs) -> List[int]:
+        """Which block(s) of ``leaf`` are injured, by evidence quality:
+
+        1. the report's own (leaf, shard) attribution;
+        2. trial reconstruction against the canary's whole-leaf reference
+           digest: reconstruct each block in turn and keep the ones whose
+           repaired leaf digests back to the reference.  A UNIQUE match is
+           required: a false candidate mirrors the XOR delta into its own
+           block at the same offset; when the mirrored word holds the
+           opposite bit b, the two word deltas cancel in Fletcher's sum and
+           shift its weighted term by ``2^b · block_len · (i - j)``, which
+           is 0 mod 2^32 for high enough b (at full width from bit 12 of
+           an FFN leaf, bit 17 of the embedding).  Both repairs are then
+           parity-consistent too, so several matches abort (replay
+           decides);
+        3. last resort: a per-block non-finite scan."""
+        plan = self.parity.plan
+        ids = (report.shards or {}).get(key)
+        if ids:
+            return sorted({plan.device_block[key][int(i)] for i in ids})
+        ref = refs.get(key) if refs else None
+        if ref is not None:
+            matches = [d for d in range(plan.n_blocks[key])
+                       if np.array_equal(_digest(
+                           self.parity.reconstruct_leaf(leaf, key, d)), ref)]
+            if len(matches) == 1:
+                return matches
+            if len(matches) > 1:
+                raise RecoveryAbort(
+                    f"{len(matches)} candidate shards of {key} digest-"
+                    f"certify (Fletcher collision of the XOR-mirrored "
+                    f"repair) — ambiguous, escalating")
+        if leaf.is_floating_point():
+            c = plan.block_len[key]
+            flat = torch.nn.functional.pad(
+                leaf.reshape(-1), (0, plan.n_shards * c - leaf.numel()))
+            bad = kdigest.fetch(
+                ~torch.isfinite(flat.view(plan.n_shards, c)).all(dim=1))
+            return [int(i) for i in np.nonzero(bad)[0]]
+        return []
+
     def _rung_replay(self, state, report: FaultReport, step: int):
         """Replay from the newest digest-verified snapshot ≤ step."""
         snap = self.micro.latest(before=step)
@@ -233,7 +346,7 @@ class RecoveryRuntime:
         RUNG_OPT_IV: _rung_eq1,     # same consensus engine, opt-IV ladder
         RUNG_SHARD: _rung_not_ported,
         RUNG_REPLICA: _rung_replica,
-        RUNG_PARITY: _rung_not_ported,
+        RUNG_PARITY: _rung_parity,
         RUNG_REPLAY: _rung_replay,
         RUNG_REMESH: _rung_not_ported,
         RUNG_CHECKPOINT: _rung_checkpoint,
@@ -259,6 +372,7 @@ class RecoveryRuntime:
                 continue
             ev.attempted.append(rung)
             self._last_replayed = 0
+            self._last_patched_bytes = 0
             tr = time.perf_counter()
             try:
                 cand, detail = fn(self, state, report, step)
@@ -275,6 +389,7 @@ class RecoveryRuntime:
             ev.rung = rung
             ev.recovered = True
             ev.steps_replayed = self._last_replayed
+            ev.bytes_moved = self._last_patched_bytes
             ev.wall_seconds = time.perf_counter() - t0
             ev.report.detail += f" | {rung}: {detail}"
             self.events.append(ev)
@@ -304,8 +419,10 @@ class RecoveryRuntime:
         n = len(self.events)
         rec = [e for e in self.events if e.recovered]
         by_rung: Dict[str, int] = {}
+        ms_by_rung: Dict[str, List[float]] = {}
         for e in rec:
             by_rung[e.rung] = by_rung.get(e.rung, 0) + 1
+            ms_by_rung.setdefault(e.rung, []).append(1e3 * e.wall_seconds)
         return {
             "events": n,
             "recovered": len(rec),
@@ -317,7 +434,17 @@ class RecoveryRuntime:
             "mean_steps_replayed": float(np.mean([e.steps_replayed
                                                   for e in rec]))
             if rec else 0.0,
+            # a storm mixes rungs of very different cost (parity_xor vs
+            # replay): the median wall time of each
+            "p50_wall_ms_by_rung": {r: float(np.median(ms))
+                                    for r, ms in ms_by_rung.items()},
         }
+
+
+def _digest(x: torch.Tensor) -> np.ndarray:
+    """Whole-leaf Fletcher pair on the host (one ``checksum_tiles`` launch
+    and one fetch on the card) — comparable with the canary's rows."""
+    return kdigest.fetch(kops.checksum(x))
 
 
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:

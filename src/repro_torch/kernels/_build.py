@@ -49,6 +49,12 @@ _SIGNATURES = {
                              _P),
     # a, b, c, out, n_words, stream
     "repro_vote3_tiles": (_P, _P, _P, _P, ctypes.c_longlong, _P),
+    # x, rows, words per row, out, stream
+    "repro_xor_fold_tiles": (_P, ctypes.c_longlong, ctypes.c_longlong, _P,
+                             _P),
+    # x, rows, words per row, parity (updated in place), stream
+    "repro_xor_update_tiles": (_P, ctypes.c_longlong, ctypes.c_longlong,
+                               _P, _P),
 }
 
 

@@ -1,19 +1,23 @@
 """Public kernel-level helpers — the part of ``repro/kernels/ops.py`` the
-serving and training slices run: whole-leaf digests through the
-``checksum_tiles`` kernel, the TMR vote through ``vote3_tiles``, and the
+serving, training and parity slices run: whole-leaf digests through the
+``checksum_tiles`` kernel, the TMR vote through ``vote3_tiles``, the XOR
+parity of equal-shaped arrays through ``xor_fold_tiles``, and the
 rotating-canary schedule.
 
-Unlike the reference there is no padded copy of the leaf: the kernels
-take the flat int32 view and its length and mask the ragged tail.
+Unlike the reference the digest and vote kernels take no padded copy of
+the leaf: they take the flat int32 view and its length and mask the
+ragged tail.  The XOR fold takes tiles, as in the reference, so its
+operands are stacked into one zero-padded ``(R, nt, 256, 128)`` buffer.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import torch
 
 from repro_torch.kernels import checksum as _ck
+from repro_torch.kernels import parity as _pk
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import vote as _vk
 
@@ -52,6 +56,30 @@ def vote3(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         raise ValueError("vote3: copies differ in shape or dtype")
     out = _vk.vote3_tiles(_ref.to_i32(a), _ref.to_i32(b), _ref.to_i32(c))
     return _ref.from_i32(out, a)
+
+
+def xor_fold(arrays: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Parity of equal-shaped tensors of one dtype (the first one's dtype
+    out): one ``xor_fold_tiles`` launch over their stacked int32 views."""
+    first = arrays[0]
+    if any(a.shape != first.shape or a.dtype != first.dtype
+           for a in arrays):
+        raise ValueError("xor_fold: arrays differ in shape or dtype")
+    n = first.numel()
+    nt = max(1, -(-n // TILE))
+    tiles = torch.zeros((len(arrays), nt * TILE), dtype=torch.int32,
+                        device=first.device)
+    for row, a in zip(tiles, arrays):
+        row[:n] = _ref.to_i32(a)
+    out = _pk.xor_fold_tiles(tiles.view(len(arrays), nt, _ck.TILE_ROWS,
+                                        _ck.LANES))
+    return _ref.from_i32(out.view(-1)[:n], first)
+
+
+def xor_reconstruct(parity: torch.Tensor,
+                    others: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The missing shard from the parity and the surviving shards."""
+    return xor_fold(list(others) + [parity])
 
 
 def rotating_slice(step: int, n_slices: int, n_leaves: int) -> List[int]:

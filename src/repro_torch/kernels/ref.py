@@ -2,8 +2,8 @@
 
 They define the semantics the CUDA kernels must match bit for bit (the
 algorithms are integer or pure copies, so tests assert equality, never
-closeness).  The wrappers in ``checksum.py``, ``vote.py`` and
-``paged_kv.py`` run these for tensors that lie on the CPU;
+closeness).  The wrappers in ``checksum.py``, ``vote.py``, ``parity.py``
+and ``paged_kv.py`` run these for tensors that lie on the CPU;
 ``chip_smoke.py`` holds each kernel against them on the card.
 
 Pitfall carried over from the reference: ``torch.sum`` of int32 returns
@@ -116,6 +116,41 @@ def vote3_ref(a: torch.Tensor, b: torch.Tensor,
               c: torch.Tensor) -> torch.Tensor:
     """Bitwise triple-modular-redundancy majority in ``a``'s dtype."""
     return from_i32(vote3_tiles_ref(to_i32(a), to_i32(b), to_i32(c)), a)
+
+
+def xor_fold_tiles_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``xor_fold_tiles`` kernel: XOR over axis 0 of
+    ``(R, nt, TILE_ROWS, LANES)`` int32, as a new ``(nt, TILE_ROWS,
+    LANES)`` tensor."""
+    acc = x[0].clone()
+    for r in range(1, x.shape[0]):
+        acc.bitwise_xor_(x[r])
+    return acc
+
+
+def xor_update_tiles_ref(x: torch.Tensor, parity: torch.Tensor
+                         ) -> torch.Tensor:
+    """Plain version of the ``xor_update_tiles`` kernel: ``parity ^=
+    XOR_d x[d]`` in place (``x``: ``(D, nt, TILE_ROWS, LANES)``,
+    ``parity``: ``(nt, TILE_ROWS, LANES)``, int32); returns ``parity``."""
+    for d in range(x.shape[0]):
+        parity.bitwise_xor_(x[d])
+    return parity
+
+
+def xor_fold_ref(arrays: Sequence[torch.Tensor]) -> torch.Tensor:
+    """XOR fold of equal-shaped tensors (parity construction), in the
+    first one's dtype."""
+    acc = to_i32(arrays[0]).clone()
+    for a in arrays[1:]:
+        acc.bitwise_xor_(to_i32(a))
+    return from_i32(acc, arrays[0])
+
+
+def xor_reconstruct_ref(parity: torch.Tensor,
+                        others: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The missing shard: ``parity ^ XOR(others)``."""
+    return xor_fold_ref([parity, *others])
 
 
 def pack_rows_ref(buf: torch.Tensor, flats: Sequence[torch.Tensor],

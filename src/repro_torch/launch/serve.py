@@ -11,8 +11,11 @@ reference's (``repro/launch/serve.py``); ``--seed`` seeds ``random`` (the
 injection storm), numpy (the prompts) and the port's params init.
 ``--donate`` and ``--fused-detect`` are accepted as no-ops: the port
 updates its state in place and always fuses detection into the engine
-step.  ``--dense``, ``--mesh``, ``--parity`` and ``--prefill-chunk`` are
-not ported yet and raise (ROADMAP.md, queue 1).
+step.  ``--parity`` adds the at-rest XOR parity over the params and an
+end-of-run ``scrub_params`` (reported under ``"parity"``); with
+``--inject`` one param bit is flipped after the run so the scrub repairs
+it.  ``--dense``, ``--mesh`` and ``--prefill-chunk`` are not ported yet
+and raise (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -30,8 +33,6 @@ _UNPORTED = {
     "mesh": "mesh serving (ROADMAP.md queue 1, 'Mesh and elastic')",
     "dense": "the dense per-slot cache (ROADMAP.md queue 1, 'Serving "
              "leftovers')",
-    "parity": "at-rest parity over the params (ROADMAP.md queue 1, "
-              "'Parity layer')",
     "prefill_chunk": "chunked prefill (ROADMAP.md queue 1, 'Serving "
                      "leftovers')",
 }
@@ -56,9 +57,12 @@ def serve(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
           parity: bool = False, device=None):
     """Serve ``n_requests`` random prompts through the engine; returns the
     engine summary dict.  ``inject_every`` > 0 flips one bit in the
-    canary's protected window every N accepted tokens."""
+    canary's protected window every N accepted tokens.  ``parity=True``
+    builds the at-rest parity over the params and ends the run with a
+    scrub (summary entry ``"parity"``); with ``inject_every`` one param
+    bit is flipped first, so the scrub repairs it."""
     del donate, fused_detect   # in-place state, always-fused detection
-    asked = {"mesh": bool(mesh), "dense": paged is False, "parity": parity,
+    asked = {"mesh": bool(mesh), "dense": paged is False,
              "prefill_chunk": prefill_chunk > 0}
     for name, on in asked.items():
         if on:
@@ -75,10 +79,16 @@ def serve(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
         # serve() promises every request completes (prefix replay always
         # works) — the drop bound is a benchmark knob, not a CLI one
         max_replays=10**6, verbose=verbose, block_size=block_size,
-        device=device)
+        device=device, parity=parity)
     reqs = make_requests(cfg, n_requests, prompt_len, gen_tokens, nprng)
     eng.warm()
     out = eng.run(reqs, inject_every=inject_every, inject_rng=rng).summary()
+    if parity:
+        if inject_every:
+            # at-rest weight-rot adversary: one param bit flipped after
+            # the run, so the scrub demonstrates detection + XOR repair
+            eng.corrupt_param(rng)
+        out["parity"] = eng.scrub_params()
     if verbose:
         print(json.dumps(out, indent=1))
     return out
@@ -111,7 +121,9 @@ def main(argv=None):
                     help="not ported yet (raises)")
     ap.add_argument("--mesh", default=None, help="not ported yet (raises)")
     ap.add_argument("--parity", action="store_true",
-                    help="not ported yet (raises)")
+                    help="at-rest XOR parity over the static params: an "
+                         "end-of-run scrub detects and repairs silent "
+                         "weight rot with no reload")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)

@@ -18,6 +18,11 @@ in order:
     4. micro-checkpoint bookkeeping (an IV log every step, a host snapshot
        every ``snapshot_interval`` steps) and the async disk checkpoint
 
+With ``--parity`` the canary also keeps an XOR parity of the params and
+optimizer state current inside step 3 (one ``xor_update_tiles`` launch,
+gated on the check's flag), and the ``parity_xor`` rung can rebuild an
+injured block in place with no snapshot and no replay.
+
 On a ``FaultReport`` the step's output is discarded and the recovery
 ladder repairs the pre-step state; the step is then retried.
 
@@ -28,8 +33,8 @@ atomics in a varying order, and a replayed step would not reproduce the
 clean trajectory bit for bit.
 
 Not ported yet, each raising ``NotImplementedError``: ``--donate``,
-``--fused-detect``, ``--parity``, ``--triage``, ``--mesh``, ``--elastic``
-and ``--kill-row-at`` (ROADMAP.md, queue 1).
+``--fused-detect``, ``--triage``, ``--mesh``, ``--elastic`` and
+``--kill-row-at`` (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from repro_torch.core.detect import (LOSS_WINDOW, ChecksumCanary,
 from repro_torch.core.faults import inject, sample_plan
 from repro_torch.core.icp import promote
 from repro_torch.core.microcheckpoint import MicroCheckpointer
+from repro_torch.core.parity import ParityStore
 from repro_torch.core.recover import RecoveryFailed, RecoveryRuntime
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.serving.engine import resolve_device
@@ -64,10 +70,7 @@ _UNPORTED = {
               "'In-step fused detection')",
     "fused_detect": "in-step fused detection (ROADMAP.md queue 1, 'In-step "
                     "fused detection')",
-    "parity": "the XOR parity layer (ROADMAP.md queue 1, 'Parity layer, "
-              "off-mesh')",
-    "triage": "recovery rung 0 (ROADMAP.md queue 1, 'Parity layer, "
-              "off-mesh' then '--triage')",
+    "triage": "recovery rung 0 (ROADMAP.md queue 1, '--triage')",
     "mesh": "mesh training (ROADMAP.md queue 1, 'Mesh and elastic')",
     "elastic": "elastic remesh (ROADMAP.md queue 1, 'Mesh and elastic')",
     "kill_row_at": "the row-loss drill (ROADMAP.md queue 1, 'Mesh and "
@@ -144,7 +147,7 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
     the final state with ``return_state``).  ``seed`` seeds the params
     init, the data and the injection storm."""
     asked = {"donate": donate, "fused_detect": fused_detect,
-             "parity": parity, "triage": triage, "mesh": bool(mesh),
+             "triage": triage, "mesh": bool(mesh),
              "elastic": elastic, "kill_row_at": kill_row_at is not None}
     for name, on in asked.items():
         if on:
@@ -157,13 +160,14 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
                       checkpoint_dir=checkpoint_dir,
                       checkpoint_interval=checkpoint_interval,
                       inject_every=inject_every, inject_target=inject_target,
-                      canary_slices=canary_slices, verbose=verbose,
-                      device=device, return_state=return_state)
+                      canary_slices=canary_slices, parity=parity,
+                      verbose=verbose, device=device,
+                      return_state=return_state)
 
 
 def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
            checkpoint_dir, checkpoint_interval, inject_every, inject_target,
-           canary_slices, verbose, device, return_state):
+           canary_slices, parity, verbose, device, return_state):
     pipe = TokenPipeline(cfg.model.vocab_size, seq_len, global_batch,
                          seed=seed)
     state = make_train_state(cfg, seed, global_batch=global_batch,
@@ -177,10 +181,18 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
     ckpt = CheckpointManager(checkpoint_dir, interval=checkpoint_interval) \
         if checkpoint_dir else None
     canary = ChecksumCanary(state, n_slices=canary_slices)
+    pstore = None
+    if parity:
+        # maintenance rides the canary's check_and_arm; reconstruction
+        # certifies against the canary's digests
+        pstore = ParityStore(state)
+        pstore.build(state)
+        canary.attach_parity(pstore)
     runtime = RecoveryRuntime(
         step_fn=step_fn, batch_fn=bfn,
         iv_registry=promote(cfg, global_batch), micro=micro,
-        checkpoint=ckpt.loader(state) if ckpt else None)
+        parity=pstore, checkpoint=ckpt.loader(state) if ckpt else None,
+        canary=canary)
 
     rng = random.Random(seed + 7)
     rep = LoopReport()
@@ -237,6 +249,10 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
             rep.faults_recovered += 1
             rep.recovery_ms.append(1e3 * (time.perf_counter() - t0))
             canary.refresh(state)
+            if pstore is not None:
+                # a replayed or restored state is a new version: re-anchor
+                # the parity to it
+                pstore.rebuild(state, s)
             if verbose:
                 print(f"[train] recovered via {ev.rung} in "
                       f"{rep.recovery_ms[-1]:.1f} ms")
@@ -247,6 +263,8 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
             # the restored state is the new reference; stale digests
             # would fire a spurious fault on the next step
             canary.refresh(state)
+            if pstore is not None:
+                pstore.rebuild(state, s)
             if verbose:
                 print(f"[train] cold restore to step {s}")
 
@@ -279,8 +297,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--json", action="store_true")
-    for flag in ("--donate", "--fused-detect", "--parity", "--triage",
-                 "--elastic"):
+    ap.add_argument("--parity", action="store_true",
+                    help="XOR parity over the params and optimizer state, "
+                         "kept current by the canary; enables the "
+                         "parity_xor rung (repair in place, no replay)")
+    for flag in ("--donate", "--fused-detect", "--triage", "--elastic"):
         ap.add_argument(flag, action="store_true", help="not ported yet "
                         "(raises)")
     ap.add_argument("--mesh", default=None, help="not ported yet (raises)")

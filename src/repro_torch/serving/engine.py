@@ -26,9 +26,13 @@ paged path of ``repro/serving/engine.py``.
   evicts only the injured slots; they re-enter the queue front and are
   rebuilt by prefix replay (prefill + forced decode over the token log).
   Healthy slots keep the fault step's own tokens and keep decoding.
+* **At-rest parity over the params** (``parity=True``).  Serving never
+  writes the params, so one XOR parity build at construction and the
+  digests recorded beside it let ``scrub_params`` detect and repair a
+  silently flipped weight with no reload.
 
 Not ported yet (ROADMAP.md, queue 1): the dense per-slot cache, chunked
-prefill, mesh serving and at-rest parity over the params.
+prefill and mesh serving.
 """
 
 from __future__ import annotations
@@ -44,16 +48,18 @@ import torch
 from repro_torch.core.detect import (ChecksumCanary, FaultReport,
                                      block_leaf_prefix, block_of_leaf,
                                      slot_leaf_prefix)
-from repro_torch.core.faults import flip_bit
+from repro_torch.core.faults import bit_width, flip_bit
+from repro_torch.core.parity import ParityStore
 from repro_torch.core.recover import plan_serving_recovery
 from repro_torch.kernels import _build
 from repro_torch.kernels import digest as kdigest
+from repro_torch.kernels import ops as kops
 from repro_torch.models.registry import get_model
 from repro_torch.serving import paged as pgd
 from repro_torch.serving.paged import (AdmissionError, BlockAllocator,
                                        PoolSaturated)
 from repro_torch.serving.request import Request, RequestQueue
-from repro_torch.tree import flatten_with_path, leaf_key
+from repro_torch.tree import flatten_with_path, leaf_key, replace_leaves
 
 
 def resolve_device(device=None) -> torch.device:
@@ -143,13 +149,14 @@ class ServingEngine:
     device        : torch device; None = the CUDA card, raising if none
     params        : ready params (same tree as ``init_lm``), e.g. bridged
                     from the reference; None = the port's seeded init
+    parity        : keep an XOR parity over the params (``scrub_params``)
     """
 
     def __init__(self, cfg, *, n_slots: int = 4, max_len: int = 64,
                  canary_slices: int = 4, seed: int = 0,
                  max_replays: int = 8, verbose: bool = False,
                  block_size: int = 8, pool_blocks: int = 0, device=None,
-                 params=None):
+                 params=None, parity: bool = False):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 projections as in the reference: no TF32 anywhere
@@ -171,6 +178,20 @@ class ServingEngine:
         dev = self.device
         self.params = (params if params is not None
                        else self.model.init(self.m, seed, dev))
+
+        # at-rest parity over the STATIC params: one build here and the
+        # healthy digests recorded beside it (one fetch) let
+        # ``scrub_params`` detect and repair at-rest corruption
+        self.parity_store: Optional[ParityStore] = None
+        self._param_refs: Optional[Dict[str, np.ndarray]] = None
+        if parity:
+            self.parity_store = ParityStore(self.params)
+            self.parity_store.build(self.params)
+            plan = self.parity_store.plan
+            leaves = plan.leaves(self.params)
+            table = kdigest.fetch(torch.stack([kops.checksum(x)
+                                               for x in leaves]))
+            self._param_refs = dict(zip(plan.keys, table))
 
         per_slot = self.model.make_decode_cache(self.m, 1, self.max_len, dev)
         self.pool = pgd.make_block_pool(per_slot, self.n_blocks, bs)
@@ -551,6 +572,43 @@ class ServingEngine:
         if rid is not None:
             self.report.injured_rids.add(rid)
         return u, key, b
+
+    def corrupt_param(self, rng, key: Optional[str] = None,
+                      bit: Optional[int] = None) -> Tuple[str, int]:
+        """Flip one bit of one element of a parity-covered param leaf —
+        the at-rest weight-rot adversary ``scrub_params`` exists for.  The
+        flip goes into a copy of the leaf that replaces it in this
+        engine's params tree, so another engine built over the same
+        params is untouched.  Returns (leaf key, bit)."""
+        if self.parity_store is None:
+            raise ValueError("corrupt_param requires parity=True")
+        plan = self.parity_store.plan
+        if key is None:
+            key = plan.keys[rng.randrange(len(plan.keys))]
+        leaf = dict(zip(plan.keys, plan.leaves(self.params)))[key]
+        e = rng.randrange(max(1, leaf.numel()))
+        b = bit if bit is not None else rng.randrange(bit_width(leaf))
+        flipped = flip_bit(leaf.clone(), e, b)
+        self.params = replace_leaves(self.params, {key: flipped})
+        self.report.faults_injected += 1
+        return key, b
+
+    def scrub_params(self) -> Dict:
+        """At-rest integrity sweep over the params: verify every covered
+        leaf against the load-time digests and XOR-reconstruct an injured
+        block from the parity and its peers (no reload).  Repaired params
+        are installed, so later decode steps use healthy weights.  Returns
+        the scrub stats with the parity's ``memory_bytes``."""
+        if self.parity_store is None:
+            raise ValueError("scrub_params requires parity=True")
+        new_params, stats = self.parity_store.scrub(self.params,
+                                                    self._param_refs)
+        if stats["repaired"]:
+            self.params = new_params
+            self.report.faults_detected += stats["repaired"]
+            self.report.faults_recovered += stats["repaired"]
+        stats["memory_bytes"] = self.parity_store.memory_bytes
+        return stats
 
     # -- run loop ------------------------------------------------------------
 

@@ -253,7 +253,7 @@ def test_cpu_wrappers_launch_no_kernel():
 def test_kernel_sources_export_the_bound_entry_points():
     srcs = _build.sources()
     assert [p.name for p in srcs] == ["checksum.cu", "paged_kv.cu",
-                                      "vote.cu"]
+                                      "parity.cu", "vote.cu"]
     text = "".join(p.read_text() for p in srcs)
     for name in _build._SIGNATURES:
         assert f'extern "C" int {name}(' in text, name

@@ -214,7 +214,7 @@ def test_param_corruption_replays_bit_exact_and_trajectory_is_clean(port):
                            6)
     assert ev.rung == RUNG_REPLAY and ev.steps_replayed == 2
     assert ev.attempted == ["eq1", "replica_vote", "parity_xor", "replay"]
-    assert "not ported" in ev.report.detail
+    assert "parity_xor: no parity maintained" in ev.report.detail
     assert _bitwise_equal(fixed, state)
     assert _bitwise_equal(_advance(step, bfn, fixed, 6, 4), clean)
 
@@ -272,7 +272,7 @@ def test_exhausted_ladder_raises(port):
                                     leaves=[f"iv/{k}" for k in bad["iv"]]), 2)
 
 
-@pytest.mark.parametrize("kw", [{"parity": object()}, {"triage": True},
+@pytest.mark.parametrize("kw", [{"triage": True},
                                 {"donated": True}, {"shardings": {"x": 1}},
                                 {"elastic": lambda *a: None}])
 def test_unported_runtime_arguments_raise(port, kw):

@@ -333,7 +333,6 @@ def test_serve_summary_is_seeded(cfg):
 
 
 @pytest.mark.parametrize("flag", [dict(mesh="4,2"), dict(paged=False),
-                                  dict(parity=True),
                                   dict(prefill_chunk=8)])
 def test_unported_serve_options_raise(cfg, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

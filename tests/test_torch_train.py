@@ -329,7 +329,7 @@ def test_train_cli_without_device_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--donate"], ["--fused-detect"],
-                                  ["--parity"], ["--triage"], ["--elastic"],
+                                  ["--triage"], ["--elastic"],
                                   ["--mesh", "4,2"], ["--kill-row-at", "3"]])
 def test_train_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
