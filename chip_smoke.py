@@ -39,6 +39,19 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    keeps the parity's ``data_ptr`` and equals the fold on a zero parity;
    timed as in phase 3, with the per-step pieces of the update (the delta
    build, the fault gate, the whole ``update_leaves``);
+6c. flash attention, TF32 off: ``flash_attention_bhsd`` through
+   ``ops.flash_attention`` against its plain version
+   (``ref.flash_attention_ref``) on the reference's six FLASH_CASES and on
+   edge cases (non-causal with a ragged Sk, causal with Sq < Sk and
+   Sq > Sk, GQA with G = 3, a window with a softcap, Sq = 1, rows with no
+   live key), within 2e-5 (f32) / 3e-2 (bf16); then at iterpro-100m's
+   attention width (H = 12, KV = 4, D = 64, f32, causal) at B=4, S=128
+   (the serving prefill) and B=1, S=8192 (long context), the entry point
+   against the plain version and against the port's
+   ``models.layers.attention`` (the chunked path at 8192 keys), within
+   2e-5; timed as in phase 3 beside the operations bound and
+   ``scaled_dot_product_attention`` (the yardstick; the port never calls
+   it);
 7. the training path: full-width iterpro-100m through
    ``repro_torch.launch.train.train`` — batch 8, seq 128, 20 steps,
    snapshot every 4, canary K=1, a disk checkpoint every 10 steps, TF32
@@ -59,7 +72,7 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    step; then, at full width, a low-mantissa flip of the embedding
    repaired by ``parity_xor`` alone (0 steps replayed, bitwise), and 4
    canary steps whose incrementally kept parity equals a fresh build;
-8. one JSON line describing every kernel (7), then the device line.
+8. one JSON line describing every kernel (8), then the device line.
 
 Any failure raises; nothing is caught.
 """
@@ -81,11 +94,34 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12      # H100 SXM 32-bit rate outside tensor cores
 F32_TOL = 2e-5                # the reference's f32 tolerance
+BF16_TOL = 3e-2               # the reference's bf16 tolerance
 SPIN_CYCLES = 20_000_000      # ~10 ms device spin that hides host enqueue
 
 N_REQUESTS, PROMPT, GEN, SLOTS, BLOCK, K, INJECT = 8, 128, 32, 4, 16, 4, 8
 T_BATCH, T_SEQ, T_STEPS, T_SNAP, T_CKPT, T_INJECT = 8, 128, 20, 4, 10, 6
 WORK = ROOT / "build" / "chip_smoke"     # checkpoints (ignored by git)
+
+FLASH_CASES = [
+    # B, Sq, Sk, H, KV, D, causal, window, softcap, dtype
+    # the reference's FLASH_CASES (tests/test_kernels.py)
+    (2, 128, 128, 4, 2, 32, True, 0, 0.0, "float32"),
+    (1, 256, 256, 8, 8, 64, True, 64, 0.0, "float32"),
+    (2, 64, 64, 4, 1, 16, True, 0, 30.0, "float32"),
+    (1, 96, 96, 2, 2, 48, True, 0, 0.0, "float32"),
+    (1, 128, 128, 2, 2, 128, False, 0, 0.0, "bfloat16"),
+    (1, 64, 64, 4, 4, 160, True, 0, 0.0, "float32"),
+    # edge cases
+    (1, 100, 100, 2, 2, 16, False, 0, 0.0, "float32"),   # ragged Sk
+    (1, 100, 300, 6, 2, 64, True, 0, 0.0, "float32"),    # Sq < Sk, G = 3
+    (1, 300, 100, 6, 2, 64, True, 0, 0.0, "float32"),    # Sq > Sk
+    (2, 200, 200, 12, 4, 64, True, 0, 0.0, "float32"),   # G = 3
+    (1, 333, 333, 4, 2, 64, True, 50, 20.0, "float32"),  # window + softcap
+    (1, 333, 333, 4, 2, 64, True, 50, 20.0, "bfloat16"),
+    (3, 1, 257, 12, 4, 64, True, 0, 0.0, "float32"),     # Sq = 1
+    (1, 150, 70, 6, 2, 32, True, 16, 0.0, "float32"),    # rows, no live key
+    (2, 77, 77, 4, 2, 256, False, 0, 0.0, "bfloat16"),   # D = 256
+]
+FLASH_SHAPES = ((4, 128), (1, 8192))   # (B, S): serving prefill, long context
 
 
 def _smi() -> str:
@@ -586,6 +622,123 @@ def _same_state(torch, a, b) -> bool:
                     fb[k].reshape(-1).view(torch.uint8)) for k in fa)
 
 
+def _live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the masks leave live, per head (top-left aligned)."""
+    n = 0
+    for qp in range(Sq):
+        hi = min(Sk - 1, qp) if causal else Sk - 1
+        lo = max(0, qp - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def check_flash(torch, flush, mcfg):
+    """Phase 6c: ``flash_attention_bhsd`` against its plain version on the
+    edge cases, then the main path at full attention width (launch
+    counts read around it), held against the plain version and the
+    model's attention, and timed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+
+    def qkv(B, Sq, Sk, H, KV, D, dtype=torch.float32):
+        return tuple(torch.randn(shape, generator=gen, device="cuda")
+                     .to(dtype) for shape in
+                     ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+
+    def plain(q, k, v, **kw):
+        B, Sq, H, D = q.shape
+        flat = [t.transpose(1, 2).reshape(-1, t.shape[1], D)
+                for t in (q, k, v)]
+        o = ref.flash_attention_ref(*flat, **kw)
+        return o.reshape(B, H, Sq, D).transpose(1, 2)
+
+    for case in FLASH_CASES:
+        B, Sq, Sk, H, KV, D, causal, window, cap, dt = case
+        q, k, v = qkv(B, Sq, Sk, H, KV, D, getattr(torch, dt))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = plain(q, k, v, **kw)
+        tol = BF16_TOL if dt == "bfloat16" else F32_TOL
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        print(f"[flash] B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
+              f"causal={causal} window={window} softcap={cap} {dt}: max "
+              f"|kernel - plain| {err:.3e} (tolerance {tol})")
+
+    H, KV, D = mcfg.n_heads, mcfg.n_kv_heads, mcfg.resolved_head_dim
+    inputs = {(B, S): qkv(B, S, S, H, KV, D) for B, S in FLASH_SHAPES}
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    outs = {shape: ops.flash_attention(*t, causal=True)
+            for shape, t in inputs.items()}
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    assert launches.get("flash_attention_bhsd", 0) > 0, launches
+    print(f"[flash] launches on the main path (ops.flash_attention at "
+          f"{len(FLASH_SHAPES)} shapes): {launches}")
+
+    rows, worst = {}, 0.0          # worst: |kernel - plain| at both shapes
+    for (B, S), (q, k, v) in inputs.items():
+        o = outs[(B, S)]
+        assert o.shape == (B, S, H, D) and bool(torch.isfinite(o).all())
+        want = plain(q, k, v, causal=True)
+        pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S)
+        model = L.attention(q, k, v, pos, pos)
+        errs = [float((o - w).abs().max()) for w in (want, model)]
+        for w in (want, model):
+            torch.testing.assert_close(o, w, atol=F32_TOL, rtol=F32_TOL)
+        worst = max(worst, errs[0])
+        del want, model
+        torch.cuda.empty_cache()
+        path = "chunked" if S > L.FLASH_THRESHOLD else "direct"
+        print(f"[flash] B={B} S={S} H={H} KV={KV} D={D} f32 causal: max "
+              f"|kernel - plain| {errs[0]:.3e}, |kernel - model attention "
+              f"({path})| {errs[1]:.3e} (tolerance {F32_TOL})")
+
+        flat = [t.transpose(1, 2).reshape(-1, S, D).contiguous()
+                for t in (q, k, v)]
+        n_ops = 4 * D * B * H * _live_pairs(S, S, True, 0)
+        n_bytes = 4 * (2 * flat[0].numel() + flat[1].numel()
+                       + flat[2].numel())
+        bound, by = _bound_ms(n_bytes, n_ops)
+        ms, call_ms = _times(lambda: fa.flash_attention_bhsd(*flat), torch,
+                             flush)
+        plain_ms, plain_call_ms = _times(
+            lambda: ref.flash_attention_ref(*flat), torch, flush)
+        q4, k4, v4 = (t.view(B, -1, S, D) for t in flat)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                  enable_gqa=True)
+        lib_err = float((sdpa().transpose(1, 2) - o).abs().max())
+        lib_ms = _median_ms(sdpa, torch, flush, queued=True)
+        rows[(B, S)] = dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:106",
+            ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            plain_call_ms=plain_call_ms, bound_ms=bound, bound_by=by,
+            library_ms=lib_ms)
+        print(f"[flash] B={B} S={S}: {n_ops:.4e} operations, {n_bytes} B: "
+              f"device time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms (scaled_dot_product_attention, max "
+              f"|sdpa - kernel| {lib_err:.3e}), bound {bound:.4f} ms ({by}; "
+              f"kernel at {100 * bound / ms:.1f} %); per call with host "
+              f"enqueue: kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} "
+              f"ms")
+    out = {"flash_attention_bhsd": dict(rows[FLASH_SHAPES[-1]],
+                                        max_abs_err=worst)}
+    return out, launches
+
+
 def train_run(torch, cfg, name, **kw):
     """One full-width run of the training entry point with the storm
     settings of phase 7 (checkpoints under ``WORK/<name>``); prints its
@@ -998,6 +1151,8 @@ def main() -> int:
                                           fresh["params"])
     del fresh
     torch.cuda.empty_cache()
+    flash_kernels, flash_launches = check_flash(torch, flush, cfg.model)
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
     runs = run_training(torch, cfg)
@@ -1034,6 +1189,9 @@ def main() -> int:
     for name, r in parity_kernels.items():
         kernels[name] = r
         launches[name] = parity_launches[name]
+    for name, r in flash_kernels.items():
+        kernels[name] = r
+        launches[name] = flash_launches[name]
     print(json.dumps({"kernels": [
         {"name": name, "route": r["route"], "source": r["source"],
          "replaces": r["replaces"], "launches": launches[name],

@@ -55,6 +55,10 @@ _SIGNATURES = {
     # x, rows, words per row, parity (updated in place), stream
     "repro_xor_update_tiles": (_P, ctypes.c_longlong, ctypes.c_longlong,
                                _P, _P),
+    # q, k, v, o, BH, BKV, Sq, Sk, seq_k, D, dtype (0 f32, 1 bf16), causal,
+    # window, softcap, scale, stream
+    "repro_flash_attention_bhsd": (_P, _P, _P, _P, *(ctypes.c_int,) * 9,
+                                   ctypes.c_float, ctypes.c_float, _P),
 }
 
 

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the ported kernels.
 
-They define the semantics the CUDA kernels must match bit for bit (the
-algorithms are integer or pure copies, so tests assert equality, never
-closeness).  The wrappers in ``checksum.py``, ``vote.py``, ``parity.py``
-and ``paged_kv.py`` run these for tensors that lie on the CPU;
+They define the semantics the CUDA kernels must match: bit for bit for
+the integer and copy kernels (tests assert equality, never closeness),
+within the reference's floating-point tolerance for flash attention.  The
+wrappers in ``checksum.py``, ``vote.py``, ``parity.py``, ``paged_kv.py``
+and ``flash_attention.py`` run these for tensors that lie on the CPU;
 ``chip_smoke.py`` holds each kernel against them on the card.
 
 Pitfall carried over from the reference: ``torch.sum`` of int32 returns
@@ -13,6 +14,7 @@ back to int32 explicitly (``wrap_i32``).
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -21,6 +23,7 @@ LANES = 128
 TILE_ROWS = 256
 TILE = TILE_ROWS * LANES        # int32 words per checksum tile (128 KiB)
 CHECKSUM_BLOCK = 4096           # words per block of ``blocked_checksum_ref``
+NEG_INF = -2.0 ** 30            # the flash kernel's mask value
 
 _MASK32 = 0xFFFFFFFF
 _TWO_BYTE = (torch.bfloat16, torch.float16, torch.int16, torch.uint16)
@@ -173,3 +176,33 @@ def gather_blocks_ref(pool: torch.Tensor,
                       block_tables: torch.Tensor) -> torch.Tensor:
     """``out[s, j] = pool[block_tables[s, j]]`` — (S, max_blocks, ...)."""
     return pool[block_tables.to(torch.int64)]
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Dense-softmax plain version of the flash kernel.
+
+    q ``(BH, Sq, D)``, k/v ``(BKV, Sk, D)``, BH a multiple of BKV (q row
+    ``b`` reads kv row ``b // G``, G = BH // BKV).  f32 scores scaled by
+    ``1/sqrt(D)``, ``tanh(s/cap)·cap`` when ``softcap`` is set (before the
+    mask), causal and window masks top-left aligned (positions from 0),
+    masked scores ``-2^30``, f32 softmax; the output in q's dtype."""
+    BH, Sq, D = q.shape
+    BKV, Sk, _ = k.shape
+    G = BH // BKV
+    kr = k.repeat_interleave(G, dim=0).to(torch.float32)
+    vr = v.repeat_interleave(G, dim=0).to(torch.float32)
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32), kr) / math.sqrt(D)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    live = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        live &= qp >= kp
+    if window:
+        live &= (qp - kp) < window
+    s = torch.where(live[None], s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, vr).to(q.dtype)

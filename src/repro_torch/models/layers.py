@@ -7,9 +7,13 @@ shapes.  Layouts follow the reference: q ``(B, S, H, Dh)``, k/v
 (the reference left them to XLA, outside any Pallas kernel); callers keep
 TF32 off so they stay within the reference's f32 tolerance.
 
-Only full causal attention is ported: windows, soft-capping, m-rope and
-the chunked (flash) path wait for a configuration that needs them; prompts
-stay at or below ``FLASH_THRESHOLD`` keys.
+Attention has the reference's semantics: causal or not, sliding windows,
+soft-capping, keys with a negative position masked; up to
+``FLASH_THRESHOLD`` keys (and every decode) it is direct, above it the
+chunked online softmax of ``attention_flash``, plain torch as the
+reference's is plain jnp (the CUDA flash kernel is reached through
+``kernels.ops.flash_attention``, as in the reference).  M-rope is not
+ported.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+Q_CHUNK = 1024              # chunk sizes of ``attention_flash``
+KV_CHUNK = 1024
 FLASH_THRESHOLD = 4096      # the reference's direct-attention limit
 NEG_INF = -2.0 ** 30        # the reference's mask value (layers.py:32)
 
@@ -81,8 +87,35 @@ def apply_rope(x, positions, theta: float):
                      dim=-1).to(dt)
 
 
-def attention_direct(q, k, v, qpos, kpos):
-    """Causal GQA attention.  q (B,Sq,H,D), k/v (B,Sk,KV,D); qpos (B,Sq),
+def softcap(x, cap: float):
+    """``tanh(x / cap) · cap`` (gemma / grok soft-capping); ``cap = 0`` is
+    the identity."""
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def _mask(qpos, kpos, window: int, causal: bool):
+    """qpos (B,Sq), kpos (B,Sk) -> bool (B,1,1,Sq,Sk), True = attend;
+    keys with ``kpos < 0`` (unwritten slots, padding) never attend."""
+    q = qpos[:, None, None, :, None]
+    kk = kpos[:, None, None, None, :]
+    m = kk >= 0
+    if causal:
+        m = m & (q >= kk)
+    if window:
+        m = m & ((q - kk) < window)
+    return m
+
+
+def _masked(s, m):
+    return torch.where(m, s, torch.full((), NEG_INF, dtype=s.dtype,
+                                        device=s.device))
+
+
+def attention_direct(q, k, v, qpos, kpos, *, window: int = 0,
+                     causal: bool = True, attn_softcap: float = 0.0):
+    """Direct GQA attention.  q (B,Sq,H,D), k/v (B,Sk,KV,D); qpos (B,Sq),
     kpos (B,Sk) with kpos < 0 marking unwritten keys."""
     B, Sq, H, D = q.shape
     KV = k.shape[2]
@@ -90,22 +123,76 @@ def attention_direct(q, k, v, qpos, kpos):
     scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, Sq, KV, G, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * scale
-    qq = qpos[:, None, None, :, None]
-    kk = kpos[:, None, None, None, :]
-    m = (kk >= 0) & (qq >= kk)
-    s = torch.where(m, s, torch.full((), NEG_INF, dtype=s.dtype,
-                                     device=s.device))
-    p = torch.softmax(s, dim=-1)
+    s = softcap(s, attn_softcap)
+    p = torch.softmax(_masked(s, _mask(qpos, kpos, window, causal)), dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
     return o.reshape(B, Sq, H, D)
 
 
-def attention(q, k, v, qpos, kpos):
-    if k.shape[1] > FLASH_THRESHOLD and q.shape[1] > 1:
-        raise NotImplementedError(
-            f"{k.shape[1]} keys: the chunked attention path is not ported "
-            f"(limit {FLASH_THRESHOLD})")
-    return attention_direct(q, k, v, qpos, kpos)
+def attention_flash(q, k, v, qpos, kpos, *, window: int = 0,
+                    causal: bool = True, attn_softcap: float = 0.0,
+                    q_chunk: int = 0, kv_chunk: int = 0):
+    """Chunked attention: an online softmax over KV chunks nested in a
+    loop over Q chunks, so scores live ``(cq, ck)`` at a time.  As in the
+    reference every KV chunk is visited (a fully masked chunk is a no-op
+    for a row that has seen a live key), Sq and Sk are padded to whole
+    chunks and the padded keys carry ``kpos = -1``, so they are masked."""
+    q_chunk = min(q_chunk or Q_CHUNK, q.shape[1])
+    kv_chunk = min(kv_chunk or KV_CHUNK, k.shape[1])
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    nq = -(-Sq // q_chunk)
+    nk = -(-Sk // kv_chunk)
+    pad_q = nq * q_chunk - Sq
+    pad_k = nk * kv_chunk - Sk
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        qpos = F.pad(qpos, (0, pad_q), value=0)
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        kpos = F.pad(kpos, (0, pad_k), value=-1)
+    f32 = torch.float32
+    # (nq, B, KV, G, cq, D) / (nq, B, cq); (nk, B, KV, ck, D) / (nk, B, ck)
+    qg = q.reshape(B, nq, q_chunk, KV, G, D).permute(1, 0, 3, 4, 2, 5)
+    qp = qpos.reshape(B, nq, q_chunk).transpose(0, 1)
+    kc = k.reshape(B, nk, kv_chunk, KV, D).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(B, nk, kv_chunk, KV, D).permute(1, 0, 3, 2, 4)
+    kp = kpos.reshape(B, nk, kv_chunk).transpose(0, 1)
+    outs = []
+    for i in range(nq):
+        qi = qg[i].to(f32)
+        m = torch.full((B, KV, G, q_chunk), NEG_INF, dtype=f32,
+                       device=q.device)
+        l = torch.zeros((B, KV, G, q_chunk), dtype=f32, device=q.device)
+        acc = torch.zeros((B, KV, G, q_chunk, D), dtype=f32, device=q.device)
+        for j in range(nk):
+            s = torch.einsum("bkgqd,bksd->bkgqs", qi, kc[j].to(f32)) * scale
+            s = softcap(s, attn_softcap)
+            s = _masked(s, _mask(qp[i], kp[j], window, causal))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bksd->bkgqd", p, vc[j].to(f32))
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-37)[..., None])
+    o = torch.stack(outs).permute(1, 0, 4, 2, 3, 5)    # (B, nq, cq, KV, G, D)
+    return o.reshape(B, nq * q_chunk, H, D)[:, :Sq].to(q.dtype)
+
+
+def attention(q, k, v, qpos, kpos, *, window: int = 0, causal: bool = True,
+              attn_softcap: float = 0.0):
+    """Dispatch: direct attention for short contexts and every decode,
+    chunked above ``FLASH_THRESHOLD`` keys."""
+    if k.shape[1] <= FLASH_THRESHOLD or q.shape[1] == 1:
+        return attention_direct(q, k, v, qpos, kpos, window=window,
+                                causal=causal, attn_softcap=attn_softcap)
+    return attention_flash(q, k, v, qpos, kpos, window=window, causal=causal,
+                           attn_softcap=attn_softcap)
 
 
 def attn_init(gen, cfg, dtype, device, count: int):
@@ -133,10 +220,12 @@ def attn_qkv(p, cfg, x, positions, *, theta: float = 0.0):
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 
-def attn_apply(p, cfg, x, positions, *, theta: float = 0.0):
-    """Full-sequence causal attention (prefill).  Returns (y, (k, v))."""
+def attn_apply(p, cfg, x, positions, *, window: int = 0, causal: bool = True,
+               theta: float = 0.0):
+    """Full-sequence attention (train / prefill).  Returns (y, (k, v))."""
     q, k, v = attn_qkv(p, cfg, x, positions, theta=theta)
-    o = attention(q, k, v, positions, positions)
+    o = attention(q, k, v, positions, positions, window=window,
+                  causal=causal, attn_softcap=cfg.attn_softcap)
     y = dense(p["wo"], o.reshape(x.shape[0], x.shape[1], -1))
     return y, (k, v)
 

@@ -108,7 +108,7 @@ def block_apply(p, cfg, desc: LayerDesc, x, positions):
     """Full-sequence block.  Returns (x, (k, v))."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out, kv = L.attn_apply(p["attn"], cfg, h, positions,
-                                theta=desc.theta)
+                                window=desc.window, theta=desc.theta)
     x = x + attn_out
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + L.mlp_apply(p["ffn"], h2), kv

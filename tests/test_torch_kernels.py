@@ -20,6 +20,7 @@ from repro.kernels import ref as jref
 from repro.kernels import vote as jvote
 from repro_torch.kernels import _build
 from repro_torch.kernels import checksum as tck
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_kv as tpk
 from repro_torch.kernels import ref as tref
@@ -247,13 +248,15 @@ def test_cpu_wrappers_launch_no_kernel():
                                                       dtype=torch.int32))
     tck.checksum_tiles(x.view(-1))
     tvote.vote3_tiles(x.view(-1), x.view(-1), x.view(-1))
+    tfa.flash_attention_bhsd(torch.zeros((2, 3, 16)), torch.zeros((1, 4, 16)),
+                             torch.zeros((1, 4, 16)))
     assert sum(_build.LAUNCHES.values()) == 0
 
 
 def test_kernel_sources_export_the_bound_entry_points():
     srcs = _build.sources()
-    assert [p.name for p in srcs] == ["checksum.cu", "paged_kv.cu",
-                                      "parity.cu", "vote.cu"]
+    assert [p.name for p in srcs] == ["checksum.cu", "flash_attention.cu",
+                                      "paged_kv.cu", "parity.cu", "vote.cu"]
     text = "".join(p.read_text() for p in srcs)
     for name in _build._SIGNATURES:
         assert f'extern "C" int {name}(' in text, name
