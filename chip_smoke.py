@@ -13,7 +13,16 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    cases, held bitwise against its plain PyTorch version, with CUDA-event
    medians of the kernel, the plain version and (where one exists) a
    one-call PyTorch library equivalent, next to the bytes bound at
-   3.35 TB/s;
+   3.35 TB/s.  The two copy kernels (the bulk-async engine of
+   ``csrc/copy.cuh``) are held on edge cases: leaves of 0, 1, 3 and 5
+   words, unaligned sources, chunk boundaries inside a leaf and inside a
+   block, a leaf longer than one pass of the whole grid, untouched words
+   around the leaves, 3,000 leaves in one launch (and more than
+   ``MAX_PACK_LEAVES`` refused), 21-word blocks, 66,000 (slot, block)
+   pairs of 4-word blocks, table entries of 0 and entries outside the
+   pool (zeros), no launch counted for an empty call; then timed beside
+   two yardsticks: the event floor (an empty kernel) and a contiguous
+   ``copy_`` of the same bytes;
 4. the smoke-size model on the card against the same code on the CPU
    (prefill and decode logits within the reference's f32 tolerance);
 5. the serving path: full-width iterpro-100m served through
@@ -63,8 +72,12 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    (``RecoveryRuntime(replicas=...)``) on a flipped embedding leaf and
    the ``checkpoint`` rung from the storm's checkpoint, both bitwise
    against the clean state, and a corrupted checkpoint refused at load.
-   A launch count above 0 for every kernel of the path; then a profiled
-   window of 4 steady train steps, without and with the parity attached;
+   A launch count above 0 for every kernel of the path; then
+   ``pack_rows`` alone at the training canary's shape (41 leaves, 1.201
+   GB) bitwise against its plain version and timed beside its bound, ``_foreach_copy_`` and a contiguous ``copy_``, and
+   ``row_checksums`` over the whole 2.402 GB check+arm buffer; then a
+   profiled window of 4 steady train steps, without and with the parity
+   attached;
 7d. the parity path: the params storm again with ``parity=True`` (same
    settings).  Asserts detected == injected == recovered > 0, only the
    ``parity_xor`` and ``replay`` rungs, at least one ``parity_xor``, and
@@ -182,6 +195,7 @@ def _rand_bits(torch, shape, dtype, gen):
 
 def check_kernels(torch, eng, flush):
     """Phase 3: bitwise checks and timings at the main path's shapes."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import checksum as ck
     from repro_torch.kernels import digest as kd
     from repro_torch.kernels import paged_kv as pkv
@@ -209,27 +223,55 @@ def check_kernels(torch, eng, flush):
 
     out = {}
     # -- pack_rows ---------------------------------------------------------
-    bk, bp = fresh(), fresh()
-    ck.pack_rows(bk, flats, starts, desc=desc)
-    ref.pack_rows_ref(bp, flats, starts)
-    err = _max_err(torch, bk, bp)
-    # edge cases: size-1 and ragged leaves, unaligned sources, int32 extremes
+    # edge cases: leaves of 1, 3 and 5 words and of none, unaligned sources,
+    # int32 extremes, chunk boundaries inside a leaf, and a leaf of 2^21
+    # words (8 MiB), longer than one pass of the whole persistent grid
+    # (132 CTAs x 32 KiB); then 3,000 leaves of 0-5 words (the kernel
+    # stages their first_chunk column in 12 passes of its 256 threads)
+    big = _rand_bits(torch, (1 << 21,), torch.int32, gen)
     edge = [torch.tensor([2**31 - 1], dtype=torch.int32, device="cuda"),
             torch.full((3,), -2**31, dtype=torch.int32, device="cuda"),
+            _rand_bits(torch, (5,), torch.int32, gen), big[:0],
             _rand_bits(torch, (129,), torch.int32, gen),
             _rand_bits(torch, (1031,), torch.int32, gen)[1:],
-            _rand_bits(torch, (5000,), torch.int32, gen)]
+            big[3:3 + 20_000], _rand_bits(torch, (5000,), torch.int32, gen),
+            big]
+    assert edge[5].data_ptr() % 16 and edge[6].data_ptr() % 16
     e_starts, r = [], 0
     for f in edge:
         e_starts.append(r * ck.LANES)
         r += max(1, -(-f.numel() // ck.LANES))
     r = -(-r // ck.TILE_ROWS) * ck.TILE_ROWS
-    ek = torch.zeros(r * ck.LANES, dtype=torch.int32, device="cuda")
-    ep = ek.clone()
-    ck.pack_rows(ek, edge, e_starts)
-    ref.pack_rows_ref(ep, edge, e_starts)
-    err = max(err, _max_err(torch, ek, ep))
+    many_src = _rand_bits(torch, (3000 * 6 + 8,), torch.int32, gen)
+    many = [many_src[6 * i + i % 3:6 * i + i % 3 + i % 6]
+            for i in range(3000)]
+
+    def pack_err(fl, st, n):
+        """|kernel - plain| of one pack into a buffer of random bits (the
+        words no leaf covers must stay as they were)."""
+        bk = _rand_bits(torch, (n,), torch.int32, gen)
+        bp = bk.clone()
+        ck.pack_rows(bk, fl, st)
+        ref.pack_rows_ref(bp, fl, st)
+        return _max_err(torch, bk, bp)
+
+    err = max(pack_err(flats, starts, rows * ck.LANES),
+              pack_err(edge, e_starts, r * ck.LANES),
+              pack_err(many, [ck.LANES * i for i in range(3000)],
+                       3000 * ck.LANES))
     assert err == 0, f"pack_rows differs from its plain version ({err})"
+    too_many = [many_src[:1]] * (ck.MAX_PACK_LEAVES + 1)
+    try:
+        ck.pack_rows(fresh(), too_many, [0] * len(too_many))
+        raise AssertionError("pack_rows took more leaves than it stages")
+    except ValueError as exc:
+        assert "at most" in str(exc), exc
+    del many_src, many, too_many
+    ek = torch.zeros(r * ck.LANES, dtype=torch.int32, device="cuda")
+    ck.pack_rows(ek, edge, e_starts)                # row_checksums' input
+    del big, edge
+    bk = fresh()
+    ck.pack_rows(bk, flats, starts, desc=desc)      # row_checksums' input
     b = fresh()
     t_bytes, t_by = _bound_ms(2 * 4 * n_words)
     ms, call_ms = _times(lambda: ck.pack_rows(b, flats, starts, desc=desc),
@@ -241,13 +283,16 @@ def check_kernels(torch, eng, flush):
     dst = [b[st:st + f.numel()] for f, st in zip(flats, starts)]
     lib_ms = _median_ms(lambda: torch._foreach_copy_(dst, flats), torch,
                         flush, queued=True)
+    same = torch.empty(n_words, dtype=torch.int32, device="cuda")
+    copy_ms = _median_ms(lambda: b[:n_words].copy_(same), torch, flush,
+                         queued=True)
     out["pack_rows"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/checksum.cu",
         replaces="src/repro/kernels/checksum.py:85", max_abs_err=err,
         ms=ms, call_ms=call_ms, plain_ms=plain_ms,
         plain_call_ms=plain_call_ms, bound_ms=t_bytes, bound_by=t_by,
         library_ms=lib_ms, library="torch._foreach_copy_",
-        shape=f"{len(flats)} leaves, {n_words} words")
+        shape=f"{len(flats)} leaves, {n_words} words", copy_ms=copy_ms)
 
     # -- row_checksums -----------------------------------------------------
     x = bk.view(-1, ck.LANES)
@@ -277,14 +322,38 @@ def check_kernels(torch, eng, flush):
     bt = (perm[:eng.S * eng.max_blocks] + 1).view(
         eng.S, eng.max_blocks).to(torch.int32)
     bt[-1, -3:] = 0                              # unallocated -> scratch 0
-    err = _max_err(torch, pkv.gather_blocks(leaf, bt).view(torch.int32),
-                   ref.gather_blocks_ref(leaf, bt).view(torch.int32))
+    # edge cases: 21-word blocks, 66,000 (slot, block) pairs of 4-word
+    # blocks, table entries of 0; the serving block (196,608 B) has chunk
+    # boundaries inside it (6 chunks of 32 KiB)
     small = _rand_bits(torch, (5, 3, 7), torch.float32, gen)   # 21 words
-    sbt = torch.tensor([[4, 0], [2, 2]], dtype=torch.int32, device="cuda")
-    err = max(err, _max_err(
-        torch, pkv.gather_blocks(small, sbt).view(torch.int32),
-        ref.gather_blocks_ref(small, sbt).view(torch.int32)))
+    sbt = torch.tensor([[4, 0], [2, 2], [1, 3]], dtype=torch.int32,
+                       device="cuda")
+    tiny = _rand_bits(torch, (64, 4), torch.float32, gen)      # 4 words
+    tbt = torch.randint(0, 64, (300, 220), dtype=torch.int32, device="cuda",
+                        generator=gen)
+    tbt[::7, ::5] = 0
+    cases = [(leaf, bt), (small, sbt), (tiny, tbt)]
+    err = 0
+    for p, t in cases:
+        err = max(err, _max_err(
+            torch, pkv.gather_blocks(p, t).view(torch.int32),
+            ref.gather_blocks_ref(p, t).view(torch.int32)))
+    # an entry outside [0, n_blocks) gives a block of zeros
+    obt = sbt.clone()
+    obt[0, 1], obt[2, 0] = 5, -1
+    got = pkv.gather_blocks(small, obt).view(torch.int32)
+    want = ref.gather_blocks_ref(small, obt.clamp(0, 4)).view(
+        torch.int32).clone()
+    want[0, 1] = want[2, 0] = 0
+    err = max(err, _max_err(torch, got, want))
     assert err == 0, f"gather_blocks differs from its plain version ({err})"
+    del tiny, tbt
+    # nothing to copy, no launch: an empty table, a pack of empty leaves
+    before = dict(_build.LAUNCHES)
+    assert pkv.gather_blocks(small, sbt[:0]).shape == (0, 2, 3, 7)
+    nothing = torch.empty(0, dtype=torch.int32, device="cuda")
+    ck.pack_rows(fresh(), [nothing, nothing], [0, ck.LANES])
+    assert dict(_build.LAUNCHES) == before, "an empty call was counted"
     block_bytes = leaf[0].numel() * leaf.element_size()
     distinct = int(torch.unique(bt).numel())
     g_bound, g_by = _bound_ms((distinct + bt.numel()) * block_bytes)
@@ -292,6 +361,10 @@ def check_kernels(torch, eng, flush):
     ms, call_ms = _times(lambda: pkv.gather_blocks(leaf, bt), torch, flush)
     plain_ms, plain_call_ms = _times(lambda: ref.gather_blocks_ref(leaf, bt),
                                      torch, flush)
+    g_out = pkv.gather_blocks(leaf, bt)
+    same = torch.empty_like(g_out)
+    copy_ms = _median_ms(lambda: g_out.copy_(same), torch, flush,
+                         queued=True)
     out["gather_blocks"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_kv.cu",
         replaces="src/repro/kernels/paged_kv.py:52", max_abs_err=err,
@@ -300,8 +373,15 @@ def check_kernels(torch, eng, flush):
         library_ms=_median_ms(lambda: leaf.index_select(0, flat_bt),
                               torch, flush, queued=True),
         library="index_select",
-        shape=f"pool {tuple(leaf.shape)}, bt {tuple(bt.shape)}")
+        shape=f"pool {tuple(leaf.shape)}, bt {tuple(bt.shape)}",
+        copy_ms=copy_ms)
     _print_kernels(out)
+    floor_ms = _median_ms(lambda: torch.cuda._sleep(0), torch, flush,
+                          queued=True)
+    print(f"[copy] yardsticks: event floor {floor_ms:.4f} ms (an empty "
+          f"kernel, torch.cuda._sleep(0)); contiguous copy_ of the same "
+          f"bytes: pack_rows' {out['pack_rows']['copy_ms']:.4f} ms, "
+          f"gather_blocks' {out['gather_blocks']['copy_ms']:.4f} ms")
     return out
 
 
@@ -867,6 +947,64 @@ def recover_on_card(torch, cfg, clean_state):
     shutil.rmtree(WORK, ignore_errors=True)
 
 
+def check_pack_training(torch, flush, state):
+    """Phase 7b, after the rungs: ``pack_rows`` alone at the training
+    canary's shape — the 41 leaves of the state into the check half of
+    the K=1 check+arm buffer (1.201 GB read and written, what each of the
+    two launches per step moves) — bitwise against its plain version,
+    timed beside its bound, ``_foreach_copy_`` and a
+    contiguous ``copy_`` of the same bytes; then the step's one
+    ``row_checksums`` launch over the whole buffer, timed beside its
+    bound."""
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import digest as kd
+    from repro_torch.kernels import ref
+
+    plan = kd.plan_for(state)
+    n = plan.n_leaves
+    lay = plan.layout(tuple(range(n)) * 2)           # the K=1 union
+    flats = [ref.to_i32(x) for x in plan.leaves(state)]
+    starts = lay.starts[:n]
+    words = sum(f.numel() for f in flats)
+    bk = torch.zeros(lay.padded_rows * ck.LANES, dtype=torch.int32,
+                     device="cuda")
+    bp = torch.zeros_like(bk)
+    ref.pack_rows_ref(bp, flats, starts)
+    desc = ck.pack_descriptors(flats, starts, "cuda")
+    ck.pack_rows(bk, flats, starts, desc=desc)
+    err = _max_err(torch, bk, bp)
+    assert err == 0, f"pack_rows differs from its plain version at the " \
+        f"training shape ({err})"
+    del bp
+    bound, _ = _bound_ms(2 * 4 * words)
+    ms = _median_ms(lambda: ck.pack_rows(bk, flats, starts, desc=desc),
+                    torch, flush, queued=True)
+    plain_ms = _median_ms(lambda: ref.pack_rows_ref(bk, flats, starts),
+                          torch, flush, queued=True)
+    dst = [bk[st:st + f.numel()] for f, st in zip(flats, starts)]
+    lib_ms = _median_ms(lambda: torch._foreach_copy_(dst, flats), torch,
+                        flush, queued=True)
+    same = torch.empty(words, dtype=torch.int32, device="cuda")
+    copy_ms = _median_ms(lambda: bk[:words].copy_(same), torch, flush,
+                         queued=True)
+    # the step's one row_checksums launch reads the whole check+arm buffer
+    rows = bk.view(-1, ck.LANES)
+    rc_ms = _median_ms(lambda: ck.row_checksums(rows), torch, flush,
+                       queued=True)
+    rc_bound, rc_by = _bound_ms(rows.shape[0] * (ck.LANES * 4 + 8),
+                                rows.shape[0] * ck.LANES * 3)
+    print(f"[kernel] pack_rows at the training shape: bitwise equal to "
+          f"plain (max_abs_err {err}), {n} leaves, {words} words "
+          f"({4 * words / 1e9:.3f} GB) into a {bk.numel() * 4 / 1e9:.3f} GB "
+          f"buffer, {desc.n_chunks} chunks: device time kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+          f"(torch._foreach_copy_), contiguous copy_ {copy_ms:.4f} ms, "
+          f"bound {bound:.4f} ms (bytes)")
+    print(f"[kernel] row_checksums over that check+arm buffer "
+          f"({rows.shape[0]} rows): device time {rc_ms:.4f} ms, bound "
+          f"{rc_bound:.4f} ms ({rc_by})")
+
+
 def profile_train(torch, cfg, state, steps: int = 4,
                   parity: bool = False) -> None:
     """Phase 7c: where a steady train step's time goes (torch.profiler
@@ -1079,9 +1217,12 @@ def main() -> int:
     _build.lib()
     print(f"[build] {len(_build.sources())} CUDA sources -> {lib_path.name} "
           f"in {time.perf_counter() - t0:.1f} s")
+    kernel = "?"
     for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]          # mangled: name + template
+        elif "registers" in line or "spill" in line:
+            print(f"[build] {kernel[:48]}: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1164,6 +1305,7 @@ def main() -> int:
           f"phase): {train_launches}")
     for name in ("pack_rows", "row_checksums", *train_kernels):
         assert train_launches.get(name, 0) > 0, f"{name} never launched"
+    check_pack_training(torch, flush, clean_state)
 
     # -- parity path (train --parity) --------------------------------------
     _build.LAUNCHES.clear()

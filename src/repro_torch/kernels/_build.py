@@ -3,9 +3,10 @@
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a``; the objects link into one shared library that is
 loaded with ``ctypes``.  The library lives in ``build/kernels/<hash>/`` at
-the repository root, keyed by a hash of the sources and flags, so a fresh
-checkout builds at first use and an edited source rebuilds.  Nothing here
-runs at import time: the CPU tests import every module of the port.
+the repository root, keyed by a hash of the sources, their shared headers
+and the flags, so a fresh checkout builds at first use and an edited
+source or header rebuilds.  Nothing here runs at import time: the CPU
+tests import every module of the port.
 
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
 it launches its kernel and nowhere else — the evidence that a run went
@@ -37,7 +38,7 @@ _LIB = None
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # buf, desc, n_leaves, max_words, stream
+    # buf, desc, n_leaves, n_chunks, stream
     "repro_pack_rows": (_P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     # rows_in, out, rows, stream
     "repro_row_checksums": (_P, _P, ctypes.c_longlong, _P),
@@ -63,12 +64,18 @@ _SIGNATURES = {
 
 
 def sources():
+    """The translation units, one ``nvcc`` each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers():
+    """The shared headers the sources include (hashed, not compiled)."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

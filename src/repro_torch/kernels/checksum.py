@@ -3,13 +3,14 @@
 
 Counterparts of ``repro/kernels/checksum.py``.  Dispatch is by the
 tensor's device: a CPU tensor takes the plain version (``kernels/ref.py``);
-a CUDA tensor launches the hand-written kernel (``csrc/checksum.cu``) or
-raises — there is no fallback.
+a CUDA tensor launches the hand-written kernel (``csrc/checksum.cu``; pack
+through the copy engine of ``csrc/copy.cuh``) or raises — there is no
+fallback.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,28 +22,65 @@ LANES = _ref.LANES
 TILE_ROWS = _ref.TILE_ROWS
 TILE = _ref.TILE
 
+# The copy engine's chunk size, ``kChunk`` of ``csrc/copy.cuh``.
+CHUNK_BYTES = 32768
+# Leaves per ``pack_rows`` launch: ``kMaxLeaves`` of ``csrc/checksum.cu``
+# (the kernel stages their ``first_chunk`` column in shared memory).
+MAX_PACK_LEAVES = 8192
+
+
+def chunk_count(n_bytes: int) -> int:
+    """Chunks of a run of ``n_bytes`` in the copy engine: its 16-byte
+    body in ``CHUNK_BYTES`` pieces, then one tail chunk of the ragged
+    bytes when there are any (0 for an empty run)."""
+    body = n_bytes & ~15
+    return -(-body // CHUNK_BYTES) + (n_bytes != body)
+
+
+def pack_schedule(ptrs: Sequence[int], n_words: Sequence[int],
+                  starts: Sequence[int]) -> Tuple[np.ndarray, int]:
+    """The ``pack_rows`` kernel's schedule: an ``(n_leaves, 4)`` int64
+    table of ``(src_ptr, n_words, dst_start, first_chunk)`` and the total
+    chunk count.  ``first_chunk`` is the prefix sum of the leaves' chunk
+    counts (``chunk_count`` of ``4 * n_words`` bytes), so chunk ``c``
+    belongs to the last leaf whose ``first_chunk <= c``."""
+    counts = [chunk_count(4 * int(n)) for n in n_words]
+    first = np.zeros(len(counts), np.int64)
+    if counts:
+        first[1:] = np.cumsum(counts[:-1])
+    table = np.array([(int(p), int(n), int(s), int(f)) for p, n, s, f
+                      in zip(ptrs, n_words, starts, first)],
+                     dtype=np.int64).reshape(-1, 4)
+    return table, int(sum(counts))
+
+
+class PackDescriptors(NamedTuple):
+    """A ``pack_schedule`` uploaded to the device (``table``), with its
+    chunk count."""
+    table: torch.Tensor
+    n_chunks: int
+
 
 def pack_descriptors(flats: Sequence[torch.Tensor], starts: Sequence[int],
-                     device) -> torch.Tensor:
-    """Device table ``(n_leaves, 3)`` int64 of ``(src_ptr, n_words,
-    dst_start)`` — the kernel's per-leaf descriptors.  Valid only while
-    every flat keeps its storage; callers cache it keyed by the pointers."""
-    table = np.array([(f.data_ptr(), f.numel(), int(s))
-                      for f, s in zip(flats, starts)],
-                     dtype=np.int64).reshape(-1, 3)
-    return torch.from_numpy(table).to(device)
+                     device) -> PackDescriptors:
+    """The kernel's schedule of ``flats`` on ``device``.  Valid only while
+    every flat keeps its storage; callers cache it keyed by the
+    pointers."""
+    table, n_chunks = pack_schedule([f.data_ptr() for f in flats],
+                                    [f.numel() for f in flats], starts)
+    return PackDescriptors(torch.from_numpy(table).to(device), n_chunks)
 
 
 def pack_rows(buf: torch.Tensor, flats: Sequence[torch.Tensor],
               starts: Sequence[int], *,
-              desc: Optional[torch.Tensor] = None) -> torch.Tensor:
+              desc: Optional[PackDescriptors] = None) -> torch.Tensor:
     """In-place scatter of flat int32 leaves into the packing buffer at the
     given element offsets (row aligned); other words are untouched.
 
     buf   : flat int32 packing buffer, written in place and returned.
     flats : flat int32 contiguous leaves (``ref.to_i32`` views).
-    desc  : optional pre-built ``pack_descriptors(flats, starts)`` table
-            (CUDA only), so a steady-state caller uploads nothing.
+    desc  : optional pre-built ``pack_descriptors(flats, starts)`` (CUDA
+            only), so a steady-state caller uploads nothing.
     """
     if buf.device.type == "cpu":
         return _ref.pack_rows_ref(buf, flats, starts)
@@ -57,17 +95,18 @@ def pack_rows(buf: torch.Tensor, flats: Sequence[torch.Tensor],
             raise ValueError("pack_rows: leaf on another device")
         if s % LANES or s + f.numel() > buf.numel():
             raise ValueError(f"pack_rows: bad start {s} for {f.numel()} words")
-    if len(flats) > 65535:
-        raise ValueError("pack_rows: at most 65535 leaves per launch")
+    if len(flats) > MAX_PACK_LEAVES:
+        raise ValueError(f"pack_rows: {len(flats)} leaves, at most "
+                         f"{MAX_PACK_LEAVES} per launch")
     _build.require_cuda("pack_rows", buf)
     if desc is None:
         desc = pack_descriptors(flats, starts, buf.device)
-    max_words = max((f.numel() for f in flats), default=0)
-    rc = _build.lib().repro_pack_rows(buf.data_ptr(), desc.data_ptr(),
-                                      len(flats), max_words,
-                                      _build.stream_of(buf))
-    _build.check(rc, "pack_rows")
-    _build.LAUNCHES["pack_rows"] += 1
+    if desc.n_chunks:                     # else every leaf is empty
+        rc = _build.lib().repro_pack_rows(
+            buf.data_ptr(), desc.table.data_ptr(), len(flats),
+            desc.n_chunks, _build.stream_of(buf))
+        _build.check(rc, "pack_rows")
+        _build.LAUNCHES["pack_rows"] += 1
     return buf
 
 

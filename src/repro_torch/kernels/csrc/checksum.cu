@@ -6,13 +6,19 @@
 // launch, leaving fill and pad words untouched (they stay zero for the
 // buffer's life).  On the TPU the leaves were separate kernel operands
 // aliased into the output; here a device descriptor table holds
-// (src_ptr, n_words, dst_start) per leaf, so one launch covers every leaf
-// of a canary slice without any per-leaf host work.
+// (src_ptr, n_words, dst_start, first_chunk) per leaf, so one launch
+// covers every leaf of a canary slice without any per-leaf host work.
 //   Bound: bytes.  Each leaf word is read once and written once; there is
-//   no arithmetic.  Design: grid.y = leaf, grid.x strides over the leaf in
-//   16-byte (int4) copies, neighbouring threads on neighbouring addresses.
-//   A leaf whose source is not 16-byte aligned (a `pos[u]` scalar view)
-//   takes the scalar path; destinations are always row aligned.
+//   no arithmetic.  Design: the persistent bulk-async copy engine of
+//   copy.cuh.  Each leaf is cut into chunks of at most kChunk bytes
+//   (never across a leaf); `first_chunk` is the prefix sum of the leaves'
+//   chunk counts (kernels/checksum.py:pack_schedule), staged in shared
+//   memory after the ring once per CTA (at most kMaxLeaves leaves per
+//   launch, checked by the wrapper), and a chunk finds its leaf by binary
+//   search over it.
+//   Aligned chunks go through the shared-memory ring with 1-D bulk
+//   copies; a `pos[u]` scalar view, an unaligned source or a leaf's
+//   ragged tail is copied word by word by the same launch.
 //
 // row_checksums replaces src/repro/kernels/checksum.py:136 (`row_checksums`,
 // kernel bodies :57 and :68): for every 128-lane int32 row it computes
@@ -43,26 +49,52 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-struct PackDesc {          // mirrors the wrapper's (n_leaves, 3) int64 table
+#include "copy.cuh"
+
+struct PackDesc {          // mirrors the wrapper's (n_leaves, 4) int64 table
   const int32_t* src;
   long long n_words;
   long long dst_start;
+  long long first_chunk;   // chunks of the leaves before this one
 };
 
-__global__ void pack_rows_kernel(int32_t* __restrict__ buf,
-                                 const PackDesc* __restrict__ desc) {
-  const PackDesc d = desc[blockIdx.y];
-  const int32_t* __restrict__ src = d.src;
-  int32_t* __restrict__ dst = buf + d.dst_start;
-  const long long n = d.n_words;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long n4 =
-      ((reinterpret_cast<uintptr_t>(src) & 15) == 0) ? n / 4 : 0;
-  const int4* __restrict__ s4 = reinterpret_cast<const int4*>(src);
-  int4* __restrict__ d4 = reinterpret_cast<int4*>(dst);
-  for (long long i = tid; i < n4; i += stride) d4[i] = s4[i];
-  for (long long i = n4 * 4 + tid; i < n; i += stride) dst[i] = src[i];
+// first_chunk column in shared memory: 64 KiB after the 128 KiB ring,
+// inside the card's 227 KiB (kernels/checksum.py:MAX_PACK_LEAVES).
+constexpr int kMaxLeaves = 8192;
+
+// Chunk c of the pack: the leaf l with the largest first_chunk <= c (a
+// leaf with no chunks shares its successor's first_chunk and is never
+// picked), then chunk c - first_chunk[l] of its 4 * n_words bytes.
+struct PackMap {
+  const PackDesc* desc;
+  const long long* first;      // the first_chunk column, in shared memory
+  int n_leaves;
+  int32_t* buf;
+
+  __device__ copy_engine::Span operator()(long long c) const {
+    int lo = 0, hi = n_leaves - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (first[mid] <= c) lo = mid; else hi = mid - 1;
+    }
+    const PackDesc& d = desc[lo];
+    long long off, len;
+    copy_engine::chunk_span(c - first[lo], 4 * d.n_words, off, len);
+    return {reinterpret_cast<const char*>(d.src) + off,
+            reinterpret_cast<char*>(buf + d.dst_start) + off, len};
+  }
+};
+
+__global__ void __launch_bounds__(copy_engine::kThreads)
+pack_rows_kernel(int32_t* __restrict__ buf, const PackDesc* __restrict__ desc,
+                 int n_leaves, long long n_chunks) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  long long* first =
+      reinterpret_cast<long long*>(smem + copy_engine::kRingBytes);
+  for (int l = threadIdx.x; l < n_leaves; l += blockDim.x)
+    first[l] = desc[l].first_chunk;
+  __syncthreads();
+  copy_engine::run(PackMap{desc, first, n_leaves, buf}, n_chunks, smem);
 }
 
 __global__ void row_checksums_kernel(const int4* __restrict__ x,
@@ -140,15 +172,23 @@ __global__ void checksum_tiles_kernel(const int32_t* __restrict__ x,
   }
 }
 
+namespace {
+copy_engine::GridCache pack_grid;   // internal linkage: see copy.cuh
+}
+
 extern "C" int repro_pack_rows(void* buf, const void* desc, int n_leaves,
-                               long long max_words, void* stream) {
-  if (n_leaves <= 0) return 0;
-  long long blocks = (max_words / 4 + 255) / 256;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 1024) blocks = 1024;
-  dim3 grid((unsigned)blocks, (unsigned)n_leaves);
-  pack_rows_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (int32_t*)buf, (const PackDesc*)desc);
+                               long long n_chunks, void* stream) {
+  if (n_leaves <= 0 || n_chunks <= 0) return 0;
+  if (n_leaves > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  unsigned grid = 0;
+  cudaError_t e = copy_engine::persistent_grid(
+      pack_rows_kernel, copy_engine::kRingBytes + 8 * kMaxLeaves, n_chunks,
+      pack_grid, &grid);
+  if (e != cudaSuccess) return (int)e;
+  pack_rows_kernel<<<grid, copy_engine::kThreads,
+                     copy_engine::kRingBytes + 8 * n_leaves,
+                     (cudaStream_t)stream>>>(
+      (int32_t*)buf, (const PackDesc*)desc, n_leaves, n_chunks);
   return (int)cudaGetLastError();
 }
 

@@ -5,48 +5,68 @@
 // (n_blocks, block_words) of 4-byte words and a block table (S, max_blocks)
 // int32 — a pure copy, which is what keeps the paged engine bit-exact.
 // On the TPU the table rode scalar prefetch into the BlockSpec index map;
-// the card has no scalar prefetch, so each CTA reads its own table entry.
+// the card has no scalar prefetch, so the kernel reads each table entry
+// itself.
 //   Bound: bytes (each gathered block read once, each output block written
-//   once; no arithmetic).  Design: grid.y = (s, j) pair, grid.x splits the
-//   block's words into 16-byte (int4) copies so that one (s, j) pair spreads
-//   over several SMs; a block whose size is not a multiple of 4 words takes
-//   the scalar path.  A table entry outside [0, n_blocks) yields zeros
-//   rather than reading outside the pool.
+//   once; no arithmetic).  Design: the persistent bulk-async copy engine
+//   of copy.cuh.  The chunk list is S * max_blocks (slot, block) pairs
+//   times the chunks of one block (at most kChunk bytes each); chunk c
+//   maps to its pair and its byte offset by division and reads bt[pair]
+//   once.
+//   Aligned chunks go through the shared-memory ring with 1-D bulk copies;
+//   a block whose size is not a multiple of 16 bytes (its unaligned
+//   neighbours and its ragged tail) is copied word by word by the same
+//   launch.  A table entry outside [0, n_blocks) yields zeros rather than
+//   reading outside the pool.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__global__ void gather_blocks_kernel(const int32_t* __restrict__ pool,
-                                     const int32_t* __restrict__ bt,
-                                     int32_t* __restrict__ out,
-                                     int n_blocks, long long block_words) {
-  const long long sj = blockIdx.y;
-  const int b = bt[sj];
-  int32_t* __restrict__ dst = out + sj * block_words;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  if (b < 0 || b >= n_blocks) {
-    for (long long i = tid; i < block_words; i += stride) dst[i] = 0;
-    return;
+#include "copy.cuh"
+
+struct GatherMap {
+  const char* pool;
+  const int32_t* bt;
+  char* out;
+  int n_blocks;
+  long long block_bytes;
+  long long per_pair;          // chunks of one block
+
+  __device__ copy_engine::Span operator()(long long c) const {
+    const long long pair = c / per_pair;
+    long long off, len;
+    copy_engine::chunk_span(c - pair * per_pair, block_bytes, off, len);
+    char* dst = out + pair * block_bytes + off;
+    const int b = __ldg(bt + pair);
+    if (b < 0 || b >= n_blocks) return {nullptr, dst, len};
+    return {pool + (long long)b * block_bytes + off, dst, len};
   }
-  const int32_t* __restrict__ src = pool + (long long)b * block_words;
-  const long long n4 = (block_words % 4 == 0) ? block_words / 4 : 0;
-  const int4* __restrict__ s4 = reinterpret_cast<const int4*>(src);
-  int4* __restrict__ d4 = reinterpret_cast<int4*>(dst);
-  for (long long i = tid; i < n4; i += stride) d4[i] = s4[i];
-  for (long long i = n4 * 4 + tid; i < block_words; i += stride)
-    dst[i] = src[i];
+};
+
+__global__ void __launch_bounds__(copy_engine::kThreads)
+gather_blocks_kernel(GatherMap map, long long n_chunks) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  copy_engine::run(map, n_chunks, smem);
+}
+
+namespace {
+copy_engine::GridCache gather_grid;   // internal linkage: see copy.cuh
 }
 
 extern "C" int repro_gather_blocks(const void* pool, const void* bt,
                                    void* out, int n_blocks, long long pairs,
                                    long long block_words, void* stream) {
   if (pairs <= 0 || block_words <= 0) return 0;
-  long long blocks = (block_words / 4 + 255) / 256;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 256) blocks = 256;
-  dim3 grid((unsigned)blocks, (unsigned)pairs);
-  gather_blocks_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)pool, (const int32_t*)bt, (int32_t*)out, n_blocks,
-      block_words);
+  const long long block_bytes = 4 * block_words;
+  const long long per_pair = copy_engine::chunk_count(block_bytes);
+  const long long n_chunks = pairs * per_pair;
+  unsigned grid = 0;
+  cudaError_t e = copy_engine::persistent_grid(
+      gather_blocks_kernel, copy_engine::kRingBytes, n_chunks, gather_grid,
+      &grid);
+  if (e != cudaSuccess) return (int)e;
+  const GatherMap map{(const char*)pool, (const int32_t*)bt, (char*)out,
+                      n_blocks, block_bytes, per_pair};
+  gather_blocks_kernel<<<grid, copy_engine::kThreads, copy_engine::kRingBytes,
+                         (cudaStream_t)stream>>>(map, n_chunks);
   return (int)cudaGetLastError();
 }

@@ -124,7 +124,8 @@ class DigestPlan:
         self._key_to_index = {k: i for i, k in enumerate(keys)}
         self._layouts: Dict[Tuple[int, ...], _Layout] = {}
         self._pack_bufs: Dict[Tuple[int, ...], torch.Tensor] = {}
-        self._descs: Dict[Tuple, Tuple[Tuple[int, ...], torch.Tensor]] = {}
+        self._descs: Dict[Tuple, Tuple[Tuple[int, ...],
+                                       _ck.PackDescriptors]] = {}
         self._check_arm: Dict[Tuple, "CheckArm"] = {}
 
     # -- leaf extraction ---------------------------------------------------
@@ -182,8 +183,9 @@ class DigestPlan:
              leaves: Sequence[torch.Tensor], first: int = 0) -> None:
         """Pack ``leaves`` — subset positions ``first .. first+len-1`` of
         ``idx`` — into ``buf`` (one ``pack_rows`` launch).  On the card the
-        descriptor table is cached per (subset, part) and re-uploaded only
-        when a leaf's base pointer changed."""
+        kernel's schedule (``checksum.pack_descriptors``) is cached per
+        (subset, part) and rebuilt and re-uploaded only when a leaf's base
+        pointer changed."""
         if not leaves:
             return
         flats = [_ref.to_i32(x) for x in leaves]

@@ -9,10 +9,12 @@ then runs unmodified on the gathered view, which is what makes the paged
 engine bit-exact.
 
 A CPU tensor takes the plain version; a CUDA tensor launches
-``csrc/paged_kv.cu`` or raises.
+``csrc/paged_kv.cu`` (the copy engine of ``csrc/copy.cuh``) or raises.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -41,14 +43,13 @@ def gather_blocks(pool_leaf: torch.Tensor,
     _build.require_cuda("gather_blocks", pool_leaf, block_tables)
     n_blocks = pool_leaf.shape[0]
     S, mb = block_tables.shape
-    if S * mb > 65535:
-        raise ValueError("gather_blocks: at most 65535 (slot, block) pairs")
-    block_words = pool_leaf[0].numel() if n_blocks else 0
+    block_words = math.prod(pool_leaf.shape[1:])
     out = torch.empty((S, mb) + tuple(pool_leaf.shape[1:]),
                       dtype=pool_leaf.dtype, device=pool_leaf.device)
-    rc = _build.lib().repro_gather_blocks(
-        pool_leaf.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-        n_blocks, S * mb, block_words, _build.stream_of(pool_leaf))
-    _build.check(rc, "gather_blocks")
-    _build.LAUNCHES["gather_blocks"] += 1
+    if out.numel():                       # else there is nothing to copy
+        rc = _build.lib().repro_gather_blocks(
+            pool_leaf.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
+            n_blocks, S * mb, block_words, _build.stream_of(pool_leaf))
+        _build.check(rc, "gather_blocks")
+        _build.LAUNCHES["gather_blocks"] += 1
     return out
