@@ -7,7 +7,9 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
 ``nvcc``; exits non-zero without them.  Phases, each printed as it ends:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
+2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``,
+   with each kernel's registers and spills (ptxas) and its ``HGMMA``
+   (tensor-core) instructions (``cuobjdump --dump-sass``);
 3. each serving kernel (``pack_rows``, ``row_checksums``,
    ``gather_blocks``) at the shapes the serving path gives it and on edge
    cases, held bitwise against its plain PyTorch version, with CUDA-event
@@ -48,7 +50,9 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    keeps the parity's ``data_ptr`` and equals the fold on a zero parity;
    timed as in phase 3, with the per-step pieces of the update (the delta
    build, the fault gate, the whole ``update_leaves``);
-6c. flash attention, TF32 off: ``flash_attention_bhsd`` through
+6c. flash attention (PyTorch's TF32 off; the kernel's own products are
+   three TF32 passes on the tensor cores): ``flash_attention_bhsd``
+   (with its layout kernel ``flash_layout_kv``) through
    ``ops.flash_attention`` against its plain version
    (``ref.flash_attention_ref``) on the reference's six FLASH_CASES and on
    edge cases (non-causal with a ragged Sk, causal with Sq < Sk and
@@ -58,7 +62,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    (the serving prefill) and B=1, S=8192 (long context), the entry point
    against the plain version and against the port's
    ``models.layers.attention`` (the chunked path at 8192 keys), within
-   2e-5; timed as in phase 3 beside the operations bound and
+   2e-5, with the distance to the kernel's arithmetic emulated in plain
+   PyTorch (``ref.flash_attention_3xtf32``) printed beside; timed as in
+   phase 3 beside the tensor-core bound (3 TF32 passes at 494.7 TFLOP/s),
+   the SIMT bound (f32 at 67 TFLOP/s) and
    ``scaled_dot_product_attention`` (the yardstick; the port never calls
    it);
 7. the training path: full-width iterpro-100m through
@@ -95,6 +102,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -106,6 +114,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12      # H100 SXM 32-bit rate outside tensor cores
+TF32_OPS_PER_S = 494.7e12     # H100 SXM dense TF32 tensor-core rate
 F32_TOL = 2e-5                # the reference's f32 tolerance
 BF16_TOL = 3e-2               # the reference's bf16 tolerance
 SPIN_CYCLES = 20_000_000      # ~10 ms device spin that hides host enqueue
@@ -135,6 +144,27 @@ FLASH_CASES = [
     (2, 77, 77, 4, 2, 256, False, 0, 0.0, "bfloat16"),   # D = 256
 ]
 FLASH_SHAPES = ((4, 128), (1, 8192))   # (B, S): serving prefill, long context
+
+
+def _kernel_label(mangled: str) -> str:
+    """``flash_attention_kernel<64, float>`` from an Itanium-mangled kernel
+    name (its length-prefixed identifiers); the name's start otherwise."""
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        j = i + len(m.group())
+        ident = mangled[j:j + int(m.group())]
+        i = j + len(ident)
+        if ident.endswith("_kernel"):
+            t = re.match(r"ILi(\d+)E(f|13__nv_bfloat16)E", mangled[i:])
+            if t:
+                dtype = "float" if t.group(2) == "f" else "bf16"
+                return f"{ident}<{t.group(1)}, {dtype}>"
+            return ident
+    return mangled[:48]
 
 
 def _smi() -> str:
@@ -761,7 +791,8 @@ def check_flash(torch, flush, mcfg):
             for shape, t in inputs.items()}
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    assert launches.get("flash_attention_bhsd", 0) > 0, launches
+    for name in ("flash_layout_kv", "flash_attention_bhsd"):
+        assert launches.get(name, 0) > 0, launches
     print(f"[flash] launches on the main path (ops.flash_attention at "
           f"{len(FLASH_SHAPES)} shapes): {launches}")
 
@@ -778,17 +809,29 @@ def check_flash(torch, flush, mcfg):
         worst = max(worst, errs[0])
         del want, model
         torch.cuda.empty_cache()
+        flat = [t.transpose(1, 2).reshape(-1, S, D).contiguous()
+                for t in (q, k, v)]
+        # the kernel's own arithmetic (three TF32 passes), for reading only
+        emu = ref.flash_attention_3xtf32(*flat).view(B, H, S, D)
+        err_emu = float((o.transpose(1, 2) - emu).abs().max())
+        del emu
+        torch.cuda.empty_cache()
         path = "chunked" if S > L.FLASH_THRESHOLD else "direct"
         print(f"[flash] B={B} S={S} H={H} KV={KV} D={D} f32 causal: max "
               f"|kernel - plain| {errs[0]:.3e}, |kernel - model attention "
-              f"({path})| {errs[1]:.3e} (tolerance {F32_TOL})")
+              f"({path})| {errs[1]:.3e} (tolerance {F32_TOL}); |kernel - "
+              f"3xTF32 emulation| {err_emu:.3e}")
 
-        flat = [t.transpose(1, 2).reshape(-1, S, D).contiguous()
-                for t in (q, k, v)]
         n_ops = 4 * D * B * H * _live_pairs(S, S, True, 0)
         n_bytes = 4 * (2 * flat[0].numel() + flat[1].numel()
                        + flat[2].numel())
-        bound, by = _bound_ms(n_bytes, n_ops)
+        # the products run on the tensor cores as three TF32 passes; the
+        # SIMT bound (f32 on the CUDA cores) is kept beside it
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_tc = 3 * n_ops / TF32_OPS_PER_S * 1e3
+        bound, by = (t_bytes, "bytes") if t_bytes >= t_tc else \
+            (t_tc, "operations")
+        bound_simt, _ = _bound_ms(n_bytes, n_ops)
         ms, call_ms = _times(lambda: fa.flash_attention_bhsd(*flat), torch,
                              flush)
         plain_ms, plain_call_ms = _times(
@@ -806,12 +849,16 @@ def check_flash(torch, flush, mcfg):
             replaces="src/repro/kernels/flash_attention.py:106",
             ms=ms, call_ms=call_ms, plain_ms=plain_ms,
             plain_call_ms=plain_call_ms, bound_ms=bound, bound_by=by,
-            library_ms=lib_ms)
+            bound_simt_ms=bound_simt, library_ms=lib_ms)
         print(f"[flash] B={B} S={S}: {n_ops:.4e} operations, {n_bytes} B: "
-              f"device time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"device time kernel {ms:.4f} ms (flash_layout_kv + "
+              f"flash_attention_bhsd), plain {plain_ms:.4f} ms, "
               f"library {lib_ms:.4f} ms (scaled_dot_product_attention, max "
-              f"|sdpa - kernel| {lib_err:.3e}), bound {bound:.4f} ms ({by}; "
-              f"kernel at {100 * bound / ms:.1f} %); per call with host "
+              f"|sdpa - kernel| {lib_err:.3e}), bound {bound:.4f} ms ({by}, "
+              f"3 TF32 passes on the tensor cores; kernel at "
+              f"{100 * bound / ms:.1f} %), bound_simt_ms "
+              f"{bound_simt:.4f} (f32 on the CUDA cores; kernel at "
+              f"{100 * bound_simt / ms:.1f} %); per call with host "
               f"enqueue: kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} "
               f"ms")
     out = {"flash_attention_bhsd": dict(rows[FLASH_SHAPES[-1]],
@@ -1220,9 +1267,21 @@ def main() -> int:
     kernel = "?"
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
-            kernel = line.split("'")[1]          # mangled: name + template
-        elif "registers" in line or "spill" in line:
-            print(f"[build] {kernel[:48]}: {line.strip()}")
+            kernel = _kernel_label(line.split("'")[1])
+        elif "Used" in line or "spill" in line:
+            print(f"[build] {kernel}: {line.strip()}")
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib_path)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    hgmma = {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = _kernel_label(line.split(":", 1)[1].strip())
+        elif "HGMMA" in line:
+            hgmma[kernel] = hgmma.get(kernel, 0) + 1
+    for kernel, n in hgmma.items():
+        print(f"[build] {kernel}: {n} HGMMA in its SASS")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -56,8 +56,13 @@ _SIGNATURES = {
     # x, rows, words per row, parity (updated in place), stream
     "repro_xor_update_tiles": (_P, ctypes.c_longlong, ctypes.c_longlong,
                                _P, _P),
-    # q, k, v, o, BH, BKV, Sq, Sk, seq_k, D, dtype (0 f32, 1 bf16), causal,
-    # window, softcap, scale, stream
+    # D, dtype (0 f32, 1 bf16) -> keys / f32 words of one K/V record
+    "repro_flash_tile_keys": (ctypes.c_int, ctypes.c_int),
+    "repro_flash_record_words": (ctypes.c_int, ctypes.c_int),
+    # k, v, records, BKV, Sk, seq_k, D, dtype, stream
+    "repro_flash_layout_kv": (_P, _P, _P, *(ctypes.c_int,) * 5, _P),
+    # q, v, records, o, BH, BKV, Sq, Sk, seq_k, D, dtype, causal, window,
+    # softcap, scale, stream
     "repro_flash_attention_bhsd": (_P, _P, _P, _P, *(ctypes.c_int,) * 9,
                                    ctypes.c_float, ctypes.c_float, _P),
 }

@@ -6,6 +6,11 @@ Online-softmax attention over q ``(BH, Sq, D)`` and k/v ``(BKV, Sk, D)``
 sliding-window masks, tanh soft-capping, f32 accumulation.  A CPU tensor
 takes the plain version (``ref.flash_attention_ref``); a CUDA tensor
 launches ``csrc/flash_attention.cu`` or raises — there is no fallback.
+On the card one call is two launches: ``flash_layout_kv`` splits K and V
+into TF32 parts in the tensor cores' shared-memory layout (a scratch
+allocated here), then ``flash_attention_bhsd`` runs both products on the
+tensor cores in three TF32 passes (``ref.flash_attention_3xtf32`` is its
+arithmetic in plain PyTorch).
 
 Forward only, as in the reference (which has no ``custom_vjp`` for it):
 on the card an input that requires grad is refused rather than given an
@@ -79,11 +84,22 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_kernel_args(q, k, v)
     _build.require_cuda("flash_attention_bhsd", q, k, v, aligned=False)
     BH, Sq, D = q.shape
+    BKV, Sk, _ = k.shape
+    lib, dt, stream = _build.lib(), _DTYPES[q.dtype], _build.stream_of(q)
+    n_records = BKV * -(-n // lib.repro_flash_tile_keys(D, dt))
+    records = torch.empty(n_records * lib.repro_flash_record_words(D, dt),
+                          dtype=torch.float32, device=q.device)
+    if records.numel():
+        rc = lib.repro_flash_layout_kv(k.data_ptr(), v.data_ptr(),
+                                       records.data_ptr(), BKV, Sk, n, D, dt,
+                                       stream)
+        _build.check(rc, "flash_layout_kv")
+        _build.LAUNCHES["flash_layout_kv"] += 1
     out = torch.empty_like(q)
-    rc = _build.lib().repro_flash_attention_bhsd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
-        k.shape[0], Sq, k.shape[1], n, D, _DTYPES[q.dtype], int(causal),
-        int(window), float(softcap), 1.0 / math.sqrt(D), _build.stream_of(q))
+    rc = lib.repro_flash_attention_bhsd(
+        q.data_ptr(), v.data_ptr(), records.data_ptr(), out.data_ptr(), BH,
+        BKV, Sq, Sk, n, D, dt, int(causal), int(window), float(softcap),
+        1.0 / math.sqrt(D), stream)
     _build.check(rc, "flash_attention_bhsd")
     _build.LAUNCHES["flash_attention_bhsd"] += 1
     return out

@@ -6,6 +6,9 @@ within the reference's floating-point tolerance for flash attention.  The
 wrappers in ``checksum.py``, ``vote.py``, ``parity.py``, ``paged_kv.py``
 and ``flash_attention.py`` run these for tensors that lie on the CPU;
 ``chip_smoke.py`` holds each kernel against them on the card.
+``flash_attention_3xtf32`` is not a plain version but the flash kernel's
+tensor-core arithmetic (3xTF32) written out, for the tests and
+``chip_smoke.py``; no wrapper calls it.
 
 Pitfall carried over from the reference: ``torch.sum`` of int32 returns
 int64, so every mod-2^32 reduction below is taken in int64 and wrapped
@@ -188,21 +191,86 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``1/sqrt(D)``, ``tanh(s/cap)·cap`` when ``softcap`` is set (before the
     mask), causal and window masks top-left aligned (positions from 0),
     masked scores ``-2^30``, f32 softmax; the output in q's dtype."""
-    BH, Sq, D = q.shape
-    BKV, Sk, _ = k.shape
-    G = BH // BKV
+    BH, _, D = q.shape
+    G = BH // k.shape[0]
     kr = k.repeat_interleave(G, dim=0).to(torch.float32)
     vr = v.repeat_interleave(G, dim=0).to(torch.float32)
     s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32), kr) / math.sqrt(D)
+    p = torch.softmax(_cap_and_mask(s, causal, window, softcap), dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, vr).to(q.dtype)
+
+
+def _cap_and_mask(s: torch.Tensor, causal: bool, window: int,
+                  softcap: float) -> torch.Tensor:
+    """Scores ``(BH, Sq, Sk)``: ``tanh(s/cap)·cap`` when ``softcap`` is
+    set, then the causal and window masks (top-left aligned) at
+    ``NEG_INF``."""
     if softcap:
         s = torch.tanh(s / softcap) * softcap
-    qp = torch.arange(Sq, device=q.device)[:, None]
-    kp = torch.arange(Sk, device=q.device)[None, :]
-    live = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    Sq, Sk = s.shape[-2:]
+    qp = torch.arange(Sq, device=s.device)[:, None]
+    kp = torch.arange(Sk, device=s.device)[None, :]
+    live = torch.ones((Sq, Sk), dtype=torch.bool, device=s.device)
     if causal:
         live &= qp >= kp
     if window:
         live &= (qp - kp) < window
-    s = torch.where(live[None], s, torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, vr).to(q.dtype)
+    return torch.where(live[None], s, torch.full((), NEG_INF, device=s.device))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as the card's ``cvt.rna.tf32.f32``: half a TF32 ulp added to the
+    magnitude's bits (a carry runs into the exponent), the low 13 bits
+    cleared.  NaN stays NaN."""
+    x = x.to(torch.float32)
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & _MASK32
+    sign = bits & 0x80000000
+    # TF32 keeps the top 10 of f32's 23 mantissa bits: 13 are dropped
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    out = wrap_i32(sign | mag).view(torch.float32).reshape(x.shape)
+    return torch.where(torch.isnan(x), x, out)
+
+
+def tf32_split(x: torch.Tensor):
+    """``(big, small)`` with ``big = tf32_round(x)`` and ``small =
+    tf32_round(x - big)``: ``big + small`` is within 2^-22·|x| of x."""
+    big = tf32_round(x)
+    return big, tf32_round(x.to(torch.float32) - big)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int):
+    """``a @ b`` from TF32 parts, f32 accumulation: with ``passes == 3``
+    ``a_s·b_b + a_b·b_s + a_b·b_b`` (small products first), with
+    ``passes == 1`` ``a_b·b_b`` alone.  Each product of two TF32 values is
+    exact in f32."""
+    ab, a_s = tf32_split(a)
+    bb, b_s = tf32_split(b)
+    if passes == 1:
+        return ab @ bb
+    if passes != 3:
+        raise ValueError(f"passes {passes}: 1 or 3")
+    return a_s @ bb + ab @ b_s + ab @ bb
+
+
+def flash_attention_3xtf32(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           window: int = 0, softcap: float = 0.0,
+                           passes: int = 3) -> torch.Tensor:
+    """The flash kernel's arithmetic on the tensor cores, densely: the
+    semantics of ``flash_attention_ref`` with both products taken in
+    ``passes`` TF32 products (``_tf32_matmul``), the unnormalised weights
+    ``exp(s - max)`` split the same way, and the division by their sum
+    (clamped at 1e-37) last.  The kernel differs from it only in the
+    order of its f32 sums (tensor-core accumulation, the online softmax).
+    ``passes=1`` is a single TF32 pass, which misses the reference's f32
+    tolerance."""
+    BH, _, D = q.shape
+    G = BH // k.shape[0]
+    kr = k.repeat_interleave(G, dim=0).to(torch.float32)
+    vr = v.repeat_interleave(G, dim=0).to(torch.float32)
+    s = _tf32_matmul(q.to(torch.float32), kr.transpose(1, 2), passes)
+    s = _cap_and_mask(s * (1.0 / math.sqrt(D)), causal, window, softcap)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = _tf32_matmul(p, vr, passes) / p.sum(-1, keepdim=True).clamp_min(1e-37)
+    return o.to(q.dtype)
