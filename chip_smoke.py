@@ -92,7 +92,36 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    step; then, at full width, a low-mantissa flip of the embedding
    repaired by ``parity_xor`` alone (0 steps replayed, bitwise), and 4
    canary steps whose incrementally kept parity equals a fresh build;
-8. one JSON line describing every kernel (8), then the device line.
+7f. the training modes at phase 7's settings: ``--donate``,
+   ``--fused-detect`` and both, each clean and under the params storm,
+   and the iv storm under ``--donate``.  Asserts each clean final state
+   bitwise equal to the functional clean run's, each storm's to its clean
+   run's, detected == injected == recovered, replay only under donation
+   (never eq1), 2 CUDA graphs captured for K=1; then at K=4: ``--donate
+   --fused-detect`` clean (8 graphs, final state == the functional clean
+   run's) and under a params storm (a flip every 5 steps, one of them in
+   the slice checked), and ``--fused-detect --fused-warm lazy`` under the
+   same storm, each storm bitwise the functional K=4 storm's with the
+   same detections and recoveries;
+7g. parity with donation: an embedding flip caught by the donated pair
+   (``consumed=False``) rebuilt by ``parity_xor`` into the live tensor;
+7h. triage at full width on an ``opt/v`` FFN leaf: a bit-2 flip
+   tolerated (0 bytes, 0 steps, the next check quiet), a bit-30 flip and
+   a params flip escalated to replay, bitwise the clean state;
+7i. the fused hot path with donation and parity from a fresh state: 8
+   steady steps under torch.profiler — one ``cudaGraphLaunch`` a step and
+   no kernel launched from the host, ``digest.STATS`` 1 launch and 1
+   fetch a step, every state leaf, the pack buffer, both canary tables
+   and the parity at the same ``data_ptr`` — then a params flip reported
+   with ``consumed=True`` and replayed into the live state; the final
+   state at step 20 bitwise the functional clean run's.  Launch counts of
+   7f + 7i (a graph replay counts the kernels captured in it);
+7j. each mode's hot path (functional, donate, fused, donate+fused):
+   host step p50, device busy ms a step, steady-state peak memory above
+   what was held before, graph capture seconds, beside the card's name
+   and power limit;
+8. one JSON line describing every kernel (the 8 ports and the layout
+   kernel ``flash_layout_kv`` of the flash port), then the device line.
 
 Any failure raises; nothing is caught.
 """
@@ -122,6 +151,7 @@ SPIN_CYCLES = 20_000_000      # ~10 ms device spin that hides host enqueue
 N_REQUESTS, PROMPT, GEN, SLOTS, BLOCK, K, INJECT = 8, 128, 32, 4, 16, 4, 8
 T_BATCH, T_SEQ, T_STEPS, T_SNAP, T_CKPT, T_INJECT = 8, 128, 20, 4, 10, 6
 WORK = ROOT / "build" / "chip_smoke"     # checkpoints (ignored by git)
+_SMI = "?"                    # the card's name and power limit
 
 FLASH_CASES = [
     # B, Sq, Sk, H, KV, D, causal, window, softcap, dtype
@@ -797,6 +827,7 @@ def check_flash(torch, flush, mcfg):
           f"{len(FLASH_SHAPES)} shapes): {launches}")
 
     rows, worst = {}, 0.0          # worst: |kernel - plain| at both shapes
+    layout_rows = {}
     for (B, S), (q, k, v) in inputs.items():
         o = outs[(B, S)]
         assert o.shape == (B, S, H, D) and bool(torch.isfinite(o).all())
@@ -850,6 +881,34 @@ def check_flash(torch, flush, mcfg):
             ms=ms, call_ms=call_ms, plain_ms=plain_ms,
             plain_call_ms=plain_call_ms, bound_ms=bound, bound_by=by,
             bound_simt_ms=bound_simt, library_ms=lib_ms)
+        # the layout kernel alone: its records bitwise against the plain
+        # version's (the same TF32 split and layout), timed beside its
+        # bytes bound (K and V read once, the records written once)
+        kv, bk = flat[1:], fa.TILE_KEYS[D]
+        rec = fa.flash_layout_kv(*kv)
+        rec_plain = ref.flash_layout_kv_ref(*kv, S, bk)
+        lay_err = _max_err(torch, rec.view(torch.int32),
+                           rec_plain.view(torch.int32))
+        assert lay_err == 0, f"flash_layout_kv differs from its plain " \
+            f"version ({lay_err})"
+        lay_bound, lay_by = _bound_ms(4 * (kv[0].numel() + kv[1].numel()
+                                           + rec.numel()))
+        lay_ms = _median_ms(lambda: fa.flash_layout_kv(*kv), torch, flush,
+                            queued=True)
+        lay_plain_ms = _median_ms(
+            lambda: ref.flash_layout_kv_ref(*kv, S, bk), torch, flush,
+            queued=True)
+        del rec, rec_plain
+        layout_rows[(B, S)] = dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:106",
+            ms=lay_ms, plain_ms=lay_plain_ms, bound_ms=lay_bound,
+            bound_by=lay_by, library_ms=None, max_abs_err=lay_err)
+        print(f"[flash] flash_layout_kv alone at B={B} S={S}: records "
+              f"bitwise equal to plain (max_abs_err {lay_err}), device time "
+              f"kernel {lay_ms:.4f} ms, plain {lay_plain_ms:.4f} ms, "
+              f"library none, bound {lay_bound:.4f} ms ({lay_by})")
         print(f"[flash] B={B} S={S}: {n_ops:.4e} operations, {n_bytes} B: "
               f"device time kernel {ms:.4f} ms (flash_layout_kv + "
               f"flash_attention_bhsd), plain {plain_ms:.4f} ms, "
@@ -862,21 +921,23 @@ def check_flash(torch, flush, mcfg):
               f"enqueue: kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} "
               f"ms")
     out = {"flash_attention_bhsd": dict(rows[FLASH_SHAPES[-1]],
-                                        max_abs_err=worst)}
+                                        max_abs_err=worst),
+           "flash_layout_kv": layout_rows[FLASH_SHAPES[-1]]}
     return out, launches
 
 
-def train_run(torch, cfg, name, **kw):
+def train_run(torch, cfg, name, slices: int = 1, **kw):
     """One full-width run of the training entry point with the storm
-    settings of phase 7 (checkpoints under ``WORK/<name>``); prints its
-    summary and returns ``(summary, final state)``."""
+    settings of phase 7 (checkpoints under ``WORK/<name>``), at canary
+    rotation period ``slices``; prints its summary and returns
+    ``(summary, final state)``."""
     from repro_torch.launch.train import train
-    d = WORK / name.replace(" ", "_")
+    d = WORK / name.replace(" ", "_").replace("=", "")
     shutil.rmtree(d, ignore_errors=True)
     t0 = time.perf_counter()
     out, state = train(cfg, steps=T_STEPS, global_batch=T_BATCH,
                        seq_len=T_SEQ, seed=0, snapshot_interval=T_SNAP,
-                       canary_slices=1, checkpoint_dir=str(d),
+                       canary_slices=slices, checkpoint_dir=str(d),
                        checkpoint_interval=T_CKPT, verbose=False,
                        device="cuda", return_state=True, **kw)
     rec = out["recovery"]
@@ -1219,6 +1280,426 @@ def check_serving_parity(torch, cfg, eng, common):
     return launches
 
 
+# -- phase 7f: --donate, --fused-detect, both; triage -----------------------
+
+MODES = (("donate", dict(donate=True)),
+         ("fused", dict(fused_detect=True)),
+         ("donate+fused", dict(donate=True, fused_detect=True)))
+
+
+def run_modes(torch, cfg, runs):
+    """Phase 7f: each mode at phase 7's settings, clean and under the
+    params storm, and the iv storm under donation.  The clean final state
+    must be bitwise the functional clean run's, each storm's its clean
+    run's, detected == injected == recovered; donation recovers by replay
+    only."""
+    clean_state = runs["clean"][1]
+    for name, kw in MODES:
+        out, state = train_run(torch, cfg, f"{name} clean", **kw)
+        assert out["steps"] == T_STEPS and out["faults_detected"] == 0, out
+        assert _same_state(torch, state, clean_state), \
+            f"{name}: clean final state differs from the functional run's"
+        if "fused_detect" in kw:
+            assert out["fused"]["captures"] == 2, out
+            print(f"[modes] {name}: {out['fused']['captures']} CUDA graphs "
+                  f"captured in {out['fused']['seconds']:.3f} s")
+        del state
+        out, state = train_run(torch, cfg, f"{name} params storm",
+                               inject_every=T_INJECT, **kw)
+        assert out["faults_injected"] > 0, out
+        assert out["faults_detected"] == out["faults_injected"], out
+        assert out["faults_recovered"] == out["faults_detected"], out
+        if kw.get("donate"):
+            assert set(out["recovery"]["by_rung"]) == {"replay"}, out
+        assert _same_state(torch, state, clean_state), \
+            f"{name}: storm final state differs from the clean run's"
+        del state
+        print(f"[modes] {name}: clean final state == functional clean "
+              f"state, storm final state == clean, bitwise")
+    out, state = train_run(torch, cfg, "donate iv storm", donate=True,
+                           inject_every=T_INJECT, inject_target="iv")
+    assert out["faults_detected"] == out["faults_injected"] > 0, out
+    assert out["recovery"]["by_rung"] == {"replay":
+                                          out["faults_detected"]}, out
+    assert _same_state(torch, state, clean_state)
+    del state
+    print("[modes] donate iv storm: replay only (never eq1), final state "
+          "== clean, bitwise")
+    run_modes_k4(torch, cfg, clean_state)
+
+
+def run_modes_k4(torch, cfg, clean_state, k: int = 4, every: int = 5):
+    """Phase 7f at the default rotation period K=4: ``--donate
+    --fused-detect`` clean (2K graphs, warmed eagerly) and under a
+    params storm, and ``--fused-detect --fused-warm lazy`` (ping-pong
+    storage, graphs captured on first use) under the same storm.  A
+    K-slice canary sees a flip only when its slice is checked that very
+    step, so a storm is held against the functional K=4 storm: the same
+    detections, recoveries and final state, bitwise.  A flip every 5
+    steps puts one of the three (step 10's, in the embedding) in the
+    slice checked that step, so the fused recovery runs too."""
+    ref, ref_state = train_run(torch, cfg, f"functional K={k} params storm",
+                               slices=k, inject_every=every)
+    assert 0 < ref["faults_detected"] < ref["faults_injected"], ref
+    assert ref["faults_recovered"] == ref["faults_detected"], ref
+    out, state = train_run(torch, cfg, f"donate+fused K={k} clean",
+                           slices=k, donate=True, fused_detect=True)
+    assert out["steps"] == T_STEPS and out["faults_detected"] == 0, out
+    assert out["fused"]["captures"] == 2 * k, out
+    assert _same_state(torch, state, clean_state), \
+        f"donate+fused K={k}: clean final state differs from the " \
+        f"functional run's"
+    del state
+    print(f"[modes] donate+fused K={k}: {out['fused']['captures']} CUDA "
+          f"graphs captured in {out['fused']['seconds']:.3f} s, clean "
+          f"final state == functional clean state, bitwise")
+    for name, kw in ((f"donate+fused K={k} params storm",
+                      dict(donate=True, fused_detect=True)),
+                     (f"fused lazy K={k} params storm",
+                      dict(fused_detect=True, fused_warm="lazy"))):
+        out, state = train_run(torch, cfg, name, slices=k,
+                               inject_every=every, **kw)
+        for n in ("faults_injected", "faults_detected", "faults_recovered"):
+            assert out[n] == ref[n], (n, out, ref)
+        if kw.get("donate"):
+            assert set(out["recovery"]["by_rung"]) <= {"replay"}, out
+        assert 0 < out["fused"]["captures"] <= 2 * k, out
+        assert _same_state(torch, state, ref_state), \
+            f"{name}: final state differs from the functional K={k} storm's"
+        del state
+        print(f"[modes] {name}: {out['fused']['captures']} graphs "
+              f"captured; injected {out['faults_injected']} detected "
+              f"{out['faults_detected']} recovered "
+              f"{out['faults_recovered']}, final state == the functional "
+              f"K={k} storm's, bitwise")
+
+
+def _mode_tools(torch, cfg):
+    from repro_torch.data.pipeline import TokenPipeline
+    pipe = TokenPipeline(cfg.model.vocab_size, T_SEQ, T_BATCH, seed=0)
+    return pipe, lambda s: {k: v.cuda() for k, v in pipe.batch_at(s).items()}
+
+
+def check_donated_rungs(torch, cfg, clean_state):
+    """Phase 7g: with parity and donation, a single embedding flip caught
+    by the donated pair (live buffers) is rebuilt by ``parity_xor`` into
+    the live tensors."""
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.core.faults import flip_bit
+    from repro_torch.core.icp import promote
+    from repro_torch.core.microcheckpoint import MicroCheckpointer
+    from repro_torch.core.parity import ParityStore
+    from repro_torch.core.recover import RecoveryRuntime
+    from repro_torch.launch.train import cuda_numerics
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    _, bfn = _mode_tools(torch, cfg)
+    with cuda_numerics(torch.device("cuda")):
+        state = tree_map(torch.clone, clean_state)
+        canary = ChecksumCanary(state, n_slices=1)
+        store = ParityStore(state)
+        store.build(state, T_STEPS)
+        canary.attach_parity(store)
+        rt = RecoveryRuntime(
+            step_fn=make_train_step(cfg, global_batch=T_BATCH, donate=True),
+            batch_fn=bfn, iv_registry=promote(cfg, T_BATCH),
+            micro=MicroCheckpointer(T_SNAP), parity=store, canary=canary,
+            donated=True)
+        canary.arm_current(T_STEPS, state)
+        ptrs = [t.data_ptr() for t in leaves(state)]
+        table = state["params"]["embed"]["table"]
+        flip_bit(table, table.numel() // 3, 2)
+        report = canary.check(T_STEPS, state)
+        assert report is not None and not report.consumed, report
+        assert report.leaves == ["params/embed/table"], report
+        fixed, ev = rt.recover(state, report, T_STEPS)
+        assert ev.rung == "parity_xor" and ev.steps_replayed == 0, ev
+        assert fixed is state and \
+            [t.data_ptr() for t in leaves(state)] == ptrs
+        assert _same_state(torch, state, clean_state)
+    print(f"[modes] parity + donate: an embedding flip (bit 2) caught by "
+          f"the donated pair (consumed=False) repaired by "
+          f"{ev.attempted} -> {ev.rung} in {ev.wall_seconds * 1e3:.3f} ms, "
+          f"{ev.bytes_moved} B into the live tensor, == clean, bitwise")
+
+
+def check_triage(torch, cfg):
+    """Phase 7h: rung 0 at full width on an ``opt/v`` FFN leaf: a
+    mantissa-tail flip tolerated (0 bytes, 0 steps, the next check
+    quiet), a bit-30 flip escalated to replay (bitwise the clean state),
+    a params flip escalated."""
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.core.faults import flip_bit
+    from repro_torch.core.icp import promote
+    from repro_torch.core.microcheckpoint import MicroCheckpointer
+    from repro_torch.core.recover import RecoveryRuntime
+    from repro_torch.launch.train import cuda_numerics
+    from repro_torch.train.loop import make_train_state, make_train_step
+    from repro_torch.tree import flatten_with_path, leaf_key, tree_map
+
+    _, bfn = _mode_tools(torch, cfg)
+    n = 6
+    with cuda_numerics(torch.device("cuda")):
+        step_fn = make_train_step(cfg, global_batch=T_BATCH)
+        state = make_train_state(cfg, 0, global_batch=T_BATCH,
+                                 device="cuda")
+        micro = MicroCheckpointer(T_SNAP)
+        for s in range(n):
+            micro.maybe_snapshot(s, state)
+            micro.record_iv(s, state["iv"])
+            state, _ = step_fn(state, bfn(s))
+        canary = ChecksumCanary(state, n_slices=1)
+        rt = RecoveryRuntime(step_fn=step_fn, batch_fn=bfn,
+                             iv_registry=promote(cfg, T_BATCH), micro=micro,
+                             canary=canary, triage=True)
+        key = next(leaf_key(p) for p, _ in flatten_with_path(state)
+                   if leaf_key(p).startswith("opt/v/")
+                   and "ffn" in leaf_key(p))
+        for where, bit, want in ((key, 2, "triage"), (key, 30, "replay"),
+                                 ("params/embed/table", 2, None)):
+            bad = tree_map(torch.clone, state)
+            leaf = {leaf_key(p): t for p, t in flatten_with_path(bad)}[where]
+            flip_bit(leaf, leaf.numel() // 2 + 1, bit)
+            report = canary.check(n, bad)
+            assert report is not None and report.leaves == [where], report
+            fixed, ev = rt.recover(bad, report, n)
+            assert ev.attempted[0] == "triage", ev
+            if want == "triage":
+                assert ev.rung == "triage" and ev.bytes_moved == 0 \
+                    and ev.steps_replayed == 0, ev
+                assert _same_state(torch, fixed, bad)
+                assert canary.check(n + 1, fixed) is None
+            else:
+                assert ev.rung != "triage", ev
+                assert _same_state(torch, fixed, state)
+                if want:
+                    assert ev.rung == want, ev
+            print(f"[triage] {where} bit {bit}: {ev.attempted} -> {ev.rung} "
+                  f"in {ev.wall_seconds * 1e3:.3f} ms (rung 0 "
+                  f"{ev.phase_seconds['triage'] * 1e3:.3f} ms), "
+                  f"{ev.bytes_moved} B, "
+                  f"{ev.steps_replayed} steps replayed"
+                  + (" (state untouched, next check quiet)"
+                     if ev.rung == "triage" else ", == clean, bitwise")
+                  + f"; {ev.report.detail.split('|')[1].strip()[:160]}")
+            canary.refresh(state)
+
+
+def _api_counts(prof):
+    """Host-side CUDA API calls in a profile, by name."""
+    out = {}
+    for e in prof.key_averages():
+        for name in ("cudaGraphLaunch", "cudaLaunchKernel", "cuLaunchKernel",
+                     "cudaMemcpyAsync"):
+            if e.key.startswith(name):
+                out[name] = out.get(name, 0) + e.count
+    return out
+
+
+def check_fused_path(torch, cfg, clean_state, steps: int = 8):
+    """Phase 7i: the fused hot path with donation and parity, from a
+    fresh state: ``steps`` steady steps profiled (one ``cudaGraphLaunch``
+    a step and no kernel launched from the host, ``digest.STATS`` 1
+    launch and 1 fetch a step, every pointer the graphs read unchanged),
+    then a params flip: the report says ``consumed=True`` and replay
+    repairs into the live state; the run's final state at step 20 is
+    bitwise the functional clean run's."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.core.faults import flip_bit
+    from repro_torch.core.icp import promote
+    from repro_torch.core.microcheckpoint import MicroCheckpointer
+    from repro_torch.core.parity import ParityStore
+    from repro_torch.core.recover import RecoveryRuntime
+    from repro_torch.kernels import digest as kd
+    from repro_torch.launch.train import cuda_numerics
+    from repro_torch.train.loop import make_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    pipe, bfn = _mode_tools(torch, cfg)
+    with cuda_numerics(torch.device("cuda")):
+        state = make_train_state(cfg, 0, global_batch=T_BATCH,
+                                 device="cuda")
+        step_fn = make_train_step(cfg, global_batch=T_BATCH, donate=True)
+        canary = ChecksumCanary(state, n_slices=1)
+        store = ParityStore(state)
+        store.build(state)
+        canary.attach_parity(store)
+        micro = MicroCheckpointer(T_SNAP)
+        rt = RecoveryRuntime(step_fn=step_fn, batch_fn=bfn,
+                             iv_registry=promote(cfg, T_BATCH), micro=micro,
+                             parity=store, canary=canary, donated=True)
+        fused = canary.fuse_into_step(step_fn, donate=True, warm="eager",
+                                      host_metrics=("loss", "grad_norm"))
+        warm_s = fused.warm(state, pipe.batch_at(0))
+        state = fused.load(state)
+
+        def pointers():
+            return ([t.data_ptr() for t in leaves(state)]
+                    + [canary.plan.buffer_pointer(
+                        tuple(range(canary.plan.n_leaves)) * 2)]
+                    + [t.data_ptr() for t in canary._tables]
+                    + [store.parity.data_ptr()])
+
+        def one(s):
+            new, m, rep = fused.step(s, state, pipe.batch_at(s))
+            assert rep is None and new is state, rep
+            return m
+
+        for s in range(2):
+            one(s)
+        torch.cuda.synchronize()
+        before = pointers()
+        kd.STATS.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for s in range(2, 2 + steps):
+                one(s)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        stats = kd.STATS.snapshot()
+        api = _api_counts(prof)
+        assert stats == (steps, steps), stats
+        assert api.get("cudaGraphLaunch", 0) == steps, api
+        assert api.get("cudaLaunchKernel", 0) + \
+            api.get("cuLaunchKernel", 0) == 0, api
+        assert pointers() == before, "a pointer the graphs read moved"
+        print(f"[fused] donate + parity, {fused.n_compiles} graphs captured "
+              f"in {fused.compile_seconds:.3f} s (warm-up and capture "
+              f"{warm_s:.3f} s); {steps} steady steps: digest.STATS "
+              f"{stats[0]} launches and {stats[1]} fetches, host API "
+              f"{api} (the batch upload and the flag fetch are the "
+              f"memcpys), every state leaf, the pack buffer, both tables "
+              f"and the parity at the same data_ptr")
+        _report_profile(prof, steps, wall_ms, "fused donated parity step",
+                        ("pack_rows_kernel", "row_checksums_kernel",
+                         "xor_update_tiles_kernel"))
+
+        s = 2 + steps
+        micro.snapshot(s, state)
+        flip_at = s + 2
+        while s < T_STEPS:
+            micro.record_iv(s, state["iv"])
+            if s == flip_at:
+                table = state["params"]["embed"]["table"]
+                flip_bit(table, table.numel() // 5, 27)
+            new, m, rep = fused.step(s, state, pipe.batch_at(s))
+            if rep is None:
+                s += 1
+                continue
+            assert s == flip_at and rep.consumed, rep
+            assert rep.resolve() == ["params/embed/table"], rep
+            fixed, ev = rt.recover(state, rep, s)
+            assert ev.rung == "replay" and fixed is state, ev
+            canary.refresh(state)
+            store.rebuild(state, s)
+            assert fused.load(state) is state
+            print(f"[fused] flip at step {s}: in-step report consumed="
+                  f"{rep.consumed}, {ev.attempted} -> {ev.rung} "
+                  f"({ev.steps_replayed} steps) into the live state in "
+                  f"{ev.wall_seconds * 1e3:.1f} ms")
+            flip_at = -1
+        assert flip_at == -1, "the flip was not detected"
+        assert pointers() == before
+        assert _same_state(torch, state, clean_state), \
+            "fused donated run differs from the functional clean run"
+    print(f"[fused] final state at step {T_STEPS} == functional clean "
+          f"state, bitwise")
+
+
+def profile_modes(torch, cfg, clean_state, steps: int = 8) -> None:
+    """Phase 7j: each mode's hot path from the clean state at step 20
+    (K=1 canary): host step p50 over ``steps`` unprofiled steps (the step,
+    its canary and its one fetch), device busy ms a step over 4 profiled
+    steps, and the steady-state peak memory of the loop (its state
+    versions, the canary, the step's temporaries; with graphs also the
+    segments of their private pool) above what was held before the mode
+    was built."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.launch.train import cuda_numerics
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.tree import tree_map
+    import numpy as np
+
+    pipe, bfn = _mode_tools(torch, cfg)
+    for name in ("functional", "donate", "fused", "donate+fused"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        donate, fused_on = "donate" in name, "fused" in name
+        with cuda_numerics(torch.device("cuda")):
+            state = tree_map(torch.clone, clean_state)
+            step_fn = make_train_step(cfg, global_batch=T_BATCH,
+                                      donate=donate)
+            canary = ChecksumCanary(state, n_slices=1)
+            fused = None
+            if fused_on:
+                fused = canary.fuse_into_step(
+                    step_fn, donate=donate, warm="eager",
+                    host_metrics=("loss", "grad_norm"))
+                fused.warm(state, pipe.batch_at(T_STEPS))
+                state = fused.load(state)
+
+            def one(s, st):
+                if fused is not None:
+                    new, _, rep = fused.step(s, st, pipe.batch_at(s))
+                    assert rep is None
+                    return new
+                if donate:
+                    canary.arm_current(s, st)
+                    assert canary.check(s, st) is None
+                new, m = step_fn(st, bfn(s))
+                torch.stack([m["loss"], m["grad_norm"]]).tolist()
+                if not donate:
+                    assert canary.check_and_arm(s, st, new) is None
+                return new
+
+            s = T_STEPS
+            for _ in range(2):
+                state = one(s, state)
+                s += 1
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()      # the steady state
+            host = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                state = one(s, state)
+                host.append((time.perf_counter() - t0) * 1e3)
+                s += 1
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    state = one(s, state)
+                    s += 1
+                torch.cuda.synchronize()
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA) / 1e3 / 4
+            peak = torch.cuda.max_memory_allocated() - base
+            # a graph's temporaries live in its private pool: reserved for
+            # the graph's life, not allocated between replays
+            pool = sum(seg["total_size"]
+                       for seg in torch.cuda.memory_snapshot()
+                       if tuple(seg["segment_pool_id"]) != (0, 0))
+            cap = (f", {fused.n_compiles} graphs captured in "
+                   f"{fused.compile_seconds:.3f} s" if fused else "")
+        print(f"[modes] {name}: host step p50 {np.median(host):.3f} ms "
+              f"(min {min(host):.3f}, max {max(host):.3f}; step + K=1 "
+              f"canary + one fetch), device busy {busy:.3f} ms/step, "
+              f"steady peak memory of the loop {peak / 2**30:.3f} GiB "
+              f"allocated + {pool / 2**30:.3f} GiB in graph pools = "
+              f"{(peak + pool) / 2**30:.3f} GiB above the "
+              f"{base / 2**30:.3f} GiB held before it{cap} [{_SMI}]")
+        del state, canary, fused, step_fn, prof
+
+
 def _report_profile(prof, steps, wall_ms, what, names) -> None:
     from torch.autograd import DeviceType
     # device-side events only: a CPU op's entry repeats its kernels' time
@@ -1257,7 +1738,8 @@ def main() -> int:
     from repro_torch.tree import leaves
     import numpy as np
 
-    smi = _smi()
+    global _SMI
+    smi = _SMI = _smi()
     print(f"[card] {smi}")
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -1383,6 +1865,25 @@ def main() -> int:
     check_parity_recovery(torch, cfg, clean_state)
     profile_train(torch, cfg, clean_state)
     profile_train(torch, cfg, clean_state, parity=True)
+
+    # -- the modes: --donate, --fused-detect, both; triage -----------------
+    _build.LAUNCHES.clear()
+    run_modes(torch, cfg, runs)
+    check_fused_path(torch, cfg, clean_state)
+    torch.cuda.synchronize()
+    modes_launches = dict(_build.LAUNCHES)
+    print(f"[modes] launches on the modes path (11 runs + the fused path; "
+          f"a graph replay counts the kernels captured in it): "
+          f"{modes_launches}")
+    for name in ("pack_rows", "row_checksums", "xor_update_tiles",
+                 "xor_fold_tiles"):
+        assert modes_launches.get(name, 0) > 0, f"{name} never launched"
+    check_donated_rungs(torch, cfg, clean_state)
+    check_triage(torch, cfg)
+    for name in list(runs):
+        if name != "clean":
+            del runs[name]
+    profile_modes(torch, cfg, clean_state)
 
     for name, r in train_kernels.items():
         kernels[name] = r

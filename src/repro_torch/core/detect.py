@@ -99,9 +99,10 @@ class FaultReport:
     resolver: Optional[Callable] = \
         field(default=None, repr=False, compare=False)
     #: True when the faulting state version was consumed by the step that
-    #: detected it (in-place update): its buffers are gone, so in-place
-    #: rungs must abort to snapshot + replay.  The port's training step is
-    #: functional, so its reports keep ``False``.
+    #: detected it: the in-step fused check of a donated (in-place) step
+    #: overwrote it, so in-place rungs (triage, parity) must abort to
+    #: snapshot + replay.  The donated pair's ``check`` runs before the
+    #: step and reports ``False``.
     consumed: bool = False
 
     def resolve(self) -> List[str]:
@@ -162,18 +163,29 @@ class ChecksumCanary:
     ``_tables`` is the double-buffered pair of (n_leaves, 2) reference
     tables, alternating by generation: a check verifies against the read
     generation while the arm writes the other one IN PLACE, so the hot path
-    allocates no table.  ``begin_update``/``commit_update`` hand the pair
-    to a caller that runs the check+arm itself (the serving engine's
-    step).  A full ``refresh`` re-digests everything and bumps the
-    generation; a ``refresh(keys=)`` patches the named rows in BOTH tables
-    and leaves the generation alone, so rows of other units armed earlier
-    still verify.
+    allocates no table.  Both tables keep their storage for the canary's
+    life (every write goes into them), so a captured CUDA graph may read
+    and write them by address.  ``begin_update``/``commit_update`` hand
+    the pair to a caller that runs the check+arm itself (the serving
+    engine's step, the fused train step).  A full ``refresh`` re-digests
+    everything and bumps the generation; a ``refresh(keys=)`` patches the
+    named rows in BOTH tables and leaves the generation alone, so rows of
+    other units armed earlier still verify.
 
-    The training loop's per-step form is ``check_and_arm(s, state,
-    new_state)``: the check slice of the pre-step state (intact, because
-    the port's step is functional) and the arm slice of the fresh output
-    go into ONE packing buffer, ONE ``row_checksums`` launch and ONE
-    scalar ``fetch``."""
+    Two protocols guard a training loop:
+
+    * ``check_and_arm(s, state, new_state)`` after a functional step: the
+      check slice of the pre-step state (still intact) and the arm slice
+      of the fresh output go into ONE packing buffer, ONE
+      ``row_checksums`` launch and ONE scalar ``fetch``;
+    * the donated pair around an in-place step: ``arm_current(s, state)``
+      at the top of the loop body digests slice ``s % K`` of the state the
+      previous step produced (one launch, no sync), and ``check(s,
+      state)`` verifies the same slice of the same version just before the
+      step overwrites it (one launch, one fetch).
+
+    ``fuse_into_step`` moves the check and the arm inside the step
+    (``core/fused_step.py``)."""
 
     def __init__(self, tree, n_slices: int = 4):
         self.n_slices = max(1, n_slices)
@@ -195,8 +207,9 @@ class ChecksumCanary:
     def attach_parity(self, store) -> None:
         """Keep ``store`` current from now on: ``check_and_arm`` applies
         the gated incremental update ``old ^ new`` and ``arm`` rebuilds the
-        parity of the armed tree, each committed as version ``step + 1``.
-        The store's plan must cover the same state structure."""
+        parity of the armed tree (the donated pair sees one state version
+        only), each committed as version ``step + 1``.  The store's plan
+        must cover the same state structure."""
         self._parity = store
 
     @property
@@ -228,13 +241,16 @@ class ChecksumCanary:
                            leaves=self._attribute(chk, bad_mask))
 
     def _run(self, step: int, chk: Sequence[int], arm: Sequence[int],
-             tree, armed_tree, incremental: bool) -> Optional[FaultReport]:
+             tree, armed_tree, parity: Optional[str],
+             commit: bool = True) -> Optional[FaultReport]:
         """Pack slice ``chk`` of ``tree`` and slice ``arm`` of
         ``armed_tree`` into the rotation's buffer, digest it once, compare
         the check rows against the read generation, arm the rest into the
-        write generation in place, bring an attached parity up to
-        ``armed_tree`` (``incremental``: the update gated on the check's
-        flag; else a rebuild) and fetch the one flag."""
+        write generation in place and bump the generation (``commit``),
+        bring an attached parity up to ``armed_tree``
+        (``parity='update'``: the update gated on the check's flag;
+        ``'rebuild'``; None: leave it) and fetch the one flag when there
+        is a check slice."""
         core, union = kdigest.check_arm_subcomputation(self.plan, chk, arm)
         if not union:
             return None
@@ -246,16 +262,16 @@ class ChecksumCanary:
         leaves = self.plan.leaves(armed_tree)
         core.pack_arm(buf, [leaves[i] for i in arm])
         flag, bad = core.finish(buf, read, write)
-        self.commit_update(write)
-        if self._parity is not None:
+        if commit:
+            self.commit_update(write)
+        if self._parity is not None and parity is not None:
             pp = self._parity.plan
-            if incremental:
-                parity = pp.update_leaves(self._parity.parity,
-                                          pp.leaves(tree),
-                                          pp.leaves(armed_tree), flag)
+            if parity == "update":
+                new = pp.update_leaves(self._parity.parity, pp.leaves(tree),
+                                       pp.leaves(armed_tree), flag)
             else:
-                parity = pp.rebuild_leaves(pp.leaves(armed_tree))
-            self._parity.commit(parity, step + 1)
+                new = pp.rebuild_leaves(pp.leaves(armed_tree))
+            self._parity.commit(new, step + 1)
         if chk and bool(kdigest.fetch(flag)):     # the step's ONE host sync
             return self._report(step, chk, bad, read)
         return None
@@ -267,19 +283,55 @@ class ChecksumCanary:
         ``armed_tree`` (default ``tree``) into the next generation — one
         ``row_checksums`` launch, one scalar fetch (and, with parity
         attached, one ``xor_update_tiles`` launch).  In a training loop:
-        ``(pre_step_state, post_step_state)``."""
+        ``(pre_step_state, post_step_state)``.  A donated loop uses the
+        ``arm_current``/``check`` pair instead: its step overwrites the
+        pre-step state."""
         if armed_tree is None:
             armed_tree = tree
         return self._run(step, self._slice_indices(step),
                          self._slice_indices(step + 1), tree, armed_tree,
-                         incremental=True)
+                         parity="update")
+
+    def check(self, step: int, tree) -> Optional[FaultReport]:
+        """Verify slice ``step % K`` of ``tree`` against the read
+        generation only: one launch and one scalar fetch, the tables, the
+        generation and an attached parity untouched.  The check half of
+        the donated pair, run just before the step overwrites ``tree``."""
+        return self._run(step, self._slice_indices(step), (), tree, tree,
+                         parity=None, commit=False)
 
     def arm(self, step: int, tree) -> None:
         """Digest the slice ``check_and_arm(step+1, ...)`` will verify into
         the next generation (one launch, no host sync); an attached parity
         is rebuilt over ``tree``."""
         self._run(step, (), self._slice_indices(step + 1), tree, tree,
-                  incremental=False)
+                  parity="rebuild")
+
+    def arm_current(self, step: int, tree) -> None:
+        """The arm half of the donated pair: digest slice ``step % K`` of
+        the live state into the next generation and bump (one launch, no
+        sync; an attached parity is rebuilt over it).  Call it at the top
+        of the loop body; ``check(step, tree)`` just before the step then
+        verifies the same slice of the same version."""
+        self.arm(step - 1, tree)
+
+    def fuse_into_step(self, step_fn, *, donate: bool = False,
+                       warm: str = "lazy", host_metrics: Sequence[str] = ()):
+        """Wrap ``step_fn(state, *args) -> (new_state, aux)`` so the check
+        of the input state's slice ``s % K``, the step and the arm of the
+        output's slice ``(s+1) % K`` run as one unit: one captured CUDA
+        graph per rotation on the card, the same phases eagerly on the
+        CPU.  ``donate=True`` takes an in-place step (``step_fn`` writes
+        the state's own tensors and returns them); otherwise ``step_fn`` is
+        functional and the input state survives the step.  ``warm``:
+        ``'eager'`` builds every rotation at the first step, ``'lazy'``
+        each on first use.  ``host_metrics`` names 0-dim entries of
+        ``aux`` fetched with the flag in the step's one transfer.  Returns
+        a ``core.fused_step.FusedStepFactory``; drive it with
+        ``factory.step(s, state, *args) -> (new_state, aux, report)``."""
+        from repro_torch.core.fused_step import FusedStepFactory
+        return FusedStepFactory(step_fn, self, donate=donate, warm=warm,
+                                host_metrics=host_metrics)
 
     def check_full(self, step: int, tree) -> Optional[FaultReport]:
         """Verify every leaf against the read generation (one digest, one
@@ -304,13 +356,25 @@ class ChecksumCanary:
         table = kdigest.fetch(self.reference if table is None else table)
         return {k: table[i] for i, k in enumerate(self._keys)}
 
+    def fault_reference_digest(self, key: str) -> np.ndarray:
+        """One leaf's row of ``fault_reference_digests``: the int32[2]
+        pair the triage rung solves ``kernels.digest.locate_single_flip``
+        against."""
+        table = self._fault_reference
+        if table is None:
+            table = self.reference
+        return kdigest.fetch(table[self.plan.index_of(key)])
+
     def begin_update(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(read_table, write_table) for one check+arm generation."""
         return self._tables[self._gen & 1], self._tables[(self._gen + 1) & 1]
 
     def commit_update(self, new_write: torch.Tensor) -> None:
-        """Install the armed write table and bump the generation."""
-        self._tables[(self._gen + 1) & 1] = new_write
+        """Install the armed write table (written in place; a new tensor
+        is copied into it) and bump the generation."""
+        write = self._tables[(self._gen + 1) & 1]
+        if new_write is not write:
+            write.copy_(new_write)
         self._gen += 1
 
     def refresh(self, tree, keys: Optional[Sequence[str]] = None) -> None:
@@ -318,7 +382,7 @@ class ChecksumCanary:
         named leaves (patched in both generations, no bump)."""
         if keys is None:
             self._gen += 1
-            self._tables[self._gen & 1] = self.plan.digest_table(tree)
+            self._tables[self._gen & 1].copy_(self.plan.digest_table(tree))
             self._fault_reference = None
             return
         idx = sorted(self.plan.index_of(k) for k in keys)

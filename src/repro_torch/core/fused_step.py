@@ -1,0 +1,376 @@
+"""In-step fused detection — the step carries its own canary; counterpart
+of ``repro/core/fused_step.py``.
+
+The donated pair (``arm_current`` at the top of the loop, ``check`` just
+before the step) guards an in-place step with two digest launches and the
+step's own launches in between.  This module makes check, step and arm
+ONE unit per canary rotation ``r = s % K``:
+
+  * ``pack_check`` of slice ``s % K`` of the INPUT state (before the step
+    writes anything),
+  * the user step,
+  * ``pack_arm`` of slice ``(s+1) % K`` of the OUTPUT state, and
+    ``CheckArm.finish``: one ``row_checksums`` launch, the compare against
+    the read generation and the in-place arm of the write generation,
+  * with a parity attached, its gated incremental update (the old covered
+    leaves taken into the delta before the step writes them).
+
+On the card each unit is one captured ``torch.cuda.CUDAGraph``, so a
+steady step is ONE graph replay plus ONE scalar fetch (the flag, with the
+``host_metrics`` beside it) and nothing else launched from the host.  On
+the CPU the same phases run eagerly with the same digests: detection and
+the trajectory are bit-identical to the unfused ``check_and_arm`` and
+donated-pair protocols.
+
+A graph reads every pointer it was captured with.  Hence:
+
+  * the state lives in the factory's own storage (``load`` copies a state
+    in; ``step`` returns trees of that storage).  With ``donate=True``
+    there is one state version, updated in place.  Without donation the
+    input must survive the step (the rungs read it), so there are two
+    versions in ping-pong: the graph reads version ``b`` and writes the
+    step's outputs into version ``1 - b`` — one more state copy per step
+    and one more state version of memory in the graph pool (the
+    functional step's outputs before the copy);
+  * the canary's two tables and the parity keep their storage (they are
+    written in place), and each rotation has one graph per read table,
+    ``gen & 1``; without donation the buffer ``b`` is tied to the
+    generation (``b = gen & 1 ^ phase``), so there are 2K graphs either
+    way, sharing one memory pool;
+  * the pack schedules of each graph are built before its capture and
+    kept with it; the digest layout maps are uploaded before capture.
+
+The first capture runs warm-up steps on the storage (two, and at least
+one per rotation) before the real state is loaded (the canary's tables
+and parity saved and restored around them), so warm-up never advances
+the run.  A capture that fails on a card raises: there is no eager
+fallback there.  Graph outputs (``aux``, the mismatch mask) are
+overwritten by the next replay; a report clones what its resolver
+reads.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import Counter
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.detect import ChecksumCanary, FaultReport
+from repro_torch.core.replay import copy_into
+from repro_torch.kernels import _build
+from repro_torch.kernels import digest as kdigest
+from repro_torch.tree import flatten_with_path, leaves, tree_map
+
+#: warm-up steps before the first capture (lazy initialisation of cuBLAS,
+#: the autograd engine and the kernels' host state); at least one per
+#: rotation, so every rotation runs eagerly once before its capture
+WARMUP_STEPS = 2
+
+
+@dataclass
+class _Rotation:
+    """The fixed pieces of rotation ``r``: its CheckArm (None for a
+    degenerate rotation with no leaf to digest), the packing buffer and
+    the slices."""
+    core: Optional[kdigest.CheckArm]
+    buf: Optional[torch.Tensor]
+    chk: Tuple[int, ...]
+    arm: Tuple[int, ...]
+
+
+@dataclass
+class _Graph:
+    """One captured rotation: the graph, its outputs and what it keeps
+    alive (pack schedules), and the kernel launches one replay makes."""
+    graph: object
+    aux: Dict
+    bad: Optional[torch.Tensor]
+    host: torch.Tensor
+    keep: Tuple
+    launches: Counter
+
+
+class FusedStepFactory:
+    """K rotation units of (check ∘ step ∘ arm).  Built by
+    ``ChecksumCanary.fuse_into_step``; drive with::
+
+        new_state, aux, report = factory.step(s, state, *args)
+
+    ``step_fn(state, *args) -> (new_state, aux)`` takes and returns the
+    canary's plan structure; with ``donate=True`` it writes the state in
+    place.  ``report`` is None on the no-fault path (after the ONE scalar
+    fetch) or a ``FaultReport`` whose leaf attribution is deferred to
+    ``resolve()``; on a report ``new_state`` was computed from the
+    corrupted input and must be discarded, and with ``donate=True`` the
+    input was overwritten (``consumed=True``: the ladder replays).
+
+    ``host_metrics`` names 0-dim entries of ``aux`` fetched with the flag
+    in the step's one transfer; ``step`` returns them as Python floats.
+
+    Accounting: ``n_compiles``/``compile_seconds`` count the rotation
+    builds — CUDA graph captures and their seconds on the card, the
+    eager rotation set-up on the CPU; ``warm()`` builds every rotation
+    and returns the wall time it took."""
+
+    def __init__(self, step_fn, canary: ChecksumCanary, *,
+                 donate: bool = False, warm: str = "lazy",
+                 host_metrics: Sequence[str] = ()):
+        if warm not in ("lazy", "eager"):
+            raise ValueError(f"warm must be 'lazy' or 'eager', got {warm!r}")
+        self.step_fn = step_fn
+        self.canary = canary
+        self.plan = canary.plan
+        self.n_slices = canary.n_slices
+        self.donate = donate
+        self.warm_mode = warm
+        self.host_metrics = tuple(host_metrics)
+        self.n_compiles = 0
+        self.compile_seconds = 0.0
+        self._rotations: Dict[int, _Rotation] = {}
+        self._warmed = False
+        # card only: the state storage (1 version donated, 2 in ping-pong),
+        # the static step arguments, the graphs and their memory pool
+        self._bufs: List = []
+        self._args = None
+        self._graphs: Dict[Tuple[int, int], _Graph] = {}
+        self._pool = None
+        self._phase = 0
+
+    # -- rotations -----------------------------------------------------------
+
+    def _rotation(self, r: int) -> _Rotation:
+        rot = self._rotations.get(r)
+        if rot is not None:
+            return rot
+        t0 = time.perf_counter()
+        can = self.canary
+        chk = tuple(can._slice_indices(r))
+        arm = tuple(can._slice_indices(r + 1))
+        if chk or arm:
+            core, union = kdigest.check_arm_subcomputation(self.plan, chk,
+                                                           arm)
+            buf = self.plan.take_buffer(union)
+            # device constants a captured graph must find uploaded
+            self.plan.layout(union).maps(buf.device)
+            rot = _Rotation(core, buf, chk, arm)
+        else:
+            rot = _Rotation(None, None, chk, arm)
+        self._rotations[r] = rot
+        if self.plan.device.type != "cuda":
+            self.n_compiles += 1
+            self.compile_seconds += time.perf_counter() - t0
+        return rot
+
+    # -- the unit: check, step, arm (eager on the CPU, captured on the card)
+
+    def _body(self, rot: _Rotation, inp, out, read, write, args,
+              descs=(None, None)):
+        """Run (or record) one fused step.  ``out`` is where the output
+        state must end up (None: wherever ``step_fn`` put it); returns
+        ``(new_state, aux, bad, host_vector)``; the host vector holds the
+        flag (when there is a digest) and the host metrics."""
+        pstore = self.canary.parity_store
+        pplan = pstore.plan if (pstore is not None and rot.core) else None
+        if rot.core is not None:
+            lv = self.plan.leaves(inp)
+            rot.core.pack_check(rot.buf, [lv[i] for i in rot.chk],
+                                desc=descs[0])
+            if pplan is not None and self.donate:
+                pplan.begin_delta(pplan.leaves(inp))
+        new_state, aux = self.step_fn(inp, *args)
+        if out is not None and out is not new_state:
+            new_state = copy_into(out, new_state)
+        flag = bad = None
+        extra = [aux[n].detach().to(torch.float64)
+                 for n in self.host_metrics]
+        if rot.core is not None:
+            lv = self.plan.leaves(new_state)
+            rot.core.pack_arm(rot.buf, [lv[i] for i in rot.arm],
+                              desc=descs[1])
+            flag, bad = rot.core.finish(rot.buf, read, write)
+            if pplan is not None:
+                if self.donate:
+                    pplan.finish_delta(pstore.parity,
+                                       pplan.leaves(new_state), flag)
+                else:
+                    pplan.update_leaves(pstore.parity, pplan.leaves(inp),
+                                        pplan.leaves(new_state), flag)
+            extra.insert(0, flag.to(torch.float64))
+        host = torch.stack(extra) if extra else None
+        return new_state, aux, bad, host
+
+    def _finish(self, s: int, rot: _Rotation, new_state, aux, bad, host,
+                read, write):
+        """Host half of a step: commit the generation and the parity
+        version, fetch the flag (and the host metrics) once, build the
+        report."""
+        can = self.canary
+        vals = kdigest.fetch(host) if host is not None else ()
+        if rot.core is not None:
+            can.commit_update(write)
+            if can.parity_store is not None:
+                can.parity_store.commit(can.parity_store.parity, s + 1)
+            fired, vals = bool(vals[0]), vals[1:]
+        else:
+            fired = False
+        aux = dict(aux, **{n: float(v) for n, v in
+                           zip(self.host_metrics, vals)})
+        if not fired:
+            return new_state, aux, None
+        # the generation is already bumped: the rows this check compared
+        # against are ``read``, which a later arm overwrites — keep a copy,
+        # as of the mismatch mask (the next replay rewrites it)
+        can._fault_reference = read.clone()
+        bad = bad.clone()
+        chk = rot.chk
+        return new_state, aux, FaultReport(
+            s, "checksum", detail="in-step fused check",
+            resolver=lambda: can._attribute(chk, bad),
+            consumed=self.donate)
+
+    # -- warm-up and capture (card) ----------------------------------------
+
+    def _on_card(self, state) -> bool:
+        return leaves(state)[0].device.type == "cuda"
+
+    def _prepare(self, state, args) -> None:
+        """First use on the card: storage, static arguments and the
+        warm-up on the storage (the canary's tables and parity restored
+        after it); the real state goes in at the first ``load``."""
+        if self._bufs:
+            return
+        clone = lambda tree: tree_map(torch.clone, tree)
+        self._bufs = [clone(state)] if self.donate \
+            else [clone(state), clone(state)]
+        self._args = tuple(tree_map(
+            lambda t: torch.empty_like(t, device=self.plan.device), a)
+            for a in args)
+        self._load_args(args)
+        self._pool = torch.cuda.graph_pool_handle()
+        can = self.canary
+        pstore = can.parity_store
+        saved = [t.clone() for t in can._tables]
+        saved_parity = pstore.parity.clone() if pstore is not None else None
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for i in range(max(WARMUP_STEPS, self.n_slices)):
+                rot = self._rotation(i % self.n_slices)
+                read, write = can._tables[0], can._tables[1]
+                inp = self._bufs[0]
+                out = None if self.donate else self._bufs[1]
+                self._body(rot, inp, out, read, write, self._args)
+        torch.cuda.current_stream().wait_stream(side)
+        for t, v in zip(can._tables, saved):
+            t.copy_(v)
+        if pstore is not None:
+            pstore.parity.copy_(saved_parity)
+        # the real state goes in at the first ``load``; b = 0 at this gen
+        self._phase = can.generation & 1
+
+    def _load_args(self, args) -> None:
+        for static, a in zip(self._args, args):
+            for (_, dst), (_, src) in zip(flatten_with_path(static),
+                                          flatten_with_path(a)):
+                if dst is not src:
+                    dst.copy_(src)
+
+    def _capture(self, r: int, g: int) -> _Graph:
+        """Capture rotation ``r`` reading table ``g``."""
+        can = self.canary
+        rot = self._rotation(r)
+        b = 0 if self.donate else g ^ self._phase
+        inp = self._bufs[b]
+        out = None if self.donate else self._bufs[1 - b]
+        read, write = can._tables[g], can._tables[1 - g]
+        descs = (None, None)
+        if rot.core is not None:
+            union = rot.core.union
+            descs = (self.plan.descriptors(
+                         union, [self.plan.leaves(inp)[i] for i in rot.chk]),
+                     self.plan.descriptors(
+                         union, [self.plan.leaves(inp if out is None
+                                                  else out)[i]
+                                 for i in rot.arm], first=rot.core.nc))
+        before = Counter(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self._pool):
+            _, aux, bad, host = self._body(rot, inp, out, read, write,
+                                           self._args, descs)
+        self.compile_seconds += time.perf_counter() - t0
+        self.n_compiles += 1
+        # nothing ran during the capture: its kernels count at each replay
+        launches = Counter(_build.LAUNCHES)
+        launches.subtract(before)
+        _build.LAUNCHES.subtract(launches)
+        return _Graph(graph, aux, bad, host, descs, +launches)
+
+    def _graph(self, r: int, g: int) -> _Graph:
+        ent = self._graphs.get((r, g))
+        if ent is None:
+            ent = self._graphs[(r, g)] = self._capture(r, g)
+        return ent
+
+    def load(self, state):
+        """The live state tree of the factory's storage holding ``state``:
+        ``state`` itself on the CPU or when it already is that storage,
+        else a copy of it into the storage the next step reads.  Call it
+        after a recovery that produced a new tree."""
+        if not self._bufs or not self._on_card(state):
+            return state
+        b = 0 if self.donate else (self.canary.generation & 1) ^ self._phase
+        live = self._bufs[b]
+        if state is live:
+            return live
+        return copy_into(live, state)
+
+    def warm(self, state, *args) -> float:
+        """Build every rotation for these argument shapes without stepping
+        the run (on the card: capture its 2K graphs).  Returns wall
+        seconds; idempotent."""
+        if self._warmed:
+            return 0.0
+        t0 = time.perf_counter()
+        if self._on_card(state):
+            self._prepare(state, args)
+            for r in range(self.n_slices):
+                for g in (0, 1):
+                    self._graph(r, g)
+        else:
+            for r in range(self.n_slices):
+                self._rotation(r)
+        self._warmed = True
+        return time.perf_counter() - t0
+
+    # -- hot path ------------------------------------------------------------
+
+    def step(self, s: int, state, *args):
+        """One fused step: ``(new_state, aux, report)``.  On the card ONE
+        graph replay and ONE scalar fetch."""
+        if self.warm_mode == "eager":
+            self.warm(state, *args)
+        r = s % self.n_slices
+        can = self.canary
+        kdigest.STATS.launches += 1
+        if not self._on_card(state):
+            rot = self._rotation(r)
+            read, write = can.begin_update()
+            new_state, aux, bad, host = self._body(rot, state, None, read,
+                                                   write, args)
+            return self._finish(s, rot, new_state, aux, bad, host, read,
+                                write)
+        self._prepare(state, args)
+        state = self.load(state)
+        self._load_args(args)
+        g = can.generation & 1
+        ent = self._graph(r, g)
+        ent.graph.replay()
+        _build.LAUNCHES.update(ent.launches)
+        new_state = self._bufs[0] if self.donate \
+            else self._bufs[1 - (g ^ self._phase)]
+        return self._finish(s, self._rotations[r], new_state, ent.aux,
+                            ent.bad, ent.host, *can.begin_update())

@@ -143,12 +143,14 @@ class ParityPlan:
                 self.n_shards, c)
 
     def stream_mat(self, leaves: Sequence[torch.Tensor],
-                   other: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+                   other: Sequence[torch.Tensor] = (),
+                   xor: bool = False) -> torch.Tensor:
         """The fold input: ``(D, n_tiles * TILE)`` int32 — the reference's
         ``(D, stream_len)`` stream with its tile padding — written in place
         into the plan's scratch buffer, which it returns.  With ``other``
         the stream of ``leaves`` XOR the stream of ``other`` (the per-step
-        delta)."""
+        delta); with ``xor`` the stream of ``leaves`` XOR what the buffer
+        holds."""
         dev = leaves[0].device
         buf = self._scratch.get(str(dev))
         if buf is None:
@@ -168,10 +170,12 @@ class ParityPlan:
                     continue
                 dst = buf[rows, off:off + w]
                 src = a[lo:hi].view(-1, w)
-                if b is None:
-                    dst.copy_(src)
-                else:
+                if b is not None:
                     torch.bitwise_xor(src, b[lo:hi].view(-1, w), out=dst)
+                elif xor:
+                    dst.bitwise_xor_(src)
+                else:
+                    dst.copy_(src)
         return buf
 
     def _to_tiles(self, mat: torch.Tensor) -> torch.Tensor:
@@ -199,6 +203,28 @@ class ParityPlan:
         if not self.keys:
             return parity
         delta = self.stream_mat(old_leaves, new_leaves)
+        return self.apply_delta(parity, delta, fault)
+
+    def begin_delta(self, old_leaves: Sequence[torch.Tensor]) -> None:
+        """First half of ``update_leaves`` for an in-place step: the
+        stream of the old leaves into the scratch buffer, taken before
+        the step overwrites them."""
+        if self.keys:
+            self.stream_mat(old_leaves)
+
+    def finish_delta(self, parity: torch.Tensor,
+                     new_leaves: Sequence[torch.Tensor],
+                     fault: torch.Tensor) -> torch.Tensor:
+        """Second half: XOR the new leaves' stream into the scratch buffer
+        (in place) and apply the gated update.  ``begin_delta`` then
+        ``finish_delta`` equals ``update_leaves`` bit for bit."""
+        if not self.keys:
+            return parity
+        delta = self.stream_mat(new_leaves, xor=True)
+        return self.apply_delta(parity, delta, fault)
+
+    def apply_delta(self, parity: torch.Tensor, delta: torch.Tensor,
+                    fault: torch.Tensor) -> torch.Tensor:
         delta.masked_fill_(fault, 0)
         return _pk.xor_update_tiles(self._to_tiles(delta), parity)
 
@@ -316,15 +342,17 @@ class ParityStore:
     def build(self, tree, step: int = 0) -> None:
         """(Re)build the parity from scratch — at init and after a
         recovery (a replayed or restored state is a new version)."""
-        self.parity = self.plan.rebuild_leaves(self.plan.leaves(tree),
-                                               self.device)
-        self.version = step
+        self.commit(self.plan.rebuild_leaves(self.plan.leaves(tree),
+                                             self.device), step)
 
     rebuild = build
 
     def commit(self, new_parity: torch.Tensor, step: int) -> None:
-        """Install the buffer the canary's check+arm updated."""
-        self.parity = new_parity
+        """Install the buffer the canary's check+arm updated.  The parity
+        keeps its storage for the store's life (a new buffer is copied
+        into it), so a captured CUDA graph may update it by address."""
+        if new_parity is not self.parity:
+            self.parity.copy_(new_parity)
         self.version = step
 
     # -- fault path ------------------------------------------------------------

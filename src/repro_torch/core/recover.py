@@ -6,6 +6,13 @@ does nothing until a ``FaultReport`` arrives, then walks the leaf's
 recovery ladder, and every repair is verified before the loop resumes (a
 rung that cannot certify an exact repair escalates — exact-or-abort):
 
+    rung 0  triage        classify the injured leaf BEFORE any repair: the
+                          digest pair locates a single flipped bit, and a
+                          certified-harmless flip (dead bytes, or a
+                          below-epsilon mantissa change of an EMA moment)
+                          is TOLERATED: the digest rows are re-armed, the
+                          state is untouched, 0 bytes moved, 0 steps
+                          replayed
     rung 1  eq1 / opt_iv  induction-state partner recovery (Eq. (1)): the
                           ``iv`` counters and the optimizer's ``t``
                           (affine), ``bc1``/``bc2`` recomputed from the
@@ -20,9 +27,17 @@ rung that cannot certify an exact repair escalates — exact-or-abort):
     rung 5  replay        pure-step replay from a verified micro-snapshot
     rung 6  checkpoint    classic disk restore + replay
 
+Under donation (``donated=True``: the loop's step writes the state in
+place) the ladder is replay, then checkpoint; parity_xor goes ahead of
+them only for a checksum or external report with live buffers
+(``consumed=False``, the donated pair checks before the step), and triage
+ahead of everything under the same condition.  Every repair is written
+into the live tensors (``copy_``), never into new ones: the canary's pack
+schedules and the fused step's captured graphs read their addresses.
+
 Not ported yet, each aborting into the rest of the ladder with "not
-ported": triage (rung 0), shard_patch (2) and remesh; the constructor
-arguments that would enable them raise ``NotImplementedError``.
+ported": shard_patch (rung 2) and remesh; the constructor arguments that
+would enable them raise ``NotImplementedError``.
 
 ``plan_serving_recovery`` is the serving engine's policy:
 
@@ -66,17 +81,28 @@ from repro_torch.core.recovery_table import (
     RUNG_TRIAGE,
     RecoveryTable,
 )
-from repro_torch.core.replay import replay
+from repro_torch.core.replay import copy_into, replay
 from repro_torch.kernels import digest as kdigest
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as _ref
 from repro_torch.tree import flatten_with_path, leaf_key, replace_leaves
 
 #: what each unported rung (and its constructor argument) waits for
 _NOT_PORTED = {
-    RUNG_TRIAGE: "triage (ROADMAP.md queue 1, '--triage')",
     RUNG_SHARD: "shard_patch (ROADMAP.md queue 1, 'Mesh and elastic')",
     RUNG_REMESH: "remesh (ROADMAP.md queue 1, 'Mesh and elastic')",
 }
+
+#: triage epsilon certificate: a mantissa perturbation of an EMA moment is
+#: tolerable when |new - old| <= max(REL_EPS * max(|old|, |new|), ABS_FLOOR)
+#: — the induced relative error in the update direction is of the same
+#: order, far below the optimizer's own stochastic noise floor.
+TRIAGE_REL_EPS = 1e-5
+TRIAGE_ABS_FLOOR = 1e-12
+
+#: elements per int8-moment quantisation block (the reference's
+#: ``optim.optimizers.QBLOCK``): the pad tail of the last block is dead
+QBLOCK = 256
 
 
 @dataclass
@@ -115,7 +141,14 @@ class RecoveryRuntime:
                   parity rung localises a finite flip against the
                   digests its fired check compared with, and certifies
                   every reconstruction against them before resume
-    triage, donated, shardings, elastic : not ported; raise
+    triage      : enable rung 0 (needs the canary): classify a checksum
+                  report's injured leaves against the canary's reference
+                  digest pair and tolerate certified-harmless flips in
+                  place; other reports fall straight through
+    donated     : the loop's step updates the state in place; the ladder
+                  pivots to replay (see the module docstring) and every
+                  repair is written into the live tensors
+    shardings, elastic : not ported; raise
     """
 
     def __init__(self, *, step_fn, batch_fn, iv_registry: IVRegistry,
@@ -127,10 +160,7 @@ class RecoveryRuntime:
                  canary: Optional[ChecksumCanary] = None,
                  triage: bool = False, donated: bool = False,
                  shardings=None, elastic=None):
-        unported = {"triage": (triage, _NOT_PORTED[RUNG_TRIAGE]),
-                    "donated": (donated, "donation (ROADMAP.md queue 1, "
-                                         "'In-step fused detection')"),
-                    "shardings": (shardings, _NOT_PORTED[RUNG_SHARD]),
+        unported = {"shardings": (shardings, _NOT_PORTED[RUNG_SHARD]),
                     "elastic": (elastic, _NOT_PORTED[RUNG_REMESH])}
         for name, (value, what) in unported.items():
             if value:
@@ -145,12 +175,155 @@ class RecoveryRuntime:
         self.checkpoint = checkpoint
         self.table = table
         self.canary = canary
+        self.triage = triage
+        self.donated = donated
         self.events: List[RecoveryEvent] = []
         self._last_replayed = 0
         self._last_patched_bytes = 0
 
     # -- rungs: each returns (repaired state, detail) or raises
     #    RecoveryAbort; the ladder driver verifies and escalates ---------
+
+    def _rung_triage(self, state, report: FaultReport, step: int):
+        """Classify the injured leaves BEFORE any repair and tolerate
+        certified-harmless flips in place (FlipTracker, arXiv:1809.01362).
+        Single-event-upset model: the Fletcher pair the canary already
+        holds locates one flipped bit, so triage names the (bit, word)
+        and the implied pre-flip bits with no second copy of the data.
+
+        Certificates (EVERY injured leaf must certify, else abort):
+
+        * dead region — the flip landed on bytes the update never reads
+          (an int8-quantised moment's pad tail; the absmax scale of an
+          all-pad block);
+        * below-epsilon moment perturbation — a mantissa-tail flip in a
+          float EMA moment whose old and new values differ by at most
+          ``TRIAGE_REL_EPS`` relative.
+
+        Tolerate = re-arm the injured rows (``canary.refresh(keys=...)``
+        patches BOTH generations, no bump) and resume with the state
+        untouched: 0 bytes moved, 0 steps replayed.  Anything
+        uncertifiable escalates; tolerate never ALTERS state, it only
+        re-certifies it, so exact-or-abort holds."""
+        if not self.triage:
+            raise RecoveryAbort("triage disabled")
+        if self.canary is None:
+            raise RecoveryAbort("triage needs a canary digest reference")
+        if report.detector != "checksum":
+            raise RecoveryAbort(
+                "only digest-attributed faults are classifiable")
+        if report.consumed:
+            raise RecoveryAbort(
+                "faulting buffers overwritten by the step — nothing to "
+                "classify in place")
+        injured = list(report.leaves or ())
+        if not injured:
+            raise RecoveryAbort("no leaf attribution to classify")
+        live = _by_key(state)
+        notes = []
+        for key in injured:
+            leaf = live.get(key)
+            if leaf is None:
+                raise RecoveryAbort(f"injured leaf {key} not in state")
+            notes.append(f"{key}: "
+                         f"{self._certify_tolerable(state, key, leaf)}")
+        # the rows still describe the pre-flip bits: without the re-arm
+        # every later check would fire on the value we decided to keep
+        self.canary.refresh(state, keys=injured)
+        return state, "tolerated without repair — " + "; ".join(notes)
+
+    def _certify_tolerable(self, state, key: str,
+                           leaf: torch.Tensor) -> str:
+        """The certificate of one injured leaf: its note, or
+        RecoveryAbort.  A high bit leaves many candidate words (every
+        2^(32-bit)-th), so the candidates are judged as arrays."""
+        bit, js, cur, old = self._localise_flip(key, leaf)
+        start = self._dead_from(state, key)
+        live = js < start if start is not None \
+            else np.ones(js.shape, dtype=bool)
+        if not live.any():
+            return (f"dead-region flip (bit {bit}, "
+                    f"{js.size} candidate word(s), never read)")
+        if not self._moment_leaf(key):
+            raise RecoveryAbort(
+                f"{key} is not an EMA moment — no tolerance certificate")
+        js = js[live]
+        new_v = _word_values(leaf.dtype, cur[live])
+        old_v = _word_values(leaf.dtype, old[live])
+        finite = np.isfinite(new_v) & np.isfinite(old_v)
+        if not finite.all():
+            raise RecoveryAbort(
+                f"{key}: non-finite endpoint at word "
+                f"{js[np.argmin(finite)]} — escalate")
+        delta = np.abs(new_v - old_v)
+        tol = np.maximum(TRIAGE_REL_EPS * np.maximum(np.abs(new_v),
+                                                     np.abs(old_v)),
+                         TRIAGE_ABS_FLOOR)
+        over = delta > tol
+        if over.any():
+            i = int(np.argmax(over))
+            raise RecoveryAbort(
+                f"{key}: |Δ|={delta[i]:.3e} at word {js[i]} exceeds the "
+                f"epsilon certificate ({tol[i]:.3e}) — escalate")
+        return (f"sub-epsilon moment perturbation (bit {bit}, "
+                f"|Δ|≤{delta.max():.3e})")
+
+    def _localise_flip(self, key: str, leaf: torch.Tensor):
+        """``(bit, flat_elements, cur_words, old_words)`` (uint32 arrays)
+        for the single flip the digest pair implies, or RecoveryAbort when
+        the evidence fits no single-bit flip.  The leaf's digest is taken
+        where it lies (one ``checksum_tiles`` launch on the card) and only
+        the candidate words cross to the host.  ``to_i32`` packs one word
+        per element, so a word index is a flat element index."""
+        ref = np.asarray(self.canary.fault_reference_digest(key))
+        cur = _digest(leaf)
+        if np.array_equal(cur, ref):
+            raise RecoveryAbort(
+                f"{key}: digest matches the reference — stale attribution")
+        sol = kdigest.locate_single_flip(ref, cur, leaf.numel())
+        if sol is None:
+            raise RecoveryAbort(
+                f"{key}: digest deltas inconsistent with a single-bit "
+                f"flip — escalate")
+        bit, delta, cand = sol
+        js = np.asarray(cand, dtype=np.int64)
+        at = torch.from_numpy(js).to(leaf.device)
+        words = kdigest.fetch(
+            _ref.to_i32(leaf.detach().reshape(-1)[at])).view(np.uint32)
+        return bit, js, words, words - np.uint32(delta)
+
+    @staticmethod
+    def _moment_leaf(key: str) -> bool:
+        """Float EMA-moment leaves — the only state the epsilon
+        certificate applies to (params and counters always escalate)."""
+        return key.startswith(("opt/m/", "opt/v/", "opt/stats/")) \
+            and not key.endswith("/q")
+
+    @staticmethod
+    def _dead_from(state, key: str) -> Optional[int]:
+        """The first dead flat element of ``key`` (every later one is dead
+        too), or None when none is: bytes the optimizer update never
+        reads and rewrites wholesale each step.  An int8-quantised
+        moment's ``/q`` leaf is padded to ``QBLOCK`` past its param's
+        size, and the absmax ``/scale`` of an all-pad block is dead."""
+        base = None
+        for pre in ("opt/m/", "opt/v/"):
+            if key.startswith(pre):
+                base = key[len(pre):]
+                break
+        if base is None:
+            return None
+        for suffix, per in (("/q", 1), ("/scale", QBLOCK)):
+            if base.endswith(suffix):
+                p = _by_key(state).get("params/" + base[:-len(suffix)])
+                return None if p is None else -(-p.numel() // per)
+        return None
+
+    @classmethod
+    def _dead_element(cls, state, key: str, j: int) -> bool:
+        """Is flat element ``j`` of ``key`` dead (``_dead_from``)?"""
+        start = cls._dead_from(state, key)
+        return start is not None and j >= start
 
     def _rung_eq1(self, state, report: FaultReport, step: int):
         """Repair induction state from healthy partners (registered as
@@ -322,7 +495,7 @@ class RecoveryRuntime:
         if rotten:
             raise RecoveryAbort(f"snapshot failed verification: {rotten[:3]}")
         res = replay(self.step_fn, self.batch_fn, snap.state, snap.step, step,
-                     like_state=state)
+                     like_state=state, into=state if self.donated else None)
         self._last_replayed = res.steps_replayed
         return res.state, f"replayed {res.steps_replayed} steps from " \
                           f"{snap.step}"
@@ -333,7 +506,7 @@ class RecoveryRuntime:
             raise RecoveryAbort("no checkpoint loader configured")
         ck_state, ck_step = self.checkpoint()
         res = replay(self.step_fn, self.batch_fn, ck_state, ck_step, step,
-                     like_state=state)
+                     like_state=state, into=state if self.donated else None)
         self._last_replayed = res.steps_replayed
         return res.state, f"restored step {ck_step} + replayed to {step}"
 
@@ -341,7 +514,7 @@ class RecoveryRuntime:
         raise RecoveryAbort("not ported")
 
     _RUNGS = {
-        RUNG_TRIAGE: _rung_not_ported,
+        RUNG_TRIAGE: _rung_triage,
         RUNG_EQ1: _rung_eq1,
         RUNG_OPT_IV: _rung_eq1,     # same consensus engine, opt-IV ladder
         RUNG_SHARD: _rung_not_ported,
@@ -386,6 +559,9 @@ class RecoveryRuntime:
                 # exact-or-abort: the repair did not certify — escalate
                 ev.report.detail += f" | {rung}: post-verify failed {bad[:2]}"
                 continue
+            if self.donated:
+                # the live tensors keep their addresses
+                cand = copy_into(state, cand)
             ev.rung = rung
             ev.recovered = True
             ev.steps_replayed = self._last_replayed
@@ -399,7 +575,20 @@ class RecoveryRuntime:
         raise RecoveryFailed(str(report))
 
     def _ladder(self, report: FaultReport) -> List[str]:
-        """The ladder from the Recovery Table, else by leaf class."""
+        """The ladder: the donated pivot, else the Recovery Table, else by
+        leaf class; triage ahead when it applies."""
+        if self.donated:
+            # the step writes the state in place: only the donated pair's
+            # reports (consumed=False, checked before the step) leave live
+            # buffers for the in-place rungs
+            ladder = [RUNG_REPLAY, RUNG_CHECKPOINT]
+            if (self.parity is not None
+                    and report.detector in ("checksum", "external")
+                    and not report.consumed):
+                ladder.insert(0, RUNG_PARITY)
+            if self._triage_applies(report):
+                ladder.insert(0, RUNG_TRIAGE)
+            return ladder
         if self.table is not None and report.leaves:
             entry = self.table.lookup(report.leaves[0])
             if entry is not None:
@@ -410,8 +599,18 @@ class RecoveryRuntime:
                                  for k in report.leaves):
             # optimizer-owned induction leaves (opt/t, bias corrections)
             return [RUNG_OPT_IV, RUNG_REPLAY, RUNG_CHECKPOINT]
-        return [RUNG_EQ1, RUNG_REPLICA, RUNG_PARITY, RUNG_REPLAY,
-                RUNG_CHECKPOINT]
+        ladder = [RUNG_EQ1, RUNG_REPLICA, RUNG_PARITY, RUNG_REPLAY,
+                  RUNG_CHECKPOINT]
+        if self._triage_applies(report):
+            ladder.insert(0, RUNG_TRIAGE)
+        return ladder
+
+    def _triage_applies(self, report: FaultReport) -> bool:
+        """Rung 0's gate: enabled, a canary to certify against, digest
+        attribution and live buffers to classify."""
+        return (self.triage and self.canary is not None
+                and report.detector == "checksum"
+                and not report.consumed and bool(report.leaves))
 
     # -- telemetry -------------------------------------------------------
 
@@ -445,6 +644,23 @@ def _digest(x: torch.Tensor) -> np.ndarray:
     """Whole-leaf Fletcher pair on the host (one ``checksum_tiles`` launch
     and one fetch on the card) — comparable with the canary's rows."""
     return kdigest.fetch(kops.checksum(x))
+
+
+def _word_values(dtype: torch.dtype, words: np.ndarray) -> np.ndarray:
+    """Decode packed ``to_i32`` words (uint32) back to the floats they
+    encode, as float64 (the triage certificate compares old and new
+    VALUES, not bits)."""
+    words = np.asarray(words, dtype=np.uint32)
+    if dtype.itemsize == 4:
+        return words.view(np.float32).astype(np.float64)
+    if dtype.itemsize == 2 and dtype.is_floating_point:
+        bits = (words & 0xFFFF).astype(np.uint16).view(np.int16)
+        return torch.from_numpy(bits).view(dtype).double().numpy()
+    raise RecoveryAbort(f"no value decoding for dtype {dtype}")
+
+
+def _by_key(tree) -> Dict[str, torch.Tensor]:
+    return {leaf_key(p): t for p, t in flatten_with_path(tree)}
 
 
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -7,6 +7,11 @@ the exact state at ``t`` is recomputed by replaying ``t - t0``
 deterministic steps — bit-exact on the same device (on the card the
 training entry point turns on PyTorch's deterministic algorithms, so the
 embedding and logits backward do not accumulate with atomics).
+
+A donated loop replays ``into`` its live state: the snapshot is copied
+into the live tensors and the steps (in place) run there, so the state
+keeps every ``data_ptr`` — the canary's pack schedules and the captured
+graphs of the fused step read those addresses.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten_with_path, tree_map
 
 
 @dataclass
@@ -37,17 +42,35 @@ def device_put_like(host_state, like_state=None, device=None):
     return tree_map(lambda h: h.to(device, copy=True), host_state)
 
 
+def copy_into(live, tree):
+    """Write every leaf of ``tree`` into the same-path leaf of ``live``
+    (``copy_``; a leaf that already is the live tensor is skipped) and
+    return ``live``."""
+    for (_, dst), (_, src) in zip(flatten_with_path(live),
+                                  flatten_with_path(tree)):
+        if src is not dst:
+            dst.copy_(src)
+    return live
+
+
 def replay(step_fn: Callable, batch_fn: Callable, snapshot_state,
            from_step: int, to_step: int, *, like_state=None, device=None,
-           on_step: Optional[Callable] = None) -> ReplayResult:
+           into=None, on_step: Optional[Callable] = None) -> ReplayResult:
     """Replay ``step_fn`` from the state snapshotted before step
-    ``from_step`` up to (not including) ``to_step``."""
+    ``from_step`` up to (not including) ``to_step``.  With ``into`` (a
+    live state) the snapshot is copied into its tensors, the steps run
+    there and the result is ``into`` itself."""
     if to_step < from_step:
         raise ValueError(f"replay backwards: {from_step} -> {to_step}")
-    state = device_put_like(snapshot_state, like_state, device)
+    if into is not None:
+        state = copy_into(into, snapshot_state)
+    else:
+        state = device_put_like(snapshot_state, like_state, device)
     for s in range(from_step, to_step):
         state, _ = step_fn(state, batch_fn(s))
         if on_step is not None:
             on_step(s, state)
+    if into is not None:
+        state = copy_into(into, state)
     return ReplayResult(state=state, steps_replayed=to_step - from_step,
                         from_step=from_step, to_step=to_step)

@@ -10,7 +10,9 @@ tests import every module of the port.
 
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
 it launches its kernel and nowhere else — the evidence that a run went
-through the kernels.
+through the kernels.  A kernel captured into a CUDA graph is launched by
+the graph's replays: ``core/fused_step.py`` takes the capture's counts
+back out and adds them once per replay.
 """
 
 from __future__ import annotations

@@ -78,28 +78,32 @@ class LeafSpec:
 
 
 class _Layout:
-    """Packing layout of one leaf subset: element ``starts`` per leaf and,
-    per row of the padded buffer, its segment (subset position) and its
-    element offset within its leaf.  Fill and pad rows map to segment 0
-    with offset 0; they stay all-zero, so they add nothing."""
+    """Packing layout of one leaf subset: element ``starts`` per leaf, the
+    element offset within its leaf of every row of the padded buffer
+    (fill and pad rows stay all-zero, so they add nothing) and each
+    segment's row range ``[lo, hi)``: the rows of one leaf are
+    contiguous, so its sums are differences of running sums."""
 
     def __init__(self, specs: Sequence[LeafSpec]):
         n_rows = sum(sp.n_rows for sp in specs)
         self.padded_rows = -(-n_rows // TILE_ROWS) * TILE_ROWS
         self.n_seg = len(specs)
-        seg = np.zeros(self.padded_rows, np.int64)
         off = np.zeros(self.padded_rows, np.int64)
+        lo = np.zeros(self.n_seg, np.int64)
         self.starts: List[int] = []
         r = 0
         for j, sp in enumerate(specs):
-            seg[r:r + sp.n_rows] = j
             off[r:r + sp.n_rows] = np.arange(sp.n_rows) * LANES
+            lo[j] = r
             self.starts.append(r * LANES)
             r += sp.n_rows
-        self._host = (seg, off)
-        self._dev: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        hi = lo + np.array([sp.n_rows for sp in specs], np.int64)
+        self._host = (off, lo, hi)
+        self._dev: Dict[str, Tuple[torch.Tensor, ...]] = {}
 
-    def maps(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    def maps(self, device) -> Tuple[torch.Tensor, ...]:
+        """``(off, lo, hi)`` on ``device``, uploaded at first use (a
+        captured CUDA graph must find them there already)."""
         key = str(device)
         if key not in self._dev:
             self._dev[key] = tuple(torch.from_numpy(a).to(device)
@@ -179,19 +183,33 @@ class DigestPlan:
 
     # -- the three digest phases -------------------------------------------
 
+    def descriptors(self, idx: Tuple[int, ...],
+                    leaves: Sequence[torch.Tensor], first: int = 0
+                    ) -> Optional[_ck.PackDescriptors]:
+        """A fresh ``pack_rows`` schedule of ``leaves`` (subset positions
+        ``first ..`` of ``idx``) on the card, None on the CPU.  A caller
+        that captures the pack in a CUDA graph keeps it alive as long as
+        the graph: the graph reads it by address."""
+        if self.device.type != "cuda" or not leaves:
+            return None
+        flats = [_ref.to_i32(x) for x in leaves]
+        return _ck.pack_descriptors(
+            flats, self.layout(idx).starts[first:first + len(flats)],
+            self.device)
+
     def pack(self, buf: torch.Tensor, idx: Tuple[int, ...],
-             leaves: Sequence[torch.Tensor], first: int = 0) -> None:
+             leaves: Sequence[torch.Tensor], first: int = 0,
+             desc: Optional[_ck.PackDescriptors] = None) -> None:
         """Pack ``leaves`` — subset positions ``first .. first+len-1`` of
         ``idx`` — into ``buf`` (one ``pack_rows`` launch).  On the card the
-        kernel's schedule (``checksum.pack_descriptors``) is cached per
-        (subset, part) and rebuilt and re-uploaded only when a leaf's base
-        pointer changed."""
+        kernel's schedule (``checksum.pack_descriptors``) is ``desc`` when
+        given, else cached per (subset, part) and rebuilt and re-uploaded
+        only when a leaf's base pointer changed."""
         if not leaves:
             return
         flats = [_ref.to_i32(x) for x in leaves]
         starts = self.layout(idx).starts[first:first + len(flats)]
-        desc = None
-        if buf.device.type == "cuda":
+        if buf.device.type == "cuda" and desc is None:
             ptrs = tuple(f.data_ptr() for f in flats)
             key = (idx, first, len(flats))
             hit = self._descs.get(key)
@@ -203,16 +221,29 @@ class DigestPlan:
 
     def combine(self, buf: torch.Tensor, lay: _Layout) -> torch.Tensor:
         """ONE ``row_checksums`` launch over ``buf`` and the exact combine
-        into the subset's (n_seg, 2) int32 digest table."""
+        into the subset's (n_seg, 2) int32 digest table.  The per-leaf
+        sums are differences of int64 running sums at the leaves' row
+        bounds (exact: every term is below 2^32 and a buffer holds fewer
+        than 2^31 rows), so the combine needs no scatter: under
+        deterministic algorithms PyTorch's ``index_add_`` on the card
+        becomes a sorted ``index_put_`` that checks its indices' range
+        with a host sync (a captured step cannot hold one) and sums each
+        leaf's rows one after another (45.5 ms a step at the training
+        canary's 4.7 M rows on the H100)."""
         d = _ck.row_checksums(buf.view(-1, LANES))
-        seg, off = lay.maps(buf.device)
+        off, lo, hi = lay.maps(buf.device)
         s1 = d[:, 0].to(torch.int64)
         # |off·s1| < 2^62: the product is exact in int64 before the mask
         t2 = (d[:, 1].to(torch.int64) + off * s1) & _MASK32
-        out = torch.zeros((2, lay.n_seg), dtype=torch.int64, device=buf.device)
-        out[0].index_add_(0, seg, s1)
-        out[1].index_add_(0, seg, t2)
-        return _ref.wrap_i32(out).t().contiguous()
+
+        def seg_sums(x):
+            # one flat scan each (a scan along the inner dim of a (2, n)
+            # tensor runs on 2 rows of threads and is ~100x slower)
+            run = torch.nn.functional.pad(torch.cumsum(x, 0), (1, 0))
+            return run.index_select(0, hi) - run.index_select(0, lo)
+
+        out = torch.stack([seg_sums(s1), seg_sums(t2)], dim=1)
+        return _ref.wrap_i32(out)
 
     def _run(self, idx: Tuple[int, ...], leaves) -> torch.Tensor:
         STATS.launches += 1
@@ -282,13 +313,27 @@ def plan_for(tree) -> DigestPlan:
 # check+arm of one canary rotation
 # ---------------------------------------------------------------------------
 
+def _as_slice(rows: Sequence[int]) -> slice:
+    """``rows`` as a slice: the canary's rotating slices ``r, r+K, ...``
+    step evenly (a slice reads and writes the tables with no scatter,
+    which under deterministic algorithms would sync the host)."""
+    if not rows:
+        return slice(0, 0)
+    step = rows[1] - rows[0] if len(rows) > 1 else 1
+    if step <= 0 or any(b - a != step for a, b in zip(rows, rows[1:])):
+        raise ValueError(f"check/arm rows must step evenly, got {rows}")
+    return slice(rows[0], rows[-1] + 1, step)
+
+
 class CheckArm:
     """The fused check+arm digest of one canary rotation, in phases.
 
     The packing buffer of ``union = chk + arm`` holds the check-slice
     leaves first and the arm-slice leaves after them.  A caller that
     updates the state in place runs ``pack_check`` before its first write,
-    ``pack_arm`` after its last, then ``finish``."""
+    ``pack_arm`` after its last, then ``finish``.  Every phase launches
+    work only on the device, with no host sync, so a CUDA graph can
+    capture all three."""
 
     def __init__(self, plan: DigestPlan, chk: Sequence[int],
                  arm: Sequence[int]):
@@ -297,28 +342,24 @@ class CheckArm:
         self.arm = tuple(arm)
         self.union = self.chk + self.arm
         self.nc = len(self.chk)
-        self._rows: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._chk_rows, self._arm_rows = _as_slice(self.chk), \
+            _as_slice(self.arm)
 
-    def pack_check(self, buf, leaves) -> None:
-        self.plan.pack(buf, self.union, leaves, first=0)
+    def pack_check(self, buf, leaves, desc=None) -> None:
+        self.plan.pack(buf, self.union, leaves, first=0, desc=desc)
 
-    def pack_arm(self, buf, leaves) -> None:
-        self.plan.pack(buf, self.union, leaves, first=self.nc)
+    def pack_arm(self, buf, leaves, desc=None) -> None:
+        self.plan.pack(buf, self.union, leaves, first=self.nc, desc=desc)
 
     def finish(self, buf, ref_read, ref_write):
         """Digest the packed buffer, compare the check rows against
         ``ref_read`` on the device, and arm the rest into ``ref_write`` in
-        place.  Returns ``(any_mismatch, bad_mask)``, both on the device."""
+        place.  Returns ``(any_mismatch, bad_mask)``, both on the
+        device."""
         table = self.plan.combine(buf, self.plan.layout(self.union))
-        key = str(buf.device)
-        if key not in self._rows:
-            self._rows[key] = tuple(
-                torch.tensor(r, dtype=torch.int64, device=buf.device)
-                for r in (self.chk, self.arm))
-        chk_rows, arm_rows = self._rows[key]
-        bad = (table[:self.nc] != ref_read[chk_rows]).any(dim=1)
+        bad = (table[:self.nc] != ref_read[self._chk_rows]).any(dim=1)
         if self.arm:
-            ref_write.index_copy_(0, arm_rows, table[self.nc:])
+            ref_write[self._arm_rows].copy_(table[self.nc:])
         return bad.any(), bad
 
 
@@ -395,3 +436,56 @@ def host_verify_tree(tree, reference: Dict[str, np.ndarray]) -> List[str]:
     current = host_tree_checksums(tree)
     return sorted(k for k, d in reference.items()
                   if k not in current or not np.array_equal(current[k], d))
+
+
+# ---------------------------------------------------------------------------
+# single-flip localisation — triage's certificate engine.  The Fletcher pair
+# (s1, s2) over a leaf's packed words is an error-locating code for the
+# single-bit-flip channel: one flipped bit b in word j shifts the digests by
+#
+#     delta1 = s1' - s1 = d            (mod 2^32),   d = +-2^b
+#     delta2 = s2' - s2 = (j + 1) * d  (mod 2^32)
+#
+# so the (bit, word) coordinates of the flip are solvable from the reference
+# digest the canary already holds, with no second copy of the data.
+# ---------------------------------------------------------------------------
+
+def _inv_odd_u32(w: int) -> int:
+    """Multiplicative inverse of odd ``w`` mod 2^32 (Newton iteration)."""
+    inv = w & _MASK32
+    for _ in range(5):
+        inv = (inv * (2 - w * inv)) & _MASK32
+    return inv
+
+
+def locate_single_flip(ref_pair, cur_pair, n_words: int):
+    """Solve the digest pair for a single flipped bit.
+
+    Takes the reference and current int32[2] digests of one leaf and its
+    packed word count.  Returns ``(bit, delta, candidates)``: the flipped
+    bit, the mod-2^32 word delta (``old_word = (cur_word - delta) &
+    0xFFFFFFFF``) and the candidate flat word indices j (several only when
+    ``n_words > 2^(32-bit)``); or ``None`` when the deltas fit no
+    single-bit flip (multi-word or multi-bit damage: the caller
+    escalates)."""
+    ref = np.asarray(ref_pair).view(np.uint32).reshape(-1)
+    cur = np.asarray(cur_pair).view(np.uint32).reshape(-1)
+    d1 = (int(cur[0]) - int(ref[0])) & _MASK32
+    d2 = (int(cur[1]) - int(ref[1])) & _MASK32
+    if d1 == 0:
+        return None          # a single flip always moves s1 by +-2^b
+    bit = (d1 & -d1).bit_length() - 1         # trailing zeros of d1
+    w = d1 >> bit
+    # d = +2^b gives w = 1; d = -2^b mod 2^32 gives w = 2^(32-b) - 1
+    if w not in (1, (1 << (32 - bit)) - 1):
+        return None
+    q = (d2 * _inv_odd_u32(w)) & _MASK32
+    if q & ((1 << bit) - 1):
+        return None          # (j+1)·2^b has b low zero bits
+    m = q >> bit             # j + 1 mod 2^(32-bit)
+    period = 1 << (32 - bit)
+    first = m if m != 0 else period
+    candidates = [j1 - 1 for j1 in range(first, n_words + 1, period)]
+    if not candidates:
+        return None
+    return bit, d1, candidates

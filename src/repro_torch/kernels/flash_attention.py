@@ -29,6 +29,8 @@ from repro_torch.kernels import ref as _ref
 
 HEAD_DIMS = (16, 32, 48, 64, 128, 160, 256)   # D the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: keys per K/V record at each head dim (``Cfg<D>::BK`` of the .cu)
+TILE_KEYS = {16: 64, 32: 64, 48: 64, 64: 64, 128: 32, 160: 16, 256: 8}
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,15 +88,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     BH, Sq, D = q.shape
     BKV, Sk, _ = k.shape
     lib, dt, stream = _build.lib(), _DTYPES[q.dtype], _build.stream_of(q)
-    n_records = BKV * -(-n // lib.repro_flash_tile_keys(D, dt))
-    records = torch.empty(n_records * lib.repro_flash_record_words(D, dt),
-                          dtype=torch.float32, device=q.device)
-    if records.numel():
-        rc = lib.repro_flash_layout_kv(k.data_ptr(), v.data_ptr(),
-                                       records.data_ptr(), BKV, Sk, n, D, dt,
-                                       stream)
-        _build.check(rc, "flash_layout_kv")
-        _build.LAUNCHES["flash_layout_kv"] += 1
+    records = flash_layout_kv(k, v, seq_k=n)
     out = torch.empty_like(q)
     rc = lib.repro_flash_attention_bhsd(
         q.data_ptr(), v.data_ptr(), records.data_ptr(), out.data_ptr(), BH,
@@ -103,3 +97,30 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(rc, "flash_attention_bhsd")
     _build.LAUNCHES["flash_attention_bhsd"] += 1
     return out
+
+
+def flash_layout_kv(k: torch.Tensor, v: torch.Tensor,
+                    seq_k: Optional[int] = None) -> torch.Tensor:
+    """The K/V records ``flash_attention_bhsd`` reads: k/v ``(BKV, Sk, D)``
+    split once into TF32 parts in the tensor cores' layout, one record per
+    (kv row, tile of ``TILE_KEYS[D]`` keys), flat f32
+    (``ref.flash_layout_kv_ref`` on a CPU tensor, the layout kernel on a
+    CUDA tensor).  Keys ``seq_k`` and past are written as zeros."""
+    n = k.shape[1] if seq_k is None else int(seq_k)
+    D = k.shape[2]
+    if k.device.type == "cpu":
+        return _ref.flash_layout_kv_ref(k, v, n, TILE_KEYS[D])
+    check_kernel_args(k, k, v)
+    _build.require_cuda("flash_layout_kv", k, v, aligned=False)
+    BKV, Sk, _ = k.shape
+    lib, dt = _build.lib(), _DTYPES[k.dtype]
+    n_records = BKV * -(-n // lib.repro_flash_tile_keys(D, dt))
+    records = torch.empty(n_records * lib.repro_flash_record_words(D, dt),
+                          dtype=torch.float32, device=k.device)
+    if records.numel():
+        rc = lib.repro_flash_layout_kv(k.data_ptr(), v.data_ptr(),
+                                       records.data_ptr(), BKV, Sk, n, D, dt,
+                                       _build.stream_of(k))
+        _build.check(rc, "flash_layout_kv")
+        _build.LAUNCHES["flash_layout_kv"] += 1
+    return records

@@ -274,3 +274,45 @@ def flash_attention_3xtf32(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp(s - s.amax(-1, keepdim=True))
     o = _tf32_matmul(p, vr, passes) / p.sum(-1, keepdim=True).clamp_min(1e-37)
     return o.to(q.dtype)
+
+
+def _smem_word(rows: int, r: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Word of element (r, c) of a ``rows``-row operand in the no-swizzle
+    K-major core-matrix layout the tensor cores read (``Smem::word`` of
+    ``csrc/flash_attention.cu``)."""
+    return (c >> 2) * (4 * rows) + (r >> 3) * 32 + (r & 7) * 4 + (c & 3)
+
+
+def flash_layout_kv_ref(k: torch.Tensor, v: torch.Tensor, seq_k: int,
+                        tile_keys: int) -> torch.Tensor:
+    """The records ``flash_layout_kv`` writes: for each kv row and each
+    tile of ``tile_keys`` keys (the last one zero-padded past ``seq_k``),
+    ``[K big | K small | V^T big | V^T small]`` (bf16 inputs: no small
+    parts), the TF32 parts of ``tf32_split`` in the K-major layout, with
+    V transposed and each 8-key group of its columns holding keys
+    0 2 4 6 1 3 5 7.  Flat f32, ``BKV * n_tiles`` records."""
+    BKV, _, D = k.shape
+    BK = tile_keys
+    n_tiles = -(-seq_k // BK)
+    parts = 2 if k.dtype == torch.float32 else 1
+    E = BK * D
+
+    def tiles(x):
+        t = torch.zeros((BKV, n_tiles * BK, D), dtype=torch.float32,
+                        device=x.device)
+        t[:, :seq_k] = x[:, :seq_k].to(torch.float32)
+        return t.view(BKV, n_tiles, E)
+
+    j = torch.arange(BK, device=k.device)[:, None].expand(BK, D)
+    d = torch.arange(D, device=k.device)[None, :].expand(BK, D)
+    # V^T column holding key j: the inverse of the 0 2 4 6 1 3 5 7 order
+    col = (j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1)
+    where = (_smem_word(BK, j, d).reshape(-1),
+             _smem_word(D, d, col).reshape(-1))
+    out = torch.empty((BKV, n_tiles, 2 * parts * E), dtype=torch.float32,
+                      device=k.device)
+    for h, x in enumerate((k, v)):
+        big, small = tf32_split(tiles(x))
+        for p, part in enumerate((big, small)[:parts]):
+            out[..., (h * parts + p) * E + where[h]] = part
+    return out.reshape(-1)

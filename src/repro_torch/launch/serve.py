@@ -9,9 +9,10 @@ It runs on the CUDA card unless ``--device`` names another device, and
 raises when there is no card and no device is named.  The flags are the
 reference's (``repro/launch/serve.py``); ``--seed`` seeds ``random`` (the
 injection storm), numpy (the prompts) and the port's params init.
-``--donate`` and ``--fused-detect`` are accepted as no-ops: the port
-updates its state in place and always fuses detection into the engine
-step.  ``--parity`` adds the at-rest XOR parity over the params and an
+``--donate`` and ``--fused-detect`` are accepted and change nothing yet:
+the engine updates its state in place and runs its canary inside its
+step, but does not capture that step as CUDA graphs (ROADMAP.md queue 1
+item 2, the serving half).  ``--parity`` adds the at-rest XOR parity over the params and an
 end-of-run ``scrub_params`` (reported under ``"parity"``); with
 ``--inject`` one param bit is flipped after the run so the scrub repairs
 it.  ``--dense``, ``--mesh`` and ``--prefill-chunk`` are not ported yet
@@ -61,7 +62,11 @@ def serve(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
     builds the at-rest parity over the params and ends the run with a
     scrub (summary entry ``"parity"``); with ``inject_every`` one param
     bit is flipped first, so the scrub repairs it."""
-    del donate, fused_detect   # in-place state, always-fused detection
+    # the engine already updates its state in place and runs its canary
+    # inside its own step; capturing its K rotation steps as CUDA graphs
+    # (as the training loop's --fused-detect does) is ROADMAP.md queue 1
+    # item 2, serving half — until then both flags change nothing here
+    del donate, fused_detect
     asked = {"mesh": bool(mesh), "dense": paged is False,
              "prefill_chunk": prefill_chunk > 0}
     for name, on in asked.items():
@@ -112,7 +117,8 @@ def main(argv=None):
     ap.add_argument("--donate", action="store_true",
                     help="compat no-op: the port updates state in place")
     ap.add_argument("--fused-detect", action="store_true",
-                    help="compat no-op: detection is always in-step fused")
+                    help="accepted, no effect yet: the engine runs its "
+                         "canary inside its step, uncaptured")
     ap.add_argument("--block-size", type=int, default=8,
                     help="paged-KV block size in token positions")
     ap.add_argument("--prefill-chunk", type=int, default=0,

@@ -10,7 +10,7 @@ It runs on the CUDA card unless ``--device`` names another device, and
 raises when there is no card and no device is named.  Hot path per step,
 in order:
 
-    1. the functional train step                       — the work
+    1. the train step                                  — the work
     2. one transfer of (loss, grad_norm); the free traps on them
     3. ``canary.check_and_arm(s, state, new_state)``   — slice s%K of the
        pre-step state checked, slice (s+1)%K of the new state armed: one
@@ -18,10 +18,23 @@ in order:
     4. micro-checkpoint bookkeeping (an IV log every step, a host snapshot
        every ``snapshot_interval`` steps) and the async disk checkpoint
 
+``--donate`` runs the in-place step (one state version, not two).  Step 3
+then becomes the donated pair around it: ``arm_current`` at the top of the
+loop body (one launch, no sync) and ``check`` just before the step (one
+launch, one fetch), and recovery pivots to snapshot + replay written into
+the live tensors.  ``--fused-detect`` makes steps 1-3 one unit per canary
+rotation (``core/fused_step.py``): on the card one captured CUDA graph, so
+a steady step is one graph replay and one fetch of the flag with the loss
+and grad norm beside it; ``--fused-warm eager`` captures the 2K graphs
+before the first step, ``lazy`` each on first use.  ``--triage`` puts
+rung 0 ahead of the ladder: a certified-harmless flip is tolerated with
+zero bytes moved and zero steps replayed.
+
 With ``--parity`` the canary also keeps an XOR parity of the params and
 optimizer state current inside step 3 (one ``xor_update_tiles`` launch,
-gated on the check's flag), and the ``parity_xor`` rung can rebuild an
-injured block in place with no snapshot and no replay.
+gated on the check's flag; the donated pair rebuilds it at its arm), and
+the ``parity_xor`` rung can rebuild an injured block in place with no
+snapshot and no replay.
 
 On a ``FaultReport`` the step's output is discarded and the recovery
 ladder repairs the pre-step state; the step is then retried.
@@ -32,9 +45,8 @@ the embedding and tied-logits backward would otherwise accumulate with
 atomics in a varying order, and a replayed step would not reproduce the
 clean trajectory bit for bit.
 
-Not ported yet, each raising ``NotImplementedError``: ``--donate``,
-``--fused-detect``, ``--triage``, ``--mesh``, ``--elastic`` and
-``--kill-row-at`` (ROADMAP.md, queue 1).
+Not ported yet, each raising ``NotImplementedError``: ``--mesh``,
+``--elastic`` and ``--kill-row-at`` (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -66,11 +78,6 @@ from repro_torch.serving.engine import resolve_device
 from repro_torch.train.loop import make_train_state, make_train_step
 
 _UNPORTED = {
-    "donate": "in-place (donated) state update (ROADMAP.md queue 1, "
-              "'In-step fused detection')",
-    "fused_detect": "in-step fused detection (ROADMAP.md queue 1, 'In-step "
-                    "fused detection')",
-    "triage": "recovery rung 0 (ROADMAP.md queue 1, '--triage')",
     "mesh": "mesh training (ROADMAP.md queue 1, 'Mesh and elastic')",
     "elastic": "elastic remesh (ROADMAP.md queue 1, 'Mesh and elastic')",
     "kill_row_at": "the row-loss drill (ROADMAP.md queue 1, 'Mesh and "
@@ -137,18 +144,19 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
           seed: int = 0, snapshot_interval: int = 8,
           checkpoint_dir: Optional[str] = None, checkpoint_interval: int = 50,
           inject_every: int = 0, inject_target: str = "params",
-          canary_slices: int = 4, donate: bool = False,
-          fused_detect: bool = False, mesh: Optional[str] = None,
-          parity: bool = False,
-          triage: bool = False, elastic: bool = False,
+          canary_slices: int = 4, detectors: bool = True,
+          donate: bool = False, fused_detect: bool = False,
+          fused_warm: str = "eager", mesh: Optional[str] = None,
+          parity: bool = False, triage: bool = False, elastic: bool = False,
           kill_row_at: Optional[int] = None, verbose: bool = True,
           device=None, return_state: bool = False):
     """Run the recovery-wrapped loop; returns the loop report dict (and
     the final state with ``return_state``).  ``seed`` seeds the params
-    init, the data and the injection storm."""
-    asked = {"donate": donate, "fused_detect": fused_detect,
-             "triage": triage, "mesh": bool(mesh),
-             "elastic": elastic, "kill_row_at": kill_row_at is not None}
+    init, the data and the injection storm.  ``detectors=False`` runs
+    without the traps and the canary (then ``parity``, ``triage`` and
+    ``fused_detect`` raise, as in the reference)."""
+    asked = {"mesh": bool(mesh), "elastic": elastic,
+             "kill_row_at": kill_row_at is not None}
     for name, on in asked.items():
         if on:
             raise NotImplementedError(f"not ported yet: {_UNPORTED[name]}")
@@ -160,19 +168,22 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
                       checkpoint_dir=checkpoint_dir,
                       checkpoint_interval=checkpoint_interval,
                       inject_every=inject_every, inject_target=inject_target,
-                      canary_slices=canary_slices, parity=parity,
+                      canary_slices=canary_slices, detectors=detectors,
+                      donate=donate, fused_detect=fused_detect,
+                      fused_warm=fused_warm, parity=parity, triage=triage,
                       verbose=verbose, device=device,
                       return_state=return_state)
 
 
 def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
            checkpoint_dir, checkpoint_interval, inject_every, inject_target,
-           canary_slices, parity, verbose, device, return_state):
+           canary_slices, detectors, donate, fused_detect, fused_warm,
+           parity, triage, verbose, device, return_state):
     pipe = TokenPipeline(cfg.model.vocab_size, seq_len, global_batch,
                          seed=seed)
     state = make_train_state(cfg, seed, global_batch=global_batch,
                              device=device)
-    step_fn = make_train_step(cfg, global_batch=global_batch)
+    step_fn = make_train_step(cfg, global_batch=global_batch, donate=donate)
 
     def bfn(s):
         return {k: v.to(device) for k, v in pipe.batch_at(s).items()}
@@ -180,19 +191,41 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
     micro = MicroCheckpointer(interval=snapshot_interval)
     ckpt = CheckpointManager(checkpoint_dir, interval=checkpoint_interval) \
         if checkpoint_dir else None
-    canary = ChecksumCanary(state, n_slices=canary_slices)
+    canary = ChecksumCanary(state, n_slices=canary_slices) \
+        if detectors else None
     pstore = None
     if parity:
-        # maintenance rides the canary's check_and_arm; reconstruction
-        # certifies against the canary's digests
+        if canary is None:
+            raise ValueError("parity requires detectors=True (parity "
+                             "maintenance rides the canary's launches and "
+                             "reconstruction certifies against its digests)")
+        # maintenance rides the canary; reconstruction certifies against
+        # the canary's digests
         pstore = ParityStore(state)
         pstore.build(state)
         canary.attach_parity(pstore)
+    if triage and canary is None:
+        raise ValueError("triage requires detectors=True (rung 0 "
+                         "classifies against the canary's digest pair)")
     runtime = RecoveryRuntime(
         step_fn=step_fn, batch_fn=bfn,
         iv_registry=promote(cfg, global_batch), micro=micro,
         parity=pstore, checkpoint=ckpt.loader(state) if ckpt else None,
-        canary=canary)
+        canary=canary, triage=triage, donated=donate)
+    fused = None
+    if fused_detect:
+        if canary is None:
+            raise ValueError("fused_detect requires detectors=True "
+                             "(the canary IS the in-step detector)")
+        # the batch goes in from the host: the factory uploads it into the
+        # graphs' static inputs
+        fused = canary.fuse_into_step(step_fn, donate=donate,
+                                      warm=fused_warm,
+                                      host_metrics=("loss", "grad_norm"))
+        if fused_warm == "eager":
+            fused.warm(state, pipe.batch_at(0))
+        state = fused.load(state)
+    pair = donate and canary is not None and fused is None
 
     rng = random.Random(seed + 7)
     rep = LoopReport()
@@ -201,6 +234,10 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
 
     s = 0
     while s < steps:
+        if pair:
+            # donated pair, arm half: slice s%K of the state the previous
+            # step produced (one launch, no sync)
+            canary.arm_current(s, state)
         micro.record_iv(s, state["iv"])
         micro.maybe_snapshot(s, state)
         if ckpt:
@@ -214,33 +251,49 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
             rep.faults_injected += 1
             last_inject = s
 
-        t0 = time.perf_counter()
-        new_state, metrics = step_fn(state, bfn(s))
-        loss, grad_norm = torch.stack(
-            [metrics["loss"], metrics["grad_norm"]]).tolist()
-        rep.step_seconds.append(time.perf_counter() - t0)
-
-        host = {"loss": loss, "grad_norm": grad_norm}
-        report = trap_nonfinite(s, host) or \
-            trap_loss_spike(s, host, history)
+        # donated pair, check half: the step is about to overwrite the
+        # state, so this is its last readable moment (one launch, one
+        # fetch)
+        report = canary.check(s, state) if pair else None
         if report is None:
-            # slice s%K of the pre-step state (armed last step) and slice
-            # (s+1)%K of the fresh output: 1 launch + 1 sync
-            report = canary.check_and_arm(s, state, new_state)
+            t0 = time.perf_counter()
+            if fused is not None:
+                # check of slice s%K, the step and the arm of slice
+                # (s+1)%K as one unit: one graph replay and one fetch
+                new_state, metrics, report = fused.step(s, state,
+                                                        pipe.batch_at(s))
+                loss, grad_norm = metrics["loss"], metrics["grad_norm"]
+            else:
+                new_state, metrics = step_fn(state, bfn(s))
+                loss, grad_norm = torch.stack(
+                    [metrics["loss"], metrics["grad_norm"]]).tolist()
+            rep.step_seconds.append(time.perf_counter() - t0)
 
-        if report is None:
-            state = new_state
-            history.append(loss)
-            rep.losses.append(loss)
-            if verbose and s % max(1, steps // 10) == 0:
-                print(f"[train] step {s:5d} loss {loss:.4f}")
-            s += 1
-            rep.steps += 1
-            continue
+            host = {"loss": loss, "grad_norm": grad_norm}
+            if detectors and report is None:
+                report = trap_nonfinite(s, host) or \
+                    trap_loss_spike(s, host, history)
+                if report is None and not donate and fused is None:
+                    # slice s%K of the pre-step state (armed last step)
+                    # and slice (s+1)%K of the fresh output: 1 launch + 1
+                    # sync
+                    report = canary.check_and_arm(s, state, new_state)
+
+            if report is None:
+                state = new_state
+                history.append(loss)
+                rep.losses.append(loss)
+                if verbose and s % max(1, steps // 10) == 0:
+                    print(f"[train] step {s:5d} loss {loss:.4f}")
+                s += 1
+                rep.steps += 1
+                continue
+            del new_state                   # corrupt-derived
 
         # ---------------- recovery path (off the hot path) --------------
-        del new_state                       # corrupt-derived
         rep.faults_detected += 1
+        # a fused report defers its leaf attribution to the fault path
+        report.resolve()
         if verbose:
             print(f"[train] FAULT at step {s}: {report}")
         try:
@@ -248,11 +301,6 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
             state, ev = runtime.recover(state, report, s)
             rep.faults_recovered += 1
             rep.recovery_ms.append(1e3 * (time.perf_counter() - t0))
-            canary.refresh(state)
-            if pstore is not None:
-                # a replayed or restored state is a new version: re-anchor
-                # the parity to it
-                pstore.rebuild(state, s)
             if verbose:
                 print(f"[train] recovered via {ev.rung} in "
                       f"{rep.recovery_ms[-1]:.1f} ms")
@@ -260,18 +308,26 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
             if ckpt is None:
                 raise
             state, s = ckpt.restore(state)
-            # the restored state is the new reference; stale digests
-            # would fire a spurious fault on the next step
-            canary.refresh(state)
-            if pstore is not None:
-                pstore.rebuild(state, s)
             if verbose:
                 print(f"[train] cold restore to step {s}")
+        # a repaired, replayed or restored state is the new reference:
+        # stale digests would fire a spurious fault on the next step
+        if canary is not None:
+            canary.refresh(state)
+        if pstore is not None:
+            pstore.rebuild(state, s)
+        if fused is not None:
+            # into the graphs' storage, without re-capturing
+            state = fused.load(state)
 
     if ckpt:
         ckpt.wait()
     out = rep.summary()
     out["recovery"] = runtime.summary()
+    if fused is not None:
+        out["fused"] = {"captures" if device.type == "cuda" else "builds":
+                        fused.n_compiles,
+                        "seconds": fused.compile_seconds}
     return (out, state) if return_state else out
 
 
@@ -301,9 +357,24 @@ def main(argv=None):
                     help="XOR parity over the params and optimizer state, "
                          "kept current by the canary; enables the "
                          "parity_xor rung (repair in place, no replay)")
-    for flag in ("--donate", "--fused-detect", "--triage", "--elastic"):
-        ap.add_argument(flag, action="store_true", help="not ported yet "
-                        "(raises)")
+    ap.add_argument("--donate", action="store_true",
+                    help="in-place train step (one state version), "
+                         "guarded by the donated canary pair; recovery "
+                         "pivots to snapshot + replay into the live state")
+    ap.add_argument("--fused-detect", action="store_true",
+                    help="canary check, step and arm as one unit per "
+                         "rotation: one captured CUDA graph on the card "
+                         "(1 replay + 1 fetch per step)")
+    ap.add_argument("--fused-warm", default="eager",
+                    choices=["eager", "lazy"],
+                    help="capture the fused step's graphs before the first "
+                         "step (eager) or each on first use (lazy)")
+    ap.add_argument("--triage", action="store_true",
+                    help="recovery rung 0: tolerate certified-harmless "
+                         "flips (dead bytes, sub-epsilon moment "
+                         "perturbations) in place, zero bytes moved")
+    ap.add_argument("--elastic", action="store_true",
+                    help="not ported yet (raises)")
     ap.add_argument("--mesh", default=None, help="not ported yet (raises)")
     ap.add_argument("--kill-row-at", type=int, default=None,
                     help="not ported yet (raises)")
@@ -318,7 +389,8 @@ def main(argv=None):
                 checkpoint_dir=args.ckpt_dir, inject_every=args.inject,
                 inject_target=args.inject_target,
                 canary_slices=args.canary_slices, donate=args.donate,
-                fused_detect=args.fused_detect, mesh=args.mesh,
+                fused_detect=args.fused_detect, fused_warm=args.fused_warm,
+                mesh=args.mesh,
                 parity=args.parity, triage=args.triage,
                 elastic=args.elastic, kill_row_at=args.kill_row_at,
                 device=args.device)

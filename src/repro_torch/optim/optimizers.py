@@ -9,7 +9,12 @@ Interface (as in the reference):
 ``update`` is functional: it returns new tensors and leaves ``grads``,
 ``state`` and ``params`` untouched (the training loop keeps using the
 pre-step state for its canary check and every recovery rung), which is
-why the port does not use ``torch.optim``: that updates in place.
+why the port does not use ``torch.optim``.  ``update_`` is its in-place
+twin for the donated step: it writes the new params and optimizer state
+into the given tensors (every ``data_ptr`` kept) and is bit-identical to
+``update``: the same ops in the same order, each written as its in-place
+or ``out=`` form (no ``addcmul_``, ``lerp_``, ``add_(alpha=)`` or
+``_foreach_*``, whose fused arithmetic may round differently).
 
 The optimizer state carries its own induction block: the step counter
 ``t`` advances by its own ``+1`` and the bias corrections ``bc1``/``bc2``
@@ -46,6 +51,7 @@ class Optimizer:
     at state version n."""
     init: Callable
     update: Callable  # (grads, state, params, step) -> (params, state, stats)
+    update_: Callable  # (grads, state, params, step) -> stats, in place
     name: str = "opt"
     affine_ivs: Dict[str, Tuple[int, int]] = field(default_factory=dict)
     derived_ivs: Dict[str, Callable] = field(default_factory=dict)
@@ -123,13 +129,48 @@ def adamw(lr_fn, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                      "t": new_t, "bc1": bc1, "bc2": bc2}
         return rebuild(out_p), new_state, {"grad_norm": gn, "lr": lr}
 
+    def update_(grads, state, params, step):
+        if grad_clip:
+            grads, gn = clip_by_global_norm(grads, grad_clip)
+        else:
+            gn = global_norm(grads)
+        lr = lr_fn(step)
+        t = state["t"]
+        t.add_(1)
+        state["bc1"].copy_(_bias_correction(b1, t))
+        state["bc2"].copy_(_bias_correction(b2, t))
+        bc1, bc2 = state["bc1"], state["bc2"]
+        g_by = {leaf_key(p): g for p, g in flatten_with_path(grads)}
+        m_by = {leaf_key(p): m for p, m in flatten_with_path(state["m"])}
+        v_by = {leaf_key(p): v for p, v in flatten_with_path(state["v"])}
+        for path, p in flatten_with_path(params):
+            k = leaf_key(path)
+            g32 = g_by[k].to(torch.float32)
+            m32, v32 = m_by[k], v_by[k]
+            # m = b1 * m + (1 - b1) * g
+            m32.mul_(b1).add_(torch.mul(g32, 1 - b1))
+            # v = b2 * v + (1 - b2) * g^2
+            v32.mul_(b2).add_(torch.square(g32).mul_(1 - b2))
+            # upd = (m / bc1) / (sqrt(v / bc2) + eps)
+            upd = torch.div(m32, bc1)
+            upd.div_(torch.div(v32, bc2).sqrt_().add_(eps))
+            if weight_decay:
+                upd.add_(torch.mul(p.to(torch.float32), weight_decay))
+            upd = torch.mul(lr, upd)
+            if p.dtype == torch.float32:
+                p.sub_(upd)
+            else:
+                p.copy_((p.to(torch.float32) - upd).to(p.dtype))
+        return {"grad_norm": gn, "lr": lr}
+
     def _bc(beta):
         def fn(n: int, device="cpu"):
             t = torch.tensor(int(n), dtype=torch.int32, device=device)
             return _bias_correction(beta, t)
         return fn
 
-    return Optimizer(init=init, update=update, name="adamw",
+    return Optimizer(init=init, update=update, update_=update_,
+                     name="adamw",
                      affine_ivs={"t": (0, 1)},
                      derived_ivs={"bc1": _bc(b1), "bc2": _bc(b2)})
 

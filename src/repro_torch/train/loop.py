@@ -12,11 +12,15 @@ updated independently (``x += s_x``) rather than derived from ``step``
 (the Independent Compute Promotion of ``core/icp.py``), so any single
 corrupted counter is recoverable from any healthy partner via Eq. (1).
 
-The step is FUNCTIONAL: ``step(state, batch)`` writes new tensors and
-leaves every tensor of ``state`` intact.  The training loop relies on it:
-after the step it still reads the pre-step ``state`` for the canary's
-check slice, and on a fault every recovery rung starts from it.  The
-reference's ``donate_argnums`` (in-place update) is not ported.
+By default the step is FUNCTIONAL: ``step(state, batch)`` writes new
+tensors and leaves every tensor of ``state`` intact, so after the step the
+loop still reads the pre-step ``state`` for the canary's check slice, and
+on a fault every recovery rung starts from it.  ``donate=True`` is the
+reference's ``donate_argnums`` (its production setting): the step writes
+the new params, moments, counters and ``iv`` into the state's own tensors
+(every ``data_ptr`` kept, one state version instead of two) and returns
+the same tree, bit-identical to the functional step.  A donated loop guards it
+with the canary's ``arm_current``/``check`` pair or the fused step.
 """
 
 from __future__ import annotations
@@ -65,9 +69,11 @@ def make_train_state(arch_cfg, seed: int = 0, global_batch: int = 0,
 
 
 def make_train_step(arch_cfg, global_batch: int = 0,
-                    total_steps: int = 100_000) -> Callable:
-    """Returns the functional ``step(state, batch) -> (state', metrics)``;
-    backward is autograd."""
+                    total_steps: int = 100_000,
+                    donate: bool = False) -> Callable:
+    """Returns ``step(state, batch) -> (state', metrics)``; backward is
+    autograd.  Functional by default; ``donate=True`` updates ``state`` in
+    place and returns it."""
     tp = arch_cfg.train
     if tp.microbatch > 1:
         raise NotImplementedError(
@@ -92,10 +98,17 @@ def make_train_step(arch_cfg, global_batch: int = 0,
             grads = torch.autograd.grad(loss, list(req.values()))
         by_key = dict(zip(req, grads))
         grads = map_with_path(lambda p, _: by_key[leaf_key(p)], params)
-        new_params, new_opt, stats = opt.update(
-            grads, state["opt"], params, state["iv"]["sched_pos"])
-        new_state = {"params": new_params, "opt": new_opt,
-                     "iv": advance_iv(state["iv"], steps)}
+        sched_pos = state["iv"]["sched_pos"]
+        if donate:
+            stats = opt.update_(grads, state["opt"], params, sched_pos)
+            for name, inc in steps.items():
+                state["iv"][name].add_(inc)
+            new_state = state
+        else:
+            new_params, new_opt, stats = opt.update(
+                grads, state["opt"], params, sched_pos)
+            new_state = {"params": new_params, "opt": new_opt,
+                         "iv": advance_iv(state["iv"], steps)}
         out = {"loss": loss.detach(), **stats}
         out.update({k: v.detach() for k, v in metrics.items()})
         return new_state, out

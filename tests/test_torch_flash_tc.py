@@ -252,3 +252,36 @@ def test_tiles_fit_the_card(D):
     for P in (1, 2):
         smem = 4 * (P * BQ * D + 2 * 2 * P * BK * D) + 4 * 8 + 4 * 4
         assert smem <= SMEM_PER_CTA, (D, P, smem)
+
+
+def test_tile_keys_are_the_kernels():
+    assert {D: bk for D, (_, bk) in _tiles().items()} == tfa.TILE_KEYS
+
+
+@pytest.mark.parametrize("D", tfa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_layout_is_the_record_mirror(D, dtype):
+    """``flash_layout_kv`` on the CPU (``ref.flash_layout_kv_ref``, what
+    ``chip_smoke.py`` holds the layout kernel against) writes each record
+    bit for bit as the mirror above, with a ragged last tile."""
+    BK = tfa.TILE_KEYS[D]
+    P = 2 if dtype == torch.float32 else 1
+    rng = np.random.default_rng(D)
+    BKV, Sk = 2, 2 * BK + 5
+    seq_k = Sk - 2
+    k, v = (torch.from_numpy(rng.standard_normal((BKV, Sk, D), np.float32))
+            .to(dtype) for _ in range(2))
+    got = tfa.flash_layout_kv(k, v, seq_k=seq_k).view(
+        BKV, -1, 2 * P * BK * D)
+    n_tiles = -(-seq_k // BK)
+    assert got.shape[1] == n_tiles
+    for b in range(BKV):
+        for t in range(n_tiles):
+            rows = min(BK, seq_k - t * BK)
+            kt = np.zeros((BK, D), np.float32)
+            vt = np.zeros((BK, D), np.float32)
+            kt[:rows] = k[b, t * BK:t * BK + rows].float().numpy()
+            vt[:rows] = v[b, t * BK:t * BK + rows].float().numpy()
+            want = _record(kt, vt, P)
+            assert np.array_equal(got[b, t].numpy().view(np.uint32),
+                                  want.view(np.uint32)), (b, t)

@@ -272,12 +272,35 @@ def test_exhausted_ladder_raises(port):
                                     leaves=[f"iv/{k}" for k in bad["iv"]]), 2)
 
 
-@pytest.mark.parametrize("kw", [{"triage": True},
-                                {"donated": True}, {"shardings": {"x": 1}},
+@pytest.mark.parametrize("kw", [{"shardings": {"x": 1}},
                                 {"elastic": lambda *a: None}])
 def test_unported_runtime_arguments_raise(port, kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         _runtime(port, **kw)
+
+
+@pytest.mark.parametrize("kw", [{"triage": True}, {"donated": True},
+                                {"donated": True, "triage": True}],
+                         ids=lambda kw: "-".join(sorted(kw)))
+def test_mode_rung_selection_matches_reference(tiny_setup, port, kw):
+    """The triage gate and the donated pivot choose the reference's
+    ladder for every detector, attribution and ``consumed`` flag."""
+    jcfg, jstate0, jstep, jbfn = tiny_setup
+    _, state0, _, _ = port
+    jrt = JRuntime(step_fn=jstep, batch_fn=jbfn,
+                   iv_registry=jpromote(jcfg, 2), micro=JMicro(4),
+                   canary=JCanary(jstate0, n_slices=1), **kw)
+    trt, _ = _runtime(port, canary=ChecksumCanary(state0, n_slices=1), **kw)
+    for leaves in (["iv/step"], ["opt/t"], ["params/embed/table"],
+                   ["opt/v/embed/table"], []):
+        for det in ("checksum", "nonfinite", "external"):
+            for consumed in (False, True):
+                mine = FaultReport(5, det, leaves=list(leaves),
+                                   consumed=consumed)
+                theirs = JReport(5, det, leaves=list(leaves),
+                                 consumed=consumed)
+                assert trt._ladder(mine) == jrt._ladder(theirs), \
+                    (leaves, det, consumed)
 
 
 def test_recovery_table_round_trip_and_every_rung_handled(port):

@@ -328,12 +328,30 @@ def test_train_cli_without_device_raises_without_a_card(monkeypatch):
                       "8"])
 
 
-@pytest.mark.parametrize("flag", [["--donate"], ["--fused-detect"],
-                                  ["--triage"], ["--elastic"],
-                                  ["--mesh", "4,2"], ["--kill-row-at", "3"]])
+@pytest.mark.parametrize("flag", [["--elastic"], ["--mesh", "4,2"],
+                                  ["--kill-row-at", "3"]])
 def test_train_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tlaunch.main(["--smoke", "--device", "cpu", "--steps", "1"] + flag)
+
+
+@pytest.mark.parametrize("flags", [["--donate", "--fused-detect", "--parity"],
+                                   ["--fused-detect", "--fused-warm", "lazy",
+                                    "--triage"],
+                                   ["--donate", "--triage", "--parity"]],
+                         ids=lambda f: " ".join(f))
+def test_train_cli_mode_combinations_at_default_slices(flags):
+    """The ported modes combined, at the default K=4 rotation: the final
+    loss is the plain loop's, bit for bit, and the fused step builds K
+    rotations."""
+    base = ["--smoke", "--device", "cpu", "--steps", "4", "--batch", "2",
+            "--seq", "16"]
+    plain = tlaunch.main(base)
+    out = tlaunch.main(base + flags)
+    assert out["steps"] == 4 and out["faults_detected"] == 0
+    assert out["final_loss"] == plain["final_loss"]
+    if "--fused-detect" in flags:
+        assert out["fused"]["builds"] == 4
 
 
 def test_train_cli_runs_on_cpu_when_asked(capsys):
