@@ -29,16 +29,32 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    (prefill and decode logits within the reference's f32 tolerance);
 5. the serving path: full-width iterpro-100m served through
    ``ServingEngine`` — 8 requests, prompt 128, 32 new tokens, 4 slots,
-   block size 16, canary K=4, TF32 off — once clean and once under a
-   fault storm (one bit flip every 8 accepted tokens).  Asserts detected
-   == injected > 0, recovered == detected, nothing dropped, storm tokens
-   identical to clean tokens, and a launch count above 0 for every
-   serving kernel; then a profiled engine step;
+   block size 16, canary K=4, TF32 off, the engine step captured as 8
+   CUDA graphs (K rotations x 2 read tables; their capture seconds
+   printed) — once clean and once under a fault storm (one bit flip
+   every 8 accepted tokens).  Asserts detected == injected > 0, recovered
+   == detected, nothing dropped, storm tokens identical to clean tokens,
+   and a launch count above 0 for every serving kernel (a graph replay
+   counts the kernels captured in it);
 5c. at-rest parity over the served params: ``ServingEngine(parity=True)``
    over the same params, one bit of the embedding flipped with
    ``corrupt_param`` (the other engines, which share the params, keep
    theirs), ``scrub_params`` repairs it bitwise; launch counts of that
    path;
+5d. every serving mode on phase 5's params and requests, each path with
+   the launch counts set to 0 just before it and read just after: the
+   step's body run eagerly on the card (the yardstick), the paged engine
+   donated and not, the dense slot-major cache (at the pool's capacity)
+   donated and not, and ``prefill_chunk=32``.  Per mode: 8 graphs
+   captured (none for the yardstick) with their seconds and their pool's
+   bytes, clean tokens bitwise equal to phase 5's captured paged engine's
+   (so captured == uncaptured, donated == not, dense == paged, chunked ==
+   monolithic), a storm on the same engine with detected == injected ==
+   recovered and tokens == clean, every kernel of the path launched; then
+   8 steady steps under torch.profiler: one ``cudaGraphLaunch`` and no
+   ``cudaLaunchKernel`` a step (captured modes), ``digest.STATS`` 1
+   launch + 1 fetch a step, every pointer the step reads unchanged; the
+   mode's decode p50 / p99, device busy ms a step and kernels by name;
 6. the training kernels (``checksum_tiles``, ``vote3_tiles``) at the
    training path's shapes (the embedding leaf, an FFN leaf, a norm scale)
    and on edge cases, bitwise against their plain versions, timed as in
@@ -149,6 +165,10 @@ BF16_TOL = 3e-2               # the reference's bf16 tolerance
 SPIN_CYCLES = 20_000_000      # ~10 ms device spin that hides host enqueue
 
 N_REQUESTS, PROMPT, GEN, SLOTS, BLOCK, K, INJECT = 8, 128, 32, 4, 16, 4, 8
+CHUNK = 32                    # --prefill-chunk of phase 5d's chunked mode
+# the dense cache at the paged pool's capacity (max_len rounded up to whole
+# blocks), so that both layouts attend over the same rows
+DENSE_LEN = -(-(PROMPT + GEN + 1) // BLOCK) * BLOCK
 T_BATCH, T_SEQ, T_STEPS, T_SNAP, T_CKPT, T_INJECT = 8, 128, 20, 4, 10, 6
 WORK = ROOT / "build" / "chip_smoke"     # checkpoints (ignored by git)
 _SMI = "?"                    # the card's name and power limit
@@ -486,26 +506,138 @@ def check_reference(torch):
           f"CPU: max |dlogit| {worst:.3e} (tolerance {F32_TOL})")
 
 
-def profile_steps(torch, eng, reqs, steps: int = 8) -> None:
-    """Phase 5b: where a steady-state engine step's time goes — host wall
-    time against the device's kernel time (torch.profiler) over ``steps``
-    engine steps with every slot decoding."""
+SERVE_MODES = (
+    # name, engine keywords; "uncaptured" runs the step's body eagerly on
+    # the card (the engine's private ``_replay`` hook): the yardstick
+    ("uncaptured", dict()),
+    ("paged", dict()),
+    ("paged, no donation", dict(donate=False)),
+    ("dense", dict(paged=False, max_len=DENSE_LEN)),
+    ("dense, no donation", dict(paged=False, max_len=DENSE_LEN,
+                                donate=False)),
+    ("chunked", dict(prefill_chunk=CHUNK)),
+)
+
+
+def _graph_pool_bytes(torch) -> int:
+    """Bytes reserved in CUDA graphs' private memory pools."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) != (0, 0))
+
+
+def serve_modes(torch, cfg, params, common, reqs, clean_tokens,
+                steps: int = 8) -> None:
+    """Phase 5d: every serving mode at full width on phase 5's params and
+    requests.  Per mode, with the launch counts set to 0 just before and
+    read just after: ``warm()`` (2K = 8 graphs captured, their seconds and
+    their pool's bytes), a clean run whose tokens equal phase 5's (the
+    captured paged donated engine) bitwise, a storm run on the same
+    engine (a flip every ``INJECT`` accepted tokens) with detected ==
+    injected == recovered and tokens == clean, and every kernel of the
+    path launched (through graph replays); then ``steps`` steady engine
+    steps under torch.profiler: one ``cudaGraphLaunch`` and no
+    ``cudaLaunchKernel`` a step on the captured modes, ``digest.STATS``
+    1 launch + 1 fetch a step, every pointer the graphs read unchanged;
+    each mode's decode p50 / p99 (the clean run) and device busy ms a
+    step beside the card's name and power limit."""
+    import gc
     from torch.profiler import ProfilerActivity, profile
-    for u, rq in enumerate(reqs[:eng.S]):
-        eng.admit(rq, u)
-    for _ in range(eng.K or 1):          # one full canary rotation first
-        eng.engine_step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.engine_step()
+    from torch.autograd import DeviceType
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import digest as kd
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import ServingReport
+    from repro_torch.tree import leaves
+
+    def tokens_of(rep):
+        return {rid: r["tokens"] for rid, r in rep.per_request.items()}
+
+    for name, kw in SERVE_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    _report_profile(prof, steps, wall_ms, "engine step",
-                    ("pack_rows_kernel", "row_checksums_kernel",
-                     "gather_blocks_kernel"))
+        _build.LAUNCHES.clear()
+        eng = ServingEngine(cfg, params=params, **dict(common, **kw))
+        captured = name != "uncaptured"
+        if not captured:
+            eng._replay = False
+        pool0 = _graph_pool_bytes(torch)
+        warm_s = eng.warm()
+        torch.cuda.synchronize()
+        pool_bytes = _graph_pool_bytes(torch) - pool0
+        assert eng.n_captures == (2 * K if captured else 0), eng.n_captures
+        clean = eng.run(reqs())
+        cs = clean.summary()
+        assert cs["completed"] == N_REQUESTS and cs["dropped"] == 0, cs
+        assert tokens_of(clean) == clean_tokens, (
+            f"{name}: tokens differ from the captured paged engine's")
+        eng.report = ServingReport(n_slots=eng.S)
+        storm = eng.run(reqs(), inject_every=INJECT,
+                        inject_rng=random.Random(0))
+        ss = storm.summary()
+        f = ss["faults"]
+        assert f["injected"] > 0 and f["detected"] == f["injected"], f
+        assert f["recovered"] == f["detected"] and ss["dropped"] == 0, ss
+        assert tokens_of(storm) == clean_tokens, (
+            f"{name}: storm tokens differ from clean tokens")
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        path = ("pack_rows", "row_checksums") + (
+            ("gather_blocks",) if eng.paged else ())
+        for kernel in path:
+            assert launches.get(kernel, 0) > 0, (name, kernel, launches)
+
+        # steady window: every slot decoding, one rotation first
+        for u, rq in enumerate(reqs()[:eng.S]):
+            eng.admit(rq, u)
+        for _ in range(K):
+            assert eng.engine_step()[2] is None
+
+        def pointers():
+            return ([t.data_ptr() for v in eng._versions for t in leaves(v)]
+                    + [t.data_ptr() for t in eng.canary._tables]
+                    + [eng.plan.buffer_pointer(eng._rotation(r).union)
+                       for r in range(K)]
+                    + [t.data_ptr() for t in (eng.amask, eng.tok,
+                                              eng._forced)]
+                    + [t.data_ptr() for t in leaves(eng.params)]
+                    + ([eng.bt.data_ptr()] if eng.paged else []))
+        torch.cuda.synchronize()
+        before = pointers()
+        kd.STATS.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                assert eng.engine_step()[2] is None
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        stats = kd.STATS.snapshot()
+        api = _api_counts(prof)
+        assert stats == (steps, steps), stats
+        assert pointers() == before, f"{name}: a pointer the step reads moved"
+        if captured:
+            assert api.get("cudaGraphLaunch", 0) == steps, api
+            assert api.get("cudaLaunchKernel", 0) + \
+                api.get("cuLaunchKernel", 0) == 0, api
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / steps
+        cap = (f"{eng.n_captures} graphs captured in "
+               f"{eng.capture_seconds:.3f} s (warm {warm_s:.3f} s), graph "
+               f"pool {pool_bytes / 2**20:.1f} MiB" if captured
+               else "no graph (the body run eagerly)")
+        print(f"[serve-modes] {name}: {cap}; clean and storm tokens == the "
+              f"captured paged engine's for all {N_REQUESTS} requests, "
+              f"storm faults {f}; launches {launches}; {steps} steady "
+              f"steps: digest.STATS {stats[0]} launches {stats[1]} "
+              f"fetches, host API {api}, every pointer the step reads "
+              f"unchanged; decode p50 {cs['p50_decode_ms']:.3f} ms p99 "
+              f"{cs['p99_decode_ms']:.3f} ms (clean run), device busy "
+              f"{busy:.3f} ms/step [{_SMI}]")
+        _report_profile(prof, steps, wall_ms, f"{name} engine step",
+                        ("pack_rows_kernel", "row_checksums_kernel",
+                         "gather_blocks_kernel"))
+        del eng, prof
 
 
 def _expect(exc, fn, what: str) -> str:
@@ -1784,9 +1916,14 @@ def main() -> int:
         return make_requests(cfg, N_REQUESTS, PROMPT, GEN,
                              np.random.default_rng(0))
 
-    clean_eng.warm()
-    storm_eng.warm()
+    for eng in (clean_eng, storm_eng):
+        warm_s = eng.warm()
+        assert eng.n_captures == 2 * K, eng.n_captures
     torch.cuda.synchronize()
+    print(f"[serve] the engine step captured as {storm_eng.n_captures} CUDA "
+          f"graphs (K={K} rotations x 2 read tables) in "
+          f"{storm_eng.capture_seconds:.3f} s (warm-up and capture "
+          f"{warm_s:.3f} s)")
     _build.LAUNCHES.clear()
     kd.STATS.reset()
     clean = clean_eng.run(reqs())
@@ -1820,8 +1957,8 @@ def main() -> int:
     for name in kernels:
         assert launches.get(name, 0) > 0, f"{name} never launched"
     check_serving_parity(torch, cfg, clean_eng, common)
-    profile_steps(torch, ServingEngine(cfg, params=clean_eng.params,
-                                       **common), reqs())
+    serve_modes(torch, cfg, clean_eng.params, common, reqs,
+                {rid: r["tokens"] for rid, r in clean.per_request.items()})
     del clean_eng, storm_eng
     torch.cuda.empty_cache()
 

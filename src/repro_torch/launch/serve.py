@@ -1,4 +1,4 @@
-"""Resilient serving CLI of the port — a thin front end over the paged
+"""Resilient serving CLI of the port — a thin front end over the
 continuous-batching engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch iterpro-100m
@@ -8,15 +8,20 @@ continuous-batching engine.
 It runs on the CUDA card unless ``--device`` names another device, and
 raises when there is no card and no device is named.  The flags are the
 reference's (``repro/launch/serve.py``); ``--seed`` seeds ``random`` (the
-injection storm), numpy (the prompts) and the port's params init.
-``--donate`` and ``--fused-detect`` are accepted and change nothing yet:
-the engine updates its state in place and runs its canary inside its
-step, but does not capture that step as CUDA graphs (ROADMAP.md queue 1
-item 2, the serving half).  ``--parity`` adds the at-rest XOR parity over the params and an
-end-of-run ``scrub_params`` (reported under ``"parity"``); with
-``--inject`` one param bit is flipped after the run so the scrub repairs
-it.  ``--dense``, ``--mesh`` and ``--prefill-chunk`` are not ported yet
-and raise (ROADMAP.md, queue 1).
+injection storm), numpy (the prompts) and the port's params init.  On
+the card every engine step is one replay of a captured CUDA graph with
+the canary's check and arm inside it.  ``--donate`` writes the covered
+state (KV cache or pool, positions) in place; without it the step's
+input survives it (two state versions in ping-pong).  ``--fused-detect``
+is accepted for compatibility and changes nothing: detection is always
+in-step fused, as in the reference.  The KV cache is a paged block pool
+(``--block-size`` positions a block); ``--dense`` forces the slot-major
+per-slot cache; ``--prefill-chunk C`` prefills prompts C tokens at a
+time, interleaved with decode steps.  ``--parity`` adds the at-rest XOR
+parity over the params and an end-of-run ``scrub_params`` (reported
+under ``"parity"``); with ``--inject`` one param bit is flipped after the
+run so the scrub repairs it.  ``--mesh`` is not ported yet and raises
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -30,13 +35,7 @@ import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.serving import Request, ServingEngine
 
-_UNPORTED = {
-    "mesh": "mesh serving (ROADMAP.md queue 1, 'Mesh and elastic')",
-    "dense": "the dense per-slot cache (ROADMAP.md queue 1, 'Serving "
-             "leftovers')",
-    "prefill_chunk": "chunked prefill (ROADMAP.md queue 1, 'Serving "
-                     "leftovers')",
-}
+_MESH = "mesh serving (ROADMAP.md queue 1, 'Mesh and elastic')"
 
 
 def make_requests(cfg, n_requests: int, prompt_len: int, gen_tokens: int,
@@ -58,20 +57,16 @@ def serve(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
           parity: bool = False, device=None):
     """Serve ``n_requests`` random prompts through the engine; returns the
     engine summary dict.  ``inject_every`` > 0 flips one bit in the
-    canary's protected window every N accepted tokens.  ``parity=True``
-    builds the at-rest parity over the params and ends the run with a
-    scrub (summary entry ``"parity"``); with ``inject_every`` one param
-    bit is flipped first, so the scrub repairs it."""
-    # the engine already updates its state in place and runs its canary
-    # inside its own step; capturing its K rotation steps as CUDA graphs
-    # (as the training loop's --fused-detect does) is ROADMAP.md queue 1
-    # item 2, serving half — until then both flags change nothing here
-    del donate, fused_detect
-    asked = {"mesh": bool(mesh), "dense": paged is False,
-             "prefill_chunk": prefill_chunk > 0}
-    for name, on in asked.items():
-        if on:
-            raise NotImplementedError(f"not ported yet: {_UNPORTED[name]}")
+    canary's protected window every N accepted tokens.  ``donate`` is the
+    engine's in-place state update; ``fused_detect`` is accepted for
+    compatibility (detection is always in-step fused).  ``paged=False``
+    forces the dense cache; ``prefill_chunk`` > 0 prefills in chunks.
+    ``parity=True`` builds the at-rest parity over the params and ends the
+    run with a scrub (summary entry ``"parity"``); with ``inject_every``
+    one param bit is flipped first, so the scrub repairs it."""
+    del fused_detect  # detection is always in-step fused
+    if mesh:
+        raise NotImplementedError(f"not ported yet: {_MESH}")
     random.seed(seed)
     np.random.seed(seed % 2**32)
     rng = random.Random(seed)
@@ -80,11 +75,12 @@ def serve(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
     slots = n_slots or min(4, max(1, n_requests))
     eng = ServingEngine(
         cfg, n_slots=slots, max_len=prompt_len + gen_tokens + 1,
-        canary_slices=canary_slices, seed=seed,
+        canary_slices=canary_slices, donate=donate, seed=seed,
         # serve() promises every request completes (prefix replay always
         # works) — the drop bound is a benchmark knob, not a CLI one
-        max_replays=10**6, verbose=verbose, block_size=block_size,
-        device=device, parity=parity)
+        max_replays=10**6, verbose=verbose, paged=paged,
+        block_size=block_size, prefill_chunk=prefill_chunk, device=device,
+        parity=parity)
     reqs = make_requests(cfg, n_requests, prompt_len, gen_tokens, nprng)
     eng.warm()
     out = eng.run(reqs, inject_every=inject_every, inject_rng=rng).summary()
@@ -115,17 +111,23 @@ def main(argv=None):
                     help="flip one bit in a slot's decode state every N "
                          "accepted tokens")
     ap.add_argument("--donate", action="store_true",
-                    help="compat no-op: the port updates state in place")
+                    help="write the KV cache (or pool) and positions in "
+                         "place in the engine step; without it the step's "
+                         "input survives it (two state versions)")
     ap.add_argument("--fused-detect", action="store_true",
-                    help="accepted, no effect yet: the engine runs its "
-                         "canary inside its step, uncaptured")
+                    help="compat no-op: detection is always in-step fused")
     ap.add_argument("--block-size", type=int, default=8,
                     help="paged-KV block size in token positions")
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="not ported yet (raises when > 0)")
+                    help="prefill long prompts in chunks of this many "
+                         "tokens, interleaved with decode steps (0: "
+                         "monolithic prefill)")
     ap.add_argument("--dense", action="store_true",
-                    help="not ported yet (raises)")
-    ap.add_argument("--mesh", default=None, help="not ported yet (raises)")
+                    help="force the dense per-slot KV cache (the paged "
+                         "pool is the default where the family supports "
+                         "it)")
+    ap.add_argument("--mesh", default=None,
+                    help="not ported yet (raises; ROADMAP.md queue 1)")
     ap.add_argument("--parity", action="store_true",
                     help="at-rest XOR parity over the static params: an "
                          "end-of-run scrub detects and repairs silent "

@@ -259,6 +259,27 @@ def attn_decode(p, cfg, x, pos, k_cache, v_cache, *, theta: float = 0.0):
     return dense(p["wo"], o.reshape(B, 1, -1))
 
 
+def attn_prefill_chunk(p, cfg, x, qpos, k_ctx, v_ctx, ctx_kpos, *,
+                       window: int = 0, theta: float = 0.0):
+    """Chunked-prefill attention: a span of new tokens attends to an
+    external KV context plus itself, causally.
+
+    x (B,C,d); qpos (B,C) absolute positions of the chunk's tokens;
+    k_ctx/v_ctx (B,T,KV,Dh) the already-cached context; ctx_kpos (B,T)
+    the context rows' absolute key positions (< 0 = unwritten, masked).
+    Linear caches only.  Returns (y (B,C,d), k, v) with k/v (B,C,KV,Dh)
+    the chunk's new cache rows for the caller to store."""
+    B, C = x.shape[:2]
+    q, k, v = attn_qkv(p, cfg, x, qpos, theta=theta)
+    k_all = torch.cat([k_ctx.to(q.dtype), k.to(q.dtype)], dim=1)
+    v_all = torch.cat([v_ctx.to(q.dtype), v.to(q.dtype)], dim=1)
+    kpos_all = torch.cat([ctx_kpos.to(torch.int32).expand(B, -1),
+                          qpos.to(torch.int32)], dim=1)
+    o = attention_direct(q, k_all, v_all, qpos, kpos_all, window=window,
+                         causal=True, attn_softcap=cfg.attn_softcap)
+    return dense(p["wo"], o.reshape(B, C, -1)), k, v
+
+
 def mlp_init(gen, d_model: int, d_ff: int, dtype, device, count: int):
     return {
         "gate": dense_init(gen, d_model, d_ff, dtype, device, count=count),

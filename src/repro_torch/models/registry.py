@@ -4,6 +4,8 @@
     params = model.init(cfg.model, seed, device)
     logits, cache = model.prefill(params, cfg.model, batch, max_len=...)
     logits, cache = model.decode_step(params, cfg.model, cache, token)
+    logits, new_kv = model.prefill_chunk(params, cfg.model, batch, ctx_cache,
+                                         ctx_kpos, pos0, valid)
     cache = model.make_decode_cache(cfg.model, B, max_len, device)
     loss, metrics = model.train_loss(params, cfg.model, batch, remat=...)
 """
@@ -21,6 +23,7 @@ def get_model(model_cfg) -> SimpleNamespace:
         init=transformer.init_lm,
         prefill=transformer.prefill,
         decode_step=transformer.decode_step,
+        prefill_chunk=transformer.prefill_chunk,
         make_decode_cache=transformer.make_decode_cache,
         train_loss=transformer.train_loss,
         module=transformer,

@@ -123,6 +123,19 @@ def block_decode(p, cfg, desc: LayerDesc, x, pos, k_cache, v_cache):
     return x + L.mlp_apply(p["ffn"], h2)
 
 
+def block_chunk(p, cfg, desc: LayerDesc, x, qpos, ck, cv, ctx_kpos):
+    """Chunked-prefill block: a C-token span attends to an external KV
+    context plus itself (paged serving).  Returns (x, k, v) with k/v the
+    chunk's new cache rows."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    attn_out, k, v = L.attn_prefill_chunk(p["attn"], cfg, h, qpos, ck, cv,
+                                          ctx_kpos, window=desc.window,
+                                          theta=desc.theta)
+    x = x + attn_out
+    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(p["ffn"], h2), k, v
+
+
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
@@ -221,6 +234,47 @@ def prefill(params, cfg, batch, *, max_len: Optional[int] = None):
     logits = logits_fn(params, cfg, hidden[:, -1:, :])[:, 0]
     pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, {"groups": caches, "pos": pos}
+
+
+def prefill_chunk(params, cfg, batch, ctx_cache, ctx_kpos, pos0: int,
+                  valid: int):
+    """Prefill one fixed-size chunk of a prompt against an external KV
+    context (paged serving).
+
+    batch["tokens"] (B,C): the chunk, right-padded past ``valid``;
+    ctx_cache: decode-cache-layout groups, leaves (count,B,T,KV,D), holding
+    the already-prefilled context; ctx_kpos (B,T): those rows' absolute
+    key positions (< 0 = unwritten, masked); pos0: absolute position of
+    the chunk's first token; valid: the chunk's count of real tokens.
+
+    Returns (logits (B,V) at chunk position ``valid - 1``, new_kv) with
+    new_kv leaves (count,B,C,KV,D): the chunk's cache rows for the caller
+    to scatter into its pool.  Padded positions give rows the caller
+    discards; their keys sit past the last valid query, so the causal mask
+    keeps them out of the valid logits."""
+    tokens = batch["tokens"]
+    B, C = tokens.shape
+    x = L.embed(params["embed"], tokens, _dtype(cfg.compute_dtype))
+    qpos = (int(pos0) + torch.arange(C, dtype=torch.int32,
+                                     device=x.device))[None, :].expand(B, C)
+    new_groups = []
+    for gi, (count, pattern) in enumerate(derive_groups(cfg)):
+        stacked = params["groups"][gi]
+        cache_g = ctx_cache["groups"][gi]
+        outs = [{"k": [], "v": []} for _ in pattern]
+        for l in range(count):
+            for j, desc in enumerate(pattern):
+                x, k, v = block_chunk(_layer(stacked[j], l), cfg, desc, x,
+                                      qpos, cache_g[j]["k"][l],
+                                      cache_g[j]["v"][l], ctx_kpos)
+                outs[j]["k"].append(k)
+                outs[j]["v"].append(v)
+        new_groups.append([{n: torch.stack(o[n]) for n in ("k", "v")}
+                           for o in outs])
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    last = max(int(valid) - 1, 0)
+    logits = logits_fn(params, cfg, x[:, last:last + 1, :])[:, 0]
+    return logits, {"groups": new_groups}
 
 
 def decode_step(params, cfg, cache, token):

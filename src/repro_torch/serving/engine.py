@@ -1,44 +1,70 @@
 """Continuous-batching serving engine with slot-isolated recovery — the
-paged path of ``repro/serving/engine.py``.
+off-mesh ``repro/serving/engine.py``.
 
-* **Paged, in-place state.**  The engine owns S batch slots over a shared
-  KV block pool (``serving/paged.py``), a per-slot block table, position
-  vector, activity mask and last-token vector.  Every update is in place,
-  so the storage of the pool and of ``pos`` never moves: the canary's
-  views of them, and the pointers the pack kernel holds, stay valid for
-  the engine's life.
-* **One engine step** (``engine_step``) advances every lane one token:
-  ``gather_blocks`` materialises each slot's blocks, one batched decode
-  runs on the gathered view (the reference vmapped a B=1 decode; lanes are
-  computationally independent either way), the new rows scatter back, and
-  the rotating canary checks slice ``s % K`` and arms slice ``(s+1) % K``.
-  The reference did all of that in one jitted launch, with XLA reading the
-  check slice from the INPUT pool and arming from the OUTPUT pool.  The
-  port orders it by hand: ``pack_rows`` of the check slice before any pool
-  write; gather, decode, scatter; ``pack_rows`` of the arm slice; ONE
-  ``row_checksums`` over the packing buffer and the combine; the on-device
-  compare and arm; ONE scalar ``fetch`` of the fault flag.  The token
-  payload that follows is the data plane, as in the reference.
-* **Canary units** are (leaf, block) pairs plus one ``pos`` unit per slot;
-  block → owning slot is a host allocator lookup, so a flip on a free
-  block evicts nobody.
+* **Two cache layouts.**  Paged (the default where the family supports
+  it, ``serving/paged.py``): every cache leaf is a shared block pool plus
+  a per-slot block table, a request owns
+  ``ceil((P + 1 + max_new) / block_size)`` blocks and the canary's units
+  are (leaf, block) pairs plus one ``pos`` unit per slot; block → owning
+  slot is a host allocator lookup, so a flip on a free block evicts
+  nobody.  Dense (``paged=False``): one slot-major cache, leaves
+  ``(S, count, 1, max_len, KV, Dh)`` as in the reference, whose canary
+  units are (leaf, slot) pairs; the batched decode reads and writes it in
+  place through a permuted view ``(count, S, max_len, KV, Dh)``.
+* **One engine step** (``engine_step``) advances every lane one token, in
+  this order: ``pack_rows`` of the canary's check slice ``s % K`` (before
+  any state write); ``gather_blocks`` of each slot's blocks (paged); the
+  batched decode (the reference vmapped a B=1 decode: lanes are
+  computationally independent either way); the new rows scattered back
+  (paged); ``pos += amask``; the forced-token select and the finite trap;
+  ``pack_rows`` of the arm slice ``(s+1) % K``; ``CheckArm.finish`` (ONE
+  ``row_checksums`` launch, the combine, the on-device compare and arm).
+  The host then makes ONE counted ``fetch``: the fault flag with the token
+  payload beside it (the data plane, as in the reference).
+* **The step as captured CUDA graphs.**  The reference's step is always
+  one fused executable.  On the card the port captures the step of
+  rotation ``r`` reading canary table ``g = generation & 1`` as one
+  ``torch.cuda.CUDAGraph``: 2K graphs sharing one memory pool (with no
+  canary, one decode-only graph; two without donation).  A steady step is
+  one replay and the one fetch.  ``warm()`` captures every graph (and is
+  run by the first step if the caller did not); a capture or replay that
+  fails raises, with no eager fallback.  On the CPU the same phases run
+  eagerly.  A graph reads the pointers it was captured with, so every
+  state update is in place (``copy_`` into the storage), forced tokens go
+  through one static buffer, the pack schedules are built before each
+  capture and kept with its graph, and a report clones the mismatch mask
+  the next replay overwrites.  Installing new params (``scrub_params``,
+  ``corrupt_param``) drops the graphs; the next step captures anew.
+* **Donation.**  ``donate=True`` (the reference's default): one version of
+  the covered state (cache or pool, and ``pos``), written in place by the
+  step.  ``donate=False``: the step's input survives it, so there are two
+  versions in ping-pong, the live one tied to the canary generation
+  (``b = generation & 1``; the step count without a canary): the step
+  reads version ``b`` and writes ``1 - b``, one state copy a step.
+  Admission writes, fault flips and refreshes go to the live version.
+  Both give bit-identical tokens.
+* **Chunked prefill** (``prefill_chunk=C`` > 0, paged): a prompt prefills
+  in C-token chunks, one per prefilling slot per ``run`` iteration,
+  eagerly between engine steps, so a long prompt does not stall the
+  decoding lanes.  Chunks equal monolithic prefill in tokens, not bits
+  (another reduction order), as in the reference.
 * **Slot-isolated recovery.**  On a fault ``plan_serving_recovery``
-  evicts only the injured slots; they re-enter the queue front and are
-  rebuilt by prefix replay (prefill + forced decode over the token log).
-  Healthy slots keep the fault step's own tokens and keep decoding.
+  evicts only the injured slots (a prefilling slot too); they re-enter
+  the queue front and are rebuilt by prefix replay (prefill + forced
+  decode over the token log).  Healthy slots keep the fault step's own
+  tokens and keep decoding.
 * **At-rest parity over the params** (``parity=True``).  Serving never
   writes the params, so one XOR parity build at construction and the
   digests recorded beside it let ``scrub_params`` detect and repair a
   silently flipped weight with no reload.
 
-Not ported yet (ROADMAP.md, queue 1): the dense per-slot cache, chunked
-prefill and mesh serving.
+Not ported yet (ROADMAP.md, queue 1): mesh serving.
 """
 
 from __future__ import annotations
 
 import time
-from collections import deque
+from collections import Counter, deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -47,10 +73,12 @@ import torch
 
 from repro_torch.core.detect import (ChecksumCanary, FaultReport,
                                      block_leaf_prefix, block_of_leaf,
-                                     slot_leaf_prefix)
+                                     slot_leaf_prefix, slot_of_leaf,
+                                     slot_view)
 from repro_torch.core.faults import bit_width, flip_bit
 from repro_torch.core.parity import ParityStore
 from repro_torch.core.recover import plan_serving_recovery
+from repro_torch.core.replay import copy_into
 from repro_torch.kernels import _build
 from repro_torch.kernels import digest as kdigest
 from repro_torch.kernels import ops as kops
@@ -59,7 +87,12 @@ from repro_torch.serving import paged as pgd
 from repro_torch.serving.paged import (AdmissionError, BlockAllocator,
                                        PoolSaturated)
 from repro_torch.serving.request import Request, RequestQueue
-from repro_torch.tree import flatten_with_path, leaf_key, replace_leaves
+from repro_torch.tree import (flatten_with_path, leaf_key, leaves,
+                              replace_leaves, tree_map)
+
+#: eager steps on the card before the first capture (lazy initialisation
+#: of cuBLAS and the kernels' host state); at least one per rotation
+WARMUP_STEPS = 2
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,6 +105,15 @@ def resolve_device(device=None) -> torch.device:
                 "device='cpu' to run on the CPU explicitly")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def decode_view(cache):
+    """The batched decode's view ``(count, S, cap, KV, Dh)`` of a
+    slot-major dense cache (leaves ``(S, count, 1, cap, KV, Dh)``): it
+    aliases the cache, so the decode's row writes land in place."""
+    return {"groups": tree_map(lambda t: t[:, :, 0].transpose(0, 1),
+                               cache["groups"]),
+            "pos": cache["pos"]}
 
 
 def _pcts(xs: Sequence[float]) -> Dict[str, float]:
@@ -131,19 +173,40 @@ class ServingReport:
         }
 
 
+@dataclass
+class _Graph:
+    """One captured engine step: the graph, its outputs (the host vector
+    and the mismatch mask, overwritten by every replay), the pack
+    schedules it reads by address, and the kernel launches one replay
+    makes."""
+    graph: object
+    host: torch.Tensor
+    bad: Optional[torch.Tensor]
+    keep: Tuple
+    launches: Counter
+
+
 class ServingEngine:
-    """Iteration-level scheduler + paged batched decoder + block canary.
+    """Iteration-level scheduler + batched decoder + rotating canary.
 
     Parameters
     ----------
     cfg           : full config (``cfg.model`` drives the model)
     n_slots       : batch slots S
-    max_len       : per-slot capacity in positions (rounded up to a
+    max_len       : per-slot capacity in positions (paged: rounded up to a
                     multiple of ``block_size``)
     canary_slices : rotating canary K; 0 disables the canary
+    donate        : one state version written in place by the step (the
+                    reference's default); False keeps the step's input
+                    (two versions in ping-pong)
     seed          : params init seed (ignored when ``params`` is given)
     max_replays   : fault evictions a request survives before it is dropped
-    block_size    : KV-pool block size in positions
+    paged         : None = the paged pool where the family supports it;
+                    False forces the dense slot-major cache; True raises
+                    if unsupported
+    block_size    : KV-pool block size in positions (paged)
+    prefill_chunk : 0 = monolithic prefill; C > 0 prefills in C-token
+                    chunks interleaved with engine steps (paged only)
     pool_blocks   : pool blocks incl. scratch block 0 (0 = every slot can
                     hold a max-size request)
     device        : torch device; None = the CUDA card, raising if none
@@ -153,29 +216,27 @@ class ServingEngine:
     """
 
     def __init__(self, cfg, *, n_slots: int = 4, max_len: int = 64,
-                 canary_slices: int = 4, seed: int = 0,
+                 canary_slices: int = 4, donate: bool = True, seed: int = 0,
                  max_replays: int = 8, verbose: bool = False,
-                 block_size: int = 8, pool_blocks: int = 0, device=None,
+                 paged: Optional[bool] = None, block_size: int = 8,
+                 prefill_chunk: int = 0, pool_blocks: int = 0, device=None,
                  params=None, parity: bool = False):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        self.device = dev = resolve_device(device)
+        if dev.type == "cuda":
             # f32 projections as in the reference: no TF32 anywhere
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.m = cfg.model
         self.model = get_model(self.m)
-        self.S = int(n_slots)
+        self.S = S = int(n_slots)
         self.K = int(canary_slices)
+        self.donate = bool(donate)
         self.max_replays = int(max_replays)
         self.verbose = verbose
         self.block_size = bs = int(block_size)
-        self.max_len = -(-int(max_len) // bs) * bs
-        self.max_blocks = self.max_len // bs
-        self.n_blocks = int(pool_blocks) or (1 + self.S * self.max_blocks)
-        if self.n_blocks < 2:
-            raise ValueError("pool_blocks must be >= 2")
-        dev = self.device
+        self.prefill_chunk = int(prefill_chunk)
+        self.max_len = int(max_len)
         self.params = (params if params is not None
                        else self.model.init(self.m, seed, dev))
 
@@ -188,54 +249,141 @@ class ServingEngine:
             self.parity_store = ParityStore(self.params)
             self.parity_store.build(self.params)
             plan = self.parity_store.plan
-            leaves = plan.leaves(self.params)
-            table = kdigest.fetch(torch.stack([kops.checksum(x)
-                                               for x in leaves]))
+            table = kdigest.fetch(torch.stack(
+                [kops.checksum(x) for x in plan.leaves(self.params)]))
             self._param_refs = dict(zip(plan.keys, table))
 
+        # layout: the paged pool unless forced off or unsupported
+        self.paged = False
+        if paged is not False:
+            ml = -(-self.max_len // bs) * bs
+            probe = self.model.make_decode_cache(self.m, 1, ml, "meta")
+            supported = pgd.paged_supported(self.model, self.m, probe, ml)
+            if paged and not supported:
+                raise ValueError(
+                    "paged=True: this family/config has no paged-KV "
+                    "support (needs linear caches, 1-D rope and a "
+                    "prefill_chunk entry point)")
+            self.paged = supported
+            if self.paged:
+                self.max_len = ml
         per_slot = self.model.make_decode_cache(self.m, 1, self.max_len, dev)
-        self.pool = pgd.make_block_pool(per_slot, self.n_blocks, bs)
-        self.bt = torch.zeros((self.S, self.max_blocks), dtype=torch.int32,
-                              device=dev)
-        self.pos = torch.zeros((self.S,), dtype=torch.int32, device=dev)
-        self.amask = torch.zeros((self.S,), dtype=torch.bool, device=dev)
-        self.tok = torch.zeros((self.S,), dtype=torch.int32, device=dev)
-        self._bt_np = np.zeros((self.S, self.max_blocks), np.int32)
-        self.alloc = BlockAllocator(self.n_blocks)
-        self._fmask0 = torch.zeros((self.S,), dtype=torch.bool, device=dev)
-        self._ftok0 = torch.zeros((self.S,), dtype=torch.int32, device=dev)
+        if self.paged:
+            self.max_blocks = self.max_len // bs
+            self.n_blocks = int(pool_blocks) or (1 + S * self.max_blocks)
+            if self.n_blocks < 2:
+                raise ValueError("pool_blocks must be >= 2")
+            self.bt = torch.zeros((S, self.max_blocks), dtype=torch.int32,
+                                  device=dev)
+            self._bt_np = np.zeros((S, self.max_blocks), np.int32)
+            self.alloc = BlockAllocator(self.n_blocks)
+
+            def groups():
+                return pgd.make_block_pool(per_slot, self.n_blocks,
+                                           bs)["groups"]
+        else:
+            def groups():
+                return tree_map(lambda t: torch.zeros(
+                    (S,) + tuple(t.shape), dtype=t.dtype, device=dev),
+                    per_slot["groups"])
+        # the covered decode state: one version written in place, or two
+        # in ping-pong without donation
+        self._versions = [
+            {"groups": groups(),
+             "pos": torch.zeros((S,), dtype=torch.int32, device=dev)}
+            for _ in range(1 if self.donate else 2)]
+        self.amask = torch.zeros((S,), dtype=torch.bool, device=dev)
+        self.tok = torch.zeros((S,), dtype=torch.int32, device=dev)
+        # forced tokens (prefix replay): row 0 the mask, row 1 the token
+        self._forced = torch.zeros((2, S), dtype=torch.int32, device=dev)
+        self._forced_on = False
 
         self.canary: Optional[ChecksumCanary] = None
         self.plan = None
         self._block_keys: List[Tuple[str, ...]] = []
         self._pos_keys: List[str] = []
-        self._view_leaves: List[torch.Tensor] = []
-        self._cores: Dict[int, kdigest.CheckArm] = {}
+        self._slot_keys: List[Tuple[str, ...]] = []
+        self._views: List[List[torch.Tensor]] = []
+        self._cores: Dict[int, Optional[kdigest.CheckArm]] = {}
         if self.K:
-            view = self._view()
-            self.canary = ChecksumCanary(view, n_slices=self.K)
+            self.canary = ChecksumCanary(self._view_of(self._versions[0]),
+                                         n_slices=self.K)
             self.plan = self.canary.plan
-            self._block_keys = [
-                tuple(k for k in self.plan.keys
-                      if k.startswith(block_leaf_prefix(b) + "/"))
-                for b in range(self.n_blocks)]
-            self._pos_keys = [f"{slot_leaf_prefix(u)}/pos"
-                              for u in range(self.S)]
-            # views aliasing the pool / pos storage: valid for the
-            # engine's life because every state update is in place
-            self._view_leaves = self.plan.leaves(view)
+            if self.paged:
+                self._block_keys = [
+                    tuple(k for k in self.plan.keys
+                          if k.startswith(block_leaf_prefix(b) + "/"))
+                    for b in range(self.n_blocks)]
+                self._pos_keys = [f"{slot_leaf_prefix(u)}/pos"
+                                  for u in range(S)]
+            else:
+                self._slot_keys = [
+                    tuple(k for k in self.plan.keys
+                          if k.startswith(slot_leaf_prefix(u) + "/"))
+                    for u in range(S)]
+            # each version's canary leaves alias its storage, which every
+            # update writes in place: valid for the engine's life
+            self._views = [self.plan.leaves(self._view_of(v))
+                           for v in self._versions]
 
-        self.slot_rid: List[Optional[int]] = [None] * self.S
+        self.slot_rid: List[Optional[int]] = [None] * S
         self._by_slot: Dict[int, Request] = {}
+        self._prefilling: Dict[int, Dict] = {}   # paged: slot -> {rq, off}
         self.step_count = 0
-        self.report = ServingReport(n_slots=self.S)
+        self.report = ServingReport(n_slots=S)
+        # the card replays captured graphs; the CPU runs the body eagerly
+        self._replay = dev.type == "cuda"
+        self._pool = None
+        self.n_captures = 0
+        self.capture_seconds = 0.0
 
-    # -- plumbing -----------------------------------------------------------
+    # -- state versions ------------------------------------------------------
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, value) -> None:
+        # a captured graph reads the params it was captured with
+        self._params = value
+        self._graphs: Dict[Tuple[int, int], _Graph] = {}
+
+    def _gen(self) -> int:
+        return (self.canary.generation if self.canary is not None
+                else self.step_count)
+
+    def _live(self) -> int:
+        """Index of the state version the next step reads."""
+        return 0 if self.donate else self._gen() & 1
+
+    @property
+    def pos(self) -> torch.Tensor:
+        return self._versions[self._live()]["pos"]
+
+    @property
+    def pool(self):
+        """The live block pool (paged), else None."""
+        if not self.paged:
+            return None
+        return {"groups": self._versions[self._live()]["groups"]}
+
+    @property
+    def cache(self):
+        """The live slot-major cache ``{"groups", "pos"}`` (dense), else
+        None."""
+        return None if self.paged else self._versions[self._live()]
+
+    def _view_of(self, ver):
+        """Canary view of one state version: (leaf, block) + per-slot pos
+        (paged) or (leaf, slot) with the slot's pos (dense)."""
+        if self.paged:
+            return pgd.paged_canary_view({"groups": ver["groups"]},
+                                         ver["pos"], self.n_blocks, self.S)
+        return slot_view(ver, self.S)
 
     def _view(self):
-        """Canary view of the paged state: (leaf, block) + per-slot pos."""
-        return pgd.paged_canary_view(self.pool, self.pos, self.n_blocks,
-                                     self.S)
+        return self._view_of(self._versions[self._live()])
 
     def _refresh_blocks(self, blocks) -> None:
         """Re-certify the given pool blocks' canary rows after an
@@ -243,92 +391,207 @@ class ServingEngine:
         if self.canary is None or not blocks:
             return
         view = self._view()
-        for b in sorted(blocks):
+        for b in sorted(set(blocks)):
             self.canary.refresh(view, keys=self._block_keys[b])
 
-    def _rotation(self, r: int):
-        """The check+arm core of rotation ``r``."""
-        core = self._cores.get(r)
-        if core is None:
-            can = self.canary
-            core, _ = kdigest.check_arm_subcomputation(
-                self.plan, can._slice_indices(r), can._slice_indices(r + 1))
-            self._cores[r] = core
+    def _rotation(self, r: int) -> Optional[kdigest.CheckArm]:
+        """The check+arm core of rotation ``r`` with its packing buffer
+        and layout maps on the device (None: nothing to digest)."""
+        if r in self._cores:
+            return self._cores[r]
+        can = self.canary
+        core, union = kdigest.check_arm_subcomputation(
+            self.plan, can._slice_indices(r), can._slice_indices(r + 1))
+        if union:
+            self.plan.layout(union).maps(self.plan.take_buffer(union).device)
+        else:
+            core = None
+        self._cores[r] = core
         return core
 
+    # -- the engine step: the body, and its graphs on the card ---------------
+
+    def _decode(self, ver):
+        """Gather, batched decode, in-place scatter-back and position
+        advance on state version ``ver``.  Returns (next tokens (S,),
+        finite (S,)) on the device."""
+        if self.paged:
+            pool = {"groups": ver["groups"]}
+            gcache = pgd.gathered_cache(pool, self.bt, ver["pos"])
+            logits, ngc = self.model.decode_step(self.params, self.m,
+                                                 gcache, self.tok)
+            pgd.scatter_token(pool, ngc["groups"], self.bt, ver["pos"],
+                              self.amask, self.block_size)
+        else:
+            logits, _ = self.model.decode_step(self.params, self.m,
+                                               decode_view(ver), self.tok)
+        ver["pos"].add_(self.amask.to(torch.int32))
+        nxt = torch.where(self._forced[0] != 0, self._forced[1],
+                          logits.argmax(-1).to(torch.int32))
+        self.tok.copy_(nxt)
+        return nxt, torch.isfinite(logits).all(dim=-1)
+
+    def _body(self, r: int, g: int, descs=(None, None)):
+        """One engine step of rotation ``r`` against read table ``g``:
+        what a graph records, and what runs eagerly on the CPU.  Returns
+        (host vector: [flag,] tokens, finite; mismatch mask | None)."""
+        b = 0 if self.donate else g & 1
+        inp, out = self._versions[b], self._versions[0 if self.donate
+                                                     else 1 - b]
+        core = self._rotation(r) if self.canary is not None else None
+        if core is not None:
+            buf = self.plan.take_buffer(core.union)
+            lv = self._views[b]
+            core.pack_check(buf, [lv[i] for i in core.chk], desc=descs[0])
+        if out is not inp:
+            copy_into(out, inp)
+        nxt, finite = self._decode(out)
+        parts = [nxt, finite.to(torch.int32)]
+        bad = None
+        if core is not None:
+            lv = self._views[0 if self.donate else 1 - b]
+            core.pack_arm(buf, [lv[i] for i in core.arm], desc=descs[1])
+            tables = self.canary._tables
+            flag, bad = core.finish(buf, tables[g & 1], tables[1 - (g & 1)])
+            parts.insert(0, flag.to(torch.int32).reshape(1))
+        elif self.canary is not None:
+            # a rotation with nothing to digest: a flag that never fires
+            parts.insert(0, torch.zeros((1,), dtype=torch.int32,
+                                        device=nxt.device))
+        return torch.cat(parts), bad
+
+    def _key(self, r: int, g: int) -> Tuple[int, int]:
+        # donated with no canary the step reads no table and one version
+        return (r, g & 1) if (self.canary is not None
+                              or not self.donate) else (r, 0)
+
+    def _graph_keys(self) -> List[Tuple[int, int]]:
+        return sorted({self._key(r, g) for r in range(max(1, self.K))
+                       for g in (0, 1)})
+
+    def _capture(self, r: int, g: int) -> _Graph:
+        """Capture rotation ``r``'s step against read table ``g``."""
+        b = 0 if self.donate else g & 1
+        core = self._rotation(r) if self.canary is not None else None
+        descs = (None, None)
+        if core is not None:
+            lin = self._views[b]
+            lout = self._views[0 if self.donate else 1 - b]
+            descs = (self.plan.descriptors(core.union,
+                                           [lin[i] for i in core.chk]),
+                     self.plan.descriptors(core.union,
+                                           [lout[i] for i in core.arm],
+                                           first=core.nc))
+        before = Counter(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self._pool):
+            host, bad = self._body(r, g, descs)
+        self.capture_seconds += time.perf_counter() - t0
+        self.n_captures += 1
+        # nothing ran during the capture: its kernels count at each replay
+        launches = Counter(_build.LAUNCHES)
+        launches.subtract(before)
+        _build.LAUNCHES.subtract(launches)
+        return _Graph(graph, host, bad, descs, +launches)
+
+    def _capture_all(self) -> None:
+        """Warm up eagerly (every rotation once, on a side stream), then
+        capture every graph.  The state, the last tokens and the canary's
+        tables are saved before the warm-up and restored after it, so
+        warming changes nothing the next step reads."""
+        mutable = [t for v in self._versions for t in leaves(v)]
+        mutable.append(self.tok)
+        if self.canary is not None:
+            mutable.extend(self.canary._tables)
+        saved = [t.clone() for t in mutable]
+        self._pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for i in range(max(WARMUP_STEPS, self.K)):
+                self._body(i % max(1, self.K), i)
+        torch.cuda.current_stream().wait_stream(side)
+        for r, g in self._graph_keys():
+            self._graphs[(r, g)] = self._capture(r, g)
+        for t, v in zip(mutable, saved):
+            t.copy_(v)
+
     def warm(self) -> float:
-        """Build the kernels (on the card) and every rotation's packing
-        buffer and layout up front; returns wall seconds."""
+        """Build the kernels, every rotation's packing buffer and layout
+        and, on the card, capture every graph of the step (2K; one or two
+        without a canary).  Returns wall seconds; idempotent."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             _build.lib()
-        for r in range(self.K):
-            self.plan.take_buffer(self._rotation(r).union)
+        if self.canary is not None:
+            for r in range(self.K):
+                self._rotation(r)
+        if self._replay and not self._graphs:
+            self._capture_all()
         return time.perf_counter() - t0
 
-    # -- hot path -----------------------------------------------------------
-
-    def _forced_arrays(self):
+    def _load_forced(self) -> None:
+        """Install this step's forced tokens in the static buffer; zero it
+        once when forcing ends (steady steps upload nothing)."""
         forced = [(u, rq.forced[0]) for u, rq in self._by_slot.items()
                   if rq.forced]
-        if not forced:
-            return self._fmask0, self._ftok0
-        fm = np.zeros((self.S,), bool)
-        ft = np.zeros((self.S,), np.int32)
-        for u, t in forced:
-            fm[u] = True
-            ft[u] = t
-        return (torch.from_numpy(fm).to(self.device),
-                torch.from_numpy(ft).to(self.device))
-
-    def _decode(self, fmask, ftok):
-        """Gather, batched decode, in-place scatter-back and position
-        advance.  Returns (next tokens (S,), finite (S,)) on the device."""
-        gcache = pgd.gathered_cache(self.pool, self.bt, self.pos)
-        logits, ngc = self.model.decode_step(self.params, self.m, gcache,
-                                             self.tok)
-        pgd.scatter_token(self.pool, ngc["groups"], self.bt, self.pos,
-                          self.amask, self.block_size)
-        self.pos.add_(self.amask.to(torch.int32))
-        nxt = torch.where(fmask, ftok, logits.argmax(-1).to(torch.int32))
-        self.tok.copy_(nxt)
-        return nxt, torch.isfinite(logits).all(dim=-1)
+        if forced:
+            a = np.zeros((2, self.S), np.int32)
+            for u, t in forced:
+                a[0, u], a[1, u] = 1, t
+            self._forced.copy_(torch.from_numpy(a))
+            self._forced_on = True
+        elif self._forced_on:
+            self._forced.zero_()
+            self._forced_on = False
 
     def engine_step(self) -> Tuple[np.ndarray, np.ndarray,
                                    Optional[FaultReport]]:
         """Advance every lane one token: one logical launch (counted in
-        ``kdigest.STATS``) + ONE scalar fault sync + the token payload.
+        ``kdigest.STATS``; one graph replay on the card) and ONE counted
+        fetch of the fault flag with the token payload beside it (with no
+        canary an uncounted payload transfer: the data plane).
 
         Returns ``(tokens (S,), finite (S,) bool, report|None)``."""
+        if self._replay and not self._graphs:
+            self.warm()
         s = self.step_count
-        fmask, ftok = self._forced_arrays()
+        r = s % self.K if self.K else 0
+        g = self._gen() & 1
+        self._load_forced()
         kdigest.STATS.launches += 1
-        report = None
-        if self.canary is None:
-            nxt, finite = self._decode(fmask, ftok)
+        if self._replay:
+            ent = self._graphs[self._key(r, g)]
+            ent.graph.replay()
+            _build.LAUNCHES.update(ent.launches)
+            host, bad = ent.host, ent.bad
         else:
-            core = self._rotation(s % self.K)
-            buf = self.plan.take_buffer(core.union)
-            leaves = self._view_leaves
-            core.pack_check(buf, [leaves[i] for i in core.chk])  # pre-write
-            nxt, finite = self._decode(fmask, ftok)
-            core.pack_arm(buf, [leaves[i] for i in core.arm])    # post-write
-            ref_read, ref_write = self.canary.begin_update()
-            flag, bad = core.finish(buf, ref_read, ref_write)
-            self.canary.commit_update(ref_write)
-            if bool(kdigest.fetch(flag)):     # the step's ONE fault sync
+            host, bad = self._body(r, g)
+        report = None
+        if self.canary is not None:
+            self.canary.commit_update(self.canary.begin_update()[1])
+            vals = kdigest.fetch(host)          # the step's ONE fault sync
+            fired, vals = bool(vals[0]), vals[1:]
+            if fired:
                 report = FaultReport(
-                    s, "checksum", detail="paged block canary",
-                    resolver=self._paged_resolver(core.chk, bad))
+                    s, "checksum", detail=("paged block canary"
+                                           if self.paged else "slot canary"),
+                    resolver=self._resolver(self._rotation(r).chk,
+                                            bad.clone()))
+        else:
+            vals = host.cpu().numpy()
         self.step_count += 1
-        pl = torch.stack([nxt, finite.to(torch.int32)], dim=1).cpu().numpy()
-        return pl[:, 0], pl[:, 1].astype(bool), report
+        return vals[:self.S], vals[self.S:].astype(bool), report
 
-    def _paged_resolver(self, chk, bad):
-        """Attribution closure: (leaf, block) keys of blocks a request owned
-        AT DETECTION TIME become ``slotNNN/blockNNNN/...`` keys; unowned
-        blocks keep their raw keys (nobody to evict)."""
+    def _resolver(self, chk, bad):
+        """Attribution closure.  Paged: (leaf, block) keys of blocks a
+        request owned AT DETECTION TIME become ``slotNNN/blockNNNN/...``
+        keys; unowned blocks keep their raw keys (nobody to evict).
+        Dense: the (leaf, slot) keys as they are."""
         can = self.canary
+        if not self.paged:
+            return lambda: can._attribute(chk, bad)
         owner = dict(self.alloc.owner)
 
         def xlat(k):
@@ -343,11 +606,18 @@ class ServingEngine:
         return [u for u in range(self.S) if self.slot_rid[u] is None]
 
     def check_admissible(self, rq: Request) -> None:
-        """Typed rejection of a request whose worst-case block budget can
-        never fit."""
+        """Typed rejection of a request whose worst-case footprint can
+        never fit: the block budget (paged) or ``max_len`` (dense)."""
+        need = len(rq.prompt) + 1 + rq.max_new_tokens
+        if not self.paged:
+            if need > self.max_len:
+                raise AdmissionError(
+                    f"rid={rq.rid}: needs {need} positions (prompt "
+                    f"{len(rq.prompt)} + 1 + max_new {rq.max_new_tokens}),"
+                    f" slot capacity is {self.max_len}")
+            return
         nb = pgd.blocks_needed(len(rq.prompt), rq.max_new_tokens,
                                self.block_size)
-        need = len(rq.prompt) + 1 + rq.max_new_tokens
         if nb > self.max_blocks:
             raise AdmissionError(
                 f"rid={rq.rid}: needs {nb} blocks ({need} positions), "
@@ -358,11 +628,52 @@ class ServingEngine:
                 f"rid={rq.rid}: needs {nb} blocks, whole pool holds "
                 f"{self.alloc.capacity}")
 
-    def admit(self, rq: Request, slot: int, now_s: float = 0.0) -> None:
-        """Reserve the request's block budget (may raise ``PoolSaturated``),
-        zero and wire its blocks, prefill the prompt into them, re-certify
-        their canary rows and activate the lane."""
+    def _prompt(self, tokens) -> torch.Tensor:
+        return torch.from_numpy(
+            np.asarray(tokens, np.int32)[None]).to(self.device)
+
+    def _claim(self, rq: Request, slot: int, now_s: float) -> None:
+        self.slot_rid[slot] = rq.rid
+        rq.slot = slot
+        rq.state = "active"
+        if rq.t_admit_s < 0:
+            rq.t_admit_s = now_s
+        self.report.admissions += 1
+
+    def admit(self, rq: Request, slot: int, now_s: float = 0.0, *,
+              interleave: bool = False) -> None:
+        """Prefill the request into ``slot``, re-certify the canary rows
+        it touched and activate the lane.
+
+        Paged, it first reserves the request's block budget (may raise
+        ``PoolSaturated``); with ``interleave=True`` and a
+        ``prefill_chunk`` it only does the bookkeeping, and ``run``
+        prefills the prompt chunk by chunk (``_prefill_step``) between
+        engine steps.  Dense, the prefilled cache goes into the slot in
+        one in-place write."""
         self.check_admissible(rq)
+        if self.paged:
+            self._admit_paged(rq, slot, now_s, interleave=interleave)
+            return
+        logits, sub = self.model.prefill(self.params, self.m,
+                                         {"tokens": self._prompt(rq.prompt)},
+                                         max_len=self.max_len)
+        copy_into(tree_map(lambda t: t[slot], self.cache["groups"]),
+                  sub["groups"])
+        self._claim(rq, slot, now_s)
+        if self.verbose:
+            kind = "replay" if rq.log else "admit"
+            print(f"[engine] {kind} rid={rq.rid} -> slot {slot} "
+                  f"(log={len(rq.log)})")
+        self._activate(rq, slot, len(rq.prompt), logits)
+
+    def _admit_paged(self, rq: Request, slot: int, now_s: float, *,
+                     interleave: bool) -> None:
+        """Reserve the block budget, zero the blocks (a freed block may
+        hold non-finite bytes), wire the block table and prefill — now,
+        or chunk by chunk from ``run``.  Every pool write here is out of
+        step, so the touched blocks are re-certified before the next
+        engine step."""
         nb = pgd.blocks_needed(len(rq.prompt), rq.max_new_tokens,
                                self.block_size)
         bids = self.alloc.allocate(slot, nb)
@@ -370,26 +681,54 @@ class ServingEngine:
         self._bt_np[slot] = 0
         self._bt_np[slot, :nb] = bids
         self.bt.copy_(torch.from_numpy(self._bt_np))
-        self.slot_rid[slot] = rq.rid
-        rq.slot = slot
-        rq.state = "active"
-        if rq.t_admit_s < 0:
-            rq.t_admit_s = now_s
-        self.report.admissions += 1
+        self._claim(rq, slot, now_s)
         if self.verbose:
             kind = "replay" if rq.log else "admit"
             print(f"[engine] {kind} rid={rq.rid} -> slot {slot} "
                   f"({nb} blocks {bids})")
-        P = len(rq.prompt)
-        tokens = torch.from_numpy(
-            np.asarray(rq.prompt, np.int32)[None]).to(self.device)
-        logits, sub = self.model.prefill(self.params, self.m,
-                                         {"tokens": tokens})
-        pgd.scatter_span(self.pool, sub["groups"], self.bt[slot], 0, P,
-                         self.block_size)
-        # zeroing and the span scatter are out-of-step writes
+        self._prefilling[slot] = {"rq": rq, "off": 0}
+        if interleave and self.prefill_chunk > 0:
+            self._refresh_blocks(bids)
+            return
+        while slot in self._prefilling:
+            self._prefill_step(slot, refresh=False)
         self._refresh_blocks(bids)
-        self._activate(rq, slot, P, logits)
+
+    def _prefill_step(self, slot: int, refresh: bool = True) -> None:
+        """Advance one slot's prefill by one unit — the whole prompt, or
+        one ``prefill_chunk`` of it against the context already in the
+        pool — and scatter its rows into the slot's blocks (in place,
+        only the valid rows: scratch block 0 is not written).  With
+        ``refresh`` the touched blocks are re-certified; the last unit
+        activates the lane."""
+        st = self._prefilling[slot]
+        rq, off = st["rq"], st["off"]
+        P = len(rq.prompt)
+        bs = self.block_size
+        pool, bt_row = self.pool, self.bt[slot]
+        if self.prefill_chunk <= 0:
+            logits, sub = self.model.prefill(
+                self.params, self.m, {"tokens": self._prompt(rq.prompt)})
+            pgd.scatter_span(pool, sub["groups"], bt_row, 0, P, bs)
+            end = P
+        else:
+            C = self.prefill_chunk
+            valid = min(C, P - off)
+            chunk = np.zeros((C,), np.int32)
+            chunk[:valid] = np.asarray(rq.prompt, np.int32)[off:off + valid]
+            logits, new_kv = self.model.prefill_chunk(
+                self.params, self.m, {"tokens": self._prompt(chunk)},
+                pgd.ctx_from_pool(pool, bt_row, bs, off),
+                pgd.ctx_kpos(off, self.max_len, self.device), off, valid)
+            pgd.scatter_span(pool, new_kv["groups"], bt_row, off, valid, bs)
+            end = off + valid
+        st["off"] = end
+        if refresh:
+            self._refresh_blocks(self.alloc.owned(slot)[off // bs:
+                                                        -(-end // bs)])
+        if end >= P:
+            del self._prefilling[slot]
+            self._activate(rq, slot, P, logits)
 
     def _activate(self, rq: Request, slot: int, P: int, logits) -> None:
         """Install the first decode input and flip the lane active."""
@@ -405,15 +744,19 @@ class ServingEngine:
         self.tok[slot] = t0
         self.amask[slot] = True
         if self.canary is not None:
-            self.canary.refresh(self._view(), keys=[self._pos_keys[slot]])
+            keys = ([self._pos_keys[slot]] if self.paged
+                    else list(self._slot_keys[slot]))
+            self.canary.refresh(self._view(), keys=keys)
         self._by_slot[slot] = rq
 
     def _free(self, slot: int) -> None:
         self.slot_rid[slot] = None
         self._by_slot.pop(slot, None)
-        self.alloc.free(slot)
-        self._bt_np[slot] = 0
-        self.bt.copy_(torch.from_numpy(self._bt_np))
+        if self.paged:
+            self._prefilling.pop(slot, None)
+            self.alloc.free(slot)
+            self._bt_np[slot] = 0
+            self.bt.copy_(torch.from_numpy(self._bt_np))
         self.amask[slot] = False
 
     def _finish(self, rq: Request, now_s: float, dropped: bool = False
@@ -456,26 +799,29 @@ class ServingEngine:
     def handle_fault(self, report: Optional[FaultReport],
                      finite: np.ndarray, now_s: float,
                      queue: RequestQueue) -> List[int]:
-        """Slot-isolated recovery: evict injured slots to prefix replay.
-        Returns the evicted slot ids."""
+        """Slot-isolated recovery: evict injured slots (prefilling ones
+        too) to prefix replay.  Returns the evicted slot ids."""
         rep = self.report
         rep.faults_detected += 1
         nf = [u for u in self._by_slot if not finite[u]]
         plan = plan_serving_recovery(report, n_slices=self.K,
                                      nonfinite_slots=nf)
-        victims = (sorted(self._by_slot) if plan.scope == "engine"
-                   else plan.slots)
-        # snapshot BEFORE the frees below return blocks to the pool: the
-        # injured and victim-owned blocks keep their bytes until the next
-        # zero-on-alloc, and their units must not fire again meanwhile
+        occupied = sorted(set(self._by_slot) | set(self._prefilling))
+        victims = occupied if plan.scope == "engine" else plan.slots
         refresh_blocks: set = set()
-        if report is not None:
-            refresh_blocks |= set(report.injured_blocks())
-        for u in victims:
-            refresh_blocks |= set(self.alloc.owned(u))
+        if self.paged:
+            # snapshot BEFORE the frees below return blocks to the pool:
+            # the injured and victim-owned blocks keep their bytes until
+            # the next zero-on-alloc, and their units must not fire again
+            if report is not None:
+                refresh_blocks |= set(report.injured_blocks())
+            for u in victims:
+                refresh_blocks |= set(self.alloc.owned(u))
         any_dropped = False
         for u in victims:
             rq = self._by_slot.get(u)
+            if rq is None and u in self._prefilling:
+                rq = self._prefilling[u]["rq"]
             if rq is None:
                 # occupant already gone: SDC-risk telemetry
                 rep.faults_on_free_slots += 1
@@ -497,13 +843,21 @@ class ServingEngine:
                 print(f"[engine] FAULT step {self.step_count} slot {u} "
                       f"rid={rq.rid} ({plan.reason}) — retract {removed}, "
                       f"replaying {len(rq.log) - 1} tokens")
-        if plan.scope == "slots" and not victims and report is not None:
-            # attribution landed only on unowned pool blocks
-            rep.faults_on_free_slots += 1
-        if self.canary is not None:
-            self._refresh_blocks(refresh_blocks)
-            for u in victims:
-                self.canary.refresh(self._view(), keys=[self._pos_keys[u]])
+        if self.paged:
+            if plan.scope == "slots" and not victims and report is not None:
+                # attribution landed only on unowned pool blocks
+                rep.faults_on_free_slots += 1
+            if self.canary is not None:
+                self._refresh_blocks(refresh_blocks)
+                for u in victims:
+                    self.canary.refresh(self._view(),
+                                        keys=[self._pos_keys[u]])
+        elif self.canary is not None and victims:
+            # re-certify every evicted lane against its current bytes: it
+            # keeps decoding until the next admission overwrites it, and
+            # its units must not fire again meanwhile
+            self.canary.refresh(self._view(), keys=[
+                k for u in victims for k in self._slot_keys[u]])
         if not any_dropped:
             rep.faults_recovered += 1
         return victims
@@ -511,7 +865,10 @@ class ServingEngine:
     # -- fault injection (evaluation adversary) ------------------------------
 
     def _owned_unit_keys(self, u: int) -> List[str]:
-        """Canary keys a slot owns: its blocks' units plus its pos unit."""
+        """Canary keys a slot owns: its blocks' units plus its pos unit
+        (paged), its (leaf, slot) units (dense)."""
+        if not self.paged:
+            return list(self._slot_keys[u])
         keys = [k for b in self.alloc.owned(u) for k in self._block_keys[b]]
         keys.append(self._pos_keys[u])
         return keys
@@ -519,15 +876,17 @@ class ServingEngine:
     def corrupt_slot(self, rng, slot: Optional[int] = None,
                      key: Optional[str] = None, bit: Optional[int] = None,
                      armed_only: bool = False) -> Tuple[int, str, int]:
-        """Flip one bit of one element of one canary unit, in place.
+        """Flip one bit of one element of one canary unit of the live
+        state, in place.
 
-        A slot target is the set of units the slot owns (its blocks plus
-        its ``pos``).  ``armed_only`` restricts the pick to units armed for
-        the NEXT step's check (the protected at-rest window), so every
-        flip is detected; otherwise the pick is uniform over the owned
-        units, a raw-coverage measurement.  ``key`` names a plan key
-        (``blockNNNN/...`` or ``slotNNN/pos``) directly — even an unowned
-        block.  Returns (owning slot | -1, plan key, bit)."""
+        A slot target is the set of units the slot owns.  ``armed_only``
+        restricts the pick to units armed for the NEXT step's check (the
+        protected at-rest window), so every flip is detected; otherwise
+        the pick is uniform over the owned units, a raw-coverage
+        measurement.  ``key`` names a plan key directly (paged:
+        ``blockNNNN/...`` — even an unowned block — or ``slotNNN/pos``;
+        dense: ``slotNNN/<leaf>``).  Returns (owning slot | -1, plan key,
+        bit)."""
         if self.canary is None:
             raise ValueError("corrupt_slot needs the canary (K > 0)")
         active = [u for u in range(self.S) if self.slot_rid[u] is not None]
@@ -547,26 +906,33 @@ class ServingEngine:
                 picks = [k_ for u_ in lanes
                          for k_ in self._owned_unit_keys(u_)]
             if not picks:
-                picks = list(self._pos_keys)
+                picks = (list(self._pos_keys) if self.paged
+                         else [k for ks in self._slot_keys for k in ks])
             key = picks[rng.randrange(len(picks))]
-        if key in self._pos_keys:
+        if self.paged and key in self._pos_keys:
             u = self._pos_keys.index(key)
-            b = bit if bit is not None else rng.randrange(32)
-            flip_bit(self.pos, u, b)
+            unit, start, per = self.pos, u, 1
         else:
-            blk = block_of_leaf(key)
-            if blk is None:
+            rest = key.split("/", 1)[-1]
+            if self.paged:
+                u = block_of_leaf(key)
+                tree = self.pool
+            else:
+                u = slot_of_leaf(key)
+                tree = self.cache
+            if u is None:
                 raise KeyError(key)
-            rest = key.split("/", 1)[1]
-            leaf = next((x for p, x in flatten_with_path(self.pool)
+            unit = next((x for p, x in flatten_with_path(tree)
                          if leaf_key(p) == rest), None)
-            if leaf is None:
+            if unit is None:
                 raise KeyError(key)
-            per = leaf[0].numel()
-            e = rng.randrange(per)
-            b = bit if bit is not None else rng.randrange(32)
-            flip_bit(leaf, blk * per + e, b)
-            u = self.alloc.owner.get(blk, -1)
+            per = max(1, unit[0].numel())
+            start = u * per
+            if self.paged:
+                u = self.alloc.owner.get(u, -1)
+        e = rng.randrange(per) if per > 1 else 0
+        b = bit if bit is not None else rng.randrange(bit_width(unit))
+        flip_bit(unit, start + e, b)
         self.report.faults_injected += 1
         rid = self.slot_rid[u] if 0 <= u < self.S else None
         if rid is not None:
@@ -628,6 +994,7 @@ class ServingEngine:
         t_start = time.perf_counter()
         clock = clock or (lambda: time.perf_counter() - t_start)
         next_inject = rep.tokens_out + inject_every
+        interleave = self.paged and self.prefill_chunk > 0
         while True:
             while True:
                 free = self.free_slots()
@@ -638,7 +1005,8 @@ class ServingEngine:
                     break
                 evicted_at = rq.t_evicted_s
                 try:
-                    self.admit(rq, free[0], now_s=clock())
+                    self.admit(rq, free[0], now_s=clock(),
+                               interleave=interleave)
                 except AdmissionError as err:
                     rep.admission_rejected += 1
                     if self.verbose:
@@ -651,7 +1019,13 @@ class ServingEngine:
                 if evicted_at >= 0:
                     rep.recovery_ms.append(1e3 * (clock() - evicted_at))
                     rq.t_evicted_s = -1.0
+            # chunked prefill: one chunk per prefilling slot per iteration,
+            # between decode steps, so a long prompt never stalls the batch
+            for u in sorted(self._prefilling):
+                self._prefill_step(u)
             if not self._by_slot:
+                if self._prefilling:
+                    continue
                 nxt = queue.next_arrival()
                 if nxt is None:
                     break

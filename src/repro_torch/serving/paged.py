@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core.detect import block_view, slot_view
 from repro_torch.kernels.paged_kv import gather_blocks
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 
 class AdmissionError(ValueError):
@@ -105,6 +105,24 @@ class BlockAllocator:
 # batched decode takes the slot as the cache's batch dimension.
 # ---------------------------------------------------------------------------
 
+def paged_supported(model, model_cfg, per_slot, max_len: int) -> bool:
+    """Can this family's decode cache be paged?  It needs the chunk-prefill
+    entry point, linear (non-ring) per-position caches of exactly
+    ``max_len`` rows, and 1-D rope (no m-rope or patch inputs)."""
+    if getattr(model, "prefill_chunk", None) is None:
+        return False
+    if getattr(model_cfg, "m_rope", False) or \
+            getattr(model_cfg, "patch_dim", 0):
+        return False
+    if not (isinstance(per_slot, dict) and set(per_slot) == {"groups",
+                                                             "pos"}):
+        return False
+    ls = leaves(per_slot["groups"])
+    return bool(ls) and all(
+        t.dim() == 5 and t.shape[1] == 1 and t.shape[2] == max_len
+        for t in ls)
+
+
 def make_block_pool(per_slot, n_blocks: int, block_size: int):
     """Zeroed block-major pool from a per-slot decode-cache template."""
     def pool_leaf(t):
@@ -172,6 +190,31 @@ def zero_blocks(pool, bids: torch.Tensor) -> None:
     """Zero the given physical blocks of every pool leaf, in place."""
     tree_map(lambda t: t.index_fill_(0, bids.to(torch.int64), 0),
              pool["groups"])
+
+
+def ctx_from_pool(pool, bt_row, block_size: int, pos0=None):
+    """One slot's context in the decode-cache layout, leaves (count, 1,
+    cap, *feat): a plain gather (admission path, not the hot-path kernel).
+    With ``pos0`` the rows at positions >= pos0 are zeroed, the same guard
+    against non-finite scratch bytes as ``gathered_cache``."""
+    idx = bt_row.to(torch.int64)
+
+    def g(leaf):
+        t = leaf.index_select(0, idx)            # (mb, bs, count, *feat)
+        cap = t.shape[0] * t.shape[1]
+        t = t.reshape((cap,) + tuple(t.shape[2:]))
+        if pos0 is not None:
+            valid = torch.arange(cap, device=t.device) < pos0
+            t = t.masked_fill(~valid.view((cap,) + (1,) * (t.dim() - 1)), 0)
+        return t.movedim(0, 1)[:, None]          # (count, 1, cap, *feat)
+    return {"groups": tree_map(g, pool["groups"])}
+
+
+def ctx_kpos(pos0, cap: int, device=None):
+    """Absolute key positions (1, cap) of a linear context of ``cap`` rows
+    whose first ``pos0`` are written (< 0 = unwritten, masked)."""
+    j = torch.arange(cap, dtype=torch.int32, device=device)
+    return torch.where(j < pos0, j, torch.full_like(j, -1))[None, :]
 
 
 def paged_canary_view(pool, pos, n_blocks: int, n_slots: int):

@@ -332,8 +332,7 @@ def test_serve_summary_is_seeded(cfg):
         assert out[k] == again[k], k
 
 
-@pytest.mark.parametrize("flag", [dict(mesh="4,2"), dict(paged=False),
-                                  dict(prefill_chunk=8)])
+@pytest.mark.parametrize("flag", [dict(mesh="4,2")])
 def test_unported_serve_options_raise(cfg, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve(cfg, n_requests=1, prompt_len=4, gen_tokens=2, verbose=False,
