@@ -136,8 +136,48 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    host step p50, device busy ms a step, steady-state peak memory above
    what was held before, graph capture seconds, beside the card's name
    and power limit;
-8. one JSON line describing every kernel (the 8 ports and the layout
-   kernel ``flash_layout_kv`` of the flash port), then the device line.
+8. the dense configurations at full width, bf16 params and compute, each
+   path with the launch counts set to 0 just before it and read just
+   after, its peak memory printed:
+   8a. gemma3-1b served paged through the captured step (phase 5's
+       traffic: 8 requests, prompt 128, 32 new tokens, 4 slots, K=4),
+       clean and under a flip every 8 accepted tokens: 8 graphs, storm
+       tokens == clean, detected == injected == recovered; decode p50 /
+       p99 and device busy ms a step with where it goes;
+   8b. gemma3-1b on ring caches: the dense engine (max_len 1,073 >
+       the window of 1,024), 2 requests of prompt 1,040 and 32 new
+       tokens, so every local layer's ring wraps; storm == clean, and
+       the first decoded token equals the argmax of a 1,041-token
+       prefill of the prompt and its first token;
+   8c. command-r-35b at full width (d 8192, d_ff 22528, 64/8 heads,
+       vocab 256,000, parallel blocks) and 2 of its 40 layers (the
+       depth cut: the whole model needs the mesh), served clean and
+       under the storm, tokens equal;
+   8d. gemma3-1b trained (global batch 8, seq 128, 6 steps, K=1, one
+       host snapshot and one disk checkpoint a run, their seconds):
+       functional clean and under a params storm (a flip every 2 steps,
+       detected == injected == recovered, final state == clean's
+       bitwise), then ``--donate --fused-detect`` clean (2 graphs over
+       bf16 leaves) == the functional clean run's, bitwise;
+   8f. ``pack_rows`` on 2-byte leaves, read in place and zero-extended:
+       edge cases bitwise (bf16 / f16 / int16 leaves of odd lengths at
+       2-, 4- and 6-byte offsets, a chunk boundary inside a leaf, a leaf
+       longer than one grid pass, f32 leaves beside them, words around
+       them untouched; an int8 leaf refused), ``gather_blocks`` on the
+       bf16 pool bitwise; then the gemma3-1b training canary's leaves
+       (bf16 params, f32 moments) and the bf16 KV pool's check+arm
+       slice bitwise and timed beside their bound (2 B read + 4 B
+       written a bf16 element) and ``Tensor.to(torch.int32)`` of the same
+       leaves, ``row_checksums`` over that buffer and ``checksum_tiles``
+       of the bf16 embedding timed; its launches on 8a, 8b and 8d; then
+       2 profiled gemma3-1b train steps;
+   8e. h2o-danube-1.8b trained with its microbatch 8 (global batch 8:
+       8 slices of one sequence), ``--donate``, K=4, 4 steps, clean and
+       under a params storm whose flip lands in the slice checked at its
+       step: final states bitwise equal, replay only;
+9. one JSON line describing every kernel (the 8 ports, the layout
+   kernel ``flash_layout_kv`` of the flash port and ``pack_rows`` at
+   8f's two shapes), then the device line.
 
 Any failure raises; nothing is caught.
 """
@@ -262,9 +302,14 @@ def _bound_ms(n_bytes: float, n_ops: float = 0.0):
 
 
 def _max_err(torch, a, b) -> int:
-    """Largest word difference of two int32 views (0 == bitwise equal)."""
-    d = (a.reshape(-1).to(torch.int64) - b.reshape(-1).to(torch.int64)).abs()
-    return int(d.max()) if d.numel() else 0
+    """Largest word difference of two int32 views (0 == bitwise equal),
+    taken 2^26 words at a time."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    worst, step = 0, 1 << 26
+    for i in range(0, a.numel(), step):
+        d = (a[i:i + step].to(torch.int64) - b[i:i + step].to(torch.int64))
+        worst = max(worst, int(d.abs().max()))
+    return worst
 
 
 def _rand_bits(torch, shape, dtype, gen):
@@ -1854,6 +1899,408 @@ def _report_profile(prof, steps, wall_ms, what, names) -> None:
         print(f"[profile]   {name}: {t:.4f} ms/step")
 
 
+# -- phase 8: the dense configurations at full width -------------------------
+
+GEMMA, COMMAND_R, DANUBE = "gemma3-1b", "command-r-35b", "h2o-danube-1.8b"
+RING_PROMPT, RING_GEN = 1040, 32     # 8b: every local layer's ring wraps
+CMD_LAYERS = 2                       # 8c: command-r-35b, 2 of its 40 layers
+G_STEPS, G_INJECT, G_INTERVAL = 6, 2, 8   # 8d: one snapshot + checkpoint
+D_STEPS, D_SLICES = 4, 4             # 8e: steps (one storm flip), canary K
+
+
+def _phase_start(torch) -> None:
+    """Free what the previous phase left (the digest plans' cached
+    packing buffers too: a whole-state K=1 buffer is 24 GB at gemma3-1b)
+    and zero the launch counts and the peak-memory mark."""
+    import gc
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import digest as kd
+    kd._PLAN_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+
+
+def _phase_end(torch, name: str) -> dict:
+    """The phase's launch counts, with its peak memory printed."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(_build.LAUNCHES)
+    print(f"[{name}] peak memory {peak:.3f} GiB allocated; launches "
+          f"{launches} [{_SMI}]")
+    return launches
+
+
+def _full_width(name: str, **model):
+    """A registered config, its model fields changed by ``model``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              **model))
+
+
+def _steady_busy(torch, eng, rqs, name: str, steps: int = 8) -> float:
+    """Device busy ms a step over ``steps`` profiled steady engine steps
+    with every slot decoding (after one canary rotation); prints where
+    the device time goes."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    for u, rq in enumerate(rqs[:eng.S]):
+        eng.admit(rq, u)
+    for _ in range(max(1, eng.K)):
+        assert eng.engine_step()[2] is None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            assert eng.engine_step()[2] is None
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    _report_profile(prof, steps, wall_ms, f"{name} engine step",
+                    ("pack_rows_kernel", "row_checksums_kernel",
+                     "gather_blocks_kernel"))
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / steps
+
+
+def serve_full_width(torch, cfg, name, reqs, *, paged, params=None,
+                     **common):
+    """8a/8b/8c: ``cfg`` served clean and under a storm (a flip every
+    ``INJECT`` accepted tokens into the canary's armed window), the step
+    captured as 2K graphs.  Asserts detected == injected == recovered >
+    0, nothing dropped, storm tokens == clean tokens; prints decode p50
+    / p99 and device busy ms a step.  Returns (clean engine, clean
+    report, launches)."""
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tree import leaves
+
+    _phase_start(torch)
+    kw = dict(canary_slices=K, max_replays=10**6, device="cuda", **common)
+    clean_eng = ServingEngine(cfg, seed=0, params=params, **kw)
+    storm_eng = ServingEngine(cfg, params=clean_eng.params, **kw)
+    assert clean_eng.paged == paged, (name, clean_eng.paged)
+    for eng in (clean_eng, storm_eng):
+        eng.warm()
+        assert eng.n_captures == 2 * K, eng.n_captures
+    n = len(reqs())
+    clean = clean_eng.run(reqs())
+    storm = storm_eng.run(reqs(), inject_every=INJECT,
+                          inject_rng=random.Random(0))
+    launches = _phase_end(torch, name)
+    cs, ss = clean.summary(), storm.summary()
+    f = ss["faults"]
+    assert cs["completed"] == n and cs["dropped"] == 0, cs
+    assert f["injected"] > 0 and f["detected"] == f["injected"], f
+    assert f["recovered"] == f["detected"], f
+    assert ss["dropped"] == 0 and ss["completed"] == n, ss
+    for rid, rec in clean.per_request.items():
+        assert storm.per_request[rid]["tokens"] == rec["tokens"], (
+            f"{name} rid {rid}: storm tokens differ from clean tokens")
+    path = ("pack_rows", "row_checksums") + (("gather_blocks",) if paged
+                                             else ())
+    for kernel in path:
+        assert launches.get(kernel, 0) > 0, (name, kernel, launches)
+    del storm_eng
+    busy = _steady_busy(torch, clean_eng, reqs(), name)
+    cache = clean_eng.pool if paged else clean_eng.cache
+    print(f"[{name}] {'paged' if paged else 'dense'} engine, "
+          f"{sum(t.numel() for t in leaves(clean_eng.params))} params "
+          f"({leaves(clean_eng.params)[0].dtype}), cache leaves "
+          f"{sorted({tuple(t.shape) for t in leaves(cache['groups'])})}, "
+          f"{clean_eng.plan.n_leaves} canary units, "
+          f"{clean_eng.n_captures} graphs in "
+          f"{clean_eng.capture_seconds:.3f} s; clean {cs['completed']}/{n} "
+          f"completed in {cs['engine_steps']} steps, storm faults {f}, "
+          f"replay tokens {ss['replay_tokens']}, storm tokens == clean "
+          f"tokens for all {n} requests; decode p50 "
+          f"{cs['p50_decode_ms']:.3f} ms p99 {cs['p99_decode_ms']:.3f} ms "
+          f"(clean), device busy {busy:.3f} ms/step [{_SMI}]")
+    return clean_eng, clean, launches
+
+
+def check_ring_first_token(torch, eng, rq, tokens) -> None:
+    """8b: the engine's first decoded token (at position RING_PROMPT, in
+    row RING_PROMPT % window of every local layer's ring) equals the
+    argmax of a prefill of the prompt and its first token, 1,041 tokens,
+    and the decode's logits are within the bf16 tolerance of that
+    prefill's."""
+    m = eng.m
+    prompt = torch.from_numpy(rq.prompt[None]).to("cuda")
+    logits0, cache = eng.model.prefill(eng.params, m, {"tokens": prompt},
+                                       max_len=eng.max_len)
+    t0 = logits0.argmax(-1).to(torch.int32)
+    dec, _ = eng.model.decode_step(eng.params, m, cache, t0)
+    full, _ = eng.model.prefill(
+        eng.params, m, {"tokens": torch.cat([prompt, t0[:, None]], 1)},
+        max_len=eng.max_len)
+    err = float((dec - full).abs().max())
+    top2 = full[0].topk(2).values
+    want = int(full[0].argmax())
+    print(f"[serve-ring] first decoded token {tokens[0]}, argmax of the "
+          f"{prompt.shape[1] + 1}-token prefill {want} (its top-2 gap "
+          f"{float(top2[0] - top2[1]):.4f}), decode vs prefill logits "
+          f"max |diff| {err:.5f}")
+    assert tokens[0] == int(dec[0].argmax()) == want
+    assert err <= BF16_TOL * max(1.0, float(full.abs().max())), err
+
+
+def train_full_width(torch, cfg, name, steps: int = G_STEPS, **kw):
+    """8d/8e: one run of the training entry point at full width (global
+    batch T_BATCH, seq T_SEQ; one host snapshot and one disk checkpoint,
+    at step 0, with their seconds).  Returns (summary, final state)."""
+    from repro_torch.launch.train import train
+    d = WORK / name.replace(" ", "_")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    out, state = train(cfg, steps=steps, global_batch=T_BATCH,
+                       seq_len=T_SEQ, seed=0, snapshot_interval=G_INTERVAL,
+                       checkpoint_dir=str(d), checkpoint_interval=G_INTERVAL,
+                       verbose=False, device="cuda", return_state=True, **kw)
+    shutil.rmtree(d, ignore_errors=True)
+    rec, snap, ckpt = out["recovery"], out["snapshots"], out["checkpoints"]
+    print(f"[{name}] {out['steps']} steps in "
+          f"{time.perf_counter() - t0:.1f} s, final loss "
+          f"{out['final_loss']:.6f}, step p50 {out['p50_step_ms']:.3f} ms, "
+          f"faults injected {out['faults_injected']} detected "
+          f"{out['faults_detected']} recovered {out['faults_recovered']}, "
+          f"rungs {rec['by_rung']}, recovery p50 "
+          f"{out['p50_recovery_ms']:.3f} ms; {snap['count']} host snapshot "
+          f"(copy + host digests) {snap['seconds']:.2f} s, "
+          f"{ckpt['count']} disk checkpoint {ckpt['blocking_seconds']:.2f} "
+          f"s on the step path (device digests, host copy) + "
+          f"{ckpt['write_seconds']:.2f} s written by its thread [{_SMI}]")
+    return out, state
+
+
+def _host(torch, state):
+    """A host copy of a final state (the card keeps one state at a time:
+    a 10-18 GB state and a run's two versions and pack buffer fill it)."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to("cpu"), state)
+
+
+def train_gemma(torch):
+    """8d: gemma3-1b trained at full width (bf16 params, f32 moments),
+    K=1: functional clean and under a params storm (detected == injected
+    == recovered, final state == clean's bitwise), then ``--donate
+    --fused-detect`` clean (2 captured graphs over bf16 leaves) == the
+    functional clean run's, bitwise.  Returns the last run's final state
+    (on the card) and the phase's launches."""
+    cfg = _full_width(GEMMA)
+    _phase_start(torch)
+    clean, state = train_full_width(torch, cfg, "train-gemma clean",
+                                    canary_slices=1)
+    assert clean["faults_detected"] == 0 and clean["steps"] == G_STEPS
+    clean_host = _host(torch, state)
+    del state
+    storm, state = train_full_width(
+        torch, cfg, "train-gemma params storm", canary_slices=1,
+        inject_every=G_INJECT)
+    f = storm["faults_injected"]
+    assert f > 0 and storm["faults_detected"] == f, storm
+    assert storm["faults_recovered"] == f, storm
+    assert _same_state(torch, _host(torch, state), clean_host), \
+        "gemma3-1b params storm final state differs from the clean run's"
+    del state
+    fused, state = train_full_width(
+        torch, cfg, "train-gemma donate+fused clean", canary_slices=1,
+        donate=True, fused_detect=True)
+    assert fused["fused"]["captures"] == 2, fused
+    assert _same_state(torch, _host(torch, state), clean_host), \
+        "gemma3-1b donate+fused clean final state differs from functional"
+    del clean_host
+    launches = _phase_end(torch, "train-gemma")
+    for kernel in ("pack_rows", "row_checksums", "checksum_tiles"):
+        assert launches.get(kernel, 0) > 0, (kernel, launches)
+    print(f"[train-gemma] params storm final state == clean final state, "
+          f"donate+fused ({fused['fused']['captures']} graphs) clean == "
+          f"functional clean, bitwise")
+    return state, launches
+
+
+def train_danube(torch):
+    """8e: h2o-danube-1.8b trained at full width with its microbatch 8
+    (global batch 8: 8 slices of one sequence), ``--donate``, K=4: clean
+    and under a params storm whose flips land in the slice checked at
+    their step; final states bitwise equal."""
+    cfg = _full_width(DANUBE)
+    assert cfg.train.microbatch == 8
+    _phase_start(torch)
+    kw = dict(canary_slices=D_SLICES, donate=True, steps=D_STEPS)
+    clean, state = train_full_width(torch, cfg, "train-danube clean", **kw)
+    assert clean["faults_detected"] == 0 and clean["steps"] == D_STEPS
+    assert int(state["iv"]["micro_count"]) == 8 * D_STEPS
+    clean_host = _host(torch, state)
+    del state
+    storm, state = train_full_width(
+        torch, cfg, "train-danube params storm", inject_every=G_INJECT,
+        inject_armed_only=True, **kw)
+    f = storm["faults_injected"]
+    assert f > 0 and storm["faults_detected"] == f, storm
+    assert storm["faults_recovered"] == f, storm
+    assert set(storm["recovery"]["by_rung"]) <= {"replay"}, storm
+    assert _same_state(torch, _host(torch, state), clean_host), \
+        "h2o-danube params storm final state differs from the clean run's"
+    del clean_host
+    _phase_end(torch, "train-danube")
+    print(f"[train-danube] microbatch {cfg.train.microbatch}, untied head, "
+          f"head_dim {cfg.model.resolved_head_dim}: params storm final "
+          f"state == clean final state, bitwise")
+    del state
+
+
+def check_pack_wide(torch, flush, state, eng, launches):
+    """8f: ``pack_rows`` on the dense configs' leaves: 2-byte leaves read
+    in place and zero-extended.  Edge cases bitwise against the plain
+    version (bf16 / f16 / int16 leaves of odd lengths at 2-, 4- and
+    6-byte offsets, chunk boundaries inside a leaf, a leaf longer than
+    one pass of the grid, mixed with f32 leaves, untouched words around
+    them; a 1-byte leaf refused); then the gemma3-1b training canary's
+    leaves (bf16 params, f32 moments) and the bf16 KV pool's check+arm
+    slice of phase 8a's engine, bitwise and timed beside their bound
+    (2 B read + 4 B written a bf16 element, 4 + 4 an f32 one) and
+    ``torch.Tensor.to(torch.int32)`` of the same leaves.  Returns the
+    kernel JSON entries."""
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import digest as kd
+    from repro_torch.kernels import paged_kv as pkv
+    from repro_torch.kernels import ref
+    from repro_torch.serving import paged as pgd
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    base = _rand_bits(torch, (1 << 22,), torch.int32, gen)
+    half = base.view(torch.bfloat16)
+    sizes = [(1, 1), (3, 2), (5, 3), (77, 1), (8193, 0), (16387, 2),
+             (1 << 21, 1), (4, 0), (40000, 3)]    # (elements, 2-B offset)
+    leaves, at = [], 0
+    for i, (n, off) in enumerate(sizes):
+        at = -(-at // 8) * 8 + off
+        x = half[at:at + n]
+        leaves.append(x if i % 3 == 0 else
+                      x.view(torch.float16) if i % 3 == 1 else
+                      x.view(torch.int16))
+        at += n
+    f32 = base.view(torch.float32)
+    leaves += [f32[at // 2 + 1:at // 2 + 1 + 1000],        # unaligned f32
+               f32[(1 << 21) + 4096:(1 << 21) + 4096 + 33000]]
+    starts, r = [], 0
+    for x in leaves:
+        r += 1
+        starts.append(r * ck.LANES)
+        r += -(-x.numel() // ck.LANES)
+    buf = _rand_bits(torch, (r * ck.LANES + ck.LANES,), torch.int32, gen)
+    bk, bp = buf.clone(), buf.clone()
+    ck.pack_rows(bk, leaves, starts)
+    ref.pack_rows_ref(bp, leaves, starts)
+    err = _max_err(torch, bk, bp)
+    assert err == 0, f"widened pack_rows differs from its plain version " \
+        f"on edge cases ({err})"
+    msg = _expect(NotImplementedError, lambda: ck.pack_rows(
+        bk, [torch.zeros(5, dtype=torch.int8, device="cuda")], [0]),
+        "pack_rows of an int8 leaf")
+    print(f"[pack-wide] edge cases bitwise equal to plain: {len(leaves)} "
+          f"leaves (bf16/f16/int16 of 1 to 2^21 elements at 2-, 4- and "
+          f"6-byte offsets, 2 f32), words around them untouched; an int8 "
+          f"leaf refused: {msg}")
+    del base, buf, bk, bp, leaves
+
+    # gather_blocks on the bf16 pool: its blocks move as 4-byte words
+    leaf = eng.pool["groups"][0][0]["k"]
+    got = pkv.gather_blocks(leaf, eng.bt)
+    err = _max_err(torch, got.view(torch.int16),
+                   ref.gather_blocks_ref(leaf, eng.bt).view(torch.int16))
+    assert err == 0, f"gather_blocks differs on the bf16 pool ({err})"
+    ms = _median_ms(lambda: pkv.gather_blocks(leaf, eng.bt), torch, flush,
+                    queued=True)
+    bound, _ = _bound_ms(2 * got.numel() * got.element_size())
+    msg = _expect(TypeError, lambda: pkv.gather_blocks(
+        torch.zeros((4, 3), dtype=torch.bfloat16, device="cuda"), eng.bt),
+        "gather_blocks of 6-byte blocks")
+    print(f"[pack-wide] gather_blocks on the bf16 pool leaf "
+          f"{tuple(leaf.shape)} with the table {tuple(eng.bt.shape)}: "
+          f"bitwise equal to plain, {ms:.4f} ms (bound {bound:.4f} ms); "
+          f"a pool of 6-byte blocks refused: {msg}")
+
+    out = {}
+    plan = kd.plan_for(state)
+    # the check half of the K=1 union lays the leaves out as one copy does
+    lay = plan.layout(tuple(range(plan.n_leaves)))
+    train_leaves = plan.leaves(state)
+    pool_view = pgd.paged_canary_view(eng.pool, eng.pos, eng.n_blocks,
+                                      eng.S)
+    core = eng._rotation(0)
+    pool_leaves = [eng.plan.leaves(pool_view)[i] for i in core.union]
+    cases = (
+        ("pack_rows (gemma3-1b training canary, bf16 params + f32 "
+         "moments)", train_leaves, lay.starts[:plan.n_leaves],
+         lay.padded_rows),
+        ("pack_rows (gemma3-1b paged KV pool, bf16, K=4 check+arm)",
+         pool_leaves, eng.plan.layout(core.union).starts,
+         eng.plan.layout(core.union).padded_rows))
+    for label, xs, starts, rows in cases:
+        bk = torch.zeros(rows * ck.LANES, dtype=torch.int32, device="cuda")
+        bp = torch.zeros_like(bk)
+        ref.pack_rows_ref(bp, xs, starts)
+        desc = ck.pack_descriptors(xs, starts, "cuda")
+        ck.pack_rows(bk, xs, starts, desc=desc)
+        err = _max_err(torch, bk, bp)
+        assert err == 0, f"{label}: differs from its plain version ({err})"
+        del bp
+        n_bytes = sum(x.numel() * (x.element_size() + 4) for x in xs)
+        two = sum(x.numel() for x in xs if x.element_size() == 2)
+        bound, by = _bound_ms(n_bytes)
+        ms = _median_ms(lambda: ck.pack_rows(bk, xs, starts, desc=desc),
+                        torch, flush, queued=True)
+        plain_ms = _median_ms(lambda: ref.pack_rows_ref(bk, xs, starts),
+                              torch, flush, queued=True)
+        to_ms = _median_ms(lambda: [x.to(torch.int32) for x in xs], torch,
+                           flush, queued=True)
+        print(f"[pack-wide] {label}: bitwise equal to plain, {len(xs)} "
+              f"leaves, {two} 2-byte elements of "
+              f"{sum(x.numel() for x in xs)}, {n_bytes / 1e9:.4f} GB moved, "
+              f"{desc.n_chunks} chunks: device time kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, Tensor.to(int32) of the same "
+              f"leaves {to_ms:.4f} ms, bound {bound:.4f} ms ({by}) "
+              f"[{_SMI}]")
+        out[label] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/checksum.cu",
+            replaces="src/repro/kernels/checksum.py:85", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=None, launches=launches)
+        # the step's one row_checksums launch over that buffer
+        rows = bk.view(-1, ck.LANES)
+        rc = ck.row_checksums(rows)
+        assert torch.equal(rc[:4096], ref.row_checksums_ref(rows[:4096]))
+        rc_ms = _median_ms(lambda: ck.row_checksums(rows), torch, flush,
+                           queued=True)
+        rc_bound, rc_by = _bound_ms(rows.shape[0] * (ck.LANES * 4 + 8),
+                                    rows.shape[0] * ck.LANES * 3)
+        print(f"[pack-wide] row_checksums over that buffer ({rows.shape[0]} "
+              f"rows): device time {rc_ms:.4f} ms, bound {rc_bound:.4f} ms "
+              f"({rc_by}) [{_SMI}]")
+        del bk, rows, rc
+    # checksum_tiles on the bf16 embedding's words (a checkpoint digest)
+    table = state["params"]["embed"]["table"]
+    flat = ref.to_i32(table)
+    got = ck.checksum_tiles(flat)
+    err = _max_err(torch, got, ref.checksum_tiles_ref(flat))
+    assert err == 0, f"checksum_tiles differs on the bf16 embedding ({err})"
+    ms = _median_ms(lambda: ck.checksum_tiles(flat), torch, flush,
+                    queued=True)
+    bound, by = _bound_ms(4 * flat.numel() + 8 * got.shape[0],
+                          3 * flat.numel())
+    print(f"[pack-wide] checksum_tiles of the bf16 embedding "
+          f"{tuple(table.shape)} ({flat.numel()} words): bitwise equal to "
+          f"plain, device time {ms:.4f} ms, bound {bound:.4f} ms ({by}) "
+          f"[{_SMI}]")
+    return out
+
+
 def main() -> int:
     # deterministic cuBLAS for the training phase: read when the first
     # cuBLAS workspace is made, so before anything touches the card
@@ -2022,6 +2469,53 @@ def main() -> int:
             del runs[name]
     profile_modes(torch, cfg, clean_state)
 
+    # -- phase 8: the dense configurations at full width ------------------
+    common8 = dict(n_slots=SLOTS, max_len=PROMPT + GEN + 1,
+                   block_size=BLOCK)
+    gcfg = _full_width(GEMMA)
+
+    def g_reqs():
+        return make_requests(gcfg, N_REQUESTS, PROMPT, GEN,
+                             np.random.default_rng(0))
+
+    def ring_reqs():
+        return make_requests(gcfg, 2, RING_PROMPT, RING_GEN,
+                             np.random.default_rng(1))
+
+    g_eng, _, l8a = serve_full_width(torch, gcfg, "serve-gemma", g_reqs,
+                                     paged=True, **common8)
+    r_eng, r_rep, l8b = serve_full_width(
+        torch, gcfg, "serve-ring", ring_reqs, paged=False,
+        params=g_eng.params, n_slots=2,
+        max_len=RING_PROMPT + RING_GEN + 1, block_size=BLOCK)
+    check_ring_first_token(torch, r_eng, ring_reqs()[0],
+                           r_rep.per_request[0]["tokens"])
+    del r_eng
+    ccfg = _full_width(COMMAND_R, n_layers=CMD_LAYERS)
+    print(f"[serve-command-r] {COMMAND_R} at full width (d "
+          f"{ccfg.model.d_model}, d_ff {ccfg.model.d_ff}, "
+          f"{ccfg.model.n_heads}/{ccfg.model.n_kv_heads} heads, vocab "
+          f"{ccfg.model.vocab_size}, parallel blocks), depth cut to "
+          f"{CMD_LAYERS} of its 40 layers")
+    c_eng, _, _ = serve_full_width(
+        torch, ccfg, "serve-command-r",
+        lambda: make_requests(ccfg, N_REQUESTS, PROMPT, GEN,
+                              np.random.default_rng(2)),
+        paged=True, **common8)
+    del c_eng
+    g_state, l8d = train_gemma(torch)
+    wide_launches = sum(lc.get("pack_rows", 0) for lc in (l8a, l8b, l8d))
+    print(f"[pack-wide] pack_rows launches on phases 8a, 8b, 8d (bf16 "
+          f"leaves in every one): {l8a.get('pack_rows', 0)}, "
+          f"{l8b.get('pack_rows', 0)}, {l8d.get('pack_rows', 0)}")
+    _phase_start(torch)
+    wide = check_pack_wide(torch, flush, g_state, g_eng, wide_launches)
+    del g_eng
+    _phase_start(torch)
+    profile_train(torch, gcfg, g_state, steps=2)
+    del g_state
+    train_danube(torch)
+
     for name, r in train_kernels.items():
         kernels[name] = r
         launches[name] = train_launches[name]
@@ -2031,6 +2525,9 @@ def main() -> int:
     for name, r in flash_kernels.items():
         kernels[name] = r
         launches[name] = flash_launches[name]
+    for name, r in wide.items():
+        kernels[name] = r
+        launches[name] = r["launches"]
     print(json.dumps({"kernels": [
         {"name": name, "route": r["route"], "source": r["source"],
          "replaces": r["replaces"], "launches": launches[name],

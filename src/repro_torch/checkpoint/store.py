@@ -139,6 +139,7 @@ class CheckpointManager:
         self._last_error: Optional[BaseException] = None
         self.saves = 0
         self.save_seconds_blocking = 0.0  # time the step path actually paid
+        self.write_seconds = 0.0          # the writer thread's time
         os.makedirs(directory, exist_ok=True)
 
     def maybe_save(self, step: int, state) -> bool:
@@ -181,9 +182,11 @@ class CheckpointManager:
 
     def _write(self, step: int, host_state, digests) -> None:
         try:
+            t0 = time.perf_counter()
             slot = self._slot
             self._slot ^= 1
             save_checkpoint(self.directory, host_state, step, slot=slot,
                             digests=digests)
+            self.write_seconds += time.perf_counter() - t0
         except BaseException as e:  # noqa: BLE001 — surfaced on next wait()
             self._last_error = e

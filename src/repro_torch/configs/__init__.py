@@ -5,9 +5,15 @@ Only the configurations the port runs are registered; smoke variants are
 
 from repro_torch.configs.base import (ArchConfig, ModelConfig, ShardingPlan,
                                       TrainPlan)
+from repro_torch.configs.command_r_35b import CONFIG as _COMMAND_R_35B
+from repro_torch.configs.gemma3_1b import CONFIG as _GEMMA3_1B
+from repro_torch.configs.gemma3_27b import CONFIG as _GEMMA3_27B
+from repro_torch.configs.h2o_danube_1_8b import CONFIG as _H2O_DANUBE_18B
 from repro_torch.configs.iterpro_100m import CONFIG as _ITERPRO_100M
 
-_REGISTRY = {c.arch_id: c for c in (_ITERPRO_100M,)}
+_REGISTRY = {c.arch_id: c for c in (_COMMAND_R_35B, _H2O_DANUBE_18B,
+                                    _GEMMA3_1B, _GEMMA3_27B,
+                                    _ITERPRO_100M)}
 
 
 def list_archs():

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import random
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Set, Tuple
 
 import torch
 
@@ -56,11 +56,18 @@ def _leaf_catalog(tree) -> List[Tuple[str, int, str]]:
 
 
 def sample_plan(rng: random.Random, state, max_step: int,
-                target: str = "params") -> InjectionPlan:
+                target: str = "params",
+                only: Optional[Set[str]] = None) -> InjectionPlan:
     """Size-weighted leaf choice; uniform element/bit/step — the paper's
-    execution-weighted single-bit-flip model."""
+    execution-weighted single-bit-flip model.  ``only`` restricts the
+    choice to the leaves whose full state paths it names."""
     tree = state[target] if target in ("params", "opt", "iv") else state
     catalog = _leaf_catalog(tree)
+    if only is not None:
+        prefix = f"{target}/" if tree is not state else ""
+        catalog = [c for c in catalog if prefix + c[0] in only]
+        if not catalog:
+            raise ValueError(f"no {target} leaf among {sorted(only)}")
     pick = rng.randrange(sum(size for _, size, _ in catalog))
     acc = 0
     for key, size, dtype in catalog:

@@ -38,19 +38,26 @@ def chunk_count(n_bytes: int) -> int:
 
 
 def pack_schedule(ptrs: Sequence[int], n_words: Sequence[int],
-                  starts: Sequence[int]) -> Tuple[np.ndarray, int]:
-    """The ``pack_rows`` kernel's schedule: an ``(n_leaves, 4)`` int64
-    table of ``(src_ptr, n_words, dst_start, first_chunk)`` and the total
-    chunk count.  ``first_chunk`` is the prefix sum of the leaves' chunk
-    counts (``chunk_count`` of ``4 * n_words`` bytes), so chunk ``c``
-    belongs to the last leaf whose ``first_chunk <= c``."""
+                  starts: Sequence[int],
+                  elem_bytes: Optional[Sequence[int]] = None
+                  ) -> Tuple[np.ndarray, int]:
+    """The ``pack_rows`` kernel's schedule: an ``(n_leaves, 5)`` int64
+    table of ``(src_ptr, n_words, dst_start, first_chunk, elem_bytes)``
+    and the total chunk count.  ``n_words`` is the words a leaf fills
+    (its element count); ``elem_bytes`` its element size, 4 (copied as
+    is) or 2 (each value zero-extended to a word; 4 when not given).
+    ``first_chunk`` is the prefix sum of the leaves' chunk counts
+    (``chunk_count`` of the ``4 * n_words`` bytes each writes), so chunk
+    ``c`` belongs to the last leaf whose ``first_chunk <= c``."""
+    if elem_bytes is None:
+        elem_bytes = [4] * len(ptrs)
     counts = [chunk_count(4 * int(n)) for n in n_words]
     first = np.zeros(len(counts), np.int64)
     if counts:
         first[1:] = np.cumsum(counts[:-1])
-    table = np.array([(int(p), int(n), int(s), int(f)) for p, n, s, f
-                      in zip(ptrs, n_words, starts, first)],
-                     dtype=np.int64).reshape(-1, 4)
+    table = np.array([(int(p), int(n), int(s), int(f), int(e)) for p, n, s, f, e
+                      in zip(ptrs, n_words, starts, first, elem_bytes)],
+                     dtype=np.int64).reshape(-1, 5)
     return table, int(sum(counts))
 
 
@@ -61,49 +68,60 @@ class PackDescriptors(NamedTuple):
     n_chunks: int
 
 
-def pack_descriptors(flats: Sequence[torch.Tensor], starts: Sequence[int],
+def pack_descriptors(leaves: Sequence[torch.Tensor], starts: Sequence[int],
                      device) -> PackDescriptors:
-    """The kernel's schedule of ``flats`` on ``device``.  Valid only while
-    every flat keeps its storage; callers cache it keyed by the
-    pointers."""
-    table, n_chunks = pack_schedule([f.data_ptr() for f in flats],
-                                    [f.numel() for f in flats], starts)
+    """The kernel's schedule of ``leaves`` on ``device``: each leaf's own
+    ``data_ptr`` and element size.  Valid only while every leaf keeps its
+    storage; callers cache it keyed by the pointers."""
+    table, n_chunks = pack_schedule([x.data_ptr() for x in leaves],
+                                    [x.numel() for x in leaves], starts,
+                                    [x.element_size() for x in leaves])
     return PackDescriptors(torch.from_numpy(table).to(device), n_chunks)
 
 
-def pack_rows(buf: torch.Tensor, flats: Sequence[torch.Tensor],
+def pack_rows(buf: torch.Tensor, leaves: Sequence[torch.Tensor],
               starts: Sequence[int], *,
               desc: Optional[PackDescriptors] = None) -> torch.Tensor:
-    """In-place scatter of flat int32 leaves into the packing buffer at the
-    given element offsets (row aligned); other words are untouched.
+    """In-place scatter of the leaves' ``ref.to_i32`` words into the
+    packing buffer at the given element offsets (row aligned); other
+    words are untouched.
 
-    buf   : flat int32 packing buffer, written in place and returned.
-    flats : flat int32 contiguous leaves (``ref.to_i32`` views).
-    desc  : optional pre-built ``pack_descriptors(flats, starts)`` (CUDA
-            only), so a steady-state caller uploads nothing.
+    buf    : flat int32 packing buffer, written in place and returned.
+    leaves : contiguous tensors, read in place: 4-byte elements are
+             copied as they are, 2-byte ones (bf16, f16, int16)
+             zero-extended into words by the kernel itself.  1-byte
+             leaves are not packed on the card yet.
+    desc   : optional pre-built ``pack_descriptors(leaves, starts)`` (CUDA
+             only), so a steady-state caller uploads nothing.
     """
     if buf.device.type == "cpu":
-        return _ref.pack_rows_ref(buf, flats, starts)
+        return _ref.pack_rows_ref(buf, leaves, starts)
     if buf.device.type != "cuda":
         raise ValueError(f"pack_rows: unsupported device {buf.device}")
     if buf.dtype != torch.int32:
         raise TypeError("pack_rows: buf must be int32")
-    for f, s in zip(flats, starts):
-        if f.dtype != torch.int32 or not f.is_contiguous():
-            raise ValueError("pack_rows: leaves must be contiguous int32")
-        if f.device != buf.device:
+    for x, s in zip(leaves, starts):
+        if x.element_size() == 1:
+            raise NotImplementedError(
+                "pack_rows: 1-byte leaves (int8 moments) are not packed on "
+                "the card yet (ROADMAP.md queue 1 item 5)")
+        if x.element_size() not in (2, 4) or x.is_complex() \
+                or not x.is_contiguous():
+            raise ValueError("pack_rows: leaves must be contiguous, of "
+                             "2- or 4-byte elements")
+        if x.device != buf.device:
             raise ValueError("pack_rows: leaf on another device")
-        if s % LANES or s + f.numel() > buf.numel():
-            raise ValueError(f"pack_rows: bad start {s} for {f.numel()} words")
-    if len(flats) > MAX_PACK_LEAVES:
-        raise ValueError(f"pack_rows: {len(flats)} leaves, at most "
+        if s % LANES or s + x.numel() > buf.numel():
+            raise ValueError(f"pack_rows: bad start {s} for {x.numel()} words")
+    if len(leaves) > MAX_PACK_LEAVES:
+        raise ValueError(f"pack_rows: {len(leaves)} leaves, at most "
                          f"{MAX_PACK_LEAVES} per launch")
     _build.require_cuda("pack_rows", buf)
     if desc is None:
-        desc = pack_descriptors(flats, starts, buf.device)
+        desc = pack_descriptors(leaves, starts, buf.device)
     if desc.n_chunks:                     # else every leaf is empty
         rc = _build.lib().repro_pack_rows(
-            buf.data_ptr(), desc.table.data_ptr(), len(flats),
+            buf.data_ptr(), desc.table.data_ptr(), len(leaves),
             desc.n_chunks, _build.stream_of(buf))
         _build.check(rc, "pack_rows")
         _build.LAUNCHES["pack_rows"] += 1

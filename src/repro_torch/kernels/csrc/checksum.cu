@@ -8,8 +8,9 @@
 // aliased into the output; here a device descriptor table holds
 // (src_ptr, n_words, dst_start, first_chunk) per leaf, so one launch
 // covers every leaf of a canary slice without any per-leaf host work.
-//   Bound: bytes.  Each leaf word is read once and written once; there is
-//   no arithmetic.  Design: the persistent bulk-async copy engine of
+//   Bound: bytes.  Each leaf word is read once and written once (a
+//   2-byte leaf: 2 B read and 4 B written per element); there is no
+//   arithmetic.  Design: the persistent bulk-async copy engine of
 //   copy.cuh.  Each leaf is cut into chunks of at most kChunk bytes
 //   (never across a leaf); `first_chunk` is the prefix sum of the leaves'
 //   chunk counts (kernels/checksum.py:pack_schedule), staged in shared
@@ -19,6 +20,13 @@
 //   Aligned chunks go through the shared-memory ring with 1-D bulk
 //   copies; a `pos[u]` scalar view, an unaligned source or a leaf's
 //   ragged tail is copied word by word by the same launch.
+//   A 2-byte leaf (bf16 params, a bf16 KV cache) is read in place: its
+//   descriptor carries elem_bytes = 2, its chunks are cut over the words
+//   it fills (4 * n_words bytes, 2 * n_words read), and the word path
+//   zero-extends each value into its word (copy.cuh:widen_path), which
+//   is what the reference's pack of to_i32 flats writes.  No widened
+//   copy of the leaf is made, so a captured graph reads only storage
+//   that lives as long as the state.
 //
 // row_checksums replaces src/repro/kernels/checksum.py:136 (`row_checksums`,
 // kernel bodies :57 and :68): for every 128-lane int32 row it computes
@@ -51,11 +59,12 @@
 
 #include "copy.cuh"
 
-struct PackDesc {          // mirrors the wrapper's (n_leaves, 4) int64 table
-  const int32_t* src;
-  long long n_words;
+struct PackDesc {          // mirrors the wrapper's (n_leaves, 5) int64 table
+  const char* src;
+  long long n_words;       // words written (== the leaf's element count)
   long long dst_start;
   long long first_chunk;   // chunks of the leaves before this one
+  long long elem_bytes;    // 4: copied as is; 2: zero-extended to a word
 };
 
 // first_chunk column in shared memory: 64 KiB after the 128 KiB ring,
@@ -64,7 +73,8 @@ constexpr int kMaxLeaves = 8192;
 
 // Chunk c of the pack: the leaf l with the largest first_chunk <= c (a
 // leaf with no chunks shares its successor's first_chunk and is never
-// picked), then chunk c - first_chunk[l] of its 4 * n_words bytes.
+// picked), then chunk c - first_chunk[l] of the 4 * n_words bytes it
+// writes; a 2-byte leaf's chunk reads from half that offset.
 struct PackMap {
   const PackDesc* desc;
   const long long* first;      // the first_chunk column, in shared memory
@@ -80,8 +90,9 @@ struct PackMap {
     const PackDesc& d = desc[lo];
     long long off, len;
     copy_engine::chunk_span(c - first[lo], 4 * d.n_words, off, len);
-    return {reinterpret_cast<const char*>(d.src) + off,
-            reinterpret_cast<char*>(buf + d.dst_start) + off, len};
+    const int widen = d.elem_bytes == 2;
+    return {d.src + (widen ? off >> 1 : off),
+            reinterpret_cast<char*>(buf + d.dst_start) + off, len, widen};
   }
 };
 

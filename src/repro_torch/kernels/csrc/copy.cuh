@@ -22,6 +22,11 @@
 // data.  Warps 1-7 copy every other chunk (unaligned scalar views, a
 // block of 21 words, a leaf's ragged tail) word by word, global to
 // global, in the same launch.  A chunk with no source writes zeros.
+// A widening chunk (pack_rows of a 2-byte leaf) reads bytes / 2 source
+// bytes and zero-extends each 2-byte value into one 4-byte word; it
+// never takes the bulk path (a bulk copy cannot widen), and warps 1-7
+// move it 4 values (8 B loaded, 16 B stored) a thread where both ends
+// are aligned for that, value by value otherwise.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,10 +47,13 @@ constexpr int kRingBytes = kStages * kChunk + kBarBytes;
 constexpr int kMaxDevices = 64;
 
 // One chunk: `bytes` bytes from `src` to `dst`; a null `src` writes zeros.
+// With `widen`, `src` holds bytes / 4 values of 2 bytes, each written to
+// `dst` as one zero-extended 4-byte word (`bytes` counts the destination).
 struct Span {
   const char* src;
   char* dst;
   long long bytes;
+  int widen;
 };
 
 __host__ __device__ inline long long chunk_count(long long n) {
@@ -67,7 +75,7 @@ __device__ inline void chunk_span(long long k, long long n, long long& off,
 }
 
 __device__ inline bool bulk_ok(const Span& s) {
-  return s.src != nullptr &&
+  return s.src != nullptr && !s.widen &&
          ((reinterpret_cast<uintptr_t>(s.src) |
            reinterpret_cast<uintptr_t>(s.dst) | (uintptr_t)s.bytes) & 15) ==
              0;
@@ -169,14 +177,45 @@ __device__ void bulk_pipeline(const Map& map, long long n,
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// A widening chunk, by thread t of the word path: bytes / 4 values of 2
+// bytes, each zero-extended into one destination word.  With an 8-byte
+// aligned source and a 16-byte aligned destination a thread moves 4
+// values a step (one 8-byte load, one 16-byte store); the rest, and any
+// chunk not so aligned, go value by value.
+__device__ inline void widen_path(const Span& s, int t) {
+  const long long words = s.bytes >> 2;
+  long long done = 0;
+  if (((reinterpret_cast<uintptr_t>(s.src) & 7) |
+       (reinterpret_cast<uintptr_t>(s.dst) & 15)) == 0) {
+    const uint2* __restrict__ src = reinterpret_cast<const uint2*>(s.src);
+    uint4* __restrict__ dst = reinterpret_cast<uint4*>(s.dst);
+    const long long quads = words >> 2;
+#pragma unroll 4
+    for (long long i = t; i < quads; i += kWordThreads) {
+      const uint2 v = __ldg(src + i);
+      dst[i] = make_uint4(v.x & 0xffffu, v.x >> 16, v.y & 0xffffu,
+                          v.y >> 16);
+    }
+    done = quads << 2;
+  }
+  const uint16_t* src = reinterpret_cast<const uint16_t*>(s.src);
+  uint32_t* dst = reinterpret_cast<uint32_t*>(s.dst);
+  for (long long i = done + t; i < words; i += kWordThreads) dst[i] = src[i];
+}
+
 // Warps 1-7: every chunk of this CTA the bulk path does not take, one
-// 4-byte word per thread per step (every run here is whole 4-byte words).
+// 4-byte word per thread per step (every run here is whole 4-byte words),
+// or a widening chunk through widen_path.
 template <class Map>
 __device__ void word_path(const Map& map, long long n) {
   const int t = threadIdx.x - 32;
   for (long long c = blockIdx.x; c < n; c += gridDim.x) {
     const Span s = map(c);
     if (bulk_ok(s)) continue;
+    if (s.widen) {
+      widen_path(s, t);
+      continue;
+    }
     const int32_t* src = reinterpret_cast<const int32_t*>(s.src);
     int32_t* dst = reinterpret_cast<int32_t*>(s.dst);
     const long long words = s.bytes >> 2;

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel src/repro/kernels/paged_kv.py:52
 // (`gather_blocks`, body :73): out[s, j] = pool[bt[s, j]] for a block pool
-// (n_blocks, block_words) of 4-byte words and a block table (S, max_blocks)
+// (n_blocks, block_words) of 4-byte words (a bf16 pool's blocks move as
+// the words of their element pairs) and a block table (S, max_blocks)
 // int32 — a pure copy, which is what keeps the paged engine bit-exact.
 // On the TPU the table rode scalar prefetch into the BlockSpec index map;
 // the card has no scalar prefetch, so the kernel reads each table entry
@@ -37,8 +38,8 @@ struct GatherMap {
     copy_engine::chunk_span(c - pair * per_pair, block_bytes, off, len);
     char* dst = out + pair * block_bytes + off;
     const int b = __ldg(bt + pair);
-    if (b < 0 || b >= n_blocks) return {nullptr, dst, len};
-    return {pool + (long long)b * block_bytes + off, dst, len};
+    if (b < 0 || b >= n_blocks) return {nullptr, dst, len, 0};
+    return {pool + (long long)b * block_bytes + off, dst, len, 0};
   }
 };
 

@@ -43,6 +43,10 @@ from repro_torch.kernels import ref as _ref
 LANES = _ck.LANES
 TILE_ROWS = _ck.TILE_ROWS
 _MASK32 = 0xFFFFFFFF
+#: words of the largest transient packing buffer: an off-hot-path digest
+#: of more leaves goes through several (a larger leaf alone), so digesting
+#: a whole state never holds a second, widened copy of it on the card
+TRANSIENT_WORDS = 1 << 28
 
 leaf_key = _tree.leaf_key
 
@@ -192,9 +196,8 @@ class DigestPlan:
         the graph: the graph reads it by address."""
         if self.device.type != "cuda" or not leaves:
             return None
-        flats = [_ref.to_i32(x) for x in leaves]
         return _ck.pack_descriptors(
-            flats, self.layout(idx).starts[first:first + len(flats)],
+            leaves, self.layout(idx).starts[first:first + len(leaves)],
             self.device)
 
     def pack(self, buf: torch.Tensor, idx: Tuple[int, ...],
@@ -207,17 +210,17 @@ class DigestPlan:
         only when a leaf's base pointer changed."""
         if not leaves:
             return
-        flats = [_ref.to_i32(x) for x in leaves]
-        starts = self.layout(idx).starts[first:first + len(flats)]
+        starts = self.layout(idx).starts[first:first + len(leaves)]
         if buf.device.type == "cuda" and desc is None:
-            ptrs = tuple(f.data_ptr() for f in flats)
-            key = (idx, first, len(flats))
+            ptrs = tuple(x.data_ptr() for x in leaves)
+            key = (idx, first, len(leaves))
             hit = self._descs.get(key)
             if hit is None or hit[0] != ptrs:
-                hit = (ptrs, _ck.pack_descriptors(flats, starts, buf.device))
+                hit = (ptrs, _ck.pack_descriptors(leaves, starts,
+                                                  buf.device))
                 self._descs[key] = hit
             desc = hit[1]
-        _ck.pack_rows(buf, flats, starts, desc=desc)
+        _ck.pack_rows(buf, leaves, starts, desc=desc)
 
     def combine(self, buf: torch.Tensor, lay: _Layout) -> torch.Tensor:
         """ONE ``row_checksums`` launch over ``buf`` and the exact combine
@@ -245,15 +248,37 @@ class DigestPlan:
         out = torch.stack([seg_sums(s1), seg_sums(t2)], dim=1)
         return _ref.wrap_i32(out)
 
+    def _groups(self, idx: Tuple[int, ...]) -> List[Tuple[int, int]]:
+        """``[lo, hi)`` runs of ``idx`` whose rows fit ``TRANSIENT_WORDS``
+        words (a larger leaf makes a run alone)."""
+        runs, lo, rows = [], 0, 0
+        for j, i in enumerate(idx):
+            n = self.specs[i].n_rows
+            if j > lo and (rows + n) * LANES > TRANSIENT_WORDS:
+                runs.append((lo, j))
+                lo, rows = j, 0
+            rows += n
+        runs.append((lo, len(idx)))
+        return runs
+
     def _run(self, idx: Tuple[int, ...], leaves) -> torch.Tensor:
         STATS.launches += 1
         buf = self._pack_bufs.get(idx)
-        if buf is None:
-            # off-hot-path digests (canary init / refresh) use a transient
-            # buffer instead of pinning one per subset for the plan's life
-            buf = self._new_buffer(idx)
-        self.pack(buf, idx, leaves)
-        return self.combine(buf, self.layout(idx))
+        if buf is not None:
+            self.pack(buf, idx, leaves)
+            return self.combine(buf, self.layout(idx))
+        # off-hot-path digests (canary init / refresh) use transient
+        # buffers instead of pinning one per subset for the plan's life;
+        # a leaf's digest does not depend on its neighbours, so the runs'
+        # tables concatenate to the whole subset's
+        parts = []
+        for lo, hi in self._groups(idx):
+            sub = idx[lo:hi]
+            buf = self._new_buffer(sub)
+            self.pack(buf, sub, leaves[lo:hi])
+            parts.append(self.combine(buf, self.layout(sub)))
+            del buf
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     # -- public digesting --------------------------------------------------
 
@@ -413,14 +438,30 @@ def _host_i32(x) -> np.ndarray:
         a.astype(np.float32)).reshape(-1).view(np.int32)
 
 
+#: words a host digest takes at a time: its temporaries stay in cache (a
+#: whole-leaf weight vector and product cost 3-4x the time at 10-18 GB)
+HOST_CHUNK = 1 << 16
+
+
 def host_checksum(x) -> np.ndarray:
     """Fletcher digest int32[2] of a host tensor or array — bit-identical
-    to the device digest of the same bytes, with no device work."""
-    f = _host_i32(x).view(np.uint32)
-    idx = np.arange(1, f.shape[0] + 1, dtype=np.uint32)
-    s1 = np.add.reduce(f, dtype=np.uint32)
-    s2 = np.add.reduce(f * idx, dtype=np.uint32)
-    return np.array([s1, s2], dtype=np.uint32).view(np.int32)
+    to the device digest of the same bytes, with no device work.  Taken
+    ``HOST_CHUNK`` words at a time: word j of the chunk at i weighs
+    ``i + j + 1`` (mod 2^32)."""
+    a = np.ascontiguousarray(host_bits(x)).reshape(-1)
+    n = a.shape[0]
+    base = np.arange(1, min(n, HOST_CHUNK) + 1, dtype=np.uint32)
+    w = np.empty_like(base)
+    s1 = s2 = 0
+    for i in range(0, n, HOST_CHUNK):
+        f = _host_i32(a[i:i + HOST_CHUNK]).view(np.uint32)
+        m = f.shape[0]
+        np.add(base[:m], np.uint32(i & _MASK32), out=w[:m])
+        s1 += int(np.add.reduce(f, dtype=np.uint32))
+        np.multiply(f, w[:m], out=w[:m])
+        s2 += int(np.add.reduce(w[:m], dtype=np.uint32))
+    return np.array([s1 & _MASK32, s2 & _MASK32],
+                    dtype=np.uint32).view(np.int32)
 
 
 def host_tree_checksums(tree) -> Dict[str, np.ndarray]:

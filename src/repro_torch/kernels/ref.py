@@ -159,12 +159,13 @@ def xor_reconstruct_ref(parity: torch.Tensor,
     return xor_fold_ref([parity, *others])
 
 
-def pack_rows_ref(buf: torch.Tensor, flats: Sequence[torch.Tensor],
+def pack_rows_ref(buf: torch.Tensor, leaves: Sequence[torch.Tensor],
                   starts: Sequence[int]) -> torch.Tensor:
-    """Write each flat int32 leaf into ``buf`` at its element offset, in
-    place; every other word of ``buf`` is left untouched."""
-    for flat, s in zip(flats, starts):
-        buf[s:s + flat.numel()].copy_(flat.reshape(-1))
+    """Write each leaf's ``to_i32`` words into ``buf`` at its element
+    offset, in place (a 2-byte leaf zero-extended, as the reference packs
+    ``to_i32`` flats); every other word of ``buf`` is left untouched."""
+    for x, s in zip(leaves, starts):
+        buf[s:s + x.numel()].copy_(to_i32(x))
     return buf
 
 

@@ -45,8 +45,16 @@ the embedding and tied-logits backward would otherwise accumulate with
 atomics in a varying order, and a replayed step would not reproduce the
 clean trajectory bit for bit.
 
+``--arch`` takes every dense configuration (``iterpro-100m``,
+``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``);
+without ``--smoke`` a config's ``microbatch`` (8 for all but gemma3-1b
+and iterpro-100m) accumulates the gradients of that many slices of the
+batch in its bf16 ``grad_reduce_dtype``, as the reference does.
+
 Not ported yet, each raising ``NotImplementedError``: ``--mesh``,
-``--elastic`` and ``--kill-row-at`` (ROADMAP.md, queue 1).
+``--elastic`` and ``--kill-row-at``, the non-dense families, and the
+bf16 and int8 moments and Adafactor of the other configs' train plans
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -144,6 +152,7 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
           seed: int = 0, snapshot_interval: int = 8,
           checkpoint_dir: Optional[str] = None, checkpoint_interval: int = 50,
           inject_every: int = 0, inject_target: str = "params",
+          inject_armed_only: bool = False,
           canary_slices: int = 4, detectors: bool = True,
           donate: bool = False, fused_detect: bool = False,
           fused_warm: str = "eager", mesh: Optional[str] = None,
@@ -152,7 +161,10 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
           device=None, return_state: bool = False):
     """Run the recovery-wrapped loop; returns the loop report dict (and
     the final state with ``return_state``).  ``seed`` seeds the params
-    init, the data and the injection storm.  ``detectors=False`` runs
+    init, the data and the injection storm.  ``inject_armed_only`` flips
+    only leaves of the canary slice checked at the flip's step (as the
+    serving engine's ``inject_armed_only``), so under a K-slice canary
+    every storm flip is detected.  ``detectors=False`` runs
     without the traps and the canary (then ``parity``, ``triage`` and
     ``fused_detect`` raise, as in the reference)."""
     asked = {"mesh": bool(mesh), "elastic": elastic,
@@ -168,6 +180,7 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
                       checkpoint_dir=checkpoint_dir,
                       checkpoint_interval=checkpoint_interval,
                       inject_every=inject_every, inject_target=inject_target,
+                      inject_armed_only=inject_armed_only,
                       canary_slices=canary_slices, detectors=detectors,
                       donate=donate, fused_detect=fused_detect,
                       fused_warm=fused_warm, parity=parity, triage=triage,
@@ -177,6 +190,7 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
 
 def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
            checkpoint_dir, checkpoint_interval, inject_every, inject_target,
+           inject_armed_only,
            canary_slices, detectors, donate, fused_detect, fused_warm,
            parity, triage, verbose, device, return_state):
     pipe = TokenPipeline(cfg.model.vocab_size, seq_len, global_batch,
@@ -229,6 +243,7 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
 
     rng = random.Random(seed + 7)
     rep = LoopReport()
+    n_snapshots, snapshot_seconds = 0, 0.0
     history = deque(maxlen=LOSS_WINDOW)   # the spike trap's window
     last_inject = -1
 
@@ -239,15 +254,21 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
             # step produced (one launch, no sync)
             canary.arm_current(s, state)
         micro.record_iv(s, state["iv"])
-        micro.maybe_snapshot(s, state)
+        t0 = time.perf_counter()
+        if micro.maybe_snapshot(s, state):
+            n_snapshots += 1
+            snapshot_seconds += time.perf_counter() - t0
         if ckpt:
             ckpt.maybe_save(s, state)
 
         # adversary: one bit flip before the step (evaluation only; once
         # per step — a recovery retry must not be hit again)
         if inject_every and s and s % inject_every == 0 and last_inject != s:
+            only = None
+            if inject_armed_only and canary is not None:
+                only = {canary._keys[i] for i in canary._slice_indices(s)}
             inject(state, sample_plan(rng, state, max_step=1,
-                                      target=inject_target))
+                                      target=inject_target, only=only))
             rep.faults_injected += 1
             last_inject = s
 
@@ -324,6 +345,11 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
         ckpt.wait()
     out = rep.summary()
     out["recovery"] = runtime.summary()
+    out["snapshots"] = {"count": n_snapshots, "seconds": snapshot_seconds}
+    if ckpt:
+        out["checkpoints"] = {"count": ckpt.saves,
+                              "blocking_seconds": ckpt.save_seconds_blocking,
+                              "write_seconds": ckpt.write_seconds}
     if fused is not None:
         out["fused"] = {"captures" if device.type == "cuda" else "builds":
                         fused.n_compiles,

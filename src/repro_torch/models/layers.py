@@ -8,12 +8,15 @@ shapes.  Layouts follow the reference: q ``(B, S, H, Dh)``, k/v
 TF32 off so they stay within the reference's f32 tolerance.
 
 Attention has the reference's semantics: causal or not, sliding windows,
-soft-capping, keys with a negative position masked; up to
-``FLASH_THRESHOLD`` keys (and every decode) it is direct, above it the
-chunked online softmax of ``attention_flash``, plain torch as the
-reference's is plain jnp (the CUDA flash kernel is reached through
-``kernels.ops.flash_attention``, as in the reference).  M-rope is not
-ported.
+soft-capping, keys with a negative position masked, scores in f32 for
+any input dtype; up to ``FLASH_THRESHOLD`` keys (and every decode) it is
+direct, above it the chunked online softmax of ``attention_flash``, plain
+torch as the reference's is plain jnp (the CUDA flash kernel is reached
+through ``kernels.ops.flash_attention``, as in the reference).  The dense
+options are the reference's: projection biases (``use_bias``; never on
+``wo``), q/k rmsnorm over the head dim before rope (``qk_norm``), ring
+caches for windowed layers and an untied, soft-capped head.  M-rope is
+not ported.
 """
 
 from __future__ import annotations
@@ -40,10 +43,14 @@ def _normal(gen, shape, dtype, scale, device):
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, device, *,
-               scale: Optional[float] = None, count: int = 0):
+               scale: Optional[float] = None, count: int = 0,
+               bias: bool = False):
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    shape = ((count,) if count else ()) + (d_in, d_out)
-    return {"w": _normal(gen, shape, dtype, scale, device)}
+    lead = (count,) if count else ()
+    p = {"w": _normal(gen, lead + (d_in, d_out), dtype, scale, device)}
+    if bias:
+        p["b"] = torch.zeros(lead + (d_out,), dtype=dtype, device=device)
+    return p
 
 
 def rmsnorm_init(dim: int, dtype, device, count: int = 0):
@@ -61,7 +68,10 @@ def embed_init(gen, vocab: int, d_model: int, dtype, device,
 # ---------------------------------------------------------------------------
 
 def dense(p, x):
-    return x @ p["w"].to(x.dtype)
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
 
 
 def rmsnorm(p, x, eps: float = 1e-6):
@@ -116,13 +126,18 @@ def _masked(s, m):
 def attention_direct(q, k, v, qpos, kpos, *, window: int = 0,
                      causal: bool = True, attn_softcap: float = 0.0):
     """Direct GQA attention.  q (B,Sq,H,D), k/v (B,Sk,KV,D); qpos (B,Sq),
-    kpos (B,Sk) with kpos < 0 marking unwritten keys."""
+    kpos (B,Sk) with kpos < 0 marking unwritten keys.  The scores are
+    taken in f32 whatever the inputs' dtype (the reference's
+    ``preferred_element_type=float32``): soft-capping, the mask and the
+    softmax run in f32, and the weights go into the PV product in v's
+    dtype."""
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(D)
+    f32 = torch.float32
     qg = q.reshape(B, Sq, KV, G, D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(f32), k.to(f32)) * scale
     s = softcap(s, attn_softcap)
     p = torch.softmax(_masked(s, _mask(qpos, kpos, window, causal)), dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
@@ -197,26 +212,36 @@ def attention(q, k, v, qpos, kpos, *, window: int = 0, causal: bool = True,
 
 def attn_init(gen, cfg, dtype, device, count: int):
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    return {
+    b = cfg.use_bias
+    p = {
         "wq": dense_init(gen, d, cfg.n_heads * hd, dtype, device,
-                         count=count),
+                         count=count, bias=b),
         "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device,
-                         count=count),
+                         count=count, bias=b),
         "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device,
-                         count=count),
+                         count=count, bias=b),
         "wo": dense_init(gen, cfg.n_heads * hd, d, dtype, device,
                          scale=1.0 / math.sqrt(cfg.n_heads * hd),
                          count=count),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, dtype, device, count)
+        p["k_norm"] = rmsnorm_init(hd, dtype, device, count)
+    return p
 
 
 def attn_qkv(p, cfg, x, positions, *, theta: float = 0.0):
+    """q/k/v projections, q/k rmsnorm over the head dim (``qk_norm``),
+    then rope at ``theta`` (the layer's own; ``cfg.rope_theta`` if 0)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     theta = theta or cfg.rope_theta
     q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
     k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
     v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 
@@ -230,32 +255,44 @@ def attn_apply(p, cfg, x, positions, *, window: int = 0, causal: bool = True,
     return y, (k, v)
 
 
-def cache_kpos(pos, capacity: int):
-    """Key positions held by a linear cache of ``capacity`` rows when each
-    row of the batch decodes at ``pos`` (B,): row j holds position j for
-    j <= pos; later rows are unwritten (-1)."""
+def cache_kpos(pos, capacity: int, ring: bool = False):
+    """Absolute key positions ``(B, capacity)`` held by a cache when each
+    row of the batch decodes at ``pos`` (B,).  A ring cache (a windowed
+    layer) holds position p at row ``p % capacity``, so row j holds
+    ``pos - (pos - j) mod capacity``; a linear cache holds position j at
+    row j for j <= pos.  Unwritten rows get a negative position, which
+    the attention mask drops."""
     j = torch.arange(capacity, dtype=torch.int32, device=pos.device)[None, :]
-    return torch.where(j <= pos[:, None], j, torch.full_like(j, -1))
+    p = pos.to(torch.int32)[:, None]
+    if ring:
+        return p - torch.remainder(p - j, capacity)
+    return torch.where(j <= p, j, torch.full_like(j, -1))
 
 
-def attn_decode(p, cfg, x, pos, k_cache, v_cache, *, theta: float = 0.0):
-    """Single-token decode over a linear cache, written IN PLACE.
+def attn_decode(p, cfg, x, pos, k_cache, v_cache, *, window: int = 0,
+                theta: float = 0.0):
+    """Single-token decode, the cache written IN PLACE.
 
     x (B,1,d); pos (B,) int32, each row's absolute position;
-    k_cache/v_cache (B,C,KV,Dh) — the new key and value are written at row
-    ``min(pos, C-1)`` of each batch row (the reference's clamped
+    k_cache/v_cache (B,C,KV,Dh).  A windowed layer whose cache holds at
+    most its window (``window > 0 and C <= window``) is a ring: each
+    row's new key and value go to row ``pos % C``; any other cache is
+    linear, written at ``min(pos, C-1)`` (the reference's clamped
     ``dynamic_update_slice``).  Returns y (B,1,d)."""
     B = x.shape[0]
     positions = pos[:, None].to(torch.int32)
     q, k, v = attn_qkv(p, cfg, x, positions, theta=theta)
     C = k_cache.shape[1]
+    ring = window > 0 and C <= window
     rows = torch.arange(B, device=x.device)
-    slot = pos.to(torch.int64).clamp(0, C - 1)
+    p64 = pos.to(torch.int64)
+    slot = torch.remainder(p64, C) if ring else p64.clamp(0, C - 1)
     k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
-    kpos = cache_kpos(pos, C)
+    kpos = cache_kpos(pos, C, ring)
     o = attention_direct(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
-                         positions, kpos)
+                         positions, kpos, window=window,
+                         attn_softcap=cfg.attn_softcap)
     return dense(p["wo"], o.reshape(B, 1, -1))
 
 
@@ -280,12 +317,16 @@ def attn_prefill_chunk(p, cfg, x, qpos, k_ctx, v_ctx, ctx_kpos, *,
     return dense(p["wo"], o.reshape(B, C, -1)), k, v
 
 
-def mlp_init(gen, d_model: int, d_ff: int, dtype, device, count: int):
+def mlp_init(gen, d_model: int, d_ff: int, dtype, device, count: int, *,
+             bias: bool = False):
     return {
-        "gate": dense_init(gen, d_model, d_ff, dtype, device, count=count),
-        "up": dense_init(gen, d_model, d_ff, dtype, device, count=count),
+        "gate": dense_init(gen, d_model, d_ff, dtype, device, count=count,
+                           bias=bias),
+        "up": dense_init(gen, d_model, d_ff, dtype, device, count=count,
+                         bias=bias),
         "down": dense_init(gen, d_ff, d_model, dtype, device,
-                           scale=1.0 / math.sqrt(d_ff), count=count),
+                           scale=1.0 / math.sqrt(d_ff), count=count,
+                           bias=bias),
     }
 
 
@@ -298,10 +339,16 @@ def embed(p, tokens, compute_dtype):
     return p["table"][tokens.to(torch.int64)].to(compute_dtype)
 
 
-def unembed(p_embed, x):
-    """Tied f32 logits: ``x @ table.T``."""
-    return torch.einsum("bsd,vd->bsv", x.to(torch.float32),
-                        p_embed["table"].to(torch.float32))
+def unembed(p_embed, x, *, w_head=None, logit_softcap_v: float = 0.0):
+    """f32 vocab logits, soft-capped when ``logit_softcap_v`` is set: tied
+    (``x @ table.T``) unless an untied head ``w_head`` (d, V) is given."""
+    x = x.to(torch.float32)
+    if w_head is None:
+        logits = torch.einsum("bsd,vd->bsv", x,
+                              p_embed["table"].to(torch.float32))
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, w_head.to(torch.float32))
+    return softcap(logits, logit_softcap_v)
 
 
 def cross_entropy(logits, labels, mask=None):

@@ -1,5 +1,9 @@
 """Decoder-only transformer, dense family — the part of
-``repro/models/transformer.py`` the serving and training slices run.
+``repro/models/transformer.py`` the serving and training slices run:
+every dense configuration of the reference (h2o-danube's sliding window,
+gemma3's 5:1 local/global pattern with per-layer rope theta, qk-norm,
+sandwich norm, sqrt(d) embedding scale and soft-capping, command-r's
+parallel blocks, biases, an untied head).
 
 Params are stacked ``(count, ...)`` per pattern position exactly as in the
 reference (``params["groups"][g][j]`` holds ``count`` layers), so leaf
@@ -11,7 +15,9 @@ per-layer gradients in one pass.  ``remat`` (the reference's
 backward through ``torch.utils.checkpoint``.
 
 Decode caches: ``{"groups": [[{"k", "v"}]], "pos": (B,) int32}`` with
-leaves ``(count, B, cap, KV, Dh)``.  The reference's per-lane scalar
+leaves ``(count, B, cap, KV, Dh)``; ``cap`` is per pattern position, the
+layer's window when that is below ``max_len`` (a ring cache), else
+``max_len``.  The reference's per-lane scalar
 ``pos`` becomes a per-row vector, which is what lets one batched decode
 advance every serving slot at its own depth (the reference vmapped a B=1
 decode over the slots).  ``decode_step`` writes the new key and value
@@ -20,6 +26,7 @@ rows into the cache IN PLACE.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -39,25 +46,38 @@ class LayerDesc(NamedTuple):
     moe: bool        # MoE FFN instead of dense MLP
 
 
-_UNPORTED = ("n_experts", "local_global_ratio", "sliding_window",
-             "sandwich_norm", "parallel_block", "qk_norm", "use_bias",
-             "m_rope", "patch_dim", "logit_softcap", "attn_softcap")
-
-
 def check_supported(cfg) -> None:
-    """Raise for model options this port does not implement yet."""
+    """Raise for model options this port does not implement yet: every
+    family but the dense one, MoE FFNs, m-rope and patch inputs
+    (ROADMAP.md queue 1)."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
-    on = [name for name in _UNPORTED if getattr(cfg, name)]
-    if on or not cfg.tie_embeddings:
-        raise NotImplementedError(
-            f"model options not ported: {on or ['untied head']}")
+    on = [name for name in ("n_experts", "m_rope", "patch_dim")
+          if getattr(cfg, name)]
+    if on:
+        raise NotImplementedError(f"model options not ported: {on}")
 
 
 def derive_groups(cfg) -> Tuple[Tuple[int, Tuple[LayerDesc, ...]], ...]:
-    """(count, pattern) groups covering cfg.n_layers in order (dense)."""
+    """(count, pattern) groups covering cfg.n_layers in order: with a
+    local/global ratio r, ``n // (r+1)`` repeats of (r local layers at
+    theta 10,000 and ``local_window``, 1 global layer at ``rope_theta``)
+    then one group of the remaining local layers; else every layer alike,
+    with ``sliding_window``."""
     check_supported(cfg)
-    return ((cfg.n_layers, (LayerDesc(0, cfg.rope_theta, False),)),)
+    n = cfg.n_layers
+    if cfg.local_global_ratio:
+        r = cfg.local_global_ratio
+        local = LayerDesc(cfg.local_window, 10_000.0, False)
+        glob = LayerDesc(0, cfg.rope_theta, False)
+        full, rem = divmod(n, r + 1)
+        groups = []
+        if full:
+            groups.append((full, (local,) * r + (glob,)))
+        if rem:
+            groups.append((1, (local,) * rem))
+        return tuple(groups)
+    return ((n, (LayerDesc(cfg.sliding_window, cfg.rope_theta, False),)),)
 
 
 def _layer(stacked, l: int):
@@ -80,47 +100,90 @@ def _dtype(name: str) -> torch.dtype:
 # init
 # ---------------------------------------------------------------------------
 
+def init_block(gen, cfg, dt, device, count: int) -> dict:
+    """``count`` stacked layers of one pattern position: the reference's
+    ``init_block`` leaves (no ``ln2`` under ``parallel_block``,
+    ``ln1_post``/``ln2_post`` under ``sandwich_norm``, biases under
+    ``use_bias``)."""
+    d = cfg.d_model
+    p = {"ln1": L.rmsnorm_init(d, dt, device, count),
+         "attn": L.attn_init(gen, cfg, dt, device, count),
+         "ffn": L.mlp_init(gen, d, cfg.d_ff, dt, device, count,
+                           bias=cfg.use_bias)}
+    if not cfg.parallel_block:
+        p["ln2"] = L.rmsnorm_init(d, dt, device, count)
+    if cfg.sandwich_norm:
+        p["ln1_post"] = L.rmsnorm_init(d, dt, device, count)
+        p["ln2_post"] = L.rmsnorm_init(d, dt, device, count)
+    return p
+
+
 def init_lm(cfg, seed: int, device) -> dict:
     """Random params from ``seed`` (the port's own generator; values differ
-    from the reference's ``init_lm``, shapes and paths do not)."""
+    from the reference's ``init_lm``, shapes, dtypes and paths do not)."""
     dt = _dtype(cfg.param_dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt,
                                     device),
               "final_norm": L.rmsnorm_init(cfg.d_model, dt, device)}
-    groups = []
-    for count, pattern in derive_groups(cfg):
-        groups.append([{
-            "ln1": L.rmsnorm_init(cfg.d_model, dt, device, count),
-            "attn": L.attn_init(gen, cfg, dt, device, count),
-            "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device, count),
-            "ln2": L.rmsnorm_init(cfg.d_model, dt, device, count),
-        } for _ in pattern])
-    params["groups"] = groups
+    params["groups"] = [[init_block(gen, cfg, dt, device, count)
+                         for _ in pattern]
+                        for count, pattern in derive_groups(cfg)]
+    if not cfg.tie_embeddings:
+        params["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
+                                      device)
     return params
+
+
+def embed_scale(cfg) -> float:
+    """gemma's sqrt(d) embedding scale rides ``sandwich_norm``."""
+    return math.sqrt(cfg.d_model) if cfg.sandwich_norm else 1.0
+
+
+def _embed(params, cfg, tokens):
+    """Token embedding in the compute dtype, times ``embed_scale``.  The
+    reference multiplies by a weakly typed Python scalar, which JAX
+    first rounds to the array's dtype; so is it here."""
+    x = L.embed(params["embed"], tokens, _dtype(cfg.compute_dtype))
+    scale = embed_scale(cfg)
+    if scale != 1.0:
+        x = x * torch.tensor(scale, dtype=x.dtype).item()
+    return x
 
 
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 
+def _residual(p, cfg, x, h, attn_out):
+    """The block's tail after attention: the sandwich's post-norms and
+    the parallel form (attention and FFN both read ``h``), as in the
+    reference's ``block_apply``."""
+    if cfg.sandwich_norm:
+        attn_out = L.rmsnorm(p["ln1_post"], attn_out, cfg.norm_eps)
+    if cfg.parallel_block:
+        return x + attn_out + L.mlp_apply(p["ffn"], h)
+    x = x + attn_out
+    ffn_out = L.mlp_apply(p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    if cfg.sandwich_norm:
+        ffn_out = L.rmsnorm(p["ln2_post"], ffn_out, cfg.norm_eps)
+    return x + ffn_out
+
+
 def block_apply(p, cfg, desc: LayerDesc, x, positions):
     """Full-sequence block.  Returns (x, (k, v))."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out, kv = L.attn_apply(p["attn"], cfg, h, positions,
                                 window=desc.window, theta=desc.theta)
-    x = x + attn_out
-    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(p["ffn"], h2), kv
+    return _residual(p, cfg, x, h, attn_out), kv
 
 
 def block_decode(p, cfg, desc: LayerDesc, x, pos, k_cache, v_cache):
     """Single-token block; writes the caches in place.  Returns x."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + L.attn_decode(p["attn"], cfg, h, pos, k_cache, v_cache,
-                          theta=desc.theta)
-    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(p["ffn"], h2)
+    attn_out = L.attn_decode(p["attn"], cfg, h, pos, k_cache, v_cache,
+                             window=desc.window, theta=desc.theta)
+    return _residual(p, cfg, x, h, attn_out)
 
 
 def block_chunk(p, cfg, desc: LayerDesc, x, qpos, ck, cv, ctx_kpos):
@@ -131,20 +194,26 @@ def block_chunk(p, cfg, desc: LayerDesc, x, qpos, ck, cv, ctx_kpos):
     attn_out, k, v = L.attn_prefill_chunk(p["attn"], cfg, h, qpos, ck, cv,
                                           ctx_kpos, window=desc.window,
                                           theta=desc.theta)
-    x = x + attn_out
-    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(p["ffn"], h2), k, v
+    return _residual(p, cfg, x, h, attn_out), k, v
 
 
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
 
+def cache_capacity(desc: LayerDesc, max_len: int) -> int:
+    """Decode-cache rows of a layer: its window when that is shorter than
+    ``max_len`` (a ring), else ``max_len`` (the reference's
+    ``cache_sizes``)."""
+    return min(desc.window, max_len) if desc.window else max_len
+
+
 def forward(params, cfg, x, positions, *, collect_cache: bool = False,
-            capacity: int = 0, remat: bool = False):
+            cache_sizes=None, remat: bool = False):
     """Walk every layer.  Returns (hidden, caches|None); with
     ``collect_cache`` each group yields ``[{"k", "v"}]`` leaves
-    ``(count, B, capacity, KV, Dh)``, zero-padded past the sequence."""
+    ``(count, B, cache_sizes(desc), KV, Dh)`` laid out by
+    ``_pack_cache``."""
     caches = [] if collect_cache else None
     for gi, (count, pattern) in enumerate(derive_groups(cfg)):
         per_layer = [_unbind(p, count) for p in params["groups"][gi]]
@@ -162,42 +231,62 @@ def forward(params, cfg, x, positions, *, collect_cache: bool = False,
                     outs[j]["k"].append(k)
                     outs[j]["v"].append(v)
         if collect_cache:
-            caches.append([{n: _pad_cache(torch.stack(o[n]), capacity)
-                            for n in ("k", "v")} for o in outs])
+            caches.append([
+                {n: _pack_cache(torch.stack(o[n]), desc, cache_sizes(desc))
+                 for n in ("k", "v")} for o, desc in zip(outs, pattern)])
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, caches
 
 
-def _pad_cache(kv, capacity: int):
-    """(count, B, S, KV, D) -> (count, B, capacity, KV, D)."""
+def _pack_cache(kv, desc: LayerDesc, capacity: int):
+    """(count, B, S, KV, D) keys or values of a full sequence as a decode
+    cache of ``capacity`` rows.  A windowed layer whose capacity is at
+    most its window, given at least ``capacity`` tokens, is a ring: the
+    last ``capacity`` positions p at rows ``p % capacity`` (a roll of the
+    sequence's tail).  Otherwise the cache is linear: zero-padded past
+    the sequence, or its first ``capacity`` rows."""
     S = kv.shape[2]
-    if S >= capacity:
-        return kv[:, :, :capacity]
-    return F.pad(kv, (0, 0, 0, 0, 0, capacity - S))
+    if desc.window and capacity <= desc.window and S >= capacity:
+        return torch.roll(kv[:, :, S - capacity:], S % capacity, dims=2)
+    if S < capacity:
+        return F.pad(kv, (0, 0, 0, 0, 0, capacity - S))
+    return kv[:, :, :capacity]
+
+
+def _head_weight(params, cfg):
+    """The untied head's (d, V) weight, None when tied to the table."""
+    return None if cfg.tie_embeddings else params["head"]["w"]
 
 
 def logits_fn(params, cfg, hidden):
-    return L.unembed(params["embed"], hidden)
+    return L.unembed(params["embed"], hidden,
+                     w_head=_head_weight(params, cfg),
+                     logit_softcap_v=cfg.logit_softcap)
 
 
 def chunked_ce(params, cfg, hidden, targets, mask=None, chunk=LOSS_CHUNK):
     """Cross-entropy over sequence chunks, so (B, S, V) logits are never
-    materialised for the whole sequence.  The label log-prob is an
+    materialised for the whole sequence.  Logits are f32 through the
+    tied table or the untied head, soft-capped; the label log-prob is an
     iota-compare-reduce, as in the reference (no gather: its backward is
     elementwise, hence deterministic on the card)."""
     B, S, _ = hidden.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
     chunk = min(chunk, S)
-    table = params["embed"]["table"].to(torch.float32)
-    vocab = torch.arange(table.shape[0], device=hidden.device)
+    head = _head_weight(params, cfg)
+    if head is None:
+        w, eq = params["embed"]["table"].to(torch.float32), "bsd,vd->bsv"
+    else:
+        w, eq = head.to(torch.float32), "bsd,dv->bsv"
+    vocab = torch.arange(cfg.vocab_size, device=hidden.device)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s0 in range(0, S, chunk):
         h = hidden[:, s0:s0 + chunk].to(torch.float32)
         t = targets[:, s0:s0 + chunk].to(torch.int64)
         m = mask[:, s0:s0 + chunk].to(torch.float32)
-        logits = torch.einsum("bsd,vd->bsv", h, table)
+        logits = L.softcap(torch.einsum(eq, h, w), cfg.logit_softcap)
         logz = torch.logsumexp(logits, dim=-1)
         ll = torch.where(vocab == t[..., None], logits,
                          torch.zeros((), dtype=logits.dtype,
@@ -212,7 +301,7 @@ def train_loss(params, cfg, batch, *, remat: bool = False):
     (loss, metrics) with the reference's metric keys."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = L.embed(params["embed"], tokens, _dtype(cfg.compute_dtype))
+    x = _embed(params, cfg, tokens)
     positions = L.make_positions(B, S, x.device)
     hidden, _ = forward(params, cfg, x, positions, remat=remat)
     ce = chunked_ce(params, cfg, hidden, batch["targets"],
@@ -223,14 +312,17 @@ def train_loss(params, cfg, batch, *, remat: bool = False):
 
 def prefill(params, cfg, batch, *, max_len: Optional[int] = None):
     """Build a decode cache from a full prompt.  batch["tokens"] (B, S).
+    Each layer's cache holds ``cache_capacity(desc, max_len or S)`` rows.
     Returns (last-position logits (B, V), cache)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = L.embed(params["embed"], tokens, _dtype(cfg.compute_dtype))
+    max_len = max_len or S
+    x = _embed(params, cfg, tokens)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
-    hidden, caches = forward(params, cfg, x, positions, collect_cache=True,
-                             capacity=max_len or S)
+    hidden, caches = forward(
+        params, cfg, x, positions, collect_cache=True,
+        cache_sizes=lambda desc: cache_capacity(desc, max_len))
     logits = logits_fn(params, cfg, hidden[:, -1:, :])[:, 0]
     pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, {"groups": caches, "pos": pos}
@@ -246,6 +338,8 @@ def prefill_chunk(params, cfg, batch, ctx_cache, ctx_kpos, pos0: int,
     the already-prefilled context; ctx_kpos (B,T): those rows' absolute
     key positions (< 0 = unwritten, masked); pos0: absolute position of
     the chunk's first token; valid: the chunk's count of real tokens.
+    Linear caches only: a paged engine holds no ring (each layer's cache
+    is ``max_len`` rows, within its window).
 
     Returns (logits (B,V) at chunk position ``valid - 1``, new_kv) with
     new_kv leaves (count,B,C,KV,D): the chunk's cache rows for the caller
@@ -254,7 +348,7 @@ def prefill_chunk(params, cfg, batch, ctx_cache, ctx_kpos, pos0: int,
     keeps them out of the valid logits."""
     tokens = batch["tokens"]
     B, C = tokens.shape
-    x = L.embed(params["embed"], tokens, _dtype(cfg.compute_dtype))
+    x = _embed(params, cfg, tokens)
     qpos = (int(pos0) + torch.arange(C, dtype=torch.int32,
                                      device=x.device))[None, :].expand(B, C)
     new_groups = []
@@ -281,9 +375,9 @@ def decode_step(params, cfg, cache, token):
     """One serving step: token (B,) -> (logits (B, V), cache').
 
     Each batch row decodes at its own ``cache["pos"]``; the key/value
-    leaves of ``cache`` are updated in place and returned in ``cache'``
-    with ``pos + 1``."""
-    x = L.embed(params["embed"], token[:, None], _dtype(cfg.compute_dtype))
+    leaves of ``cache`` are updated in place (a ring leaf at ``pos %
+    capacity``) and returned in ``cache'`` with ``pos + 1``."""
+    x = _embed(params, cfg, token[:, None])
     pos = cache["pos"].to(torch.int32)
     for gi, (count, pattern) in enumerate(derive_groups(cfg)):
         stacked = params["groups"][gi]
@@ -299,12 +393,14 @@ def decode_step(params, cfg, cache, token):
 
 def make_decode_cache(cfg, batch_size: int, max_len: int, device,
                       dtype=None):
-    """Zero-initialised linear decode cache."""
+    """Zero-initialised decode cache: each pattern position's leaves hold
+    ``cache_capacity(desc, max_len)`` rows."""
     dt = dtype or _dtype(cfg.param_dtype)
     KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
-    groups = [[{n: torch.zeros((count, batch_size, max_len, KV, D),
+    groups = [[{n: torch.zeros((count, batch_size,
+                                cache_capacity(desc, max_len), KV, D),
                                dtype=dt, device=device) for n in ("k", "v")}
-               for _ in pattern] for count, pattern in derive_groups(cfg)]
+               for desc in pattern] for count, pattern in derive_groups(cfg)]
     return {"groups": groups,
             "pos": torch.zeros((batch_size,), dtype=torch.int32,
                                device=device)}

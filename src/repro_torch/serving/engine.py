@@ -2,15 +2,19 @@
 off-mesh ``repro/serving/engine.py``.
 
 * **Two cache layouts.**  Paged (the default where the family supports
-  it, ``serving/paged.py``): every cache leaf is a shared block pool plus
+  it, ``serving/paged.py``: every cache leaf holds ``max_len`` rows, so a
+  windowed config pages only within its window): every cache leaf is a
+  shared block pool plus
   a per-slot block table, a request owns
   ``ceil((P + 1 + max_new) / block_size)`` blocks and the canary's units
   are (leaf, block) pairs plus one ``pos`` unit per slot; block → owning
   slot is a host allocator lookup, so a flip on a free block evicts
-  nobody.  Dense (``paged=False``): one slot-major cache, leaves
-  ``(S, count, 1, max_len, KV, Dh)`` as in the reference, whose canary
-  units are (leaf, slot) pairs; the batched decode reads and writes it in
-  place through a permuted view ``(count, S, max_len, KV, Dh)``.
+  nobody.  Dense (``paged=False``, or a window below ``max_len``): one
+  slot-major cache, leaves ``(S, count, 1, cap, KV, Dh)`` as in the
+  reference (``cap`` a windowed layer's ring of ``window`` rows, else
+  ``max_len``), whose canary units are (leaf, slot) pairs; the batched
+  decode reads and writes it in place through a permuted view
+  ``(count, S, cap, KV, Dh)``.
 * **One engine step** (``engine_step``) advances every lane one token, in
   this order: ``pack_rows`` of the canary's check slice ``s % K`` (before
   any state write); ``gather_blocks`` of each slot's blocks (paged); the

@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.models.registry import get_model
 from repro_torch.optim import make_optimizer
-from repro_torch.tree import flatten_with_path, leaf_key, map_with_path
+from repro_torch.tree import flatten_with_path, leaf_key, leaves, \
+    map_with_path
 
 
 def iv_step_sizes(arch_cfg, global_batch: int) -> Dict[str, int]:
@@ -68,25 +69,44 @@ def make_train_state(arch_cfg, seed: int = 0, global_batch: int = 0,
             "iv": init_iv(arch_cfg, global_batch or 256, device)}
 
 
+def _split_micro(batch, n_micro: int):
+    """``n_micro`` microbatches of ``batch``: each leaf reshaped to
+    ``(n_micro, B / n_micro, ...)`` and indexed, as the reference's
+    scan over the reshaped batch reads it."""
+    def reshape(a):
+        B = a.shape[0]
+        if B % n_micro:
+            raise ValueError(f"batch {B} is not a multiple of microbatch "
+                             f"{n_micro}")
+        return a.reshape((n_micro, B // n_micro) + tuple(a.shape[1:]))
+    parts = {k: reshape(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n_micro)]
+
+
 def make_train_step(arch_cfg, global_batch: int = 0,
                     total_steps: int = 100_000,
                     donate: bool = False) -> Callable:
     """Returns ``step(state, batch) -> (state', metrics)``; backward is
     autograd.  Functional by default; ``donate=True`` updates ``state`` in
-    place and returns it."""
+    place and returns it.
+
+    With ``train.microbatch = n > 1`` the step accumulates the gradients
+    of n equal slices of the batch, one after another, as the
+    reference's scan does: each slice's gradients cast to
+    ``grad_reduce_dtype`` (bf16 by default, whatever the params' dtype)
+    and added to a zeroed accumulator of that dtype; the step then takes
+    ``grads / n`` and ``loss = Σ loss / n``, and its metrics carry no
+    ``ce``/``lb`` (the reference's ``metrics = {}``)."""
     tp = arch_cfg.train
-    if tp.microbatch > 1:
-        raise NotImplementedError(
-            "microbatch accumulation is not ported (ROADMAP.md queue 1, "
-            "'Other families and optimizers')")
     model = get_model(arch_cfg.model)
     mcfg = arch_cfg.model
     opt = make_optimizer(tp, total_steps)
     remat = tp.remat != "none"
     steps = iv_step_sizes(arch_cfg, global_batch or 256)
+    n_micro = tp.microbatch
+    acc_dtype = getattr(torch, tp.grad_reduce_dtype)
 
-    def train_step(state, batch):
-        params = state["params"]
+    def grads_of(params, batch):
         # fresh leaf views that require grad: the state's own tensors are
         # neither written nor marked
         flat = flatten_with_path(params)
@@ -96,7 +116,25 @@ def make_train_step(arch_cfg, global_batch: int = 0,
                 map_with_path(lambda p, _: req[leaf_key(p)], params), mcfg,
                 batch, remat=remat)
             grads = torch.autograd.grad(loss, list(req.values()))
-        by_key = dict(zip(req, grads))
+        return loss.detach(), metrics, dict(zip(req, grads))
+
+    def train_step(state, batch):
+        params = state["params"]
+        if n_micro and n_micro > 1:
+            acc = {leaf_key(p): torch.zeros(t.shape, dtype=acc_dtype,
+                                            device=t.device)
+                   for p, t in flatten_with_path(params)}
+            lsum = torch.zeros((), dtype=torch.float32,
+                               device=leaves(params)[0].device)
+            for mb in _split_micro(batch, n_micro):
+                loss_i, _, g = grads_of(params, mb)
+                for k, gk in g.items():
+                    acc[k].add_(gk.to(acc_dtype))
+                lsum = lsum + loss_i
+            by_key = {k: a / n_micro for k, a in acc.items()}
+            loss, metrics = lsum / n_micro, {}
+        else:
+            loss, metrics, by_key = grads_of(params, batch)
         grads = map_with_path(lambda p, _: by_key[leaf_key(p)], params)
         sched_pos = state["iv"]["sched_pos"]
         if donate:
@@ -109,7 +147,7 @@ def make_train_step(arch_cfg, global_batch: int = 0,
                 grads, state["opt"], params, sched_pos)
             new_state = {"params": new_params, "opt": new_opt,
                          "iv": advance_iv(state["iv"], steps)}
-        out = {"loss": loss.detach(), **stats}
+        out = {"loss": loss, **stats}
         out.update({k: v.detach() for k, v in metrics.items()})
         return new_state, out
 

@@ -64,6 +64,30 @@ def pack_chunks(table, n_chunks, buf_ptr):
     return leaf, off, length, src, dst
 
 
+def pack_chunks_wide(table, n_chunks, buf_ptr):
+    """``pack_chunks`` with the element size of each leaf: a 2-byte
+    leaf's chunk reads from half its destination offset and widens."""
+    leaf, off, length, _, dst = pack_chunks(table, n_chunks, buf_ptr)
+    widen = table[leaf, 4] == 2
+    src = table[leaf, 0] + np.where(widen, off // 2, off)
+    return leaf, off, length, src, dst, widen
+
+
+def replay_wide(mem, src, dst, length, widen):
+    """``replay`` where a widening chunk zero-extends ``length / 4``
+    2-byte source values into the destination words."""
+    half = mem.view(np.uint16)
+    for s, d, n, w in zip(src.tolist(), dst.tolist(), length.tolist(),
+                          widen.tolist()):
+        dw = (d - BASE) // 4
+        if w:
+            h = (s - BASE) // 2
+            mem[dw:dw + n // 4] = half[h:h + n // 4].astype(np.int32)
+        else:
+            sw = (s - BASE) // 4
+            mem[dw:dw + n // 4] = mem[sw:sw + n // 4]
+
+
 def gather_chunks(bt, n_blocks, block_bytes, pool_ptr, out_ptr):
     """The ``gather_blocks`` kernel's lookup for every chunk: (pair, byte
     offset in the block, length, source address or -1, destination)."""
@@ -134,7 +158,7 @@ def test_pack_schedule_covers_every_word_once(leaves, src_base):
         ptrs.append(p + 4 * mis)
         p += 16 * (-(-(4 * n + 16) // 16))
     table, n_chunks = tck.pack_schedule(ptrs, sizes, starts)
-    assert table.dtype == np.int64 and table.shape == (len(leaves), 4)
+    assert table.dtype == np.int64 and table.shape == (len(leaves), 5)
     assert n_chunks == sum(tck.chunk_count(4 * n) for n in sizes)
     assert np.array_equal(table[:, :3], np.array(
         [ptrs, sizes, starts], np.int64).T)
@@ -163,7 +187,7 @@ def test_pack_schedule_covers_every_word_once(leaves, src_base):
 
 def test_pack_schedule_of_no_leaves_and_empty_leaves():
     table, n = tck.pack_schedule([], [], [])
-    assert table.shape == (0, 4) and n == 0
+    assert table.shape == (0, 5) and n == 0
     table, n = tck.pack_schedule([BASE, BASE, BASE + 64], [0, 0, 5],
                                  [0, 128, 256])
     assert n == 2 and table[:, 3].tolist() == [0, 0, 0]
@@ -210,6 +234,149 @@ def test_pack_replay_equals_plain_and_pallas(seed, mis):
         jnp.asarray(before), [jnp.asarray(f) for f in flats if f.size],
         [s for s, f in zip(starts, flats) if f.size], interpret=True))
     assert np.array_equal(mem[:total], theirs)
+
+
+_wide_leaf = st.tuples(st.one_of(st.integers(0, 40),
+                                 st.integers(0, 2 * Q + 40)),
+                       st.sampled_from([2, 4]),      # element bytes
+                       st.integers(0, 7),            # misalignment (2 B)
+                       st.integers(0, 2))            # gap rows
+
+
+@settings(max_examples=60, deadline=None)
+@given(leaves=st.lists(_wide_leaf, min_size=1, max_size=10),
+       seed=st.integers(0, 2**16))
+def test_widened_pack_schedule_covers_every_word_once(leaves, seed):
+    """Mixed 2- and 4-byte leaves, at any 2-byte (4-byte) source offset:
+    the schedule's chunks, replayed over fake memory with the kernel's
+    widening (``copy.cuh:widen_path``), write every destination word of
+    every leaf exactly once, never a chunk across a leaf, and the buffer
+    equals ``pack_rows_ref``: each
+    leaf's ``to_i32`` words, the 2-byte values zero-extended, every other
+    word untouched."""
+    rng = np.random.default_rng(seed)
+    sizes = [n for n, *_ in leaves]
+    starts, total = _layout(sizes, [g for *_, g in leaves])
+    src_bytes = sum(e * n + 32 for n, e, _, _ in leaves)
+    mem = np.zeros(total + src_bytes // 4 + 8, np.int32)
+    mem[:total] = _bits(rng, total)
+    ptrs, tensors, at = [], [], 4 * total      # byte offset in mem
+    for n, e, mis, _ in leaves:
+        at = -(-at // 16) * 16 + (2 * mis if e == 2 else 4 * (mis % 4))
+        raw = rng.integers(0, 256, size=e * n, dtype=np.uint8)
+        mem.view(np.uint8)[at:at + e * n] = raw
+        dt = np.uint16 if e == 2 else np.int32
+        t = torch.from_numpy(raw.view(dt).astype(
+            np.int16 if e == 2 else np.int32))
+        tensors.append(t.view(torch.bfloat16) if e == 2 else
+                       t.view(torch.float32))
+        ptrs.append(BASE + at)
+        at += e * n
+    table, n_chunks = tck.pack_schedule(ptrs, sizes, starts,
+                                        [e for _, e, _, _ in leaves])
+    assert table.shape == (len(leaves), 5)
+    assert table[:, 4].tolist() == [e for _, e, _, _ in leaves]
+    assert n_chunks == sum(tck.chunk_count(4 * n) for n in sizes)
+    leaf, off, length, src, dst, widen = pack_chunks_wide(table, n_chunks,
+                                                          BASE)
+    assert np.all((length > 0) & (length <= CHUNK) & (length % 4 == 0))
+    assert np.all(off + length <= 4 * np.asarray(sizes, np.int64)[leaf])
+    for i, n in enumerate(sizes):
+        mine = leaf == i
+        cover = np.zeros(n + 1, np.int64)
+        np.add.at(cover, off[mine] // 4, 1)
+        np.add.at(cover, (off[mine] + length[mine]) // 4, -1)
+        assert np.all(np.cumsum(cover)[:n] == 1), (i, n)
+    before = mem[:total].copy()
+    replay_wide(mem, src, dst, length, widen)
+    want = tref.pack_rows_ref(torch.from_numpy(before.copy()), tensors,
+                              starts)
+    assert np.array_equal(mem[:total], want.numpy())
+
+
+def test_pack_rows_takes_2_byte_leaves_as_to_i32():
+    """On the CPU the wrapper packs bf16 and f32 leaves as they are: the
+    words are ``to_i32`` of each, the bf16 values zero-extended."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal(131).astype(np.float32))
+    b = a[:77].to(torch.bfloat16)
+    b.view(torch.int16)[:2] = torch.tensor([-1, -32768], dtype=torch.int16)
+    buf = torch.full((4 * tck.LANES,), 7, dtype=torch.int32)
+    tck.pack_rows(buf, [b, a], [0, 2 * tck.LANES])
+    assert torch.equal(buf[:77], tref.to_i32(b))
+    assert buf[:2].tolist() == [0xFFFF, 0x8000]
+    assert torch.equal(buf[77:2 * tck.LANES], torch.full((179,), 7,
+                                                         dtype=torch.int32))
+    assert torch.equal(buf[2 * tck.LANES:2 * tck.LANES + 131], tref.to_i32(a))
+
+
+def test_digest_packs_the_leaves_themselves(monkeypatch):
+    """The digest hands ``pack_rows`` the state's own tensors (no
+    ``to_i32`` temporary of a bf16 leaf), so the schedule records their
+    ``data_ptr`` and element size, and a captured graph reads only
+    storage that lives as long as the state."""
+    from repro_torch.kernels import digest as tdg
+    state = {"w": torch.randn(300).to(torch.bfloat16),
+             "m": torch.randn(300), "t": torch.zeros((), dtype=torch.int32)}
+    plan = tdg.plan_for(state)
+    seen = []
+    real = tck.pack_rows
+
+    def spy(buf, leaves, starts, *, desc=None):
+        seen.append(list(leaves))
+        return real(buf, leaves, starts, desc=desc)
+    monkeypatch.setattr(tck, "pack_rows", spy)
+    table = plan.digest_table(state)
+    assert [x.data_ptr() for x in seen[0]] == \
+        [x.data_ptr() for x in plan.leaves(state)]
+    assert [x.dtype for x in seen[0]] == [torch.float32, torch.int32,
+                                          torch.bfloat16]
+    desc = tck.pack_descriptors(seen[0], plan.layout((0, 1, 2)).starts,
+                                "cpu")
+    assert desc.table[:, 0].tolist() == [x.data_ptr() for x in seen[0]]
+    assert desc.table[:, 4].tolist() == [4, 4, 2]
+    ref = [tdg.host_checksum(x) for x in plan.leaves(state)]
+    assert np.array_equal(table.numpy(), np.stack(ref))
+
+
+def test_large_digests_split_into_bounded_transient_buffers(monkeypatch):
+    """An off-hot-path digest larger than ``TRANSIENT_WORDS`` packs runs
+    of leaves into bounded transient buffers (a larger leaf alone): the
+    table is the unsplit one's, bit for bit, and every leaf's host
+    digest."""
+    from repro_torch.kernels import digest as tdg
+    g = torch.Generator().manual_seed(0)
+    state = {f"l{i:02d}": torch.randn(n, generator=g).to(dt)
+             for i, (n, dt) in enumerate([(700, torch.float32),
+                                          (3, torch.bfloat16),
+                                          (2000, torch.bfloat16),
+                                          (129, torch.float32),
+                                          (1, torch.int32),
+                                          (400, torch.float32)])}
+    plan = tdg.DigestPlan(tuple(sorted(state)),
+                          tuple(x.numel() for _, x in sorted(state.items())),
+                          torch.device("cpu"))
+    whole = plan.digest_table(state)
+    monkeypatch.setattr(tdg, "TRANSIENT_WORDS", 4 * tck.LANES)
+    idx = tuple(range(plan.n_leaves))
+    assert plan._groups(idx) == [(0, 1), (1, 2), (2, 3), (3, 5), (5, 6)]
+    split = plan.digest_table(state)
+    assert torch.equal(split, whole)
+    assert np.array_equal(split.numpy(), np.stack(
+        [tdg.host_checksum(x) for _, x in sorted(state.items())]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_host_digest_across_its_chunks(dtype):
+    """The host digest, taken ``HOST_CHUNK`` words at a time, equals the
+    plain digest of the whole leaf (weights continue across chunks)."""
+    from repro_torch.kernels import digest as tdg
+    n = 3 * tdg.HOST_CHUNK + 7
+    x = torch.randn(n, generator=torch.Generator().manual_seed(1)) * 1e3
+    x = x.to(dtype)
+    assert np.array_equal(tdg.host_checksum(x),
+                          tref.checksum_ref(x).numpy())
 
 
 def test_pack_descriptors_upload_the_schedule():
@@ -265,6 +432,31 @@ def test_gather_replay_equals_plain(pool_shape, S, mb):
         theirs = theirs.reshape(S * mb, bw).copy()
         theirs[(bt >= n_blocks).reshape(-1)] = 0
         assert np.array_equal(mem[out_w:].reshape(S * mb, bw), theirs)
+
+
+def test_gather_replay_of_a_bf16_pool():
+    """A bf16 KV pool (gemma3's (n_blocks, 16, count, 1, 256) layout, cut
+    down) gathers as whole 4-byte words: the wrapper hands the kernel
+    the block's bytes / 4 words, and the replay of those chunks equals
+    ``gather_blocks_ref`` bit for bit."""
+    rng = np.random.default_rng(5)
+    shape = (7, 16, 2, 1, 8)
+    half = rng.integers(0, 2**16, size=int(np.prod(shape)),
+                        dtype=np.uint16)
+    pool = torch.from_numpy(half.view(np.int16)).view(torch.bfloat16)
+    pool = pool.view(shape)
+    bt = rng.integers(0, shape[0], size=(3, 4)).astype(np.int32)
+    block_bytes = int(np.prod(shape[1:])) * 2
+    assert block_bytes % 4 == 0
+    out_w = half.size // 2
+    mem = np.zeros(out_w + bt.size * block_bytes // 4, np.int32)
+    mem[:out_w] = half.view(np.int32)
+    _, _, length, src, dst = gather_chunks(bt, shape[0], block_bytes,
+                                           BASE, BASE + 4 * out_w)
+    replay(mem, src, dst, length)
+    want = tref.gather_blocks_ref(pool, torch.from_numpy(bt))
+    assert np.array_equal(mem[out_w:].view(np.int16),
+                          want.view(torch.int16).numpy().reshape(-1))
 
 
 # -- the sources and their build ----------------------------------------------
