@@ -163,7 +163,7 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        edge cases bitwise (bf16 / f16 / int16 leaves of odd lengths at
        2-, 4- and 6-byte offsets, a chunk boundary inside a leaf, a leaf
        longer than one grid pass, f32 leaves beside them, words around
-       them untouched; an int8 leaf refused), ``gather_blocks`` on the
+       them untouched; a bool leaf refused), ``gather_blocks`` on the
        bf16 pool bitwise; then the gemma3-1b training canary's leaves
        (bf16 params, f32 moments) and the bf16 KV pool's check+arm
        slice bitwise and timed beside their bound (2 B read + 4 B
@@ -175,9 +175,52 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        8 slices of one sequence), ``--donate``, K=4, 4 steps, clean and
        under a params storm whose flip lands in the slice checked at its
        step: final states bitwise equal, replay only;
-9. one JSON line describing every kernel (the 8 ports, the layout
-   kernel ``flash_layout_kv`` of the flash port and ``pack_rows`` at
-   8f's two shapes), then the device line.
+9. the optimizers and the MoE family at full width, each path with the
+   launch counts set to 0 just before it and read just after, its peak
+   memory printed:
+   9a. ``pack_rows`` on 1-byte leaves, read in place and zero-extended:
+       int8 and uint8 leaves of 0, 1, 3, 5, 7, 255, 256 and 257 bytes at
+       byte offsets 1-3, one across a chunk boundary, mixed with 2- and
+       4-byte leaves in one launch, the words around them untouched
+       (bitwise against the plain version); then at 9b's canary (f32 params and scales, int8 ``q`` moments)
+       bitwise and timed beside its bound, the event floor and
+       ``Tensor.to(torch.int32)`` of the same leaves;
+   9b. iterpro-100m with int8 AdamW moments at phase 7's settings (K=1):
+       clean and under the params storm, final states bitwise equal,
+       detected == injected == recovered; a live ``q`` byte flipped and
+       recovered by replay; with triage, a flip in a ``q`` pad tail
+       tolerated by the dead-region certificate (at d_model 776: at 768
+       every leaf is whole 256-element blocks);
+   9c. grok-1-314b served paged through the captured step at full width
+       (d 6144, 48/8 heads of 128, 8 experts of 32768, top-2, vocab
+       131,072, soft-caps 30) and 2 of its 64 layers (the depth cut: the
+       whole model needs the mesh), phase 5's traffic clean and under
+       the storm: 8 graphs, storm tokens == clean, detected == injected
+       == recovered, 8 profiled steady steps of 1 ``cudaGraphLaunch``
+       and no ``cudaLaunchKernel`` with ``digest.STATS`` 1 + 1, decode
+       p50 / p99, device busy and the graph pools' MiB, ``gather_blocks``
+       on its pool bitwise; then ``prefill_chunk=32`` captured == the
+       same chunked engine uncaptured (capacity is per call, so chunked
+       tokens need not equal monolithic ones);
+   9d. kimi-k2-1t-a32b the same way at full width (d 7168, 64/8 heads of
+       112, vocab 163,840) and 2 of its 61 layers: the dense first layer
+       (d_ff 18432) and one MoE layer of 384 experts of 2048 with the
+       shared expert; ``gather_blocks`` on its head width of 112 bitwise;
+   9e. grok-1-314b trained at full width and 1 of its 64 layers with
+       Adafactor (bf16 factored stats), microbatch 8, global batch 8 x
+       128, K=4, ``--donate``, 4 steps: clean and under flips in the
+       slice checked at their step (one disk checkpoint), final states
+       bitwise equal, replay only; host step p50, device busy a step
+       (profiled) and the steady peak; then ``--donate --fused-detect``
+       clean == donated clean, bitwise, when its 2K graphs' packing
+       buffers fit beside the measured donated peak (else the
+       arithmetic is printed and the run left out);
+   9f. the launch counts of phase 9's paths (``pack_rows``,
+       ``row_checksums``, ``gather_blocks`` and ``checksum_tiles`` each
+       > 0), then one JSON line describing every kernel (the 8 ports,
+       the layout kernel ``flash_layout_kv`` of the flash port,
+       ``pack_rows`` at 8f's two shapes and at 9a's 1-byte canary), then
+       the device line.
 
 Any failure raises; nothing is caught.
 """
@@ -1908,17 +1951,24 @@ G_STEPS, G_INJECT, G_INTERVAL = 6, 2, 8   # 8d: one snapshot + checkpoint
 D_STEPS, D_SLICES = 4, 4             # 8e: steps (one storm flip), canary K
 
 
+def _release(torch) -> None:
+    """Hand the allocator's cached, unused blocks back to the card, so a
+    run does not start among the odd-sized free blocks of the last one
+    (at 70 GiB of 79 a fragmented cache can refuse a 1 GiB block)."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def _phase_start(torch) -> None:
     """Free what the previous phase left (the digest plans' cached
     packing buffers too: a whole-state K=1 buffer is 24 GB at gemma3-1b)
     and zero the launch counts and the peak-memory mark."""
-    import gc
     from repro_torch.kernels import _build
     from repro_torch.kernels import digest as kd
     kd._PLAN_CACHE.clear()
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
+    _release(torch)
     torch.cuda.reset_peak_memory_stats()
     _build.LAUNCHES.clear()
 
@@ -2056,6 +2106,7 @@ def train_full_width(torch, cfg, name, steps: int = G_STEPS, **kw):
     from repro_torch.launch.train import train
     d = WORK / name.replace(" ", "_")
     shutil.rmtree(d, ignore_errors=True)
+    _release(torch)
     t0 = time.perf_counter()
     out, state = train(cfg, steps=steps, global_batch=T_BATCH,
                        seq_len=T_SEQ, seed=0, snapshot_interval=G_INTERVAL,
@@ -2073,7 +2124,9 @@ def train_full_width(torch, cfg, name, steps: int = G_STEPS, **kw):
           f"(copy + host digests) {snap['seconds']:.2f} s, "
           f"{ckpt['count']} disk checkpoint {ckpt['blocking_seconds']:.2f} "
           f"s on the step path (device digests, host copy) + "
-          f"{ckpt['write_seconds']:.2f} s written by its thread [{_SMI}]")
+          f"{ckpt['write_seconds']:.2f} s written by its thread; phase "
+          f"peak so far {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB [{_SMI}]")
     return out, state
 
 
@@ -2160,7 +2213,7 @@ def check_pack_wide(torch, flush, state, eng, launches):
     version (bf16 / f16 / int16 leaves of odd lengths at 2-, 4- and
     6-byte offsets, chunk boundaries inside a leaf, a leaf longer than
     one pass of the grid, mixed with f32 leaves, untouched words around
-    them; a 1-byte leaf refused); then the gemma3-1b training canary's
+    them; a bool leaf refused); then the gemma3-1b training canary's
     leaves (bf16 params, f32 moments) and the bf16 KV pool's check+arm
     slice of phase 8a's engine, bitwise and timed beside their bound
     (2 B read + 4 B written a bf16 element, 4 + 4 an f32 one) and
@@ -2200,13 +2253,13 @@ def check_pack_wide(torch, flush, state, eng, launches):
     err = _max_err(torch, bk, bp)
     assert err == 0, f"widened pack_rows differs from its plain version " \
         f"on edge cases ({err})"
-    msg = _expect(NotImplementedError, lambda: ck.pack_rows(
-        bk, [torch.zeros(5, dtype=torch.int8, device="cuda")], [0]),
-        "pack_rows of an int8 leaf")
+    msg = _expect(ValueError, lambda: ck.pack_rows(
+        bk, [torch.zeros(5, dtype=torch.bool, device="cuda")], [0]),
+        "pack_rows of a bool leaf")
     print(f"[pack-wide] edge cases bitwise equal to plain: {len(leaves)} "
           f"leaves (bf16/f16/int16 of 1 to 2^21 elements at 2-, 4- and "
-          f"6-byte offsets, 2 f32), words around them untouched; an int8 "
-          f"leaf refused: {msg}")
+          f"6-byte offsets, 2 f32), words around them untouched; a bool "
+          f"leaf refused (int8 and uint8 leaves pack: phase 9a): {msg}")
     del base, buf, bk, bp, leaves
 
     # gather_blocks on the bf16 pool: its blocks move as 4-byte words
@@ -2299,6 +2352,470 @@ def check_pack_wide(torch, flush, state, eng, launches):
           f"plain, device time {ms:.4f} ms, bound {bound:.4f} ms ({by}) "
           f"[{_SMI}]")
     return out
+
+
+# -- phase 9: the optimizers and the MoE family at full width ----------------
+
+GROK, KIMI = "grok-1-314b", "kimi-k2-1t-a32b"
+MOE_LAYERS = 2                   # 9c/9d: grok 2 of 64, kimi 2 of 61 layers
+GROK_TRAIN_LAYERS = 1            # 9e: grok 1 of its 64 layers
+M_STEPS, M_SLICES, M_INJECT = 4, 4, 2    # 9e: steps, canary K, storm period
+PAD_D = 776                      # 9b: a d_model whose leaves leave q pad tails
+
+
+def _int8(cfg, **model):
+    """``cfg`` trained with int8 AdamW moments (its model changed by
+    ``model``); the reference has no CLI flag for them either."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **model),
+        train=dataclasses.replace(cfg.train, moment_dtype="int8"))
+
+
+def check_pack_bytes(torch, flush):
+    """9a: ``pack_rows`` on 1-byte leaves, read in place and
+    zero-extended: int8 and uint8 leaves of 0, 1, 3, 5, 7, 255, 256 and
+    257 bytes at byte offsets 1-3, a leaf across a chunk boundary, an
+    aligned one of 3 chunks and a ragged tail, mixed with bf16 / int16 /
+    f32 leaves in one launch, into a random buffer whose other words must
+    stay untouched: bitwise against the plain version."""
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    raw = _rand_bits(torch, (1 << 20,), torch.int32, gen).view(torch.uint8)
+    specs = [(dt, n, 1 + i % 3) for i, n in enumerate(
+        (0, 1, 3, 5, 7, 255, 256, 257)) for dt in (torch.int8, torch.uint8)]
+    specs += [(torch.int8, 20000, 2),          # across a 32 KiB chunk
+              (torch.uint8, 3 * 8192 + 77, 0),  # aligned: 4 values a load
+              (torch.bfloat16, 333, 2), (torch.int16, 9, 4),
+              (torch.float32, 1001, 0), (torch.uint8, 40000, 3)]
+    leaves, at = [], 0
+    for dt, n, off in specs:
+        size = torch.empty(0, dtype=dt).element_size()
+        at = -(-at // 16) * 16 + off
+        leaves.append(raw[at:at + n * size].view(dt))
+        at += n * size
+    starts, r = [], 0
+    for x in leaves:
+        r += 1
+        starts.append(r * ck.LANES)
+        r += -(-x.numel() // ck.LANES)
+    buf = _rand_bits(torch, (r * ck.LANES + ck.LANES,), torch.int32, gen)
+    bk, bp = buf.clone(), buf.clone()
+    ck.pack_rows(bk, leaves, starts)
+    ref.pack_rows_ref(bp, leaves, starts)
+    err = _max_err(torch, bk, bp)
+    assert err == 0, f"1-byte pack_rows differs from its plain version " \
+        f"on edge cases ({err})"
+    print(f"[pack-bytes] edge cases bitwise equal to plain: {len(leaves)} "
+          f"leaves in one launch (int8/uint8 of 0-257 bytes at byte offsets "
+          f"1-3, 20,000 bytes across a chunk, 24,653 aligned, 40,000 at "
+          f"offset 3; bf16, int16 and f32 beside them), words around them "
+          f"untouched [{_SMI}]")
+
+
+def time_pack_bytes(torch, flush, state, launches):
+    """9a, timed: the int8-moment state's K=1 canary (f32 params and
+    scales, 1-byte ``q`` leaves) packed by the kernel and by the plain
+    version, bitwise; device times beside the bound (1 B read + 4 B
+    written an int8 element, 4 + 4 an f32 one), the event floor and
+    ``Tensor.to(torch.int32)`` of the same leaves.  Returns the kernel
+    JSON entry."""
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import digest as kd
+    from repro_torch.kernels import ref
+
+    plan = kd.plan_for(state)
+    lay = plan.layout(tuple(range(plan.n_leaves)))
+    xs = plan.leaves(state)
+    starts = lay.starts[:plan.n_leaves]
+    bk = torch.zeros(lay.padded_rows * ck.LANES, dtype=torch.int32,
+                     device="cuda")
+    bp = torch.zeros_like(bk)
+    ref.pack_rows_ref(bp, xs, starts)
+    desc = ck.pack_descriptors(xs, starts, "cuda")
+    ck.pack_rows(bk, xs, starts, desc=desc)
+    err = _max_err(torch, bk, bp)
+    assert err == 0, f"int8-state pack differs from its plain version ({err})"
+    del bp
+    n_bytes = sum(x.numel() * (x.element_size() + 4) for x in xs)
+    ones = sum(x.numel() for x in xs if x.element_size() == 1)
+    bound, by = _bound_ms(n_bytes)
+    ms = _median_ms(lambda: ck.pack_rows(bk, xs, starts, desc=desc), torch,
+                    flush, queued=True)
+    plain_ms = _median_ms(lambda: ref.pack_rows_ref(bk, xs, starts), torch,
+                          flush, queued=True)
+    to_ms = _median_ms(lambda: [x.to(torch.int32) for x in xs], torch,
+                       flush, queued=True)
+    floor_ms = _median_ms(lambda: torch.cuda._sleep(0), torch, flush,
+                          queued=True)
+    print(f"[pack-bytes] pack_rows (iterpro-100m int8-moment training "
+          f"canary, K=1): bitwise equal to plain, {len(xs)} leaves, {ones} "
+          f"1-byte elements of {sum(x.numel() for x in xs)}, "
+          f"{n_bytes / 1e9:.4f} GB moved, {desc.n_chunks} chunks: device "
+          f"time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"Tensor.to(int32) of the same leaves {to_ms:.4f} ms, event floor "
+          f"{floor_ms:.4f} ms, bound {bound:.4f} ms ({by}); launches on "
+          f"phase 9b {launches} [{_SMI}]")
+    return dict(route="cuda", source="src/repro_torch/kernels/csrc/checksum.cu",
+                replaces="src/repro/kernels/checksum.py:85", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None, launches=launches)
+
+
+def check_int8_triage(torch, cfg, cases, label):
+    """9b: rung 0 and the ladder on an int8-moment state at full width:
+    after 6 functional steps each case flips one bit of a copy of the
+    state, the K=1 canary names the leaf, and the runtime with triage
+    either tolerates it in place (0 bytes, 0 steps, the next check quiet)
+    or escalates to replay, bitwise the clean state.  ``cases``: (leaf
+    chooser, element chooser, bit, expected rung)."""
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.core.faults import flip_bit
+    from repro_torch.core.icp import promote
+    from repro_torch.core.microcheckpoint import MicroCheckpointer
+    from repro_torch.core.recover import RecoveryRuntime
+    from repro_torch.launch.train import cuda_numerics
+    from repro_torch.train.loop import make_train_state, make_train_step
+    from repro_torch.tree import flatten_with_path, leaf_key, tree_map
+
+    _, bfn = _mode_tools(torch, cfg)
+    n = 6
+    with cuda_numerics(torch.device("cuda")):
+        step_fn = make_train_step(cfg, global_batch=T_BATCH)
+        state = make_train_state(cfg, 0, global_batch=T_BATCH,
+                                 device="cuda")
+        micro = MicroCheckpointer(T_SNAP)
+        for s in range(n):
+            micro.maybe_snapshot(s, state)
+            micro.record_iv(s, state["iv"])
+            state, _ = step_fn(state, bfn(s))
+        canary = ChecksumCanary(state, n_slices=1)
+        rt = RecoveryRuntime(step_fn=step_fn, batch_fn=bfn,
+                             iv_registry=promote(cfg, T_BATCH), micro=micro,
+                             canary=canary, triage=True)
+        flat = {leaf_key(p): t for p, t in flatten_with_path(state)}
+        for pick, elem, bit, want in cases:
+            where = pick(flat)
+            bad = tree_map(torch.clone, state)
+            leaf = {leaf_key(p): t for p, t in flatten_with_path(bad)}[where]
+            j = elem(flat, where)
+            flip_bit(leaf, j, bit)
+            report = canary.check(n, bad)
+            assert report is not None and report.leaves == [where], report
+            fixed, ev = rt.recover(bad, report, n)
+            assert ev.attempted[0] == "triage", ev
+            if want == "triage":
+                assert ev.rung == "triage" and ev.bytes_moved == 0 \
+                    and ev.steps_replayed == 0, ev
+                assert _same_state(torch, fixed, bad)
+                assert canary.check(n + 1, fixed) is None
+            else:
+                assert ev.rung == want, ev
+                assert _same_state(torch, fixed, state)
+            print(f"[int8-triage] {label}: {where} element {j} of "
+                  f"{leaf.numel()} bit {bit}: {ev.attempted} -> {ev.rung} in "
+                  f"{ev.wall_seconds * 1e3:.3f} ms, {ev.bytes_moved} B, "
+                  f"{ev.steps_replayed} steps replayed"
+                  + (" (state untouched, next check quiet)"
+                     if ev.rung == "triage" else ", == clean, bitwise"))
+            canary.refresh(state)
+
+
+def _q_leaf(padded: bool):
+    """A chooser of an ``opt/m/.../q`` leaf (one with a pad tail)."""
+    def pick(flat):
+        for k, t in flat.items():
+            if k.startswith("opt/m/") and k.endswith("/q"):
+                n = flat["params/" + k[len("opt/m/"):-len("/q")]].numel()
+                if not padded or n % t.shape[-1]:
+                    return k
+        raise AssertionError("no such q leaf")
+    return pick
+
+
+def _param_numel(flat, key):
+    return flat["params/" + key[len("opt/m/"):-len("/q")]].numel()
+
+
+def train_int8(torch, flush):
+    """9b: iterpro-100m with int8 AdamW moments at phase 7's settings
+    (K=1, 20 steps, a snapshot every 4, a disk checkpoint every 10):
+    clean and under the params storm, detected == injected == recovered,
+    final states bitwise equal; a live ``q`` byte flipped and recovered
+    by replay; with triage, a flip in a ``q`` pad tail tolerated by the
+    dead-region certificate.  Returns (9a's timed entry, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    cfg = _int8(get_config("iterpro-100m"))
+    _phase_start(torch)
+    clean, clean_state = train_run(torch, cfg, "int8 clean")
+    storm, state = train_run(torch, cfg, "int8 params storm",
+                             inject_every=T_INJECT)
+    assert clean["faults_detected"] == 0 and clean["steps"] == T_STEPS
+    f = storm["faults_injected"]
+    assert f > 0 and storm["faults_detected"] == f, storm
+    assert storm["faults_recovered"] == f, storm
+    assert _same_state(torch, state, clean_state), \
+        "int8 params storm final state differs from the clean run's"
+    assert clean_state["opt"]["m"]["embed"]["table"]["q"].dtype == torch.int8
+    del state
+    shutil.rmtree(WORK, ignore_errors=True)
+    launches = _phase_end(torch, "train-int8")
+    for kernel in ("pack_rows", "row_checksums", "checksum_tiles"):
+        assert launches.get(kernel, 0) > 0, (kernel, launches)
+    print(f"[train-int8] params storm final state == clean final state, "
+          f"bitwise (int8 q + f32 scale moments)")
+    entry = time_pack_bytes(torch, flush, clean_state,
+                            launches.get("pack_rows", 0))
+    del clean_state
+    mid = lambda flat, k: _param_numel(flat, k) // 2 + 1
+    check_int8_triage(torch, cfg, [(_q_leaf(False), mid, 3, "replay")],
+                      "iterpro-100m, a live q byte")
+    tail = lambda flat, k: flat[k].numel() - 1
+    check_int8_triage(
+        torch, _int8(get_config("iterpro-100m"), d_model=PAD_D),
+        [(_q_leaf(True), tail, 3, "triage"),
+         (_q_leaf(True), mid, 3, "replay")],
+        f"iterpro-100m at d_model {PAD_D} (at 768 every leaf is whole "
+        f"256-element blocks: no q pad tail)")
+    _build.LAUNCHES.clear()
+    return entry, launches
+
+
+def _strict_steady(torch, eng, name: str, steps: int = 8) -> None:
+    """9c/9d: ``steps`` more steady engine steps on the engine
+    ``_steady_busy`` left with every slot decoding, profiled: one
+    ``cudaGraphLaunch`` and no kernel launched from the host a step,
+    ``digest.STATS`` 1 launch + 1 fetch a step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import digest as kd
+    torch.cuda.synchronize()
+    kd.STATS.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            assert eng.engine_step()[2] is None
+        torch.cuda.synchronize()
+    stats = kd.STATS.snapshot()
+    api = _api_counts(prof)
+    assert stats == (steps, steps), stats
+    assert api.get("cudaGraphLaunch", 0) == steps, api
+    assert api.get("cudaLaunchKernel", 0) + api.get("cuLaunchKernel", 0) \
+        == 0, api
+    print(f"[{name}] {steps} steady steps: host API {api}, digest.STATS "
+          f"{stats[0]} launches {stats[1]} fetches")
+
+
+def serve_moe(torch, name, arch, seed_reqs: int, chunked: bool):
+    """9c/9d: ``arch`` at full width and ``MOE_LAYERS`` layers, served
+    paged through the captured step (phase 5's traffic) clean and under
+    the storm (``serve_full_width``), then the strict steady profile and
+    the graph pool's size; with ``chunked``, ``prefill_chunk=CHUNK``
+    captured against the same engine uncaptured.  Returns launches."""
+    from repro_torch.kernels import paged_kv as pkv
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tree import leaves
+    import numpy as np
+
+    cfg = _full_width(arch, n_layers=MOE_LAYERS)
+    m = cfg.model
+    print(f"[{name}] {arch} at full width (d {m.d_model}, "
+          f"{m.n_heads}/{m.n_kv_heads} heads of {m.resolved_head_dim}, "
+          f"{m.n_experts} experts of {m.moe_d_ff}, top-{m.top_k}, "
+          f"{m.n_shared_experts} shared, {m.first_dense_layers} dense "
+          f"first, vocab {m.vocab_size}, untied head), depth cut to "
+          f"{MOE_LAYERS} of its {_full_width(arch).model.n_layers} layers "
+          f"(the whole model needs the mesh)")
+
+    def reqs():
+        return make_requests(cfg, N_REQUESTS, PROMPT, GEN,
+                             np.random.default_rng(seed_reqs))
+
+    common = dict(n_slots=SLOTS, max_len=PROMPT + GEN + 1, block_size=BLOCK)
+    _phase_start(torch)
+    pool0 = _graph_pool_bytes(torch)
+    eng, clean, launches = serve_full_width(torch, cfg, name, reqs,
+                                            paged=True, **common)
+    pool_mib = (_graph_pool_bytes(torch) - pool0) / 2**20
+    _strict_steady(torch, eng, name)
+    leaf = eng.pool["groups"][-1][0]["k"]
+    err = _max_err(torch, pkv.gather_blocks(leaf, eng.bt).view(torch.int16),
+                   ref.gather_blocks_ref(leaf, eng.bt).view(torch.int16))
+    assert err == 0, f"{name}: gather_blocks differs on the pool ({err})"
+    print(f"[{name}] {sum(t.numel() for t in leaves(eng.params))} params, "
+          f"graph pools {pool_mib:.1f} MiB (both engines' 8 graphs); "
+          f"gather_blocks on the bf16 pool leaf {tuple(leaf.shape)} (head "
+          f"dim {leaf.shape[-1]}) bitwise equal to plain; launches "
+          f"{launches} [{_SMI}]")
+    if chunked:
+        kw = dict(canary_slices=K, max_replays=10**6, device="cuda",
+                  prefill_chunk=CHUNK, **common)
+        toks = []
+        for captured in (True, False):
+            ch = ServingEngine(cfg, params=eng.params, **kw)
+            if not captured:
+                ch._replay = False
+            rep = ch.run(reqs())
+            assert rep.summary()["dropped"] == 0
+            toks.append({r: v["tokens"] for r, v in rep.per_request.items()})
+            del ch
+        assert toks[0] == toks[1], f"{name}: chunked captured != uncaptured"
+        same = toks[0] == {r: v["tokens"]
+                           for r, v in clean.per_request.items()}
+        print(f"[{name}] prefill_chunk={CHUNK}: captured tokens == the same "
+              f"chunked engine uncaptured for all {N_REQUESTS} requests "
+              f"(== monolithic: {same}; capacity is per call, so a chunk "
+              f"may drop other rows than the whole prompt)")
+    del eng
+    return launches
+
+
+def _train_moe(torch, cfg, name, **kw):
+    """One 9e run of the training entry point (global batch T_BATCH x
+    T_SEQ, donated, K=M_SLICES, one host snapshot at step 0); returns
+    (summary, final state on the host, steady peak GiB)."""
+    from repro_torch.launch.train import train
+    d = WORK / name.replace(" ", "_")
+    shutil.rmtree(d, ignore_errors=True)
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, state = train(cfg, steps=M_STEPS, global_batch=T_BATCH,
+                       seq_len=T_SEQ, seed=0, snapshot_interval=G_INTERVAL,
+                       canary_slices=M_SLICES, donate=True, verbose=False,
+                       device="cuda", return_state=True, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    shutil.rmtree(d, ignore_errors=True)
+    rec, snap = out["recovery"], out["snapshots"]
+    ck = out.get("checkpoints")
+    print(f"[{name}] {out['steps']} steps in {time.perf_counter() - t0:.1f}"
+          f" s, final loss {out['final_loss']:.6f}, host step p50 "
+          f"{out['p50_step_ms']:.3f} ms, faults injected "
+          f"{out['faults_injected']} detected {out['faults_detected']} "
+          f"recovered {out['faults_recovered']}, rungs {rec['by_rung']}, "
+          f"recovery p50 {out['p50_recovery_ms']:.3f} ms; {snap['count']} "
+          f"host snapshot {snap['seconds']:.2f} s"
+          + (f", {ck['count']} disk checkpoint {ck['blocking_seconds']:.2f} "
+             f"s on the step path + {ck['write_seconds']:.2f} s written"
+             if ck else "")
+          + f"; peak memory {peak:.3f} GiB [{_SMI}]")
+    host = _host(torch, state)
+    del state
+    return out, host, peak
+
+
+def _profile_donated(torch, cfg, steps: int = 2) -> float:
+    """Device busy ms of a donated grok train step (``steps`` profiled
+    after one warm step, on a fresh state)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.train import cuda_numerics
+    from repro_torch.train.loop import make_train_state, make_train_step
+    _, bfn = _mode_tools(torch, cfg)
+    with cuda_numerics(torch.device("cuda")):
+        step_fn = make_train_step(cfg, global_batch=T_BATCH, donate=True)
+        state = make_train_state(cfg, 0, global_batch=T_BATCH,
+                                 device="cuda")
+        state, _ = step_fn(state, bfn(0))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for s in range(1, 1 + steps):
+                state, m = step_fn(state, bfn(s))
+                float(m["loss"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    del state
+    _report_profile(prof, steps, wall_ms, "grok donated train step",
+                    ("bmm", "gemm", "index"))
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / steps
+
+
+def train_grok(torch):
+    """9e: grok-1-314b trained at full width and 1 of its 64 layers with
+    Adafactor (bf16 factored stats), its microbatch 8 (global batch 8 x
+    128), K=4, ``--donate``, 4 steps: clean, and under flips in the slice
+    checked at their step with one disk checkpoint: final states bitwise
+    equal, replay only.  Then ``--donate --fused-detect`` clean, bitwise
+    the donated clean run, when the 2K graphs' packing buffers fit beside
+    the measured donated peak (else the arithmetic is printed).  Returns
+    the phase's launches."""
+    from repro_torch.core.detect import rotating_slice
+    from repro_torch.kernels import digest as kd
+    from repro_torch.kernels.checksum import LANES
+    from repro_torch.tree import leaves
+    cfg = _full_width(GROK, n_layers=GROK_TRAIN_LAYERS)
+    assert cfg.train.optimizer == "adafactor" and cfg.train.microbatch == 8
+    assert cfg.train.moment_dtype == "bfloat16"
+    _phase_start(torch)
+    clean, clean_host, peak = _train_moe(torch, cfg, "train-grok clean")
+    assert clean["faults_detected"] == 0 and clean["steps"] == M_STEPS
+    assert int(clean_host["iv"]["micro_count"]) == 8 * M_STEPS
+    assert clean_host["opt"]["stats"]["groups"][0][0]["ffn"]["gate"][
+        "vr"].shape == (1, 8, 6144)
+    storm, host, _ = _train_moe(torch, cfg, "train-grok params storm",
+                                inject_every=M_INJECT,
+                                inject_armed_only=True,
+                                checkpoint_dir=str(WORK / "grok"),
+                                checkpoint_interval=G_INTERVAL)
+    f = storm["faults_injected"]
+    assert f > 0 and storm["faults_detected"] == f, storm
+    assert storm["faults_recovered"] == f, storm
+    assert set(storm["recovery"]["by_rung"]) <= {"replay"}, storm
+    assert _same_state(torch, host, clean_host), \
+        "grok params storm final state differs from the clean run's"
+    del host
+    shutil.rmtree(WORK, ignore_errors=True)
+    launches = _phase_end(torch, "train-grok")
+    for kernel in ("pack_rows", "row_checksums", "checksum_tiles"):
+        assert launches.get(kernel, 0) > 0, (kernel, launches)
+    busy = _profile_donated(torch, cfg)
+    n_params = sum(t.numel() for t in leaves(clean_host["params"]))
+    print(f"[train-grok] {n_params} params (bf16), Adafactor bf16 stats, "
+          f"microbatch {cfg.train.microbatch}: params storm final state == "
+          f"clean final state, bitwise; donated host step p50 "
+          f"{clean['p50_step_ms']:.3f} ms, device busy {busy:.3f} ms/step, "
+          f"peak {peak:.3f} GiB [{_SMI}]")
+
+    # the fused capture's packing buffers: one per rotation, each the
+    # rotation's check and arm slices (every word twice over K rotations)
+    _phase_start(torch)
+    plan = kd.plan_for(clean_host)
+    can_k = [tuple(rotating_slice(r, M_SLICES, plan.n_leaves))
+             for r in range(M_SLICES)]
+    words = lambda idx: plan.layout(idx).padded_rows * LANES * 4
+    slices = sum(words(c) for c in can_k)
+    unions = sum(words(can_k[r] + can_k[(r + 1) % M_SLICES])
+                 for r in range(M_SLICES))
+    total = torch.cuda.mem_get_info()[1]
+    need = peak * 2**30 + unions - slices
+    print(f"[train-grok] --donate --fused-detect needs the donated peak "
+          f"{peak:.3f} GiB + {(unions - slices) / 2**30:.3f} GiB more "
+          f"packing buffers (its {M_SLICES} rotations' check+arm unions "
+          f"hold {unions / 2**30:.3f} GiB against the donated pair's "
+          f"{slices / 2**30:.3f}) = {need / 2**30:.3f} GiB of the card's "
+          f"{total / 2**30:.3f} GiB")
+    if need > 0.97 * total:
+        print(f"[train-grok] --donate --fused-detect does not fit one card "
+              f"at this width and was not run (ROADMAP.md queue 3) [{_SMI}]")
+        return launches
+    fused, host, fpeak = _train_moe(torch, cfg, "train-grok donate+fused "
+                                    "clean", fused_detect=True)
+    assert fused["fused"]["captures"] == 2 * M_SLICES, fused
+    assert _same_state(torch, host, clean_host), \
+        "grok donate+fused clean final state differs from donated clean"
+    print(f"[train-grok] donate+fused ({fused['fused']['captures']} graphs "
+          f"in {fused['fused']['seconds']:.1f} s) clean == donated clean, "
+          f"bitwise; host step p50 {fused['p50_step_ms']:.3f} ms, peak "
+          f"{fpeak:.3f} GiB [{_SMI}]")
+    return launches
 
 
 def main() -> int:
@@ -2515,6 +3032,23 @@ def main() -> int:
     profile_train(torch, gcfg, g_state, steps=2)
     del g_state
     train_danube(torch)
+
+    # -- phase 9: the optimizers and the MoE family at full width ---------
+    t9 = time.perf_counter()
+    check_pack_bytes(torch, flush)
+    bytes_entry, l9b = train_int8(torch, flush)
+    l9c = serve_moe(torch, "serve-grok", GROK, 3, chunked=True)
+    l9d = serve_moe(torch, "serve-kimi", KIMI, 4, chunked=False)
+    l9e = train_grok(torch)
+    l9 = {"9b": l9b, "9c": l9c, "9d": l9d, "9e": l9e}
+    for kernel in ("pack_rows", "row_checksums", "gather_blocks",
+                   "checksum_tiles"):
+        assert sum(lc.get(kernel, 0) for lc in l9.values()) > 0, (kernel, l9)
+    print(f"[phase 9] launches by path: {l9}; {time.perf_counter() - t9:.1f}"
+          f" s [{_SMI}]")
+    label = "pack_rows (iterpro-100m int8-moment training canary, 1-byte q)"
+    kernels[label] = bytes_entry
+    launches[label] = bytes_entry["launches"]
 
     for name, r in train_kernels.items():
         kernels[name] = r

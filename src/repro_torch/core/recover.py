@@ -85,6 +85,9 @@ from repro_torch.core.replay import copy_into, replay
 from repro_torch.kernels import digest as kdigest
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as _ref
+# elements per int8-moment quantisation block: the pad tail of the last
+# block is dead
+from repro_torch.optim.optimizers import QBLOCK
 from repro_torch.tree import flatten_with_path, leaf_key, replace_leaves
 
 #: what each unported rung (and its constructor argument) waits for
@@ -100,9 +103,6 @@ _NOT_PORTED = {
 TRIAGE_REL_EPS = 1e-5
 TRIAGE_ABS_FLOOR = 1e-12
 
-#: elements per int8-moment quantisation block (the reference's
-#: ``optim.optimizers.QBLOCK``): the pad tail of the last block is dead
-QBLOCK = 256
 
 
 @dataclass
@@ -148,6 +148,10 @@ class RecoveryRuntime:
     donated     : the loop's step updates the state in place; the ladder
                   pivots to replay (see the module docstring) and every
                   repair is written into the live tensors
+    reuse_state : the caller drops the faulty state it hands ``recover``:
+                  the replay and checkpoint rungs write into its tensors
+                  rather than allocating a third state version beside
+                  the snapshot's and the step's (implied by ``donated``)
     shardings, elastic : not ported; raise
     """
 
@@ -159,7 +163,7 @@ class RecoveryRuntime:
                  table: Optional[RecoveryTable] = None,
                  canary: Optional[ChecksumCanary] = None,
                  triage: bool = False, donated: bool = False,
-                 shardings=None, elastic=None):
+                 reuse_state: bool = False, shardings=None, elastic=None):
         unported = {"shardings": (shardings, _NOT_PORTED[RUNG_SHARD]),
                     "elastic": (elastic, _NOT_PORTED[RUNG_REMESH])}
         for name, (value, what) in unported.items():
@@ -177,6 +181,7 @@ class RecoveryRuntime:
         self.canary = canary
         self.triage = triage
         self.donated = donated
+        self.reuse_state = reuse_state or donated
         self.events: List[RecoveryEvent] = []
         self._last_replayed = 0
         self._last_patched_bytes = 0
@@ -486,6 +491,11 @@ class RecoveryRuntime:
             return [int(i) for i in np.nonzero(bad)[0]]
         return []
 
+    def _into(self, state):
+        """The tensors a replay writes into: the live state's, where the
+        runtime may reuse them, else none (a new state)."""
+        return state if self.reuse_state else None
+
     def _rung_replay(self, state, report: FaultReport, step: int):
         """Replay from the newest digest-verified snapshot ≤ step."""
         snap = self.micro.latest(before=step)
@@ -495,7 +505,7 @@ class RecoveryRuntime:
         if rotten:
             raise RecoveryAbort(f"snapshot failed verification: {rotten[:3]}")
         res = replay(self.step_fn, self.batch_fn, snap.state, snap.step, step,
-                     like_state=state, into=state if self.donated else None)
+                     like_state=state, into=self._into(state))
         self._last_replayed = res.steps_replayed
         return res.state, f"replayed {res.steps_replayed} steps from " \
                           f"{snap.step}"
@@ -506,7 +516,7 @@ class RecoveryRuntime:
             raise RecoveryAbort("no checkpoint loader configured")
         ck_state, ck_step = self.checkpoint()
         res = replay(self.step_fn, self.batch_fn, ck_state, ck_step, step,
-                     like_state=state, into=state if self.donated else None)
+                     like_state=state, into=self._into(state))
         self._last_replayed = res.steps_replayed
         return res.state, f"restored step {ck_step} + replayed to {step}"
 

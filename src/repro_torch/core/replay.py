@@ -11,7 +11,10 @@ embedding and logits backward do not accumulate with atomics).
 A donated loop replays ``into`` its live state: the snapshot is copied
 into the live tensors and the steps (in place) run there, so the state
 keeps every ``data_ptr`` — the canary's pack schedules and the captured
-graphs of the fused step read those addresses.
+graphs of the fused step read those addresses.  A functional step
+replays ``into`` a state its caller drops anyway (the faulty one): each
+replayed step's output is copied back into those tensors and freed, so a
+replay holds two state versions, as a step does, and not three.
 """
 
 from __future__ import annotations
@@ -58,8 +61,9 @@ def replay(step_fn: Callable, batch_fn: Callable, snapshot_state,
            into=None, on_step: Optional[Callable] = None) -> ReplayResult:
     """Replay ``step_fn`` from the state snapshotted before step
     ``from_step`` up to (not including) ``to_step``.  With ``into`` (a
-    live state) the snapshot is copied into its tensors, the steps run
-    there and the result is ``into`` itself."""
+    live state, or one its caller drops) the snapshot is copied into its
+    tensors, each step's output is copied back into them (a no-op for an
+    in-place step) and the result is ``into`` itself."""
     if to_step < from_step:
         raise ValueError(f"replay backwards: {from_step} -> {to_step}")
     if into is not None:
@@ -68,9 +72,9 @@ def replay(step_fn: Callable, batch_fn: Callable, snapshot_state,
         state = device_put_like(snapshot_state, like_state, device)
     for s in range(from_step, to_step):
         state, _ = step_fn(state, batch_fn(s))
+        if into is not None:
+            state = copy_into(into, state)
         if on_step is not None:
             on_step(s, state)
-    if into is not None:
-        state = copy_into(into, state)
     return ReplayResult(state=state, steps_replayed=to_step - from_step,
                         from_step=from_step, to_step=to_step)

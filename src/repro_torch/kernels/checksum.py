@@ -27,6 +27,9 @@ CHUNK_BYTES = 32768
 # Leaves per ``pack_rows`` launch: ``kMaxLeaves`` of ``csrc/checksum.cu``
 # (the kernel stages their ``first_chunk`` column in shared memory).
 MAX_PACK_LEAVES = 8192
+# 1-byte dtypes ``ref.to_i32`` zero-extends (a bool or an 8-bit float
+# does not take that path)
+_BYTE_INTS = (torch.int8, torch.uint8)
 
 
 def chunk_count(n_bytes: int) -> int:
@@ -45,7 +48,7 @@ def pack_schedule(ptrs: Sequence[int], n_words: Sequence[int],
     table of ``(src_ptr, n_words, dst_start, first_chunk, elem_bytes)``
     and the total chunk count.  ``n_words`` is the words a leaf fills
     (its element count); ``elem_bytes`` its element size, 4 (copied as
-    is) or 2 (each value zero-extended to a word; 4 when not given).
+    is), 2 or 1 (each value zero-extended to a word; 4 when not given).
     ``first_chunk`` is the prefix sum of the leaves' chunk counts
     (``chunk_count`` of the ``4 * n_words`` bytes each writes), so chunk
     ``c`` belongs to the last leaf whose ``first_chunk <= c``."""
@@ -88,9 +91,10 @@ def pack_rows(buf: torch.Tensor, leaves: Sequence[torch.Tensor],
 
     buf    : flat int32 packing buffer, written in place and returned.
     leaves : contiguous tensors, read in place: 4-byte elements are
-             copied as they are, 2-byte ones (bf16, f16, int16)
-             zero-extended into words by the kernel itself.  1-byte
-             leaves are not packed on the card yet.
+             copied as they are, 2-byte ones (bf16, f16, int16) and
+             1-byte integers (int8, uint8: quantised moments)
+             zero-extended into words by the kernel itself, from any
+             byte address.
     desc   : optional pre-built ``pack_descriptors(leaves, starts)`` (CUDA
              only), so a steady-state caller uploads nothing.
     """
@@ -101,14 +105,11 @@ def pack_rows(buf: torch.Tensor, leaves: Sequence[torch.Tensor],
     if buf.dtype != torch.int32:
         raise TypeError("pack_rows: buf must be int32")
     for x, s in zip(leaves, starts):
-        if x.element_size() == 1:
-            raise NotImplementedError(
-                "pack_rows: 1-byte leaves (int8 moments) are not packed on "
-                "the card yet (ROADMAP.md queue 1 item 5)")
-        if x.element_size() not in (2, 4) or x.is_complex() \
-                or not x.is_contiguous():
+        if x.element_size() not in (1, 2, 4) or x.is_complex() \
+                or not x.is_contiguous() or (x.element_size() == 1 and
+                                             x.dtype not in _BYTE_INTS):
             raise ValueError("pack_rows: leaves must be contiguous, of "
-                             "2- or 4-byte elements")
+                             "4- or 2-byte elements or 1-byte integers")
         if x.device != buf.device:
             raise ValueError("pack_rows: leaf on another device")
         if s % LANES or s + x.numel() > buf.numel():

@@ -20,9 +20,10 @@
 //   Aligned chunks go through the shared-memory ring with 1-D bulk
 //   copies; a `pos[u]` scalar view, an unaligned source or a leaf's
 //   ragged tail is copied word by word by the same launch.
-//   A 2-byte leaf (bf16 params, a bf16 KV cache) is read in place: its
-//   descriptor carries elem_bytes = 2, its chunks are cut over the words
-//   it fills (4 * n_words bytes, 2 * n_words read), and the word path
+//   A 2-byte leaf (bf16 params, a bf16 KV cache) or a 1-byte one (the
+//   int8 `q` of a quantised moment) is read in place: its descriptor
+//   carries elem_bytes = 2 or 1, its chunks are cut over the words it
+//   fills (4 * n_words bytes, 2 or 1 * n_words read), and the word path
 //   zero-extends each value into its word (copy.cuh:widen_path), which
 //   is what the reference's pack of to_i32 flats writes.  No widened
 //   copy of the leaf is made, so a captured graph reads only storage
@@ -64,7 +65,7 @@ struct PackDesc {          // mirrors the wrapper's (n_leaves, 5) int64 table
   long long n_words;       // words written (== the leaf's element count)
   long long dst_start;
   long long first_chunk;   // chunks of the leaves before this one
-  long long elem_bytes;    // 4: copied as is; 2: zero-extended to a word
+  long long elem_bytes;    // 4: copied as is; 2 or 1: zero-extended
 };
 
 // first_chunk column in shared memory: 64 KiB after the 128 KiB ring,
@@ -74,7 +75,8 @@ constexpr int kMaxLeaves = 8192;
 // Chunk c of the pack: the leaf l with the largest first_chunk <= c (a
 // leaf with no chunks shares its successor's first_chunk and is never
 // picked), then chunk c - first_chunk[l] of the 4 * n_words bytes it
-// writes; a 2-byte leaf's chunk reads from half that offset.
+// writes; a 2-byte (1-byte) leaf's chunk reads from half (a quarter of)
+// that offset.
 struct PackMap {
   const PackDesc* desc;
   const long long* first;      // the first_chunk column, in shared memory
@@ -90,8 +92,8 @@ struct PackMap {
     const PackDesc& d = desc[lo];
     long long off, len;
     copy_engine::chunk_span(c - first[lo], 4 * d.n_words, off, len);
-    const int widen = d.elem_bytes == 2;
-    return {d.src + (widen ? off >> 1 : off),
+    const int widen = d.elem_bytes == 2 ? 1 : d.elem_bytes == 1 ? 2 : 0;
+    return {d.src + (off >> widen),
             reinterpret_cast<char*>(buf + d.dst_start) + off, len, widen};
   }
 };

@@ -22,11 +22,11 @@
 // data.  Warps 1-7 copy every other chunk (unaligned scalar views, a
 // block of 21 words, a leaf's ragged tail) word by word, global to
 // global, in the same launch.  A chunk with no source writes zeros.
-// A widening chunk (pack_rows of a 2-byte leaf) reads bytes / 2 source
-// bytes and zero-extends each 2-byte value into one 4-byte word; it
-// never takes the bulk path (a bulk copy cannot widen), and warps 1-7
-// move it 4 values (8 B loaded, 16 B stored) a thread where both ends
-// are aligned for that, value by value otherwise.
+// A widening chunk (pack_rows of a 2- or 1-byte leaf) reads bytes / 2
+// or bytes / 4 source bytes and zero-extends each value into one 4-byte
+// word; it never takes the bulk path (a bulk copy cannot widen), and
+// warps 1-7 move it 4 values (8 or 4 B loaded, 16 B stored) a thread
+// where both ends are aligned for that, value by value otherwise.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,8 +47,9 @@ constexpr int kRingBytes = kStages * kChunk + kBarBytes;
 constexpr int kMaxDevices = 64;
 
 // One chunk: `bytes` bytes from `src` to `dst`; a null `src` writes zeros.
-// With `widen`, `src` holds bytes / 4 values of 2 bytes, each written to
-// `dst` as one zero-extended 4-byte word (`bytes` counts the destination).
+// With `widen` = 1 (or 2), `src` holds bytes / 4 values of 2 bytes (of
+// 1 byte), each written to `dst` as one zero-extended 4-byte word
+// (`bytes` counts the destination; the source holds bytes >> widen).
 struct Span {
   const char* src;
   char* dst;
@@ -177,12 +178,43 @@ __device__ void bulk_pipeline(const Map& map, long long n,
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// A widening chunk of 1-byte values (int8 / uint8), by thread t of the
+// word path: with a 4-byte aligned source and a 16-byte aligned
+// destination a thread moves 4 values a step (one 4-byte load, one
+// 16-byte store); the rest, and any chunk not so aligned (a source at
+// any byte), go value by value.
+__device__ inline void widen_bytes(const Span& s, int t) {
+  const long long words = s.bytes >> 2;
+  long long done = 0;
+  if (((reinterpret_cast<uintptr_t>(s.src) & 3) |
+       (reinterpret_cast<uintptr_t>(s.dst) & 15)) == 0) {
+    const uint32_t* __restrict__ src =
+        reinterpret_cast<const uint32_t*>(s.src);
+    uint4* __restrict__ dst = reinterpret_cast<uint4*>(s.dst);
+    const long long quads = words >> 2;
+#pragma unroll 4
+    for (long long i = t; i < quads; i += kWordThreads) {
+      const uint32_t v = __ldg(src + i);
+      dst[i] = make_uint4(v & 0xffu, (v >> 8) & 0xffu, (v >> 16) & 0xffu,
+                          v >> 24);
+    }
+    done = quads << 2;
+  }
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(s.src);
+  uint32_t* dst = reinterpret_cast<uint32_t*>(s.dst);
+  for (long long i = done + t; i < words; i += kWordThreads) dst[i] = src[i];
+}
+
 // A widening chunk, by thread t of the word path: bytes / 4 values of 2
-// bytes, each zero-extended into one destination word.  With an 8-byte
-// aligned source and a 16-byte aligned destination a thread moves 4
-// values a step (one 8-byte load, one 16-byte store); the rest, and any
-// chunk not so aligned, go value by value.
+// bytes (1 byte: widen_bytes), each zero-extended into one destination
+// word.  With an 8-byte aligned source and a 16-byte aligned destination
+// a thread moves 4 values a step (one 8-byte load, one 16-byte store);
+// the rest, and any chunk not so aligned, go value by value.
 __device__ inline void widen_path(const Span& s, int t) {
+  if (s.widen == 2) {
+    widen_bytes(s, t);
+    return;
+  }
   const long long words = s.bytes >> 2;
   long long done = 0;
   if (((reinterpret_cast<uintptr_t>(s.src) & 7) |

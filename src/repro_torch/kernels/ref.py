@@ -162,8 +162,9 @@ def xor_reconstruct_ref(parity: torch.Tensor,
 def pack_rows_ref(buf: torch.Tensor, leaves: Sequence[torch.Tensor],
                   starts: Sequence[int]) -> torch.Tensor:
     """Write each leaf's ``to_i32`` words into ``buf`` at its element
-    offset, in place (a 2-byte leaf zero-extended, as the reference packs
-    ``to_i32`` flats); every other word of ``buf`` is left untouched."""
+    offset, in place (a 2- or 1-byte leaf zero-extended, as the reference
+    packs ``to_i32`` flats); every other word of ``buf`` is left
+    untouched."""
     for x, s in zip(leaves, starts):
         buf[s:s + x.numel()].copy_(to_i32(x))
     return buf

@@ -5,13 +5,15 @@ continuous-batching engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --requests 4 --prompt-len 16 --gen 12 --inject 5
 
-``--arch`` takes every dense configuration: ``iterpro-100m``,
-``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``.
-A windowed config pages when every cache leaf fits its window
-(``max_len`` = prompt + gen + 1 within it); otherwise it takes the
-dense cache, ring leaves of ``window`` rows beside linear leaves of
-``max_len``.  The other families (MoE, SSM, hybrid, enc-dec, VLM) raise
-``NotImplementedError`` (ROADMAP.md queue 1).
+``--arch`` takes every dense configuration (``iterpro-100m``,
+``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``)
+and the MoE ones (``grok-1-314b``, ``kimi-k2-1t-a32b``; add ``--smoke
+--device cpu`` to run them on the CPU).  A windowed config pages when
+every cache leaf fits its window (``max_len`` = prompt + gen + 1 within
+it); otherwise it takes the dense cache, ring leaves of ``window`` rows
+beside linear leaves of ``max_len``.  The families after MoE (xLSTM,
+SSM, hybrid, enc-dec, VLM) raise ``NotImplementedError`` (ROADMAP.md
+queue 1 item 5).
 
 It runs on the CUDA card unless ``--device`` names another device, and
 raises when there is no card and no device is named.  The flags are the

@@ -46,15 +46,19 @@ atomics in a varying order, and a replayed step would not reproduce the
 clean trajectory bit for bit.
 
 ``--arch`` takes every dense configuration (``iterpro-100m``,
-``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``);
+``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``)
+and the MoE ones (``grok-1-314b``, ``kimi-k2-1t-a32b``, trained with
+their Adafactor and bf16 stats; ``--smoke --device cpu`` on the CPU);
 without ``--smoke`` a config's ``microbatch`` (8 for all but gemma3-1b
 and iterpro-100m) accumulates the gradients of that many slices of the
-batch in its bf16 ``grad_reduce_dtype``, as the reference does.
+batch in its bf16 ``grad_reduce_dtype``, as the reference does.  Every
+optimizer of the reference runs: AdamW with f32, bf16 or int8 moments
+(``TrainPlan(moment_dtype=...)``; the reference has no flag for it
+either) and Adafactor.
 
 Not ported yet, each raising ``NotImplementedError``: ``--mesh``,
-``--elastic`` and ``--kill-row-at``, the non-dense families, and the
-bf16 and int8 moments and Adafactor of the other configs' train plans
-(ROADMAP.md, queue 1).
+``--elastic`` and ``--kill-row-at``, and the families after MoE
+(xLSTM, SSM, hybrid, enc-dec, VLM; ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -225,7 +229,10 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
         step_fn=step_fn, batch_fn=bfn,
         iv_registry=promote(cfg, global_batch), micro=micro,
         parity=pstore, checkpoint=ckpt.loader(state) if ckpt else None,
-        canary=canary, triage=triage, donated=donate)
+        canary=canary, triage=triage, donated=donate,
+        # the faulty state is replaced by the repaired one: a replay
+        # writes into its tensors, two state versions on the card
+        reuse_state=True)
     fused = None
     if fused_detect:
         if canary is None:

@@ -1,4 +1,5 @@
-"""Model registry: one uniform API per architecture family (dense only).
+"""Model registry: one uniform API per architecture family (the dense and
+MoE families share the transformer).
 
     model = get_model(cfg.model)
     params = model.init(cfg.model, seed, device)

@@ -1,9 +1,13 @@
-"""Decoder-only transformer, dense family — the part of
+"""Decoder-only transformer, dense and MoE families — the part of
 ``repro/models/transformer.py`` the serving and training slices run:
 every dense configuration of the reference (h2o-danube's sliding window,
 gemma3's 5:1 local/global pattern with per-layer rope theta, qk-norm,
 sandwich norm, sqrt(d) embedding scale and soft-capping, command-r's
-parallel blocks, biases, an untied head).
+parallel blocks, biases, an untied head) and the MoE one (grok-1's 8
+experts, kimi-k2's 384 with a shared expert and a first dense layer),
+whose FFN is ``models/moe.py``'s local capacity path.  The forward sums
+each MoE layer's load-balance term; ``train_loss`` adds ``LB_COEF`` times
+its mean over the layers, as the reference does.
 
 Params are stacked ``(count, ...)`` per pattern position exactly as in the
 reference (``params["groups"][g][j]`` holds ``count`` layers), so leaf
@@ -34,10 +38,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.tree import flatten_with_path, leaf_key, map_with_path, \
     tree_map
 
 LOSS_CHUNK = 2048  # sequence chunking of the CE loss (memory knob)
+LB_COEF = 0.01  # MoE load-balance loss coefficient
 
 
 class LayerDesc(NamedTuple):
@@ -48,24 +54,33 @@ class LayerDesc(NamedTuple):
 
 def check_supported(cfg) -> None:
     """Raise for model options this port does not implement yet: every
-    family but the dense one, MoE FFNs, m-rope and patch inputs
+    family but the dense and MoE ones, m-rope and patch inputs
     (ROADMAP.md queue 1)."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
-    on = [name for name in ("n_experts", "m_rope", "patch_dim")
-          if getattr(cfg, name)]
+    on = [name for name in ("m_rope", "patch_dim") if getattr(cfg, name)]
     if on:
         raise NotImplementedError(f"model options not ported: {on}")
 
 
 def derive_groups(cfg) -> Tuple[Tuple[int, Tuple[LayerDesc, ...]], ...]:
-    """(count, pattern) groups covering cfg.n_layers in order: with a
+    """(count, pattern) groups covering cfg.n_layers in order: with
+    experts, ``first_dense_layers`` dense layers then the MoE ones; with a
     local/global ratio r, ``n // (r+1)`` repeats of (r local layers at
     theta 10,000 and ``local_window``, 1 global layer at ``rope_theta``)
     then one group of the remaining local layers; else every layer alike,
     with ``sliding_window``."""
     check_supported(cfg)
     n = cfg.n_layers
+    if cfg.n_experts:
+        fd = cfg.first_dense_layers
+        groups = []
+        if fd:
+            groups.append((fd, (LayerDesc(cfg.sliding_window,
+                                          cfg.rope_theta, False),)))
+        groups.append((n - fd, (LayerDesc(cfg.sliding_window,
+                                          cfg.rope_theta, True),)))
+        return tuple(groups)
     if cfg.local_global_ratio:
         r = cfg.local_global_ratio
         local = LayerDesc(cfg.local_window, 10_000.0, False)
@@ -100,16 +115,16 @@ def _dtype(name: str) -> torch.dtype:
 # init
 # ---------------------------------------------------------------------------
 
-def init_block(gen, cfg, dt, device, count: int) -> dict:
+def init_block(gen, cfg, desc: LayerDesc, dt, device, count: int) -> dict:
     """``count`` stacked layers of one pattern position: the reference's
-    ``init_block`` leaves (no ``ln2`` under ``parallel_block``,
-    ``ln1_post``/``ln2_post`` under ``sandwich_norm``, biases under
-    ``use_bias``)."""
+    ``init_block`` leaves (an MoE ``ffn`` on an MoE layer, no ``ln2``
+    under ``parallel_block``, ``ln1_post``/``ln2_post`` under
+    ``sandwich_norm``, biases under ``use_bias``)."""
     d = cfg.d_model
     p = {"ln1": L.rmsnorm_init(d, dt, device, count),
-         "attn": L.attn_init(gen, cfg, dt, device, count),
-         "ffn": L.mlp_init(gen, d, cfg.d_ff, dt, device, count,
-                           bias=cfg.use_bias)}
+         "attn": L.attn_init(gen, cfg, dt, device, count)}
+    p["ffn"] = M.moe_init(gen, cfg, dt, device, count) if desc.moe else \
+        L.mlp_init(gen, d, cfg.d_ff, dt, device, count, bias=cfg.use_bias)
     if not cfg.parallel_block:
         p["ln2"] = L.rmsnorm_init(d, dt, device, count)
     if cfg.sandwich_norm:
@@ -126,8 +141,8 @@ def init_lm(cfg, seed: int, device) -> dict:
     params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt,
                                     device),
               "final_norm": L.rmsnorm_init(cfg.d_model, dt, device)}
-    params["groups"] = [[init_block(gen, cfg, dt, device, count)
-                         for _ in pattern]
+    params["groups"] = [[init_block(gen, cfg, desc, dt, device, count)
+                         for desc in pattern]
                         for count, pattern in derive_groups(cfg)]
     if not cfg.tie_embeddings:
         params["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
@@ -155,35 +170,50 @@ def _embed(params, cfg, tokens):
 # blocks
 # ---------------------------------------------------------------------------
 
-def _residual(p, cfg, x, h, attn_out):
+def _ffn(p, cfg, desc: LayerDesc, h, min_capacity: int = 0):
+    """The layer's FFN: (out, load-balance term or None)."""
+    if desc.moe:
+        y, aux = M.moe_apply(p["ffn"], cfg, h, min_capacity=min_capacity)
+        return y, aux["lb_loss"]
+    return L.mlp_apply(p["ffn"], h), None
+
+
+def _residual(p, cfg, desc: LayerDesc, x, h, attn_out,
+              min_capacity: int = 0):
     """The block's tail after attention: the sandwich's post-norms and
     the parallel form (attention and FFN both read ``h``), as in the
-    reference's ``block_apply``."""
+    reference's ``block_apply``.  Returns (x, lb or None)."""
     if cfg.sandwich_norm:
         attn_out = L.rmsnorm(p["ln1_post"], attn_out, cfg.norm_eps)
     if cfg.parallel_block:
-        return x + attn_out + L.mlp_apply(p["ffn"], h)
+        ffn_out, lb = _ffn(p, cfg, desc, h, min_capacity)
+        return x + attn_out + ffn_out, lb
     x = x + attn_out
-    ffn_out = L.mlp_apply(p["ffn"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    ffn_out, lb = _ffn(p, cfg, desc, L.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                       min_capacity)
     if cfg.sandwich_norm:
         ffn_out = L.rmsnorm(p["ln2_post"], ffn_out, cfg.norm_eps)
-    return x + ffn_out
+    return x + ffn_out, lb
 
 
 def block_apply(p, cfg, desc: LayerDesc, x, positions):
-    """Full-sequence block.  Returns (x, (k, v))."""
+    """Full-sequence block.  Returns (x, (k, v), lb or None)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out, kv = L.attn_apply(p["attn"], cfg, h, positions,
                                 window=desc.window, theta=desc.theta)
-    return _residual(p, cfg, x, h, attn_out), kv
+    x, lb = _residual(p, cfg, desc, x, h, attn_out)
+    return x, kv, lb
 
 
 def block_decode(p, cfg, desc: LayerDesc, x, pos, k_cache, v_cache):
-    """Single-token block; writes the caches in place.  Returns x."""
+    """Single-token block; writes the caches in place.  Returns x.  An
+    MoE FFN runs every row's token with a capacity of at least the batch
+    (``moe.py``: the reference decoded each slot alone)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out = L.attn_decode(p["attn"], cfg, h, pos, k_cache, v_cache,
                              window=desc.window, theta=desc.theta)
-    return _residual(p, cfg, x, h, attn_out)
+    return _residual(p, cfg, desc, x, h, attn_out,
+                     min_capacity=x.shape[0] * x.shape[1])[0]
 
 
 def block_chunk(p, cfg, desc: LayerDesc, x, qpos, ck, cv, ctx_kpos):
@@ -194,7 +224,7 @@ def block_chunk(p, cfg, desc: LayerDesc, x, qpos, ck, cv, ctx_kpos):
     attn_out, k, v = L.attn_prefill_chunk(p["attn"], cfg, h, qpos, ck, cv,
                                           ctx_kpos, window=desc.window,
                                           theta=desc.theta)
-    return _residual(p, cfg, x, h, attn_out), k, v
+    return _residual(p, cfg, desc, x, h, attn_out)[0], k, v
 
 
 # ---------------------------------------------------------------------------
@@ -210,23 +240,28 @@ def cache_capacity(desc: LayerDesc, max_len: int) -> int:
 
 def forward(params, cfg, x, positions, *, collect_cache: bool = False,
             cache_sizes=None, remat: bool = False):
-    """Walk every layer.  Returns (hidden, caches|None); with
+    """Walk every layer.  Returns (hidden, lb_sum, caches|None): the f32
+    sum of the MoE layers' load-balance terms (0 without experts); with
     ``collect_cache`` each group yields ``[{"k", "v"}]`` leaves
     ``(count, B, cache_sizes(desc), KV, Dh)`` laid out by
     ``_pack_cache``."""
     caches = [] if collect_cache else None
+    lb_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (count, pattern) in enumerate(derive_groups(cfg)):
         per_layer = [_unbind(p, count) for p in params["groups"][gi]]
         outs = [{"k": [], "v": []} for _ in pattern]
         for l in range(count):
             for j, desc in enumerate(pattern):
                 if remat:
-                    x = checkpoint(lambda p, h, d=desc: block_apply(
-                        p, cfg, d, h, positions)[0], per_layer[j][l], x,
+                    x, lb = checkpoint(lambda p, h, d=desc: _remat_body(
+                        p, cfg, d, h, positions), per_layer[j][l], x,
                         use_reentrant=False)
+                    lb_total = lb_total + lb
                     continue
-                x, (k, v) = block_apply(per_layer[j][l], cfg, desc, x,
-                                        positions)
+                x, (k, v), lb = block_apply(per_layer[j][l], cfg, desc, x,
+                                            positions)
+                if lb is not None:
+                    lb_total = lb_total + lb
                 if collect_cache:
                     outs[j]["k"].append(k)
                     outs[j]["v"].append(v)
@@ -235,7 +270,14 @@ def forward(params, cfg, x, positions, *, collect_cache: bool = False,
                 {n: _pack_cache(torch.stack(o[n]), desc, cache_sizes(desc))
                  for n in ("k", "v")} for o, desc in zip(outs, pattern)])
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, caches
+    return x, lb_total, caches
+
+
+def _remat_body(p, cfg, desc: LayerDesc, x, positions):
+    """A recomputed block's outputs: (x, lb; 0 on a dense layer)."""
+    x, _, lb = block_apply(p, cfg, desc, x, positions)
+    return x, (torch.zeros((), dtype=torch.float32, device=x.device)
+               if lb is None else lb)
 
 
 def _pack_cache(kv, desc: LayerDesc, capacity: int):
@@ -298,16 +340,19 @@ def chunked_ce(params, cfg, hidden, targets, mask=None, chunk=LOSS_CHUNK):
 
 def train_loss(params, cfg, batch, *, remat: bool = False):
     """batch: tokens (B,S), targets (B,S) [, loss_mask].  Returns
-    (loss, metrics) with the reference's metric keys."""
+    (loss, metrics) with the reference's metric keys: with experts the
+    loss adds ``LB_COEF`` times the mean load-balance term over the
+    layers, and ``lb`` reports the sum."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = L.make_positions(B, S, x.device)
-    hidden, _ = forward(params, cfg, x, positions, remat=remat)
+    hidden, lb, _ = forward(params, cfg, x, positions, remat=remat)
     ce = chunked_ce(params, cfg, hidden, batch["targets"],
                     batch.get("loss_mask"))
-    return ce, {"ce": ce, "lb": torch.zeros((), dtype=torch.float32,
-                                            device=ce.device)}
+    loss = ce + LB_COEF * lb / max(cfg.n_layers, 1) if cfg.n_experts \
+        else ce
+    return loss, {"ce": ce, "lb": lb}
 
 
 def prefill(params, cfg, batch, *, max_len: Optional[int] = None):
@@ -320,7 +365,7 @@ def prefill(params, cfg, batch, *, max_len: Optional[int] = None):
     x = _embed(params, cfg, tokens)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
-    hidden, caches = forward(
+    hidden, _, caches = forward(
         params, cfg, x, positions, collect_cache=True,
         cache_sizes=lambda desc: cache_capacity(desc, max_len))
     logits = logits_fn(params, cfg, hidden[:, -1:, :])[:, 0]

@@ -1,5 +1,5 @@
-"""Optimizers and learning-rate schedules of the port (AdamW with f32
-moments; Adafactor and the bf16/int8 moments are not ported yet)."""
+"""Optimizers and learning-rate schedules of the port: AdamW with f32,
+bf16 or int8 moments, and Adafactor."""
 
 from repro_torch.optim.optimizers import (Optimizer, adamw,  # noqa: F401
                                           clip_by_global_norm, global_norm,

@@ -96,7 +96,12 @@ def make_train_step(arch_cfg, global_batch: int = 0,
     ``grad_reduce_dtype`` (bf16 by default, whatever the params' dtype)
     and added to a zeroed accumulator of that dtype; the step then takes
     ``grads / n`` and ``loss = Σ loss / n``, and its metrics carry no
-    ``ce``/``lb`` (the reference's ``metrics = {}``)."""
+    ``ce``/``lb`` (the reference's ``metrics = {}``).  A leaf of the
+    accumulator's dtype is its own ``.grad``, so autograd adds each
+    slice's gradient into it as the backward produces it and frees it
+    (the same ``add``): a step never holds a whole tree of one slice's
+    gradients beside the accumulator, which at grok-1's width would not
+    fit the card."""
     tp = arch_cfg.train
     model = get_model(arch_cfg.model)
     mcfg = arch_cfg.model
@@ -118,6 +123,25 @@ def make_train_step(arch_cfg, global_batch: int = 0,
             grads = torch.autograd.grad(loss, list(req.values()))
         return loss.detach(), metrics, dict(zip(req, grads))
 
+    def accumulate(params, batch, acc):
+        """One slice's loss; its gradients added into ``acc`` in place."""
+        req = {leaf_key(p): t.detach().requires_grad_(True)
+               for p, t in flatten_with_path(params)}
+        for k, r in req.items():
+            if r.dtype == acc[k].dtype:
+                r.grad = acc[k]
+        with torch.enable_grad():
+            loss, _ = model.train_loss(
+                map_with_path(lambda p, _: req[leaf_key(p)], params), mcfg,
+                batch, remat=remat)
+            torch.autograd.backward(loss, inputs=list(req.values()))
+        for k, r in req.items():
+            if r.dtype != acc[k].dtype:
+                acc[k].add_(r.grad.to(acc_dtype))
+            elif r.grad.data_ptr() != acc[k].data_ptr():
+                acc[k].copy_(r.grad)      # accumulated out of place
+        return loss.detach()
+
     def train_step(state, batch):
         params = state["params"]
         if n_micro and n_micro > 1:
@@ -127,11 +151,8 @@ def make_train_step(arch_cfg, global_batch: int = 0,
             lsum = torch.zeros((), dtype=torch.float32,
                                device=leaves(params)[0].device)
             for mb in _split_micro(batch, n_micro):
-                loss_i, _, g = grads_of(params, mb)
-                for k, gk in g.items():
-                    acc[k].add_(gk.to(acc_dtype))
-                lsum = lsum + loss_i
-            by_key = {k: a / n_micro for k, a in acc.items()}
+                lsum = lsum + accumulate(params, mb, acc)
+            by_key = {k: a.div_(n_micro) for k, a in acc.items()}
             loss, metrics = lsum / n_micro, {}
         else:
             loss, metrics, by_key = grads_of(params, batch)

@@ -499,3 +499,121 @@ def test_header_edit_changes_the_build_hash(monkeypatch, tmp_path):
     assert [p.name for p in _build.sources()] == [
         "checksum.cu", "flash_attention.cu", "paged_kv.cu", "parity.cu",
         "vote.cu"]
+
+
+# -- 1-byte leaves (int8 moments) ----------------------------------------------
+
+_SHIFT = {4: 0, 2: 1, 1: 2}     # copy.cuh's Span.widen by element size
+
+
+def pack_chunks_bytes(table, n_chunks, buf_ptr):
+    """``pack_chunks`` with every element size the kernel takes: a 2-byte
+    (1-byte) leaf's chunk reads from half (a quarter of) its destination
+    offset and widens."""
+    leaf, off, length, _, dst = pack_chunks(table, n_chunks, buf_ptr)
+    shift = np.vectorize(_SHIFT.get)(table[leaf, 4]) if len(leaf) else \
+        np.zeros(0, np.int64)
+    src = table[leaf, 0] + (off >> shift)
+    return leaf, off, length, src, dst, shift
+
+
+def replay_bytes(mem, src, dst, length, shift):
+    """The kernel's copies over fake memory: ``length / 4`` values of
+    ``4 >> shift`` bytes each zero-extended into a destination word."""
+    raw = mem.view(np.uint8)
+    for s, d, n, k in zip(src.tolist(), dst.tolist(), length.tolist(),
+                          shift.tolist()):
+        dw, nv, at = (d - BASE) // 4, n // 4, s - BASE
+        vals = raw[at:at + nv * (4 >> k)]
+        mem[dw:dw + nv] = vals.view({0: np.int32, 1: np.uint16,
+                                     2: np.uint8}[k]).astype(np.int32) \
+            if k else vals.view(np.int32)
+
+
+_byte_leaf = st.tuples(st.one_of(st.integers(0, 300),
+                                 st.integers(0, 2 * Q + 40)),
+                       st.sampled_from([1, 1, 2, 4]),   # element bytes
+                       st.integers(0, 15),              # byte misalignment
+                       st.integers(0, 2))               # gap rows
+
+
+@settings(max_examples=60, deadline=None)
+@given(leaves=st.lists(_byte_leaf, min_size=1, max_size=10),
+       seed=st.integers(0, 2**16))
+def test_byte_pack_schedule_covers_every_word_once(leaves, seed):
+    """Mixed 1-, 2- and 4-byte leaves, a 1-byte one at any byte address
+    and of any length (not a multiple of 4 bytes): the schedule records
+    each leaf's element size, its chunks replayed with the kernel's
+    widening (``copy.cuh:widen_bytes``) write every destination word of
+    every leaf exactly once, never a chunk across a leaf, and the buffer
+    equals ``pack_rows_ref``: the int8 / uint8 values zero-extended,
+    every other word untouched."""
+    rng = np.random.default_rng(seed)
+    sizes = [n for n, *_ in leaves]
+    starts, total = _layout(sizes, [g for *_, g in leaves])
+    src_bytes = sum(e * n + 48 for n, e, _, _ in leaves)
+    mem = np.zeros(total + src_bytes // 4 + 8, np.int32)
+    mem[:total] = _bits(rng, total)
+    ptrs, tensors, at = [], [], 4 * total      # byte offset in mem
+    for i, (n, e, mis, _) in enumerate(leaves):
+        at = -(-at // 16) * 16 + (mis if e == 1 else
+                                   2 * (mis % 8) if e == 2 else
+                                   4 * (mis % 4))
+        raw = rng.integers(0, 256, size=e * n, dtype=np.uint8)
+        mem.view(np.uint8)[at:at + e * n] = raw
+        dt = (torch.int8 if i % 2 else torch.uint8) if e == 1 else \
+            torch.bfloat16 if e == 2 else torch.float32
+        tensors.append(torch.from_numpy(raw.copy()).view(dt) if n else
+                       torch.zeros(0, dtype=dt))
+        ptrs.append(BASE + at)
+        at += e * n
+    table, n_chunks = tck.pack_schedule(ptrs, sizes, starts,
+                                        [e for _, e, _, _ in leaves])
+    assert table[:, 4].tolist() == [e for _, e, _, _ in leaves]
+    assert n_chunks == sum(tck.chunk_count(4 * n) for n in sizes)
+    leaf, off, length, src, dst, shift = pack_chunks_bytes(table, n_chunks,
+                                                           BASE)
+    assert np.all((length > 0) & (length <= CHUNK) & (length % 4 == 0))
+    assert np.all(off + length <= 4 * np.asarray(sizes, np.int64)[leaf])
+    for i, n in enumerate(sizes):
+        mine = leaf == i
+        cover = np.zeros(n + 1, np.int64)
+        np.add.at(cover, off[mine] // 4, 1)
+        np.add.at(cover, (off[mine] + length[mine]) // 4, -1)
+        assert np.all(np.cumsum(cover)[:n] == 1), (i, n)
+        # a 1-byte leaf's chunks read inside its own bytes
+        if leaves[i][1] == 1 and mine.any():
+            lo = src[mine] - ptrs[i]
+            assert lo.min() >= 0 and (lo + length[mine] // 4).max() <= n
+    before = mem[:total].copy()
+    replay_bytes(mem, src, dst, length, shift)
+    want = tref.pack_rows_ref(torch.from_numpy(before.copy()), tensors,
+                              starts)
+    assert np.array_equal(mem[:total], want.numpy())
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 7, 255, 256, 257])
+@pytest.mark.parametrize("dtype", [np.int8, np.uint8])
+def test_pack_rows_ref_of_bytes_is_the_reference_to_i32(n, dtype):
+    """``ref.pack_rows_ref`` (and the CPU wrapper) of an int8 / uint8
+    leaf writes the reference's ``to_i32`` words, each byte
+    zero-extended, with the words around it untouched."""
+    raw = np.random.default_rng(n).integers(0, 256, n + 3, dtype=np.uint8)
+    raw[:2] = [0x80, 0xFF]
+    x = raw[3:].view(dtype) if n else raw[:0].view(dtype)
+    buf = torch.full((4 * tck.LANES,), -7, dtype=torch.int32)
+    got = tck.pack_rows(buf.clone(), [torch.from_numpy(x.copy())],
+                        [tck.LANES])
+    plain = tref.pack_rows_ref(buf.clone(), [torch.from_numpy(x.copy())],
+                               [tck.LANES])
+    assert torch.equal(got, plain)
+    theirs = np.asarray(tref_jax_to_i32(x))
+    assert np.array_equal(got[tck.LANES:tck.LANES + n].numpy(), theirs)
+    assert (got[:tck.LANES] == -7).all()
+    assert (got[tck.LANES + n:] == -7).all()
+    assert (theirs >= 0).all() and (theirs <= 255).all()
+
+
+def tref_jax_to_i32(x):
+    from repro.kernels import ref as jref
+    return jref.to_i32(jnp.asarray(x))

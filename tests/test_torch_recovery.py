@@ -219,6 +219,26 @@ def test_param_corruption_replays_bit_exact_and_trajectory_is_clean(port):
     assert _bitwise_equal(_advance(step, bfn, fixed, 6, 4), clean)
 
 
+def test_reuse_state_replays_into_the_faulty_tensors(port):
+    """``reuse_state``: the functional replay writes into the faulty
+    state's tensors (every ``data_ptr`` kept, two state versions at most)
+    and its result is bitwise the fresh-state replay's."""
+    cfg, state0, step, bfn = port
+    rt, micro = _runtime(port, reuse_state=True)
+    state = _advance(step, bfn, state0, 0, 6, micro)
+    plan = dataclasses.replace(
+        sample_plan(random.Random(1), state, 1, target="params"), bit=27)
+    bad = inject(_clone(state), plan)
+    ptrs = [t.data_ptr() for _, t in flatten_with_path(bad)]
+    fixed, ev = rt.recover(bad, FaultReport(6, "checksum",
+                                            leaves=["params/" + plan.leaf]),
+                           6)
+    assert ev.rung == RUNG_REPLAY and ev.steps_replayed == 2
+    assert fixed is bad
+    assert [t.data_ptr() for _, t in flatten_with_path(fixed)] == ptrs
+    assert _bitwise_equal(fixed, state)
+
+
 def test_replica_vote_rung_repairs_bit_exactly(port):
     cfg, state0, step, bfn = port
     state = _advance(step, bfn, state0, 0, 3)
