@@ -212,15 +212,46 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        slice checked at their step (one disk checkpoint), final states
        bitwise equal, replay only; host step p50, device busy a step
        (profiled) and the steady peak; then ``--donate --fused-detect``
-       clean == donated clean, bitwise, when its 2K graphs' packing
-       buffers fit beside the measured donated peak (else the
-       arithmetic is printed and the run left out);
+       clean and under an armed-slice storm, each == donated clean,
+       bitwise, when the donated peak (which already holds the plan's
+       packing ring, the K rotations' only packing buffer) and the fused
+       factory's own state version fit 97 % of the card (else the
+       arithmetic is printed and the runs left out), with the graph
+       pool's size;
    9f. the launch counts of phase 9's paths (``pack_rows``,
        ``row_checksums``, ``gather_blocks`` and ``checksum_tiles`` each
-       > 0), then one JSON line describing every kernel (the 8 ports,
-       the layout kernel ``flash_layout_kv`` of the flash port,
-       ``pack_rows`` at 8f's two shapes and at 9a's 1-byte canary), then
-       the device line.
+       > 0);
+10. the xLSTM family (xlstm-350m) at full width, bf16 (24 layers: 3 x
+   (7 mLSTM + 1 sLSTM), d 1024, 440,713,384 params, random from seed
+   0), each path with the launch counts set to 0 just before it and read
+   just after:
+   10a. served on the dense slot-major engine (no paged pool: the family
+       has no ``prefill_chunk``) with phase 5's traffic: the step's body
+       uncaptured (the reference tokens), then through phase 5d's mode
+       loop captured donated and ping-pong: 8 graphs, clean
+       tokens == uncaptured, a storm of armed-slice flips over the
+       recurrent leaves (``C``, ``n``, ``m``, conv tails, the sLSTM
+       state; the flips by leaf printed) == clean with detected ==
+       injected == recovered and 0 dropped, 8 profiled steady steps of 1
+       ``cudaGraphLaunch``, no ``cudaLaunchKernel`` and ``STATS``
+       (1, 1), decode p50 / p99, device busy and the graph pool's MiB;
+   10b. one prompt of 600 tokens (three 256-token mLSTM chunks, the last
+       padded): its first decoded token == the argmax of a 601-token
+       prefill, the largest logit difference printed beside it;
+   10c. trained (global batch 8 x 128, AdamW, remat; 4 steps, one flip
+       a storm): K=1 functional clean, a params storm under ``--parity``
+       (``parity_xor``, == clean bitwise), an iv storm (``eq1``);
+       ``--donate --fused-detect`` at K=4 clean (8 graphs, == the
+       functional clean run) and under an armed-slice storm (replay, ==
+       clean); a checkpoint written and read back bitwise; the
+       functional and donate+fused hot paths' host step p50, device busy
+       and kernels a step (one profiled step) and steady peak;
+   10d. the launches of ``pack_rows``, ``row_checksums``,
+       ``checksum_tiles``, ``xor_update_tiles`` and ``xor_fold_tiles`` on
+       phase 10's paths (each > 0); then one JSON line describing every
+       kernel (the 8 ports, the layout kernel ``flash_layout_kv`` of the
+       flash port, ``pack_rows`` at 8f's two shapes and at 9a's 1-byte
+       canary), then the device line.
 
 Any failure raises; nothing is caught.
 """
@@ -381,9 +412,9 @@ def check_kernels(torch, eng, flush):
     core = eng._rotation(0)
     leaves = plan.leaves(view)
     flats = [ref.to_i32(leaves[i]) for i in core.union]
-    starts = plan.layout(core.union).starts
+    starts = core.layout.starts
     n_words = sum(f.numel() for f in flats)
-    rows = plan.layout(core.union).padded_rows
+    rows = core.layout.padded_rows
     desc = ck.pack_descriptors(flats, starts, "cuda")
 
     def fresh():
@@ -613,8 +644,27 @@ def _graph_pool_bytes(torch) -> int:
                if tuple(seg["segment_pool_id"]) != (0, 0))
 
 
+_UNIT_PREFIX = re.compile(r"^(slot|block)\d+/(groups/\d+/\d+/)?")
+
+
+def _recording_storm(eng) -> "Counter":
+    """Count the leaf kinds (``k``, ``state/C``, ``conv``, ``pos``, ...)
+    the engine's storm flips, by wrapping its ``corrupt_slot``."""
+    from collections import Counter
+    hits = Counter()
+    flip = eng.corrupt_slot
+
+    def recorded(*a, **kw):
+        out = flip(*a, **kw)
+        hits[_UNIT_PREFIX.sub("", out[1])] += 1
+        return out
+    eng.corrupt_slot = recorded
+    return hits
+
+
 def serve_modes(torch, cfg, params, common, reqs, clean_tokens,
-                steps: int = 8) -> None:
+                steps: int = 8, modes=SERVE_MODES,
+                label: str = "serve-modes") -> dict:
     """Phase 5d: every serving mode at full width on phase 5's params and
     requests.  Per mode, with the launch counts set to 0 just before and
     read just after: ``warm()`` (2K = 8 graphs captured, their seconds and
@@ -627,8 +677,10 @@ def serve_modes(torch, cfg, params, common, reqs, clean_tokens,
     ``cudaLaunchKernel`` a step on the captured modes, ``digest.STATS``
     1 launch + 1 fetch a step, every pointer the graphs read unchanged;
     each mode's decode p50 / p99 (the clean run) and device busy ms a
-    step beside the card's name and power limit."""
+    step beside the card's name and power limit.  Returns the launch
+    counts summed over the modes."""
     import gc
+    from collections import Counter
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     from repro_torch.kernels import _build
@@ -640,7 +692,8 @@ def serve_modes(torch, cfg, params, common, reqs, clean_tokens,
     def tokens_of(rep):
         return {rid: r["tokens"] for rid, r in rep.per_request.items()}
 
-    for name, kw in SERVE_MODES:
+    total = Counter()
+    for name, kw in modes:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -658,8 +711,9 @@ def serve_modes(torch, cfg, params, common, reqs, clean_tokens,
         cs = clean.summary()
         assert cs["completed"] == N_REQUESTS and cs["dropped"] == 0, cs
         assert tokens_of(clean) == clean_tokens, (
-            f"{name}: tokens differ from the captured paged engine's")
+            f"{name}: tokens differ from the reference tokens")
         eng.report = ServingReport(n_slots=eng.S)
+        hits = _recording_storm(eng)
         storm = eng.run(reqs(), inject_every=INJECT,
                         inject_rng=random.Random(0))
         ss = storm.summary()
@@ -670,6 +724,7 @@ def serve_modes(torch, cfg, params, common, reqs, clean_tokens,
             f"{name}: storm tokens differ from clean tokens")
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
+        total.update(launches)
         path = ("pack_rows", "row_checksums") + (
             ("gather_blocks",) if eng.paged else ())
         for kernel in path:
@@ -714,9 +769,10 @@ def serve_modes(torch, cfg, params, common, reqs, clean_tokens,
                f"{eng.capture_seconds:.3f} s (warm {warm_s:.3f} s), graph "
                f"pool {pool_bytes / 2**20:.1f} MiB" if captured
                else "no graph (the body run eagerly)")
-        print(f"[serve-modes] {name}: {cap}; clean and storm tokens == the "
-              f"captured paged engine's for all {N_REQUESTS} requests, "
-              f"storm faults {f}; launches {launches}; {steps} steady "
+        print(f"[{label}] {name}: {cap}; clean and storm tokens == the "
+              f"reference tokens for all {N_REQUESTS} requests, storm faults "
+              f"{f}, flips by leaf {dict(hits)}; launches {launches}; "
+              f"{steps} steady "
               f"steps: digest.STATS {stats[0]} launches {stats[1]} "
               f"fetches, host API {api}, every pointer the step reads "
               f"unchanged; decode p50 {cs['p50_decode_ms']:.3f} ms p99 "
@@ -726,6 +782,7 @@ def serve_modes(torch, cfg, params, common, reqs, clean_tokens,
                         ("pack_rows_kernel", "row_checksums_kernel",
                          "gather_blocks_kernel"))
         del eng, prof
+    return dict(total)
 
 
 def _expect(exc, fn, what: str) -> str:
@@ -1829,9 +1886,14 @@ def check_fused_path(torch, cfg, clean_state, steps: int = 8):
           f"state, bitwise")
 
 
-def profile_modes(torch, cfg, clean_state, steps: int = 8) -> None:
-    """Phase 7j: each mode's hot path from the clean state at step 20
-    (K=1 canary): host step p50 over ``steps`` unprofiled steps (the step,
+PROFILE_MODES = ("functional", "donate", "fused", "donate+fused")
+
+
+def profile_modes(torch, cfg, clean_state, steps: int = 8,
+                  start: int = T_STEPS, label: str = "modes",
+                  modes=PROFILE_MODES, prof_steps: int = 4) -> None:
+    """Phase 7j / 10c: each mode's hot path from the clean state at step
+    ``start`` (K=1 canary): host step p50 over ``steps`` unprofiled steps (the step,
     its canary and its one fetch), device busy ms a step over 4 profiled
     steps, and the steady-state peak memory of the loop (its state
     versions, the canary, the step's temporaries; with graphs also the
@@ -1847,7 +1909,7 @@ def profile_modes(torch, cfg, clean_state, steps: int = 8) -> None:
     import numpy as np
 
     pipe, bfn = _mode_tools(torch, cfg)
-    for name in ("functional", "donate", "fused", "donate+fused"):
+    for name in modes:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -1864,7 +1926,7 @@ def profile_modes(torch, cfg, clean_state, steps: int = 8) -> None:
                 fused = canary.fuse_into_step(
                     step_fn, donate=donate, warm="eager",
                     host_metrics=("loss", "grad_norm"))
-                fused.warm(state, pipe.batch_at(T_STEPS))
+                fused.warm(state, pipe.batch_at(start))
                 state = fused.load(state)
 
             def one(s, st):
@@ -1881,7 +1943,7 @@ def profile_modes(torch, cfg, clean_state, steps: int = 8) -> None:
                     assert canary.check_and_arm(s, st, new) is None
                 return new
 
-            s = T_STEPS
+            s = start
             for _ in range(2):
                 state = one(s, state)
                 s += 1
@@ -1896,12 +1958,15 @@ def profile_modes(torch, cfg, clean_state, steps: int = 8) -> None:
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                for _ in range(4):
+                for _ in range(prof_steps):
                     state = one(s, state)
                     s += 1
                 torch.cuda.synchronize()
-            busy = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA) / 1e3 / 4
+            dev = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in dev) / 1e3 / \
+                prof_steps
+            n_kernels = sum(e.count for e in dev) / prof_steps
             peak = torch.cuda.max_memory_allocated() - base
             # a graph's temporaries live in its private pool: reserved for
             # the graph's life, not allocated between replays
@@ -1910,9 +1975,10 @@ def profile_modes(torch, cfg, clean_state, steps: int = 8) -> None:
                        if tuple(seg["segment_pool_id"]) != (0, 0))
             cap = (f", {fused.n_compiles} graphs captured in "
                    f"{fused.compile_seconds:.3f} s" if fused else "")
-        print(f"[modes] {name}: host step p50 {np.median(host):.3f} ms "
+        print(f"[{label}] {name}: host step p50 {np.median(host):.3f} ms "
               f"(min {min(host):.3f}, max {max(host):.3f}; step + K=1 "
-              f"canary + one fetch), device busy {busy:.3f} ms/step, "
+              f"canary + one fetch), device busy {busy:.3f} ms/step in "
+              f"{n_kernels:.0f} device kernels/step, "
               f"steady peak memory of the loop {peak / 2**30:.3f} GiB "
               f"allocated + {pool / 2**30:.3f} GiB in graph pools = "
               f"{(peak + pool) / 2**30:.3f} GiB above the "
@@ -2073,12 +2139,15 @@ def serve_full_width(torch, cfg, name, reqs, *, paged, params=None,
     return clean_eng, clean, launches
 
 
-def check_ring_first_token(torch, eng, rq, tokens) -> None:
-    """8b: the engine's first decoded token (at position RING_PROMPT, in
-    row RING_PROMPT % window of every local layer's ring) equals the
-    argmax of a prefill of the prompt and its first token, 1,041 tokens,
-    and the decode's logits are within the bf16 tolerance of that
-    prefill's."""
+def check_first_token(torch, eng, rq, tokens, label: str = "serve-ring",
+                      tol: float = BF16_TOL) -> None:
+    """8b / 10b: the engine's first decoded token (8b: at position
+    RING_PROMPT, in row RING_PROMPT % window of every local layer's ring;
+    10b: after three 256-token mLSTM chunks, the last padded) equals the
+    argmax of a prefill of the prompt and its first token; the decode's
+    logits within ``tol`` of that prefill's (None: printed only — the
+    recurrent decode and the chunked prefill round differently, layer
+    after layer, in bf16)."""
     m = eng.m
     prompt = torch.from_numpy(rq.prompt[None]).to("cuda")
     logits0, cache = eng.model.prefill(eng.params, m, {"tokens": prompt},
@@ -2091,18 +2160,22 @@ def check_ring_first_token(torch, eng, rq, tokens) -> None:
     err = float((dec - full).abs().max())
     top2 = full[0].topk(2).values
     want = int(full[0].argmax())
-    print(f"[serve-ring] first decoded token {tokens[0]}, argmax of the "
+    print(f"[{label}] first decoded token {tokens[0]}, argmax of the "
           f"{prompt.shape[1] + 1}-token prefill {want} (its top-2 gap "
           f"{float(top2[0] - top2[1]):.4f}), decode vs prefill logits "
-          f"max |diff| {err:.5f}")
+          f"max |diff| {err:.5f} (largest |logit| "
+          f"{float(full.abs().max()):.4f})")
     assert tokens[0] == int(dec[0].argmax()) == want
-    assert err <= BF16_TOL * max(1.0, float(full.abs().max())), err
+    if tol is not None:
+        assert err <= tol * max(1.0, float(full.abs().max())), err
 
 
-def train_full_width(torch, cfg, name, steps: int = G_STEPS, **kw):
-    """8d/8e: one run of the training entry point at full width (global
-    batch T_BATCH, seq T_SEQ; one host snapshot and one disk checkpoint,
-    at step 0, with their seconds).  Returns (summary, final state)."""
+def train_full_width(torch, cfg, name, steps: int = G_STEPS,
+                     disk: bool = True, **kw):
+    """8d/8e/10c: one run of the training entry point at full width
+    (global batch T_BATCH, seq T_SEQ; one host snapshot and, with
+    ``disk``, one disk checkpoint, at step 0, with their seconds).
+    Returns (summary, final state)."""
     from repro_torch.launch.train import train
     d = WORK / name.replace(" ", "_")
     shutil.rmtree(d, ignore_errors=True)
@@ -2110,10 +2183,13 @@ def train_full_width(torch, cfg, name, steps: int = G_STEPS, **kw):
     t0 = time.perf_counter()
     out, state = train(cfg, steps=steps, global_batch=T_BATCH,
                        seq_len=T_SEQ, seed=0, snapshot_interval=G_INTERVAL,
-                       checkpoint_dir=str(d), checkpoint_interval=G_INTERVAL,
-                       verbose=False, device="cuda", return_state=True, **kw)
+                       checkpoint_dir=str(d) if disk else None,
+                       checkpoint_interval=G_INTERVAL, verbose=False,
+                       device="cuda", return_state=True, **kw)
     shutil.rmtree(d, ignore_errors=True)
-    rec, snap, ckpt = out["recovery"], out["snapshots"], out["checkpoints"]
+    rec, snap = out["recovery"], out["snapshots"]
+    ckpt = out.get("checkpoints") or {"count": 0, "blocking_seconds": 0.0,
+                                      "write_seconds": 0.0}
     print(f"[{name}] {out['steps']} steps in "
           f"{time.perf_counter() - t0:.1f} s, final loss "
           f"{out['final_loss']:.6f}, step p50 {out['p50_step_ms']:.3f} ms, "
@@ -2293,8 +2369,8 @@ def check_pack_wide(torch, flush, state, eng, launches):
          "moments)", train_leaves, lay.starts[:plan.n_leaves],
          lay.padded_rows),
         ("pack_rows (gemma3-1b paged KV pool, bf16, K=4 check+arm)",
-         pool_leaves, eng.plan.layout(core.union).starts,
-         eng.plan.layout(core.union).padded_rows))
+         pool_leaves, core.layout.starts,
+         core.layout.padded_rows))
     for label, xs, starts, rows in cases:
         bk = torch.zeros(rows * ck.LANES, dtype=torch.int32, device="cuda")
         bp = torch.zeros_like(bk)
@@ -2743,10 +2819,12 @@ def train_grok(torch):
     Adafactor (bf16 factored stats), its microbatch 8 (global batch 8 x
     128), K=4, ``--donate``, 4 steps: clean, and under flips in the slice
     checked at their step with one disk checkpoint: final states bitwise
-    equal, replay only.  Then ``--donate --fused-detect`` clean, bitwise
-    the donated clean run, when the 2K graphs' packing buffers fit beside
-    the measured donated peak (else the arithmetic is printed).  Returns
-    the phase's launches."""
+    equal, replay only.  Then ``--donate --fused-detect`` clean and under
+    an armed-slice storm, each bitwise the donated clean run, when the
+    donated peak (which holds the plan's packing ring, the fused step's
+    only packing buffer) and the fused factory's own state version fit
+    97 % of the card (else the arithmetic is printed).  Returns the
+    phase's launches."""
     from repro_torch.core.detect import rotating_slice
     from repro_torch.kernels import digest as kd
     from repro_torch.kernels.checksum import LANES
@@ -2755,6 +2833,7 @@ def train_grok(torch):
     assert cfg.train.optimizer == "adafactor" and cfg.train.microbatch == 8
     assert cfg.train.moment_dtype == "bfloat16"
     _phase_start(torch)
+    held = torch.cuda.memory_allocated()
     clean, clean_host, peak = _train_moe(torch, cfg, "train-grok clean")
     assert clean["faults_detected"] == 0 and clean["steps"] == M_STEPS
     assert int(clean_host["iv"]["micro_count"]) == 8 * M_STEPS
@@ -2784,8 +2863,9 @@ def train_grok(torch):
           f"{clean['p50_step_ms']:.3f} ms, device busy {busy:.3f} ms/step, "
           f"peak {peak:.3f} GiB [{_SMI}]")
 
-    # the fused capture's packing buffers: one per rotation, each the
-    # rotation's check and arm slices (every word twice over K rotations)
+    # the fused capture's packing buffers: the plan's ring, which the
+    # donated pair already packs into (so the donated peak holds it);
+    # before the ring each rotation's check+arm union had its own buffer
     _phase_start(torch)
     plan = kd.plan_for(clean_host)
     can_k = [tuple(rotating_slice(r, M_SLICES, plan.n_leaves))
@@ -2794,27 +2874,201 @@ def train_grok(torch):
     slices = sum(words(c) for c in can_k)
     unions = sum(words(can_k[r] + can_k[(r + 1) % M_SLICES])
                  for r in range(M_SLICES))
+    ring = slices + min(words(c) for c in can_k)
+    # the fused factory keeps its own version of the state (its graphs'
+    # storage, filled at the first load) beside the loop's
+    copy = sum(t.numel() * t.element_size() for t in leaves(clean_host))
     total = torch.cuda.mem_get_info()[1]
-    need = peak * 2**30 + unions - slices
-    print(f"[train-grok] --donate --fused-detect needs the donated peak "
-          f"{peak:.3f} GiB + {(unions - slices) / 2**30:.3f} GiB more "
-          f"packing buffers (its {M_SLICES} rotations' check+arm unions "
-          f"hold {unions / 2**30:.3f} GiB against the donated pair's "
-          f"{slices / 2**30:.3f}) = {need / 2**30:.3f} GiB of the card's "
-          f"{total / 2**30:.3f} GiB")
+    need = peak * 2**30 + copy
+    print(f"[train-grok] --donate --fused-detect packs into the plan's "
+          f"ring of {M_SLICES}+1 slices, {ring / 2**30:.3f} GiB (held in "
+          f"the donated peak {peak:.3f} GiB, {held / 2**30:.3f} GiB of it "
+          f"held before the phase), where the per-rotation unions held "
+          f"{unions / 2**30:.3f} GiB beside the pair's "
+          f"{slices / 2**30:.3f}; it needs that peak + the factory's own "
+          f"state version {copy / 2**30:.3f} GiB = {need / 2**30:.3f} GiB "
+          f"of the card's {total / 2**30:.3f} GiB")
     if need > 0.97 * total:
         print(f"[train-grok] --donate --fused-detect does not fit one card "
               f"at this width and was not run (ROADMAP.md queue 3) [{_SMI}]")
         return launches
+    pool0 = _graph_pool_bytes(torch)
     fused, host, fpeak = _train_moe(torch, cfg, "train-grok donate+fused "
                                     "clean", fused_detect=True)
+    pool = (_graph_pool_bytes(torch) - pool0) / 2**30
     assert fused["fused"]["captures"] == 2 * M_SLICES, fused
     assert _same_state(torch, host, clean_host), \
         "grok donate+fused clean final state differs from donated clean"
+    del host
+    fstorm, host, _ = _train_moe(torch, cfg, "train-grok donate+fused "
+                                 "storm", fused_detect=True,
+                                 inject_every=M_INJECT,
+                                 inject_armed_only=True)
+    f = fstorm["faults_injected"]
+    assert f > 0 and fstorm["faults_detected"] == f, fstorm
+    assert fstorm["faults_recovered"] == f, fstorm
+    assert _same_state(torch, host, clean_host), \
+        "grok donate+fused storm final state differs from donated clean"
     print(f"[train-grok] donate+fused ({fused['fused']['captures']} graphs "
-          f"in {fused['fused']['seconds']:.1f} s) clean == donated clean, "
-          f"bitwise; host step p50 {fused['p50_step_ms']:.3f} ms, peak "
-          f"{fpeak:.3f} GiB [{_SMI}]")
+          f"in {fused['fused']['seconds']:.1f} s, graph pool {pool:.3f} GiB "
+          f"after the runs) clean and armed-slice storm ({f} flips) == "
+          f"donated clean, bitwise; host step p50 "
+          f"{fused['p50_step_ms']:.3f} ms, peak {fpeak:.3f} GiB [{_SMI}]")
+    return launches
+
+
+# -- phase 10: the xLSTM family at full width -------------------------------
+
+XLSTM = "xlstm-350m"
+X_LONG = 600                  # 10b: three 256-token chunks, the last padded
+X_STEPS, X_INJECT = 4, 2      # 10c: steps, storm period (1 flip a run)
+X_SLICES = 4                  # 10c: the donated fused runs' canary K
+X_SERVE_MODES = (("dense", dict()), ("dense, no donation", dict(donate=False)))
+X_PATH = ("pack_rows", "row_checksums", "checksum_tiles",
+          "xor_update_tiles", "xor_fold_tiles")
+
+
+def serve_xlstm(torch):
+    """10a/10b: xlstm-350m at full width (24 layers, d 1024, bf16, random
+    params from seed 0) served on the dense slot-major engine with phase
+    5's traffic: the step's body uncaptured (the reference tokens, clean
+    only), then captured donated and ping-pong (``serve_modes``: clean ==
+    uncaptured,
+    an armed-slice storm over the recurrent leaves == clean, 1
+    ``cudaGraphLaunch`` + STATS (1, 1) a steady step, decode p50 / p99,
+    device busy, graph pool); then one prompt of ``X_LONG`` tokens.
+    Returns the phase's launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tree import leaves
+    import numpy as np
+
+    cfg = _full_width(XLSTM)
+    m = cfg.model
+    _phase_start(torch)
+    model = get_model(m)
+    params = model.init(m, 0, "cuda")
+    cache = model.make_decode_cache(m, 1, 1, "meta")
+    print(f"[serve-xlstm] {XLSTM} at full width: {m.n_layers} layers "
+          f"{model.module.derive_pattern(m)}, d {m.d_model}, {m.n_heads} "
+          f"heads, vocab {m.vocab_size}, "
+          f"{sum(t.numel() for t in leaves(params))} params "
+          f"({leaves(params)[0].dtype}), untied head; one slot's decode "
+          f"state {len(leaves(cache['groups']))} leaves, "
+          f"{sum(t.numel() * t.element_size() for t in leaves(cache['groups']))} "
+          f"bytes")
+    common = dict(n_slots=SLOTS, max_len=PROMPT + GEN + 1, canary_slices=K,
+                  max_replays=10**6, device="cuda")
+
+    def reqs():
+        return make_requests(cfg, N_REQUESTS, PROMPT, GEN,
+                             np.random.default_rng(5))
+
+    _build.LAUNCHES.clear()
+    eng = ServingEngine(cfg, params=params, **common)
+    eng._replay = False                  # the step's body run eagerly
+    rep = eng.run(reqs())
+    assert rep.summary()["dropped"] == 0
+    tokens = {rid: r["tokens"] for rid, r in rep.per_request.items()}
+    print(f"[serve-xlstm] uncaptured (the reference tokens): decode p50 "
+          f"{rep.summary()['p50_decode_ms']:.3f} ms; launches "
+          f"{dict(_build.LAUNCHES)} [{_SMI}]")
+    del eng
+    launches = serve_modes(torch, cfg, params, common, reqs, tokens,
+                           modes=X_SERVE_MODES, label="serve-xlstm")
+    eng = ServingEngine(cfg, params=params, **dict(
+        common, n_slots=1, max_len=X_LONG + 2 + 1))
+    assert not eng.paged
+    rq = make_requests(cfg, 1, X_LONG, 2, np.random.default_rng(6))[0]
+    rep = eng.run([rq])
+    check_first_token(torch, eng, make_requests(
+        cfg, 1, X_LONG, 2, np.random.default_rng(6))[0],
+        rep.per_request[0]["tokens"], "serve-xlstm-long", tol=None)
+    del eng
+    end = _phase_end(torch, "serve-xlstm")
+    for k, v in end.items():
+        launches[k] = max(launches.get(k, 0), v)
+    return launches
+
+
+def train_xlstm(torch):
+    """10c: xlstm-350m trained at full width (bf16 params, f32 AdamW
+    moments, global batch 8 x 128, remat of each group iteration), one
+    flip a storm: K=1 functional clean (with a disk checkpoint), a
+    params storm under ``--parity`` (``parity_xor``; final state ==
+    clean, bitwise), an iv storm (``eq1``); ``--donate --fused-detect``
+    at K=4 clean (8 graphs, == the functional clean run) and under an
+    armed-slice storm (replay; == clean); a checkpoint of the final state
+    written and read back, bitwise; then the functional and
+    donate+fused hot paths (``profile_modes``).  Returns the phase's
+    launches."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg = _full_width(XLSTM)
+    assert cfg.train.optimizer == "adamw" and cfg.train.remat != "none"
+    _phase_start(torch)
+    kw = dict(steps=X_STEPS, canary_slices=1)
+    clean, state = train_full_width(torch, cfg, "train-xlstm clean", **kw)
+    assert clean["faults_detected"] == 0 and clean["steps"] == X_STEPS
+    clean_host = _host(torch, state)
+    del state
+    for name, extra, rung in (
+            ("params storm --parity", dict(parity=True), "parity_xor"),
+            ("iv storm", dict(inject_target="iv"), "eq1")):
+        out, state = train_full_width(torch, cfg, f"train-xlstm {name}",
+                                      disk=False, inject_every=X_INJECT,
+                                      **extra, **kw)
+        f = out["faults_injected"]
+        assert f > 0 and out["faults_detected"] == f, out
+        assert out["faults_recovered"] == f, out
+        assert out["recovery"]["by_rung"] == {rung: f}, (name, out)
+        assert _same_state(torch, _host(torch, state), clean_host), \
+            f"xlstm {name} final state differs from the clean run's"
+        del state
+        print(f"[train-xlstm] {name}: rungs {out['recovery']['by_rung']}, "
+              f"final state == clean, bitwise")
+    kw4 = dict(steps=X_STEPS, canary_slices=X_SLICES, donate=True,
+               fused_detect=True, disk=False)
+    fused, state = train_full_width(torch, cfg, "train-xlstm donate+fused "
+                                    f"K={X_SLICES} clean", **kw4)
+    assert fused["fused"]["captures"] == 2 * X_SLICES, fused
+    assert _same_state(torch, _host(torch, state), clean_host), \
+        "xlstm donate+fused clean final state differs from functional"
+    del state
+    storm, state = train_full_width(
+        torch, cfg, f"train-xlstm donate+fused K={X_SLICES} storm",
+        inject_every=X_INJECT, inject_armed_only=True, **kw4)
+    f = storm["faults_injected"]
+    assert f > 0 and storm["faults_detected"] == f, storm
+    assert storm["faults_recovered"] == f, storm
+    assert set(storm["recovery"]["by_rung"]) <= {"replay"}, storm
+    assert _same_state(torch, _host(torch, state), clean_host), \
+        "xlstm donate+fused storm final state differs from clean"
+    d = WORK / "xlstm_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(d), state, X_STEPS)
+    t1 = time.perf_counter()
+    back, step = load_checkpoint(str(d), state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    assert step == X_STEPS and _same_state(torch, back, state)
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"[train-xlstm] donate+fused K={X_SLICES}: "
+          f"{fused['fused']['captures']} graphs, clean == functional "
+          f"clean, armed-slice storm ({f} flip, replay) == clean, bitwise; "
+          f"checkpoint of the final state written in {t1 - t0:.2f} s and "
+          f"read back (digest-verified) in {t2 - t1:.2f} s, bitwise "
+          f"[{_SMI}]")
+    del back
+    launches = _phase_end(torch, "train-xlstm")
+    profile_modes(torch, cfg, state, steps=2, start=X_STEPS,
+                  label="train-xlstm", modes=("functional", "donate+fused"),
+                  prof_steps=1)
+    del state, clean_host
     return launches
 
 
@@ -3005,7 +3259,7 @@ def main() -> int:
         torch, gcfg, "serve-ring", ring_reqs, paged=False,
         params=g_eng.params, n_slots=2,
         max_len=RING_PROMPT + RING_GEN + 1, block_size=BLOCK)
-    check_ring_first_token(torch, r_eng, ring_reqs()[0],
+    check_first_token(torch, r_eng, ring_reqs()[0],
                            r_rep.per_request[0]["tokens"])
     del r_eng
     ccfg = _full_width(COMMAND_R, n_layers=CMD_LAYERS)
@@ -3049,6 +3303,19 @@ def main() -> int:
     label = "pack_rows (iterpro-100m int8-moment training canary, 1-byte q)"
     kernels[label] = bytes_entry
     launches[label] = bytes_entry["launches"]
+
+    # -- phase 10: the xLSTM family at full width --------------------------
+    t10 = time.perf_counter()
+    l10 = {"10a/10b": serve_xlstm(torch), "10c": train_xlstm(torch)}
+    for kernel in X_PATH:
+        assert sum(lc.get(kernel, 0) for lc in l10.values()) > 0, (kernel,
+                                                                   l10)
+    print(f"[phase 10] launches of pack_rows, row_checksums, "
+          f"checksum_tiles, xor_update_tiles, xor_fold_tiles by path: "
+          + "; ".join(f"{p}: " + ", ".join(f"{k} {lc.get(k, 0)}"
+                                           for k in X_PATH)
+                      for p, lc in l10.items())
+          + f"; {time.perf_counter() - t10:.1f} s [{_SMI}]")
 
     for name, r in train_kernels.items():
         kernels[name] = r

@@ -251,11 +251,12 @@ class ChecksumCanary:
         (``parity='update'``: the update gated on the check's flag;
         ``'rebuild'``; None: leave it) and fetch the one flag when there
         is a check slice."""
-        core, union = kdigest.check_arm_subcomputation(self.plan, chk, arm)
+        core, union = kdigest.check_arm_subcomputation(
+            self.plan, chk, arm, n_slices=self.n_slices)
         if not union:
             return None
         kdigest.STATS.launches += 1
-        buf = self.plan.take_buffer(union)
+        buf = core.buffer()
         read, write = self.begin_update()
         leaves = self.plan.leaves(tree)
         core.pack_check(buf, [leaves[i] for i in chk])

@@ -150,11 +150,11 @@ class FusedStepFactory:
         chk = tuple(can._slice_indices(r))
         arm = tuple(can._slice_indices(r + 1))
         if chk or arm:
-            core, union = kdigest.check_arm_subcomputation(self.plan, chk,
-                                                           arm)
-            buf = self.plan.take_buffer(union)
+            core, _ = kdigest.check_arm_subcomputation(
+                self.plan, chk, arm, n_slices=self.n_slices)
+            buf = core.buffer()
             # device constants a captured graph must find uploaded
-            self.plan.layout(union).maps(buf.device)
+            core.layout.maps(buf.device)
             rot = _Rotation(core, buf, chk, arm)
         else:
             rot = _Rotation(None, None, chk, arm)
@@ -288,13 +288,10 @@ class FusedStepFactory:
         read, write = can._tables[g], can._tables[1 - g]
         descs = (None, None)
         if rot.core is not None:
-            union = rot.core.union
-            descs = (self.plan.descriptors(
-                         union, [self.plan.leaves(inp)[i] for i in rot.chk]),
-                     self.plan.descriptors(
-                         union, [self.plan.leaves(inp if out is None
-                                                  else out)[i]
-                                 for i in rot.arm], first=rot.core.nc))
+            descs = rot.core.descriptors(
+                [self.plan.leaves(inp)[i] for i in rot.chk],
+                [self.plan.leaves(inp if out is None else out)[i]
+                 for i in rot.arm])
         before = Counter(_build.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()

@@ -82,26 +82,37 @@ class LeafSpec:
 
 
 class _Layout:
-    """Packing layout of one leaf subset: element ``starts`` per leaf, the
+    """Packing layout of one leaf subset, given as ``parts``: the leaves
+    of each part in order, each part padded to whole ``TILE_ROWS`` (a
+    plain subset is one part; a canary rotation's check and arm slices in
+    the plan's ring are two).  Holds the element ``starts`` per leaf, the
     element offset within its leaf of every row of the padded buffer
     (fill and pad rows stay all-zero, so they add nothing) and each
     segment's row range ``[lo, hi)``: the rows of one leaf are
-    contiguous, so its sums are differences of running sums."""
+    contiguous, so its sums are differences of running sums.  A leaf's
+    digest reads only its own rows and their offsets within the leaf, so
+    it does not depend on where a layout places it."""
 
-    def __init__(self, specs: Sequence[LeafSpec]):
-        n_rows = sum(sp.n_rows for sp in specs)
-        self.padded_rows = -(-n_rows // TILE_ROWS) * TILE_ROWS
+    def __init__(self, parts: Sequence[Sequence[LeafSpec]], key=None):
+        self.key = key
+        specs = [sp for part in parts for sp in part]
         self.n_seg = len(specs)
-        off = np.zeros(self.padded_rows, np.int64)
         lo = np.zeros(self.n_seg, np.int64)
         self.starts: List[int] = []
-        r = 0
-        for j, sp in enumerate(specs):
-            off[r:r + sp.n_rows] = np.arange(sp.n_rows) * LANES
-            lo[j] = r
-            self.starts.append(r * LANES)
-            r += sp.n_rows
-        hi = lo + np.array([sp.n_rows for sp in specs], np.int64)
+        r = j = 0
+        for part in parts:
+            for sp in part:
+                lo[j] = r
+                self.starts.append(r * LANES)
+                r += sp.n_rows
+                j += 1
+            r = -(-r // TILE_ROWS) * TILE_ROWS
+        self.padded_rows = r
+        n_rows = np.array([sp.n_rows for sp in specs], np.int64)
+        off = np.zeros(self.padded_rows, np.int64)
+        for l0, n in zip(lo, n_rows):
+            off[l0:l0 + n] = np.arange(n) * LANES
+        hi = lo + n_rows
         self._host = (off, lo, hi)
         self._dev: Dict[str, Tuple[torch.Tensor, ...]] = {}
 
@@ -113,6 +124,50 @@ class _Layout:
             self._dev[key] = tuple(torch.from_numpy(a).to(device)
                                    for a in self._host)
         return self._dev[key]
+
+
+class PackRing:
+    """ONE packing allocation for the K rotating slices of a canary: the
+    slices in rotation order, each padded to whole tiles, starting at the
+    smallest and ending with that slice once more.  A rotation's
+    check+arm union (slices j, j+1 mod K) is a view of two neighbouring
+    ring slots, a single slice (the donated pair's check or arm) a view of
+    one, so a plan's K rotations hold each word (K+1)/K times at most
+    (plus the tile pads) instead of twice for the unions and once more
+    for the pair.  Neighbouring rotations share a slot: the steps and
+    graphs run one after another, and each packs every slice of its view
+    before digesting it, always at the same place within the slot."""
+
+    def __init__(self, plan: "DigestPlan", n_slices: int):
+        K = n_slices
+        self.slices = [tuple(range(j, plan.n_leaves, K)) for j in range(K)]
+        rows = [plan.layout(s).padded_rows for s in self.slices]
+        first = int(np.argmin(rows))
+        #: slot p holds slice ``order[p]``; slot K repeats slot 0
+        self.order = [(first + p) % K for p in range(K)] + [first]
+        self.row0 = np.concatenate(
+            [[0], np.cumsum([rows[j] for j in self.order])]).astype(np.int64)
+        self.buf = torch.zeros(int(self.row0[-1]) * LANES,
+                               dtype=torch.int32, device=plan.device)
+        self._slot = {s: p for p, s in
+                      ((p, self.slices[j]) for p, j in
+                       enumerate(self.order[:K])) if s}
+
+    def place(self, chk: Tuple[int, ...], arm: Tuple[int, ...]
+              ) -> Optional[Tuple[int, int]]:
+        """Ring slots ``[a, b)`` whose rows hold ``chk + arm`` laid out
+        part by part, or None when it is not one slice or a slice and its
+        successor."""
+        if chk and arm:
+            p = self._slot.get(chk)
+            if p is None or self.slices[self.order[p + 1]] != arm:
+                return None
+            return p, p + 2
+        p = self._slot.get(chk or arm)
+        return None if p is None else (p, p + 1)
+
+    def view(self, a: int, b: int) -> torch.Tensor:
+        return self.buf[int(self.row0[a]) * LANES:int(self.row0[b]) * LANES]
 
 
 class DigestPlan:
@@ -130,8 +185,11 @@ class DigestPlan:
         self.n_leaves = len(keys)
         self.n_rows = sum(sp.n_rows for sp in self.specs)
         self._key_to_index = {k: i for i, k in enumerate(keys)}
-        self._layouts: Dict[Tuple[int, ...], _Layout] = {}
+        self._layouts: Dict[Tuple, _Layout] = {}
         self._pack_bufs: Dict[Tuple[int, ...], torch.Tensor] = {}
+        self._rings: Dict[int, PackRing] = {}
+        #: ring views the canary's rotations took, by subset
+        self._ring_views: Dict[Tuple[int, ...], torch.Tensor] = {}
         self._descs: Dict[Tuple, Tuple[Tuple[int, ...],
                                        _ck.PackDescriptors]] = {}
         self._check_arm: Dict[Tuple, "CheckArm"] = {}
@@ -150,11 +208,17 @@ class DigestPlan:
     def index_of(self, key: str) -> int:
         return self._key_to_index[key]
 
-    def layout(self, idx: Tuple[int, ...]) -> _Layout:
-        lay = self._layouts.get(idx)
+    def layout(self, idx: Sequence[int]) -> _Layout:
+        """The one-part layout of subset ``idx``."""
+        return self.parts_layout((tuple(idx),))
+
+    def parts_layout(self, parts: Tuple[Tuple[int, ...], ...]) -> _Layout:
+        """The layout of ``parts`` (subsets), each padded to whole tiles."""
+        lay = self._layouts.get(parts)
         if lay is None:
-            lay = _Layout([self.specs[i] for i in idx])
-            self._layouts[idx] = lay
+            lay = _Layout([[self.specs[i] for i in p] for p in parts],
+                          key=parts)
+            self._layouts[parts] = lay
         return lay
 
     # -- persistent packing buffers ----------------------------------------
@@ -165,9 +229,9 @@ class DigestPlan:
 
     def take_buffer(self, indices: Optional[Sequence[int]] = None
                     ) -> torch.Tensor:
-        """The subset's persistent packing buffer.  Taking it REGISTERS the
-        subset as hot-path-persistent (the canary's rotating slices);
-        other subsets digest through a transient buffer.  The pack and the
+        """The subset's own persistent packing buffer.  Taking it REGISTERS
+        the subset as hot-path-persistent (a canary rotation outside a
+        ``PackRing``); other subsets digest through a transient buffer.  The pack and the
         digest write it in place, so there is nothing to put back."""
         idx = tuple(range(self.n_leaves)) if indices is None \
             else tuple(indices)
@@ -177,43 +241,56 @@ class DigestPlan:
             self._pack_bufs[idx] = buf
         return buf
 
+    def ring(self, n_slices: int) -> PackRing:
+        """The ring of the K-slice canary's rotating slices, allocated at
+        first use and kept for the plan's life."""
+        ring = self._rings.get(n_slices)
+        if ring is None:
+            ring = PackRing(self, n_slices)
+            self._rings[n_slices] = ring
+        return ring
+
     def buffer_pointer(self, indices: Optional[Sequence[int]] = None):
-        """Device address of the subset's packing buffer (None before first
-        use) — the steady-state buffer-reuse probe."""
+        """Device address of the subset's packing buffer, a ring view
+        included (None before first use) — the steady-state buffer-reuse
+        probe."""
         idx = tuple(range(self.n_leaves)) if indices is None \
             else tuple(indices)
-        buf = self._pack_bufs.get(idx)
+        buf = self._ring_views.get(idx, self._pack_bufs.get(idx))
         return None if buf is None else buf.data_ptr()
+
+    def buffer_pointers(self) -> Dict[Tuple[int, ...], int]:
+        """Every persistent packing buffer's address, by subset."""
+        return {idx: self.buffer_pointer(idx)
+                for idx in (*self._pack_bufs, *self._ring_views)}
 
     # -- the three digest phases -------------------------------------------
 
-    def descriptors(self, idx: Tuple[int, ...],
-                    leaves: Sequence[torch.Tensor], first: int = 0
-                    ) -> Optional[_ck.PackDescriptors]:
-        """A fresh ``pack_rows`` schedule of ``leaves`` (subset positions
-        ``first ..`` of ``idx``) on the card, None on the CPU.  A caller
-        that captures the pack in a CUDA graph keeps it alive as long as
-        the graph: the graph reads it by address."""
+    def descriptors(self, lay: _Layout, leaves: Sequence[torch.Tensor],
+                    first: int = 0) -> Optional[_ck.PackDescriptors]:
+        """A fresh ``pack_rows`` schedule of ``leaves`` (positions
+        ``first ..`` of layout ``lay``) on the card, None on the CPU.  A
+        caller that captures the pack in a CUDA graph keeps it alive as
+        long as the graph: the graph reads it by address."""
         if self.device.type != "cuda" or not leaves:
             return None
         return _ck.pack_descriptors(
-            leaves, self.layout(idx).starts[first:first + len(leaves)],
-            self.device)
+            leaves, lay.starts[first:first + len(leaves)], self.device)
 
-    def pack(self, buf: torch.Tensor, idx: Tuple[int, ...],
+    def pack(self, buf: torch.Tensor, lay: _Layout,
              leaves: Sequence[torch.Tensor], first: int = 0,
              desc: Optional[_ck.PackDescriptors] = None) -> None:
-        """Pack ``leaves`` — subset positions ``first .. first+len-1`` of
-        ``idx`` — into ``buf`` (one ``pack_rows`` launch).  On the card the
-        kernel's schedule (``checksum.pack_descriptors``) is ``desc`` when
-        given, else cached per (subset, part) and rebuilt and re-uploaded
-        only when a leaf's base pointer changed."""
+        """Pack ``leaves`` — positions ``first .. first+len-1`` of layout
+        ``lay`` — into ``buf`` (one ``pack_rows`` launch).  On the card
+        the kernel's schedule (``checksum.pack_descriptors``) is ``desc``
+        when given, else cached per (layout, part) and rebuilt and
+        re-uploaded only when a leaf's base pointer changed."""
         if not leaves:
             return
-        starts = self.layout(idx).starts[first:first + len(leaves)]
+        starts = lay.starts[first:first + len(leaves)]
         if buf.device.type == "cuda" and desc is None:
             ptrs = tuple(x.data_ptr() for x in leaves)
-            key = (idx, first, len(leaves))
+            key = (lay.key, first, len(leaves))
             hit = self._descs.get(key)
             if hit is None or hit[0] != ptrs:
                 hit = (ptrs, _ck.pack_descriptors(leaves, starts,
@@ -265,7 +342,7 @@ class DigestPlan:
         STATS.launches += 1
         buf = self._pack_bufs.get(idx)
         if buf is not None:
-            self.pack(buf, idx, leaves)
+            self.pack(buf, self.layout(idx), leaves)
             return self.combine(buf, self.layout(idx))
         # off-hot-path digests (canary init / refresh) use transient
         # buffers instead of pinning one per subset for the plan's life;
@@ -275,7 +352,7 @@ class DigestPlan:
         for lo, hi in self._groups(idx):
             sub = idx[lo:hi]
             buf = self._new_buffer(sub)
-            self.pack(buf, sub, leaves[lo:hi])
+            self.pack(buf, self.layout(sub), leaves[lo:hi])
             parts.append(self.combine(buf, self.layout(sub)))
             del buf
         return parts[0] if len(parts) == 1 else torch.cat(parts)
@@ -353,15 +430,18 @@ def _as_slice(rows: Sequence[int]) -> slice:
 class CheckArm:
     """The fused check+arm digest of one canary rotation, in phases.
 
-    The packing buffer of ``union = chk + arm`` holds the check-slice
-    leaves first and the arm-slice leaves after them.  A caller that
+    Its packing buffer holds the check-slice leaves first and the
+    arm-slice leaves after them: for a K-slice canary's rotation a view
+    of the plan's ``PackRing``, each slice padded to whole tiles (a
+    union's tail pad would be the next slice's words); otherwise the
+    union's own buffer (``plan.take_buffer(union)``).  A caller that
     updates the state in place runs ``pack_check`` before its first write,
     ``pack_arm`` after its last, then ``finish``.  Every phase launches
     work only on the device, with no host sync, so a CUDA graph can
     capture all three."""
 
     def __init__(self, plan: DigestPlan, chk: Sequence[int],
-                 arm: Sequence[int]):
+                 arm: Sequence[int], n_slices: int = 0):
         self.plan = plan
         self.chk = tuple(chk)
         self.arm = tuple(arm)
@@ -369,19 +449,40 @@ class CheckArm:
         self.nc = len(self.chk)
         self._chk_rows, self._arm_rows = _as_slice(self.chk), \
             _as_slice(self.arm)
+        ring = plan.ring(n_slices) if n_slices and self.union else None
+        slots = ring.place(self.chk, self.arm) if ring else None
+        self._view = None if slots is None else ring.view(*slots)
+        self.layout = plan.layout(self.union) if slots is None else \
+            plan.parts_layout(tuple(p for p in (self.chk, self.arm) if p))
+
+    def buffer(self) -> torch.Tensor:
+        """The rotation's packing buffer: its ring view, or the union's
+        own buffer; either is registered with the plan under the union
+        (``plan.buffer_pointer``)."""
+        if self._view is None:
+            return self.plan.take_buffer(self.union)
+        self.plan._ring_views[self.union] = self._view
+        return self._view
+
+    def descriptors(self, check_leaves, arm_leaves):
+        """Fresh ``pack_rows`` schedules of both phases (None on the
+        CPU), for a caller that captures them."""
+        return (self.plan.descriptors(self.layout, check_leaves),
+                self.plan.descriptors(self.layout, arm_leaves,
+                                      first=self.nc))
 
     def pack_check(self, buf, leaves, desc=None) -> None:
-        self.plan.pack(buf, self.union, leaves, first=0, desc=desc)
+        self.plan.pack(buf, self.layout, leaves, first=0, desc=desc)
 
     def pack_arm(self, buf, leaves, desc=None) -> None:
-        self.plan.pack(buf, self.union, leaves, first=self.nc, desc=desc)
+        self.plan.pack(buf, self.layout, leaves, first=self.nc, desc=desc)
 
     def finish(self, buf, ref_read, ref_write):
         """Digest the packed buffer, compare the check rows against
         ``ref_read`` on the device, and arm the rest into ``ref_write`` in
         place.  Returns ``(any_mismatch, bad_mask)``, both on the
         device."""
-        table = self.plan.combine(buf, self.plan.layout(self.union))
+        table = self.plan.combine(buf, self.layout)
         bad = (table[:self.nc] != ref_read[self._chk_rows]).any(dim=1)
         if self.arm:
             ref_write[self._arm_rows].copy_(table[self.nc:])
@@ -389,14 +490,16 @@ class CheckArm:
 
 
 def check_arm_subcomputation(plan: DigestPlan, chk: Sequence[int],
-                             arm: Sequence[int]):
+                             arm: Sequence[int], n_slices: int = 0):
     """``(core, union)`` for one canary rotation; ``core`` is the plan's
-    cached ``CheckArm`` and ``union = tuple(chk) + tuple(arm)`` names its
-    packing buffer (``plan.take_buffer(union)``)."""
-    key = (tuple(chk), tuple(arm))
+    cached ``CheckArm`` and ``union = tuple(chk) + tuple(arm)``.  With
+    ``n_slices`` (the canary's K) the core packs into the plan's ring
+    (``core.buffer()``); without, into ``plan.take_buffer(union)``, as the
+    reference's does."""
+    key = (tuple(chk), tuple(arm), n_slices)
     core = plan._check_arm.get(key)
     if core is None:
-        core = CheckArm(plan, chk, arm)
+        core = CheckArm(plan, chk, arm, n_slices)
         plan._check_arm[key] = core
     return core, core.union
 

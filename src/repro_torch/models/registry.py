@@ -1,5 +1,5 @@
 """Model registry: one uniform API per architecture family (the dense and
-MoE families share the transformer).
+MoE families share the transformer; ``ssm`` is xLSTM).
 
     model = get_model(cfg.model)
     params = model.init(cfg.model, seed, device)
@@ -9,16 +9,28 @@ MoE families share the transformer).
                                          ctx_kpos, pos0, valid)
     cache = model.make_decode_cache(cfg.model, B, max_len, device)
     loss, metrics = model.train_loss(params, cfg.model, batch, remat=...)
+
+A family without ``prefill_chunk`` (xLSTM, as in the reference) is
+served from the dense slot-major cache (``serving.paged.paged_supported``).
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
 
-from repro_torch.models import transformer
+from repro_torch.models import transformer, xlstm
 
 
 def get_model(model_cfg) -> SimpleNamespace:
+    if model_cfg.family == "ssm":
+        return SimpleNamespace(
+            init=xlstm.init_lm,
+            prefill=xlstm.prefill,
+            decode_step=xlstm.decode_step,
+            make_decode_cache=xlstm.make_decode_cache,
+            train_loss=xlstm.train_loss,
+            module=xlstm,
+        )
     transformer.check_supported(model_cfg)
     return SimpleNamespace(
         init=transformer.init_lm,

@@ -405,9 +405,10 @@ class ServingEngine:
             return self._cores[r]
         can = self.canary
         core, union = kdigest.check_arm_subcomputation(
-            self.plan, can._slice_indices(r), can._slice_indices(r + 1))
+            self.plan, can._slice_indices(r), can._slice_indices(r + 1),
+            n_slices=can.n_slices)
         if union:
-            self.plan.layout(union).maps(self.plan.take_buffer(union).device)
+            core.layout.maps(core.buffer().device)
         else:
             core = None
         self._cores[r] = core
@@ -444,7 +445,7 @@ class ServingEngine:
                                                      else 1 - b]
         core = self._rotation(r) if self.canary is not None else None
         if core is not None:
-            buf = self.plan.take_buffer(core.union)
+            buf = core.buffer()
             lv = self._views[b]
             core.pack_check(buf, [lv[i] for i in core.chk], desc=descs[0])
         if out is not inp:
@@ -481,11 +482,8 @@ class ServingEngine:
         if core is not None:
             lin = self._views[b]
             lout = self._views[0 if self.donate else 1 - b]
-            descs = (self.plan.descriptors(core.union,
-                                           [lin[i] for i in core.chk]),
-                     self.plan.descriptors(core.union,
-                                           [lout[i] for i in core.arm],
-                                           first=core.nc))
+            descs = core.descriptors([lin[i] for i in core.chk],
+                                     [lout[i] for i in core.arm])
         before = Counter(_build.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()

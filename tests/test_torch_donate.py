@@ -155,8 +155,9 @@ def test_donated_pair_hot_path_accounting(monkeypatch):
         canary.arm_current(s, state)
         canary.check(s, state)
         state = _toy_step_(state)
-    ptrs = {idx: canary.plan.buffer_pointer(idx)
-            for idx in list(canary.plan._pack_bufs)}
+    ptrs = canary.plan.buffer_pointers()
+    n_leaves = canary.plan.n_leaves        # every slice's ring view
+    assert {tuple(range(j, n_leaves, K)) for j in range(K)} <= set(ptrs)
     tdg.STATS.reset()
     calls.clear()
     n = 2 * K

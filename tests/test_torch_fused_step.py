@@ -212,8 +212,11 @@ def test_fused_steady_state_one_launch_one_sync(monkeypatch):
         state, _, rep = fac.step(s, state, BATCH)
         assert rep is None
     assert fac.n_compiles == K
-    ptrs = {idx: can.plan.buffer_pointer(idx)
-            for idx in list(can.plan._pack_bufs)}
+    ptrs = can.plan.buffer_pointers()
+    n_leaves = can.plan.n_leaves        # every rotation's ring view
+    assert {tuple(range(j, n_leaves, K)) + tuple(range((j + 1) % K,
+                                                      n_leaves, K))
+            for j in range(K)} <= set(ptrs)
     tables = [t.data_ptr() for t in can._tables]
     tdg.STATS.reset()
     calls.clear()
