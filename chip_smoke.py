@@ -144,7 +144,9 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        clean and under a flip every 8 accepted tokens: 8 graphs, storm
        tokens == clean, detected == injected == recovered; decode p50 /
        p99 and device busy ms a step with where it goes;
-   8b. gemma3-1b on ring caches: the dense engine (max_len 1,073 >
+   8b. gemma3-1b at 6 of its 26 layers (one 5 local + 1 global group;
+       the depth cut keeps the whole script within its time limit) on
+       ring caches: the dense engine (max_len 1,073 >
        the window of 1,024), 2 requests of prompt 1,040 and 32 new
        tokens, so every local layer's ring wraps; storm == clean, and
        the first decoded token equals the argmax of a 1,041-token
@@ -153,8 +155,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        vocab 256,000, parallel blocks) and 2 of its 40 layers (the
        depth cut: the whole model needs the mesh), served clean and
        under the storm, tokens equal;
-   8d. gemma3-1b trained (global batch 8, seq 128, 6 steps, K=1, one
-       host snapshot and one disk checkpoint a run, their seconds):
+   8d. gemma3-1b at 6 of its 26 layers (one 5 local + 1 global group;
+       the depth cut keeps the whole script within its time limit)
+       trained (global batch 8, seq 128, 6 steps, K=1, one host snapshot
+       and one disk checkpoint a run, their seconds):
        functional clean and under a params storm (a flip every 2 steps,
        detected == injected == recovered, final state == clean's
        bitwise), then ``--donate --fused-detect`` clean (2 graphs over
@@ -165,13 +169,16 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        longer than one grid pass, f32 leaves beside them, words around
        them untouched; a bool leaf refused), ``gather_blocks`` on the
        bf16 pool bitwise; then the gemma3-1b training canary's leaves
-       (bf16 params, f32 moments) and the bf16 KV pool's check+arm
+       (bf16 params, f32 moments of a full-depth state after one
+       functional step) and the bf16 KV pool's check+arm
        slice bitwise and timed beside their bound (2 B read + 4 B
        written a bf16 element) and ``Tensor.to(torch.int32)`` of the same
        leaves, ``row_checksums`` over that buffer and ``checksum_tiles``
        of the bf16 embedding timed; its launches on 8a, 8b and 8d; then
        2 profiled gemma3-1b train steps;
-   8e. h2o-danube-1.8b trained with its microbatch 8 (global batch 8:
+   8e. h2o-danube-1.8b at full width and 6 of its 24 layers (the depth
+       cut keeps the whole script within its time limit)
+       trained with its microbatch 8 (global batch 8:
        8 slices of one sequence), ``--donate``, K=4, 4 steps, clean and
        under a params storm whose flip lands in the slice checked at its
        step: final states bitwise equal, replay only;
@@ -208,23 +215,23 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        shared expert; ``gather_blocks`` on its head width of 112 bitwise;
    9e. grok-1-314b trained at full width and 1 of its 64 layers with
        Adafactor (bf16 factored stats), microbatch 8, global batch 8 x
-       128, K=4, ``--donate``, 4 steps: clean and under flips in the
-       slice checked at their step (one disk checkpoint), final states
-       bitwise equal, replay only; host step p50, device busy a step
-       (profiled) and the steady peak; then ``--donate --fused-detect``
-       clean and under an armed-slice storm, each == donated clean,
+       128, K=4, ``--donate``, 4 steps, clean (one disk checkpoint);
+       host step p50, device busy a step (profiled) and the steady peak;
+       then ``--donate --fused-detect`` clean and under flips in the
+       slice checked at their step (replay only), each == donated clean,
        bitwise, when the donated peak (which already holds the plan's
-       packing ring, the K rotations' only packing buffer) and the fused
-       factory's own state version fit 97 % of the card (else the
-       arithmetic is printed and the runs left out), with the graph
-       pool's size;
+       packing ring, the K rotations' only packing buffer; the fused
+       factory adopts the loop's state, so it adds no version) fits 97 %
+       of the card (else the arithmetic is printed and the storm runs
+       donated, unfused), with the graph pool's size;
    9f. the launch counts of phase 9's paths (``pack_rows``,
        ``row_checksums``, ``gather_blocks`` and ``checksum_tiles`` each
        > 0);
-10. the xLSTM family (xlstm-350m) at full width, bf16 (24 layers: 3 x
-   (7 mLSTM + 1 sLSTM), d 1024, 440,713,384 params, random from seed
-   0), each path with the launch counts set to 0 just before it and read
-   just after:
+10. the xLSTM family (xlstm-350m) at full width, bf16, at 8 of its 24
+   layers (one group of 7 mLSTM + 1 sLSTM, d 1024, random from seed 0;
+   the depth cut keeps the whole script within its time limit), each
+   path with the launch counts set to 0 just before it and read just
+   after:
    10a. served on the dense slot-major engine (no paged pool: the family
        has no ``prefill_chunk``) with phase 5's traffic: the step's body
        uncaptured (the reference tokens), then through phase 5d's mode
@@ -244,14 +251,34 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        ``--donate --fused-detect`` at K=4 clean (8 graphs, == the
        functional clean run) and under an armed-slice storm (replay, ==
        clean); a checkpoint written and read back bitwise; the
-       functional and donate+fused hot paths' host step p50, device busy
-       and kernels a step (one profiled step) and steady peak;
+       donate+fused hot path's host step p50, device busy and kernels a
+       step (one profiled step) and steady peak (the runs print the
+       functional host p50);
    10d. the launches of ``pack_rows``, ``row_checksums``,
        ``checksum_tiles``, ``xor_update_tiles`` and ``xor_fold_tiles`` on
-       phase 10's paths (each > 0); then one JSON line describing every
-       kernel (the 8 ports, the layout kernel ``flash_layout_kv`` of the
-       flash port, ``pack_rows`` at 8f's two shapes and at 9a's 1-byte
-       canary), then the device line.
+       phase 10's paths (each > 0);
+11. the hybrid family (zamba2-7b) at full width, bf16 (d 3584, 32 heads
+   of 112, vocab 32,000, untied head; random from seed 0), each path with
+   the launch counts set to 0 just before it and read just after:
+   11a. all 81 layers (13 x (5 Mamba-2 + the shared attention block,
+       each invocation merging its own LoRA delta) + 3 Mamba-2;
+       5,888,564,992 params) served as 10a (uncaptured, then captured
+       donated and ping-pong, storms over ``ssm``, ``conv``, ``k``, ``v``
+       with the flips by leaf, 1 ``cudaGraphLaunch`` a steady step;
+       decode p50 / p99, device busy, kernels a step, graph pool);
+   11b. one prompt of 600 tokens (three 256-token SSD chunks, the last
+       padded) as 10b;
+   11c. 7 of its 81 layers ((1, 5 Mamba-2 + the shared block), (1, 1
+       Mamba-2); 937,984,384 params) trained as 10c with the config's
+       AdamW, microbatch 8 and remat, the memory of the runs reckoned
+       from shapes and printed first;
+   11d. the launches of 10d's kernels on phase 11's paths (each > 0);
+   then one JSON line describing every kernel (the 8 ports, the layout
+   kernel ``flash_layout_kv`` of the flash port, ``pack_rows`` at 8f's
+   two shapes and at 9a's 1-byte canary), then the device line.
+
+A ``[time]`` line after each phase gives the seconds since the build
+began.
 
 Any failure raises; nothing is caught.
 """
@@ -664,7 +691,7 @@ def _recording_storm(eng) -> "Counter":
 
 def serve_modes(torch, cfg, params, common, reqs, clean_tokens,
                 steps: int = 8, modes=SERVE_MODES,
-                label: str = "serve-modes") -> dict:
+                label: str = "serve-modes", storms=None) -> dict:
     """Phase 5d: every serving mode at full width on phase 5's params and
     requests.  Per mode, with the launch counts set to 0 just before and
     read just after: ``warm()`` (2K = 8 graphs captured, their seconds and
@@ -677,7 +704,8 @@ def serve_modes(torch, cfg, params, common, reqs, clean_tokens,
     ``cudaLaunchKernel`` a step on the captured modes, ``digest.STATS``
     1 launch + 1 fetch a step, every pointer the graphs read unchanged;
     each mode's decode p50 / p99 (the clean run) and device busy ms a
-    step beside the card's name and power limit.  Returns the launch
+    step beside the card's name and power limit.  ``storms`` names the
+    modes that run the storm (None: every mode).  Returns the launch
     counts summed over the modes."""
     import gc
     from collections import Counter
@@ -712,16 +740,20 @@ def serve_modes(torch, cfg, params, common, reqs, clean_tokens,
         assert cs["completed"] == N_REQUESTS and cs["dropped"] == 0, cs
         assert tokens_of(clean) == clean_tokens, (
             f"{name}: tokens differ from the reference tokens")
-        eng.report = ServingReport(n_slots=eng.S)
-        hits = _recording_storm(eng)
-        storm = eng.run(reqs(), inject_every=INJECT,
-                        inject_rng=random.Random(0))
-        ss = storm.summary()
-        f = ss["faults"]
-        assert f["injected"] > 0 and f["detected"] == f["injected"], f
-        assert f["recovered"] == f["detected"] and ss["dropped"] == 0, ss
-        assert tokens_of(storm) == clean_tokens, (
-            f"{name}: storm tokens differ from clean tokens")
+        stormed = "clean tokens == the reference tokens"
+        if storms is None or name in storms:
+            eng.report = ServingReport(n_slots=eng.S)
+            hits = _recording_storm(eng)
+            storm = eng.run(reqs(), inject_every=INJECT,
+                            inject_rng=random.Random(0))
+            ss = storm.summary()
+            f = ss["faults"]
+            assert f["injected"] > 0 and f["detected"] == f["injected"], f
+            assert f["recovered"] == f["detected"] and ss["dropped"] == 0, ss
+            assert tokens_of(storm) == clean_tokens, (
+                f"{name}: storm tokens differ from clean tokens")
+            stormed = (f"clean and storm tokens == the reference tokens, "
+                       f"storm faults {f}, flips by leaf {dict(hits)}")
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
         total.update(launches)
@@ -769,10 +801,8 @@ def serve_modes(torch, cfg, params, common, reqs, clean_tokens,
                f"{eng.capture_seconds:.3f} s (warm {warm_s:.3f} s), graph "
                f"pool {pool_bytes / 2**20:.1f} MiB" if captured
                else "no graph (the body run eagerly)")
-        print(f"[{label}] {name}: {cap}; clean and storm tokens == the "
-              f"reference tokens for all {N_REQUESTS} requests, storm faults "
-              f"{f}, flips by leaf {dict(hits)}; launches {launches}; "
-              f"{steps} steady "
+        print(f"[{label}] {name}: {cap}; {stormed} for all {N_REQUESTS} "
+              f"requests; launches {launches}; {steps} steady "
               f"steps: digest.STATS {stats[0]} launches {stats[1]} "
               f"fetches, host API {api}, every pointer the step reads "
               f"unchanged; decode p50 {cs['p50_decode_ms']:.3f} ms p99 "
@@ -2014,7 +2044,9 @@ GEMMA, COMMAND_R, DANUBE = "gemma3-1b", "command-r-35b", "h2o-danube-1.8b"
 RING_PROMPT, RING_GEN = 1040, 32     # 8b: every local layer's ring wraps
 CMD_LAYERS = 2                       # 8c: command-r-35b, 2 of its 40 layers
 G_STEPS, G_INJECT, G_INTERVAL = 6, 2, 8   # 8d: one snapshot + checkpoint
+G_CUT_LAYERS = 6                     # 8b, 8d: gemma3-1b 6 of 26 layers (5:1)
 D_STEPS, D_SLICES = 4, 4             # 8e: steps (one storm flip), canary K
+D_LAYERS = 6                         # 8e: h2o-danube-1.8b 6 of its 24 layers
 
 
 def _release(torch) -> None:
@@ -2029,11 +2061,14 @@ def _release(torch) -> None:
 
 def _phase_start(torch) -> None:
     """Free what the previous phase left (the digest plans' cached
-    packing buffers too: a whole-state K=1 buffer is 24 GB at gemma3-1b)
-    and zero the launch counts and the peak-memory mark."""
+    packing buffers too: a whole-state K=1 buffer is 24 GB at gemma3-1b;
+    and the parity plans' stream scratch) and zero the launch counts and
+    the peak-memory mark."""
+    from repro_torch.core import parity as cp
     from repro_torch.kernels import _build
     from repro_torch.kernels import digest as kd
     kd._PLAN_CACHE.clear()
+    cp._PARITY_PLAN_CACHE.clear()       # each plan keeps a device scratch
     _release(torch)
     torch.cuda.reset_peak_memory_stats()
     _build.LAUNCHES.clear()
@@ -2141,12 +2176,12 @@ def serve_full_width(torch, cfg, name, reqs, *, paged, params=None,
 
 def check_first_token(torch, eng, rq, tokens, label: str = "serve-ring",
                       tol: float = BF16_TOL) -> None:
-    """8b / 10b: the engine's first decoded token (8b: at position
+    """8b / 10b / 11b: the engine's first decoded token (8b: at position
     RING_PROMPT, in row RING_PROMPT % window of every local layer's ring;
-    10b: after three 256-token mLSTM chunks, the last padded) equals the
-    argmax of a prefill of the prompt and its first token; the decode's
-    logits within ``tol`` of that prefill's (None: printed only — the
-    recurrent decode and the chunked prefill round differently, layer
+    10b / 11b: after three 256-token mLSTM / SSD chunks, the last padded)
+    equals the argmax of a prefill of the prompt and its first token; the
+    decode's logits within ``tol`` of that prefill's (None: printed only —
+    the recurrent decode and the chunked prefill round differently, layer
     after layer, in bf16)."""
     m = eng.m
     prompt = torch.from_numpy(rq.prompt[None]).to("cuda")
@@ -2214,13 +2249,14 @@ def _host(torch, state):
 
 
 def train_gemma(torch):
-    """8d: gemma3-1b trained at full width (bf16 params, f32 moments),
+    """8d: gemma3-1b trained at full width (bf16 params, f32 moments) and
+    ``G_CUT_LAYERS`` of its 26 layers (one 5 local + 1 global group; the
+    depth cut keeps the whole script within its time limit),
     K=1: functional clean and under a params storm (detected == injected
     == recovered, final state == clean's bitwise), then ``--donate
     --fused-detect`` clean (2 captured graphs over bf16 leaves) == the
-    functional clean run's, bitwise.  Returns the last run's final state
-    (on the card) and the phase's launches."""
-    cfg = _full_width(GEMMA)
+    functional clean run's, bitwise.  Returns the phase's launches."""
+    cfg = _full_width(GEMMA, n_layers=G_CUT_LAYERS)
     _phase_start(torch)
     clean, state = train_full_width(torch, cfg, "train-gemma clean",
                                     canary_slices=1)
@@ -2246,18 +2282,36 @@ def train_gemma(torch):
     launches = _phase_end(torch, "train-gemma")
     for kernel in ("pack_rows", "row_checksums", "checksum_tiles"):
         assert launches.get(kernel, 0) > 0, (kernel, launches)
-    print(f"[train-gemma] params storm final state == clean final state, "
+    print(f"[train-gemma] {G_CUT_LAYERS} of its 26 layers (the depth cut): "
+          f"params storm final state == clean final state, "
           f"donate+fused ({fused['fused']['captures']} graphs) clean == "
           f"functional clean, bitwise")
-    return state, launches
+    del state
+    return launches
+
+
+def _stepped_state(torch, cfg):
+    """A fresh full-depth train state of ``cfg`` after one functional
+    step (random params, non-zero moments): 8f's canary leaves."""
+    from repro_torch.launch.train import cuda_numerics
+    from repro_torch.train.loop import make_train_state, make_train_step
+    _, bfn = _mode_tools(torch, cfg)
+    with cuda_numerics(torch.device("cuda")):
+        state = make_train_state(cfg, 0, global_batch=T_BATCH,
+                                 device="cuda")
+        state, _ = make_train_step(cfg, global_batch=T_BATCH)(state, bfn(0))
+    torch.cuda.synchronize()
+    return state
 
 
 def train_danube(torch):
-    """8e: h2o-danube-1.8b trained at full width with its microbatch 8
-    (global batch 8: 8 slices of one sequence), ``--donate``, K=4: clean
-    and under a params storm whose flips land in the slice checked at
-    their step; final states bitwise equal."""
-    cfg = _full_width(DANUBE)
+    """8e: h2o-danube-1.8b trained at full width and ``D_LAYERS`` of its
+    24 layers (the depth cut keeps the whole script within its time
+    limit) with its microbatch 8 (global batch 8: 8 slices of one
+    sequence), ``--donate``, K=4: clean and under a params storm whose
+    flips land in the slice checked at their step; final states bitwise
+    equal."""
+    cfg = _full_width(DANUBE, n_layers=D_LAYERS)
     assert cfg.train.microbatch == 8
     _phase_start(torch)
     kw = dict(canary_slices=D_SLICES, donate=True, steps=D_STEPS)
@@ -2277,7 +2331,8 @@ def train_danube(torch):
         "h2o-danube params storm final state differs from the clean run's"
     del clean_host
     _phase_end(torch, "train-danube")
-    print(f"[train-danube] microbatch {cfg.train.microbatch}, untied head, "
+    print(f"[train-danube] {D_LAYERS} of its 24 layers (the depth cut), "
+          f"microbatch {cfg.train.microbatch}, untied head, "
           f"head_dim {cfg.model.resolved_head_dim}: params storm final "
           f"state == clean final state, bitwise")
     del state
@@ -2817,14 +2872,13 @@ def _profile_donated(torch, cfg, steps: int = 2) -> float:
 def train_grok(torch):
     """9e: grok-1-314b trained at full width and 1 of its 64 layers with
     Adafactor (bf16 factored stats), its microbatch 8 (global batch 8 x
-    128), K=4, ``--donate``, 4 steps: clean, and under flips in the slice
-    checked at their step with one disk checkpoint: final states bitwise
-    equal, replay only.  Then ``--donate --fused-detect`` clean and under
-    an armed-slice storm, each bitwise the donated clean run, when the
-    donated peak (which holds the plan's packing ring, the fused step's
-    only packing buffer) and the fused factory's own state version fit
-    97 % of the card (else the arithmetic is printed).  Returns the
-    phase's launches."""
+    128), K=4, ``--donate``, 4 steps, clean with one disk checkpoint.
+    Then ``--donate --fused-detect`` clean and under flips in the slice
+    checked at their step (replay only), each bitwise the donated clean
+    run, when the donated peak (which holds the plan's packing ring, the
+    fused step's only packing buffer; the factory adopts the loop's
+    state) fits 97 % of the card; else the arithmetic is printed and the
+    storm runs donated, unfused.  Returns the phase's launches."""
     from repro_torch.core.detect import rotating_slice
     from repro_torch.kernels import digest as kd
     from repro_torch.kernels.checksum import LANES
@@ -2834,23 +2888,13 @@ def train_grok(torch):
     assert cfg.train.moment_dtype == "bfloat16"
     _phase_start(torch)
     held = torch.cuda.memory_allocated()
-    clean, clean_host, peak = _train_moe(torch, cfg, "train-grok clean")
+    clean, clean_host, peak = _train_moe(
+        torch, cfg, "train-grok clean", checkpoint_dir=str(WORK / "grok"),
+        checkpoint_interval=G_INTERVAL)
     assert clean["faults_detected"] == 0 and clean["steps"] == M_STEPS
     assert int(clean_host["iv"]["micro_count"]) == 8 * M_STEPS
     assert clean_host["opt"]["stats"]["groups"][0][0]["ffn"]["gate"][
         "vr"].shape == (1, 8, 6144)
-    storm, host, _ = _train_moe(torch, cfg, "train-grok params storm",
-                                inject_every=M_INJECT,
-                                inject_armed_only=True,
-                                checkpoint_dir=str(WORK / "grok"),
-                                checkpoint_interval=G_INTERVAL)
-    f = storm["faults_injected"]
-    assert f > 0 and storm["faults_detected"] == f, storm
-    assert storm["faults_recovered"] == f, storm
-    assert set(storm["recovery"]["by_rung"]) <= {"replay"}, storm
-    assert _same_state(torch, host, clean_host), \
-        "grok params storm final state differs from the clean run's"
-    del host
     shutil.rmtree(WORK, ignore_errors=True)
     launches = _phase_end(torch, "train-grok")
     for kernel in ("pack_rows", "row_checksums", "checksum_tiles"):
@@ -2858,10 +2902,20 @@ def train_grok(torch):
     busy = _profile_donated(torch, cfg)
     n_params = sum(t.numel() for t in leaves(clean_host["params"]))
     print(f"[train-grok] {n_params} params (bf16), Adafactor bf16 stats, "
-          f"microbatch {cfg.train.microbatch}: params storm final state == "
-          f"clean final state, bitwise; donated host step p50 "
+          f"microbatch {cfg.train.microbatch}: donated host step p50 "
           f"{clean['p50_step_ms']:.3f} ms, device busy {busy:.3f} ms/step, "
           f"peak {peak:.3f} GiB [{_SMI}]")
+
+    def storm_run(name, **kw):
+        out, host, _ = _train_moe(torch, cfg, name, inject_every=M_INJECT,
+                                  inject_armed_only=True, **kw)
+        f = out["faults_injected"]
+        assert f > 0 and out["faults_detected"] == f, out
+        assert out["faults_recovered"] == f, out
+        assert set(out["recovery"]["by_rung"]) <= {"replay"}, out
+        assert _same_state(torch, host, clean_host), \
+            f"{name} final state differs from the donated clean run's"
+        return out
 
     # the fused capture's packing buffers: the plan's ring, which the
     # donated pair already packs into (so the donated peak holds it);
@@ -2875,69 +2929,80 @@ def train_grok(torch):
     unions = sum(words(can_k[r] + can_k[(r + 1) % M_SLICES])
                  for r in range(M_SLICES))
     ring = slices + min(words(c) for c in can_k)
-    # the fused factory keeps its own version of the state (its graphs'
-    # storage, filled at the first load) beside the loop's
+    # donated, the fused factory adopts the loop's state as its graphs'
+    # storage; the step's temporaries, counted in the donated peak, move
+    # into the graphs' private pool
     copy = sum(t.numel() * t.element_size() for t in leaves(clean_host))
     total = torch.cuda.mem_get_info()[1]
-    need = peak * 2**30 + copy
+    need = peak * 2**30
     print(f"[train-grok] --donate --fused-detect packs into the plan's "
           f"ring of {M_SLICES}+1 slices, {ring / 2**30:.3f} GiB (held in "
           f"the donated peak {peak:.3f} GiB, {held / 2**30:.3f} GiB of it "
           f"held before the phase), where the per-rotation unions held "
           f"{unions / 2**30:.3f} GiB beside the pair's "
-          f"{slices / 2**30:.3f}; it needs that peak + the factory's own "
-          f"state version {copy / 2**30:.3f} GiB = {need / 2**30:.3f} GiB "
-          f"of the card's {total / 2**30:.3f} GiB")
+          f"{slices / 2**30:.3f}; the factory adopts the loop's state "
+          f"({copy / 2**30:.3f} GiB, no second version), so it needs "
+          f"about that peak, {need / 2**30:.3f} GiB, of the card's "
+          f"{total / 2**30:.3f} GiB (97 %: {0.97 * total / 2**30:.3f})")
     if need > 0.97 * total:
         print(f"[train-grok] --donate --fused-detect does not fit one card "
-              f"at this width and was not run (ROADMAP.md queue 3) [{_SMI}]")
+              f"at this width and was not run; the storm runs donated "
+              f"[{_SMI}]")
+        storm_run("train-grok params storm")
+        print("[train-grok] donated params storm final state == clean "
+              "final state, bitwise")
         return launches
-    pool0 = _graph_pool_bytes(torch)
     fused, host, fpeak = _train_moe(torch, cfg, "train-grok donate+fused "
                                     "clean", fused_detect=True)
-    pool = (_graph_pool_bytes(torch) - pool0) / 2**30
+    pool = fused["fused"]["pool_bytes"] / 2**30
     assert fused["fused"]["captures"] == 2 * M_SLICES, fused
     assert _same_state(torch, host, clean_host), \
         "grok donate+fused clean final state differs from donated clean"
     del host
-    fstorm, host, _ = _train_moe(torch, cfg, "train-grok donate+fused "
-                                 "storm", fused_detect=True,
-                                 inject_every=M_INJECT,
-                                 inject_armed_only=True)
+    fstorm = storm_run("train-grok donate+fused storm", fused_detect=True)
     f = fstorm["faults_injected"]
-    assert f > 0 and fstorm["faults_detected"] == f, fstorm
-    assert fstorm["faults_recovered"] == f, fstorm
-    assert _same_state(torch, host, clean_host), \
-        "grok donate+fused storm final state differs from donated clean"
     print(f"[train-grok] donate+fused ({fused['fused']['captures']} graphs "
-          f"in {fused['fused']['seconds']:.1f} s, graph pool {pool:.3f} GiB "
-          f"after the runs) clean and armed-slice storm ({f} flips) == "
+          f"in {fused['fused']['seconds']:.1f} s, graph pool {pool:.3f} GiB)"
+          f" clean and armed-slice storm ({f} flips, rungs "
+          f"{fstorm['recovery']['by_rung']}; {fstorm['fused']['captures']} "
+          f"captures: "
+          + ("the graphs dropped for the eager replay, which needs their "
+             "pool's room, and captured again"
+             if fstorm["fused"]["captures"] > 2 * M_SLICES else
+             "none dropped")
+          + ") == "
           f"donated clean, bitwise; host step p50 "
-          f"{fused['p50_step_ms']:.3f} ms, peak {fpeak:.3f} GiB [{_SMI}]")
+          f"{fused['p50_step_ms']:.3f} ms, peak {fpeak:.3f} GiB allocated "
+          f"(the graph pool's allocations in it) [{_SMI}]")
     return launches
 
 
-# -- phase 10: the xLSTM family at full width -------------------------------
+# -- phases 10 and 11: the recurrent families at full width ----------------
 
 XLSTM = "xlstm-350m"
-X_LONG = 600                  # 10b: three 256-token chunks, the last padded
-X_STEPS, X_INJECT = 4, 2      # 10c: steps, storm period (1 flip a run)
-X_SLICES = 4                  # 10c: the donated fused runs' canary K
-X_SERVE_MODES = (("dense", dict()), ("dense, no donation", dict(donate=False)))
-X_PATH = ("pack_rows", "row_checksums", "checksum_tiles",
+ZAMBA = "zamba2-7b"
+R_LONG = 600                  # 10b/11b: three 256-token chunks, one padded
+R_STEPS, R_INJECT = 4, 2      # 10c/11c: steps, storm period (1 flip a run)
+R_SLICES = 4                  # 10c/11c: the donated fused runs' canary K
+X_LAYERS = 8                  # 10: xlstm-350m 8 of its 24 layers (7m + 1s)
+Z_TRAIN_LAYERS = 7            # 11c: zamba2-7b 7 of its 81 layers
+R_SERVE_MODES = (("dense", dict()), ("dense, no donation", dict(donate=False)))
+R_PATH = ("pack_rows", "row_checksums", "checksum_tiles",
           "xor_update_tiles", "xor_fold_tiles")
 
 
-def serve_xlstm(torch):
-    """10a/10b: xlstm-350m at full width (24 layers, d 1024, bf16, random
-    params from seed 0) served on the dense slot-major engine with phase
+def serve_recurrent(torch, arch: str, label: str, n_layers: int = 0):
+    """10a/10b, 11a/11b: ``arch`` at full width and ``n_layers`` of its
+    layers (0: all; bf16, random params from seed 0) served on the dense
+    slot-major engine (the family has no ``prefill_chunk``) with phase
     5's traffic: the step's body uncaptured (the reference tokens, clean
     only), then captured donated and ping-pong (``serve_modes``: clean ==
-    uncaptured,
-    an armed-slice storm over the recurrent leaves == clean, 1
-    ``cudaGraphLaunch`` + STATS (1, 1) a steady step, decode p50 / p99,
-    device busy, graph pool); then one prompt of ``X_LONG`` tokens.
-    Returns the phase's launches."""
+    uncaptured, in the donated mode an armed-slice storm over the
+    recurrent leaves == clean with the flips by leaf (phase 5d storms
+    ping-pong), 1 ``cudaGraphLaunch`` + STATS (1, 1) a steady
+    step, decode p50 / p99, device busy, kernels a step, graph pool);
+    then one prompt of ``R_LONG`` tokens.  Returns the phase's
+    launches."""
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import make_requests
     from repro_torch.models.registry import get_model
@@ -2945,18 +3010,21 @@ def serve_xlstm(torch):
     from repro_torch.tree import leaves
     import numpy as np
 
-    cfg = _full_width(XLSTM)
+    cfg = _full_width(arch, **({"n_layers": n_layers} if n_layers else {}))
     m = cfg.model
     _phase_start(torch)
     model = get_model(m)
     params = model.init(m, 0, "cuda")
-    cache = model.make_decode_cache(m, 1, 1, "meta")
-    print(f"[serve-xlstm] {XLSTM} at full width: {m.n_layers} layers "
+    cache = model.make_decode_cache(m, 1, PROMPT + GEN + 1, "meta")
+    depth = f"{m.n_layers} of its layers (the depth cut)" if n_layers \
+        else f"full depth, {m.n_layers} layers"
+    print(f"[{label}] {arch} at full width and {depth} "
           f"{model.module.derive_pattern(m)}, d {m.d_model}, {m.n_heads} "
           f"heads, vocab {m.vocab_size}, "
           f"{sum(t.numel() for t in leaves(params))} params "
           f"({leaves(params)[0].dtype}), untied head; one slot's decode "
-          f"state {len(leaves(cache['groups']))} leaves, "
+          f"state at max_len {PROMPT + GEN + 1}: "
+          f"{len(leaves(cache['groups']))} leaves, "
           f"{sum(t.numel() * t.element_size() for t in leaves(cache['groups']))} "
           f"bytes")
     common = dict(n_slots=SLOTS, max_len=PROMPT + GEN + 1, canary_slices=K,
@@ -2968,108 +3036,169 @@ def serve_xlstm(torch):
 
     _build.LAUNCHES.clear()
     eng = ServingEngine(cfg, params=params, **common)
+    assert not eng.paged
     eng._replay = False                  # the step's body run eagerly
     rep = eng.run(reqs())
     assert rep.summary()["dropped"] == 0
     tokens = {rid: r["tokens"] for rid, r in rep.per_request.items()}
-    print(f"[serve-xlstm] uncaptured (the reference tokens): decode p50 "
+    print(f"[{label}] uncaptured (the reference tokens): decode p50 "
           f"{rep.summary()['p50_decode_ms']:.3f} ms; launches "
           f"{dict(_build.LAUNCHES)} [{_SMI}]")
     del eng
     launches = serve_modes(torch, cfg, params, common, reqs, tokens,
-                           modes=X_SERVE_MODES, label="serve-xlstm")
+                           modes=R_SERVE_MODES, label=label,
+                           storms=(R_SERVE_MODES[0][0],))
     eng = ServingEngine(cfg, params=params, **dict(
-        common, n_slots=1, max_len=X_LONG + 2 + 1))
+        common, n_slots=1, max_len=R_LONG + 2 + 1))
     assert not eng.paged
-    rq = make_requests(cfg, 1, X_LONG, 2, np.random.default_rng(6))[0]
+    rq = make_requests(cfg, 1, R_LONG, 2, np.random.default_rng(6))[0]
     rep = eng.run([rq])
     check_first_token(torch, eng, make_requests(
-        cfg, 1, X_LONG, 2, np.random.default_rng(6))[0],
-        rep.per_request[0]["tokens"], "serve-xlstm-long", tol=None)
+        cfg, 1, R_LONG, 2, np.random.default_rng(6))[0],
+        rep.per_request[0]["tokens"], f"{label}-long", tol=None)
     del eng
-    end = _phase_end(torch, "serve-xlstm")
+    end = _phase_end(torch, label)
     for k, v in end.items():
         launches[k] = max(launches.get(k, 0), v)
     return launches
 
 
-def train_xlstm(torch):
-    """10c: xlstm-350m trained at full width (bf16 params, f32 AdamW
-    moments, global batch 8 x 128, remat of each group iteration), one
-    flip a storm: K=1 functional clean (with a disk checkpoint), a
-    params storm under ``--parity`` (``parity_xor``; final state ==
-    clean, bitwise), an iv storm (``eq1``); ``--donate --fused-detect``
-    at K=4 clean (8 graphs, == the functional clean run) and under an
+def _reckon_train(torch, cfg, label: str) -> None:
+    """10c/11c: the training runs' memory reckoned from shapes before they
+    run (as 9e reckons its fused runs): the state, a second version of it
+    (the functional step's output), the canary's packing ring at K = 1
+    and at ``R_SLICES`` (K slices + the smallest once more) and the bf16
+    gradient accumulator of a microbatched step."""
+    from repro_torch.core.detect import rotating_slice
+    from repro_torch.kernels import digest as kd
+    from repro_torch.kernels.checksum import LANES
+    from repro_torch.train.loop import make_train_state
+    from repro_torch.tree import leaves
+    meta = make_train_state(cfg, 0, global_batch=T_BATCH, device="meta")
+    plan = kd.plan_for(meta)
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in leaves(tree))
+
+    def ring(k):
+        words = lambda idx: plan.layout(idx).padded_rows * LANES * 4
+        sl = [tuple(rotating_slice(r, k, plan.n_leaves)) for r in range(k)]
+        return sum(words(c) for c in sl) + min(words(c) for c in sl)
+    state, acc = nbytes(meta), 2 * sum(t.numel()
+                                       for t in leaves(meta["params"]))
+    total = torch.cuda.mem_get_info()[1]
+    gib = lambda b: f"{b / 2**30:.3f} GiB"
+    print(f"[{label}] reckoned before the runs: state {gib(state)}; K=1 "
+          f"functional: 2 state versions + ring {gib(ring(1))} + bf16 "
+          f"gradient accumulator {gib(acc)} = "
+          f"{gib(2 * state + ring(1) + acc)}; K={R_SLICES} donate+fused: "
+          f"1 version (adopted by the graphs) + ring {gib(ring(R_SLICES))}"
+          f" + accumulator = {gib(state + ring(R_SLICES) + acc)}; "
+          f"activations (remat) and graph pools besides, of the card's "
+          f"{gib(total)}")
+    kd._PLAN_CACHE.clear()
+
+
+def train_recurrent(torch, arch: str, label: str, n_layers: int = 0):
+    """10c/11c: ``arch`` trained at full width (bf16 params, the config's
+    optimizer, microbatch and remat; global batch 8 x 128), ``n_layers``
+    of its layers (0: all), one flip a storm: K=1 functional clean, a
+    params storm under ``--parity`` (``parity_xor``; final state == clean,
+    bitwise), an iv storm (``eq1``); ``--donate --fused-detect`` at K=4
+    clean (8 graphs, == the functional clean run) and under an
     armed-slice storm (replay; == clean); a checkpoint of the final state
-    written and read back, bitwise; then the functional and
-    donate+fused hot paths (``profile_modes``).  Returns the phase's
-    launches."""
+    written and read back, bitwise; then the donate+fused hot path
+    (``profile_modes``; the runs print the functional host p50).
+    Returns the phase's launches."""
     from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 
-    cfg = _full_width(XLSTM)
+    cfg = _full_width(arch, **({"n_layers": n_layers} if n_layers else {}))
     assert cfg.train.optimizer == "adamw" and cfg.train.remat != "none"
     _phase_start(torch)
-    kw = dict(steps=X_STEPS, canary_slices=1)
-    clean, state = train_full_width(torch, cfg, "train-xlstm clean", **kw)
-    assert clean["faults_detected"] == 0 and clean["steps"] == X_STEPS
+    _reckon_train(torch, cfg, label)
+    kw = dict(steps=R_STEPS, canary_slices=1, disk=False)
+    clean, state = train_full_width(torch, cfg, f"{label} clean", **kw)
+    assert clean["faults_detected"] == 0 and clean["steps"] == R_STEPS
     clean_host = _host(torch, state)
     del state
     for name, extra, rung in (
             ("params storm --parity", dict(parity=True), "parity_xor"),
             ("iv storm", dict(inject_target="iv"), "eq1")):
-        out, state = train_full_width(torch, cfg, f"train-xlstm {name}",
-                                      disk=False, inject_every=X_INJECT,
-                                      **extra, **kw)
+        out, state = train_full_width(torch, cfg, f"{label} {name}",
+                                      inject_every=R_INJECT, **extra, **kw)
         f = out["faults_injected"]
         assert f > 0 and out["faults_detected"] == f, out
         assert out["faults_recovered"] == f, out
         assert out["recovery"]["by_rung"] == {rung: f}, (name, out)
         assert _same_state(torch, _host(torch, state), clean_host), \
-            f"xlstm {name} final state differs from the clean run's"
+            f"{arch} {name} final state differs from the clean run's"
         del state
-        print(f"[train-xlstm] {name}: rungs {out['recovery']['by_rung']}, "
+        print(f"[{label}] {name}: rungs {out['recovery']['by_rung']}, "
               f"final state == clean, bitwise")
-    kw4 = dict(steps=X_STEPS, canary_slices=X_SLICES, donate=True,
+    kw4 = dict(steps=R_STEPS, canary_slices=R_SLICES, donate=True,
                fused_detect=True, disk=False)
-    fused, state = train_full_width(torch, cfg, "train-xlstm donate+fused "
-                                    f"K={X_SLICES} clean", **kw4)
-    assert fused["fused"]["captures"] == 2 * X_SLICES, fused
+    fused, state = train_full_width(torch, cfg, f"{label} donate+fused "
+                                    f"K={R_SLICES} clean", **kw4)
+    assert fused["fused"]["captures"] == 2 * R_SLICES, fused
     assert _same_state(torch, _host(torch, state), clean_host), \
-        "xlstm donate+fused clean final state differs from functional"
+        f"{arch} donate+fused clean final state differs from functional"
     del state
     storm, state = train_full_width(
-        torch, cfg, f"train-xlstm donate+fused K={X_SLICES} storm",
-        inject_every=X_INJECT, inject_armed_only=True, **kw4)
+        torch, cfg, f"{label} donate+fused K={R_SLICES} storm",
+        inject_every=R_INJECT, inject_armed_only=True, **kw4)
     f = storm["faults_injected"]
     assert f > 0 and storm["faults_detected"] == f, storm
     assert storm["faults_recovered"] == f, storm
     assert set(storm["recovery"]["by_rung"]) <= {"replay"}, storm
     assert _same_state(torch, _host(torch, state), clean_host), \
-        "xlstm donate+fused storm final state differs from clean"
-    d = WORK / "xlstm_ckpt"
+        f"{arch} donate+fused storm final state differs from clean"
+    d = WORK / f"{label}_ckpt"
     shutil.rmtree(d, ignore_errors=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    save_checkpoint(str(d), state, X_STEPS)
+    save_checkpoint(str(d), state, R_STEPS)
     t1 = time.perf_counter()
     back, step = load_checkpoint(str(d), state)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    assert step == X_STEPS and _same_state(torch, back, state)
+    assert step == R_STEPS and _same_state(torch, back, state)
     shutil.rmtree(d, ignore_errors=True)
-    print(f"[train-xlstm] donate+fused K={X_SLICES}: "
-          f"{fused['fused']['captures']} graphs, clean == functional "
+    print(f"[{label}] donate+fused K={R_SLICES}: "
+          f"{fused['fused']['captures']} graphs (their pool "
+          f"{fused['fused']['pool_bytes'] / 2**30:.3f} GiB), clean == "
+          f"functional "
           f"clean, armed-slice storm ({f} flip, replay) == clean, bitwise; "
           f"checkpoint of the final state written in {t1 - t0:.2f} s and "
           f"read back (digest-verified) in {t2 - t1:.2f} s, bitwise "
           f"[{_SMI}]")
     del back
-    launches = _phase_end(torch, "train-xlstm")
-    profile_modes(torch, cfg, state, steps=2, start=X_STEPS,
-                  label="train-xlstm", modes=("functional", "donate+fused"),
-                  prof_steps=1)
+    launches = _phase_end(torch, label)
+    # the profile starts from a card holding only this state (the plans'
+    # rings and the parity scratch of the runs above go)
+    _phase_start(torch)
+    profile_modes(torch, cfg, state, steps=2, start=R_STEPS,
+                  label=label, modes=("donate+fused",), prof_steps=1)
     del state, clean_host
     return launches
+
+
+def recurrent_phase(torch, phase: int, arch: str, serve_layers: int = 0,
+                    train_layers: int = 0):
+    """Phase 10 (xLSTM) or 11 (the hybrid): serving, then training, each
+    at ``*_layers`` of the config's layers (0: all); each of ``R_PATH``'s
+    kernels launched on the phase's paths."""
+    t0 = time.perf_counter()
+    name = arch.split("-")[0]
+    lc = {f"{phase}a/{phase}b": serve_recurrent(torch, arch, f"serve-{name}",
+                                                serve_layers),
+          f"{phase}c": train_recurrent(torch, arch, f"train-{name}",
+                                       train_layers)}
+    for kernel in R_PATH:
+        assert sum(c.get(kernel, 0) for c in lc.values()) > 0, (kernel, lc)
+    print(f"[phase {phase}] launches of " + ", ".join(R_PATH) + " by path: "
+          + "; ".join(f"{p}: " + ", ".join(f"{k} {c.get(k, 0)}"
+                                           for k in R_PATH)
+                      for p, c in lc.items())
+          + f"; {time.perf_counter() - t0:.1f} s [{_SMI}]")
 
 
 def main() -> int:
@@ -3091,6 +3220,11 @@ def main() -> int:
     global _SMI
     smi = _SMI = _smi()
     print(f"[card] {smi}")
+    t_run = time.perf_counter()
+
+    def _stamp(what: str) -> None:
+        print(f"[time] {what} done, {time.perf_counter() - t_run:.1f} s "
+              f"since the build began")
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.lib()
@@ -3179,6 +3313,7 @@ def main() -> int:
                 {rid: r["tokens"] for rid, r in clean.per_request.items()})
     del clean_eng, storm_eng
     torch.cuda.empty_cache()
+    _stamp("phases 1-5")
 
     # -- training path ----------------------------------------------------
     from repro_torch.train.loop import make_train_state
@@ -3239,6 +3374,7 @@ def main() -> int:
         if name != "clean":
             del runs[name]
     profile_modes(torch, cfg, clean_state)
+    _stamp("phases 6-7")
 
     # -- phase 8: the dense configurations at full width ------------------
     common8 = dict(n_slots=SLOTS, max_len=PROMPT + GEN + 1,
@@ -3255,9 +3391,11 @@ def main() -> int:
 
     g_eng, _, l8a = serve_full_width(torch, gcfg, "serve-gemma", g_reqs,
                                      paged=True, **common8)
+    print(f"[serve-ring] gemma3-1b at {G_CUT_LAYERS} of its 26 layers (the "
+          f"depth cut keeps the whole script within its time limit)")
     r_eng, r_rep, l8b = serve_full_width(
-        torch, gcfg, "serve-ring", ring_reqs, paged=False,
-        params=g_eng.params, n_slots=2,
+        torch, _full_width(GEMMA, n_layers=G_CUT_LAYERS), "serve-ring",
+        ring_reqs, paged=False, n_slots=2,
         max_len=RING_PROMPT + RING_GEN + 1, block_size=BLOCK)
     check_first_token(torch, r_eng, ring_reqs()[0],
                            r_rep.per_request[0]["tokens"])
@@ -3274,18 +3412,20 @@ def main() -> int:
                               np.random.default_rng(2)),
         paged=True, **common8)
     del c_eng
-    g_state, l8d = train_gemma(torch)
+    l8d = train_gemma(torch)
     wide_launches = sum(lc.get("pack_rows", 0) for lc in (l8a, l8b, l8d))
     print(f"[pack-wide] pack_rows launches on phases 8a, 8b, 8d (bf16 "
           f"leaves in every one): {l8a.get('pack_rows', 0)}, "
           f"{l8b.get('pack_rows', 0)}, {l8d.get('pack_rows', 0)}")
     _phase_start(torch)
+    g_state = _stepped_state(torch, gcfg)
     wide = check_pack_wide(torch, flush, g_state, g_eng, wide_launches)
     del g_eng
     _phase_start(torch)
     profile_train(torch, gcfg, g_state, steps=2)
     del g_state
     train_danube(torch)
+    _stamp("phase 8")
 
     # -- phase 9: the optimizers and the MoE family at full width ---------
     t9 = time.perf_counter()
@@ -3300,22 +3440,16 @@ def main() -> int:
         assert sum(lc.get(kernel, 0) for lc in l9.values()) > 0, (kernel, l9)
     print(f"[phase 9] launches by path: {l9}; {time.perf_counter() - t9:.1f}"
           f" s [{_SMI}]")
+    _stamp("phase 9")
     label = "pack_rows (iterpro-100m int8-moment training canary, 1-byte q)"
     kernels[label] = bytes_entry
     launches[label] = bytes_entry["launches"]
 
-    # -- phase 10: the xLSTM family at full width --------------------------
-    t10 = time.perf_counter()
-    l10 = {"10a/10b": serve_xlstm(torch), "10c": train_xlstm(torch)}
-    for kernel in X_PATH:
-        assert sum(lc.get(kernel, 0) for lc in l10.values()) > 0, (kernel,
-                                                                   l10)
-    print(f"[phase 10] launches of pack_rows, row_checksums, "
-          f"checksum_tiles, xor_update_tiles, xor_fold_tiles by path: "
-          + "; ".join(f"{p}: " + ", ".join(f"{k} {lc.get(k, 0)}"
-                                           for k in X_PATH)
-                      for p, lc in l10.items())
-          + f"; {time.perf_counter() - t10:.1f} s [{_SMI}]")
+    # -- phases 10 and 11: the xLSTM and hybrid families at full width ----
+    recurrent_phase(torch, 10, XLSTM, X_LAYERS, X_LAYERS)
+    _stamp("phase 10")
+    recurrent_phase(torch, 11, ZAMBA, 0, Z_TRAIN_LAYERS)
+    _stamp("phase 11")
 
     for name, r in train_kernels.items():
         kernels[name] = r

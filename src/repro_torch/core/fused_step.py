@@ -24,9 +24,12 @@ donated-pair protocols.
 
 A graph reads every pointer it was captured with.  Hence:
 
-  * the state lives in the factory's own storage (``load`` copies a state
-    in; ``step`` returns trees of that storage).  With ``donate=True``
-    there is one state version, updated in place.  Without donation the
+  * the state lives in the factory's storage (``load`` copies a state
+    in, skipping every leaf that already is the storage's tensor;
+    ``step`` returns trees of that storage).  With ``donate=True`` there
+    is one state version, updated in place, and it is the state the
+    factory was first given: the graphs adopt the loop's own tensors, so
+    no second version is held.  Without donation the
     input must survive the step (the rungs read it), so there are two
     versions in ping-pong: the graph reads version ``b`` and writes the
     step's outputs into version ``1 - b`` — one more state copy per step
@@ -41,12 +44,12 @@ A graph reads every pointer it was captured with.  Hence:
     kept with it; the digest layout maps are uploaded before capture.
 
 The first capture runs warm-up steps on the storage (two, and at least
-one per rotation) before the real state is loaded (the canary's tables
-and parity saved and restored around them), so warm-up never advances
-the run.  A capture that fails on a card raises: there is no eager
-fallback there.  Graph outputs (``aux``, the mismatch mask) are
-overwritten by the next replay; a report clones what its resolver
-reads.
+one per rotation) with the canary's tables and parity saved and
+restored around them, and, donated, the adopted state too (through a
+pinned host copy), so warm-up never advances the run.  A capture that
+fails on a card raises: there is no eager fallback there.  Graph
+outputs (``aux``, the mismatch mask) are overwritten by the next
+replay; a report clones what its resolver reads.
 """
 
 from __future__ import annotations
@@ -137,6 +140,7 @@ class FusedStepFactory:
         self._args = None
         self._graphs: Dict[Tuple[int, int], _Graph] = {}
         self._pool = None
+        self._dropped = False
         self._phase = 0
 
     # -- rotations -----------------------------------------------------------
@@ -239,12 +243,22 @@ class FusedStepFactory:
     def _prepare(self, state, args) -> None:
         """First use on the card: storage, static arguments and the
         warm-up on the storage (the canary's tables and parity restored
-        after it); the real state goes in at the first ``load``."""
+        after it).  Donated, the storage IS ``state``: the graphs capture
+        the loop's own tensors, and a pinned host copy of the state
+        brings back, bitwise, what the warm-up steps wrote.  In
+        ping-pong the storage is two copies of ``state``, and the real
+        state goes in at the first ``load``."""
         if self._bufs:
             return
-        clone = lambda tree: tree_map(torch.clone, tree)
-        self._bufs = [clone(state)] if self.donate \
-            else [clone(state), clone(state)]
+        saved_state = None
+        if self.donate:
+            self._bufs = [state]
+            saved_state = [torch.empty_like(t, device="cpu",
+                                            pin_memory=True).copy_(t)
+                           for t in leaves(state)]
+        else:
+            self._bufs = [tree_map(torch.clone, state),
+                          tree_map(torch.clone, state)]
         self._args = tuple(tree_map(
             lambda t: torch.empty_like(t, device=self.plan.device), a)
             for a in args)
@@ -268,6 +282,10 @@ class FusedStepFactory:
             t.copy_(v)
         if pstore is not None:
             pstore.parity.copy_(saved_parity)
+        if saved_state is not None:
+            for t, h in zip(leaves(state), saved_state):
+                t.copy_(h)
+            torch.cuda.synchronize()
         # the real state goes in at the first ``load``; b = 0 at this gen
         self._phase = can.generation & 1
 
@@ -312,13 +330,58 @@ class FusedStepFactory:
             ent = self._graphs[(r, g)] = self._capture(r, g)
         return ent
 
+    def _pool_split(self) -> Tuple[int, int]:
+        """(bytes reserved in the graphs' private pool, bytes reserved but
+        free in the default pool)."""
+        own = spare = 0
+        for seg in torch.cuda.memory_snapshot():
+            pid = tuple(seg["segment_pool_id"])
+            if pid == tuple(self._pool):
+                own += seg["total_size"]
+            elif pid == (0, 0):
+                spare += seg["total_size"] - seg["allocated_size"]
+        return own, spare
+
+    def pool_bytes(self) -> int:
+        """Bytes reserved in the graphs' private memory pool (0 before the
+        first capture): the step's temporaries, which an eager step
+        allocates and frees each time."""
+        return self._pool_split()[0] if self._pool is not None else 0
+
+    def make_room(self) -> bool:
+        """Before an eager recovery on the card (a replay runs the step
+        eagerly): when the card cannot hold the eager step's temporaries
+        (about the graphs' pool) beside that pool, drop the graphs, and
+        so their pool.  Each is captured again at its next use; storage,
+        static arguments and pack buffers keep their addresses.  Returns
+        whether the graphs were dropped."""
+        if self._pool is None or not self._graphs:
+            return False
+        own, spare = self._pool_split()
+        if torch.cuda.mem_get_info()[0] + spare >= own:
+            return False
+        self._graphs.clear()
+        self._pool = torch.cuda.graph_pool_handle()
+        self._dropped = True
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return True
+
     def load(self, state):
         """The live state tree of the factory's storage holding ``state``:
         ``state`` itself on the CPU or when it already is that storage,
-        else a copy of it into the storage the next step reads.  Call it
-        after a recovery that produced a new tree."""
+        else a copy of it into the storage the next step reads (a leaf
+        that already is the storage's tensor is not copied: a donated
+        recovery that repaired the adopted tensors in place copies
+        nothing).  Call it after a recovery that produced a new tree."""
         if not self._bufs or not self._on_card(state):
             return state
+        if self._dropped:
+            # the eager recovery's cached blocks go back to the card
+            # before the graphs are captured again
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            self._dropped = False
         b = 0 if self.donate else (self.canary.generation & 1) ^ self._phase
         live = self._bufs[b]
         if state is live:

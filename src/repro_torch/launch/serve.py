@@ -6,14 +6,15 @@ continuous-batching engine.
         --requests 4 --prompt-len 16 --gen 12 --inject 5
 
 ``--arch`` takes every dense configuration (``iterpro-100m``,
-``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``)
-and the MoE ones (``grok-1-314b``, ``kimi-k2-1t-a32b``; add ``--smoke
---device cpu`` to run them on the CPU).  A windowed config pages when
-every cache leaf fits its window (``max_len`` = prompt + gen + 1 within
-it); otherwise it takes the dense cache, ring leaves of ``window`` rows
-beside linear leaves of ``max_len``.  The families after MoE (xLSTM,
-SSM, hybrid, enc-dec, VLM) raise ``NotImplementedError`` (ROADMAP.md
-queue 1 item 5).
+``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``),
+the MoE ones (``grok-1-314b``, ``kimi-k2-1t-a32b``), the xLSTM
+``xlstm-350m`` and the hybrid ``zamba2-7b`` (add ``--smoke --device
+cpu`` to run them on the CPU).  A windowed config pages when every cache
+leaf fits its window (``max_len`` = prompt + gen + 1 within it);
+otherwise it takes the dense cache, ring leaves of ``window`` rows
+beside linear leaves of ``max_len``.  The recurrent families (xLSTM,
+hybrid) have no ``prefill_chunk`` and take the dense cache.  Enc-dec
+and VLM raise ``NotImplementedError`` (ROADMAP.md queue 1).
 
 It runs on the CUDA card unless ``--device`` names another device, and
 raises when there is no card and no device is named.  The flags are the

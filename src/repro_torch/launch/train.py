@@ -46,19 +46,21 @@ atomics in a varying order, and a replayed step would not reproduce the
 clean trajectory bit for bit.
 
 ``--arch`` takes every dense configuration (``iterpro-100m``,
-``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``)
-and the MoE ones (``grok-1-314b``, ``kimi-k2-1t-a32b``, trained with
-their Adafactor and bf16 stats; ``--smoke --device cpu`` on the CPU);
-without ``--smoke`` a config's ``microbatch`` (8 for all but gemma3-1b
-and iterpro-100m) accumulates the gradients of that many slices of the
-batch in its bf16 ``grad_reduce_dtype``, as the reference does.  Every
+``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``),
+the MoE ones (``grok-1-314b``, ``kimi-k2-1t-a32b``, trained with their
+Adafactor and bf16 stats), the xLSTM ``xlstm-350m`` and the hybrid
+``zamba2-7b`` (``--smoke --device cpu`` on the CPU); without
+``--smoke`` a config's ``microbatch`` (8 for all but gemma3-1b,
+iterpro-100m and xlstm-350m) accumulates the gradients of that many
+slices of the batch in its bf16 ``grad_reduce_dtype``, as the reference
+does.  Every
 optimizer of the reference runs: AdamW with f32, bf16 or int8 moments
 (``TrainPlan(moment_dtype=...)``; the reference has no flag for it
 either) and Adafactor.
 
 Not ported yet, each raising ``NotImplementedError``: ``--mesh``,
-``--elastic`` and ``--kill-row-at``, and the families after MoE
-(xLSTM, SSM, hybrid, enc-dec, VLM; ROADMAP.md, queue 1).
+``--elastic`` and ``--kill-row-at``, and the enc-dec and VLM families
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -324,6 +326,10 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
         report.resolve()
         if verbose:
             print(f"[train] FAULT at step {s}: {report}")
+        if fused is not None:
+            # a replay steps eagerly: its temporaries may need the room
+            # the graphs' pool holds (grok-1-314b at one card's width)
+            fused.make_room()
         try:
             t0 = time.perf_counter()
             state, ev = runtime.recover(state, report, s)
@@ -361,6 +367,8 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
         out["fused"] = {"captures" if device.type == "cuda" else "builds":
                         fused.n_compiles,
                         "seconds": fused.compile_seconds}
+        if device.type == "cuda":
+            out["fused"]["pool_bytes"] = fused.pool_bytes()
     return (out, state) if return_state else out
 
 

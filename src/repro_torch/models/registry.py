@@ -1,5 +1,6 @@
 """Model registry: one uniform API per architecture family (the dense and
-MoE families share the transformer; ``ssm`` is xLSTM).
+MoE families share the transformer; ``ssm`` is xLSTM, ``hybrid`` the
+Zamba2 Mamba-2 / shared-attention stack).
 
     model = get_model(cfg.model)
     params = model.init(cfg.model, seed, device)
@@ -10,15 +11,16 @@ MoE families share the transformer; ``ssm`` is xLSTM).
     cache = model.make_decode_cache(cfg.model, B, max_len, device)
     loss, metrics = model.train_loss(params, cfg.model, batch, remat=...)
 
-A family without ``prefill_chunk`` (xLSTM, as in the reference) is
-served from the dense slot-major cache (``serving.paged.paged_supported``).
+A family without ``prefill_chunk`` (xLSTM and the hybrid, as in the
+reference) is served from the dense slot-major cache
+(``serving.paged.paged_supported``).
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
 
-from repro_torch.models import transformer, xlstm
+from repro_torch.models import transformer, xlstm, zamba2
 
 
 def get_model(model_cfg) -> SimpleNamespace:
@@ -30,6 +32,15 @@ def get_model(model_cfg) -> SimpleNamespace:
             make_decode_cache=xlstm.make_decode_cache,
             train_loss=xlstm.train_loss,
             module=xlstm,
+        )
+    if model_cfg.family == "hybrid":
+        return SimpleNamespace(
+            init=zamba2.init_lm,
+            prefill=zamba2.prefill,
+            decode_step=zamba2.decode_step,
+            make_decode_cache=zamba2.make_decode_cache,
+            train_loss=zamba2.train_loss,
+            module=zamba2,
         )
     transformer.check_supported(model_cfg)
     return SimpleNamespace(

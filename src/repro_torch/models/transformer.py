@@ -53,9 +53,10 @@ class LayerDesc(NamedTuple):
 
 
 def check_supported(cfg) -> None:
-    """Raise for model options this port does not implement yet: every
-    family but the dense and MoE ones, m-rope and patch inputs
-    (ROADMAP.md queue 1)."""
+    """Raise for what the transformer does not run: a family other than
+    dense and MoE (the registry sends ``ssm`` and ``hybrid`` to their
+    own modules; enc-dec and VLM are not ported), m-rope and patch
+    inputs (ROADMAP.md queue 1)."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     on = [name for name in ("m_rope", "patch_dim") if getattr(cfg, name)]

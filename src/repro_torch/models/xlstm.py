@@ -48,7 +48,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import dense, dense_init, rmsnorm, \
     rmsnorm_init
-from repro_torch.models.mamba2 import _causal_conv
+from repro_torch.models.mamba2 import _causal_conv, _conv_step, \
+    _conv_tail, _cumsum, _segsum
 from repro_torch.tree import leaves, tree_map
 
 MLSTM_CHUNK = 256
@@ -58,25 +59,6 @@ _F32 = torch.float32
 # ---------------------------------------------------------------------------
 # mLSTM cell
 # ---------------------------------------------------------------------------
-
-def _cumsum(x):
-    """Inclusive cumulative sum over the last dim, as a product with a
-    triangle of ones: PyTorch's floating-point ``cumsum`` on the card has
-    no deterministic kernel, and the training step runs with
-    deterministic algorithms on."""
-    Q = x.shape[-1]
-    return x @ torch.ones((Q, Q), dtype=x.dtype, device=x.device).triu()
-
-
-def _segsum(x):
-    Q = x.shape[-1]
-    c = _cumsum(x)
-    diff = c[..., :, None] - c[..., None, :]
-    i = torch.arange(Q, device=x.device)
-    return torch.where(i[:, None] >= i[None, :], diff,
-                       torch.full((), -math.inf, dtype=x.dtype,
-                                  device=x.device))
-
 
 def _chunks(a, nc: int, Q: int):
     """(B, nc·Q, H[, D]) -> (nc, B, H, Q[, D]) in f32."""
@@ -197,23 +179,6 @@ def _mlstm_qkvg(p, cfg, xm_conv, xm):
     ig, fg = g.split(H, dim=-1)                       # (B,S,H)
     fg = F.logsigmoid(fg + 3.0)                       # bias toward remember
     return q, k, v, ig, fg
-
-
-def _conv_tail(tail, K: int):
-    """The last K-1 rows of ``tail`` (B,S,C), zero-padded on the left when
-    S < K-1."""
-    cc = tail[:, -(K - 1):, :]
-    if cc.shape[1] < K - 1:
-        cc = F.pad(cc, (0, 0, K - 1 - cc.shape[1], 0))
-    return cc
-
-
-def _conv_step(conv_in, p):
-    """One decode step of the causal conv over ``conv_in`` (B,K,C): the
-    taps' sum in f32, then the bias, SiLU still in f32."""
-    conv = (conv_in.to(_F32) * p["conv_w"].to(_F32)).sum(1) + \
-        p["conv_b"].to(_F32)
-    return F.silu(conv)
 
 
 def mlstm_block_apply(p, cfg, x, *, return_state=False, cache=None):

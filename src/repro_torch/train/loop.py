@@ -120,7 +120,11 @@ def make_train_step(arch_cfg, global_batch: int = 0,
             loss, metrics = model.train_loss(
                 map_with_path(lambda p, _: req[leaf_key(p)], params), mcfg,
                 batch, remat=remat)
-            grads = torch.autograd.grad(loss, list(req.values()))
+            # a leaf the loss does not reach (a hybrid stack too shallow
+            # to invoke its shared block) gets zeros, as under jax.grad
+            grads = torch.autograd.grad(loss, list(req.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), metrics, dict(zip(req, grads))
 
     def accumulate(params, batch, acc):
@@ -136,6 +140,8 @@ def make_train_step(arch_cfg, global_batch: int = 0,
                 batch, remat=remat)
             torch.autograd.backward(loss, inputs=list(req.values()))
         for k, r in req.items():
+            if r.grad is None:
+                continue                  # not reached by the loss
             if r.dtype != acc[k].dtype:
                 acc[k].add_(r.grad.to(acc_dtype))
             elif r.grad.data_ptr() != acc[k].data_ptr():

@@ -66,6 +66,19 @@ from repro_torch.train.loop import make_train_state
 from repro_torch.train.loop import make_train_step as tstep
 from repro_torch.tree import flatten_with_path, leaf_key, leaves, tree_map
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs
+    its files in parallel processes, where a pool of threads per process
+    spends its time waiting on the others' cores (small ops ran ~4x
+    slower that way)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = dict(atol=2e-5, rtol=2e-5)
 BF16 = dict(atol=3e-2, rtol=3e-2)
 DEEP = 1e-4        # of a leaf's largest |entry|, through the 10-layer model
