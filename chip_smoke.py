@@ -250,29 +250,53 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        (``parity_xor``, == clean bitwise), an iv storm (``eq1``);
        ``--donate --fused-detect`` at K=4 clean (8 graphs, == the
        functional clean run) and under an armed-slice storm (replay, ==
-       clean); a checkpoint written and read back bitwise; the
-       donate+fused hot path's host step p50, device busy and kernels a
-       step (one profiled step) and steady peak (the runs print the
-       functional host p50);
+       clean); a checkpoint written and read back bitwise (the runs
+       print the functional host p50; the donate+fused hot path is
+       profiled in 12c);
    10d. the launches of ``pack_rows``, ``row_checksums``,
        ``checksum_tiles``, ``xor_update_tiles`` and ``xor_fold_tiles`` on
        phase 10's paths (each > 0);
 11. the hybrid family (zamba2-7b) at full width, bf16 (d 3584, 32 heads
    of 112, vocab 32,000, untied head; random from seed 0), each path with
    the launch counts set to 0 just before it and read just after:
-   11a. all 81 layers (13 x (5 Mamba-2 + the shared attention block,
-       each invocation merging its own LoRA delta) + 3 Mamba-2;
-       5,888,564,992 params) served as 10a (uncaptured, then captured
-       donated and ping-pong, storms over ``ssm``, ``conv``, ``k``, ``v``
-       with the flips by leaf, 1 ``cudaGraphLaunch`` a steady step;
-       decode p50 / p99, device busy, kernels a step, graph pool);
+   11a. 13 of its 81 layers (2 x (5 Mamba-2 + the shared attention
+       block, each invocation merging its own LoRA delta) + 1 Mamba-2;
+       1,337,565,120 params; the depth cut keeps the script within its
+       time limit) served as 10a (uncaptured, then
+       captured donated and ping-pong, storms over ``ssm``, ``conv``,
+       ``k``, ``v`` with the flips by leaf, 1 ``cudaGraphLaunch`` a
+       steady step; decode p50 / p99, device busy, kernels a step,
+       graph pool);
    11b. one prompt of 600 tokens (three 256-token SSD chunks, the last
        padded) as 10b;
    11c. 7 of its 81 layers ((1, 5 Mamba-2 + the shared block), (1, 1
        Mamba-2); 937,984,384 params) trained as 10c with the config's
        AdamW, microbatch 8 and remat, the memory of the runs reckoned
-       from shapes and printed first;
+       from shapes and printed first; no iv storm, checkpoint or
+       profile (the time cut: 10c and 12c hold them);
    11d. the launches of 10d's kernels on phase 11's paths (each > 0);
+12. the enc-dec family (seamless-m4t-large-v2) at full width, bf16 (d
+   1024, 16 heads of 64, d_ff 8192 SwiGLU with biases, vocab 256,206,
+   untied head; random from seed 0), each path with the launch counts
+   set to 0 just before it and read just after:
+   12a. all 24 encoder + 24 decoder layers (2,036,890,624 params) served
+       as 10a, each request with its own 161 source frames (``max_len``):
+       uncaptured, then captured donated and ping-pong, a storm over
+       ``mem_k``, ``mem_v``, ``k``, ``v``, ``pos`` with the flips by leaf,
+       1 ``cudaGraphLaunch`` a steady step; decode p50 / p99, device
+       busy, kernels a step, graph pool;
+   12b. one request with 4,160 source frames, above ``FLASH_THRESHOLD``:
+       the encoder's self-attention takes ``attention_flash`` (counted,
+       once per encoder layer); the slot's memory K/V and the BOS
+       logits within 3e-2 of the same prefill through
+       ``attention_direct``, the first token's direct logit within twice
+       that of the direct path's largest;
+   12c. 6 encoder + 6 decoder layers (903,543,808 params) trained as 10c
+       (AdamW with f32 moments, remat, batch 8 x 128 with 64 source
+       frames), the memory of the runs reckoned first, then the
+       donate+fused hot path's host step p50, device busy and kernels a
+       step (one profiled step) and steady peak;
+   12d. the launches of 10d's kernels on phase 12's paths (each > 0);
    then one JSON line describing every kernel (the 8 ports, the layout
    kernel ``flash_layout_kv`` of the flash port, ``pack_rows`` at 8f's
    two shapes and at 9a's 1-byte canary), then the device line.
@@ -1682,9 +1706,16 @@ def run_modes_k4(torch, cfg, clean_state, k: int = 4, every: int = 5):
 
 
 def _mode_tools(torch, cfg):
+    """(the step's batch on the host, on the card) of the training entry
+    point: ``batch_for`` adds an enc-dec config's source frames."""
     from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import batch_for
     pipe = TokenPipeline(cfg.model.vocab_size, T_SEQ, T_BATCH, seed=0)
-    return pipe, lambda s: {k: v.cuda() for k, v in pipe.batch_at(s).items()}
+
+    def host_batch(s):
+        return batch_for(cfg, pipe, s)
+    return host_batch, lambda s: {k: v.cuda()
+                                  for k, v in host_batch(s).items()}
 
 
 def check_donated_rungs(torch, cfg, clean_state):
@@ -1824,7 +1855,7 @@ def check_fused_path(torch, cfg, clean_state, steps: int = 8):
     from repro_torch.train.loop import make_train_state, make_train_step
     from repro_torch.tree import leaves
 
-    pipe, bfn = _mode_tools(torch, cfg)
+    host_batch, bfn = _mode_tools(torch, cfg)
     with cuda_numerics(torch.device("cuda")):
         state = make_train_state(cfg, 0, global_batch=T_BATCH,
                                  device="cuda")
@@ -1839,7 +1870,7 @@ def check_fused_path(torch, cfg, clean_state, steps: int = 8):
                              parity=store, canary=canary, donated=True)
         fused = canary.fuse_into_step(step_fn, donate=True, warm="eager",
                                       host_metrics=("loss", "grad_norm"))
-        warm_s = fused.warm(state, pipe.batch_at(0))
+        warm_s = fused.warm(state, host_batch(0))
         state = fused.load(state)
 
         def pointers():
@@ -1850,7 +1881,7 @@ def check_fused_path(torch, cfg, clean_state, steps: int = 8):
                     + [store.parity.data_ptr()])
 
         def one(s):
-            new, m, rep = fused.step(s, state, pipe.batch_at(s))
+            new, m, rep = fused.step(s, state, host_batch(s))
             assert rep is None and new is state, rep
             return m
 
@@ -1892,7 +1923,7 @@ def check_fused_path(torch, cfg, clean_state, steps: int = 8):
             if s == flip_at:
                 table = state["params"]["embed"]["table"]
                 flip_bit(table, table.numel() // 5, 27)
-            new, m, rep = fused.step(s, state, pipe.batch_at(s))
+            new, m, rep = fused.step(s, state, host_batch(s))
             if rep is None:
                 s += 1
                 continue
@@ -1938,7 +1969,7 @@ def profile_modes(torch, cfg, clean_state, steps: int = 8,
     from repro_torch.tree import tree_map
     import numpy as np
 
-    pipe, bfn = _mode_tools(torch, cfg)
+    host_batch, bfn = _mode_tools(torch, cfg)
     for name in modes:
         gc.collect()
         torch.cuda.empty_cache()
@@ -1956,12 +1987,12 @@ def profile_modes(torch, cfg, clean_state, steps: int = 8,
                 fused = canary.fuse_into_step(
                     step_fn, donate=donate, warm="eager",
                     host_metrics=("loss", "grad_norm"))
-                fused.warm(state, pipe.batch_at(start))
+                fused.warm(state, host_batch(start))
                 state = fused.load(state)
 
             def one(s, st):
                 if fused is not None:
-                    new, _, rep = fused.step(s, st, pipe.batch_at(s))
+                    new, _, rep = fused.step(s, st, host_batch(s))
                     assert rep is None
                     return new
                 if donate:
@@ -2977,32 +3008,45 @@ def train_grok(torch):
     return launches
 
 
-# -- phases 10 and 11: the recurrent families at full width ----------------
+# -- phases 10-12: the recurrent and enc-dec families at full width ---------
 
 XLSTM = "xlstm-350m"
 ZAMBA = "zamba2-7b"
+SEAMLESS = "seamless-m4t-large-v2"
 R_LONG = 600                  # 10b/11b: three 256-token chunks, one padded
+S_LONG = 4160                 # 12b: source frames, above FLASH_THRESHOLD
+S_TRAIN_LAYERS = 6            # 12c: 6 of its 24 encoder + 6 of 24 decoder
 R_STEPS, R_INJECT = 4, 2      # 10c/11c: steps, storm period (1 flip a run)
 R_SLICES = 4                  # 10c/11c: the donated fused runs' canary K
 X_LAYERS = 8                  # 10: xlstm-350m 8 of its 24 layers (7m + 1s)
+Z_SERVE_LAYERS = 13           # 11a/11b: zamba2-7b 13 of its 81 (2 x (5m + A) + m)
 Z_TRAIN_LAYERS = 7            # 11c: zamba2-7b 7 of its 81 layers
 R_SERVE_MODES = (("dense", dict()), ("dense, no donation", dict(donate=False)))
 R_PATH = ("pack_rows", "row_checksums", "checksum_tiles",
           "xor_update_tiles", "xor_fold_tiles")
 
 
-def serve_recurrent(torch, arch: str, label: str, n_layers: int = 0):
-    """10a/10b, 11a/11b: ``arch`` at full width and ``n_layers`` of its
-    layers (0: all; bf16, random params from seed 0) served on the dense
-    slot-major engine (the family has no ``prefill_chunk``) with phase
-    5's traffic: the step's body uncaptured (the reference tokens, clean
-    only), then captured donated and ping-pong (``serve_modes``: clean ==
-    uncaptured, in the donated mode an armed-slice storm over the
-    recurrent leaves == clean with the flips by leaf (phase 5d storms
-    ping-pong), 1 ``cudaGraphLaunch`` + STATS (1, 1) a steady
-    step, decode p50 / p99, device busy, kernels a step, graph pool);
-    then one prompt of ``R_LONG`` tokens.  Returns the phase's
-    launches."""
+def _shape_of(model, m) -> str:
+    """The stack a family walks: its pattern, or enc-dec's two stacks."""
+    if m.family == "encdec":
+        return (f"({m.n_enc_layers} encoder + {m.n_layers} decoder layers, "
+                f"{m.frontend_dim}-wide source frames)")
+    return str(model.module.derive_pattern(m))
+
+
+def serve_recurrent(torch, arch: str, label: str, model_kw: dict, long):
+    """10a, 11a, 12a: ``arch`` at full width, its model fields changed by
+    ``model_kw`` (the depth cut; empty: all its layers; bf16, random
+    params from seed 0) served on the dense slot-major engine (the family
+    has no ``prefill_chunk``) with phase 5's traffic (an enc-dec request
+    carries ``max_len`` source frames): the step's body uncaptured (the
+    reference tokens, clean only), then captured donated and ping-pong
+    (``serve_modes``: clean == uncaptured, in the donated mode an
+    armed-slice storm over the decode state's leaves == clean with the
+    flips by leaf (phase 5d storms ping-pong), 1 ``cudaGraphLaunch`` +
+    STATS (1, 1) a steady step, decode p50 / p99, device busy, kernels a
+    step, graph pool); then ``long(torch, cfg, params, common, label)``
+    (10b, 11b, 12b).  Returns the phase's launches."""
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import make_requests
     from repro_torch.models.registry import get_model
@@ -3010,23 +3054,22 @@ def serve_recurrent(torch, arch: str, label: str, n_layers: int = 0):
     from repro_torch.tree import leaves
     import numpy as np
 
-    cfg = _full_width(arch, **({"n_layers": n_layers} if n_layers else {}))
+    cfg = _full_width(arch, **model_kw)
     m = cfg.model
     _phase_start(torch)
     model = get_model(m)
     params = model.init(m, 0, "cuda")
     cache = model.make_decode_cache(m, 1, PROMPT + GEN + 1, "meta")
-    depth = f"{m.n_layers} of its layers (the depth cut)" if n_layers \
-        else f"full depth, {m.n_layers} layers"
+    state = [t for k, v in cache.items() if k != "pos" for t in leaves(v)]
+    depth = f"{m.n_layers} of its layers (the depth cut)" if model_kw \
+        else "full depth"
     print(f"[{label}] {arch} at full width and {depth} "
-          f"{model.module.derive_pattern(m)}, d {m.d_model}, {m.n_heads} "
+          f"{_shape_of(model, m)}, d {m.d_model}, {m.n_heads} "
           f"heads, vocab {m.vocab_size}, "
           f"{sum(t.numel() for t in leaves(params))} params "
           f"({leaves(params)[0].dtype}), untied head; one slot's decode "
-          f"state at max_len {PROMPT + GEN + 1}: "
-          f"{len(leaves(cache['groups']))} leaves, "
-          f"{sum(t.numel() * t.element_size() for t in leaves(cache['groups']))} "
-          f"bytes")
+          f"state at max_len {PROMPT + GEN + 1}: {len(state)} leaves, "
+          f"{sum(t.numel() * t.element_size() for t in state)} bytes")
     common = dict(n_slots=SLOTS, max_len=PROMPT + GEN + 1, canary_slices=K,
                   max_replays=10**6, device="cuda")
 
@@ -3048,6 +3091,19 @@ def serve_recurrent(torch, arch: str, label: str, n_layers: int = 0):
     launches = serve_modes(torch, cfg, params, common, reqs, tokens,
                            modes=R_SERVE_MODES, label=label,
                            storms=(R_SERVE_MODES[0][0],))
+    long(torch, cfg, params, common, f"{label}-long")
+    end = _phase_end(torch, label)
+    for k, v in end.items():
+        launches[k] = max(launches.get(k, 0), v)
+    return launches
+
+
+def long_recurrent(torch, cfg, params, common, label: str) -> None:
+    """10b / 11b: one prompt of ``R_LONG`` tokens; its first decoded
+    token == the argmax of a prefill one token longer."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving import ServingEngine
+    import numpy as np
     eng = ServingEngine(cfg, params=params, **dict(
         common, n_slots=1, max_len=R_LONG + 2 + 1))
     assert not eng.paged
@@ -3055,12 +3111,96 @@ def serve_recurrent(torch, arch: str, label: str, n_layers: int = 0):
     rep = eng.run([rq])
     check_first_token(torch, eng, make_requests(
         cfg, 1, R_LONG, 2, np.random.default_rng(6))[0],
-        rep.per_request[0]["tokens"], f"{label}-long", tol=None)
-    del eng
-    end = _phase_end(torch, label)
-    for k, v in end.items():
-        launches[k] = max(launches.get(k, 0), v)
-    return launches
+        rep.per_request[0]["tokens"], label, tol=None)
+
+
+def long_encdec(torch, cfg, params, common, label: str) -> None:
+    """12b: one request whose source has ``S_LONG`` frames, above
+    ``FLASH_THRESHOLD``: the encoder's non-causal self-attention takes
+    ``attention_flash`` (counted: once per encoder layer) and the decode
+    stays direct.  The slot's memory K/V after the run (read only by the
+    decodes) and the BOS logits of the same prefill outside the engine
+    (before the engine's run and after it) within
+    ``BF16_TOL`` of that prefill through ``attention_direct`` (the
+    threshold lifted), scaled by the largest entry; the first token (the
+    BOS logits' argmax, ``rq.log[0]``) == the flash prefill's argmax, and
+    its logit on the direct path within twice that tolerance of the
+    direct path's largest (random weights leave the largest logits of
+    256,206 within a bf16 rounding of one another), the argmaxes and
+    top-2 gaps printed."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import layers as L
+    from repro_torch.serving import ServingEngine
+    import numpy as np
+
+    def request():
+        return make_requests(cfg, 1, S_LONG - 3, 2,
+                             np.random.default_rng(6))[0]
+    rq = request()
+    assert rq.features["src_embeds"].shape[1] == S_LONG > L.FLASH_THRESHOLD
+    eng = ServingEngine(cfg, params=params, **dict(
+        common, n_slots=1, max_len=S_LONG))
+    m = cfg.model
+    batch = {"src_embeds": torch.from_numpy(
+        request().features["src_embeds"]).cuda()}
+    before, _ = eng.model.prefill(eng.params, m, batch, max_len=S_LONG)
+    flash = L.attention_flash
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape[1])
+        return flash(*a, **kw)
+    L.attention_flash = counted
+    try:
+        rep = eng.run([rq])
+    finally:
+        L.attention_flash = flash
+    assert len(rep.per_request[0]["tokens"]) == 2
+    first = rq.log[0]
+    assert len(calls) == m.n_enc_layers and set(calls) == {S_LONG}, calls
+    flash_logits, _ = eng.model.prefill(eng.params, m, batch,
+                                        max_len=S_LONG)
+    threshold = L.FLASH_THRESHOLD
+    L.FLASH_THRESHOLD = 1 << 30
+    try:
+        logits, direct = eng.model.prefill(eng.params, m, batch,
+                                           max_len=S_LONG)
+    finally:
+        L.FLASH_THRESHOLD = threshold
+    errs = {}
+    for k in ("mem_k", "mem_v"):
+        ours = eng.cache[k][0, :, 0].float()
+        ref = direct[k][:, 0].float()
+        errs[k] = (float((ours - ref).abs().max()),
+                   float(ref.abs().max()))
+    for name, lg in (("logits before the run", before),
+                     ("logits after the run", flash_logits)):
+        errs[name] = (float((lg - logits).abs().max()),
+                      float(logits.abs().max()))
+    want = int(logits[0].argmax())
+    tol = BF16_TOL * max(1.0, float(logits.abs().max()))
+    short = float(logits[0, want] - logits[0, first])
+
+    def gap(lg):
+        top2 = lg[0].topk(2).values
+        return (f"argmax {int(lg[0].argmax())}, top-2 gap "
+                f"{float(top2[0] - top2[1]):.4f}")
+    print(f"[{label}] {S_LONG} source frames (FLASH_THRESHOLD "
+          f"{threshold}): attention_flash taken by {len(calls)} encoder "
+          f"layers, decode direct; vs the direct path's max |diff| "
+          + ", ".join(f"{k} {e:.5f} (largest |entry| {r:.4f})"
+                      for k, (e, r) in errs.items())
+          + f"; first token {first}, its direct logit {short:.4f} "
+          f"below the direct path's largest (tolerance {2 * tol:.4f}); "
+          f"flash before the run: {gap(before)}, after: "
+          f"{gap(flash_logits)} (bitwise equal: "
+          f"{bool(torch.equal(before, flash_logits))}); direct: "
+          f"{gap(logits)} [{_SMI}]")
+    for k, (e, r) in errs.items():
+        assert e <= BF16_TOL * max(1.0, r), (k, e, r)
+    assert first == int(before[0].argmax()), (first, gap(before))
+    assert short <= 2 * tol, (first, want, short, tol)
+    del eng, direct
 
 
 def _reckon_train(torch, cfg, label: str) -> None:
@@ -3098,20 +3238,25 @@ def _reckon_train(torch, cfg, label: str) -> None:
     kd._PLAN_CACHE.clear()
 
 
-def train_recurrent(torch, arch: str, label: str, n_layers: int = 0):
-    """10c/11c: ``arch`` trained at full width (bf16 params, the config's
-    optimizer, microbatch and remat; global batch 8 x 128), ``n_layers``
-    of its layers (0: all), one flip a storm: K=1 functional clean, a
+def train_recurrent(torch, arch: str, label: str, model_kw: dict, *,
+                    iv_storm: bool = True, checkpoint: bool = True,
+                    profile: bool = True):
+    """10c/11c/12c: ``arch`` trained at full width (bf16 params, the
+    config's optimizer, microbatch and remat; global batch 8 x 128, an
+    enc-dec batch with 64 source frames), its model fields changed by
+    ``model_kw`` (the depth cut), one flip a storm: K=1 functional clean, a
     params storm under ``--parity`` (``parity_xor``; final state == clean,
-    bitwise), an iv storm (``eq1``); ``--donate --fused-detect`` at K=4
-    clean (8 graphs, == the functional clean run) and under an
-    armed-slice storm (replay; == clean); a checkpoint of the final state
-    written and read back, bitwise; then the donate+fused hot path
-    (``profile_modes``; the runs print the functional host p50).
-    Returns the phase's launches."""
+    bitwise), with ``iv_storm`` an iv storm (``eq1``); ``--donate
+    --fused-detect`` at K=4 clean (8 graphs, == the functional clean run)
+    and under an armed-slice storm (replay; == clean); with
+    ``checkpoint`` a checkpoint of the final state written and read back,
+    bitwise; with ``profile`` the donate+fused hot path
+    (``profile_modes``; the runs print the functional host p50).  The
+    three flags are the script's time cuts (each path is held in full by
+    one phase).  Returns the phase's launches."""
     from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 
-    cfg = _full_width(arch, **({"n_layers": n_layers} if n_layers else {}))
+    cfg = _full_width(arch, **model_kw)
     assert cfg.train.optimizer == "adamw" and cfg.train.remat != "none"
     _phase_start(torch)
     _reckon_train(torch, cfg, label)
@@ -3120,9 +3265,10 @@ def train_recurrent(torch, arch: str, label: str, n_layers: int = 0):
     assert clean["faults_detected"] == 0 and clean["steps"] == R_STEPS
     clean_host = _host(torch, state)
     del state
-    for name, extra, rung in (
-            ("params storm --parity", dict(parity=True), "parity_xor"),
-            ("iv storm", dict(inject_target="iv"), "eq1")):
+    storms = [("params storm --parity", dict(parity=True), "parity_xor")]
+    if iv_storm:
+        storms.append(("iv storm", dict(inject_target="iv"), "eq1"))
+    for name, extra, rung in storms:
         out, state = train_full_width(torch, cfg, f"{label} {name}",
                                       inject_every=R_INJECT, **extra, **kw)
         f = out["faults_injected"]
@@ -3151,47 +3297,53 @@ def train_recurrent(torch, arch: str, label: str, n_layers: int = 0):
     assert set(storm["recovery"]["by_rung"]) <= {"replay"}, storm
     assert _same_state(torch, _host(torch, state), clean_host), \
         f"{arch} donate+fused storm final state differs from clean"
-    d = WORK / f"{label}_ckpt"
-    shutil.rmtree(d, ignore_errors=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    save_checkpoint(str(d), state, R_STEPS)
-    t1 = time.perf_counter()
-    back, step = load_checkpoint(str(d), state)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    assert step == R_STEPS and _same_state(torch, back, state)
-    shutil.rmtree(d, ignore_errors=True)
+    ckpt = "no checkpoint (the time cut)"
+    if checkpoint:
+        d = WORK / f"{label}_ckpt"
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(str(d), state, R_STEPS)
+        t1 = time.perf_counter()
+        back, step = load_checkpoint(str(d), state)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        assert step == R_STEPS and _same_state(torch, back, state)
+        shutil.rmtree(d, ignore_errors=True)
+        del back
+        ckpt = (f"checkpoint of the final state written in {t1 - t0:.2f} s"
+                f" and read back (digest-verified) in {t2 - t1:.2f} s, "
+                f"bitwise")
     print(f"[{label}] donate+fused K={R_SLICES}: "
           f"{fused['fused']['captures']} graphs (their pool "
           f"{fused['fused']['pool_bytes'] / 2**30:.3f} GiB), clean == "
           f"functional "
           f"clean, armed-slice storm ({f} flip, replay) == clean, bitwise; "
-          f"checkpoint of the final state written in {t1 - t0:.2f} s and "
-          f"read back (digest-verified) in {t2 - t1:.2f} s, bitwise "
-          f"[{_SMI}]")
-    del back
+          f"{ckpt} [{_SMI}]")
     launches = _phase_end(torch, label)
-    # the profile starts from a card holding only this state (the plans'
-    # rings and the parity scratch of the runs above go)
-    _phase_start(torch)
-    profile_modes(torch, cfg, state, steps=2, start=R_STEPS,
-                  label=label, modes=("donate+fused",), prof_steps=1)
+    if profile:
+        # the profile starts from a card holding only this state (the
+        # plans' rings and the parity scratch of the runs above go)
+        _phase_start(torch)
+        profile_modes(torch, cfg, state, steps=2, start=R_STEPS,
+                      label=label, modes=("donate+fused",), prof_steps=1)
     del state, clean_host
     return launches
 
 
-def recurrent_phase(torch, phase: int, arch: str, serve_layers: int = 0,
-                    train_layers: int = 0):
-    """Phase 10 (xLSTM) or 11 (the hybrid): serving, then training, each
-    at ``*_layers`` of the config's layers (0: all); each of ``R_PATH``'s
-    kernels launched on the phase's paths."""
+def recurrent_phase(torch, phase: int, arch: str, serve_kw: dict,
+                    train_kw: dict, long=long_recurrent, **cuts):
+    """Phase 10 (xLSTM), 11 (the hybrid) or 12 (enc-dec): serving (with
+    ``long`` its long-input check), then training (``cuts``: the flags of
+    ``train_recurrent``), each with the config's model fields changed by
+    ``*_kw`` (the depth cuts); each of ``R_PATH``'s kernels launched on
+    the phase's paths."""
     t0 = time.perf_counter()
     name = arch.split("-")[0]
     lc = {f"{phase}a/{phase}b": serve_recurrent(torch, arch, f"serve-{name}",
-                                                serve_layers),
+                                                serve_kw, long),
           f"{phase}c": train_recurrent(torch, arch, f"train-{name}",
-                                       train_layers)}
+                                       train_kw, **cuts)}
     for kernel in R_PATH:
         assert sum(c.get(kernel, 0) for c in lc.values()) > 0, (kernel, lc)
     print(f"[phase {phase}] launches of " + ", ".join(R_PATH) + " by path: "
@@ -3446,10 +3598,19 @@ def main() -> int:
     launches[label] = bytes_entry["launches"]
 
     # -- phases 10 and 11: the xLSTM and hybrid families at full width ----
-    recurrent_phase(torch, 10, XLSTM, X_LAYERS, X_LAYERS)
+    recurrent_phase(torch, 10, XLSTM, dict(n_layers=X_LAYERS),
+                    dict(n_layers=X_LAYERS), profile=False)
     _stamp("phase 10")
-    recurrent_phase(torch, 11, ZAMBA, 0, Z_TRAIN_LAYERS)
+    recurrent_phase(torch, 11, ZAMBA, dict(n_layers=Z_SERVE_LAYERS),
+                    dict(n_layers=Z_TRAIN_LAYERS), iv_storm=False,
+                    checkpoint=False, profile=False)
     _stamp("phase 11")
+
+    # -- phase 12: the enc-dec family at full width -----------------------
+    recurrent_phase(torch, 12, SEAMLESS, {},
+                    dict(n_layers=S_TRAIN_LAYERS,
+                         n_enc_layers=S_TRAIN_LAYERS), long=long_encdec)
+    _stamp("phase 12")
 
     for name, r in train_kernels.items():
         kernels[name] = r

@@ -103,6 +103,51 @@ def uniform(key: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
     return bits.view(np.float32) - np.float32(1.0)
 
 
+# XLA's f32 ErfInv (M. Giles' single-precision approximation): one
+# polynomial in w - 2.5 below w = 5, one in sqrt(w) - 3 above it
+_ERFINV_LO = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_HI = (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613,
+              0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv32(x: np.ndarray) -> np.ndarray:
+    """``lax.erf_inv`` in float32 as XLA writes it: ``w = -log1p(-x^2)``,
+    a Horner step per coefficient as one fused multiply-add (the f64
+    product of two f32 values is exact, so one f64 add and a rounding to
+    f32 stand in for it), then ``p * x``; ``x = ±1`` gives ``±max``."""
+    f32 = np.float32
+    xx = (x * x).astype(f32)
+    w = (-np.log1p(-xx.astype(np.float64))).astype(f32)
+    lt = w < f32(5.0)
+    w = np.where(lt, w - f32(2.5), np.sqrt(w) - f32(3.0)).astype(f32)
+    lo, hi = (np.asarray(c, f32) for c in (_ERFINV_LO, _ERFINV_HI))
+    p = np.where(lt, lo[0], hi[0]).astype(f32)
+    w64 = w.astype(np.float64)
+    for i in range(1, len(lo)):
+        c = np.where(lt, lo[i], hi[i]).astype(np.float64)
+        p = (p.astype(np.float64) * w64 + c).astype(f32)
+    out = (p * x).astype(f32)
+    return np.where(np.abs(x) == f32(1.0), x * np.finfo(f32).max,
+                    out).astype(f32)
+
+
+def normal(key: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
+    """``jax.random.normal`` in float32: a uniform draw on
+    [nextafter(-1, 0), 1) (``uniform``'s bits scaled by ``1 - lo``, which
+    rounds to 2 in f32), then ``sqrt(2) * erf_inv``.  99 % of the draws
+    equal the reference's bitwise; the rest lie within a few ulp of
+    them (3 at most over 393,216 draws: ``log1p`` is numpy's here)."""
+    f32 = np.float32
+    lo = np.nextafter(f32(-1.0), f32(0.0))
+    bits = (_bits(key, shape) >> _U32(9)) | _U32(0x3F800000)
+    floats = bits.view(f32) - f32(1.0)
+    u = np.maximum(lo, floats * (f32(1.0) - lo) + lo).astype(f32)
+    return (f32(np.sqrt(2)) * _erfinv32(u)).astype(f32)
+
+
 # ---------------------------------------------------------------------------
 # the pipeline
 # ---------------------------------------------------------------------------
@@ -148,6 +193,19 @@ class TokenPipeline:
         toks = np.where(flip, rand, toks).astype(np.int32)
         return {"tokens": torch.from_numpy(np.ascontiguousarray(toks[:, :-1])),
                 "targets": torch.from_numpy(np.ascontiguousarray(toks[:, 1:]))}
+
+    def with_src_embeds(self, batch, src_len: int, frontend_dim: int,
+                        step: int) -> Dict[str, torch.Tensor]:
+        """``batch`` plus ``src_embeds``: the enc-dec family's stubbed
+        source frames, (B, src_len, frontend_dim) float32 from ``normal``
+        under ``fold_in(PRNGKey(seed + 202), step)``, as the reference
+        draws them."""
+        k = fold_in(prng_key(self.seed + 202), np.int32(step))
+        B = batch["tokens"].shape[0]
+        out = dict(batch)
+        out["src_embeds"] = torch.from_numpy(
+            normal(k, (B, src_len, frontend_dim)))
+        return out
 
 
 def shard_assignment(step: int, n_shards: int,

@@ -8,13 +8,17 @@ continuous-batching engine.
 ``--arch`` takes every dense configuration (``iterpro-100m``,
 ``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``),
 the MoE ones (``grok-1-314b``, ``kimi-k2-1t-a32b``), the xLSTM
-``xlstm-350m`` and the hybrid ``zamba2-7b`` (add ``--smoke --device
-cpu`` to run them on the CPU).  A windowed config pages when every cache
+``xlstm-350m``, the hybrid ``zamba2-7b`` and the enc-dec
+``seamless-m4t-large-v2`` (add ``--smoke --device cpu`` to run them on
+the CPU).  A windowed config pages when every cache
 leaf fits its window (``max_len`` = prompt + gen + 1 within it);
 otherwise it takes the dense cache, ring leaves of ``window`` rows
 beside linear leaves of ``max_len``.  The recurrent families (xLSTM,
-hybrid) have no ``prefill_chunk`` and take the dense cache.  Enc-dec
-and VLM raise ``NotImplementedError`` (ROADMAP.md queue 1).
+hybrid) and enc-dec have no ``prefill_chunk`` and take the dense cache.
+Each enc-dec request carries its stubbed source frames, ``src_embeds``
+of ``max_len`` = prompt + gen + 1 rows drawn from the seed (the
+reference's CLI attaches none and raises ``KeyError``).  The VLM raises
+``NotImplementedError`` (ROADMAP.md queue 1).
 
 It runs on the CUDA card unless ``--device`` names another device, and
 raises when there is no card and no device is named.  The flags are the
@@ -51,13 +55,23 @@ _MESH = "mesh serving (ROADMAP.md queue 1, 'Mesh and elastic')"
 
 def make_requests(cfg, n_requests: int, prompt_len: int, gen_tokens: int,
                   nprng):
-    """Synthetic request batch: random prompts, all arriving at t=0."""
-    vocab = cfg.model.vocab_size
-    return [Request(
-        rid=i,
-        prompt=nprng.integers(0, vocab, size=prompt_len).astype(np.int32),
-        max_new_tokens=gen_tokens)
-        for i in range(n_requests)]
+    """Synthetic request batch: random prompts, all arriving at t=0.  An
+    enc-dec config's requests each carry ``src_embeds``, (1, prompt_len
+    + gen_tokens + 1, frontend_dim) float32 standard normals from
+    ``nprng``: as many source frames as the slot's memory rows."""
+    m = cfg.model
+    reqs = []
+    for i in range(n_requests):
+        prompt = nprng.integers(0, m.vocab_size,
+                                size=prompt_len).astype(np.int32)
+        features = {}
+        if m.n_enc_layers:
+            features["src_embeds"] = nprng.standard_normal(
+                (1, prompt_len + gen_tokens + 1, m.frontend_dim),
+                dtype=np.float32)
+        reqs.append(Request(rid=i, prompt=prompt,
+                            max_new_tokens=gen_tokens, features=features))
+    return reqs
 
 
 def serve(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,

@@ -48,8 +48,10 @@ clean trajectory bit for bit.
 ``--arch`` takes every dense configuration (``iterpro-100m``,
 ``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``),
 the MoE ones (``grok-1-314b``, ``kimi-k2-1t-a32b``, trained with their
-Adafactor and bf16 stats), the xLSTM ``xlstm-350m`` and the hybrid
-``zamba2-7b`` (``--smoke --device cpu`` on the CPU); without
+Adafactor and bf16 stats), the xLSTM ``xlstm-350m``, the hybrid
+``zamba2-7b`` and the enc-dec ``seamless-m4t-large-v2``, whose batches
+carry 64 source frames (``batch_for``) (``--smoke --device cpu`` on the
+CPU); without
 ``--smoke`` a config's ``microbatch`` (8 for all but gemma3-1b,
 iterpro-100m and xlstm-350m) accumulates the gradients of that many
 slices of the batch in its bf16 ``grad_reduce_dtype``, as the reference
@@ -59,8 +61,8 @@ optimizer of the reference runs: AdamW with f32, bf16 or int8 moments
 either) and Adafactor.
 
 Not ported yet, each raising ``NotImplementedError``: ``--mesh``,
-``--elastic`` and ``--kill-row-at``, and the enc-dec and VLM families
-(ROADMAP.md, queue 1).
+``--elastic`` and ``--kill-row-at``, and the VLM family (ROADMAP.md,
+queue 1).
 """
 
 from __future__ import annotations
@@ -90,6 +92,8 @@ from repro_torch.core.recover import RecoveryFailed, RecoveryRuntime
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.serving.engine import resolve_device
 from repro_torch.train.loop import make_train_state, make_train_step
+
+SRC_LEN = 64        # source frames of an enc-dec batch (the reference's)
 
 _UNPORTED = {
     "mesh": "mesh training (ROADMAP.md queue 1, 'Mesh and elastic')",
@@ -154,6 +158,17 @@ def cuda_numerics(device: torch.device):
         torch.utils.deterministic.fill_uninitialized_memory = saved[3]
 
 
+def batch_for(cfg, pipe, step: int) -> Dict[str, torch.Tensor]:
+    """The step's batch on the host: tokens and targets, and for an
+    enc-dec config 64 source frames of ``src_embeds`` (the reference's
+    ``batch_for``), so a replayed step sees the same batch."""
+    batch = pipe.batch_at(step)
+    m = cfg.model
+    if m.n_enc_layers:
+        batch = pipe.with_src_embeds(batch, SRC_LEN, m.frontend_dim, step)
+    return batch
+
+
 def train(cfg, *, steps: int, global_batch: int, seq_len: int,
           seed: int = 0, snapshot_interval: int = 8,
           checkpoint_dir: Optional[str] = None, checkpoint_interval: int = 50,
@@ -206,7 +221,7 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
     step_fn = make_train_step(cfg, global_batch=global_batch, donate=donate)
 
     def bfn(s):
-        return {k: v.to(device) for k, v in pipe.batch_at(s).items()}
+        return {k: v.to(device) for k, v in batch_for(cfg, pipe, s).items()}
 
     micro = MicroCheckpointer(interval=snapshot_interval)
     ckpt = CheckpointManager(checkpoint_dir, interval=checkpoint_interval) \
@@ -246,7 +261,7 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
                                       warm=fused_warm,
                                       host_metrics=("loss", "grad_norm"))
         if fused_warm == "eager":
-            fused.warm(state, pipe.batch_at(0))
+            fused.warm(state, batch_for(cfg, pipe, 0))
         state = fused.load(state)
     pair = donate and canary is not None and fused is None
 
@@ -290,8 +305,8 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
             if fused is not None:
                 # check of slice s%K, the step and the arm of slice
                 # (s+1)%K as one unit: one graph replay and one fetch
-                new_state, metrics, report = fused.step(s, state,
-                                                        pipe.batch_at(s))
+                new_state, metrics, report = fused.step(
+                    s, state, batch_for(cfg, pipe, s))
                 loss, grad_norm = metrics["loss"], metrics["grad_norm"]
             else:
                 new_state, metrics = step_fn(state, bfn(s))

@@ -1,6 +1,7 @@
 """Model registry: one uniform API per architecture family (the dense and
 MoE families share the transformer; ``ssm`` is xLSTM, ``hybrid`` the
-Zamba2 Mamba-2 / shared-attention stack).
+Zamba2 Mamba-2 / shared-attention stack, ``encdec`` the seamless-m4t
+encoder-decoder, whose ``prefill`` reads ``batch["src_embeds"]``).
 
     model = get_model(cfg.model)
     params = model.init(cfg.model, seed, device)
@@ -11,8 +12,8 @@ Zamba2 Mamba-2 / shared-attention stack).
     cache = model.make_decode_cache(cfg.model, B, max_len, device)
     loss, metrics = model.train_loss(params, cfg.model, batch, remat=...)
 
-A family without ``prefill_chunk`` (xLSTM and the hybrid, as in the
-reference) is served from the dense slot-major cache
+A family without ``prefill_chunk`` (xLSTM, the hybrid and enc-dec, as in
+the reference) is served from the dense slot-major cache
 (``serving.paged.paged_supported``).
 """
 
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
-from repro_torch.models import transformer, xlstm, zamba2
+from repro_torch.models import encdec, transformer, xlstm, zamba2
 
 
 def get_model(model_cfg) -> SimpleNamespace:
@@ -41,6 +42,15 @@ def get_model(model_cfg) -> SimpleNamespace:
             make_decode_cache=zamba2.make_decode_cache,
             train_loss=zamba2.train_loss,
             module=zamba2,
+        )
+    if model_cfg.family == "encdec":
+        return SimpleNamespace(
+            init=encdec.init_lm,
+            prefill=encdec.prefill,
+            decode_step=encdec.decode_step,
+            make_decode_cache=encdec.make_decode_cache,
+            train_loss=encdec.train_loss,
+            module=encdec,
         )
     transformer.check_supported(model_cfg)
     return SimpleNamespace(

@@ -54,8 +54,8 @@ class LayerDesc(NamedTuple):
 
 def check_supported(cfg) -> None:
     """Raise for what the transformer does not run: a family other than
-    dense and MoE (the registry sends ``ssm`` and ``hybrid`` to their
-    own modules; enc-dec and VLM are not ported), m-rope and patch
+    dense and MoE (the registry sends ``ssm``, ``hybrid`` and ``encdec``
+    to their own modules; the VLM is not ported), m-rope and patch
     inputs (ROADMAP.md queue 1)."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")

@@ -9,12 +9,14 @@ off-mesh ``repro/serving/engine.py``.
   ``ceil((P + 1 + max_new) / block_size)`` blocks and the canary's units
   are (leaf, block) pairs plus one ``pos`` unit per slot; block → owning
   slot is a host allocator lookup, so a flip on a free block evicts
-  nobody.  Dense (``paged=False``, or a window below ``max_len``): one
-  slot-major cache, leaves ``(S, count, 1, cap, KV, Dh)`` as in the
-  reference (``cap`` a windowed layer's ring of ``window`` rows, else
-  ``max_len``), whose canary units are (leaf, slot) pairs; the batched
-  decode reads and writes it in place through a permuted view
-  ``(count, S, cap, KV, Dh)``.
+  nobody.  Dense (``paged=False``, a window below ``max_len``, or a
+  family with no ``prefill_chunk``): one slot-major cache, every leaf of
+  the family's decode cache but ``pos`` stacked ``(S, count, 1, ...)``
+  as in the reference (``(S, count, 1, cap, KV, Dh)`` for attention,
+  ``cap`` a windowed layer's ring of ``window`` rows, else ``max_len``;
+  enc-dec's read-only ``mem_k`` / ``mem_v`` beside its ``k`` / ``v``),
+  whose canary units are (leaf, slot) pairs; the batched decode reads
+  and writes it in place through a permuted view ``(count, S, ...)``.
 * **One engine step** (``engine_step``) advances every lane one token, in
   this order: ``pack_rows`` of the canary's check slice ``s % K`` (before
   any state write); ``gather_blocks`` of each slot's blocks (paged); the
@@ -52,6 +54,15 @@ off-mesh ``repro/serving/engine.py``.
   eagerly between engine steps, so a long prompt does not stall the
   decoding lanes.  Chunks equal monolithic prefill in tokens, not bits
   (another reduction order), as in the reference.
+* **Per-request features.**  A request's ``features`` (enc-dec's
+  ``src_embeds``, (1, Ss, frontend_dim)) go to ``prefill`` beside its
+  prompt, at admission and at every prefix replay (an evicted request
+  re-encodes its source).  The slot's position is the prefilled cache's
+  ``pos`` (the prompt's length; 1 for enc-dec, whose prefill decodes BOS
+  at position 0).  Held to the oracle, not the reference: a source whose
+  length is not the cache's memory rows (``max_len``) is refused with
+  ``AdmissionError``, where the reference attends to stale memory rows
+  or raises.
 * **Slot-isolated recovery.**  On a fault ``plan_serving_recovery``
   evicts only the injured slots (a prefilling slot too); they re-enter
   the queue front and are rebuilt by prefix replay (prefill + forced
@@ -112,12 +123,13 @@ def resolve_device(device=None) -> torch.device:
 
 
 def decode_view(cache):
-    """The batched decode's view ``(count, S, cap, KV, Dh)`` of a
-    slot-major dense cache (leaves ``(S, count, 1, cap, KV, Dh)``): it
-    aliases the cache, so the decode's row writes land in place."""
-    return {"groups": tree_map(lambda t: t[:, :, 0].transpose(0, 1),
-                               cache["groups"]),
-            "pos": cache["pos"]}
+    """The batched decode's view ``(count, S, ...)`` of a slot-major dense
+    cache (every leaf but ``pos`` ``(S, count, 1, ...)``): it aliases the
+    cache, so the decode's row writes land in place."""
+    view = {k: tree_map(lambda t: t[:, :, 0].transpose(0, 1), v)
+            for k, v in cache.items() if k != "pos"}
+    view["pos"] = cache["pos"]
+    return view
 
 
 def _pcts(xs: Sequence[float]) -> Dict[str, float]:
@@ -272,6 +284,9 @@ class ServingEngine:
             if self.paged:
                 self.max_len = ml
         per_slot = self.model.make_decode_cache(self.m, 1, self.max_len, dev)
+        # the source rows of an enc-dec slot's memory (0: no memory)
+        self._mem_rows = (int(per_slot["mem_k"].shape[2])
+                          if "mem_k" in per_slot else 0)
         if self.paged:
             self.max_blocks = self.max_len // bs
             self.n_blocks = int(pool_blocks) or (1 + S * self.max_blocks)
@@ -282,19 +297,19 @@ class ServingEngine:
             self._bt_np = np.zeros((S, self.max_blocks), np.int32)
             self.alloc = BlockAllocator(self.n_blocks)
 
-            def groups():
-                return pgd.make_block_pool(per_slot, self.n_blocks,
-                                           bs)["groups"]
+            def covered():
+                return pgd.make_block_pool(per_slot, self.n_blocks, bs)
         else:
-            def groups():
-                return tree_map(lambda t: torch.zeros(
-                    (S,) + tuple(t.shape), dtype=t.dtype, device=dev),
-                    per_slot["groups"])
-        # the covered decode state: one version written in place, or two
-        # in ping-pong without donation
+            def covered():
+                return {k: tree_map(lambda t: torch.zeros(
+                    (S,) + tuple(t.shape), dtype=t.dtype, device=dev), v)
+                    for k, v in per_slot.items() if k != "pos"}
+        # the covered decode state (every cache key, or the pool, and the
+        # slots' positions): one version written in place, or two in
+        # ping-pong without donation
         self._versions = [
-            {"groups": groups(),
-             "pos": torch.zeros((S,), dtype=torch.int32, device=dev)}
+            dict(covered(),
+                 pos=torch.zeros((S,), dtype=torch.int32, device=dev))
             for _ in range(1 if self.donate else 2)]
         self.amask = torch.zeros((S,), dtype=torch.bool, device=dev)
         self.tok = torch.zeros((S,), dtype=torch.int32, device=dev)
@@ -374,8 +389,8 @@ class ServingEngine:
 
     @property
     def cache(self):
-        """The live slot-major cache ``{"groups", "pos"}`` (dense), else
-        None."""
+        """The live slot-major cache (dense: the family's cache keys and
+        ``pos``), else None."""
         return None if self.paged else self._versions[self._live()]
 
     def _view_of(self, ver):
@@ -609,8 +624,19 @@ class ServingEngine:
 
     def check_admissible(self, rq: Request) -> None:
         """Typed rejection of a request whose worst-case footprint can
-        never fit: the block budget (paged) or ``max_len`` (dense)."""
+        never fit: the block budget (paged) or ``max_len`` (dense); and
+        of an enc-dec request whose ``src_embeds`` do not fill the slot's
+        encoder memory of ``max_len`` rows exactly."""
         need = len(rq.prompt) + 1 + rq.max_new_tokens
+        if self._mem_rows:
+            src = rq.features.get("src_embeds")
+            want = (1, self._mem_rows, self.m.frontend_dim)
+            if src is None or tuple(src.shape) != want:
+                raise AdmissionError(
+                    f"rid={rq.rid}: src_embeds "
+                    f"{None if src is None else tuple(src.shape)}, the "
+                    f"slot's encoder memory takes {want} (its rows are "
+                    f"max_len)")
         if not self.paged:
             if need > self.max_len:
                 raise AdmissionError(
@@ -634,6 +660,13 @@ class ServingEngine:
         return torch.from_numpy(
             np.asarray(tokens, np.int32)[None]).to(self.device)
 
+    def _batch(self, rq: Request) -> Dict[str, torch.Tensor]:
+        """The prefill batch of ``rq``: its prompt and its features."""
+        batch = {k: torch.as_tensor(v).to(self.device)
+                 for k, v in rq.features.items()}
+        batch["tokens"] = self._prompt(rq.prompt)
+        return batch
+
     def _claim(self, rq: Request, slot: int, now_s: float) -> None:
         self.slot_rid[slot] = rq.rid
         rq.slot = slot
@@ -652,22 +685,23 @@ class ServingEngine:
         ``prefill_chunk`` it only does the bookkeeping, and ``run``
         prefills the prompt chunk by chunk (``_prefill_step``) between
         engine steps.  Dense, the prefilled cache goes into the slot in
-        one in-place write."""
+        one in-place write, its ``pos`` the slot's position."""
         self.check_admissible(rq)
         if self.paged:
             self._admit_paged(rq, slot, now_s, interleave=interleave)
             return
         logits, sub = self.model.prefill(self.params, self.m,
-                                         {"tokens": self._prompt(rq.prompt)},
+                                         self._batch(rq),
                                          max_len=self.max_len)
-        copy_into(tree_map(lambda t: t[slot], self.cache["groups"]),
-                  sub["groups"])
+        keys = [k for k in sub if k != "pos"]
+        copy_into({k: tree_map(lambda t: t[slot], self.cache[k])
+                   for k in keys}, {k: sub[k] for k in keys})
         self._claim(rq, slot, now_s)
         if self.verbose:
             kind = "replay" if rq.log else "admit"
             print(f"[engine] {kind} rid={rq.rid} -> slot {slot} "
                   f"(log={len(rq.log)})")
-        self._activate(rq, slot, len(rq.prompt), logits)
+        self._activate(rq, slot, sub["pos"][0], logits)
 
     def _admit_paged(self, rq: Request, slot: int, now_s: float, *,
                      interleave: bool) -> None:
@@ -709,8 +743,8 @@ class ServingEngine:
         bs = self.block_size
         pool, bt_row = self.pool, self.bt[slot]
         if self.prefill_chunk <= 0:
-            logits, sub = self.model.prefill(
-                self.params, self.m, {"tokens": self._prompt(rq.prompt)})
+            logits, sub = self.model.prefill(self.params, self.m,
+                                             self._batch(rq))
             pgd.scatter_span(pool, sub["groups"], bt_row, 0, P, bs)
             end = P
         else:
@@ -732,8 +766,10 @@ class ServingEngine:
             del self._prefilling[slot]
             self._activate(rq, slot, P, logits)
 
-    def _activate(self, rq: Request, slot: int, P: int, logits) -> None:
-        """Install the first decode input and flip the lane active."""
+    def _activate(self, rq: Request, slot: int, P, logits) -> None:
+        """Install the first decode input and the slot's position ``P``
+        (an int, or the prefilled cache's 0-d ``pos`` on the device) and
+        flip the lane active."""
         if rq.log:
             # prefix replay: the log IS the RSI
             t0 = rq.log[0]

@@ -149,7 +149,7 @@ def test_bridge_copies_the_bytes():
 
 def test_unported_model_options_raise():
     base = get_config("iterpro-100m").smoke().model
-    for change in (dict(family="encdec"), dict(m_rope=True),
-                   dict(patch_dim=32), dict(family="vlm")):
+    for change in (dict(m_rope=True), dict(patch_dim=32),
+                   dict(family="vlm")):
         with pytest.raises(NotImplementedError):
             get_model(dataclasses.replace(base, **change))
