@@ -49,8 +49,11 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    captured (none for the yardstick) with their seconds and their pool's
    bytes, clean tokens bitwise equal to phase 5's captured paged engine's
    (so captured == uncaptured, donated == not, dense == paged, chunked ==
-   monolithic), a storm on the same engine with detected == injected ==
-   recovered and tokens == clean, every kernel of the path launched; then
+   monolithic), in the paged ping-pong, dense and chunked modes a storm
+   on the same engine with detected == injected == recovered and tokens
+   == clean (phase 5 storms the paged donated engine; the uncaptured
+   body and the dense ping-pong mode run no storm: the time cut), every
+   kernel of the path launched; then
    8 steady steps under torch.profiler: one ``cudaGraphLaunch`` and no
    ``cudaLaunchKernel`` a step (captured modes), ``digest.STATS`` 1
    launch + 1 fetch a step, every pointer the step reads unchanged; the
@@ -108,17 +111,19 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    step; then, at full width, a low-mantissa flip of the embedding
    repaired by ``parity_xor`` alone (0 steps replayed, bitwise), and 4
    canary steps whose incrementally kept parity equals a fresh build;
-7f. the training modes at phase 7's settings: ``--donate``,
-   ``--fused-detect`` and both, each clean and under the params storm,
-   and the iv storm under ``--donate``.  Asserts each clean final state
-   bitwise equal to the functional clean run's, each storm's to its clean
-   run's, detected == injected == recovered, replay only under donation
-   (never eq1), 2 CUDA graphs captured for K=1; then at K=4: ``--donate
-   --fused-detect`` clean (8 graphs, final state == the functional clean
-   run's) and under a params storm (a flip every 5 steps, one of them in
+7f. the training modes at phase 7's settings: ``--donate`` clean and
+   under the params storm, and the iv storm under ``--donate``.  Asserts
+   the clean final state bitwise equal to the functional clean run's,
+   each storm's to its clean run's, detected == injected == recovered,
+   replay only under donation (never eq1) (the K=1
+   ``--fused-detect`` modes, donated or not, run no storm here: their
+   storms are held at K=4 below and by 9e-13c, their K=1 graphs by 7i
+   and 7j; the time cut); then at K=4: ``--donate --fused-detect`` (8
+   graphs) under a params storm (a flip every 5 steps, one of them in
    the slice checked), and ``--fused-detect --fused-warm lazy`` under the
    same storm, each storm bitwise the functional K=4 storm's with the
-   same detections and recoveries;
+   same detections and recoveries (no donate+fused K=4 clean run here,
+   the time cut: 10c-13c hold it at full width);
 7g. parity with donation: an embedding flip caught by the donated pair
    (``consumed=False``) rebuilt by ``parity_xor`` into the live tensor;
 7h. triage at full width on an ``opt/v`` FFN leaf: a bit-2 flip
@@ -174,8 +179,9 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        slice bitwise and timed beside their bound (2 B read + 4 B
        written a bf16 element) and ``Tensor.to(torch.int32)`` of the same
        leaves, ``row_checksums`` over that buffer and ``checksum_tiles``
-       of the bf16 embedding timed; its launches on 8a, 8b and 8d; then
-       2 profiled gemma3-1b train steps;
+       of the bf16 embedding timed; its launches on 8a, 8b and 8d (no
+       profiled gemma3-1b train steps, the time cut: 7j and 12c profile
+       the train step);
    8e. h2o-danube-1.8b at full width and 6 of its 24 layers (the depth
        cut keeps the whole script within its time limit)
        trained with its microbatch 8 (global batch 8:
@@ -216,7 +222,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    9e. grok-1-314b trained at full width and 1 of its 64 layers with
        Adafactor (bf16 factored stats), microbatch 8, global batch 8 x
        128, K=4, ``--donate``, 4 steps, clean (one disk checkpoint);
-       host step p50, device busy a step (profiled) and the steady peak;
+       host step p50 and the steady peak (no device profile of the
+       step: the time cut);
        then ``--donate --fused-detect`` clean and under flips in the
        slice checked at their step (replay only), each == donated clean,
        bitwise, when the donated peak (which already holds the plan's
@@ -247,12 +254,12 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        prefill, the largest logit difference printed beside it;
    10c. trained (global batch 8 x 128, AdamW, remat; 4 steps, one flip
        a storm): K=1 functional clean, a params storm under ``--parity``
-       (``parity_xor``, == clean bitwise), an iv storm (``eq1``);
-       ``--donate --fused-detect`` at K=4 clean (8 graphs, == the
-       functional clean run) and under an armed-slice storm (replay, ==
-       clean); a checkpoint written and read back bitwise (the runs
-       print the functional host p50; the donate+fused hot path is
-       profiled in 12c);
+       (``parity_xor``, == clean bitwise); ``--donate --fused-detect`` at
+       K=4 clean (8 graphs, == the functional clean run) and under an
+       armed-slice storm (replay, == clean) (the runs print the
+       functional host p50; no iv storm, held in 7a and 13c, and no
+       checkpoint round trip or donate+fused profile, held in 12c: the
+       time cuts);
    10d. the launches of ``pack_rows``, ``row_checksums``,
        ``checksum_tiles``, ``xor_update_tiles`` and ``xor_fold_tiles`` on
        phase 10's paths (each > 0);
@@ -272,14 +279,17 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    11c. 7 of its 81 layers ((1, 5 Mamba-2 + the shared block), (1, 1
        Mamba-2); 937,984,384 params) trained as 10c with the config's
        AdamW, microbatch 8 and remat, the memory of the runs reckoned
-       from shapes and printed first; no iv storm, checkpoint or
-       profile (the time cut: 10c and 12c hold them);
+       from shapes and printed first: clean, the ``--parity`` storm and
+       the donate+fused clean run (no iv storm, armed-slice storm,
+       checkpoint or profile: the time cuts; 10c, 12c and 13c hold
+       them);
    11d. the launches of 10d's kernels on phase 11's paths (each > 0);
 12. the enc-dec family (seamless-m4t-large-v2) at full width, bf16 (d
    1024, 16 heads of 64, d_ff 8192 SwiGLU with biases, vocab 256,206,
    untied head; random from seed 0), each path with the launch counts
    set to 0 just before it and read just after:
-   12a. all 24 encoder + 24 decoder layers (2,036,890,624 params) served
+   12a. 6 of its 24 encoder + 6 of its 24 decoder layers (903,543,808
+       params; the depth cut: 13a serves a model at full depth) served
        as 10a, each request with its own 161 source frames (``max_len``):
        uncaptured, then captured donated and ping-pong, a storm over
        ``mem_k``, ``mem_v``, ``k``, ``v``, ``pos`` with the flips by leaf,
@@ -287,16 +297,51 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        busy, kernels a step, graph pool;
    12b. one request with 4,160 source frames, above ``FLASH_THRESHOLD``:
        the encoder's self-attention takes ``attention_flash`` (counted,
-       once per encoder layer); the slot's memory K/V and the BOS
+       once per encoder layer: 6); the slot's memory K/V and the BOS
        logits within 3e-2 of the same prefill through
        ``attention_direct``, the first token's direct logit within twice
        that of the direct path's largest;
    12c. 6 encoder + 6 decoder layers (903,543,808 params) trained as 10c
        (AdamW with f32 moments, remat, batch 8 x 128 with 64 source
-       frames), the memory of the runs reckoned first, then the
+       frames), the memory of the runs reckoned first: clean, the
+       ``--parity`` storm, the donate+fused clean run (no iv or
+       armed-slice storm, held in 10c and 13c: the time cut), a
+       checkpoint written and read back bitwise, then the
        donate+fused hot path's host step p50, device busy and kernels a
        step (one profiled step) and steady peak;
    12d. the launches of 10d's kernels on phase 12's paths (each > 0);
+13. the VLM family (qwen2-vl-7b) at full width, bf16 (d 3584, 28/4
+   heads of 128, d_ff 18,944 SwiGLU, QKV biases, vocab 152,064, untied
+   head, m-rope; random from seed 0; the vision tower a stub, as in the
+   reference: each request carries its own ``patch_embeds`` of width
+   1,280 and their (t, h, w) positions), each path with the launch
+   counts set to 0 just before it and read just after:
+   13a. all 28 layers (7,621,368,832 params) served as 10a with phase
+       5's traffic, each request with an 8 x 8 image (64 patches at
+       (0, row, col), the text from 8 on all three streams; max_len
+       225): uncaptured, then captured donated and ping-pong, a storm
+       over ``k``, ``v``, ``pos`` with the flips by leaf, 1
+       ``cudaGraphLaunch`` a steady step; decode p50 / p99, device busy,
+       kernels a step, graph pool;
+   13b. a request whose patches, prompt, 1 and new tokens come to
+       ``max_len`` + 1 refused with ``AdmissionError``; one request of a
+       64 x 64 image and 128 tokens (4,224 keys, above
+       ``FLASH_THRESHOLD``): every layer's attention takes
+       ``attention_flash`` (counted: 28); the slot's K/V rows and the
+       last logits held against the direct path and an f32 oracle (the
+       flash path no further from the direct path than the direct path
+       is from the oracle), the first token the flash prefill's argmax;
+   13c. 1 of its 28 layers (1,327,688,704 params, 12.37 GiB of state)
+       trained as 10c (AdamW with f32 moments, microbatch 8, remat;
+       batch 8 x 128 with 16 patches), the memory of the runs reckoned
+       first; the ``--parity`` storm at K=4 with its flip in the slice
+       checked at its step (at K=1 the ring, the parity's stream scratch
+       and the functional step's two versions do not fit the card; at
+       K=4 it peaks at 74.0 GiB, so the cuBLAS workspaces the earlier
+       phases' captures left are dropped first), the
+       iv storm, the donate+fused clean run and its armed-slice storm; no
+       checkpoint or profile (12c holds them);
+   13d. the launches of 10d's kernels on phase 13's paths (each > 0);
    then one JSON line describing every kernel (the 8 ports, the layout
    kernel ``flash_layout_kv`` of the flash port, ``pack_rows`` at 8f's
    two shapes and at 9a's 1-byte canary), then the device line.
@@ -687,6 +732,12 @@ SERVE_MODES = (
                                 donate=False)),
     ("chunked", dict(prefill_chunk=CHUNK)),
 )
+
+
+# 5d's storms: the layouts and the ping-pong storage phase 5 does not
+# storm (its paged donated engine does; the uncaptured body and the dense
+# ping-pong mode run the same code as a stormed mode: the time cut)
+STORM_MODES = ("paged, no donation", "dense", "chunked")
 
 
 def _graph_pool_bytes(torch) -> int:
@@ -1085,12 +1136,16 @@ def check_parity_kernels(torch, flush, state, params):
 
 
 def _same_state(torch, a, b) -> bool:
+    """``a`` and ``b`` bitwise equal, leaf for leaf; a leaf of ``b`` on
+    another device than ``a``'s is copied to ``a``'s, one leaf at a time
+    (a final state on the card against a host copy of the clean one)."""
     from repro_torch.tree import flatten_with_path, leaf_key
     fa = {leaf_key(p): t for p, t in flatten_with_path(a)}
     fb = {leaf_key(p): t for p, t in flatten_with_path(b)}
     return fa.keys() == fb.keys() and all(
         torch.equal(fa[k].reshape(-1).view(torch.uint8),
-                    fb[k].reshape(-1).view(torch.uint8)) for k in fa)
+                    fb[k].to(fa[k].device).reshape(-1).view(torch.uint8))
+        for k in fa)
 
 
 def _live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
@@ -1613,35 +1668,32 @@ def check_serving_parity(torch, cfg, eng, common):
 
 # -- phase 7f: --donate, --fused-detect, both; triage -----------------------
 
-MODES = (("donate", dict(donate=True)),
-         ("fused", dict(fused_detect=True)),
-         ("donate+fused", dict(donate=True, fused_detect=True)))
+# the K=1 ``--fused-detect`` modes, donated or not, run no storm here
+# (the time cut): their storms are held at K=4 (the ``run_modes_k4``
+# storms, eager and lazy capture) and at full width by 9e-13c, their
+# clean K=1 graphs by 7i and 7j
+MODES = (("donate", dict(donate=True)),)
 
 
 def run_modes(torch, cfg, runs):
-    """Phase 7f: each mode at phase 7's settings, clean and under the
-    params storm, and the iv storm under donation.  The clean final state
-    must be bitwise the functional clean run's, each storm's its clean
-    run's, detected == injected == recovered; donation recovers by replay
-    only."""
+    """Phase 7f: ``--donate`` at phase 7's settings, clean and under the
+    params storm, and the iv storm under donation; then the K=4 modes.
+    The clean final state must be bitwise the functional clean run's,
+    each storm's its clean run's, detected == injected == recovered;
+    donation recovers by replay only."""
     clean_state = runs["clean"][1]
     for name, kw in MODES:
         out, state = train_run(torch, cfg, f"{name} clean", **kw)
         assert out["steps"] == T_STEPS and out["faults_detected"] == 0, out
         assert _same_state(torch, state, clean_state), \
             f"{name}: clean final state differs from the functional run's"
-        if "fused_detect" in kw:
-            assert out["fused"]["captures"] == 2, out
-            print(f"[modes] {name}: {out['fused']['captures']} CUDA graphs "
-                  f"captured in {out['fused']['seconds']:.3f} s")
         del state
         out, state = train_run(torch, cfg, f"{name} params storm",
                                inject_every=T_INJECT, **kw)
         assert out["faults_injected"] > 0, out
         assert out["faults_detected"] == out["faults_injected"], out
         assert out["faults_recovered"] == out["faults_detected"], out
-        if kw.get("donate"):
-            assert set(out["recovery"]["by_rung"]) == {"replay"}, out
+        assert set(out["recovery"]["by_rung"]) == {"replay"}, out
         assert _same_state(torch, state, clean_state), \
             f"{name}: storm final state differs from the clean run's"
         del state
@@ -1656,14 +1708,15 @@ def run_modes(torch, cfg, runs):
     del state
     print("[modes] donate iv storm: replay only (never eq1), final state "
           "== clean, bitwise")
-    run_modes_k4(torch, cfg, clean_state)
+    run_modes_k4(torch, cfg)
 
 
-def run_modes_k4(torch, cfg, clean_state, k: int = 4, every: int = 5):
+def run_modes_k4(torch, cfg, k: int = 4, every: int = 5):
     """Phase 7f at the default rotation period K=4: ``--donate
-    --fused-detect`` clean (2K graphs, warmed eagerly) and under a
-    params storm, and ``--fused-detect --fused-warm lazy`` (ping-pong
-    storage, graphs captured on first use) under the same storm.  A
+    --fused-detect`` (2K graphs, warmed eagerly) and ``--fused-detect
+    --fused-warm lazy`` (ping-pong storage, graphs captured on first use)
+    under a params storm (no donate+fused clean run here, the time cut:
+    10c-13c hold it at full width).  A
     K-slice canary sees a flip only when its slice is checked that very
     step, so a storm is held against the functional K=4 storm: the same
     detections, recoveries and final state, bitwise.  A flip every 5
@@ -1673,17 +1726,6 @@ def run_modes_k4(torch, cfg, clean_state, k: int = 4, every: int = 5):
                                slices=k, inject_every=every)
     assert 0 < ref["faults_detected"] < ref["faults_injected"], ref
     assert ref["faults_recovered"] == ref["faults_detected"], ref
-    out, state = train_run(torch, cfg, f"donate+fused K={k} clean",
-                           slices=k, donate=True, fused_detect=True)
-    assert out["steps"] == T_STEPS and out["faults_detected"] == 0, out
-    assert out["fused"]["captures"] == 2 * k, out
-    assert _same_state(torch, state, clean_state), \
-        f"donate+fused K={k}: clean final state differs from the " \
-        f"functional run's"
-    del state
-    print(f"[modes] donate+fused K={k}: {out['fused']['captures']} CUDA "
-          f"graphs captured in {out['fused']['seconds']:.3f} s, clean "
-          f"final state == functional clean state, bitwise")
     for name, kw in ((f"donate+fused K={k} params storm",
                       dict(donate=True, fused_detect=True)),
                      (f"fused lazy K={k} params storm",
@@ -2095,12 +2137,8 @@ def _phase_start(torch) -> None:
     packing buffers too: a whole-state K=1 buffer is 24 GB at gemma3-1b;
     and the parity plans' stream scratch) and zero the launch counts and
     the peak-memory mark."""
-    from repro_torch.core import parity as cp
     from repro_torch.kernels import _build
-    from repro_torch.kernels import digest as kd
-    kd._PLAN_CACHE.clear()
-    cp._PARITY_PLAN_CACHE.clear()       # each plan keeps a device scratch
-    _release(torch)
+    _drop_plans(torch)
     torch.cuda.reset_peak_memory_stats()
     _build.LAUNCHES.clear()
 
@@ -2274,7 +2312,9 @@ def train_full_width(torch, cfg, name, steps: int = G_STEPS,
 
 def _host(torch, state):
     """A host copy of a final state (the card keeps one state at a time:
-    a 10-18 GB state and a run's two versions and pack buffer fill it)."""
+    a 10-18 GB state and a run's two versions and pack buffer fill it);
+    ``_same_state`` holds a later state on the card against it, one leaf
+    uploaded at a time."""
     from repro_torch.tree import tree_map
     return tree_map(lambda t: t.to("cpu"), state)
 
@@ -2300,14 +2340,14 @@ def train_gemma(torch):
     f = storm["faults_injected"]
     assert f > 0 and storm["faults_detected"] == f, storm
     assert storm["faults_recovered"] == f, storm
-    assert _same_state(torch, _host(torch, state), clean_host), \
+    assert _same_state(torch, state, clean_host), \
         "gemma3-1b params storm final state differs from the clean run's"
     del state
     fused, state = train_full_width(
         torch, cfg, "train-gemma donate+fused clean", canary_slices=1,
         donate=True, fused_detect=True)
     assert fused["fused"]["captures"] == 2, fused
-    assert _same_state(torch, _host(torch, state), clean_host), \
+    assert _same_state(torch, state, clean_host), \
         "gemma3-1b donate+fused clean final state differs from functional"
     del clean_host
     launches = _phase_end(torch, "train-gemma")
@@ -2358,7 +2398,7 @@ def train_danube(torch):
     assert f > 0 and storm["faults_detected"] == f, storm
     assert storm["faults_recovered"] == f, storm
     assert set(storm["recovery"]["by_rung"]) <= {"replay"}, storm
-    assert _same_state(torch, _host(torch, state), clean_host), \
+    assert _same_state(torch, state, clean_host), \
         "h2o-danube params storm final state differs from the clean run's"
     del clean_host
     _phase_end(torch, "train-danube")
@@ -2839,7 +2879,7 @@ def serve_moe(torch, name, arch, seed_reqs: int, chunked: bool):
 def _train_moe(torch, cfg, name, **kw):
     """One 9e run of the training entry point (global batch T_BATCH x
     T_SEQ, donated, K=M_SLICES, one host snapshot at step 0); returns
-    (summary, final state on the host, steady peak GiB)."""
+    (summary, final state, steady peak GiB)."""
     from repro_torch.launch.train import train
     d = WORK / name.replace(" ", "_")
     shutil.rmtree(d, ignore_errors=True)
@@ -2866,38 +2906,7 @@ def _train_moe(torch, cfg, name, **kw):
              f"s on the step path + {ck['write_seconds']:.2f} s written"
              if ck else "")
           + f"; peak memory {peak:.3f} GiB [{_SMI}]")
-    host = _host(torch, state)
-    del state
-    return out, host, peak
-
-
-def _profile_donated(torch, cfg, steps: int = 2) -> float:
-    """Device busy ms of a donated grok train step (``steps`` profiled
-    after one warm step, on a fresh state)."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.train import cuda_numerics
-    from repro_torch.train.loop import make_train_state, make_train_step
-    _, bfn = _mode_tools(torch, cfg)
-    with cuda_numerics(torch.device("cuda")):
-        step_fn = make_train_step(cfg, global_batch=T_BATCH, donate=True)
-        state = make_train_state(cfg, 0, global_batch=T_BATCH,
-                                 device="cuda")
-        state, _ = step_fn(state, bfn(0))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for s in range(1, 1 + steps):
-                state, m = step_fn(state, bfn(s))
-                float(m["loss"])
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    del state
-    _report_profile(prof, steps, wall_ms, "grok donated train step",
-                    ("bmm", "gemm", "index"))
-    from torch.autograd import DeviceType
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / steps
+    return out, state, peak
 
 
 def train_grok(torch):
@@ -2919,9 +2928,11 @@ def train_grok(torch):
     assert cfg.train.moment_dtype == "bfloat16"
     _phase_start(torch)
     held = torch.cuda.memory_allocated()
-    clean, clean_host, peak = _train_moe(
+    clean, state, peak = _train_moe(
         torch, cfg, "train-grok clean", checkpoint_dir=str(WORK / "grok"),
         checkpoint_interval=G_INTERVAL)
+    clean_host = _host(torch, state)
+    del state
     assert clean["faults_detected"] == 0 and clean["steps"] == M_STEPS
     assert int(clean_host["iv"]["micro_count"]) == 8 * M_STEPS
     assert clean_host["opt"]["stats"]["groups"][0][0]["ffn"]["gate"][
@@ -2930,21 +2941,20 @@ def train_grok(torch):
     launches = _phase_end(torch, "train-grok")
     for kernel in ("pack_rows", "row_checksums", "checksum_tiles"):
         assert launches.get(kernel, 0) > 0, (kernel, launches)
-    busy = _profile_donated(torch, cfg)
     n_params = sum(t.numel() for t in leaves(clean_host["params"]))
     print(f"[train-grok] {n_params} params (bf16), Adafactor bf16 stats, "
           f"microbatch {cfg.train.microbatch}: donated host step p50 "
-          f"{clean['p50_step_ms']:.3f} ms, device busy {busy:.3f} ms/step, "
-          f"peak {peak:.3f} GiB [{_SMI}]")
+          f"{clean['p50_step_ms']:.3f} ms, peak {peak:.3f} GiB (no device "
+          f"profile of this step: the time cut) [{_SMI}]")
 
     def storm_run(name, **kw):
-        out, host, _ = _train_moe(torch, cfg, name, inject_every=M_INJECT,
-                                  inject_armed_only=True, **kw)
+        out, state, _ = _train_moe(torch, cfg, name, inject_every=M_INJECT,
+                                   inject_armed_only=True, **kw)
         f = out["faults_injected"]
         assert f > 0 and out["faults_detected"] == f, out
         assert out["faults_recovered"] == f, out
         assert set(out["recovery"]["by_rung"]) <= {"replay"}, out
-        assert _same_state(torch, host, clean_host), \
+        assert _same_state(torch, state, clean_host), \
             f"{name} final state differs from the donated clean run's"
         return out
 
@@ -2983,13 +2993,13 @@ def train_grok(torch):
         print("[train-grok] donated params storm final state == clean "
               "final state, bitwise")
         return launches
-    fused, host, fpeak = _train_moe(torch, cfg, "train-grok donate+fused "
-                                    "clean", fused_detect=True)
+    fused, state, fpeak = _train_moe(torch, cfg, "train-grok donate+fused "
+                                     "clean", fused_detect=True)
     pool = fused["fused"]["pool_bytes"] / 2**30
     assert fused["fused"]["captures"] == 2 * M_SLICES, fused
-    assert _same_state(torch, host, clean_host), \
+    assert _same_state(torch, state, clean_host), \
         "grok donate+fused clean final state differs from donated clean"
-    del host
+    del state
     fstorm = storm_run("train-grok donate+fused storm", fused_detect=True)
     f = fstorm["faults_injected"]
     print(f"[train-grok] donate+fused ({fused['fused']['captures']} graphs "
@@ -3015,38 +3025,64 @@ ZAMBA = "zamba2-7b"
 SEAMLESS = "seamless-m4t-large-v2"
 R_LONG = 600                  # 10b/11b: three 256-token chunks, one padded
 S_LONG = 4160                 # 12b: source frames, above FLASH_THRESHOLD
-S_TRAIN_LAYERS = 6            # 12c: 6 of its 24 encoder + 6 of 24 decoder
+S_LAYERS = 6                  # 12a-12c: 6 of its 24 encoder + 6 of 24 decoder
 R_STEPS, R_INJECT = 4, 2      # 10c/11c: steps, storm period (1 flip a run)
 R_SLICES = 4                  # 10c/11c: the donated fused runs' canary K
 X_LAYERS = 8                  # 10: xlstm-350m 8 of its 24 layers (7m + 1s)
 Z_SERVE_LAYERS = 13           # 11a/11b: zamba2-7b 13 of its 81 (2 x (5m + A) + m)
 Z_TRAIN_LAYERS = 7            # 11c: zamba2-7b 7 of its 81 layers
+QWEN = "qwen2-vl-7b"
+Q_GRID = 8                    # 13a: an 8 x 8 image a request (64 patches)
+Q_LONG_GRID = 64              # 13b: a 64 x 64 image, 4,224 keys with the prompt
+Q_TRAIN_LAYERS = 1            # 13c: qwen2-vl-7b 1 of its 28 layers
+# 13c's --parity storm: at K=1 the functional step's two state versions,
+# the ring and the parity's stream scratch do not fit the card; donated,
+# the parity is rebuilt (``xor_fold_tiles``) and ``xor_update_tiles``,
+# a kernel of the path, is never launched
+Q_PARITY = dict(canary_slices=R_SLICES, inject_armed_only=True)
 R_SERVE_MODES = (("dense", dict()), ("dense, no donation", dict(donate=False)))
 R_PATH = ("pack_rows", "row_checksums", "checksum_tiles",
           "xor_update_tiles", "xor_fold_tiles")
 
 
+_T_RUN = [0.0]                # the perf_counter at the build's start
+
+
+def _stamp(what: str) -> None:
+    """A ``[time]`` line: the seconds since the build began."""
+    print(f"[time] {what} done, {time.perf_counter() - _T_RUN[0]:.1f} s "
+          f"since the build began")
+
+
 def _shape_of(model, m) -> str:
-    """The stack a family walks: its pattern, or enc-dec's two stacks."""
+    """The stack a family walks: its pattern, enc-dec's two stacks, or
+    the VLM's layers and patch width."""
     if m.family == "encdec":
         return (f"({m.n_enc_layers} encoder + {m.n_layers} decoder layers, "
                 f"{m.frontend_dim}-wide source frames)")
+    if m.family == "vlm":
+        return (f"({m.n_layers} layers, m-rope, {m.patch_dim}-wide patches, "
+                f"{m.n_kv_heads} KV heads of {m.resolved_head_dim})")
     return str(model.module.derive_pattern(m))
 
 
-def serve_recurrent(torch, arch: str, label: str, model_kw: dict, long):
-    """10a, 11a, 12a: ``arch`` at full width, its model fields changed by
-    ``model_kw`` (the depth cut; empty: all its layers; bf16, random
-    params from seed 0) served on the dense slot-major engine (the family
-    has no ``prefill_chunk``) with phase 5's traffic (an enc-dec request
-    carries ``max_len`` source frames): the step's body uncaptured (the
-    reference tokens, clean only), then captured donated and ping-pong
-    (``serve_modes``: clean == uncaptured, in the donated mode an
-    armed-slice storm over the decode state's leaves == clean with the
-    flips by leaf (phase 5d storms ping-pong), 1 ``cudaGraphLaunch`` +
-    STATS (1, 1) a steady step, decode p50 / p99, device busy, kernels a
-    step, graph pool); then ``long(torch, cfg, params, common, label)``
-    (10b, 11b, 12b).  Returns the phase's launches."""
+def serve_recurrent(torch, arch: str, label: str, model_kw: dict, long,
+                    requests=None, patch_rows: int = 0):
+    """10a, 11a, 12a, 13a: ``arch`` at full width, its model fields
+    changed by ``model_kw`` (the depth cut; empty: all its layers; bf16,
+    random params from seed 0) served on the dense slot-major engine (the
+    family has no ``prefill_chunk``, or m-rope, which is not paged) with
+    phase 5's traffic (an enc-dec request carries ``max_len`` source
+    frames; ``requests`` makes the requests, as ``make_requests`` does,
+    and ``patch_rows`` adds a VLM request's patch rows to ``max_len``):
+    the step's body uncaptured (the reference tokens, clean only), then
+    captured donated and ping-pong (``serve_modes``: clean == uncaptured,
+    in the donated mode an armed-slice storm over the decode state's
+    leaves == clean with the flips by leaf (phase 5d storms ping-pong), 1
+    ``cudaGraphLaunch`` + STATS (1, 1) a steady step, decode p50 / p99,
+    device busy, kernels a step, graph pool); then ``long(torch, cfg,
+    params, common, label)`` (10b, 11b, 12b, 13b).  Returns the phase's
+    launches."""
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import make_requests
     from repro_torch.models.registry import get_model
@@ -3059,7 +3095,8 @@ def serve_recurrent(torch, arch: str, label: str, model_kw: dict, long):
     _phase_start(torch)
     model = get_model(m)
     params = model.init(m, 0, "cuda")
-    cache = model.make_decode_cache(m, 1, PROMPT + GEN + 1, "meta")
+    max_len = PROMPT + GEN + 1 + patch_rows
+    cache = model.make_decode_cache(m, 1, max_len, "meta")
     state = [t for k, v in cache.items() if k != "pos" for t in leaves(v)]
     depth = f"{m.n_layers} of its layers (the depth cut)" if model_kw \
         else "full depth"
@@ -3068,14 +3105,14 @@ def serve_recurrent(torch, arch: str, label: str, model_kw: dict, long):
           f"heads, vocab {m.vocab_size}, "
           f"{sum(t.numel() for t in leaves(params))} params "
           f"({leaves(params)[0].dtype}), untied head; one slot's decode "
-          f"state at max_len {PROMPT + GEN + 1}: {len(state)} leaves, "
+          f"state at max_len {max_len}: {len(state)} leaves, "
           f"{sum(t.numel() * t.element_size() for t in state)} bytes")
-    common = dict(n_slots=SLOTS, max_len=PROMPT + GEN + 1, canary_slices=K,
+    common = dict(n_slots=SLOTS, max_len=max_len, canary_slices=K,
                   max_replays=10**6, device="cuda")
+    make = requests or make_requests
 
     def reqs():
-        return make_requests(cfg, N_REQUESTS, PROMPT, GEN,
-                             np.random.default_rng(5))
+        return make(cfg, N_REQUESTS, PROMPT, GEN, np.random.default_rng(5))
 
     _build.LAUNCHES.clear()
     eng = ServingEngine(cfg, params=params, **common)
@@ -3203,12 +3240,165 @@ def long_encdec(torch, cfg, params, common, label: str) -> None:
     del eng, direct
 
 
-def _reckon_train(torch, cfg, label: str) -> None:
-    """10c/11c: the training runs' memory reckoned from shapes before they
+def grid_positions(grid: int, n_text: int):
+    """Qwen2-VL's (t, h, w) positions of one ``grid x grid`` image and
+    ``n_text`` tokens after it: patch (row, col) at (0, row, col), the
+    text at ``grid``, ``grid + 1``, ... on all three streams; (1, grid^2
+    + n_text, 3) int32."""
+    import numpy as np
+    r, c = np.meshgrid(np.arange(grid), np.arange(grid), indexing="ij")
+    img = np.stack([np.zeros(grid * grid, np.int64), r.ravel(), c.ravel()],
+                   -1)
+    text = np.repeat((grid + np.arange(n_text))[:, None], 3, axis=1)
+    return np.concatenate([img, text]).astype(np.int32)[None]
+
+
+def vlm_requests(grid: int):
+    """A request factory like ``make_requests`` whose requests each carry
+    one ``grid x grid`` image: ``patch_embeds`` (1, grid^2, patch_dim)
+    float32 standard normals from the same generator and the grid's
+    ``positions``."""
+    from repro_torch.launch.serve import make_requests
+    import numpy as np
+
+    def make(cfg, n, prompt_len, gen, nprng):
+        reqs = make_requests(cfg, n, prompt_len, gen, nprng)
+        for rq in reqs:
+            rq.features = {
+                "patch_embeds": nprng.standard_normal(
+                    (1, grid * grid, cfg.model.patch_dim), dtype=np.float32),
+                "positions": grid_positions(grid, prompt_len)}
+        return reqs
+    return make
+
+
+def long_vlm(torch, cfg, params, common, label: str) -> None:
+    """13b, after the admission rule: one request with Np + P + 1 + new =
+    ``max_len`` + 1 is refused with ``AdmissionError`` (the reference
+    admits it and overwrites its cache's last row).  Then one request of
+    a ``Q_LONG_GRID`` x ``Q_LONG_GRID`` image (4,096 patches) and a
+    ``PROMPT``-token prompt: 4,224 keys, above ``FLASH_THRESHOLD``, so
+    every layer's attention takes ``attention_flash`` (counted) with the t
+    stream 0 over the patches, while the decode stays direct.  The slot's
+    K/V rows and the last-position logits of the same prefill outside the
+    engine are held against two other prefills of the same inputs: the
+    bf16 one through ``attention_direct`` (the threshold lifted) and an
+    f32 one (the params cast to f32, compute in f32; in f32 the flash and
+    direct paths agree within 2e-5), the oracle.  Through 28 bf16 layers
+    each bf16 path lies 3.5-4.6 % of the largest entry from the oracle,
+    above ``BF16_TOL``, and the two part by 3.3-4.4 %: so the flash path
+    must differ from the direct path by no more than the direct path
+    differs from the oracle (its own bf16 rounding), in max |diff| of
+    each of K, V and the logits.  The first token (``rq.log[0]``) == the
+    flash prefill's argmax, and its logit on the direct path within
+    twice ``BF16_TOL`` of the direct path's largest."""
+    import dataclasses
+    from repro_torch.models import layers as L
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.paged import AdmissionError
+    from repro_torch.tree import tree_map
+    import numpy as np
+
+    eng = ServingEngine(cfg, params=params, **common)
+    rq = vlm_requests(Q_GRID)(cfg, 1, PROMPT, 0, np.random.default_rng(7))[0]
+    rq.max_new_tokens = eng.max_len - Q_GRID ** 2 - PROMPT
+    msg = _expect(AdmissionError, lambda: eng.admit(rq, 0),
+                  "an overflowing VLM request")
+    assert eng.slot_rid == [None] * SLOTS
+    print(f"[{label}] a request of {Q_GRID ** 2} patches + {PROMPT} tokens "
+          f"+ 1 + {rq.max_new_tokens} new = max_len {eng.max_len} + 1 "
+          f"refused: {msg}")
+    del eng
+
+    def request():
+        return vlm_requests(Q_LONG_GRID)(cfg, 1, PROMPT, 2,
+                                         np.random.default_rng(6))[0]
+    rq = request()
+    keys = Q_LONG_GRID ** 2 + PROMPT
+    assert keys > L.FLASH_THRESHOLD
+    eng = ServingEngine(cfg, params=params, **dict(
+        common, n_slots=1, max_len=keys + 2 + 1))
+    m = cfg.model
+    batch = eng._batch(request())
+    flash = L.attention_flash
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape[1])
+        return flash(*a, **kw)
+    L.attention_flash = counted
+    try:
+        rep = eng.run([rq])
+    finally:
+        L.attention_flash = flash
+    assert len(rep.per_request[0]["tokens"]) == 2
+    assert len(calls) == m.n_layers and set(calls) == {keys}, calls
+    first = rq.log[0]
+    flash_logits, _ = eng.model.prefill(eng.params, m, batch,
+                                        max_len=eng.max_len)
+    threshold = L.FLASH_THRESHOLD
+    L.FLASH_THRESHOLD = 1 << 30
+    try:
+        logits, direct = eng.model.prefill(eng.params, m, batch,
+                                           max_len=eng.max_len)
+    finally:
+        L.FLASH_THRESHOLD = threshold
+    kv = {k: (eng.cache["groups"][0][0][k][0, :, 0, :keys],
+              direct["groups"][0][0][k][:, 0, :keys]) for k in ("k", "v")}
+    del direct
+    _release(torch)
+    m32 = dataclasses.replace(m, param_dtype="float32",
+                              compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), eng.params)
+    logits32, exact = eng.model.prefill(p32, m32, batch,
+                                        max_len=eng.max_len)
+    del p32
+    pairs = dict(kv, **{"last logits": (flash_logits, logits)})
+    errs = {}
+    for k, (ours, theirs) in pairs.items():
+        ref = logits32 if k == "last logits" else \
+            exact["groups"][0][0][k][:, 0, :keys]
+        errs[k] = tuple(float((a.float() - b.float()).abs().max())
+                        for a, b in ((ours, theirs), (ours, ref),
+                                     (theirs, ref))) + (
+            float(ref.abs().max()),)
+    del exact
+    want = int(logits[0].argmax())
+    tol = BF16_TOL * max(1.0, float(logits.abs().max()))
+    short = float(logits[0, want] - logits[0, first])
+
+    def gap(lg):
+        top2 = lg[0].topk(2).values
+        return (f"argmax {int(lg[0].argmax())}, top-2 gap "
+                f"{float(top2[0] - top2[1]):.4f}")
+    print(f"[{label}] {Q_LONG_GRID}x{Q_LONG_GRID} image ({Q_LONG_GRID ** 2} "
+          f"patches) + {PROMPT} tokens = {keys} keys (FLASH_THRESHOLD "
+          f"{threshold}): attention_flash taken by {len(calls)} layers, "
+          f"decode direct; max |diff| flash vs direct, flash vs f32, direct "
+          f"vs f32 (largest |f32 entry|): "
+          + ", ".join(f"{k} {a:.5f}, {b:.5f}, {c:.5f} ({r:.4f})"
+                      for k, (a, b, c, r) in errs.items())
+          + f"; first token {first}, its direct logit {short:.4f} "
+          f"below the direct path's largest (tolerance {2 * tol:.4f}); "
+          f"flash: {gap(flash_logits)}; direct: {gap(logits)}; f32: "
+          f"{gap(logits32)} [{_SMI}]")
+    for k, (apart, _, direct_err, _) in errs.items():
+        assert apart <= direct_err, (k, errs[k])
+    assert first == int(flash_logits[0].argmax()), (first,
+                                                    gap(flash_logits))
+    assert short <= 2 * tol, (first, want, short, tol)
+    del eng
+
+
+def _reckon_train(torch, cfg, label: str, parity_kw: dict) -> None:
+    """10c-13c: the training runs' memory reckoned from shapes before they
     run (as 9e reckons its fused runs): the state, a second version of it
     (the functional step's output), the canary's packing ring at K = 1
-    and at ``R_SLICES`` (K slices + the smallest once more) and the bf16
-    gradient accumulator of a microbatched step."""
+    and at ``R_SLICES`` (K slices + the smallest once more), the bf16
+    gradient accumulator of a microbatched step, and the ``--parity``
+    run's parity and its stream scratch (every covered word once, as
+    int32) with its settings ``parity_kw`` (canary K, donation)."""
+    from repro_torch.core import parity as cp
     from repro_torch.core.detect import rotating_slice
     from repro_torch.kernels import digest as kd
     from repro_torch.kernels.checksum import LANES
@@ -3225,78 +3415,122 @@ def _reckon_train(torch, cfg, label: str) -> None:
         return sum(words(c) for c in sl) + min(words(c) for c in sl)
     state, acc = nbytes(meta), 2 * sum(t.numel()
                                        for t in leaves(meta["params"]))
+    pplan = cp.parity_plan_for(meta)
+    parity = pplan.memory_bytes * (1 + pplan.n_shards)
+    pk = parity_kw.get("canary_slices", 1)
+    pv = 1 if parity_kw.get("donate") else 2
     total = torch.cuda.mem_get_info()[1]
     gib = lambda b: f"{b / 2**30:.3f} GiB"
-    print(f"[{label}] reckoned before the runs: state {gib(state)}; K=1 "
+    print(f"[{label}] held before the runs: "
+          f"{gib(torch.cuda.memory_allocated())}; reckoned: state "
+          f"{gib(state)}; K=1 "
           f"functional: 2 state versions + ring {gib(ring(1))} + bf16 "
           f"gradient accumulator {gib(acc)} = "
-          f"{gib(2 * state + ring(1) + acc)}; K={R_SLICES} donate+fused: "
+          f"{gib(2 * state + ring(1) + acc)}; --parity at K={pk}: {pv} "
+          f"version(s) + ring {gib(ring(pk))} + accumulator + parity and "
+          f"its stream scratch {gib(parity)} = "
+          f"{gib(pv * state + ring(pk) + acc + parity)}; "
+          f"K={R_SLICES} donate+fused: "
           f"1 version (adopted by the graphs) + ring {gib(ring(R_SLICES))}"
           f" + accumulator = {gib(state + ring(R_SLICES) + acc)}; "
-          f"activations (remat) and graph pools besides, of the card's "
-          f"{gib(total)}")
+          f"activations (remat), the optimizer's f32 temporaries and graph "
+          f"pools besides, of the card's {gib(total)}")
+    _drop_plans(torch)
+
+
+def _drop_plans(torch) -> None:
+    """Drop the cached digest plans (their packing rings) and parity
+    plans (their stream scratch) and return the memory to the card."""
+    from repro_torch.core import parity as cp
+    from repro_torch.kernels import digest as kd
     kd._PLAN_CACHE.clear()
+    cp._PARITY_PLAN_CACHE.clear()
+    _release(torch)
+
+
+R_STORMS = ("parity", "iv", "fused")
 
 
 def train_recurrent(torch, arch: str, label: str, model_kw: dict, *,
-                    iv_storm: bool = True, checkpoint: bool = True,
-                    profile: bool = True):
-    """10c/11c/12c: ``arch`` trained at full width (bf16 params, the
-    config's optimizer, microbatch and remat; global batch 8 x 128, an
-    enc-dec batch with 64 source frames), its model fields changed by
-    ``model_kw`` (the depth cut), one flip a storm: K=1 functional clean, a
-    params storm under ``--parity`` (``parity_xor``; final state == clean,
-    bitwise), with ``iv_storm`` an iv storm (``eq1``); ``--donate
-    --fused-detect`` at K=4 clean (8 graphs, == the functional clean run)
-    and under an armed-slice storm (replay; == clean); with
-    ``checkpoint`` a checkpoint of the final state written and read back,
-    bitwise; with ``profile`` the donate+fused hot path
-    (``profile_modes``; the runs print the functional host p50).  The
-    three flags are the script's time cuts (each path is held in full by
-    one phase).  Returns the phase's launches."""
+                    storms=R_STORMS, checkpoint: bool = True,
+                    profile: bool = True, parity_kw=None):
+    """10c-13c: ``arch`` trained at full width (bf16 params, the config's
+    optimizer, microbatch and remat; global batch 8 x 128, an enc-dec
+    batch with 64 source frames, a VLM batch with 16 patches), its model
+    fields changed by ``model_kw`` (the depth cut), one flip a storm,
+    each run after the cached plans are dropped: K=1 functional clean;
+    the ``storms`` named: ``parity``, a params storm under ``--parity``
+    (``parity_xor``; final state == clean, bitwise), K=1 functional unless
+    ``parity_kw`` says otherwise (13c: K=4, the flip in the slice
+    checked at its step: the smaller ring makes room for the parity's
+    stream scratch), ``iv``, an iv storm (``eq1``); ``--donate
+    --fused-detect`` at K=4 clean (8 graphs, == the functional clean
+    run) and, with ``fused``, under an
+    armed-slice storm (replay; == clean); with ``checkpoint`` a
+    checkpoint of the final state written and read back, bitwise; with
+    ``profile`` the donate+fused hot path (``profile_modes``; the runs
+    print the functional host p50).  Each storm dropped and the two flags
+    are the script's time cuts (each path is held in full by one phase;
+    the ``--parity`` storm runs in every phase: it launches the parity
+    kernels).  Returns the phase's launches."""
     from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 
     cfg = _full_width(arch, **model_kw)
     assert cfg.train.optimizer == "adamw" and cfg.train.remat != "none"
     _phase_start(torch)
-    _reckon_train(torch, cfg, label)
+    # cuBLAS keeps a workspace per (handle, stream) in the caching
+    # allocator, and every earlier phase's captures used streams of their
+    # own (1.5-1.9 GiB by phase 13); no graph is alive here to read them
+    held = torch.cuda.memory_allocated()
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+    _release(torch)
+    print(f"[{label}] cuBLAS workspaces of the earlier phases dropped: "
+          f"{held / 2**30:.3f} -> "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB held")
+    parity_kw = dict(parity_kw or {}, parity=True)
+    _reckon_train(torch, cfg, label, parity_kw)
     kw = dict(steps=R_STEPS, canary_slices=1, disk=False)
     clean, state = train_full_width(torch, cfg, f"{label} clean", **kw)
     assert clean["faults_detected"] == 0 and clean["steps"] == R_STEPS
     clean_host = _host(torch, state)
     del state
-    storms = [("params storm --parity", dict(parity=True), "parity_xor")]
-    if iv_storm:
-        storms.append(("iv storm", dict(inject_target="iv"), "eq1"))
-    for name, extra, rung in storms:
+    runs = {"parity": ("params storm --parity", parity_kw, "parity_xor"),
+            "iv": ("iv storm", dict(inject_target="iv"), "eq1")}
+    for name, extra, rung in (runs[k] for k in storms if k in runs):
+        _drop_plans(torch)
         out, state = train_full_width(torch, cfg, f"{label} {name}",
-                                      inject_every=R_INJECT, **extra, **kw)
+                                      inject_every=R_INJECT,
+                                      **dict(kw, **extra))
         f = out["faults_injected"]
         assert f > 0 and out["faults_detected"] == f, out
         assert out["faults_recovered"] == f, out
         assert out["recovery"]["by_rung"] == {rung: f}, (name, out)
-        assert _same_state(torch, _host(torch, state), clean_host), \
+        assert _same_state(torch, state, clean_host), \
             f"{arch} {name} final state differs from the clean run's"
         del state
         print(f"[{label}] {name}: rungs {out['recovery']['by_rung']}, "
               f"final state == clean, bitwise")
     kw4 = dict(steps=R_STEPS, canary_slices=R_SLICES, donate=True,
                fused_detect=True, disk=False)
+    _drop_plans(torch)
     fused, state = train_full_width(torch, cfg, f"{label} donate+fused "
                                     f"K={R_SLICES} clean", **kw4)
     assert fused["fused"]["captures"] == 2 * R_SLICES, fused
-    assert _same_state(torch, _host(torch, state), clean_host), \
+    assert _same_state(torch, state, clean_host), \
         f"{arch} donate+fused clean final state differs from functional"
-    del state
-    storm, state = train_full_width(
-        torch, cfg, f"{label} donate+fused K={R_SLICES} storm",
-        inject_every=R_INJECT, inject_armed_only=True, **kw4)
-    f = storm["faults_injected"]
-    assert f > 0 and storm["faults_detected"] == f, storm
-    assert storm["faults_recovered"] == f, storm
-    assert set(storm["recovery"]["by_rung"]) <= {"replay"}, storm
-    assert _same_state(torch, _host(torch, state), clean_host), \
-        f"{arch} donate+fused storm final state differs from clean"
+    stormed = "no armed-slice storm (the time cut)"
+    if "fused" in storms:
+        del state
+        storm, state = train_full_width(
+            torch, cfg, f"{label} donate+fused K={R_SLICES} storm",
+            inject_every=R_INJECT, inject_armed_only=True, **kw4)
+        f = storm["faults_injected"]
+        assert f > 0 and storm["faults_detected"] == f, storm
+        assert storm["faults_recovered"] == f, storm
+        assert set(storm["recovery"]["by_rung"]) <= {"replay"}, storm
+        assert _same_state(torch, state, clean_host), \
+            f"{arch} donate+fused storm final state differs from clean"
+        stormed = f"armed-slice storm ({f} flip, replay) == clean"
     ckpt = "no checkpoint (the time cut)"
     if checkpoint:
         d = WORK / f"{label}_ckpt"
@@ -3317,9 +3551,7 @@ def train_recurrent(torch, arch: str, label: str, model_kw: dict, *,
     print(f"[{label}] donate+fused K={R_SLICES}: "
           f"{fused['fused']['captures']} graphs (their pool "
           f"{fused['fused']['pool_bytes'] / 2**30:.3f} GiB), clean == "
-          f"functional "
-          f"clean, armed-slice storm ({f} flip, replay) == clean, bitwise; "
-          f"{ckpt} [{_SMI}]")
+          f"functional clean, {stormed}, bitwise; {ckpt} [{_SMI}]")
     launches = _phase_end(torch, label)
     if profile:
         # the profile starts from a card holding only this state (the
@@ -3332,18 +3564,22 @@ def train_recurrent(torch, arch: str, label: str, model_kw: dict, *,
 
 
 def recurrent_phase(torch, phase: int, arch: str, serve_kw: dict,
-                    train_kw: dict, long=long_recurrent, **cuts):
-    """Phase 10 (xLSTM), 11 (the hybrid) or 12 (enc-dec): serving (with
-    ``long`` its long-input check), then training (``cuts``: the flags of
-    ``train_recurrent``), each with the config's model fields changed by
-    ``*_kw`` (the depth cuts); each of ``R_PATH``'s kernels launched on
-    the phase's paths."""
+                    train_kw: dict, long=long_recurrent, requests=None,
+                    patch_rows: int = 0, **cuts):
+    """Phase 10 (xLSTM), 11 (the hybrid), 12 (enc-dec) or 13 (the VLM):
+    serving (with ``long`` its long-input check; ``requests`` and
+    ``patch_rows`` as ``serve_recurrent`` takes them), then training
+    (``cuts``: the flags of ``train_recurrent``), each with the config's
+    model fields changed by ``*_kw`` (the depth cuts); each of
+    ``R_PATH``'s kernels launched on the phase's paths."""
     t0 = time.perf_counter()
     name = arch.split("-")[0]
-    lc = {f"{phase}a/{phase}b": serve_recurrent(torch, arch, f"serve-{name}",
-                                                serve_kw, long),
-          f"{phase}c": train_recurrent(torch, arch, f"train-{name}",
-                                       train_kw, **cuts)}
+    lc = {f"{phase}a/{phase}b": serve_recurrent(
+        torch, arch, f"serve-{name}", serve_kw, long, requests=requests,
+        patch_rows=patch_rows)}
+    _stamp(f"phases {phase}a-{phase}b")
+    lc[f"{phase}c"] = train_recurrent(torch, arch, f"train-{name}",
+                                      train_kw, **cuts)
     for kernel in R_PATH:
         assert sum(c.get(kernel, 0) for c in lc.values()) > 0, (kernel, lc)
     print(f"[phase {phase}] launches of " + ", ".join(R_PATH) + " by path: "
@@ -3372,11 +3608,7 @@ def main() -> int:
     global _SMI
     smi = _SMI = _smi()
     print(f"[card] {smi}")
-    t_run = time.perf_counter()
-
-    def _stamp(what: str) -> None:
-        print(f"[time] {what} done, {time.perf_counter() - t_run:.1f} s "
-              f"since the build began")
+    _T_RUN[0] = time.perf_counter()
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.lib()
@@ -3462,7 +3694,8 @@ def main() -> int:
         assert launches.get(name, 0) > 0, f"{name} never launched"
     check_serving_parity(torch, cfg, clean_eng, common)
     serve_modes(torch, cfg, clean_eng.params, common, reqs,
-                {rid: r["tokens"] for rid, r in clean.per_request.items()})
+                {rid: r["tokens"] for rid, r in clean.per_request.items()},
+                storms=STORM_MODES)
     del clean_eng, storm_eng
     torch.cuda.empty_cache()
     _stamp("phases 1-5")
@@ -3477,6 +3710,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_kernels, flash_launches = check_flash(torch, flush, cfg.model)
     torch.cuda.empty_cache()
+    _stamp("phase 6")
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
     runs = run_training(torch, cfg)
@@ -3507,6 +3741,7 @@ def main() -> int:
     check_parity_recovery(torch, cfg, clean_state)
     profile_train(torch, cfg, clean_state)
     profile_train(torch, cfg, clean_state, parity=True)
+    _stamp("phases 7a-7e")
 
     # -- the modes: --donate, --fused-detect, both; triage -----------------
     _build.LAUNCHES.clear()
@@ -3514,7 +3749,7 @@ def main() -> int:
     check_fused_path(torch, cfg, clean_state)
     torch.cuda.synchronize()
     modes_launches = dict(_build.LAUNCHES)
-    print(f"[modes] launches on the modes path (11 runs + the fused path; "
+    print(f"[modes] launches on the modes path (6 runs + the fused path; "
           f"a graph replay counts the kernels captured in it): "
           f"{modes_launches}")
     for name in ("pack_rows", "row_checksums", "xor_update_tiles",
@@ -3526,6 +3761,7 @@ def main() -> int:
         if name != "clean":
             del runs[name]
     profile_modes(torch, cfg, clean_state)
+    del runs, clean_state
     _stamp("phases 6-7")
 
     # -- phase 8: the dense configurations at full width ------------------
@@ -3572,10 +3808,7 @@ def main() -> int:
     _phase_start(torch)
     g_state = _stepped_state(torch, gcfg)
     wide = check_pack_wide(torch, flush, g_state, g_eng, wide_launches)
-    del g_eng
-    _phase_start(torch)
-    profile_train(torch, gcfg, g_state, steps=2)
-    del g_state
+    del g_eng, g_state
     train_danube(torch)
     _stamp("phase 8")
 
@@ -3583,8 +3816,10 @@ def main() -> int:
     t9 = time.perf_counter()
     check_pack_bytes(torch, flush)
     bytes_entry, l9b = train_int8(torch, flush)
+    _stamp("phases 9a-9b")
     l9c = serve_moe(torch, "serve-grok", GROK, 3, chunked=True)
     l9d = serve_moe(torch, "serve-kimi", KIMI, 4, chunked=False)
+    _stamp("phases 9c-9d")
     l9e = train_grok(torch)
     l9 = {"9b": l9b, "9c": l9c, "9d": l9d, "9e": l9e}
     for kernel in ("pack_rows", "row_checksums", "gather_blocks",
@@ -3599,18 +3834,26 @@ def main() -> int:
 
     # -- phases 10 and 11: the xLSTM and hybrid families at full width ----
     recurrent_phase(torch, 10, XLSTM, dict(n_layers=X_LAYERS),
-                    dict(n_layers=X_LAYERS), profile=False)
+                    dict(n_layers=X_LAYERS), storms=("parity", "fused"),
+                    checkpoint=False, profile=False)
     _stamp("phase 10")
     recurrent_phase(torch, 11, ZAMBA, dict(n_layers=Z_SERVE_LAYERS),
-                    dict(n_layers=Z_TRAIN_LAYERS), iv_storm=False,
+                    dict(n_layers=Z_TRAIN_LAYERS), storms=("parity",),
                     checkpoint=False, profile=False)
     _stamp("phase 11")
 
     # -- phase 12: the enc-dec family at full width -----------------------
-    recurrent_phase(torch, 12, SEAMLESS, {},
-                    dict(n_layers=S_TRAIN_LAYERS,
-                         n_enc_layers=S_TRAIN_LAYERS), long=long_encdec)
+    s_layers = dict(n_layers=S_LAYERS, n_enc_layers=S_LAYERS)
+    recurrent_phase(torch, 12, SEAMLESS, s_layers, s_layers,
+                    storms=("parity",), long=long_encdec)
     _stamp("phase 12")
+
+    # -- phase 13: the VLM family at full width ---------------------------
+    recurrent_phase(torch, 13, QWEN, {}, dict(n_layers=Q_TRAIN_LAYERS),
+                    long=long_vlm, requests=vlm_requests(Q_GRID),
+                    patch_rows=Q_GRID ** 2, checkpoint=False, profile=False,
+                    parity_kw=Q_PARITY)
+    _stamp("phase 13")
 
     for name, r in train_kernels.items():
         kernels[name] = r

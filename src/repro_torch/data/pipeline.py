@@ -194,6 +194,24 @@ class TokenPipeline:
         return {"tokens": torch.from_numpy(np.ascontiguousarray(toks[:, :-1])),
                 "targets": torch.from_numpy(np.ascontiguousarray(toks[:, 1:]))}
 
+    def with_patches(self, batch, n_patches: int, patch_dim: int,
+                     step: int) -> Dict[str, torch.Tensor]:
+        """``batch`` plus the VLM's stubbed vision input: ``patch_embeds``,
+        (B, n_patches, patch_dim) float32 from ``normal`` under
+        ``fold_in(PRNGKey(seed + 101), step)``, and ``positions``,
+        ``arange(seq_len + n_patches)`` on all three m-rope streams
+        ((B, seq_len + n_patches, 3) int32), as the reference draws
+        them."""
+        k = fold_in(prng_key(self.seed + 101), np.int32(step))
+        B = batch["tokens"].shape[0]
+        n = self.seq_len + n_patches
+        out = dict(batch)
+        out["patch_embeds"] = torch.from_numpy(
+            normal(k, (B, n_patches, patch_dim)))
+        out["positions"] = torch.arange(n, dtype=torch.int32)[None, :, None] \
+            .expand(B, n, 3).contiguous()
+        return out
+
     def with_src_embeds(self, batch, src_len: int, frontend_dim: int,
                         step: int) -> Dict[str, torch.Tensor]:
         """``batch`` plus ``src_embeds``: the enc-dec family's stubbed

@@ -8,17 +8,20 @@ continuous-batching engine.
 ``--arch`` takes every dense configuration (``iterpro-100m``,
 ``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``),
 the MoE ones (``grok-1-314b``, ``kimi-k2-1t-a32b``), the xLSTM
-``xlstm-350m``, the hybrid ``zamba2-7b`` and the enc-dec
-``seamless-m4t-large-v2`` (add ``--smoke --device cpu`` to run them on
-the CPU).  A windowed config pages when every cache
+``xlstm-350m``, the hybrid ``zamba2-7b``, the enc-dec
+``seamless-m4t-large-v2`` and the VLM ``qwen2-vl-7b`` (add ``--smoke
+--device cpu`` to run them on the CPU).  A windowed config pages when
+every cache
 leaf fits its window (``max_len`` = prompt + gen + 1 within it);
 otherwise it takes the dense cache, ring leaves of ``window`` rows
 beside linear leaves of ``max_len``.  The recurrent families (xLSTM,
-hybrid) and enc-dec have no ``prefill_chunk`` and take the dense cache.
-Each enc-dec request carries its stubbed source frames, ``src_embeds``
-of ``max_len`` = prompt + gen + 1 rows drawn from the seed (the
-reference's CLI attaches none and raises ``KeyError``).  The VLM raises
-``NotImplementedError`` (ROADMAP.md queue 1).
+hybrid) and enc-dec have no ``prefill_chunk`` and take the dense cache;
+so does the VLM (m-rope is not paged).  Each enc-dec request carries its
+stubbed source frames, ``src_embeds`` of ``max_len`` = prompt + gen + 1
+rows drawn from the seed (the reference's CLI attaches none and raises
+``KeyError``).  A VLM request is text only here, as the reference's CLI
+makes it (its positions ``t = h = w``); patches reach the engine through
+``Request.features`` (``patch_embeds`` and ``positions``).
 
 It runs on the CUDA card unless ``--device`` names another device, and
 raises when there is no card and no device is named.  The flags are the

@@ -49,9 +49,10 @@ clean trajectory bit for bit.
 ``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``),
 the MoE ones (``grok-1-314b``, ``kimi-k2-1t-a32b``, trained with their
 Adafactor and bf16 stats), the xLSTM ``xlstm-350m``, the hybrid
-``zamba2-7b`` and the enc-dec ``seamless-m4t-large-v2``, whose batches
-carry 64 source frames (``batch_for``) (``--smoke --device cpu`` on the
-CPU); without
+``zamba2-7b``, the enc-dec ``seamless-m4t-large-v2``, whose batches
+carry 64 source frames, and the VLM ``qwen2-vl-7b``, whose batches carry
+16 patches and their m-rope positions (``batch_for``) (``--smoke
+--device cpu`` on the CPU); without
 ``--smoke`` a config's ``microbatch`` (8 for all but gemma3-1b,
 iterpro-100m and xlstm-350m) accumulates the gradients of that many
 slices of the batch in its bf16 ``grad_reduce_dtype``, as the reference
@@ -61,8 +62,7 @@ optimizer of the reference runs: AdamW with f32, bf16 or int8 moments
 either) and Adafactor.
 
 Not ported yet, each raising ``NotImplementedError``: ``--mesh``,
-``--elastic`` and ``--kill-row-at``, and the VLM family (ROADMAP.md,
-queue 1).
+``--elastic`` and ``--kill-row-at`` (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -94,6 +94,7 @@ from repro_torch.serving.engine import resolve_device
 from repro_torch.train.loop import make_train_state, make_train_step
 
 SRC_LEN = 64        # source frames of an enc-dec batch (the reference's)
+N_PATCHES = 16      # patches of a VLM batch (the reference's)
 
 _UNPORTED = {
     "mesh": "mesh training (ROADMAP.md queue 1, 'Mesh and elastic')",
@@ -159,13 +160,16 @@ def cuda_numerics(device: torch.device):
 
 
 def batch_for(cfg, pipe, step: int) -> Dict[str, torch.Tensor]:
-    """The step's batch on the host: tokens and targets, and for an
-    enc-dec config 64 source frames of ``src_embeds`` (the reference's
+    """The step's batch on the host: tokens and targets, for an enc-dec
+    config 64 source frames of ``src_embeds``, for a VLM 16
+    ``patch_embeds`` and their ``positions`` (the reference's
     ``batch_for``), so a replayed step sees the same batch."""
     batch = pipe.batch_at(step)
     m = cfg.model
     if m.n_enc_layers:
         batch = pipe.with_src_embeds(batch, SRC_LEN, m.frontend_dim, step)
+    if m.patch_dim:
+        batch = pipe.with_patches(batch, N_PATCHES, m.patch_dim, step)
     return batch
 
 

@@ -15,8 +15,10 @@ torch as the reference's is plain jnp (the CUDA flash kernel is reached
 through ``kernels.ops.flash_attention``, as in the reference).  The dense
 options are the reference's: projection biases (``use_bias``; never on
 ``wo``), q/k rmsnorm over the head dim before rope (``qk_norm``), ring
-caches for windowed layers and an untied, soft-capped head.  M-rope is
-not ported.
+caches for windowed layers and an untied, soft-capped head.  Qwen2-VL's
+m-rope (``m_rope``) rotates each section of the frequency slots with its
+own stream of a ``(B, S, 3)`` position tensor (t, h, w); the attention
+mask and the keys' positions then read the t stream.
 """
 
 from __future__ import annotations
@@ -90,6 +92,40 @@ def apply_rope(x, positions, theta: float):
     freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
                                           device=x.device) / half))
     ang = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).split(half, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(dt)
+
+
+# M-RoPE (Qwen2-VL): the head_dim/2 frequency slots split into (t, h, w)
+# sections in these ratios, each rotating with its own position stream
+MROPE_SECTIONS = (2, 3, 3)
+
+
+def mrope_sizes(half: int, sections=MROPE_SECTIONS):
+    """Frequency slots of each section: ``half * s // total``, the last
+    taking the rest ((16, 24, 24) at head_dim 128, (4, 6, 6) at 32)."""
+    total = sum(sections)
+    sizes = [half * s // total for s in sections]
+    sizes[-1] = half - sum(sizes[:-1])
+    return sizes
+
+
+def apply_mrope(x, positions3, theta: float, sections=MROPE_SECTIONS):
+    """x (B, S, H, Dh); positions3 (B, S, 3) the (t, h, w) positions.
+    Frequency slot i rotates by ``pos[section(i)] * freqs[i]`` in f32;
+    with three equal streams this is ``apply_rope`` exactly."""
+    dt = x.dtype
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    sec_id = torch.cat([torch.full((n,), i, dtype=torch.int64,
+                                   device=x.device)
+                        for i, n in enumerate(mrope_sizes(half, sections))])
+    pos = positions3.to(torch.float32)[..., sec_id]          # (B, S, half)
+    ang = pos * freqs
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.to(torch.float32).split(half, dim=-1)
@@ -232,7 +268,8 @@ def attn_init(gen, cfg, dtype, device, count: int):
 
 def attn_qkv(p, cfg, x, positions, *, theta: float = 0.0):
     """q/k/v projections, q/k rmsnorm over the head dim (``qk_norm``),
-    then rope at ``theta`` (the layer's own; ``cfg.rope_theta`` if 0)."""
+    then rope at ``theta`` (the layer's own; ``cfg.rope_theta`` if 0):
+    ``positions`` (B, S), or (B, S, 3) under ``m_rope``."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     theta = theta or cfg.rope_theta
@@ -242,14 +279,18 @@ def attn_qkv(p, cfg, x, positions, *, theta: float = 0.0):
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
+    rope = apply_mrope if cfg.m_rope else apply_rope
+    return rope(q, positions, theta), rope(k, positions, theta), v
 
 
 def attn_apply(p, cfg, x, positions, *, window: int = 0, causal: bool = True,
                theta: float = 0.0):
-    """Full-sequence attention (train / prefill).  Returns (y, (k, v))."""
+    """Full-sequence attention (train / prefill).  Returns (y, (k, v)).
+    Under ``m_rope`` the mask reads the t stream, ``positions[..., 0]``
+    (patches of one image share t = 0, so they attend to one another)."""
     q, k, v = attn_qkv(p, cfg, x, positions, theta=theta)
-    o = attention(q, k, v, positions, positions, window=window,
+    pos1 = positions[..., 0] if cfg.m_rope else positions
+    o = attention(q, k, v, pos1, pos1, window=window,
                   causal=causal, attn_softcap=cfg.attn_softcap)
     y = dense(p["wo"], o.reshape(x.shape[0], x.shape[1], -1))
     return y, (k, v)
@@ -278,10 +319,14 @@ def attn_decode(p, cfg, x, pos, k_cache, v_cache, *, window: int = 0,
     most its window (``window > 0 and C <= window``) is a ring: each
     row's new key and value go to row ``pos % C``; any other cache is
     linear, written at ``min(pos, C-1)`` (the reference's clamped
-    ``dynamic_update_slice``).  Returns y (B,1,d)."""
+    ``dynamic_update_slice``).  Under ``m_rope`` the new token rotates
+    at ``pos`` on all three streams, as in the reference, built on the
+    device (no host sync in a captured step).  Returns y (B,1,d)."""
     B = x.shape[0]
     positions = pos[:, None].to(torch.int32)
-    q, k, v = attn_qkv(p, cfg, x, positions, theta=theta)
+    rope_pos = positions[..., None].expand(B, 1, 3) if cfg.m_rope \
+        else positions
+    q, k, v = attn_qkv(p, cfg, x, rope_pos, theta=theta)
     C = k_cache.shape[1]
     ring = window > 0 and C <= window
     rows = torch.arange(B, device=x.device)
@@ -305,7 +350,8 @@ def attn_prefill_chunk(p, cfg, x, qpos, k_ctx, v_ctx, ctx_kpos, *,
     k_ctx/v_ctx (B,T,KV,Dh) the already-cached context; ctx_kpos (B,T)
     the context rows' absolute key positions (< 0 = unwritten, masked).
     Linear caches only.  Returns (y (B,C,d), k, v) with k/v (B,C,KV,Dh)
-    the chunk's new cache rows for the caller to store."""
+    the chunk's new cache rows for the caller to store.  1-D rope only:
+    the paged engine that calls it refuses m-rope."""
     B, C = x.shape[:2]
     q, k, v = attn_qkv(p, cfg, x, qpos, theta=theta)
     k_all = torch.cat([k_ctx.to(q.dtype), k.to(q.dtype)], dim=1)

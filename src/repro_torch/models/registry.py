@@ -1,5 +1,7 @@
-"""Model registry: one uniform API per architecture family (the dense and
-MoE families share the transformer; ``ssm`` is xLSTM, ``hybrid`` the
+"""Model registry: one uniform API per architecture family (the dense,
+MoE and VLM families share the transformer, the VLM's ``prefill`` and
+``train_loss`` reading ``batch["patch_embeds"]`` and
+``batch["positions"]`` when given; ``ssm`` is xLSTM, ``hybrid`` the
 Zamba2 Mamba-2 / shared-attention stack, ``encdec`` the seamless-m4t
 encoder-decoder, whose ``prefill`` reads ``batch["src_embeds"]``).
 
@@ -14,7 +16,8 @@ encoder-decoder, whose ``prefill`` reads ``batch["src_embeds"]``).
 
 A family without ``prefill_chunk`` (xLSTM, the hybrid and enc-dec, as in
 the reference) is served from the dense slot-major cache
-(``serving.paged.paged_supported``).
+(``serving.paged.paged_supported``), and so is the VLM: m-rope and patch
+inputs are not paged.
 """
 
 from __future__ import annotations

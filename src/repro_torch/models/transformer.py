@@ -1,13 +1,16 @@
-"""Decoder-only transformer, dense and MoE families — the part of
-``repro/models/transformer.py`` the serving and training slices run:
-every dense configuration of the reference (h2o-danube's sliding window,
-gemma3's 5:1 local/global pattern with per-layer rope theta, qk-norm,
-sandwich norm, sqrt(d) embedding scale and soft-capping, command-r's
-parallel blocks, biases, an untied head) and the MoE one (grok-1's 8
-experts, kimi-k2's 384 with a shared expert and a first dense layer),
-whose FFN is ``models/moe.py``'s local capacity path.  The forward sums
-each MoE layer's load-balance term; ``train_loss`` adds ``LB_COEF`` times
-its mean over the layers, as the reference does.
+"""Decoder-only transformer: the dense, MoE and VLM families of
+``repro/models/transformer.py``.  Every dense configuration of the
+reference (h2o-danube's sliding window, gemma3's 5:1 local/global pattern
+with per-layer rope theta, qk-norm, sandwich norm, sqrt(d) embedding
+scale and soft-capping, command-r's parallel blocks, biases, an untied
+head), the MoE one (grok-1's 8 experts, kimi-k2's 384 with a shared
+expert and a first dense layer), whose FFN is ``models/moe.py``'s local
+capacity path, and Qwen2-VL's backbone: stubbed patch embeddings
+(``batch["patch_embeds"]``, (B, Np, patch_dim)) projected by
+``patch_proj`` and prepended to the tokens, with m-rope over
+``batch["positions"]`` (B, Np + S, 3).  The forward sums each MoE layer's
+load-balance term; ``train_loss`` adds ``LB_COEF`` times its mean over
+the layers, as the reference does.
 
 Params are stacked ``(count, ...)`` per pattern position exactly as in the
 reference (``params["groups"][g][j]`` holds ``count`` layers), so leaf
@@ -53,15 +56,10 @@ class LayerDesc(NamedTuple):
 
 
 def check_supported(cfg) -> None:
-    """Raise for what the transformer does not run: a family other than
-    dense and MoE (the registry sends ``ssm``, ``hybrid`` and ``encdec``
-    to their own modules; the VLM is not ported), m-rope and patch
-    inputs (ROADMAP.md queue 1)."""
-    if cfg.family not in ("dense", "moe"):
+    """Raise for a family the transformer does not run: the registry
+    sends ``ssm``, ``hybrid`` and ``encdec`` to their own modules."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
-    on = [name for name in ("m_rope", "patch_dim") if getattr(cfg, name)]
-    if on:
-        raise NotImplementedError(f"model options not ported: {on}")
 
 
 def derive_groups(cfg) -> Tuple[Tuple[int, Tuple[LayerDesc, ...]], ...]:
@@ -136,9 +134,11 @@ def init_block(gen, cfg, desc: LayerDesc, dt, device, count: int) -> dict:
 
 def init_lm(cfg, seed: int, device) -> dict:
     """Random params from ``seed`` (the port's own generator; values differ
-    from the reference's ``init_lm``, shapes, dtypes and paths do not)."""
+    from the reference's ``init_lm``, shapes, dtypes and paths do not).
+    On the meta device only the shapes and dtypes are built."""
     dt = _dtype(cfg.param_dtype)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None if torch.device(device).type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt,
                                     device),
               "final_norm": L.rmsnorm_init(cfg.d_model, dt, device)}
@@ -148,6 +148,9 @@ def init_lm(cfg, seed: int, device) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
                                       device)
+    if cfg.patch_dim:
+        params["patch_proj"] = L.dense_init(gen, cfg.patch_dim, cfg.d_model,
+                                            dt, device, bias=True)
     return params
 
 
@@ -165,6 +168,34 @@ def _embed(params, cfg, tokens):
     if scale != 1.0:
         x = x * torch.tensor(scale, dtype=x.dtype).item()
     return x
+
+
+def _embed_inputs(params, cfg, batch):
+    """The reference's ``_embed_inputs``: the token embedding, and under
+    ``patch_dim`` with ``patch_embeds`` in the batch the patches cast to
+    the compute dtype, projected by ``patch_proj`` and prepended, the
+    loss mask zero over them.  Positions are ``batch["positions"]`` when
+    given, else ``arange`` ((B, S), or three equal streams (B, S, 3)
+    under ``m_rope``).  Returns (x, positions, loss_mask or None)."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    x = _embed(params, cfg, tokens)
+    mask = batch.get("loss_mask")
+    if cfg.patch_dim and "patch_embeds" in batch:
+        patches = L.dense(params["patch_proj"],
+                          batch["patch_embeds"].to(x.dtype))
+        x = torch.cat([patches, x], dim=1)
+        Np = patches.shape[1]
+        zeros = torch.zeros((B, Np), dtype=torch.float32, device=x.device)
+        mask = torch.cat([zeros, torch.ones(tokens.shape, dtype=torch.float32,
+                                            device=x.device)
+                          if mask is None else mask.to(torch.float32)], 1)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = L.make_positions(B, x.shape[1], x.device)
+        if cfg.m_rope:
+            positions = torch.stack([positions] * 3, dim=-1)
+    return x, positions, mask
 
 
 # ---------------------------------------------------------------------------
@@ -340,32 +371,32 @@ def chunked_ce(params, cfg, hidden, targets, mask=None, chunk=LOSS_CHUNK):
 
 
 def train_loss(params, cfg, batch, *, remat: bool = False):
-    """batch: tokens (B,S), targets (B,S) [, loss_mask].  Returns
-    (loss, metrics) with the reference's metric keys: with experts the
-    loss adds ``LB_COEF`` times the mean load-balance term over the
-    layers, and ``lb`` reports the sum."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = _embed(params, cfg, tokens)
-    positions = L.make_positions(B, S, x.device)
+    """batch: tokens (B,S), targets (B,S) [, loss_mask, patch_embeds,
+    positions].  Returns (loss, metrics) with the reference's metric
+    keys: with experts the loss adds ``LB_COEF`` times the mean
+    load-balance term over the layers, and ``lb`` reports the sum.  With
+    patches the targets are padded at the front with ``Np`` labels the
+    mask ignores."""
+    x, positions, mask = _embed_inputs(params, cfg, batch)
+    targets = batch["targets"]
+    if x.shape[1] > targets.shape[1]:
+        targets = F.pad(targets, (x.shape[1] - targets.shape[1], 0))
     hidden, lb, _ = forward(params, cfg, x, positions, remat=remat)
-    ce = chunked_ce(params, cfg, hidden, batch["targets"],
-                    batch.get("loss_mask"))
+    ce = chunked_ce(params, cfg, hidden, targets, mask)
     loss = ce + LB_COEF * lb / max(cfg.n_layers, 1) if cfg.n_experts \
         else ce
     return loss, {"ce": ce, "lb": lb}
 
 
 def prefill(params, cfg, batch, *, max_len: Optional[int] = None):
-    """Build a decode cache from a full prompt.  batch["tokens"] (B, S).
-    Each layer's cache holds ``cache_capacity(desc, max_len or S)`` rows.
-    Returns (last-position logits (B, V), cache)."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    """Build a decode cache from a full prompt.  batch["tokens"] (B, P)
+    [, patch_embeds (B, Np, patch_dim), positions (B, Np + P, 3)]: S =
+    Np + P rows.  Each layer's cache holds ``cache_capacity(desc,
+    max_len or S)`` rows and ``pos`` is S.  Returns (last-position logits
+    (B, V), cache)."""
+    x, positions, _ = _embed_inputs(params, cfg, batch)
+    B, S = x.shape[:2]
     max_len = max_len or S
-    x = _embed(params, cfg, tokens)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None, :].expand(B, S)
     hidden, _, caches = forward(
         params, cfg, x, positions, collect_cache=True,
         cache_sizes=lambda desc: cache_capacity(desc, max_len))

@@ -55,14 +55,19 @@ off-mesh ``repro/serving/engine.py``.
   decoding lanes.  Chunks equal monolithic prefill in tokens, not bits
   (another reduction order), as in the reference.
 * **Per-request features.**  A request's ``features`` (enc-dec's
-  ``src_embeds``, (1, Ss, frontend_dim)) go to ``prefill`` beside its
-  prompt, at admission and at every prefix replay (an evicted request
-  re-encodes its source).  The slot's position is the prefilled cache's
-  ``pos`` (the prompt's length; 1 for enc-dec, whose prefill decodes BOS
-  at position 0).  Held to the oracle, not the reference: a source whose
-  length is not the cache's memory rows (``max_len``) is refused with
-  ``AdmissionError``, where the reference attends to stale memory rows
-  or raises.
+  ``src_embeds``, (1, Ss, frontend_dim); the VLM's ``patch_embeds``,
+  (1, Np, patch_dim), and its m-rope ``positions``, (1, Np + P, 3)) go
+  to ``prefill`` beside its prompt, at admission and at every prefix
+  replay (an evicted request re-encodes its source or re-projects its
+  patches).  The slot's position is the prefilled cache's ``pos`` (the
+  prompt's length; Np + P for the VLM, whose patches take the first
+  rows; 1 for enc-dec, whose prefill decodes BOS at position 0).  Held
+  to the oracle, not the reference: a source whose length is not the
+  cache's memory rows (``max_len``) is refused with ``AdmissionError``,
+  where the reference attends to stale memory rows or raises; a VLM
+  request is refused unless Np + P + 1 + max_new fits ``max_len`` (the
+  reference does not count the patch rows, and its decode overwrites
+  the cache's last row) and its ``positions`` cover Np + P rows.
 * **Slot-isolated recovery.**  On a fault ``plan_serving_recovery``
   evicts only the injured slots (a prefilling slot too); they re-enter
   the queue front and are rebuilt by prefix replay (prefill + forced
@@ -624,10 +629,16 @@ class ServingEngine:
 
     def check_admissible(self, rq: Request) -> None:
         """Typed rejection of a request whose worst-case footprint can
-        never fit: the block budget (paged) or ``max_len`` (dense); and
-        of an enc-dec request whose ``src_embeds`` do not fill the slot's
-        encoder memory of ``max_len`` rows exactly."""
-        need = len(rq.prompt) + 1 + rq.max_new_tokens
+        never fit: the block budget (paged) or ``max_len`` (dense), a
+        VLM request's patch rows counted; of an enc-dec request whose
+        ``src_embeds`` do not fill the slot's encoder memory of
+        ``max_len`` rows exactly; and of a VLM request whose
+        ``patch_embeds`` are not (1, Np, patch_dim) or whose
+        ``positions`` are not (1, Np + P, 3)."""
+        rows = len(rq.prompt)
+        if self.m.patch_dim:
+            rows += self._check_vlm_features(rq)
+        need = rows + 1 + rq.max_new_tokens
         if self._mem_rows:
             src = rq.features.get("src_embeds")
             want = (1, self._mem_rows, self.m.frontend_dim)
@@ -641,8 +652,9 @@ class ServingEngine:
             if need > self.max_len:
                 raise AdmissionError(
                     f"rid={rq.rid}: needs {need} positions (prompt "
-                    f"{len(rq.prompt)} + 1 + max_new {rq.max_new_tokens}),"
-                    f" slot capacity is {self.max_len}")
+                    f"{len(rq.prompt)}, patches {rows - len(rq.prompt)}, "
+                    f"+ 1 + max_new {rq.max_new_tokens}), slot capacity "
+                    f"is {self.max_len}")
             return
         nb = pgd.blocks_needed(len(rq.prompt), rq.max_new_tokens,
                                self.block_size)
@@ -655,6 +667,27 @@ class ServingEngine:
             raise AdmissionError(
                 f"rid={rq.rid}: needs {nb} blocks, whole pool holds "
                 f"{self.alloc.capacity}")
+
+    def _check_vlm_features(self, rq: Request) -> int:
+        """The patch rows ``Np`` of a VLM request (0 without patches),
+        after its features' shapes are checked: ``patch_embeds`` (1, Np,
+        patch_dim), ``positions`` (1, Np + P, 3) when given."""
+        patches = rq.features.get("patch_embeds")
+        n = 0
+        if patches is not None:
+            n = int(patches.shape[1]) if patches.ndim == 3 else -1
+            if tuple(patches.shape) != (1, n, self.m.patch_dim):
+                raise AdmissionError(
+                    f"rid={rq.rid}: patch_embeds {tuple(patches.shape)}, "
+                    f"want (1, Np, {self.m.patch_dim})")
+        positions = rq.features.get("positions")
+        want = (1, n + len(rq.prompt), 3)
+        if positions is not None and tuple(positions.shape) != want:
+            raise AdmissionError(
+                f"rid={rq.rid}: positions {tuple(positions.shape)}, the "
+                f"prefill's {n} patch + {len(rq.prompt)} prompt rows take "
+                f"{want}")
+        return n
 
     def _prompt(self, tokens) -> torch.Tensor:
         return torch.from_numpy(
