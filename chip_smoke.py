@@ -90,11 +90,11 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
 7. the training path: full-width iterpro-100m through
    ``repro_torch.launch.train.train`` — batch 8, seq 128, 20 steps,
    snapshot every 4, canary K=1, a disk checkpoint every 10 steps, TF32
-   off, deterministic algorithms on — once clean, once with a bit flip in
-   the params every 6 steps and once in the ``iv`` block.  Asserts
-   detected == injected == recovered > 0, recovery rate 1, the params
-   storm's final state bitwise equal to the clean run's, the ``iv`` storm
-   repaired through ``eq1``; then the ``replica_vote`` rung
+   off, deterministic algorithms on — once clean and once with a bit
+   flip in the params every 6 steps (no ``iv`` storm since PR 25, the
+   time cut: 13c and 14 hold one, through ``eq1``).  Asserts detected ==
+   injected == recovered > 0, recovery rate 1, the params storm's final
+   state bitwise equal to the clean run's; then the ``replica_vote`` rung
    (``RecoveryRuntime(replicas=...)``) on a flipped embedding leaf and
    the ``checkpoint`` rung from the storm's checkpoint, both bitwise
    against the clean state, and a corrupted checkpoint refused at load.
@@ -102,8 +102,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    ``pack_rows`` alone at the training canary's shape (41 leaves, 1.201
    GB) bitwise against its plain version and timed beside its bound, ``_foreach_copy_`` and a contiguous ``copy_``, and
    ``row_checksums`` over the whole 2.402 GB check+arm buffer; then a
-   profiled window of 4 steady train steps, without and with the parity
-   attached;
+   profiled window of 4 steady train steps (with the parity attached
+   only in 7j since PR 25, the time cut);
 7d. the parity path: the params storm again with ``parity=True`` (same
    settings).  Asserts detected == injected == recovered > 0, only the
    ``parity_xor`` and ``replay`` rungs, at least one ``parity_xor``, and
@@ -112,7 +112,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    repaired by ``parity_xor`` alone (0 steps replayed, bitwise), and 4
    canary steps whose incrementally kept parity equals a fresh build;
 7f. the training modes at phase 7's settings: ``--donate`` clean and
-   under the params storm, and the iv storm under ``--donate``.  Asserts
+   under the params storm (no donated iv storm since PR 25, the time
+   cut).  Asserts
    the clean final state bitwise equal to the functional clean run's,
    each storm's to its clean run's, detected == injected == recovered,
    replay only under donation (never eq1) (the K=1
@@ -221,7 +222,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        shared expert; ``gather_blocks`` on its head width of 112 bitwise;
    9e. grok-1-314b trained at full width and 1 of its 64 layers with
        Adafactor (bf16 factored stats), microbatch 8, global batch 8 x
-       128, K=4, ``--donate``, 4 steps, clean (one disk checkpoint);
+       128, K=4, ``--donate``, 4 steps, clean (no disk checkpoint since
+       PR 25, the time cut: 12c holds a round trip, 7b the rung);
        host step p50 and the steady peak (no device profile of the
        step: the time cut);
        then ``--donate --fused-detect`` clean and under flips in the
@@ -257,9 +259,9 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        (``parity_xor``, == clean bitwise); ``--donate --fused-detect`` at
        K=4 clean (8 graphs, == the functional clean run) and under an
        armed-slice storm (replay, == clean) (the runs print the
-       functional host p50; no iv storm, held in 7a and 13c, and no
-       checkpoint round trip or donate+fused profile, held in 12c: the
-       time cuts);
+       functional host p50; no iv storm, held in 13c and 14, and no
+       checkpoint round trip or donate+fused profile (7a-7b hold the
+       checkpoint, 12c the profile): the time cuts);
    10d. the launches of ``pack_rows``, ``row_checksums``,
        ``checksum_tiles``, ``xor_update_tiles`` and ``xor_fold_tiles`` on
        phase 10's paths (each > 0);
@@ -305,8 +307,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        (AdamW with f32 moments, remat, batch 8 x 128 with 64 source
        frames), the memory of the runs reckoned first: clean, the
        ``--parity`` storm, the donate+fused clean run (no iv or
-       armed-slice storm, held in 10c and 13c: the time cut), a
-       checkpoint written and read back bitwise, then the
+       armed-slice storm, held in 10c and 13c: the time cut; no
+       checkpoint round trip since PR 25, held in 7a-7b), then the
        donate+fused hot path's host step p50, device busy and kernels a
        step (one profiled step) and steady peak;
    12d. the launches of 10d's kernels on phase 12's paths (each > 0);
@@ -342,6 +344,20 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        iv storm, the donate+fused clean run and its armed-slice storm; no
        checkpoint or profile (12c holds them);
    13d. the launches of 10d's kernels on phase 13's paths (each > 0);
+14. resilient training on a device mesh: iterpro-100m at full width and
+   depth (f32, seed 0) on a 2 x 2 mesh, 4 ranks spawned by
+   ``launch.mesh.spawn`` sharing the card over gloo (each holding its own
+   blocks of the state), batch 8 x 128, K=1, a snapshot every 2 steps,
+   3 steps a run through ``train(mesh="2,2")``: clean; a params flip
+   every step (step 1 has no version-matched snapshot: replay; step 2
+   has: shard_patch, its bytes exactly the injured blocks'); an iv storm
+   (eq1) with a disk checkpoint at step 0; every storm's final blocks
+   bitwise the clean run's on every rank; each rank's launches
+   (``pack_rows``, ``row_checksums``; rank 0 ``checksum_tiles``), its
+   ``pack_rows`` and ``row_checksums`` bitwise their plain versions on
+   its own blocks, a steady check's STATS (1, 1), the mesh step's host
+   p50, recovery ms by rung and the step's three parts timed alone
+   (gather the params, forward + backward, the grads' mean);
    then one JSON line describing every kernel (the 8 ports, the layout
    kernel ``flash_layout_kv`` of the flash port, ``pack_rows`` at 8f's
    two shapes and at 9a's 1-byte canary), then the device line.
@@ -1340,33 +1356,28 @@ def train_run(torch, cfg, name, slices: int = 1, **kw):
 
 
 def run_training(torch, cfg):
-    """Phase 7a: clean, params-storm and iv-storm runs of the training
-    entry point; returns {name: (summary, final state)}."""
+    """Phase 7a: clean and params-storm runs of the training entry point
+    (no iv storm since PR 25, the time cut: 13c and 14 hold one, through
+    eq1); returns {name: (summary, final state)}."""
     from repro_torch.tree import leaves
     runs = {}
     for name, kw in (("clean", {}),
-                     ("params storm", dict(inject_every=T_INJECT)),
-                     ("iv storm", dict(inject_every=T_INJECT,
-                                       inject_target="iv"))):
+                     ("params storm", dict(inject_every=T_INJECT))):
         runs[name] = train_run(torch, cfg, name, **kw)
     clean, clean_state = runs["clean"]
     assert clean["steps"] == T_STEPS and clean["faults_detected"] == 0
     assert clean["recovery"]["events"] == 0
-    for name in ("params storm", "iv storm"):
+    for name in ("params storm",):
         out, state = runs[name]
         assert out["steps"] == T_STEPS, out
         assert out["faults_injected"] > 0, out
         assert out["faults_detected"] == out["faults_injected"], out
         assert out["faults_recovered"] == out["faults_detected"], out
         assert out["recovery"]["recovery_rate"] == 1.0, out
-    assert runs["iv storm"][0]["recovery"]["by_rung"] == {
-        "eq1": runs["iv storm"][0]["faults_detected"]}
     assert _same_state(torch, runs["params storm"][1], clean_state), \
         "params storm final state differs from the clean run's"
     print(f"[train] params storm final state == clean final state, bitwise "
-          f"({sum(t.numel() for t in leaves(clean_state))} elements); "
-          f"iv storm == clean: "
-          f"{_same_state(torch, runs['iv storm'][1], clean_state)}")
+          f"({sum(t.numel() for t in leaves(clean_state))} elements)")
     return runs
 
 
@@ -1677,7 +1688,7 @@ MODES = (("donate", dict(donate=True)),)
 
 def run_modes(torch, cfg, runs):
     """Phase 7f: ``--donate`` at phase 7's settings, clean and under the
-    params storm, and the iv storm under donation; then the K=4 modes.
+    params storm; then the K=4 modes.
     The clean final state must be bitwise the functional clean run's,
     each storm's its clean run's, detected == injected == recovered;
     donation recovers by replay only."""
@@ -1699,15 +1710,9 @@ def run_modes(torch, cfg, runs):
         del state
         print(f"[modes] {name}: clean final state == functional clean "
               f"state, storm final state == clean, bitwise")
-    out, state = train_run(torch, cfg, "donate iv storm", donate=True,
-                           inject_every=T_INJECT, inject_target="iv")
-    assert out["faults_detected"] == out["faults_injected"] > 0, out
-    assert out["recovery"]["by_rung"] == {"replay":
-                                          out["faults_detected"]}, out
-    assert _same_state(torch, state, clean_state)
-    del state
-    print("[modes] donate iv storm: replay only (never eq1), final state "
-          "== clean, bitwise")
+    # no donated iv storm since PR 25, the time cut: the donated replay
+    # is held by the donate params storm above, the donated ladder for an
+    # iv report by tests/test_torch_donate.py
     run_modes_k4(torch, cfg)
 
 
@@ -2912,7 +2917,8 @@ def _train_moe(torch, cfg, name, **kw):
 def train_grok(torch):
     """9e: grok-1-314b trained at full width and 1 of its 64 layers with
     Adafactor (bf16 factored stats), its microbatch 8 (global batch 8 x
-    128), K=4, ``--donate``, 4 steps, clean with one disk checkpoint.
+    128), K=4, ``--donate``, 4 steps, clean (no disk checkpoint since
+    PR 25: the time cut).
     Then ``--donate --fused-detect`` clean and under flips in the slice
     checked at their step (replay only), each bitwise the donated clean
     run, when the donated peak (which holds the plan's packing ring, the
@@ -2928,9 +2934,9 @@ def train_grok(torch):
     assert cfg.train.moment_dtype == "bfloat16"
     _phase_start(torch)
     held = torch.cuda.memory_allocated()
-    clean, state, peak = _train_moe(
-        torch, cfg, "train-grok clean", checkpoint_dir=str(WORK / "grok"),
-        checkpoint_interval=G_INTERVAL)
+    # no disk checkpoint since PR 25, the time cut (a 12 GiB state: 12c
+    # holds a checkpoint round trip at 8.4 GiB, 7b the checkpoint rung)
+    clean, state, peak = _train_moe(torch, cfg, "train-grok clean")
     clean_host = _host(torch, state)
     del state
     assert clean["faults_detected"] == 0 and clean["steps"] == M_STEPS
@@ -2939,7 +2945,7 @@ def train_grok(torch):
         "vr"].shape == (1, 8, 6144)
     shutil.rmtree(WORK, ignore_errors=True)
     launches = _phase_end(torch, "train-grok")
-    for kernel in ("pack_rows", "row_checksums", "checksum_tiles"):
+    for kernel in ("pack_rows", "row_checksums"):
         assert launches.get(kernel, 0) > 0, (kernel, launches)
     n_params = sum(t.numel() for t in leaves(clean_host["params"]))
     print(f"[train-grok] {n_params} params (bf16), Adafactor bf16 stats, "
@@ -3589,6 +3595,209 @@ def recurrent_phase(torch, phase: int, arch: str, serve_kw: dict,
           + f"; {time.perf_counter() - t0:.1f} s [{_SMI}]")
 
 
+MESH, MESH_STEPS = "2,2", 3    # phase 14: 4 ranks share the one card
+
+
+def _mesh_rank(steps: int, work: str, device: str = "cuda",
+               smoke: bool = False) -> dict:
+    """One rank of phase 14, a spawned process on ``cuda:0`` beside the
+    other three: three runs of ``train(mesh=...)`` (clean; a params flip
+    every step: the odd steps have no version-matched snapshot and
+    replay, the even ones take shard_patch; an iv storm, with a disk
+    checkpoint at step 0) with the launch counts of their kernels, then
+    this rank's
+    ``pack_rows`` and ``row_checksums`` against their plain versions on
+    its own blocks and one steady check's STATS.  ``device="cpu"`` and
+    ``smoke`` dry-run it on the CPU at the smoke size."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import digest as kd
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_context
+    from repro_torch.launch.specs import state_shardings
+    from repro_torch.launch.train import train
+    from repro_torch.train.loop import make_train_state
+    from repro_torch.tree import flatten_with_path, leaf_key
+    from repro_torch.tree import leaves as leaves_of
+
+    entered = time.time()
+    cfg = get_config("iterpro-100m")
+    seq = T_SEQ
+    if smoke:
+        cfg, seq = cfg.smoke(), 32
+    common = dict(steps=steps, global_batch=T_BATCH, seq_len=seq,
+                  canary_slices=1, snapshot_interval=2, mesh=MESH,
+                  device=device, verbose=False, return_state=True)
+    dev = torch.device(device, torch.cuda.current_device()) \
+        if device == "cuda" else torch.device(device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    plans = {"clean": {}, "params": dict(inject_every=1),
+             "iv": dict(inject_every=2, inject_target="iv",
+                        checkpoint_dir=work, checkpoint_interval=2 * steps)}
+    sync()
+    _build.LAUNCHES.clear()
+    runs, secs = {}, {}
+    for name, kw in plans.items():
+        t0 = time.perf_counter()
+        runs[name] = train(cfg, **common, **kw)
+        secs[name] = time.perf_counter() - t0
+    sync()
+    launches = dict(_build.LAUNCHES)
+    summaries = {n: r[0] for n, r in runs.items()}
+    clean = runs["clean"][1]
+    same = {name: _same_state(torch, clean, st)
+            for name, (_, st) in runs.items() if name != "clean"}
+    del runs
+
+    # the clean run's final state: this rank's blocks
+    local = clean
+    ctx = make_context(MESH, dev)
+    shardings, _ = state_shardings(ctx, cfg, make_train_state(
+        cfg, 0, global_batch=T_BATCH, device="meta"))
+    nbytes = {leaf_key(p): sh.nbytes_local
+              for p, sh in flatten_with_path(shardings)}
+    patches = summaries["params"]["recovery"]["shard_patches"]
+    patch_exact = bool(patches) and all(
+        e["bytes_moved"] == sum(nbytes[k] * len(ids)
+                                for k, ids in e["shards"].items())
+        for e in patches)
+    plan = kd.sharded_plan_for(local, ctx)
+    lay = plan.layout(tuple(range(plan.n_leaves)))
+    leaves = plan.leaves(local)
+    bk = torch.zeros(lay.padded_rows * ck.LANES, dtype=torch.int32,
+                     device=dev)
+    bp = bk.clone()
+    ck.pack_rows(bk, leaves, lay.starts)
+    ref.pack_rows_ref(bp, leaves, lay.starts)
+    rows = bk.view(-1, ck.LANES)
+    kernels = {"words": int(rows.numel()),
+               "pack_err": _max_err(torch, bk, bp),
+               "rows_err": _max_err(torch, ck.row_checksums(rows),
+                                    ref.row_checksums_ref(rows))}
+    canary = ChecksumCanary(local, n_slices=1, ctx=ctx)
+    kd.STATS.reset()
+    steady = canary.check_and_arm(0, local, local) is None
+    stats = kd.STATS.snapshot()
+    del canary, plan, bk, bp, rows
+
+    # where a mesh step's time goes: its three parts, each timed alone
+    # (host clock, synchronised; every rank in lockstep)
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.train.loop import make_train_step
+    pipe = TokenPipeline(cfg.model.vocab_size, seq, T_BATCH, seed=0)
+    rows_of = pipe.batch_at(0)["tokens"].shape[0] // ctx.dp_size
+    lo = (ctx.shard_id // ctx.tp_size) * rows_of
+    batch = {k: v[lo:lo + rows_of].to(ctx.device)
+             for k, v in pipe.batch_at(0).items()}
+    raw = make_train_step(cfg, global_batch=T_BATCH)
+
+    def timed(fn):
+        sync()
+        coll.barrier(ctx.device)
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    full, gather_ms = timed(lambda: gather_tree(local["params"],
+                                                shardings["params"]))
+    (_, _, grads), grad_ms = timed(lambda: raw.loss_and_grads(full, batch))
+    flat = torch.cat([g.reshape(-1) for g in leaves_of(grads)])
+    # the same bytes cross as in the step: each peer's half of the grads
+    _, mean_ms = timed(lambda: coll.sum_rows(coll.all_to_all(
+        flat, ctx.group(ctx.batch_axes))))
+    del full, grads, flat
+    return {
+        "shard": ctx.shard_id, "device": str(ctx.device),
+        "name": torch.cuda.get_device_name(ctx.device)
+        if device == "cuda" else "cpu",
+        "launches": launches, "secs": secs, "same": same,
+        "summaries": summaries, "entered": entered,
+        "patch_exact": patch_exact,
+        "local_bytes": sum(nbytes.values()), **kernels,
+        "steady": steady, "stats": stats,
+        "parts_ms": {"gather params": gather_ms, "forward+backward":
+                     grad_ms, "grad mean": mean_ms},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30
+        if device == "cuda" else 0.0}
+
+
+def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
+    """Phase 14: iterpro-100m at full width and depth (f32, seed 0) on a
+    2 x 2 mesh of 4 ranks sharing the card over gloo; batch 8 x 128, K=1,
+    a snapshot every 2 steps.  Every storm ends bitwise equal to the clean
+    run on every rank; shard_patch moves exactly the injured blocks'
+    bytes and an odd-step flip replays; every rank launches ``pack_rows``
+    and ``row_checksums`` (rank 0
+    also ``checksum_tiles``, the checkpoint's) and holds the first two
+    bitwise against their plain versions on its own blocks.
+    ``device="cpu"`` and ``smoke`` dry-run it on the CPU."""
+    from repro_torch.launch.mesh import spawn
+    if device == "cuda":
+        _phase_start(torch)
+    work = WORK / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    t0, t0_wall = time.perf_counter(), time.time()
+    ranks = spawn(_mesh_rank, (2, 2), (MESH_STEPS, str(work), device, smoke),
+                  device=device)
+    wall = time.perf_counter() - t0
+    up = max(r["entered"] for r in ranks) - t0_wall
+    shutil.rmtree(work, ignore_errors=True)
+    assert [r["shard"] for r in ranks] == [0, 1, 2, 3], ranks
+    assert all(r["device"] == ("cuda:0" if device == "cuda" else device)
+               for r in ranks), ranks
+    print(f"[mesh] iterpro-100m (12 layers, d 768, f32) on a 2 x 2 mesh: "
+          f"{len(ranks)} ranks on {ranks[0]['name']} ({ranks[0]['device']}) "
+          f"over gloo, batch {T_BATCH} x {T_SEQ}, {MESH_STEPS} steps a run, "
+          f"K=1, snapshot every 2; spawn + 3 runs + checks {wall:.1f} s "
+          f"(the last rank started {up:.1f} s after the spawn) [{_SMI}]")
+    for r in ranks:
+        sm = r["summaries"]
+        assert sm["clean"]["faults_injected"] == 0, sm["clean"]
+        for name in ("params", "iv"):
+            f = sm[name]
+            assert f["faults_injected"] > 0, (name, f)
+            assert f["faults_detected"] == f["faults_injected"], (name, f)
+            assert f["faults_recovered"] == f["faults_detected"], (name, f)
+            assert r["same"][name], f"{name} storm != clean on rank " \
+                                    f"{r['shard']}"
+        rung = {n: sm[n]["recovery"]["by_rung"] for n in sm}
+        # MESH_STEPS = 3: flips at 1 (no snapshot of version 1: replay) and
+        # 2 (the snapshot of version 2: shard_patch)
+        assert rung["params"] == {"replay": 1, "shard_patch": 1}, rung
+        assert rung["iv"] == {"eq1": 1}, rung
+        assert r["patch_exact"], sm["params"]["recovery"]["shard_patches"]
+        lc = r["launches"]
+        if device == "cuda":     # the CPU runs the plain versions
+            assert lc.get("pack_rows", 0) > 0 \
+                and lc.get("row_checksums", 0) > 0, lc
+            assert r["shard"] != 0 or lc.get("checksum_tiles", 0) > 0, lc
+        assert r["pack_err"] == 0 and r["rows_err"] == 0, r
+        assert r["steady"] and tuple(r["stats"]) == (1, 1), r
+        ms = {n: {k: round(v, 3) for k, v in
+                  sm[n]["recovery"]["p50_wall_ms_by_rung"].items()}
+              for n in ("params", "iv")}
+        moved = [e["bytes_moved"] for e in
+                 sm["params"]["recovery"]["shard_patches"]]
+        print(f"[mesh] rank {r['shard']}: mesh step host p50 "
+              f"{sm['clean']['p50_step_ms']:.1f} ms (clean), runs "
+              + ", ".join(f"{n} {v:.1f} s" for n, v in r["secs"].items())
+              + f"; recovery p50 ms by rung {ms}; shard_patch bytes "
+              f"{moved} of {r['local_bytes']} local state bytes; storms == "
+              f"clean bitwise; launches {lc}; pack_rows and row_checksums "
+              f"bitwise their plain versions on the rank's blocks "
+              f"({r['words']} words); steady check STATS {r['stats']}; "
+              f"a step's parts alone: "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                          r["parts_ms"].items())
+              + f"; peak {r['peak_gib']:.2f} GiB [{_SMI}]")
+
+
 def main() -> int:
     # deterministic cuBLAS for the training phase: read when the first
     # cuBLAS workspace is made, so before anything touches the card
@@ -3739,8 +3948,9 @@ def main() -> int:
         assert parity_launches.get(name, 0) > 0, f"{name} never launched"
     shutil.rmtree(WORK, ignore_errors=True)
     check_parity_recovery(torch, cfg, clean_state)
+    # no profile of the parity step here since PR 25, the time cut: 7j
+    # profiles the fused donated parity step, xor_update_tiles timed
     profile_train(torch, cfg, clean_state)
-    profile_train(torch, cfg, clean_state, parity=True)
     _stamp("phases 7a-7e")
 
     # -- the modes: --donate, --fused-detect, both; triage -----------------
@@ -3844,8 +4054,11 @@ def main() -> int:
 
     # -- phase 12: the enc-dec family at full width -----------------------
     s_layers = dict(n_layers=S_LAYERS, n_enc_layers=S_LAYERS)
+    # no checkpoint round trip since PR 25, the time cut (7a-7b hold the
+    # checkpoint: saved every 10 steps, loaded digest-verified by the
+    # rung, a corrupted one refused; 14 the mesh checkpoint)
     recurrent_phase(torch, 12, SEAMLESS, s_layers, s_layers,
-                    storms=("parity",), long=long_encdec)
+                    storms=("parity",), long=long_encdec, checkpoint=False)
     _stamp("phase 12")
 
     # -- phase 13: the VLM family at full width ---------------------------
@@ -3854,6 +4067,10 @@ def main() -> int:
                     patch_rows=Q_GRID ** 2, checkpoint=False, profile=False,
                     parity_kw=Q_PARITY)
     _stamp("phase 13")
+
+    # -- phase 14: resilient training on a 2 x 2 mesh ---------------------
+    mesh_phase(torch)
+    _stamp("phase 14")
 
     for name, r in train_kernels.items():
         kernels[name] = r

@@ -18,6 +18,12 @@ The save digests the DEVICE leaves on the caller's thread, before the
 host copy goes to the writer: a kernel launched from the writer thread
 would run on another stream, racing the next step.  The load uploads each
 leaf to the device of the state it restores into and digests it there.
+
+On a mesh (``ctx`` and the state's ``shardings``) every rank holds its
+own blocks: a save gathers the full state (collective) and rank 0 alone
+digests and writes it, in the same format as off the mesh; a restore
+waits for rank 0's writer, then every rank reads the file, verifies it
+and keeps its own blocks.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ import torch
 from repro_torch.core.faults import dtype_name
 from repro_torch.kernels import digest as kdigest
 from repro_torch.kernels import ops as kops
-from repro_torch.tree import flatten_with_path, leaf_key, map_with_path
+from repro_torch.tree import flatten_with_path, leaf_key, map_with_path, \
+    tree_map
 
 _MANIFEST = "manifest.json"
 
@@ -130,7 +137,11 @@ class CheckpointManager:
     commits."""
 
     def __init__(self, directory: str, interval: int = 100, *,
-                 async_write: bool = True):
+                 async_write: bool = True, ctx=None, shardings=None):
+        self.ctx = ctx if (ctx is not None and ctx.enabled) else None
+        if self.ctx is not None and shardings is None:
+            raise ValueError("a mesh checkpoint needs the state's shardings")
+        self.shardings = shardings
         self.directory = directory
         self.interval = max(1, interval)
         self.async_write = async_write
@@ -152,6 +163,13 @@ class CheckpointManager:
         from repro_torch.core.microcheckpoint import host_copy
 
         t0 = time.perf_counter()
+        if self.ctx is not None:
+            from repro_torch.distributed.sharding import gather_tree
+            state = gather_tree(state, self.shardings)
+            if self.ctx.shard_id != 0:        # rank 0 writes
+                self.save_seconds_blocking += time.perf_counter() - t0
+                self.saves += 1
+                return
         digests = tree_digests(state)          # device work, this thread
         host = host_copy(state)
         self.wait()                            # 1-deep pipeline
@@ -174,7 +192,16 @@ class CheckpointManager:
 
     def restore(self, like_state):
         self.wait()
-        return load_checkpoint(self.directory, like_state)
+        if self.ctx is None:
+            return load_checkpoint(self.directory, like_state)
+        from repro_torch.distributed import collectives as coll
+        from repro_torch.distributed.sharding import local_tree
+        coll.barrier(self.ctx.device)          # rank 0's write is done
+        like_full = tree_map(
+            lambda sh: torch.empty(sh.shape, dtype=sh.dtype,
+                                   device=self.ctx.device), self.shardings)
+        full, step = load_checkpoint(self.directory, like_full)
+        return local_tree(full, self.shardings), step
 
     def loader(self, like_state):
         """A zero-arg callable for ``RecoveryRuntime(checkpoint=...)``."""

@@ -35,6 +35,11 @@ from repro_torch.kernels import digest as kdigest
 from repro_torch.kernels.ops import rotating_slice
 from repro_torch.tree import tree_map
 
+#: the mesh slices still to come (ROADMAP.md queue 1, 'Mesh and elastic')
+MESH_FUSED = ("donate, fused detection and triage on the mesh (ROADMAP.md "
+              "queue 1, 'Mesh and elastic')")
+MESH_PARITY = "mesh parity (ROADMAP.md queue 1, 'Mesh and elastic')"
+
 #: window of the loss-spike trap; callers keep a bounded
 #: ``deque(maxlen=LOSS_WINDOW)`` history
 LOSS_WINDOW = 8
@@ -90,9 +95,10 @@ class FaultReport:
     detector: str
     leaves: List[str] = field(default_factory=list)  # suspected leaf paths
     detail: str = ""
-    #: leaf path -> injured shard ids.  Off the mesh a shard id is a
-    #: parity block id; only an external report fills it (the port's
-    #: canary attributes whole leaves).
+    #: leaf path -> injured shard ids: on a mesh the sharded canary's
+    #: (mesh-flat shard order, the same on every rank); off the mesh a
+    #: shard id is a parity block id, and only an external report fills
+    #: it (the single-device canary attributes whole leaves).
     shards: Dict[str, List[int]] = field(default_factory=dict)
     #: deferred attribution: the hot path fetches only the scalar flag;
     #: the mismatch mask stays on the device until ``resolve``
@@ -185,11 +191,23 @@ class ChecksumCanary:
       step overwrites it (one launch, one fetch).
 
     ``fuse_into_step`` moves the check and the arm inside the step
-    (``core/fused_step.py``)."""
+    (``core/fused_step.py``).
 
-    def __init__(self, tree, n_slices: int = 4):
+    On a mesh (``ctx`` enabled) ``tree`` is this rank's blocks of the
+    state and the canary goes shard-local: the plan is a
+    ``ShardedDigestPlan`` (every rank digests only its own blocks), each
+    rank's two tables are its rows of the reference's ``(n_shards, L,
+    2)`` pair, and the one fetched flag is the fault flag all-reduced
+    over the mesh, so every rank takes the same branch.  Only after it
+    fires is the per-(shard, leaf) mismatch mask gathered:
+    ``FaultReport.shards`` names each injured leaf's shard ids, the same
+    on every rank."""
+
+    def __init__(self, tree, n_slices: int = 4, ctx=None):
         self.n_slices = max(1, n_slices)
-        self.plan = kdigest.plan_for(tree)
+        self.ctx = ctx if (ctx is not None and ctx.enabled) else None
+        self.plan = kdigest.sharded_plan_for(tree, self.ctx) if self.ctx \
+            else kdigest.plan_for(tree)
         self._keys: Tuple[str, ...] = self.plan.keys
         table = self.plan.digest_table(tree)
         self._tables = [table, table.clone()]
@@ -210,6 +228,8 @@ class ChecksumCanary:
         parity of the armed tree (the donated pair sees one state version
         only), each committed as version ``step + 1``.  The store's plan
         must cover the same state structure."""
+        if self.ctx is not None:
+            raise NotImplementedError(f"not ported yet: {MESH_PARITY}")
         self._parity = store
 
     @property
@@ -231,14 +251,28 @@ class ChecksumCanary:
     def _attribute(self, chk: Sequence[int], bad_mask) -> List[str]:
         """Fault path only: fetch the mismatch mask (the one extra
         transfer) and name the corrupted leaf paths."""
+        return self._attribution(chk, bad_mask)[0]
+
+    def _attribution(self, chk: Sequence[int], bad_mask
+                     ) -> Tuple[List[str], Dict[str, List[int]]]:
+        """``_attribute`` and, on a mesh, each corrupted leaf's injured
+        shard ids: the mask is gathered to ``(n_shards, len(chk))`` first
+        (a collective every rank runs once the all-reduced flag fired)."""
+        if self.ctx is not None:
+            from repro_torch.distributed import collectives as coll
+            mask = kdigest.fetch(coll.all_gather(bad_mask.reshape(-1)))
+            shards = {self._keys[i]: [int(d) for d in
+                                      np.nonzero(mask[:, j])[0]]
+                      for j, i in enumerate(chk) if mask[:, j].any()}
+            return sorted(shards), shards
         mask = np.atleast_1d(kdigest.fetch(bad_mask))
-        return sorted(self._keys[i] for i, b in zip(chk, mask) if b)
+        return sorted(self._keys[i] for i, b in zip(chk, mask) if b), {}
 
     def _report(self, step: int, chk: Sequence[int], bad_mask,
                 read: torch.Tensor) -> FaultReport:
         self._fault_reference = read.clone()
-        return FaultReport(step, "checksum",
-                           leaves=self._attribute(chk, bad_mask))
+        leaves, shards = self._attribution(chk, bad_mask)
+        return FaultReport(step, "checksum", leaves=leaves, shards=shards)
 
     def _run(self, step: int, chk: Sequence[int], arm: Sequence[int],
              tree, armed_tree, parity: Optional[str],
@@ -330,6 +364,8 @@ class ChecksumCanary:
         ``aux`` fetched with the flag in the step's one transfer.  Returns
         a ``core.fused_step.FusedStepFactory``; drive it with
         ``factory.step(s, state, *args) -> (new_state, aux, report)``."""
+        if self.ctx is not None:
+            raise NotImplementedError(f"not ported yet: {MESH_FUSED}")
         from repro_torch.core.fused_step import FusedStepFactory
         return FusedStepFactory(step_fn, self, donate=donate, warm=warm,
                                 host_metrics=host_metrics)
@@ -339,7 +375,11 @@ class ChecksumCanary:
         fetch; meaningful right after init or refresh)."""
         table = self.plan.digest_table(tree)
         bad = (table != self.reference).any(dim=-1)
-        if bool(kdigest.fetch(bad.any())):
+        flag = bad.any()
+        if self.ctx is not None:
+            from repro_torch.distributed import collectives as coll
+            flag = coll.flag_max(flag)[0] > 0
+        if bool(kdigest.fetch(flag)):
             return self._report(step, range(len(self._keys)), bad,
                                 self.reference)
         return None

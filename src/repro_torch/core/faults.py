@@ -106,12 +106,26 @@ def flip_bit(t: torch.Tensor, element: int, bit: int) -> torch.Tensor:
     return t
 
 
-def inject(state, plan: InjectionPlan):
-    """Apply the plan to a train state IN PLACE; returns ``state``."""
-    tree = state[plan.target] if plan.target in ("params", "opt", "iv") \
-        else state
-    for path, leaf in flatten_with_path(tree):
-        if leaf_key(path) == plan.leaf:
-            flip_bit(leaf, plan.element, plan.bit)
-            return state
-    raise KeyError(f"leaf not found: {plan.leaf}")
+def inject(state, plan: InjectionPlan, shardings=None):
+    """Apply the plan to a train state IN PLACE; returns ``state``.
+
+    On a mesh ``state`` is this rank's blocks, ``shardings`` the state's
+    ``LeafSharding`` tree and ``plan.element`` a global flat index (a
+    plan sampled over the global shapes, ``sharding.global_struct``):
+    every rank whose block holds the element flips its copy, so a flip of
+    a replicated leaf lands on every shard, as an upset of the reference's
+    global array does."""
+    def pick(tree):
+        tree = tree[plan.target] if plan.target in ("params", "opt", "iv") \
+            else tree
+        return {leaf_key(p): x for p, x in flatten_with_path(tree)}
+    leaf = pick(state).get(plan.leaf)
+    if leaf is None:
+        raise KeyError(f"leaf not found: {plan.leaf}")
+    element = plan.element
+    if shardings is not None:
+        element = pick(shardings)[plan.leaf].local_index(plan.element)
+        if element is None:
+            return state           # another rank's block
+    flip_bit(leaf, element, plan.bit)
+    return state

@@ -11,6 +11,14 @@ The snapshot is ONE read of the live state (a real host copy); its
 digests are computed from that copy on the host (numpy uint32
 arithmetic, bit-identical to the device digest), so they certify exactly
 the bytes stored.
+
+On a mesh (``ctx`` and the state's ``shardings``) every rank snapshots
+its own blocks, and a snapshot also records, per leaf, the global index
+box of every shard id (``shard_slices``, shard order) and this rank's
+block digest (``shard_digests``: the digest of exactly the bytes the
+shard_patch rung would restore).  ``verify_shards`` certifies the named
+(leaf, shard) units this rank holds; the recovery runtime all-reduces
+every rank's verdict.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import digest as kdigest
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import flatten_with_path, leaf_key, leaves, tree_map
 
 
 def host_copy(tree):
@@ -41,14 +49,24 @@ class Snapshot:
     digests: Dict[str, np.ndarray]
     nbytes: int = 0                  # cached at snapshot time
     wall: float = field(default_factory=time.time)
+    #: mesh only: per leaf, the index box of every shard id, and this
+    #: rank's block digest (the rank's shard id is ``shard_id``)
+    shard_slices: Optional[Dict[str, List]] = None
+    shard_digests: Optional[Dict[str, np.ndarray]] = None
+    shard_id: int = 0
 
 
 class MicroCheckpointer:
     """Double-buffered host snapshots + per-step IV micro-checkpoints."""
 
-    def __init__(self, interval: int = 8, keep: int = 2):
+    def __init__(self, interval: int = 8, keep: int = 2, ctx=None,
+                 shardings=None):
         self.interval = max(1, interval)
         self.keep = max(1, keep)
+        self.ctx = ctx if (ctx is not None and ctx.enabled) else None
+        if self.ctx is not None and shardings is None:
+            raise ValueError("a mesh snapshot needs the state's shardings")
+        self.shardings = shardings
         self.snapshots: List[Snapshot] = []
         self.iv_log: Dict[int, Dict[str, int]] = {}
 
@@ -69,10 +87,18 @@ class MicroCheckpointer:
 
     def snapshot(self, step: int, state) -> None:
         host = host_copy(state)
+        digests = kdigest.host_tree_checksums(host)
+        slices = None
+        if self.ctx is not None:
+            slices = {leaf_key(p): kdigest.shard_indices(sh)
+                      for p, sh in flatten_with_path(self.shardings)}
         self.snapshots.append(Snapshot(
-            step=step, state=host,
-            digests=kdigest.host_tree_checksums(host),
-            nbytes=sum(t.numel() * t.element_size() for t in leaves(host))))
+            step=step, state=host, digests=digests,
+            nbytes=sum(t.numel() * t.element_size() for t in leaves(host)),
+            shard_slices=slices,
+            # a rank's block digest is its per-leaf digest
+            shard_digests=digests if slices is not None else None,
+            shard_id=self.ctx.shard_id if self.ctx is not None else 0))
         if len(self.snapshots) > self.keep:
             self.snapshots.pop(0)
 
@@ -85,6 +111,26 @@ class MicroCheckpointer:
         """Digest-verify a snapshot before trusting it for replay
         (exact-or-abort), host-side, no device upload."""
         return kdigest.host_verify_tree(snap.state, snap.digests)
+
+    def verify_shards(self, snap: Snapshot,
+                      shards: Dict[str, List[int]]) -> List[str]:
+        """Digest-verify the named (leaf, shard) units of a snapshot that
+        this rank holds — the shard_patch rung's exact-or-abort gate;
+        returns the ``"leaf@shard"`` names that fail (empty: certified).
+        Host-side, no device work."""
+        if snap.shard_slices is None or snap.shard_digests is None:
+            return sorted(f"{k}@{d}" for k, ds in shards.items() for d in ds)
+        host = {leaf_key(p): t for p, t in flatten_with_path(snap.state)}
+        bad = []
+        for key, ids in shards.items():
+            if snap.shard_id not in ids:
+                continue
+            ref = snap.shard_digests.get(key)
+            leaf = host.get(key)
+            if ref is None or leaf is None or not np.array_equal(
+                    kdigest.host_checksum(leaf), ref):
+                bad.append(f"{key}@{snap.shard_id}")
+        return sorted(bad)
 
     @property
     def memory_bytes(self) -> int:

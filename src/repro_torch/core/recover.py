@@ -35,9 +35,23 @@ ahead of everything under the same condition.  Every repair is written
 into the live tensors (``copy_``), never into new ones: the canary's pack
 schedules and the fused step's captured graphs read their addresses.
 
-Not ported yet, each aborting into the rest of the ladder with "not
-ported": shard_patch (rung 2) and remesh; the constructor arguments that
-would enable them raise ``NotImplementedError``.
+On a mesh (``shardings=``: the state's ``LeafSharding`` tree; every rank
+runs its own runtime over its own blocks) a report carrying (leaf, shard)
+attribution tries rung 2 first:
+
+    rung 2  shard_patch   restore ONLY the injured (leaf, shard) blocks
+                          from the version-matched snapshot; healthy
+                          blocks keep their storage, ``bytes_moved`` is
+                          the injured blocks' bytes
+
+The ranks climb the same ladder in lockstep: every rank-local verdict
+(the snapshot's certification, a rung's post-repair check) is
+all-reduced before any rank acts on it, so no rank takes a rung alone
+(a rank that replayed alone would hang the others in the step's
+collectives).  eq1 / opt_iv, replay and checkpoint run on the mesh;
+triage and parity_xor abort there naming their later slice.  Not ported
+yet: remesh (aborts "not ported"; its constructor argument raises
+``NotImplementedError``).
 
 ``plan_serving_recovery`` is the serving engine's policy:
 
@@ -65,7 +79,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.detect import ChecksumCanary, FaultReport, block_of_leaf
+from repro_torch.core.detect import (MESH_FUSED, MESH_PARITY,
+                                     ChecksumCanary, FaultReport,
+                                     block_of_leaf)
 from repro_torch.core.induction import IVRegistry, RecoveryAbort
 from repro_torch.core.microcheckpoint import MicroCheckpointer
 from repro_torch.core.parity import ParityStore
@@ -88,12 +104,15 @@ from repro_torch.kernels import ref as _ref
 # elements per int8-moment quantisation block: the pad tail of the last
 # block is dead
 from repro_torch.optim.optimizers import QBLOCK
-from repro_torch.tree import flatten_with_path, leaf_key, replace_leaves
+from repro_torch.tree import flatten_with_path, leaf_key, leaves, \
+    replace_leaves
 
 #: what each unported rung (and its constructor argument) waits for
 _NOT_PORTED = {
-    RUNG_SHARD: "shard_patch (ROADMAP.md queue 1, 'Mesh and elastic')",
-    RUNG_REMESH: "remesh (ROADMAP.md queue 1, 'Mesh and elastic')",
+    RUNG_REMESH: "remesh (ROADMAP.md queue 1, 'Mesh and elastic', the "
+                 "elastic slice)",
+    RUNG_TRIAGE: f"triage on the mesh: {MESH_FUSED}",
+    RUNG_PARITY: f"parity_xor on the mesh: {MESH_PARITY}",
 }
 
 #: triage epsilon certificate: a mantissa perturbation of an EMA moment is
@@ -152,7 +171,9 @@ class RecoveryRuntime:
                   the replay and checkpoint rungs write into its tensors
                   rather than allocating a third state version beside
                   the snapshot's and the step's (implied by ``donated``)
-    shardings, elastic : not ported; raise
+    shardings   : the mesh's ``LeafSharding`` tree of the state (this
+                  rank's blocks); enables shard_patch and lockstep
+    elastic     : not ported; raises
     """
 
     def __init__(self, *, step_fn, batch_fn, iv_registry: IVRegistry,
@@ -164,12 +185,12 @@ class RecoveryRuntime:
                  canary: Optional[ChecksumCanary] = None,
                  triage: bool = False, donated: bool = False,
                  reuse_state: bool = False, shardings=None, elastic=None):
-        unported = {"shardings": (shardings, _NOT_PORTED[RUNG_SHARD]),
-                    "elastic": (elastic, _NOT_PORTED[RUNG_REMESH])}
-        for name, (value, what) in unported.items():
-            if value:
-                raise NotImplementedError(f"RecoveryRuntime({name}=...): "
-                                          f"not ported yet: {what}")
+        if elastic:
+            raise NotImplementedError(
+                f"RecoveryRuntime(elastic=...): not ported yet: "
+                f"{_NOT_PORTED[RUNG_REMESH]}")
+        self.shardings = shardings
+        self.ctx = next(iter(leaves(shardings))).ctx if shardings else None
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.ivs = iv_registry
@@ -212,6 +233,8 @@ class RecoveryRuntime:
         re-certifies it, so exact-or-abort holds."""
         if not self.triage:
             raise RecoveryAbort("triage disabled")
+        if self.ctx is not None:
+            raise RecoveryAbort(f"not ported: {_NOT_PORTED[RUNG_TRIAGE]}")
         if self.canary is None:
             raise RecoveryAbort("triage needs a canary digest reference")
         if report.detector != "checksum":
@@ -402,6 +425,8 @@ class RecoveryRuntime:
         store = self.parity
         if store is None:
             raise RecoveryAbort("no parity maintained")
+        if self.ctx is not None:
+            raise RecoveryAbort(f"not ported: {_NOT_PORTED[RUNG_PARITY]}")
         if report.consumed:
             raise RecoveryAbort(
                 "faulting version consumed by the detecting step — "
@@ -496,14 +521,71 @@ class RecoveryRuntime:
         runtime may reuse them, else none (a new state)."""
         return state if self.reuse_state else None
 
+    def _agree(self, ok: bool) -> bool:
+        """``ok`` on every rank (the identity off the mesh): each rank-local
+        verdict goes through here before any rank acts on it."""
+        if self.ctx is None:
+            return ok
+        from repro_torch.distributed import collectives as coll
+        return coll.agree(ok, self.ctx.device)
+
+    def _rung_shard_patch(self, state, report: FaultReport, step: int):
+        """Restore ONLY the injured (leaf, shard) blocks from the snapshot.
+
+        Gates (abort → escalate, never guess): (leaf, shard) attribution
+        (the sharded canary's); live, undonated buffers; a VERSION-MATCHED
+        snapshot (``snap.step == step``: the canary certified the live
+        blocks against digests of this state version, and an older
+        snapshot would mix versions); and the injured units certified in
+        the snapshot on every rank that holds one.  Each rank replaces its
+        injured blocks with new tensors from its own snapshot; healthy
+        blocks (and every block of a rank the fault missed) keep their
+        storage.  ``bytes_moved`` counts the injured blocks' bytes over
+        the mesh, as the reference's host→device bytes."""
+        if self.ctx is None:
+            raise RecoveryAbort("no mesh: shard_patch needs shardings")
+        shards = dict(report.shards or {})
+        if not shards:
+            raise RecoveryAbort("no (leaf, shard) attribution")
+        if self.donated:
+            raise RecoveryAbort("donated buffers are dead — replay instead")
+        if all(k.startswith("iv/") for k in shards):
+            raise RecoveryAbort("IV block repairs via Eq.(1)")
+        snap = self.micro.latest(before=step)
+        if snap is None:
+            raise RecoveryAbort("no snapshot available")
+        if snap.step != step:
+            raise RecoveryAbort(
+                f"no version-matched snapshot (have step {snap.step}, "
+                f"fault is against version {step})")
+        rotten = self.micro.verify_shards(snap, shards)
+        if not self._agree(not rotten):
+            raise RecoveryAbort(f"snapshot shards failed verification: "
+                                f"{rotten[:3] or 'on another rank'}")
+        host = _by_key(snap.state)
+        sh = _by_key(self.shardings)
+        me = self.ctx.shard_id
+        patched: Dict[str, torch.Tensor] = {}
+        moved = units = 0
+        for key, ids in shards.items():
+            moved += sh[key].nbytes_local * len(ids)
+            units += len(ids)
+            if me in ids:
+                patched[key] = host[key].to(self.ctx.device, copy=True)
+        self._last_patched_bytes = moved
+        return replace_leaves(state, patched), (
+            f"patched {units} shard(s) of {len(shards)} leaf/leaves "
+            f"({moved} B moved) from snapshot @{snap.step}")
+
     def _rung_replay(self, state, report: FaultReport, step: int):
         """Replay from the newest digest-verified snapshot ≤ step."""
         snap = self.micro.latest(before=step)
         if snap is None:
             raise RecoveryAbort("no snapshot available")
         rotten = self.micro.verify(snap)
-        if rotten:
-            raise RecoveryAbort(f"snapshot failed verification: {rotten[:3]}")
+        if not self._agree(not rotten):
+            raise RecoveryAbort(f"snapshot failed verification: "
+                                f"{rotten[:3] or 'on another rank'}")
         res = replay(self.step_fn, self.batch_fn, snap.state, snap.step, step,
                      like_state=state, into=self._into(state))
         self._last_replayed = res.steps_replayed
@@ -527,7 +609,7 @@ class RecoveryRuntime:
         RUNG_TRIAGE: _rung_triage,
         RUNG_EQ1: _rung_eq1,
         RUNG_OPT_IV: _rung_eq1,     # same consensus engine, opt-IV ladder
-        RUNG_SHARD: _rung_not_ported,
+        RUNG_SHARD: _rung_shard_patch,
         RUNG_REPLICA: _rung_replica,
         RUNG_PARITY: _rung_parity,
         RUNG_REPLAY: _rung_replay,
@@ -562,12 +644,16 @@ class RecoveryRuntime:
             except RecoveryAbort as e:
                 ev.phase_seconds[rung] = time.perf_counter() - tr
                 ev.report.detail += f" | {rung}: {e}"
+                # on a mesh the other ranks learn of it here
+                self._agree(False)
                 continue
             bad = verify(cand)
             ev.phase_seconds[rung] = time.perf_counter() - tr
-            if bad:
-                # exact-or-abort: the repair did not certify — escalate
-                ev.report.detail += f" | {rung}: post-verify failed {bad[:2]}"
+            if not self._agree(not bad):
+                # exact-or-abort: the repair did not certify (on some
+                # rank) — every rank escalates
+                ev.report.detail += f" | {rung}: post-verify failed " \
+                                    f"{bad[:2] or 'on another rank'}"
                 continue
             if self.donated:
                 # the live tensors keep their addresses
@@ -611,6 +697,10 @@ class RecoveryRuntime:
             return [RUNG_OPT_IV, RUNG_REPLAY, RUNG_CHECKPOINT]
         ladder = [RUNG_EQ1, RUNG_REPLICA, RUNG_PARITY, RUNG_REPLAY,
                   RUNG_CHECKPOINT]
+        if report.shards and self.ctx is not None:
+            # mesh attribution: the byte-minimal shard patch first; its
+            # gates abort cleanly into the generic ladder
+            ladder.insert(0, RUNG_SHARD)
         if self._triage_applies(report):
             ladder.insert(0, RUNG_TRIAGE)
         return ladder
@@ -647,6 +737,10 @@ class RecoveryRuntime:
             # replay): the median wall time of each
             "p50_wall_ms_by_rung": {r: float(np.median(ms))
                                     for r, ms in ms_by_rung.items()},
+            # each shard_patch: the (leaf, shard) units and the bytes moved
+            "shard_patches": [{"shards": e.report.shards,
+                               "bytes_moved": e.bytes_moved}
+                              for e in rec if e.rung == RUNG_SHARD],
         }
 
 

@@ -8,6 +8,10 @@ deterministic steps — bit-exact on the same device (on the card the
 training entry point turns on PyTorch's deterministic algorithms, so the
 embedding and logits backward do not accumulate with atomics).
 
+On a mesh every rank replays its own blocks in lockstep through the mesh
+step: its snapshot holds those blocks, so the upload needs no
+shardings (the live blocks, ``like_state`` or ``into``, place them).
+
 A donated loop replays ``into`` its live state: the snapshot is copied
 into the live tensors and the steps (in place) run there, so the state
 keeps every ``data_ptr`` — the canary's pack schedules and the captured

@@ -1,0 +1,159 @@
+"""Every collective of the port goes through this module.
+
+The backend is chosen once, when the process group is made
+(``init_process_group``): ``nccl`` when every rank has a card of its own,
+else ``gloo`` — NCCL refuses two ranks on one card, so on a one-card
+machine the ranks of a mesh share ``cuda:0`` over gloo.
+
+Gloo and CUDA tensors.  A probe on the H100 (torch 2.11, CUDA 12.8, four
+ranks on one card) found that every collective this module calls —
+``all_reduce`` (SUM, MAX, MIN), ``all_gather``,
+``all_gather_into_tensor``, ``all_to_all_single``, ``broadcast`` — takes
+CUDA tensors under gloo
+and gives the right values (gloo copies them through the host itself).
+That finding is ``GLOO_CUDA_OPS``; the rule is static: a collective named
+there takes the tensor where it lies, any other is staged through a
+pinned host buffer (``_staged``).  Nothing here tries one path and falls
+back to another.
+
+The reductions of the mesh step are deterministic: a gather (or an
+all-to-all) in group-rank order followed by a sum in that order
+(``sum_rows``), so every rank of the group computes the same bits and a
+replay reproduces them.
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import List
+
+import torch
+import torch.distributed as dist
+
+#: collectives found to take CUDA tensors under gloo (H100 probe, torch
+#: 2.11): called on the card's tensors directly
+GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather",
+                           "all_gather_into_tensor", "all_to_all_single",
+                           "broadcast"})
+
+#: seconds a rank waits in a collective before it fails (a rank that took
+#: another branch would otherwise hang the mesh)
+TIMEOUT_S = 600
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
+
+
+def choose_backend(device_type: str, world: int, n_cards: int) -> str:
+    """``nccl`` when every rank has a card of its own, else ``gloo``."""
+    return "nccl" if device_type == "cuda" and n_cards >= world else "gloo"
+
+
+def init_process_group(rank: int, world: int, store_path: str,
+                       device: torch.device) -> str:
+    """Join the group through a file store (``file://store_path``): no
+    port to pick, so parallel runs never clash.  Returns the backend."""
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    backend = choose_backend(device.type, world, n_cards)
+    dist.init_process_group(
+        backend, init_method=f"file://{store_path}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    return backend
+
+
+def backend() -> str:
+    return dist.get_backend()
+
+
+def _staged(op: str, t: torch.Tensor) -> bool:
+    return t.is_cuda and backend() == "gloo" and op not in GLOO_CUDA_OPS
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return h.copy_(t)
+
+
+def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """In-place all-reduce of ``t`` (``op``: sum, max, min); returns
+    ``t``."""
+    if _staged("all_reduce", t):
+        h = _host(t)
+        dist.all_reduce(h, op=_OPS[op], group=group)
+        return t.copy_(h)
+    dist.all_reduce(t, op=_OPS[op], group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``(group size, *t.shape)``: every rank's ``t`` in group-rank
+    order."""
+    n = dist.get_world_size(group)
+    src = t.contiguous().reshape(-1)
+    shape = (n,) + tuple(t.shape)
+    if _staged("all_gather_into_tensor", src):
+        h = _host(src)
+        out = torch.empty(n * src.numel(), dtype=src.dtype)
+        dist.all_gather_into_tensor(out, h, group=group)
+        return out.to(t.device).view(shape)
+    # gloo takes the output flat: the ranks' inputs one after another
+    out = torch.empty(n * src.numel(), dtype=src.dtype, device=src.device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.view(shape)
+
+
+def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` cut into group-size equal parts, part ``q`` sent to group
+    rank ``q``; returns ``(group size, part)``: row ``p`` the part group
+    rank ``p`` sent here."""
+    n = dist.get_world_size(group)
+    src = t.contiguous().reshape(-1)
+    if _staged("all_to_all_single", src):
+        h = _host(src)
+        out = torch.empty_like(h)
+        dist.all_to_all_single(out, h, group=group)
+        return out.to(t.device).view(n, -1)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.view(n, -1)
+
+
+def sum_rows(rows: torch.Tensor) -> torch.Tensor:
+    """The rows of ``rows`` added in order (a new tensor)."""
+    acc = rows[0].clone()
+    for r in rows[1:]:
+        acc.add_(r)
+    return acc
+
+
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every group rank's ``t``, added in group-rank order:
+    the same bits on every rank, run after run."""
+    if dist.get_world_size(group) == 1:
+        return t
+    return sum_rows(all_gather(t, group))
+
+
+def flag_max(flag: torch.Tensor, group=None) -> torch.Tensor:
+    """A device flag (bool or int) as the int32 maximum over the group."""
+    return all_reduce(flag.to(torch.int32).reshape(1), "max", group)
+
+
+def agree(ok: bool, device: torch.device, group=None) -> bool:
+    """True only when ``ok`` holds on every rank: the one verdict every
+    rank acts on, so no rank takes a branch alone."""
+    v = torch.tensor([1 if ok else 0], dtype=torch.int32, device=device)
+    return bool(all_reduce(v, "min", group).item())
+
+
+def barrier(device: torch.device) -> None:
+    """A barrier that is an all-reduce on ``device`` (the rank's): gloo's
+    own barrier does not take a device."""
+    agree(True, device)
+
+
+def gather_objects(obj) -> List:
+    """Every rank's picklable ``obj``, in rank order (off the hot path)."""
+    out: List = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out

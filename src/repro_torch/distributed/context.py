@@ -1,0 +1,200 @@
+"""DistContext — the one object that knows how this program maps onto
+the device mesh; counterpart of ``repro/distributed/context.py``.
+
+The port runs a mesh as SPMD processes over ``torch.distributed``: one
+process per mesh device, each holding only its own blocks of the state.
+Rank ``r`` is shard id ``r``: ``init_device_mesh`` lays the ranks out
+row-major over the mesh axes, which is the reference's mesh-flat device
+order (``kernels/digest.mesh_device_order``), so the rank, the shard id
+of every sharded resilience artifact and the position in
+``device_order()`` are one number.
+
+A context has two states, as in the reference:
+
+* **local** (no axes, ``enabled == False``): every helper gives the
+  identity or size-1 answer; off-mesh code never branches on it.
+* **meshed**: ``axes`` names the mesh axes and their sizes (data / pod
+  parallelism in ``batch_axes``, tensor parallelism on ``model_axis``).
+  A context made by ``for_mesh`` holds a live ``DeviceMesh`` and the
+  process groups of every set of axes; one made by ``for_shape`` holds
+  only the shape (the reference's ``AbstractMesh``), enough for spec
+  generation and index boxes.
+
+``constrain`` / ``constrain_batch`` are the identity: the port's layout
+is explicit (``distributed/sharding.py`` gives every leaf its box), not a
+hint to a partitioner.  ``degrade`` (elastic remesh) is a later slice.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+import torch
+
+_ELASTIC = "elastic remesh (ROADMAP.md queue 1, 'Mesh and elastic', the " \
+           "elastic slice)"
+
+
+@dataclass(frozen=True)
+class DistContext:
+    #: ``((axis name, size), ...)`` in mesh order; empty off the mesh
+    axes: Tuple[Tuple[str, int], ...] = ()
+    batch_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    fsdp: bool = False
+    #: the live ``DeviceMesh`` (None for a shape-only context)
+    mesh: Optional[object] = field(default=None, compare=False)
+    #: this process's rank (== shard id); None for a shape-only context
+    rank: Optional[int] = None
+    #: this rank's device
+    device: torch.device = field(default=torch.device("cpu"),
+                                 compare=False)
+    #: frozenset of axis names -> this rank's process group over them
+    groups: Dict = field(default_factory=dict, compare=False, repr=False)
+
+    # -- construction ---------------------------------------------------
+
+    @classmethod
+    def local(cls) -> "DistContext":
+        return cls()
+
+    @classmethod
+    def for_shape(cls, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
+                  *, fsdp: bool = False) -> "DistContext":
+        """A mesh of this shape with no processes behind it — what spec
+        generation and the index boxes need."""
+        return cls(axes=tuple(zip(axis_names, (int(s) for s in shape))),
+                   batch_axes=_batch_axes(axis_names), fsdp=fsdp)
+
+    @classmethod
+    def for_mesh(cls, mesh, device: torch.device, *,
+                 fsdp: bool = False) -> "DistContext":
+        """The context of this rank on a live ``DeviceMesh``.  Collective:
+        every rank calls it (the groups of the multi-axis sets are made
+        here, in the same order on every rank)."""
+        import torch.distributed as dist
+        names = tuple(mesh.mesh_dim_names)
+        shape = tuple(int(s) for s in mesh.mesh.shape)
+        grid = mesh.mesh.reshape(shape)
+        rank = dist.get_rank()
+        groups = {frozenset(names): dist.group.WORLD}
+        for a in names:
+            groups[frozenset((a,))] = mesh.get_group(a)
+        for k in range(2, len(names)):
+            for sub in itertools.combinations(range(len(names)), k):
+                rest = [d for d in range(len(names)) if d not in sub]
+                perm = rest + list(sub)
+                lists = grid.permute(perm).reshape(
+                    -1, math.prod(shape[d] for d in sub)).tolist()
+                mine, _ = dist.new_subgroups_by_enumeration(lists)
+                groups[frozenset(names[d] for d in sub)] = mine
+        return cls(axes=tuple(zip(names, shape)),
+                   batch_axes=_batch_axes(names), fsdp=fsdp, mesh=mesh,
+                   rank=rank, device=device, groups=groups)
+
+    # -- the mesh's shape -------------------------------------------------
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.axes)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(a for a, _ in self.axes)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, in mesh order (the reference's
+        ``mesh.shape``)."""
+        return dict(self.axes)
+
+    def axis_size(self, axes) -> int:
+        """Product of the named axes' sizes; an axis the mesh lacks counts
+        as 1."""
+        if isinstance(axes, str):
+            axes = (axes,)
+        return math.prod(self.shape.get(a, 1) for a in axes)
+
+    @property
+    def dp_size(self) -> int:
+        return self.axis_size(self.batch_axes) if self.enabled else 1
+
+    @property
+    def tp_size(self) -> int:
+        return self.shape.get(self.model_axis, 1) if self.enabled else 1
+
+    @property
+    def n_devices(self) -> int:
+        """Mesh size: the shard count of every sharded resilience
+        artifact."""
+        return math.prod(s for _, s in self.axes) if self.enabled else 1
+
+    def device_order(self) -> Tuple[int, ...]:
+        """Ranks in mesh-flat (row-major over the axes) order: shard id
+        ``d`` is the rank at position ``d``."""
+        if self.mesh is None:
+            return tuple(range(self.n_devices))
+        return tuple(int(r) for r in self.mesh.mesh.reshape(-1).tolist())
+
+    @property
+    def shard_id(self) -> int:
+        """This rank's position in ``device_order()``."""
+        return self.device_order().index(self.rank) if self.enabled else 0
+
+    def coords(self, shard: int) -> Dict[str, int]:
+        """Mesh coordinate of shard ``shard`` by axis name."""
+        out = {}
+        for a, s in reversed(self.axes):
+            shard, out[a] = divmod(shard, s)
+        return out
+
+    # -- process groups ---------------------------------------------------
+
+    def group(self, axes):
+        """This rank's process group over ``axes`` (the ranks that differ
+        from it only along them)."""
+        key = frozenset((axes,) if isinstance(axes, str) else axes)
+        return self.groups[key]
+
+    def group_shards(self, axes, shard: Optional[int] = None):
+        """Shard ids of the group over ``axes`` that holds ``shard``
+        (default: this rank), in group-rank order (ascending)."""
+        shard = self.shard_id if shard is None else shard
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        mine = self.coords(shard)
+        return [d for d in range(self.n_devices)
+                if all(c == mine[a] for a, c in self.coords(d).items()
+                       if a not in axes)]
+
+    # -- elastic views (the reference's DESIGN.md §7) -----------------------
+
+    @property
+    def data_axis(self) -> str:
+        """The innermost data-parallel axis: the axis whose rows a host
+        loss removes."""
+        return self.batch_axes[-1] if self.batch_axes else "data"
+
+    def row_devices(self, row: int) -> Tuple[int, ...]:
+        """Shard ids (ranks) of data row ``row``."""
+        if not self.enabled:
+            return ()
+        return tuple(d for d in range(self.n_devices)
+                     if self.coords(d)[self.data_axis] == row)
+
+    def degrade(self, dead_rows) -> "DistContext":
+        raise NotImplementedError(f"not ported yet: {_ELASTIC}")
+
+    # -- layout hints: the identity (the port's layout is explicit) --------
+
+    def constrain(self, x, *spec):
+        return x
+
+    def constrain_batch(self, x):
+        return x
+
+
+def _batch_axes(names) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in names)

@@ -26,6 +26,17 @@ compare and the in-place arm of the write table).
 
 ``STATS`` counts logical digest launches and host syncs; every
 device→host crossing of the subsystem goes through ``fetch``.
+
+On a mesh (``ShardedDigestPlan``, ``sharded_plan_for``) every rank holds
+only its own blocks of the state, and the guards make every block of a
+leaf the same shape on every rank, so every rank runs the single-device
+plan above unchanged over its own blocks: its ``PackRing``, ``pack_rows``
+and one ``row_checksums`` launch a check.  The reference's
+``(n_shards, L, 2)`` tables are the ranks' ``(L, 2)`` tables stacked in
+shard order (``gather_table``), and a rotation's compare and arm run on
+each rank's own rows; the only collective of a steady check is the fault
+flag all-reduced with MAX (``ShardedCheckArm``), so a check stays one
+launch and one fetch on every rank.
 """
 
 from __future__ import annotations
@@ -412,6 +423,55 @@ def plan_for(tree) -> DigestPlan:
 
 
 # ---------------------------------------------------------------------------
+# mesh-sharded digesting: each rank's single-device plan over its blocks
+# ---------------------------------------------------------------------------
+
+def mesh_device_order(ctx) -> Tuple[int, ...]:
+    """Canonical shard order: the ranks in mesh-flat (row-major over the
+    axes) order.  Shard id ``d`` everywhere in the subsystem (tables, bad
+    masks, snapshot shard digests, ``FaultReport.shards``) is the rank
+    at this position."""
+    return ctx.device_order()
+
+
+class ShardedDigestPlan(DigestPlan):
+    """This rank's digest plan on a mesh: the single-device layout over
+    its own blocks, plus the mesh it belongs to."""
+
+    def __init__(self, ctx, keys: Tuple[str, ...], sizes: Tuple[int, ...],
+                 device: torch.device):
+        super().__init__(keys, sizes, device)
+        self.ctx = ctx
+        self.n_shards = ctx.n_devices
+
+    def gather_table(self, table: torch.Tensor) -> torch.Tensor:
+        """``(n_shards, rows, 2)``: every rank's table in shard order
+        (collective)."""
+        from repro_torch.distributed import collectives as coll
+        return coll.all_gather(table)
+
+
+def sharded_plan_for(tree, ctx) -> ShardedDigestPlan:
+    """The cached ``ShardedDigestPlan`` of this rank's blocks ``tree`` on
+    ``ctx``'s mesh."""
+    flat = _tree.flatten_with_path(tree)
+    if not flat:
+        raise ValueError("sharded_plan_for: empty tree")
+    device = flat[0][1].device
+    sig = tuple(sorted((leaf_key(p), tuple(x.shape), str(x.dtype))
+                       for p, x in flat))
+    key = ("mesh", ctx.axes, ctx.rank, str(device), sig)
+    plan = _PLAN_CACHE.get(key)
+    if plan is None:
+        plan = ShardedDigestPlan(
+            ctx, tuple(k for k, _, _ in sig),
+            tuple(int(np.prod(s, dtype=np.int64)) for _, s, _ in sig),
+            device)
+        _PLAN_CACHE[key] = plan
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # check+arm of one canary rotation
 # ---------------------------------------------------------------------------
 
@@ -489,6 +549,19 @@ class CheckArm:
         return bad.any(), bad
 
 
+class ShardedCheckArm(CheckArm):
+    """A rotation's check+arm on a mesh: this rank's single-device core
+    over its own blocks, then the fault flag all-reduced with MAX — the
+    one collective of a steady check."""
+
+    def finish(self, buf, ref_read, ref_write):
+        from repro_torch.distributed import collectives as coll
+        flag, bad = super().finish(buf, ref_read, ref_write)
+        if not self.nc:
+            return flag, bad
+        return coll.flag_max(flag)[0] > 0, bad
+
+
 def check_arm_subcomputation(plan: DigestPlan, chk: Sequence[int],
                              arm: Sequence[int], n_slices: int = 0):
     """``(core, union)`` for one canary rotation; ``core`` is the plan's
@@ -499,7 +572,9 @@ def check_arm_subcomputation(plan: DigestPlan, chk: Sequence[int],
     key = (tuple(chk), tuple(arm), n_slices)
     core = plan._check_arm.get(key)
     if core is None:
-        core = CheckArm(plan, chk, arm, n_slices)
+        kind = ShardedCheckArm if isinstance(plan, ShardedDigestPlan) \
+            else CheckArm
+        core = kind(plan, chk, arm, n_slices)
         plan._check_arm[key] = core
     return core, core.union
 
@@ -580,6 +655,20 @@ def host_verify_tree(tree, reference: Dict[str, np.ndarray]) -> List[str]:
     current = host_tree_checksums(tree)
     return sorted(k for k, d in reference.items()
                   if k not in current or not np.array_equal(current[k], d))
+
+
+def shard_indices(sharding) -> List[Tuple[slice, ...]]:
+    """The global index box of every shard id, in shard order, of a leaf
+    with ``sharding`` (``distributed.sharding.LeafSharding``) — what a
+    snapshot stores so one shard's bytes can be cut out of a full copy."""
+    return [sharding.box(d) for d in range(sharding.ctx.n_devices)]
+
+
+def host_shard_checksums(full, sharding) -> np.ndarray:
+    """``(n_shards, 2)`` host digests of a FULL host tensor's shards in
+    shard order — the single-device oracle of the sharded tables."""
+    return np.stack([host_checksum(full[idx])
+                     for idx in shard_indices(sharding)])
 
 
 # ---------------------------------------------------------------------------

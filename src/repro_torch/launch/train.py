@@ -61,8 +61,22 @@ optimizer of the reference runs: AdamW with f32, bf16 or int8 moments
 (``TrainPlan(moment_dtype=...)``; the reference has no flag for it
 either) and Adafactor.
 
-Not ported yet, each raising ``NotImplementedError``: ``--mesh``,
-``--elastic`` and ``--kill-row-at`` (ROADMAP.md, queue 1).
+``--mesh dp,tp`` (e.g. ``4,2``) runs the resilient loop on a device mesh:
+one process per mesh device (``launch/mesh.spawn``; on a one-card machine
+the ranks share the card over gloo), every rank holding only its own
+blocks of the state (``launch/specs.bind_state``).  The canary goes
+shard-local (each rank digests its own blocks; the one fetched flag is
+all-reduced), snapshots carry per-(leaf, shard) metadata, and recovery
+gains the shard_patch rung (restore only the injured blocks) ahead of the
+generic ladder, every rank climbing it in lockstep.  Rank 0's summary is
+returned (and printed by ``main``), with ``"mesh": {"shape": ...,
+"devices": n}``.  ``--mesh 4,2 --device cpu`` spawns 8 gloo ranks on the
+CPU.  On the mesh, ``--parity``, ``--triage``, ``--donate`` and
+``--fused-detect`` raise ``NotImplementedError`` naming their ROADMAP
+item.
+
+Not ported yet, each raising ``NotImplementedError``: ``--elastic`` and
+``--kill-row-at`` (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -79,28 +93,44 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.core.detect import (LOSS_WINDOW, ChecksumCanary,
-                                     trap_loss_spike, trap_nonfinite)
+from repro_torch.core.detect import (LOSS_WINDOW, MESH_FUSED, MESH_PARITY,
+                                     ChecksumCanary, trap_loss_spike,
+                                     trap_nonfinite)
 from repro_torch.core.faults import inject, sample_plan
 from repro_torch.core.icp import promote
 from repro_torch.core.microcheckpoint import MicroCheckpointer
 from repro_torch.core.parity import ParityStore
 from repro_torch.core.recover import RecoveryFailed, RecoveryRuntime
+from repro_torch.core.recovery_table import RecoveryTable
 from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.distributed.sharding import gather_tree, global_struct
+from repro_torch.launch.mesh import (in_group, make_context, parse_mesh,
+                                     rank_device, spawn)
+from repro_torch.launch.specs import bind_state, state_shardings
 from repro_torch.serving.engine import resolve_device
 from repro_torch.train.loop import make_train_state, make_train_step
+from repro_torch.tree import leaves, tree_map
 
 SRC_LEN = 64        # source frames of an enc-dec batch (the reference's)
 N_PATCHES = 16      # patches of a VLM batch (the reference's)
 
 _UNPORTED = {
-    "mesh": "mesh training (ROADMAP.md queue 1, 'Mesh and elastic')",
-    "elastic": "elastic remesh (ROADMAP.md queue 1, 'Mesh and elastic')",
+    "elastic": "elastic remesh (ROADMAP.md queue 1, 'Mesh and elastic', "
+               "the elastic slice)",
     "kill_row_at": "the row-loss drill (ROADMAP.md queue 1, 'Mesh and "
-                   "elastic')",
+                   "elastic', the elastic slice)",
+}
+#: training modes not ported to the mesh yet, by the ROADMAP item each
+#: waits for
+_MESH_UNPORTED = {
+    "parity": MESH_PARITY,
+    "triage": MESH_FUSED,
+    "donate": MESH_FUSED,
+    "fused_detect": MESH_FUSED,
 }
 
 
@@ -185,18 +215,46 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
           kill_row_at: Optional[int] = None, verbose: bool = True,
           device=None, return_state: bool = False):
     """Run the recovery-wrapped loop; returns the loop report dict (and
-    the final state with ``return_state``).  ``seed`` seeds the params
+    the final state with ``return_state``: on a mesh, called from a rank,
+    that rank's blocks; called off the mesh, the whole state on the
+    host).  ``seed`` seeds the params
     init, the data and the injection storm.  ``inject_armed_only`` flips
     only leaves of the canary slice checked at the flip's step (as the
     serving engine's ``inject_armed_only``), so under a K-slice canary
     every storm flip is detected.  ``detectors=False`` runs
     without the traps and the canary (then ``parity``, ``triage`` and
     ``fused_detect`` raise, as in the reference)."""
-    asked = {"mesh": bool(mesh), "elastic": elastic,
-             "kill_row_at": kill_row_at is not None}
+    asked = {"elastic": elastic, "kill_row_at": kill_row_at is not None}
     for name, on in asked.items():
         if on:
             raise NotImplementedError(f"not ported yet: {_UNPORTED[name]}")
+    ctx = None
+    if mesh:
+        modes = {"parity": parity, "triage": triage, "donate": donate,
+                 "fused_detect": fused_detect}
+        for name, on in modes.items():
+            if on:
+                raise NotImplementedError(
+                    f"--{name.replace('_', '-')} on a mesh: not ported yet: "
+                    f"{_MESH_UNPORTED[name]}")
+        if not in_group():
+            # one rank per mesh device; rank 0's result is the call's
+            kw = dict(steps=steps, global_batch=global_batch,
+                      seq_len=seq_len, seed=seed,
+                      snapshot_interval=snapshot_interval,
+                      checkpoint_dir=checkpoint_dir,
+                      checkpoint_interval=checkpoint_interval,
+                      inject_every=inject_every, inject_target=inject_target,
+                      inject_armed_only=inject_armed_only,
+                      canary_slices=canary_slices, detectors=detectors,
+                      mesh=mesh, verbose=verbose, device=device,
+                      return_state=return_state)
+            dev = resolve_device(device)
+            return spawn(_rank_train, parse_mesh(mesh)[0], (cfg, kw),
+                         device=dev.type)[0]
+        device = rank_device(dist.get_rank(), resolve_device(device).type)
+        ctx = make_context(mesh, device, fsdp=cfg.sharding.fsdp)
+        verbose = verbose and ctx.shard_id == 0
     device = resolve_device(device)
     with cuda_numerics(device):
         return _train(cfg, steps=steps, global_batch=global_batch,
@@ -210,14 +268,14 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
                       donate=donate, fused_detect=fused_detect,
                       fused_warm=fused_warm, parity=parity, triage=triage,
                       verbose=verbose, device=device,
-                      return_state=return_state)
+                      return_state=return_state, ctx=ctx)
 
 
 def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
            checkpoint_dir, checkpoint_interval, inject_every, inject_target,
            inject_armed_only,
            canary_slices, detectors, donate, fused_detect, fused_warm,
-           parity, triage, verbose, device, return_state):
+           parity, triage, verbose, device, return_state, ctx=None):
     pipe = TokenPipeline(cfg.model.vocab_size, seq_len, global_batch,
                          seed=seed)
     state = make_train_state(cfg, seed, global_batch=global_batch,
@@ -227,10 +285,23 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
     def bfn(s):
         return {k: v.to(device) for k, v in batch_for(cfg, pipe, s).items()}
 
-    micro = MicroCheckpointer(interval=snapshot_interval)
-    ckpt = CheckpointManager(checkpoint_dir, interval=checkpoint_interval) \
+    # a flip is sampled over the global shapes: on a mesh those of
+    # ``sampled`` (meta tensors), else the live state's
+    shardings = table = sampled = None
+    if ctx is not None:
+        # every rank built the same full state: keep this rank's blocks
+        state, step_fn, bfn, shardings = bind_state(
+            ctx, cfg, state, step_fn, lambda s: batch_for(cfg, pipe, s))
+        sampled = global_struct(shardings)
+        ivs = promote(cfg, global_batch)
+        table = RecoveryTable.build(state, sharded=True, opt_ivs=tuple(
+            k for k in (*ivs.specs, *ivs.derived) if k.startswith("opt/")))
+    micro = MicroCheckpointer(interval=snapshot_interval, ctx=ctx,
+                              shardings=shardings)
+    ckpt = CheckpointManager(checkpoint_dir, interval=checkpoint_interval,
+                             ctx=ctx, shardings=shardings) \
         if checkpoint_dir else None
-    canary = ChecksumCanary(state, n_slices=canary_slices) \
+    canary = ChecksumCanary(state, n_slices=canary_slices, ctx=ctx) \
         if detectors else None
     pstore = None
     if parity:
@@ -251,6 +322,7 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
         iv_registry=promote(cfg, global_batch), micro=micro,
         parity=pstore, checkpoint=ckpt.loader(state) if ckpt else None,
         canary=canary, triage=triage, donated=donate,
+        shardings=shardings, table=table,
         # the faulty state is replaced by the repaired one: a replay
         # writes into its tensors, two state versions on the card
         reuse_state=True)
@@ -295,8 +367,10 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
             only = None
             if inject_armed_only and canary is not None:
                 only = {canary._keys[i] for i in canary._slice_indices(s)}
-            inject(state, sample_plan(rng, state, max_step=1,
-                                      target=inject_target, only=only))
+            inject(state, sample_plan(rng, state if sampled is None
+                                      else sampled, max_step=1,
+                                      target=inject_target, only=only),
+                   shardings=shardings)
             rep.faults_injected += 1
             last_inject = s
 
@@ -388,7 +462,25 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
                         "seconds": fused.compile_seconds}
         if device.type == "cuda":
             out["fused"]["pool_bytes"] = fused.pool_bytes()
+    if ctx is not None:
+        out["mesh"] = {"shape": ctx.shape, "devices": ctx.n_devices}
     return (out, state) if return_state else out
+
+
+def _rank_train(cfg, kw):
+    """One spawned rank of ``train(mesh=...)`` called off the mesh; a
+    state it returns is the whole state, gathered from every rank's
+    blocks, on the host."""
+    out = train(cfg, **kw)
+    if not kw.get("return_state"):
+        return out
+    out, state = out
+    device = next(iter(leaves(state))).device
+    ctx = make_context(kw["mesh"], device, fsdp=cfg.sharding.fsdp)
+    meta = make_train_state(cfg, kw["seed"],
+                            global_batch=kw["global_batch"], device="meta")
+    shardings, _ = state_shardings(ctx, cfg, meta)
+    return out, tree_map(lambda t: t.cpu(), gather_tree(state, shardings))
 
 
 def main(argv=None):
@@ -435,7 +527,10 @@ def main(argv=None):
                          "perturbations) in place, zero bytes moved")
     ap.add_argument("--elastic", action="store_true",
                     help="not ported yet (raises)")
-    ap.add_argument("--mesh", default=None, help="not ported yet (raises)")
+    ap.add_argument("--mesh", default=None,
+                    help="dp,tp (e.g. 4,2): one process per mesh device, "
+                         "the state sharded over them, shard-local "
+                         "detection and the shard_patch rung")
     ap.add_argument("--kill-row-at", type=int, default=None,
                     help="not ported yet (raises)")
     args = ap.parse_args(argv)

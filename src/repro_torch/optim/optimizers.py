@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -118,6 +118,14 @@ class Optimizer:
     update: Callable  # (grads, state, params, step) -> (params, state, stats)
     update_: Callable  # (grads, state, params, step) -> stats, in place
     name: str = "opt"
+    #: ``clip(grads, gn=None) -> (clipped grads, pre-clip norm)``, the
+    #: update's own first stage, elementwise once the norm is known
+    #: (``gn``); None: the update does not split
+    clip: Optional[Callable] = None
+    #: the update after ``clip`` is elementwise over every param leaf and
+    #: its moments: a block of a leaf updates alone (the mesh step
+    #: updates only its own blocks)
+    elementwise: bool = False
     affine_ivs: Dict[str, Tuple[int, int]] = field(default_factory=dict)
     derived_ivs: Dict[str, Callable] = field(default_factory=dict)
 
@@ -143,10 +151,12 @@ def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, gn=None):
     """Scale ``grads`` so their global norm is at most ``max_norm``;
-    returns (clipped grads, pre-clip norm)."""
-    gn = global_norm(grads)
+    returns (clipped grads, pre-clip norm).  ``gn`` gives the norm (the
+    mesh step's, of a tree ``grads`` holds only blocks of)."""
+    if gn is None:
+        gn = global_norm(grads)
     scale = _clip_scale(gn, max_norm)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                     grads), gn
@@ -204,13 +214,15 @@ def adamw(lr_fn, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
             upd = upd + weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * upd).to(p.dtype), m32, v32
 
-    def clipped(grads):
+    def clipped(grads, gn=None):
         if grad_clip:
-            return clip_by_global_norm(grads, grad_clip)
-        return grads, global_norm(grads)
+            return clip_by_global_norm(grads, grad_clip, gn)
+        return grads, global_norm(grads) if gn is None else gn
 
-    def update(grads, state, params, step):
-        grads, gn = clipped(grads)
+    def update(grads, state, params, step, grad_norm=None):
+        # with ``grad_norm`` the grads come clipped (``clip``) already
+        grads, gn = clipped(grads) if grad_norm is None else \
+            (grads, grad_norm)
         lr = lr_fn(step)
         # bias corrections advance from the optimizer's OWN counter, kept
         # independent of the loop's sched_pos so Eq. (1) has partners
@@ -270,7 +282,8 @@ def adamw(lr_fn, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
         return fn
 
     return Optimizer(init=init, update=update, update_=update_,
-                     name="adamw",
+                     name="adamw", clip=clipped,
+                     elementwise=moment_dtype != "int8",
                      affine_ivs={"t": (0, 1)},
                      derived_ivs={"bc1": _bc(b1), "bc2": _bc(b2)})
 

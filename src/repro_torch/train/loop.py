@@ -21,10 +21,31 @@ the new params, moments, counters and ``iv`` into the state's own tensors
 (every ``data_ptr`` kept, one state version instead of two) and returns
 the same tree, bit-identical to the functional step.  A donated loop guards it
 with the canary's ``arm_current``/``check`` pair or the fused step.
+
+On a mesh, ``pin_state_shardings`` turns a step into the mesh step (the
+counterpart of the reference's layout pin): every rank holds only its own
+blocks of the state, gathers each param to full over the axes it is
+sharded on and runs the forward and backward on its own rows of the
+batch.  The grads' mean over the batch axes is taken on this rank's
+blocks only: each peer sends it the grads cut to its blocks (one
+all-to-all), and the rows are added in group-rank order, so every rank
+computes the same bits, replicated copies stay equal and a replay
+reproduces the trajectory.  The global norm adds each leaf's squares
+over its distinct blocks, then over the leaves, the same on every rank;
+with one rank on the batch axes there is no mean, and the norm is the
+single-device one of the whole grads, so a 1 x N mesh steps bitwise as
+one device does.  Every rank clips with that norm and updates only its
+own blocks of the params and moments (AdamW's elementwise update; an
+optimizer whose update is not elementwise — Adafactor's factored stats,
+int8 moment blocks — updates the full tree and keeps its blocks).  The
+``iv`` block is replicated.  The ranks of the model axis that share a
+data coordinate compute the same rows: tensor-parallel compute (each
+rank its slice of the heads and the FFN) is later performance work.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict
 
 import torch
@@ -148,8 +169,9 @@ def make_train_step(arch_cfg, global_batch: int = 0,
                 acc[k].copy_(r.grad)      # accumulated out of place
         return loss.detach()
 
-    def train_step(state, batch):
-        params = state["params"]
+    def loss_and_grads(params, batch):
+        """``(loss, metrics, grads)`` of ``batch`` (microbatched as the
+        plan says); ``grads`` has the tree of ``params``."""
         if n_micro and n_micro > 1:
             acc = {leaf_key(p): torch.zeros(t.shape, dtype=acc_dtype,
                                             device=t.device)
@@ -162,7 +184,12 @@ def make_train_step(arch_cfg, global_batch: int = 0,
             loss, metrics = lsum / n_micro, {}
         else:
             loss, metrics, by_key = grads_of(params, batch)
-        grads = map_with_path(lambda p, _: by_key[leaf_key(p)], params)
+        return loss, metrics, map_with_path(lambda p, _: by_key[leaf_key(p)],
+                                            params)
+
+    def train_step(state, batch):
+        params = state["params"]
+        loss, metrics, grads = loss_and_grads(params, batch)
         sched_pos = state["iv"]["sched_pos"]
         if donate:
             stats = opt.update_(grads, state["opt"], params, sched_pos)
@@ -178,4 +205,107 @@ def make_train_step(arch_cfg, global_batch: int = 0,
         out.update({k: v.detach() for k, v in metrics.items()})
         return new_state, out
 
+    # the pieces the mesh step (``pin_state_shardings``) puts together
+    train_step.loss_and_grads = loss_and_grads
+    train_step.opt = opt
+    train_step.iv_steps = steps
+    train_step.donate = donate
     return train_step
+
+
+def pin_state_shardings(step_fn: Callable, ctx, shardings, *,
+                        batch_sharded: bool = True) -> Callable:
+    """The mesh step of ``step_fn`` (a ``make_train_step`` step, not
+    donated): ``step(local_state, local_batch) -> (local_state',
+    metrics)`` on this rank's blocks (see the module docstring).
+    ``batch_sharded`` is False when the batch is replicated over the
+    batch axes (its rows do not divide them): every rank then has the
+    whole batch's grads and takes no mean.  The step records its
+    original (``unpinned_step``), as the reference's pin does."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import gather_tree, local_tree
+    from repro_torch.optim.optimizers import global_norm
+    if step_fn.donate:
+        from repro_torch.core.detect import MESH_FUSED
+        raise NotImplementedError(f"not ported yet: the donated step on a "
+                                  f"mesh: {MESH_FUSED}")
+    opt = step_fn.opt
+    psh, osh = shardings["params"], shardings["opt"]
+    group = ctx.group(ctx.batch_axes)
+    n_dp = ctx.dp_size if batch_sharded else 1
+    members = ctx.group_shards(ctx.batch_axes)
+    flat_sh = [sh for _, sh in flatten_with_path(psh)]
+    world = ctx.group(ctx.axis_names)
+
+    def batch_mean(grads, scalars):
+        """This rank's blocks of the grads' mean over the batch axes, and
+        the scalars' mean: every batch-axes peer sends each peer its
+        grads cut to that peer's blocks (one all-to-all for each dtype's
+        leaves), and the rows are added in group-rank order."""
+        flat = flatten_with_path(grads)
+        out = {}
+        by_dtype: Dict = {}
+        for i, (_, g) in enumerate(flat):
+            by_dtype.setdefault(g.dtype, []).append(i)
+        for dtype in sorted(by_dtype, key=str):
+            idx = by_dtype[dtype]
+            send = torch.cat([flat[i][1][flat_sh[i].box(q)].reshape(-1)
+                              for q in members for i in idx])
+            mean = coll.sum_rows(coll.all_to_all(send, group)).div_(n_dp)
+            off = 0
+            for i in idx:
+                path, sh = flat[i][0], flat_sh[i]
+                n = math.prod(sh.local_shape)
+                out[leaf_key(path)] = mean[off:off + n].view(sh.local_shape)
+                off += n
+        names = sorted(scalars)
+        vals = coll.all_gather_rows(
+            torch.stack([scalars[k].detach().to(torch.float32)
+                         for k in names]), group).div_(n_dp)
+        return map_with_path(lambda p, _: out[leaf_key(p)], grads), \
+            dict(zip(names, vals.unbind(0)))
+
+    def mesh_norm(local):
+        """The global norm of a grads tree of which this rank holds its
+        blocks: each leaf's squares summed over its distinct blocks (the
+        shards of the group over its spec's axes, in order), then over
+        the leaves in their order.  The batch-axes peers hold the same
+        blocks bitwise, so every rank computes the same norm."""
+        sums = torch.stack([torch.sum(torch.square(g.to(torch.float32)))
+                            for g in leaves(local)])
+        table = coll.all_gather(sums, world)
+        per_leaf = [coll.sum_rows(table[ctx.group_shards(sh.axes), i])
+                    for i, sh in enumerate(flat_sh)]
+        return torch.sqrt(torch.sum(torch.stack(per_leaf)))
+
+    def step(state, batch):
+        params = state["params"]
+        full = gather_tree(params, psh)
+        loss, metrics, grads = step_fn.loss_and_grads(full, batch)
+        scalars = {"loss": loss, **metrics}
+        if n_dp == 1:
+            # the whole batch's grads, whole: the single-device norm
+            gn = global_norm(grads)
+            local = local_tree(grads, psh)
+        else:
+            local, scalars = batch_mean(grads, scalars)
+            gn = mesh_norm(local)
+            grads = None
+        sched_pos = state["iv"]["sched_pos"]
+        if opt.elementwise:
+            clipped, gn = opt.clip(local, gn)
+            new_params, new_opt, stats = opt.update(
+                clipped, state["opt"], params, sched_pos, grad_norm=gn)
+        else:
+            if grads is None:
+                grads = gather_tree(local, psh)
+            new_full, new_opt, stats = opt.update(
+                grads, gather_tree(state["opt"], osh), full, sched_pos)
+            new_params = local_tree(new_full, psh)
+            new_opt = local_tree(new_opt, osh)
+        new_state = {"params": new_params, "opt": new_opt,
+                     "iv": advance_iv(state["iv"], step_fn.iv_steps)}
+        return new_state, {**scalars, **stats}
+
+    step.unpinned_step = getattr(step_fn, "unpinned_step", step_fn)
+    return step

@@ -91,3 +91,29 @@ def test_chip_smoke_alone_fails(tmp_path):
                          timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_mesh_modules_import_alone_without_jax():
+    """The mesh layer (``distributed/*``, ``launch/mesh.py``,
+    ``launch/specs.py``) imports neither JAX nor the reference and starts
+    no process group at import."""
+    code = f"""
+import importlib, sys
+sys.path[:0] = [{str(SRC)!r}]
+names = ["repro_torch.distributed.context", "repro_torch.distributed.sharding",
+         "repro_torch.distributed.collectives", "repro_torch.launch.mesh",
+         "repro_torch.launch.specs"]
+for n in names:
+    importlib.import_module(n)
+import torch.distributed as dist
+print(dist.is_initialized())
+print(sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    initialised, bad = res.stdout.strip().splitlines()[-2:]
+    assert initialised == "False"
+    assert bad == "[]"

@@ -1,0 +1,399 @@
+"""The port's mesh path against the JAX package on a 4 x 2 mesh.
+
+A one-device tier-1 run skips the reference's in-process mesh tests, so
+the oracle is a child process: it forces 8 CPU devices, wraps
+``jax.make_mesh`` to build Auto axes (jax 0.9 builds Explicit ones, which
+the reference's shard_map paths refuse) and dumps, once per module:
+
+* every leaf's ``shard_indices`` of the iterpro-100m smoke train state,
+* the ``sharded_plan_for`` digest table of that state,
+* the ``SHARDED_PROG`` outcome of ``tests/test_sharded_resilience.py``
+  (leaves ``["b"]``, shards ``{"b": [1, 3, 5, 7]}``, STATS ``(1, 1, 0)``),
+* four bound steps' losses and the state after them,
+* the shard_patch scenario of
+  ``test_shard_local_recovery_restores_only_injured_shard``: the injured
+  shard ids, the rung, ``bytes_moved``, and the version-mismatch replay.
+
+Both packages start from the same bits: this process makes the
+reference's state (PRNGKey(0)) and the toy tree once and hands them to
+the child and to the port's 8 gloo ranks, which run the same scenarios
+meanwhile.  Boxes, digest tables and shard ids are held bitwise; losses
+and state within the f32 tolerance of ``tests/test_torch_train.py``;
+the rung and ``bytes_moved`` equal; the healed state bitwise its own
+pre-injection truth, with every healthy block's ``data_ptr`` kept.
+"""
+
+import json
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+F32_TOL = 2e-5
+B, S = 8, 32
+UP = "groups/0/0/ffn/up/w"
+TOY_SPECS = {"a": ("data", None), "b": (None, "model"),
+             "c": (("data", "model"),), "s": ()}
+
+CHILD = textwrap.dedent("""
+    import os, sys, json, pickle
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    sys.path.insert(0, "src")
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+    _make_mesh = jax.make_mesh
+    jax.make_mesh = lambda shape, axes, **kw: _make_mesh(
+        shape, axes, axis_types=(AxisType.Auto,) * len(shape))
+    from repro.configs import get_config
+    from repro.core.detect import ChecksumCanary
+    from repro.core.faults import InjectionPlan, inject
+    from repro.core.icp import promote
+    from repro.core.microcheckpoint import MicroCheckpointer
+    from repro.core.recover import RecoveryRuntime
+    from repro.data.pipeline import TokenPipeline
+    from repro.distributed.context import DistContext
+    from repro.kernels import digest as kd
+    from repro.kernels.ops import leaf_key
+    from repro.launch.specs import bind_state
+    from repro.train.loop import make_train_step
+
+    src, out = sys.argv[1], sys.argv[2]
+    with open(src, "rb") as f:
+        inp = pickle.load(f)
+    mesh = jax.make_mesh((4, 2), ("data", "model"))
+    ctx = DistContext.for_mesh(mesh)
+    res = {}
+
+    def boxes(x):
+        return [[(0 if s.start is None else s.start,
+                  d if s.stop is None else s.stop)
+                 for s, d in zip(idx, x.shape)]
+                for idx in kd.shard_indices(x)]
+
+    # -- the toy tree of SHARDED_PROG --------------------------------------
+    put = lambda x, *s: jax.device_put(jnp.asarray(x),
+                                       NamedSharding(mesh, P(*s)))
+    specs = inp["toy_specs"]
+    tree = {k: put(v, *specs[k]) for k, v in inp["toy"].items()}
+    plan = kd.sharded_plan_for(tree, mesh)
+    table = np.asarray(plan.digest_table(tree))
+    res["toy_keys"] = list(plan.keys)
+    res["toy_table"] = table.tolist()
+    res["toy_oracle"] = bool(all(
+        np.array_equal(table[:, i], kd.host_shard_checksums(tree[k]))
+        for i, k in enumerate(plan.keys)))
+    canary = ChecksumCanary(tree, n_slices=1, ctx=ctx)
+    res["toy_clean"] = canary.check(0, tree) is None
+    kd.STATS.reset()
+    canary.check(1, tree)
+    res["toy_stats"] = list(kd.STATS.snapshot())
+    bad = dict(tree)
+    bad["b"] = tree["b"].at[0, 20].set(99.0)
+    rep = canary.check(2, bad)
+    res["toy_leaves"] = rep.leaves
+    res["toy_shards"] = rep.shards
+
+    # -- the iterpro-100m smoke state, bound ---------------------------------
+    cfg = get_config("iterpro-100m").smoke()
+    pipe = TokenPipeline(cfg.model.vocab_size, inp["S"], inp["B"], seed=0)
+    state0 = jax.tree_util.tree_map(jnp.asarray, inp["state"])
+    state0, raw, bfn, sh = bind_state(
+        ctx, cfg, state0, make_train_step(cfg, global_batch=inp["B"]),
+        lambda s: pipe.batch_at(s))
+    step = jax.jit(raw)
+    flat = jax.tree_util.tree_flatten_with_path(state0)[0]
+    res["boxes"] = {leaf_key(p): boxes(x) for p, x in flat}
+    splan = kd.sharded_plan_for(state0, mesh)
+    res["keys"] = list(splan.keys)
+    res["table"] = np.asarray(splan.digest_table(state0)).tolist()
+
+    # -- the shard_patch scenario -------------------------------------------
+    clone = lambda t: jax.tree_util.tree_map(
+        lambda x: jnp.array(x, copy=True), t)
+    micro = MicroCheckpointer(interval=2, ctx=ctx)
+    canary = ChecksumCanary(state0, n_slices=1, ctx=ctx)
+    runtime = RecoveryRuntime(step_fn=step, batch_fn=bfn,
+                              iv_registry=promote(cfg, inp["B"]),
+                              micro=micro, shardings=sh)
+    state = clone(state0)
+    losses = []
+    for s in range(4):
+        micro.maybe_snapshot(s, state)
+        ns, m = step(state, bfn(s))
+        assert canary.check_and_arm(s, state, ns) is None
+        losses.append(float(m["loss"]))
+        state = ns
+    micro.maybe_snapshot(4, state)
+    res["losses"] = losses
+    truth = {leaf_key(p): np.asarray(x) for p, x in
+             jax.tree_util.tree_flatten_with_path(state)[0]}
+    up = inp["up"]
+    bad = inject(state, InjectionPlan(up, 1000, 30, 0, "params"))
+    ns, m = step(bad, bfn(4))
+    rep = canary.check_and_arm(4, bad, ns)
+    res["injured"] = rep.shards["params/" + up]
+    fixed, ev = runtime.recover(bad, rep, 4)
+    res["rung"] = ev.rung
+    res["bytes_moved"] = ev.bytes_moved
+    res["healed_exact"] = all(
+        np.array_equal(np.asarray(x), truth[leaf_key(p)]) for p, x in
+        jax.tree_util.tree_flatten_with_path(fixed)[0])
+    state = fixed
+    ns, m = step(state, bfn(5))
+    canary.refresh(state)
+    bad = inject(state, InjectionPlan(up, 1000, 30, 0, "params"))
+    ns, m = step(bad, bfn(5))
+    rep = canary.check_and_arm(5, bad, ns)
+    fixed2, ev2 = runtime.recover(bad, rep, 5)
+    res["rung2"] = ev2.rung
+    res["attempted2"] = list(ev2.attempted)
+    with open(out + ".json", "w") as f:
+        json.dump(res, f)
+    np.savez(out + ".npz", **truth)
+""")
+
+
+def _toy(jax, jnp):
+    k = jax.random.PRNGKey
+    return {"a": np.asarray(jax.random.normal(k(0), (16, 64))),
+            "b": np.asarray(jax.random.normal(k(1), (8, 32))),
+            "c": np.asarray(jax.random.normal(k(2), (64,)).astype(
+                jnp.bfloat16)),
+            "s": np.asarray(jnp.int32(7))}
+
+
+def _port_ranks(inp_path):
+    """One rank of the port's 4 x 2 mesh running the oracle's scenarios;
+    returns what the tests compare."""
+    import torch
+    from repro_torch.bridge import state_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.core.faults import InjectionPlan, inject
+    from repro_torch.core.icp import promote
+    from repro_torch.core.microcheckpoint import MicroCheckpointer
+    from repro_torch.core.recover import RecoveryRuntime
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import (P, gather_tree,
+                                                  local_tree, shardings_for)
+    from repro_torch.kernels import digest as kd
+    from repro_torch.launch.mesh import make_context
+    from repro_torch.launch.specs import bind_state
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.tree import flatten_with_path, leaf_key
+
+    with open(inp_path, "rb") as f:
+        inp = pickle.load(f)
+    ctx = make_context("4,2", torch.device("cpu"))
+    me = ctx.shard_id
+    res = {"shard_id": me}
+
+    def boxes(sh):
+        return [[(0 if s.start is None else s.start,
+                  d if s.stop is None else s.stop)
+                 for s, d in zip(box, sh.shape)]
+                for box in kd.shard_indices(sh)]
+
+    # -- the toy tree of SHARDED_PROG --------------------------------------
+    toy = state_from_numpy(inp["toy"])
+    tsh = shardings_for(ctx, {k: P(*v) for k, v in inp["toy_specs"].items()},
+                        toy)
+    local = local_tree(toy, tsh)
+    plan = kd.sharded_plan_for(local, ctx)
+    res["toy_keys"] = list(plan.keys)
+    res["toy_table"] = kd.fetch(
+        plan.gather_table(plan.digest_table(local))).tolist()
+    res["toy_oracle"] = all(
+        np.array_equal(np.asarray(res["toy_table"])[:, i],
+                       kd.host_shard_checksums(toy[k], tsh[k]))
+        for i, k in enumerate(plan.keys))
+    canary = ChecksumCanary(local, n_slices=1, ctx=ctx)
+    res["toy_clean"] = canary.check(0, local) is None
+    kd.STATS.reset()
+    canary.check(1, local)
+    res["toy_stats"] = list(kd.STATS.snapshot())
+    j = tsh["b"].local_index(0 * 32 + 20)
+    bad = dict(local, b=local["b"].clone())
+    if j is not None:
+        bad["b"].view(-1)[j] = 99.0
+    rep = canary.check(2, bad)
+    res["toy_leaves"] = rep.leaves
+    res["toy_shards"] = rep.shards
+
+    # -- the iterpro-100m smoke state, bound ---------------------------------
+    cfg = get_config("iterpro-100m").smoke()
+    pipe = TokenPipeline(cfg.model.vocab_size, inp["S"], inp["B"], seed=0)
+    state0, step, bfn, sh = bind_state(
+        ctx, cfg, state_from_numpy(inp["state"]),
+        make_train_step(cfg, global_batch=inp["B"]),
+        lambda s: pipe.batch_at(s))
+    res["boxes"] = {leaf_key(p): boxes(x)
+                    for p, x in flatten_with_path(sh)}
+    splan = kd.sharded_plan_for(state0, ctx)
+    res["keys"] = list(splan.keys)
+    res["table"] = kd.fetch(
+        splan.gather_table(splan.digest_table(state0))).tolist()
+
+    # -- the shard_patch scenario -------------------------------------------
+    micro = MicroCheckpointer(interval=2, ctx=ctx, shardings=sh)
+    canary = ChecksumCanary(state0, n_slices=1, ctx=ctx)
+    runtime = RecoveryRuntime(step_fn=step, batch_fn=bfn,
+                              iv_registry=promote(cfg, inp["B"]),
+                              micro=micro, shardings=sh)
+    state = state0
+    losses = []
+    for s in range(4):
+        micro.maybe_snapshot(s, state)
+        ns, m = step(state, bfn(s))
+        assert canary.check_and_arm(s, state, ns) is None
+        losses.append(float(m["loss"]))
+        state = ns
+    micro.maybe_snapshot(4, state)
+    res["losses"] = losses
+    truth = {leaf_key(p): t.clone() for p, t in flatten_with_path(state)}
+    res["state"] = {k: t.numpy() for k, t in
+                    ((leaf_key(p), t) for p, t in
+                     flatten_with_path(gather_tree(state, sh)))}
+    up = inp["up"]
+    inject(state, InjectionPlan(up, 1000, 30, 0, "params"), shardings=sh)
+    ptrs = {leaf_key(p): t.data_ptr() for p, t in flatten_with_path(state)}
+    ns, m = step(state, bfn(4))
+    rep = canary.check_and_arm(4, state, ns)
+    res["injured"] = rep.shards["params/" + up]
+    fixed, ev = runtime.recover(state, rep, 4)
+    res["rung"] = ev.rung
+    res["bytes_moved"] = ev.bytes_moved
+    res["block_bytes"] = sh["params"]["groups"][0][0]["ffn"]["up"][
+        "w"].nbytes_local
+    healed = {leaf_key(p): t for p, t in flatten_with_path(fixed)}
+    res["healed_exact"] = all(
+        torch.equal(healed[k].view(-1).view(torch.uint8),
+                    truth[k].view(-1).view(torch.uint8)) for k in truth)
+    moved = {k for k in healed if healed[k].data_ptr() != ptrs[k]}
+    res["moved_leaves"] = sorted(moved)
+    state = fixed
+    canary.refresh(state)
+    inject(state, InjectionPlan(up, 1000, 30, 0, "params"), shardings=sh)
+    ns, m = step(state, bfn(5))
+    rep = canary.check_and_arm(5, state, ns)
+    fixed2, ev2 = runtime.recover(state, rep, 5)
+    res["rung2"] = ev2.rung
+    res["attempted2"] = list(ev2.attempted)
+    everyone = coll.gather_objects(res)
+    return everyone if me == 0 else None
+
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.train.loop import make_train_state
+    from repro_torch.launch.mesh import spawn
+
+    tmp = tmp_path_factory.mktemp("mesh_oracle")
+    cfg = get_config("iterpro-100m").smoke()
+    state = jax.tree_util.tree_map(
+        np.asarray, make_train_state(cfg, jax.random.PRNGKey(0),
+                                     global_batch=B))
+    inp = {"state": state, "toy": _toy(jax, jnp), "toy_specs": TOY_SPECS,
+           "B": B, "S": S, "up": UP}
+    src = str(tmp / "input.pkl")
+    with open(src, "wb") as f:
+        pickle.dump(inp, f)
+    out = str(tmp / "oracle")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    child = subprocess.Popen([sys.executable, "-c", CHILD, src, out],
+                             cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    try:
+        ranks = spawn(_port_ranks, (4, 2), (src,), device="cpu")[0]
+        _, err = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+    assert child.returncode == 0, err[-3000:]
+    with open(out + ".json") as f:
+        ref = json.load(f)
+    with np.load(out + ".npz") as z:
+        truth = {k: z[k] for k in z.files}
+    return ref, truth, ranks
+
+
+def test_shard_boxes_bitwise(both):
+    ref, _, ranks = both
+    assert ranks[0]["boxes"].keys() == ref["boxes"].keys()
+    for k, want in ref["boxes"].items():
+        got = [[list(p) for p in box] for box in ranks[0]["boxes"][k]]
+        assert got == want, k
+
+
+def test_sharded_digest_table_bitwise(both):
+    ref, _, ranks = both
+    assert ranks[0]["keys"] == ref["keys"]
+    assert np.array_equal(np.asarray(ranks[0]["table"], np.int32),
+                          np.asarray(ref["table"], np.int32))
+    # every rank gathered the same table
+    assert all(r["table"] == ranks[0]["table"] for r in ranks)
+
+
+def test_sharded_prog_outcome(both):
+    ref, _, ranks = both
+    assert ref["toy_leaves"] == ["b"]
+    assert ref["toy_shards"] == {"b": [1, 3, 5, 7]}
+    assert ref["toy_stats"] == [1, 1, 0]
+    for r in ranks:
+        assert r["toy_keys"] == ref["toy_keys"]
+        assert r["toy_table"] == ref["toy_table"]
+        assert r["toy_oracle"] and ref["toy_oracle"]
+        assert r["toy_clean"] and ref["toy_clean"]
+        assert r["toy_leaves"] == ref["toy_leaves"]
+        assert r["toy_shards"] == ref["toy_shards"]
+        assert tuple(r["toy_stats"]) == (1, 1)
+
+
+def test_bound_steps_losses_and_state(both):
+    ref, truth, ranks = both
+    np.testing.assert_allclose(ranks[0]["losses"], ref["losses"],
+                               atol=F32_TOL, rtol=F32_TOL)
+    got = ranks[0]["state"]
+    assert got.keys() == truth.keys()
+    for k, want in truth.items():
+        if k.startswith(("iv/",)) or k == "opt/t":
+            assert int(got[k]) == int(want), k
+        elif k in ("opt/bc1", "opt/bc2"):
+            assert abs(int(got[k].view(np.int32))
+                       - int(want.view(np.int32))) <= 1, k
+        else:
+            np.testing.assert_allclose(got[k], want, atol=F32_TOL,
+                                       rtol=F32_TOL, err_msg=k)
+
+
+def test_shard_patch_matches_reference(both):
+    ref, _, ranks = both
+    assert ref["rung"] == "shard_patch" and ref["healed_exact"]
+    for r in ranks:
+        assert r["injured"] == ref["injured"]
+        assert r["rung"] == ref["rung"]
+        assert r["bytes_moved"] == ref["bytes_moved"]
+        assert r["bytes_moved"] == r["block_bytes"] * len(r["injured"])
+        # the healed state is its own pre-injection truth, bit for bit
+        assert r["healed_exact"]
+        # only an injured rank's block of the injured leaf was replaced
+        want = ["params/" + UP] if r["shard_id"] in r["injured"] else []
+        assert r["moved_leaves"] == want, r["shard_id"]
+
+
+def test_version_mismatch_escalates_to_replay(both):
+    ref, _, ranks = both
+    assert ref["rung2"] == "replay" and "shard_patch" in ref["attempted2"]
+    for r in ranks:
+        assert r["rung2"] == ref["rung2"]
+        assert "shard_patch" in r["attempted2"]

@@ -292,7 +292,17 @@ def test_exhausted_ladder_raises(port):
                                     leaves=[f"iv/{k}" for k in bad["iv"]]), 2)
 
 
-@pytest.mark.parametrize("kw", [{"shardings": {"x": 1}},
+def _mesh_shardings():
+    from repro_torch.distributed.context import DistContext
+    from repro_torch.distributed.sharding import LeafSharding, P
+    ctx = DistContext.for_shape((4, 2), ("data", "model"))
+    return {"params": {"w": LeafSharding(ctx, P(None, "model"), (4, 4),
+                                         torch.float32)}}
+
+
+# ``shardings`` is ported (the mesh slice); elastic is refused beside it
+@pytest.mark.parametrize("kw", [{"shardings": _mesh_shardings(),
+                                 "elastic": lambda *a: None},
                                 {"elastic": lambda *a: None}])
 def test_unported_runtime_arguments_raise(port, kw):
     with pytest.raises(NotImplementedError, match="not ported"):
