@@ -357,7 +357,29 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    ``pack_rows`` and ``row_checksums`` bitwise their plain versions on
    its own blocks, a steady check's STATS (1, 1), the mesh step's host
    p50, recovery ms by rung and the step's three parts timed alone
-   (gather the params, forward + backward, the grads' mean);
+   (gather the params, forward + backward, the grads' mean); in the same
+   ranks the training modes: (a) ``--donate --fused-detect`` at K=2,
+   clean: every rank's final blocks bitwise the functional clean run's,
+   every local leaf's ``data_ptr`` kept, ``STATS`` (1, 1) a step, the
+   graphs captured (the head and the tail of each rotation and read
+   table: the step's collectives run between them) and their pool's
+   bytes, the step's host p50; (b) the same with ``--parity`` and a
+   params flip at step 2 in the checked slice: the fused report
+   consumed and replayed, the final blocks bitwise the clean run's, the
+   parity kept by the fused tail's gated update (``xor_update_tiles``);
+   (c) the donated pair with triage and the mesh parity: through
+   ``train(mesh=..., donate=True, triage=True, parity=True)`` under a
+   params flip at step 2 (``parity_xor`` or ``replay``, every
+   ``data_ptr`` kept, the final blocks bitwise the clean run's), then
+   the same composition driven by hand to place two flips: a bit-30
+   flip in an ``opt/v`` FFN leaf escalates past triage and is repaired
+   by ``parity_xor`` (or ``replay`` when it does not localise), the run
+   ends bitwise the clean run's, each rank's parity row then bitwise its
+   plain version's (``xor_fold_tiles``, ``xor_update_tiles`` on the
+   rank's exchanged stream), then a bit-2 flip in the same leaf is
+   tolerated by triage with 0 bytes moved, the same verdict on every
+   rank, ``checksum_tiles`` launched only on the ranks holding the block
+   (bitwise its plain version there) and the next full check clean;
    then one JSON line describing every kernel (the 8 ports, the layout
    kernel ``flash_layout_kv`` of the flash port, ``pack_rows`` at 8f's
    two shapes and at 9a's 1-byte canary), then the device line.
@@ -3596,15 +3618,154 @@ def recurrent_phase(torch, phase: int, arch: str, serve_kw: dict,
 
 
 MESH, MESH_STEPS = "2,2", 3    # phase 14: 4 ranks share the one card
+MESH_K = 2                     # 14a/14b: the fused runs' canary K
+#: 14c: the triage and parity flips, in an ``opt/v`` FFN leaf (its blocks
+#: split over ``model``, replicated over ``data``: 2 holders each)
+MESH_FLIP_LEAF = "groups/0/0/ffn/up/w"
+MESH_FLIP_ELEMENT = 1000
+
+
+def _mesh_pair_rungs(cfg, seq: int, steps: int, dev, clean) -> dict:
+    """14c, in a rank: the donated pair (``arm_current`` / ``check``,
+    K=1) with triage and the mesh parity, as ``train(mesh=..., donate=,
+    triage=, parity=)`` composes them, driven by hand to place its two
+    flips: bit 30 of an ``opt/v`` FFN word at step 1 (triage refuses it;
+    ``parity_xor`` or ``replay`` repairs it; the run must end on the
+    clean run's bits), then, after the run, bit 2 of another word of the
+    same leaf (tolerated)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.core.faults import InjectionPlan, inject
+    from repro_torch.core.icp import promote
+    from repro_torch.core.microcheckpoint import MicroCheckpointer
+    from repro_torch.core.parity import ParityStore
+    from repro_torch.core.recover import RecoveryRuntime
+    from repro_torch.core.recovery_table import RecoveryTable
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import parity as pk
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_context
+    from repro_torch.launch.specs import bind_state
+    from repro_torch.launch.train import batch_for, cuda_numerics
+    from repro_torch.train.loop import make_train_state, make_train_step
+    from repro_torch.tree import leaves as leaves_of
+
+    ctx = make_context(MESH, dev)
+    key = "opt/v/" + MESH_FLIP_LEAF
+    out = {"events": []}
+    with cuda_numerics(dev):
+        pipe = TokenPipeline(cfg.model.vocab_size, seq, T_BATCH, seed=0)
+        state, step, bfn, sh = bind_state(
+            ctx, cfg, make_train_state(cfg, 0, global_batch=T_BATCH,
+                                       device=dev),
+            make_train_step(cfg, global_batch=T_BATCH, donate=True),
+            lambda s: batch_for(cfg, pipe, s))
+        ivs = promote(cfg, T_BATCH)
+        canary = ChecksumCanary(state, n_slices=1, ctx=ctx)
+        pstore = ParityStore(state, ctx=ctx, shardings=sh)
+        pstore.build(state)
+        canary.attach_parity(pstore)
+        micro = MicroCheckpointer(interval=2, ctx=ctx, shardings=sh)
+        rt = RecoveryRuntime(
+            step_fn=step, batch_fn=bfn, iv_registry=ivs, micro=micro,
+            parity=pstore, canary=canary, triage=True, donated=True,
+            shardings=sh, reuse_state=True,
+            table=RecoveryTable.build(
+                state, sharded=True, triage=True, parity=True,
+                opt_ivs=tuple(k for k in (*ivs.specs, *ivs.derived)
+                              if k.startswith("opt/"))))
+        ptrs = [t.data_ptr() for t in leaves_of(state)]
+
+        def recover(s, rep):
+            rep.resolve()
+            t0 = time.perf_counter()
+            new, ev = rt.recover(state, rep, s)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            out["events"].append({
+                "rung": ev.rung, "attempted": ev.attempted,
+                "bytes": ev.bytes_moved,
+                "ms": 1e3 * (time.perf_counter() - t0),
+                "shards": rep.shards})
+            return new
+
+        s, flipped, step_ms = 0, False, []
+        while s < steps:
+            canary.arm_current(s, state)
+            micro.record_iv(s, state["iv"])
+            micro.maybe_snapshot(s, state)
+            if s == 1 and not flipped:
+                inject(state, InjectionPlan("v/" + MESH_FLIP_LEAF,
+                                            MESH_FLIP_ELEMENT, 30, s,
+                                            "opt"), shardings=sh)
+                flipped = True
+            rep = canary.check(s, state)
+            if rep is not None:
+                state = recover(s, rep)
+                canary.refresh(state)
+                pstore.rebuild(state, s)
+                continue
+            t0 = time.perf_counter()
+            state, m = step(state, bfn(s))
+            float(m["loss"])                # the step's own fetch
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            s += 1
+        out["p50_step_ms"] = float(np.median(step_ms))
+        out["same"] = _same_state(torch, clean, state)
+        out["ptrs_kept"] = ptrs == [t.data_ptr() for t in leaves_of(state)]
+
+        # the parity row over the final state against its plain version:
+        # the fold of the rank's exchanged stream, and a gated update of it
+        canary.arm_current(steps, state)
+        pp = pstore.plan
+        recv = pp.exchange(pp.stream_mat(pp.leaves(state)))
+        out["fold_err"] = _max_err(torch, pstore.parity,
+                                   ref.xor_fold_tiles_ref(recv))
+        before = dict(_build.LAUNCHES)
+        upd = pk.xor_update_tiles(recv, pstore.parity.clone())
+        out["update_err"] = _max_err(
+            torch, upd, ref.xor_update_tiles_ref(recv,
+                                                 pstore.parity.clone()))
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(before)
+        out["parity_words"] = pp.row_words
+
+        # bit 2 of another word of the same leaf: tolerated
+        inject(state, InjectionPlan("v/" + MESH_FLIP_LEAF,
+                                    MESH_FLIP_ELEMENT + 7, 2, steps, "opt"),
+               shardings=sh)
+        rep = canary.check(steps, state)
+        out["tolerated_detected"] = rep is not None
+        tiles0 = _build.LAUNCHES.get("checksum_tiles", 0)
+        state = recover(steps, rep)
+        out["triage_tiles"] = _build.LAUNCHES.get("checksum_tiles",
+                                                  0) - tiles0
+        out["full_clean"] = canary.check_full(steps, state) is None
+        # checksum_tiles on the rank's block of the leaf, against its
+        # plain version
+        blk = {k: t for k, t in zip(canary.plan.keys,
+                                    canary.plan.leaves(state))}[key]
+        before = dict(_build.LAUNCHES)
+        words = ref.to_i32(blk)
+        out["tiles_err"] = _max_err(
+            torch, ck.checksum_tiles(words),
+            ref.checksum_tiles_ref(words))
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(before)
+    return out
 
 
 def _mesh_rank(steps: int, work: str, device: str = "cuda",
                smoke: bool = False) -> dict:
     """One rank of phase 14, a spawned process on ``cuda:0`` beside the
-    other three: three runs of ``train(mesh=...)`` (clean; a params flip
+    other three: six runs of ``train(mesh=...)`` (clean; a params flip
     every step: the odd steps have no version-matched snapshot and
     replay, the even ones take shard_patch; an iv storm, with a disk
-    checkpoint at step 0) with the launch counts of their kernels, then
+    checkpoint at step 0; 14a-14c's modes) and 14c's placed flips
+    (``_mesh_pair_rungs``) with the launch counts of their kernels, then
     this rank's
     ``pack_rows`` and ``row_checksums`` against their plain versions on
     its own blocks and one steady check's STATS.  ``device="cpu"`` and
@@ -3634,23 +3795,47 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
     dev = torch.device(device, torch.cuda.current_device()) \
         if device == "cuda" else torch.device(device)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    fused = dict(donate=True, fused_detect=True, canary_slices=MESH_K)
     plans = {"clean": {}, "params": dict(inject_every=1),
              "iv": dict(inject_every=2, inject_target="iv",
-                        checkpoint_dir=work, checkpoint_interval=2 * steps)}
+                        checkpoint_dir=work, checkpoint_interval=2 * steps),
+             # 14a, 14b: the flip lands in the slice checked at its step
+             # (one flip, at step 2: the time cut)
+             "donate+fused": fused,
+             "donate+fused+parity storm": dict(
+                 fused, parity=True, inject_every=2,
+                 inject_armed_only=True),
+             # 14c through the entry point: the donated pair with triage
+             # and the mesh parity under a params flip at step 2 (triage
+             # refuses a params word; parity_xor or replay repairs it)
+             "donate+triage+parity storm": dict(
+                 donate=True, triage=True, parity=True, inject_every=2)}
     sync()
-    _build.LAUNCHES.clear()
-    runs, secs = {}, {}
+    runs, secs, by_run = {}, {}, {}
     for name, kw in plans.items():
+        _build.LAUNCHES.clear()
         t0 = time.perf_counter()
-        runs[name] = train(cfg, **common, **kw)
+        runs[name] = train(cfg, **{**common, **kw})
+        sync()
         secs[name] = time.perf_counter() - t0
-    sync()
-    launches = dict(_build.LAUNCHES)
+        by_run[name] = dict(_build.LAUNCHES)
     summaries = {n: r[0] for n, r in runs.items()}
     clean = runs["clean"][1]
     same = {name: _same_state(torch, clean, st)
             for name, (_, st) in runs.items() if name != "clean"}
     del runs
+    # 14c's placed flips: the donated pair with triage and the mesh
+    # parity, driven by hand
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    pair = _mesh_pair_rungs(cfg, seq, steps, dev, clean)
+    sync()
+    secs["donate+triage+parity flips"] = time.perf_counter() - t0
+    by_run["donate+triage+parity flips"] = dict(_build.LAUNCHES)
+    launches = {}
+    for lc in by_run.values():
+        for k, v in lc.items():
+            launches[k] = launches.get(k, 0) + v
 
     # the clean run's final state: this rank's blocks
     local = clean
@@ -3716,7 +3901,8 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
         "shard": ctx.shard_id, "device": str(ctx.device),
         "name": torch.cuda.get_device_name(ctx.device)
         if device == "cuda" else "cpu",
-        "launches": launches, "secs": secs, "same": same,
+        "launches": launches, "by_run": by_run, "secs": secs,
+        "same": same, "pair": pair,
         "summaries": summaries, "entered": entered,
         "patch_exact": patch_exact,
         "local_bytes": sum(nbytes.values()), **kernels,
@@ -3725,6 +3911,69 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
                      grad_ms, "grad mean": mean_ms},
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30
         if device == "cuda" else 0.0}
+
+
+def check_mesh_modes(r: dict, device: str) -> None:
+    """Phase 14's mode runs in one rank's result: asserts and its
+    ``[mesh-modes]`` line."""
+    sm = r["summaries"]
+    a, b, c = sm["donate+fused"], sm["donate+fused+parity storm"], r["pair"]
+    for name in ("donate+fused", "donate+fused+parity storm"):
+        assert r["same"][name], f"{name} != clean on rank {r['shard']}"
+        assert sm[name]["pointers_kept"], (name, sm[name])
+    # every fused report under donation is consumed: replay, never the
+    # in-place rungs (the parity is attached)
+    assert set(b["recovery"]["by_rung"]) == {"replay"}, b["recovery"]
+    assert a["digest_per_step"] == [[1, 1]], a
+    if device == "cuda":
+        # the head and the tail of each rotation and read table
+        assert a["fused"]["captures"] == 4 * MESH_K, a["fused"]
+    first, tol = c["events"]
+    assert first["attempted"][0] == "triage", first
+    assert first["rung"] in ("parity_xor", "replay"), first
+    assert c["same"] and c["ptrs_kept"], c
+    assert c["fold_err"] == 0 and c["update_err"] == 0, c
+    assert c["tolerated_detected"] and tol["rung"] == "triage", tol
+    assert tol["bytes"] == 0 and c["full_clean"], (tol, c)
+    holders = tol["shards"]["opt/v/" + MESH_FLIP_LEAF]
+    if device == "cuda":
+        assert (c["triage_tiles"] > 0) == (r["shard"] in holders), (
+            r["shard"], holders, c["triage_tiles"])
+        for k in ("xor_fold_tiles", "xor_update_tiles", "checksum_tiles"):
+            assert r["launches"].get(k, 0) > 0, (k, r["launches"])
+    assert c["tiles_err"] == 0, c
+    # 14c through train(): the params flip escalates past triage, the
+    # donated run keeps every tensor and ends on the clean run's bits
+    d = sm["donate+triage+parity storm"]
+    assert set(d["recovery"]["by_rung"]) <= {"parity_xor", "replay"}, d
+    assert d["pointers_kept"], d
+    print(f"[mesh-modes] rank {r['shard']}: (a) --donate --fused-detect "
+          f"K={MESH_K}: final blocks == clean bitwise, every data_ptr "
+          f"kept, STATS a step {a['digest_per_step']}, "
+          f"{a['fused'].get('captures', a['fused'].get('builds'))} graphs "
+          f"(pool {a['fused'].get('pool_bytes', 0) / 2**20:.1f} MiB), "
+          f"host p50 {a['p50_step_ms']:.1f} ms, run "
+          f"{r['secs']['donate+fused']:.1f} s; (b) + --parity, a flip "
+          f"at step 2 in the checked slice: {b['faults_detected']} "
+          f"consumed reports -> {b['recovery']['by_rung']}, recovery p50 "
+          f"{b['p50_recovery_ms']:.1f} ms, host p50 "
+          f"{b['p50_step_ms']:.1f} ms, == clean bitwise, run "
+          f"{r['secs']['donate+fused+parity storm']:.1f} s; (c) "
+          f"train(donate, triage, parity), a params flip at step 2: "
+          f"{d['recovery']['by_rung']} in "
+          f"{d['p50_recovery_ms']:.1f} ms, host p50 "
+          f"{d['p50_step_ms']:.1f} ms, == clean bitwise, every data_ptr "
+          f"kept, run {r['secs']['donate+triage+parity storm']:.1f} s; "
+          f"its placed flips by hand (step host p50 "
+          f"{c['p50_step_ms']:.1f} ms): bit 30 -> {first['attempted']}"
+          f" -> {first['rung']} ({first['bytes']} B, {first['ms']:.1f} "
+          f"ms), run == clean bitwise, parity row ({c['parity_words']} "
+          f"words) == its plain fold, update == plain; bit 2 -> triage "
+          f"({tol['bytes']} B, {tol['ms']:.1f} ms, shards {holders}), "
+          f"checksum_tiles {c['triage_tiles']} (bitwise plain), next full "
+          f"check clean, run "
+          f"{r['secs']['donate+triage+parity flips']:.1f} s; "
+          f"launches by run {r['by_run']} [{_SMI}]")
 
 
 def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
@@ -3754,12 +4003,13 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
     print(f"[mesh] iterpro-100m (12 layers, d 768, f32) on a 2 x 2 mesh: "
           f"{len(ranks)} ranks on {ranks[0]['name']} ({ranks[0]['device']}) "
           f"over gloo, batch {T_BATCH} x {T_SEQ}, {MESH_STEPS} steps a run, "
-          f"K=1, snapshot every 2; spawn + 3 runs + checks {wall:.1f} s "
+          f"K=1, snapshot every 2; spawn + 7 runs + checks {wall:.1f} s "
           f"(the last rank started {up:.1f} s after the spawn) [{_SMI}]")
     for r in ranks:
         sm = r["summaries"]
         assert sm["clean"]["faults_injected"] == 0, sm["clean"]
-        for name in ("params", "iv"):
+        for name in ("params", "iv", "donate+fused+parity storm",
+                     "donate+triage+parity storm"):
             f = sm[name]
             assert f["faults_injected"] > 0, (name, f)
             assert f["faults_detected"] == f["faults_injected"], (name, f)
@@ -3767,6 +4017,7 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
             assert r["same"][name], f"{name} storm != clean on rank " \
                                     f"{r['shard']}"
         rung = {n: sm[n]["recovery"]["by_rung"] for n in sm}
+        assert sm["donate+fused"]["faults_injected"] == 0, sm
         # MESH_STEPS = 3: flips at 1 (no snapshot of version 1: replay) and
         # 2 (the snapshot of version 2: shard_patch)
         assert rung["params"] == {"replay": 1, "shard_patch": 1}, rung
@@ -3784,6 +4035,7 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
               for n in ("params", "iv")}
         moved = [e["bytes_moved"] for e in
                  sm["params"]["recovery"]["shard_patches"]]
+        check_mesh_modes(r, device)
         print(f"[mesh] rank {r['shard']}: mesh step host p50 "
               f"{sm['clean']['p50_step_ms']:.1f} ms (clean), runs "
               + ", ".join(f"{n} {v:.1f} s" for n, v in r["secs"].items())
@@ -3796,6 +4048,9 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
               + ", ".join(f"{k} {v:.1f} ms" for k, v in
                           r["parts_ms"].items())
               + f"; peak {r['peak_gib']:.2f} GiB [{_SMI}]")
+    verdicts = [[(e["rung"], e["attempted"], e["bytes"])
+                 for e in r["pair"]["events"]] for r in ranks]
+    assert all(v == verdicts[0] for v in verdicts), verdicts
 
 
 def main() -> int:

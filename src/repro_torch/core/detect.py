@@ -35,11 +35,6 @@ from repro_torch.kernels import digest as kdigest
 from repro_torch.kernels.ops import rotating_slice
 from repro_torch.tree import tree_map
 
-#: the mesh slices still to come (ROADMAP.md queue 1, 'Mesh and elastic')
-MESH_FUSED = ("donate, fused detection and triage on the mesh (ROADMAP.md "
-              "queue 1, 'Mesh and elastic')")
-MESH_PARITY = "mesh parity (ROADMAP.md queue 1, 'Mesh and elastic')"
-
 #: window of the loss-spike trap; callers keep a bounded
 #: ``deque(maxlen=LOSS_WINDOW)`` history
 LOSS_WINDOW = 8
@@ -112,9 +107,15 @@ class FaultReport:
     consumed: bool = False
 
     def resolve(self) -> List[str]:
-        """Materialise ``leaves`` from a deferred attribution."""
+        """Materialise ``leaves`` from a deferred attribution (and, on a
+        mesh, ``shards``: a resolver may return ``(leaves, shards)``; a
+        collective there, which every rank runs once the flag fired)."""
         if self.resolver is not None:
-            self.leaves = self.resolver()
+            got = self.resolver()
+            if isinstance(got, tuple):
+                self.leaves, self.shards = got
+            else:
+                self.leaves = got
             self.resolver = None
         return self.leaves
 
@@ -227,9 +228,9 @@ class ChecksumCanary:
         the gated incremental update ``old ^ new`` and ``arm`` rebuilds the
         parity of the armed tree (the donated pair sees one state version
         only), each committed as version ``step + 1``.  The store's plan
-        must cover the same state structure."""
-        if self.ctx is not None:
-            raise NotImplementedError(f"not ported yet: {MESH_PARITY}")
+        must cover the same state structure (on a mesh, the rank's
+        blocks: the update's exchange then rides the canary's calls, which
+        every rank makes)."""
         self._parity = store
 
     @property
@@ -363,9 +364,10 @@ class ChecksumCanary:
         each on first use.  ``host_metrics`` names 0-dim entries of
         ``aux`` fetched with the flag in the step's one transfer.  Returns
         a ``core.fused_step.FusedStepFactory``; drive it with
-        ``factory.step(s, state, *args) -> (new_state, aux, report)``."""
-        if self.ctx is not None:
-            raise NotImplementedError(f"not ported yet: {MESH_FUSED}")
+        ``factory.step(s, state, *args) -> (new_state, aux, report)``.
+        On a mesh ``step_fn`` is the mesh step (``front`` / ``tail``), and
+        the unit's device stretches between its collectives are the
+        captured graphs."""
         from repro_torch.core.fused_step import FusedStepFactory
         return FusedStepFactory(step_fn, self, donate=donate, warm=warm,
                                 host_metrics=host_metrics)

@@ -50,6 +50,33 @@ pinned host copy), so warm-up never advances the run.  A capture that
 fails on a card raises: there is no eager fallback there.  Graph
 outputs (``aux``, the mismatch mask) are overwritten by the next
 replay; a report clones what its resolver reads.
+
+On a mesh (a ``ShardedDigestPlan`` canary and the mesh step of
+``train/loop.pin_state_shardings``) a graph cannot hold the step's
+collectives: they run through gloo on the host (NCCL, which a graph can
+capture, refuses two ranks on one card).  So each rank's unit is
+stretches of device work between collectives, and each stretch whose
+inputs have fixed storage is a graph keyed by (rotation, read table):
+
+  * the head (graph): the check pack of slice ``s % K`` of the input
+    blocks (with a parity attached and donated, the old covered blocks
+    into the delta);
+  * the step's front (eager): every collective of the mesh step — the
+    params' gather, the forward and backward (their input, the gathered
+    params, is a new tensor of the collective each step), the grads'
+    mean and the norm's all-gather; its outputs are copied into fixed
+    storage;
+  * the tail (graph): the rest of the step (norm, clip, update, the
+    ``iv`` advance), the arm pack of slice ``(s+1) % K`` of the output
+    blocks, the ``row_checksums`` launch, the compare against the read
+    table, the in-place arm of the write table and, with a parity, the
+    new blocks' share of the delta;
+  * eager: the flag's MAX all-reduce over the world group; with a
+    parity the gate on that flag, the delta's all-to-all and
+    ``xor_update_tiles`` (one launch each between collectives); the one
+    fetch of the flag with the host metrics beside it.
+
+On the CPU the same stretches run eagerly, in the same order.
 """
 
 from __future__ import annotations
@@ -85,6 +112,14 @@ class _Rotation:
 
 
 @dataclass
+class _MeshGraphs:
+    """One rotation's two captured stretches on a mesh rank (head and
+    tail, each a ``_Graph``)."""
+    head: "_Graph"
+    tail: "_Graph"
+
+
+@dataclass
 class _Graph:
     """One captured rotation: the graph, its outputs and what it keeps
     alive (pack schedules), and the kernel launches one replay makes."""
@@ -94,6 +129,8 @@ class _Graph:
     host: torch.Tensor
     keep: Tuple
     launches: Counter
+    #: a mesh tail's local mismatch flag (reduced after the replay)
+    flag: Optional[torch.Tensor] = None
 
 
 class FusedStepFactory:
@@ -132,6 +169,13 @@ class FusedStepFactory:
         self.host_metrics = tuple(host_metrics)
         self.n_compiles = 0
         self.compile_seconds = 0.0
+        #: a mesh rank's unit: the step's collectives between its graphs
+        self.mesh = canary.ctx is not None
+        if self.mesh and not hasattr(step_fn, "front"):
+            raise ValueError("a fused step on a mesh takes the mesh step "
+                             "(train/loop.pin_state_shardings)")
+        #: the mesh step's front outputs in fixed storage (card)
+        self._front = None
         self._rotations: Dict[int, _Rotation] = {}
         self._warmed = False
         # card only: the state storage (1 version donated, 2 in ping-pong),
@@ -169,42 +213,101 @@ class FusedStepFactory:
         return rot
 
     # -- the unit: check, step, arm (eager on the CPU, captured on the card)
+    #
+    # Four stretches, off the mesh and on it: ``_head`` (device work
+    # before the step), ``_step_front`` (the step up to its last
+    # collective; off the mesh nothing), ``_tail`` (device work after it) and
+    # ``_reduce`` (the flag every rank acts on, the parity's gated update,
+    # the host vector).  Off the mesh one graph holds all four; on a mesh
+    # the head and the tail are a graph each and the rest runs eagerly.
 
-    def _body(self, rot: _Rotation, inp, out, read, write, args,
-              descs=(None, None)):
-        """Run (or record) one fused step.  ``out`` is where the output
-        state must end up (None: wherever ``step_fn`` put it); returns
-        ``(new_state, aux, bad, host_vector)``; the host vector holds the
-        flag (when there is a digest) and the host metrics."""
+    def _pplan(self, rot: _Rotation):
         pstore = self.canary.parity_store
-        pplan = pstore.plan if (pstore is not None and rot.core) else None
-        if rot.core is not None:
-            lv = self.plan.leaves(inp)
-            rot.core.pack_check(rot.buf, [lv[i] for i in rot.chk],
-                                desc=descs[0])
-            if pplan is not None and self.donate:
-                pplan.begin_delta(pplan.leaves(inp))
-        new_state, aux = self.step_fn(inp, *args)
+        if pstore is None or rot.core is None or not pstore.plan.keys:
+            return None
+        return pstore.plan
+
+    def _head(self, rot: _Rotation, inp, desc=None) -> None:
+        """Device work before the step: the check pack (and, donated, the
+        old covered blocks into the parity delta)."""
+        if rot.core is None:
+            return
+        lv = self.plan.leaves(inp)
+        rot.core.pack_check(rot.buf, [lv[i] for i in rot.chk], desc=desc)
+        pplan = self._pplan(rot)
+        if pplan is not None and self.donate:
+            pplan.begin_delta(pplan.leaves(inp))
+
+    def _step_front(self, inp, args):
+        """The step up to its last collective: on a mesh the mesh step's
+        ``front``; off the mesh nothing (the arguments go on to the
+        tail)."""
+        return self.step_fn.front(inp, *args) if self.mesh else args
+
+    def _tail(self, rot: _Rotation, inp, out, read, write, fr, desc=None):
+        """Device work after the step's last collective: the rest of the
+        step (off the mesh the whole step), the arm pack,
+        ``row_checksums``, the compare and the arm of the write table, the
+        new blocks' share of the parity delta.  ``out`` is where the
+        output state must end up (None: wherever the step put it).
+        Returns ``(new_state, aux, local flag, bad)``."""
+        new_state, aux = self.step_fn.tail(inp, fr) if self.mesh \
+            else self.step_fn(inp, *fr)
         if out is not None and out is not new_state:
             new_state = copy_into(out, new_state)
         flag = bad = None
-        extra = [aux[n].detach().to(torch.float64)
-                 for n in self.host_metrics]
         if rot.core is not None:
             lv = self.plan.leaves(new_state)
-            rot.core.pack_arm(rot.buf, [lv[i] for i in rot.arm],
-                              desc=descs[1])
-            flag, bad = rot.core.finish(rot.buf, read, write)
+            rot.core.pack_arm(rot.buf, [lv[i] for i in rot.arm], desc=desc)
+            flag, bad = rot.core.finish_local(rot.buf, read, write)
+            pplan = self._pplan(rot)
             if pplan is not None:
                 if self.donate:
-                    pplan.finish_delta(pstore.parity,
-                                       pplan.leaves(new_state), flag)
+                    pplan.stream_mat(pplan.leaves(new_state), xor=True)
                 else:
-                    pplan.update_leaves(pstore.parity, pplan.leaves(inp),
-                                        pplan.leaves(new_state), flag)
-            extra.insert(0, flag.to(torch.float64))
-        host = torch.stack(extra) if extra else None
-        return new_state, aux, bad, host
+                    pplan.stream_mat(pplan.leaves(inp),
+                                     pplan.leaves(new_state))
+        return new_state, aux, flag, bad
+
+    def _reduce(self, rot: _Rotation, flag, aux):
+        """After the tail: the flag every rank acts on (on a mesh its MAX
+        all-reduce), the parity's gated update and the host vector of the
+        one fetch (the flag, when there is a digest, and the host
+        metrics)."""
+        extra = [aux[n].detach().to(torch.float64)
+                 for n in self.host_metrics]
+        if rot.core is None:
+            return torch.stack(extra) if extra else None
+        flag = rot.core.reduce_flag(flag)
+        pplan = self._pplan(rot)
+        if pplan is not None:
+            pstore = self.canary.parity_store
+            pplan.apply_delta(pstore.parity,
+                              pplan.stream_row(pstore.device), flag)
+        return torch.stack([flag.to(torch.float64)] + extra)
+
+    def _body(self, rot: _Rotation, inp, out, read, write, args,
+              descs=(None, None), fixed: bool = False):
+        """One whole unit, run (or, off the mesh, recorded) in order;
+        ``fixed`` (a warm-up step on a mesh rank) puts the front's outputs
+        into the storage the captured tail reads.  Returns ``(new_state,
+        aux, bad, host_vector)``."""
+        self._head(rot, inp, descs[0])
+        fr = self._step_front(inp, args)
+        if fixed:
+            fr = self._load_front(fr)
+        new_state, aux, flag, bad = self._tail(rot, inp, out, read, write,
+                                               fr, descs[1])
+        return new_state, aux, bad, self._reduce(rot, flag, aux)
+
+    def _load_front(self, fr):
+        """The front's outputs into their fixed storage (allocated at the
+        first step, before any capture)."""
+        if self._front is None:
+            self._front = tree_map(torch.clone, fr)
+        else:
+            copy_into(self._front, fr)
+        return self._front
 
     def _finish(self, s: int, rot: _Rotation, new_state, aux, bad, host,
                 read, write):
@@ -232,7 +335,7 @@ class FusedStepFactory:
         chk = rot.chk
         return new_state, aux, FaultReport(
             s, "checksum", detail="in-step fused check",
-            resolver=lambda: can._attribute(chk, bad),
+            resolver=lambda: can._attribution(chk, bad),
             consumed=self.donate)
 
     # -- warm-up and capture (card) ----------------------------------------
@@ -276,7 +379,10 @@ class FusedStepFactory:
                 read, write = can._tables[0], can._tables[1]
                 inp = self._bufs[0]
                 out = None if self.donate else self._bufs[1]
-                self._body(rot, inp, out, read, write, self._args)
+                # on a mesh every rank warms up together: the front's
+                # and the flag's collectives run here too
+                self._body(rot, inp, out, read, write, self._args,
+                           fixed=self.mesh)
         torch.cuda.current_stream().wait_stream(side)
         for t, v in zip(can._tables, saved):
             t.copy_(v)
@@ -296,8 +402,29 @@ class FusedStepFactory:
                 if dst is not src:
                     dst.copy_(src)
 
-    def _capture(self, r: int, g: int) -> _Graph:
-        """Capture rotation ``r`` reading table ``g``."""
+    def _record(self, fn) -> Tuple[object, object, Counter]:
+        """Capture ``fn()`` into a graph of the factory's pool: ``(graph,
+        fn's result, the kernel launches one replay makes)``.  On a mesh
+        the capture checks only this thread's CUDA calls: gloo's threads
+        are idle between collectives, but they are not the capture's."""
+        before = Counter(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        mode = "thread_local" if self.mesh else "global"
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode=mode):
+            got = fn()
+        self.compile_seconds += time.perf_counter() - t0
+        self.n_compiles += 1
+        # nothing ran during the capture: its kernels count at each replay
+        launches = Counter(_build.LAUNCHES)
+        launches.subtract(before)
+        _build.LAUNCHES.subtract(launches)
+        return graph, got, +launches
+
+    def _capture(self, r: int, g: int):
+        """Capture rotation ``r`` reading table ``g``: one ``_Graph``, or
+        on a mesh the head and the tail (``_MeshGraphs``)."""
         can = self.canary
         rot = self._rotation(r)
         b = 0 if self.donate else g ^ self._phase
@@ -310,19 +437,19 @@ class FusedStepFactory:
                 [self.plan.leaves(inp)[i] for i in rot.chk],
                 [self.plan.leaves(inp if out is None else out)[i]
                  for i in rot.arm])
-        before = Counter(_build.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool):
-            _, aux, bad, host = self._body(rot, inp, out, read, write,
-                                           self._args, descs)
-        self.compile_seconds += time.perf_counter() - t0
-        self.n_compiles += 1
-        # nothing ran during the capture: its kernels count at each replay
-        launches = Counter(_build.LAUNCHES)
-        launches.subtract(before)
-        _build.LAUNCHES.subtract(launches)
-        return _Graph(graph, aux, bad, host, descs, +launches)
+        if self.mesh:
+            head, _, lh = self._record(
+                lambda: self._head(rot, inp, descs[0]))
+            tail, (_, aux, flag, bad), lt = self._record(
+                lambda: self._tail(rot, inp, out, read, write, self._front,
+                                   descs[1]))
+            return _MeshGraphs(
+                _Graph(head, {}, None, None, (descs[0],), lh),
+                _Graph(tail, aux, bad, None, (descs[1],), lt, flag=flag))
+        graph, (_, aux, bad, host), launches = self._record(
+            lambda: self._body(rot, inp, out, read, write, self._args,
+                               descs))
+        return _Graph(graph, aux, bad, host, descs, launches)
 
     def _graph(self, r: int, g: int) -> _Graph:
         ent = self._graphs.get((r, g))
@@ -428,9 +555,20 @@ class FusedStepFactory:
         self._load_args(args)
         g = can.generation & 1
         ent = self._graph(r, g)
-        ent.graph.replay()
-        _build.LAUNCHES.update(ent.launches)
         new_state = self._bufs[0] if self.donate \
             else self._bufs[1 - (g ^ self._phase)]
-        return self._finish(s, self._rotations[r], new_state, ent.aux,
-                            ent.bad, ent.host, *can.begin_update())
+        rot = self._rotations[r]
+        if self.mesh:
+            ent.head.graph.replay()
+            self._load_front(self._step_front(state, self._args))
+            ent.tail.graph.replay()
+            _build.LAUNCHES.update(ent.head.launches)
+            _build.LAUNCHES.update(ent.tail.launches)
+            ent = ent.tail
+            host = self._reduce(rot, ent.flag, ent.aux)
+        else:
+            ent.graph.replay()
+            _build.LAUNCHES.update(ent.launches)
+            host = ent.host
+        return self._finish(s, rot, new_state, ent.aux, ent.bad, host,
+                            *can.begin_update())

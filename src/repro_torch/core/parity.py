@@ -1,13 +1,13 @@
-"""Device-resident XOR parity, off the mesh — the single-device half of
-``repro/core/parity.py`` (the ICP analogue at tensor level).
+"""Device-resident XOR parity — ``repro/core/parity.py`` (the ICP
+analogue at tensor level) but for its row-safe placement.
 
-Every covered state leaf (params and optimizer state) is cut into D equal
-chunks of its flat ``to_i32`` view, its "blocks" (``block_len`` words,
-the last one zero-padded), and ``parity = XOR_d block_d`` over the raw
-bits.  Any single lost or corrupt block is then exactly reconstructible
-from its surviving peers and the parity —
-``block_j = parity ^ XOR_{d != j} block_d`` — with no host snapshot and no
-replay.  XOR is bit-exact, so exact-or-abort holds with no floating-point
+Off the mesh every covered state leaf (params and optimizer state) is
+cut into D equal chunks of its flat ``to_i32`` view, its "blocks"
+(``block_len`` words, the last one zero-padded), and ``parity = XOR_d
+block_d`` over the raw bits.  Any single lost or corrupt block is then
+exactly reconstructible from its surviving peers and the parity —
+``block_j = parity ^ XOR_{d != j} block_d`` — with no host snapshot and
+no replay.  XOR is bit-exact, so exact-or-abort holds with no floating-point
 caveat.
 
 Layout, bit for bit the reference's: the leaves' block rows sit side by
@@ -28,8 +28,30 @@ fault zeroes the delta before the kernel, so the parity keeps describing
 the last healthy certified state version — the one reconstruction must
 produce — and the host learns of the fault from the canary's one fetch.
 
-Mesh layouts (slice maps, replica dedup, row-safe groups) and the hard-loss
-host helpers are not ported; they raise ``NotImplementedError``.
+On a mesh (``MeshParityPlan``, ``ParityStore(tree, ctx=, shardings=)``)
+each rank holds only its own blocks of the state, so the layout follows
+the reference's mesh half: a leaf's blocks are its shards' index boxes,
+deduplicated in mesh-flat order (replicas of one box are ONE block: XOR
+over an even number of equal copies would cancel), ``device_block`` maps
+a shard id to its block and ``block_devices`` a block to every shard
+holding it.  The stream holds each leaf's unique blocks side by side at
+the leaf's offset, and the reference's ``(D, Crow)`` buffer sharded over
+the mesh puts columns ``[r*Crow, (r+1)*Crow)`` of the fold on rank r.
+The reference folded the stream with an elementwise XOR over the device
+axis; here the fold is an exchange and a kernel.  Rank r writes its
+stream row (the blocks it is the FIRST holder of, zeros elsewhere) cut
+into D chunks of ``Crow`` words, each padded to whole tiles; one
+all-to-all over the world group hands rank r chunk r of every rank's
+row, and ``xor_fold_tiles`` (build) or ``xor_update_tiles`` (the gated
+update) folds the D received chunks into its row.  A reconstruction
+XOR-folds, again with ``xor_fold_tiles``, every rank's share of the
+injured block's group: its parity columns of the leaf's segment and the
+surviving block it first holds; the block goes to every rank holding it,
+so replicas stay bit-consistent.
+
+The row-safe placement (fold groups that survive a lost data row) and
+the hard-loss host helpers belong to the elastic slice; they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,7 +71,9 @@ LANES = _pk.LANES
 TILE_ROWS = _pk.TILE_ROWS
 TILE = TILE_ROWS * LANES
 
-_MESH = "not ported yet: mesh parity (ROADMAP.md queue 1, 'Mesh and elastic')"
+_MESH = ("not ported yet: the row-safe parity placement and its host "
+         "helpers (ROADMAP.md queue 1, 'Mesh and elastic', the elastic "
+         "slice)")
 
 #: dtypes whose ``to_i32`` view is invertible (``from_i32`` restores the
 #: exact bits).  int64/float64 views are lossy, so leaves of those dtypes
@@ -69,10 +93,11 @@ def _covered(key: str, dtype, shape=None) -> bool:
     return not key.startswith("iv") and dtype in _INVERTIBLE
 
 
-class ParityPlan:
-    """Block layout and parity math for one state structure off the mesh.
-    Cached by ``parity_plan_for``, so every store over the same structure
-    shares the layout and the scratch buffer."""
+class _PlanBase:
+    """What the off-mesh and the mesh plans share: the covered keys and
+    their per-key layout tables, the leaves in key order, the buffer, and
+    the gated update built on each plan's ``stream_mat``, ``stream_row``
+    and ``apply_delta``."""
 
     def __init__(self, keys: Tuple[str, ...],
                  shapes: Dict[str, Tuple[int, ...]],
@@ -81,7 +106,6 @@ class ParityPlan:
         self.key_set = frozenset(keys)
         self.shapes = shapes
         self.dtypes = dtypes
-        self.slices = None          # mesh slice maps: not ported
         self.n_shards = n_shards
         #: per-key block length (int32 words; the last block is padded)
         self.block_len: Dict[str, int] = {}
@@ -89,33 +113,13 @@ class ParityPlan:
         self.block_sizes: Dict[str, Tuple[int, ...]] = {}
         self.block_shapes: Dict[str, Tuple[Tuple[int, ...], ...]] = {}
         self.n_blocks: Dict[str, int] = {}
-        #: device-coordinate shard id -> block id: the identity off-mesh
+        #: device-coordinate shard id -> block id
         self.device_block: Dict[str, Tuple[int, ...]] = {}
         #: fold groups: one group holding every block (the flat fold)
         self.groups: Dict[str, Tuple[Tuple[int, ...], ...]] = {}
         self.block_group: Dict[str, Tuple[Tuple[int, int], ...]] = {}
         self.offsets: Dict[str, int] = {}
-        off = 0
-        for k in keys:
-            size = int(np.prod(shapes[k], dtype=np.int64))
-            c = max(1, -(-size // n_shards))
-            self.block_len[k] = c
-            self.block_sizes[k] = tuple(max(0, min(c, size - d * c))
-                                        for d in range(n_shards))
-            self.block_shapes[k] = tuple((b,) for b in self.block_sizes[k])
-            self.n_blocks[k] = n_shards
-            self.device_block[k] = tuple(range(n_shards))
-            self.groups[k] = (tuple(range(n_shards)),)
-            self.block_group[k] = tuple((0, d) for d in range(n_shards))
-            self.offsets[k] = off
-            off += c
-        #: parity stream length (int32 words)
-        self.stream_len = off
-        self.n_tiles = max(1, -(-off // TILE))
-        self.buffer_shape = (self.n_tiles, TILE_ROWS, LANES)
         self._scratch: Dict[str, torch.Tensor] = {}
-
-    # -- layout helpers ----------------------------------------------------
 
     @property
     def memory_bytes(self) -> int:
@@ -130,6 +134,72 @@ class ParityPlan:
         """A zero parity buffer."""
         return torch.zeros(self.buffer_shape, dtype=torch.int32,
                            device=device)
+
+    def update_leaves(self, parity: torch.Tensor,
+                      old_leaves: Sequence[torch.Tensor],
+                      new_leaves: Sequence[torch.Tensor],
+                      fault: torch.Tensor) -> torch.Tensor:
+        """``parity ^= XOR_d (old_d ^ new_d)`` in place, gated: when
+        ``fault`` (the canary's device-side mismatch flag, 0-d bool) is set
+        the delta is zeroed first, so the parity keeps describing the last
+        healthy version.  One ``xor_update_tiles`` launch, no host sync."""
+        if not self.keys:
+            return parity
+        delta = self.stream_mat(old_leaves, new_leaves)
+        return self.apply_delta(parity, delta, fault)
+
+    def begin_delta(self, old_leaves: Sequence[torch.Tensor]) -> None:
+        """First third of ``update_leaves`` for an in-place step: the
+        stream of the old leaves into the scratch buffer, taken before
+        the step overwrites them.  Then ``stream_mat(new, xor=True)`` and
+        ``apply_delta(parity, stream_row(dev), fault)`` equal
+        ``update_leaves`` bit for bit."""
+        if self.keys:
+            self.stream_mat(old_leaves)
+
+    # -- hard-loss host helpers (the row-safe placement's) -------------------
+
+    def host_parity_flat(self, parity, dead=frozenset()):
+        raise NotImplementedError(_MESH)
+
+    def host_surviving_blocks(self, key, leaf, dead=frozenset()):
+        raise NotImplementedError(_MESH)
+
+    def host_reconstruct_block(self, key, blk, parity_flat, blocks):
+        raise NotImplementedError(_MESH)
+
+    def host_assemble_leaf(self, key, leaf, dead=frozenset()):
+        raise NotImplementedError(_MESH)
+
+
+class ParityPlan(_PlanBase):
+    """Block layout and parity math for one state structure off the mesh.
+    Cached by ``parity_plan_for``, so every store over the same structure
+    shares the layout and the scratch buffer."""
+
+    def __init__(self, keys: Tuple[str, ...],
+                 shapes: Dict[str, Tuple[int, ...]],
+                 dtypes: Dict[str, torch.dtype], n_shards: int):
+        super().__init__(keys, shapes, dtypes, n_shards)
+        self.slices = None          # mesh slice maps: the mesh plan's
+        off = 0
+        for k in keys:
+            size = int(np.prod(shapes[k], dtype=np.int64))
+            c = max(1, -(-size // n_shards))
+            self.block_len[k] = c
+            self.block_sizes[k] = tuple(max(0, min(c, size - d * c))
+                                        for d in range(n_shards))
+            self.block_shapes[k] = tuple((b,) for b in self.block_sizes[k])
+            self.n_blocks[k] = n_shards
+            self.device_block[k] = tuple(range(n_shards))   # the identity
+            self.groups[k] = (tuple(range(n_shards)),)
+            self.block_group[k] = tuple((0, d) for d in range(n_shards))
+            self.offsets[k] = off
+            off += c
+        #: parity stream length (int32 words)
+        self.stream_len = off
+        self.n_tiles = max(1, -(-off // TILE))
+        self.buffer_shape = (self.n_tiles, TILE_ROWS, LANES)
 
     # -- stream construction -----------------------------------------------
 
@@ -192,39 +262,15 @@ class ParityPlan:
             return self.make_buffer(device)
         return _pk.xor_fold_tiles(self._to_tiles(self.stream_mat(leaves)))
 
-    def update_leaves(self, parity: torch.Tensor,
-                      old_leaves: Sequence[torch.Tensor],
-                      new_leaves: Sequence[torch.Tensor],
-                      fault: torch.Tensor) -> torch.Tensor:
-        """``parity ^= XOR_d (old_d ^ new_d)`` in place, gated: when
-        ``fault`` (the canary's device-side mismatch flag, 0-d bool) is set
-        the delta is zeroed first, so the parity keeps describing the last
-        healthy version.  One ``xor_update_tiles`` launch, no host sync."""
-        if not self.keys:
-            return parity
-        delta = self.stream_mat(old_leaves, new_leaves)
-        return self.apply_delta(parity, delta, fault)
-
-    def begin_delta(self, old_leaves: Sequence[torch.Tensor]) -> None:
-        """First half of ``update_leaves`` for an in-place step: the
-        stream of the old leaves into the scratch buffer, taken before
-        the step overwrites them."""
-        if self.keys:
-            self.stream_mat(old_leaves)
-
-    def finish_delta(self, parity: torch.Tensor,
-                     new_leaves: Sequence[torch.Tensor],
-                     fault: torch.Tensor) -> torch.Tensor:
-        """Second half: XOR the new leaves' stream into the scratch buffer
-        (in place) and apply the gated update.  ``begin_delta`` then
-        ``finish_delta`` equals ``update_leaves`` bit for bit."""
-        if not self.keys:
-            return parity
-        delta = self.stream_mat(new_leaves, xor=True)
-        return self.apply_delta(parity, delta, fault)
+    def stream_row(self, dev) -> torch.Tensor:
+        """The scratch buffer ``stream_mat`` last wrote on ``dev``."""
+        return self._scratch[str(dev)]
 
     def apply_delta(self, parity: torch.Tensor, delta: torch.Tensor,
                     fault: torch.Tensor) -> torch.Tensor:
+        """The gated update: ``delta`` (the stream of ``old ^ new``)
+        zeroed when ``fault`` is set, then one ``xor_update_tiles``
+        launch."""
         delta.masked_fill_(fault, 0)
         return _pk.xor_update_tiles(self._to_tiles(delta), parity)
 
@@ -256,34 +302,192 @@ class ParityPlan:
         flat[shard * c:shard * c + bsize] = acc[:bsize]
         return _ref.from_i32(flat, leaf)
 
-    def reconstruct_shard(self, key: str, shard: int):
-        raise NotImplementedError(_MESH)
-
-    # -- hard-loss host helpers (mesh only) ---------------------------------
-
-    def host_parity_flat(self, parity, dead=frozenset()):
-        raise NotImplementedError(_MESH)
-
-    def host_surviving_blocks(self, key, leaf, dead=frozenset()):
-        raise NotImplementedError(_MESH)
-
-    def host_reconstruct_block(self, key, blk, parity_flat, blocks):
-        raise NotImplementedError(_MESH)
-
-    def host_assemble_leaf(self, key, leaf, dead=frozenset()):
-        raise NotImplementedError(_MESH)
+    def reconstruct_shard(self, parity, leaf, key: str, blk: int):
+        raise ValueError("reconstruct_shard: a mesh parity store only")
 
 
-_PARITY_PLAN_CACHE: Dict[Tuple, ParityPlan] = {}
+class MeshParityPlan(_PlanBase):
+    """This rank's parity plan on a mesh (see the module docstring): the
+    reference's non-row-safe mesh layout, its ``(D, Crow)`` buffer held
+    as one row a rank (tile-padded to ``(n_tiles, TILE_ROWS, LANES)``),
+    and the exchange that replaces its fold over the device axis.  Every
+    entry point that folds is a collective: every rank calls it."""
+
+    def __init__(self, ctx, keys: Tuple[str, ...],
+                 shapes: Dict[str, Tuple[int, ...]],
+                 dtypes: Dict[str, torch.dtype],
+                 slices: Dict[str, Tuple], device: torch.device):
+        super().__init__(keys, shapes, dtypes, ctx.n_devices)
+        D = self.n_shards
+        self.ctx = ctx
+        self.rank = ctx.shard_id
+        #: key -> (unique ((start, stop), ...) boxes in first-seen
+        #: mesh-flat order, shard id -> block id)
+        self.slices = slices
+        self.device = device
+        off = 0
+        for k in keys:
+            uniq, dev_to_blk = slices[k]
+            self.block_shapes[k] = tuple(tuple(b - a for a, b in box)
+                                         for box in uniq)
+            self.block_sizes[k] = tuple(int(np.prod(bs, dtype=np.int64))
+                                        for bs in self.block_shapes[k])
+            self.block_len[k] = max(self.block_sizes[k])
+            self.n_blocks[k] = len(uniq)
+            self.device_block[k] = tuple(dev_to_blk)
+            self.groups[k] = (tuple(range(len(uniq))),)
+            self.block_group[k] = tuple((0, b) for b in range(len(uniq)))
+            self.offsets[k] = off
+            off += self.block_len[k]
+        self.stream_len = off
+        #: the reference's row width: the fold padded to D rows of whole
+        #: lanes
+        crow = max(LANES, -(-off // D))
+        self.row_words = -(-crow // LANES) * LANES
+        self.n_tiles = max(1, -(-self.row_words // TILE))
+        #: a chunk of the exchange: one row, padded to whole tiles
+        self.chunk = self.n_tiles * TILE
+        self.buffer_shape = (self.n_tiles, TILE_ROWS, LANES)
+        #: the leaves this rank writes into its stream row (it is the
+        #: first holder of its block), with the pieces of each: ``(dst
+        #: word in the (D, chunk) row, src word, length)``
+        self.mine: List[Tuple[int, List[Tuple[int, int, int]]]] = []
+        for i, k in enumerate(keys):
+            blk = self.device_block[k][self.rank]
+            if self.block_devices(k, blk)[0] == self.rank:
+                self.mine.append((i, self._pieces(self.offsets[k],
+                                                  self.block_sizes[k][blk])))
+        self._recv: Dict[str, torch.Tensor] = {}
+
+    def block_devices(self, key: str, blk: int) -> Tuple[int, ...]:
+        """Shard ids holding block ``blk`` of ``key``: where a repair
+        goes (every replica)."""
+        return tuple(d for d, b in enumerate(self.device_block[key])
+                     if b == blk)
+
+    def _pieces(self, off: int, n: int) -> List[Tuple[int, int, int]]:
+        """Stream columns ``[off, off + n)`` cut at the rows' ends."""
+        out, j = [], 0
+        while j < n:
+            row, col = divmod(off + j, self.row_words)
+            take = min(n - j, self.row_words - col)
+            out.append((row * self.chunk + col, j, take))
+            j += take
+        return out
+
+    def _buffers(self, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The rank's stream row and the exchange's receive buffer,
+        ``(D * chunk,)`` int32 each, allocated once per device: only the
+        pieces of ``mine`` are ever written into the row, so the rest
+        stays zero."""
+        key = str(dev)
+        if key not in self._scratch:
+            n = self.n_shards * self.chunk
+            self._scratch[key] = torch.zeros(n, dtype=torch.int32,
+                                             device=dev)
+            self._recv[key] = torch.empty(n, dtype=torch.int32, device=dev)
+        return self._scratch[key], self._recv[key]
+
+    def stream_row(self, dev) -> torch.Tensor:
+        """The rank's stream row buffer (what ``stream_mat`` writes)."""
+        return self._buffers(dev)[0]
+
+    def stream_mat(self, leaves: Sequence[torch.Tensor],
+                   other: Sequence[torch.Tensor] = (),
+                   xor: bool = False) -> torch.Tensor:
+        """This rank's stream row (the blocks it first holds, at their
+        columns; ``other``: XOR the row of ``other``; ``xor``: XOR into
+        what the row holds), written in place; returns the row."""
+        buf, _ = self._buffers(leaves[0].device if leaves else self.device)
+        for i, pieces in self.mine:
+            a = _ref.to_i32(leaves[i])
+            b = _ref.to_i32(other[i]) if other else None
+            for lo, j, n in pieces:
+                dst, src = buf[lo:lo + n], a[j:j + n]
+                if b is not None:
+                    torch.bitwise_xor(src, b[j:j + n], out=dst)
+                elif xor:
+                    dst.bitwise_xor_(src)
+                else:
+                    dst.copy_(src)
+        return buf
+
+    def exchange(self, row: torch.Tensor) -> torch.Tensor:
+        """Chunk q of every rank's row to rank q (one all-to-all over the
+        world group): ``(D, n_tiles, TILE_ROWS, LANES)``, row p the chunk
+        rank p sent, in the plan's receive buffer."""
+        from repro_torch.distributed import collectives as coll
+        _, recv = self._buffers(row.device)
+        coll.all_to_all(row, self.ctx.group(self.ctx.axis_names), out=recv)
+        return recv.view(self.n_shards, self.n_tiles, TILE_ROWS, LANES)
+
+    def rebuild_leaves(self, leaves: Sequence[torch.Tensor],
+                       device=None) -> torch.Tensor:
+        """The rank's parity row from scratch: the exchange, then one
+        ``xor_fold_tiles`` launch."""
+        if not self.keys:
+            return self.make_buffer(device or self.device)
+        return _pk.xor_fold_tiles(self.exchange(self.stream_mat(leaves)))
+
+    def apply_delta(self, parity: torch.Tensor, delta: torch.Tensor,
+                    fault: torch.Tensor) -> torch.Tensor:
+        """The gated update of the rank's row: ``delta`` (its stream row
+        of ``old ^ new``) zeroed when ``fault`` (the mesh-wide flag) is
+        set, the exchange, then one ``xor_update_tiles`` launch."""
+        delta.masked_fill_(fault, 0)
+        return _pk.xor_update_tiles(self.exchange(delta), parity)
+
+    def reconstruct_leaf(self, parity, leaf, key: str, shard: int):
+        raise NotImplementedError(
+            "not ported yet: the whole-leaf rebuild of a mesh parity store, "
+            "the at-rest scrub's (serve --mesh, ROADMAP.md queue 1, 'Mesh "
+            "and elastic')")
+
+    def reconstruct_shard(self, parity: torch.Tensor, leaf: torch.Tensor,
+                          key: str, blk: int) -> torch.Tensor:
+        """Block ``blk`` of ``key`` rebuilt (block shape, the leaf's
+        dtype), on every rank: each rank's share — its parity columns of
+        the leaf's segment and the block it first holds unless that is
+        ``blk`` — all-gathered and XOR-folded with ``xor_fold_tiles``.
+        ``leaf`` is the rank's block (the survivors' bytes are read
+        where they lie)."""
+        from repro_torch.distributed import collectives as coll
+        c, off = self.block_len[key], self.offsets[key]
+        nt = max(1, -(-c // TILE))
+        part = torch.zeros(nt * TILE, dtype=torch.int32, device=leaf.device)
+        lo = max(off, self.rank * self.row_words)
+        hi = min(off + c, (self.rank + 1) * self.row_words)
+        if lo < hi:
+            base = self.rank * self.row_words
+            part[lo - off:hi - off] = parity.reshape(-1)[lo - base:hi - base]
+        mine = self.device_block[key][self.rank]
+        if mine != blk and self.block_devices(key, mine)[0] == self.rank:
+            a = _ref.to_i32(leaf)
+            part[:a.numel()].bitwise_xor_(a)
+        rows = coll.all_gather(part, self.ctx.group(self.ctx.axis_names))
+        acc = _pk.xor_fold_tiles(rows.view(self.n_shards, nt, TILE_ROWS,
+                                           LANES)).reshape(-1)
+        like = torch.empty(self.block_shapes[key][blk], dtype=leaf.dtype,
+                           device="meta")
+        return _ref.from_i32(acc[:self.block_sizes[key][blk]], like)
+
+
+_PARITY_PLAN_CACHE: Dict[Tuple, _PlanBase] = {}
 
 
 def parity_plan_for(tree, *, mesh=None, n_shards: int = 4,
                     row_safe: bool = False,
-                    batch_axes: Tuple[str, ...] = ()) -> ParityPlan:
+                    batch_axes: Tuple[str, ...] = (),
+                    shardings=None) -> _PlanBase:
     """The cached ParityPlan for ``tree``'s structure (covered leaf paths,
-    shapes, dtypes) off the mesh; D = ``max(2, n_shards)``."""
+    shapes, dtypes): off the mesh D = ``max(2, n_shards)``; with
+    ``shardings`` (the ``LeafSharding`` tree of the state whose rank
+    blocks ``tree`` holds) this rank's ``MeshParityPlan``, D the mesh's
+    size, the slice map derived from the shards' boxes."""
     if mesh is not None or row_safe or batch_axes:
         raise NotImplementedError(_MESH)
+    if shardings is not None:
+        return _mesh_plan_for(tree, shardings)
     entries = sorted(
         (leaf_key(p), tuple(x.shape), x.dtype)
         for p, x in flatten_with_path(tree)
@@ -296,6 +500,43 @@ def parity_plan_for(tree, *, mesh=None, n_shards: int = 4,
                           shapes={e[0]: e[1] for e in entries},
                           dtypes={e[0]: e[2] for e in entries},
                           n_shards=d)
+        _PARITY_PLAN_CACHE[key] = plan
+    return plan
+
+
+def _mesh_plan_for(tree, shardings) -> MeshParityPlan:
+    """The reference's slice map: each covered leaf's shard boxes in
+    mesh-flat order, replicas deduplicated (first seen first)."""
+    by_sh = {leaf_key(p): sh for p, sh in flatten_with_path(shardings)}
+    entries = []
+    ctx = None
+    for p, x in flatten_with_path(tree):
+        k = leaf_key(p)
+        sh = by_sh[k]
+        ctx = sh.ctx
+        if not _covered(k, sh.dtype, sh.shape):
+            continue
+        uniq: List[Tuple] = []
+        seen: Dict[Tuple, int] = {}
+        dev_to_blk = []
+        for d in range(sh.ctx.n_devices):
+            span = sh.span(d)
+            b = seen.get(span)
+            if b is None:
+                b = seen[span] = len(uniq)
+                uniq.append(span)
+            dev_to_blk.append(b)
+        entries.append((k, sh.shape, sh.dtype,
+                        (tuple(uniq), tuple(dev_to_blk))))
+    entries.sort(key=lambda e: e[0])
+    device = _tree_device(tree)
+    key = ("mesh", ctx.axes, ctx.rank, str(device), tuple(entries))
+    plan = _PARITY_PLAN_CACHE.get(key)
+    if plan is None:
+        plan = MeshParityPlan(ctx, tuple(e[0] for e in entries),
+                              {e[0]: e[1] for e in entries},
+                              {e[0]: e[2] for e in entries},
+                              {e[0]: e[3] for e in entries}, device)
         _PARITY_PLAN_CACHE[key] = plan
     return plan
 
@@ -316,10 +557,16 @@ class ParityStore:
     path."""
 
     def __init__(self, tree, *, ctx=None, n_shards: int = 4,
-                 row_safe: bool = False):
-        if (ctx is not None and getattr(ctx, "enabled", False)) or row_safe:
+                 row_safe: bool = False, shardings=None):
+        on_mesh = ctx is not None and getattr(ctx, "enabled", False)
+        if row_safe:
             raise NotImplementedError(_MESH)
-        self.plan = parity_plan_for(tree, n_shards=n_shards)
+        if on_mesh and shardings is None:
+            raise ValueError("a mesh parity store needs the state's "
+                             "shardings (its tree holds a rank's blocks)")
+        self.plan = parity_plan_for(
+            tree, n_shards=n_shards,
+            shardings=shardings if on_mesh else None)
         self.device = _tree_device(tree)
         self.parity = self.plan.make_buffer(self.device)
         self.version = -1
@@ -358,7 +605,9 @@ class ParityStore:
     # -- fault path ------------------------------------------------------------
 
     def reconstruct_shard(self, leaf, key: str, shard: int):
-        raise NotImplementedError(_MESH)
+        """On a mesh: block ``shard`` of ``key`` rebuilt, on every rank
+        (collective; ``leaf`` is the rank's block)."""
+        return self.plan.reconstruct_shard(self.parity, leaf, key, shard)
 
     def reconstruct_leaf(self, leaf: torch.Tensor, key: str,
                          shard: int) -> torch.Tensor:

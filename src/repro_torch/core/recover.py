@@ -22,8 +22,8 @@ rung that cannot certify an exact repair escalates — exact-or-abort):
                           reached when the caller hands the runtime
                           ``replicas=`` — ``launch/train.py`` has none
     rung 4  parity_xor    XOR parity reconstruction of the injured block
-                          (``core/parity.py``), off the mesh: no snapshot
-                          read, no step replayed
+                          (``core/parity.py``): no snapshot read, no
+                          step replayed
     rung 5  replay        pure-step replay from a verified micro-snapshot
     rung 6  checkpoint    classic disk restore + replay
 
@@ -45,13 +45,21 @@ attribution tries rung 2 first:
                           the injured blocks' bytes
 
 The ranks climb the same ladder in lockstep: every rank-local verdict
-(the snapshot's certification, a rung's post-repair check) is
-all-reduced before any rank acts on it, so no rank takes a rung alone
-(a rank that replayed alone would hang the others in the step's
-collectives).  eq1 / opt_iv, replay and checkpoint run on the mesh;
-triage and parity_xor abort there naming their later slice.  Not ported
-yet: remesh (aborts "not ported"; its constructor argument raises
-``NotImplementedError``).
+(the snapshot's certification, a rung's post-repair check, a triage
+certificate, a parity repair's digests) is all-reduced before any rank
+acts on it, so no rank takes a rung alone (a rank that replayed alone
+would hang the others in the step's collectives).  Every rung but
+remesh runs on the mesh.  Triage there certifies per shard: the
+report's shard ids name the injured block (replicas of one box count
+once; more than one distinct block, or a flip in only some replicas of
+one block, escalates: replicas left unequal would break the mesh step's
+norm), each rank holding it digests its block where it lies (one
+``checksum_tiles`` launch), solves the flip against its row of the
+fault-time reference and maps the candidate words to leaf-flat indices
+through its box.  ``parity_xor`` rebuilds the injured block from the
+mesh parity (``core/parity.MeshParityPlan``) and places it on every
+rank holding it.  Not ported yet: remesh (aborts "not ported"; its
+constructor argument raises ``NotImplementedError``).
 
 ``plan_serving_recovery`` is the serving engine's policy:
 
@@ -72,6 +80,7 @@ yet: remesh (aborts "not ported"; its constructor argument raises
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
@@ -79,8 +88,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.detect import (MESH_FUSED, MESH_PARITY,
-                                     ChecksumCanary, FaultReport,
+from repro_torch.core.detect import (ChecksumCanary, FaultReport,
                                      block_of_leaf)
 from repro_torch.core.induction import IVRegistry, RecoveryAbort
 from repro_torch.core.microcheckpoint import MicroCheckpointer
@@ -111,8 +119,6 @@ from repro_torch.tree import flatten_with_path, leaf_key, leaves, \
 _NOT_PORTED = {
     RUNG_REMESH: "remesh (ROADMAP.md queue 1, 'Mesh and elastic', the "
                  "elastic slice)",
-    RUNG_TRIAGE: f"triage on the mesh: {MESH_FUSED}",
-    RUNG_PARITY: f"parity_xor on the mesh: {MESH_PARITY}",
 }
 
 #: triage epsilon certificate: a mantissa perturbation of an EMA moment is
@@ -233,8 +239,6 @@ class RecoveryRuntime:
         re-certifies it, so exact-or-abort holds."""
         if not self.triage:
             raise RecoveryAbort("triage disabled")
-        if self.ctx is not None:
-            raise RecoveryAbort(f"not ported: {_NOT_PORTED[RUNG_TRIAGE]}")
         if self.canary is None:
             raise RecoveryAbort("triage needs a canary digest reference")
         if report.detector != "checksum":
@@ -253,19 +257,58 @@ class RecoveryRuntime:
             leaf = live.get(key)
             if leaf is None:
                 raise RecoveryAbort(f"injured leaf {key} not in state")
-            notes.append(f"{key}: "
-                         f"{self._certify_tolerable(state, key, leaf)}")
+            cert = self._certify_on_mesh(state, key, leaf, report) \
+                if self.ctx is not None else \
+                self._certify_tolerable(state, key, leaf)
+            notes.append(f"{key}: {cert}")
         # the rows still describe the pre-flip bits: without the re-arm
         # every later check would fire on the value we decided to keep
         self.canary.refresh(state, keys=injured)
         return state, "tolerated without repair — " + "; ".join(notes)
 
-    def _certify_tolerable(self, state, key: str,
-                           leaf: torch.Tensor) -> str:
-        """The certificate of one injured leaf: its note, or
+    def _certify_on_mesh(self, state, key: str, leaf: torch.Tensor,
+                         report: FaultReport) -> str:
+        """The certificate of one injured leaf on a mesh, the same
+        verdict on every rank.  The report's shard ids (gathered once the
+        flag fired, the same on every rank) must name ONE block and every
+        replica of it; each rank holding the block certifies it
+        (``_certify_tolerable`` on its block, the candidates mapped to
+        leaf-flat indices through its box), and the verdicts are
+        agreed."""
+        sh = _by_key(self.shardings)[key]
+        ids = sorted((report.shards or {}).get(key, ()))
+        if not ids:
+            raise RecoveryAbort(f"{key}: no shard attribution")
+        spans = {sh.span(d) for d in ids}
+        if len(spans) > 1:
+            raise RecoveryAbort(
+                f"{key}: {len(spans)} blocks mismatch — more than one "
+                f"event, escalate")
+        span = spans.pop()
+        holders = [d for d in range(self.ctx.n_devices)
+                   if sh.span(d) == span]
+        if ids != holders:
+            raise RecoveryAbort(
+                f"{key}: shards {ids} of the replicas {holders} of one "
+                f"block mismatch — replicas disagree, escalate")
+        ok, note = True, f"block of shards {holders}"
+        if self.ctx.shard_id in holders:
+            try:
+                note = self._certify_tolerable(state, key, leaf, sh)
+            except RecoveryAbort as e:
+                ok, note = False, str(e)
+        if not self._agree(ok):
+            raise RecoveryAbort(note if not ok else
+                                f"{key}: refused on another rank")
+        return note
+
+    def _certify_tolerable(self, state, key: str, leaf: torch.Tensor,
+                           sharding=None) -> str:
+        """The certificate of one injured leaf (on a mesh, of this rank's
+        block of it, ``sharding`` its ``LeafSharding``): its note, or
         RecoveryAbort.  A high bit leaves many candidate words (every
         2^(32-bit)-th), so the candidates are judged as arrays."""
-        bit, js, cur, old = self._localise_flip(key, leaf)
+        bit, js, cur, old = self._localise_flip(key, leaf, sharding)
         start = self._dead_from(state, key)
         live = js < start if start is not None \
             else np.ones(js.shape, dtype=bool)
@@ -296,13 +339,16 @@ class RecoveryRuntime:
         return (f"sub-epsilon moment perturbation (bit {bit}, "
                 f"|Δ|≤{delta.max():.3e})")
 
-    def _localise_flip(self, key: str, leaf: torch.Tensor):
+    def _localise_flip(self, key: str, leaf: torch.Tensor, sharding=None):
         """``(bit, flat_elements, cur_words, old_words)`` (uint32 arrays)
         for the single flip the digest pair implies, or RecoveryAbort when
         the evidence fits no single-bit flip.  The leaf's digest is taken
         where it lies (one ``checksum_tiles`` launch on the card) and only
         the candidate words cross to the host.  ``to_i32`` packs one word
-        per element, so a word index is a flat element index."""
+        per element, so a word index is a flat element index.  On a mesh
+        ``leaf`` is this rank's block, the reference its row, and the
+        block-local candidates are mapped through ``sharding``'s box to
+        leaf-flat indices (the reference's recover.py:326-350)."""
         ref = np.asarray(self.canary.fault_reference_digest(key))
         cur = _digest(leaf)
         if np.array_equal(cur, ref):
@@ -318,6 +364,13 @@ class RecoveryRuntime:
         at = torch.from_numpy(js).to(leaf.device)
         words = kdigest.fetch(
             _ref.to_i32(leaf.detach().reshape(-1)[at])).view(np.uint32)
+        if sharding is not None:
+            box = sharding.box(self.ctx.shard_id)
+            starts = [0 if b.start is None else b.start for b in box]
+            local = np.unravel_index(js, tuple(leaf.shape))
+            js = np.ravel_multi_index(
+                tuple(a + s0 for a, s0 in zip(local, starts)),
+                sharding.shape).astype(np.int64)
         return bit, js, words, words - np.uint32(delta)
 
     @staticmethod
@@ -327,8 +380,7 @@ class RecoveryRuntime:
         return key.startswith(("opt/m/", "opt/v/", "opt/stats/")) \
             and not key.endswith("/q")
 
-    @staticmethod
-    def _dead_from(state, key: str) -> Optional[int]:
+    def _dead_from(self, state, key: str) -> Optional[int]:
         """The first dead flat element of ``key`` (every later one is dead
         too), or None when none is: bytes the optimizer update never
         reads and rewrites wholesale each step.  An int8-quantised
@@ -341,16 +393,21 @@ class RecoveryRuntime:
                 break
         if base is None:
             return None
+        # on a mesh the param's global size (the rank holds a block)
+        sizes = _by_key(self.shardings) if self.shardings else \
+            _by_key(state)
         for suffix, per in (("/q", 1), ("/scale", QBLOCK)):
             if base.endswith(suffix):
-                p = _by_key(state).get("params/" + base[:-len(suffix)])
-                return None if p is None else -(-p.numel() // per)
+                p = sizes.get("params/" + base[:-len(suffix)])
+                if p is None:
+                    return None
+                n = math.prod(p.shape) if self.shardings else p.numel()
+                return -(-n // per)
         return None
 
-    @classmethod
-    def _dead_element(cls, state, key: str, j: int) -> bool:
+    def _dead_element(self, state, key: str, j: int) -> bool:
         """Is flat element ``j`` of ``key`` dead (``_dead_from``)?"""
-        start = cls._dead_from(state, key)
+        start = self._dead_from(state, key)
         return start is not None and j >= start
 
     def _rung_eq1(self, state, report: FaultReport, step: int):
@@ -425,8 +482,6 @@ class RecoveryRuntime:
         store = self.parity
         if store is None:
             raise RecoveryAbort("no parity maintained")
-        if self.ctx is not None:
-            raise RecoveryAbort(f"not ported: {_NOT_PORTED[RUNG_PARITY]}")
         if report.consumed:
             raise RecoveryAbort(
                 "faulting version consumed by the detecting step — "
@@ -434,8 +489,13 @@ class RecoveryRuntime:
         injured = list(report.shards or ()) or list(report.leaves or ())
         if not injured:
             # free traps carry no leaf attribution: name suspects by the
-            # non-finite scan (the only evidence a trap leaves)
+            # non-finite scan (the only evidence a trap leaves; on a mesh
+            # every rank's suspects, so every rank names the same)
             injured = _default_verify(state)
+            if self.ctx is not None:
+                from repro_torch.distributed import collectives as coll
+                injured = sorted(set().union(
+                    *coll.gather_objects(injured)))
         covered = [k for k in injured if store.covers(k)]
         if not covered:
             raise RecoveryAbort("no injured leaf is parity-covered")
@@ -460,17 +520,28 @@ class RecoveryRuntime:
                     f"{len(shards)} injured shards of {key} — a single "
                     f"parity shard reconstructs exactly one")
             d = shards[0]
-            new_leaf = store.reconstruct_leaf(leaf, key, d)
-            moved += 4 * store.plan.block_sizes[key][d]
+            if self.ctx is not None:
+                # every rank folds its share; the block goes to every
+                # rank holding it (all replicas), the others keep theirs
+                block = store.reconstruct_shard(leaf, key, d)
+                holders = store.plan.block_devices(key, d)
+                moved += block.numel() * block.element_size() * len(holders)
+                new_leaf = block if self.ctx.shard_id in holders else leaf
+            else:
+                new_leaf = store.reconstruct_leaf(leaf, key, d)
+                moved += 4 * store.plan.block_sizes[key][d]
             if certifiable and refs is not None and key in refs:
-                if not np.array_equal(_digest(new_leaf), refs[key]):
+                # on a mesh each rank's block against its row, agreed
+                ok = np.array_equal(_digest(new_leaf), refs[key])
+                if not self._agree(ok):
                     raise RecoveryAbort(
                         f"reconstruction of {key} shard {d} failed digest "
                         f"certification — escalating")
-            repaired[key] = new_leaf
+            if new_leaf is not leaf:
+                repaired[key] = new_leaf
         self._last_patched_bytes = moved
         return replace_leaves(state, repaired), (
-            f"parity reconstruction of {len(repaired)} shard(s) of "
+            f"parity reconstruction of {len(covered)} shard(s) of "
             f"{len(covered)} leaf/leaves ({moved} B, no snapshot, no "
             f"replay)")
 
@@ -496,6 +567,17 @@ class RecoveryRuntime:
         if ids:
             return sorted({plan.device_block[key][int(i)] for i in ids})
         ref = refs.get(key) if refs else None
+        if self.ctx is not None:
+            # each rank's block against its own reference row (or, with
+            # no canary, a non-finite scan of it), gathered
+            from repro_torch.distributed import collectives as coll
+            if ref is not None:
+                bad = not np.array_equal(_digest(leaf), ref)
+            else:
+                bad = leaf.is_floating_point() and not bool(
+                    kdigest.fetch(torch.isfinite(leaf).all()))
+            return sorted({plan.device_block[key][d] for d, b in
+                           enumerate(coll.gather_objects(bad)) if b})
         if ref is not None:
             matches = [d for d in range(plan.n_blocks[key])
                        if np.array_equal(_digest(

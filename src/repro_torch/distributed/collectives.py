@@ -25,7 +25,7 @@ replay reproduces them.
 from __future__ import annotations
 
 import datetime
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.distributed as dist
@@ -102,20 +102,25 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     return out.view(shape)
 
 
-def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+def all_to_all(t: torch.Tensor, group=None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``t`` cut into group-size equal parts, part ``q`` sent to group
     rank ``q``; returns ``(group size, part)``: row ``p`` the part group
-    rank ``p`` sent here."""
+    rank ``p`` sent here, written into ``out`` when given (a contiguous
+    tensor of ``t``'s size, dtype and device: a receive buffer that keeps
+    its storage)."""
     n = dist.get_world_size(group)
     src = t.contiguous().reshape(-1)
     if _staged("all_to_all_single", src):
         h = _host(src)
-        out = torch.empty_like(h)
-        dist.all_to_all_single(out, h, group=group)
-        return out.to(t.device).view(n, -1)
-    out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=group)
-    return out.view(n, -1)
+        got = torch.empty_like(h)
+        dist.all_to_all_single(got, h, group=group)
+        if out is None:
+            return got.to(t.device).view(n, -1)
+        return out.view(-1).copy_(got).view(n, -1)
+    dst = torch.empty_like(src) if out is None else out.view(-1)
+    dist.all_to_all_single(dst, src, group=group)
+    return dst.view(n, -1)
 
 
 def sum_rows(rows: torch.Tensor) -> torch.Tensor:

@@ -341,6 +341,13 @@ class LeafSharding:
             out.append(slice(idx * step, (idx + 1) * step))
         return tuple(out)
 
+    def span(self, shard: int) -> Tuple[Tuple[int, int], ...]:
+        """``box(shard)`` as ``((start, stop), ...)`` (the reference's
+        normalised ``devices_indices_map`` entry): replicas of one block
+        share it."""
+        return tuple((b.start or 0, d if b.stop is None else b.stop)
+                     for b, d in zip(self.box(shard), self.shape))
+
     @property
     def local_shape(self) -> Tuple[int, ...]:
         return tuple(d if e is None else

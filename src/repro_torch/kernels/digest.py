@@ -537,29 +537,39 @@ class CheckArm:
     def pack_arm(self, buf, leaves, desc=None) -> None:
         self.plan.pack(buf, self.layout, leaves, first=self.nc, desc=desc)
 
-    def finish(self, buf, ref_read, ref_write):
+    def finish_local(self, buf, ref_read, ref_write):
         """Digest the packed buffer, compare the check rows against
         ``ref_read`` on the device, and arm the rest into ``ref_write`` in
-        place.  Returns ``(any_mismatch, bad_mask)``, both on the
-        device."""
+        place: device work only, so a graph can hold it.  Returns
+        ``(any_mismatch, bad_mask)``, both on the device."""
         table = self.plan.combine(buf, self.layout)
         bad = (table[:self.nc] != ref_read[self._chk_rows]).any(dim=1)
         if self.arm:
             ref_write[self._arm_rows].copy_(table[self.nc:])
         return bad.any(), bad
 
+    def reduce_flag(self, flag: torch.Tensor) -> torch.Tensor:
+        """The flag every rank acts on: off the mesh the local one."""
+        return flag
+
+    def finish(self, buf, ref_read, ref_write):
+        """``finish_local``, then ``reduce_flag`` of its flag."""
+        flag, bad = self.finish_local(buf, ref_read, ref_write)
+        return self.reduce_flag(flag), bad
+
 
 class ShardedCheckArm(CheckArm):
     """A rotation's check+arm on a mesh: this rank's single-device core
-    over its own blocks, then the fault flag all-reduced with MAX — the
-    one collective of a steady check."""
+    over its own blocks, then the fault flag all-reduced with MAX
+    (``reduce_flag``) — the one collective of a steady check."""
 
-    def finish(self, buf, ref_read, ref_write):
-        from repro_torch.distributed import collectives as coll
-        flag, bad = super().finish(buf, ref_read, ref_write)
+    def reduce_flag(self, flag: torch.Tensor) -> torch.Tensor:
+        """The mesh-wide flag (every rank the same); the local one when
+        the rotation checks nothing (no rank then calls a collective)."""
         if not self.nc:
-            return flag, bad
-        return coll.flag_max(flag)[0] > 0, bad
+            return flag
+        from repro_torch.distributed import collectives as coll
+        return coll.flag_max(flag)[0] > 0
 
 
 def check_arm_subcomputation(plan: DigestPlan, chk: Sequence[int],

@@ -71,9 +71,15 @@ gains the shard_patch rung (restore only the injured blocks) ahead of the
 generic ladder, every rank climbing it in lockstep.  Rank 0's summary is
 returned (and printed by ``main``), with ``"mesh": {"shape": ...,
 "devices": n}``.  ``--mesh 4,2 --device cpu`` spawns 8 gloo ranks on the
-CPU.  On the mesh, ``--parity``, ``--triage``, ``--donate`` and
-``--fused-detect`` raise ``NotImplementedError`` naming their ROADMAP
-item.
+CPU.  Every mode composes on the mesh: ``--donate`` (the donated mesh
+step writes each rank's blocks in place, guarded by the sharded canary's
+donated pair), ``--fused-detect`` (each rank's check, step and arm as
+one unit; on the card the device stretches between the step's
+collectives are captured graphs, ``core/fused_step.py``), ``--triage``
+(rung 0 with per-shard certificates) and ``--parity`` (the mesh parity:
+each rank holds its row, kept current through one all-to-all and one
+XOR kernel a step; the ``parity_xor`` rung rebuilds an injured block on
+every rank holding it).
 
 Not ported yet, each raising ``NotImplementedError``: ``--elastic`` and
 ``--kill-row-at`` (ROADMAP.md, queue 1).
@@ -97,9 +103,8 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.core.detect import (LOSS_WINDOW, MESH_FUSED, MESH_PARITY,
-                                     ChecksumCanary, trap_loss_spike,
-                                     trap_nonfinite)
+from repro_torch.core.detect import (LOSS_WINDOW, ChecksumCanary,
+                                     trap_loss_spike, trap_nonfinite)
 from repro_torch.core.faults import inject, sample_plan
 from repro_torch.core.icp import promote
 from repro_torch.core.microcheckpoint import MicroCheckpointer
@@ -108,6 +113,7 @@ from repro_torch.core.recover import RecoveryFailed, RecoveryRuntime
 from repro_torch.core.recovery_table import RecoveryTable
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.distributed.sharding import gather_tree, global_struct
+from repro_torch.kernels import digest as kdigest
 from repro_torch.launch.mesh import (in_group, make_context, parse_mesh,
                                      rank_device, spawn)
 from repro_torch.launch.specs import bind_state, state_shardings
@@ -124,16 +130,6 @@ _UNPORTED = {
     "kill_row_at": "the row-loss drill (ROADMAP.md queue 1, 'Mesh and "
                    "elastic', the elastic slice)",
 }
-#: training modes not ported to the mesh yet, by the ROADMAP item each
-#: waits for
-_MESH_UNPORTED = {
-    "parity": MESH_PARITY,
-    "triage": MESH_FUSED,
-    "donate": MESH_FUSED,
-    "fused_detect": MESH_FUSED,
-}
-
-
 @dataclass
 class LoopReport:
     steps: int = 0
@@ -143,6 +139,9 @@ class LoopReport:
     losses: List[float] = field(default_factory=list)
     recovery_ms: List[float] = field(default_factory=list)
     step_seconds: List[float] = field(default_factory=list)
+    #: the distinct (launches, fetches) of the digest subsystem over the
+    #: steps taken
+    digest_stats: set = field(default_factory=set)
 
     def summary(self) -> Dict:
         step_ms = 1e3 * np.asarray(self.step_seconds, np.float64)
@@ -159,6 +158,7 @@ class LoopReport:
             "mean_step_ms": float(step_ms.mean()) if step_ms.size else 0.0,
             "p50_step_ms": float(np.median(step_ms)) if step_ms.size
             else 0.0,
+            "digest_per_step": sorted(list(x) for x in self.digest_stats),
         }
 
 
@@ -230,13 +230,6 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
             raise NotImplementedError(f"not ported yet: {_UNPORTED[name]}")
     ctx = None
     if mesh:
-        modes = {"parity": parity, "triage": triage, "donate": donate,
-                 "fused_detect": fused_detect}
-        for name, on in modes.items():
-            if on:
-                raise NotImplementedError(
-                    f"--{name.replace('_', '-')} on a mesh: not ported yet: "
-                    f"{_MESH_UNPORTED[name]}")
         if not in_group():
             # one rank per mesh device; rank 0's result is the call's
             kw = dict(steps=steps, global_batch=global_batch,
@@ -247,6 +240,8 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
                       inject_every=inject_every, inject_target=inject_target,
                       inject_armed_only=inject_armed_only,
                       canary_slices=canary_slices, detectors=detectors,
+                      donate=donate, fused_detect=fused_detect,
+                      fused_warm=fused_warm, parity=parity, triage=triage,
                       mesh=mesh, verbose=verbose, device=device,
                       return_state=return_state)
             dev = resolve_device(device)
@@ -285,17 +280,31 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
     def bfn(s):
         return {k: v.to(device) for k, v in batch_for(cfg, pipe, s).items()}
 
+    def host_batch(s):
+        """The step's batch on the host (the fused step uploads it into
+        its graphs' static inputs); on a mesh this rank's rows."""
+        batch = batch_for(cfg, pipe, s)
+        if batch_sh is None:
+            return batch
+        return tree_map(lambda t, sh: sh.local(t), batch, batch_sh)
+
     # a flip is sampled over the global shapes: on a mesh those of
     # ``sampled`` (meta tensors), else the live state's
-    shardings = table = sampled = None
+    shardings = table = sampled = batch_sh = None
     if ctx is not None:
         # every rank built the same full state: keep this rank's blocks
-        state, step_fn, bfn, shardings = bind_state(
-            ctx, cfg, state, step_fn, lambda s: batch_for(cfg, pipe, s))
+        bound = bind_state(ctx, cfg, state, step_fn,
+                           lambda s: batch_for(cfg, pipe, s))
+        state, step_fn, bfn, shardings = bound
+        batch_sh = bound.batch_shardings
         sampled = global_struct(shardings)
         ivs = promote(cfg, global_batch)
-        table = RecoveryTable.build(state, sharded=True, opt_ivs=tuple(
-            k for k in (*ivs.specs, *ivs.derived) if k.startswith("opt/")))
+        # the reference's ladder on the mesh: triage ahead of shard_patch,
+        # parity_xor ahead of replay (RecoveryRuntime._ladder)
+        table = RecoveryTable.build(
+            state, sharded=True, triage=triage, parity=parity,
+            opt_ivs=tuple(k for k in (*ivs.specs, *ivs.derived)
+                          if k.startswith("opt/")))
     micro = MicroCheckpointer(interval=snapshot_interval, ctx=ctx,
                               shardings=shardings)
     ckpt = CheckpointManager(checkpoint_dir, interval=checkpoint_interval,
@@ -311,7 +320,7 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
                              "reconstruction certifies against its digests)")
         # maintenance rides the canary; reconstruction certifies against
         # the canary's digests
-        pstore = ParityStore(state)
+        pstore = ParityStore(state, ctx=ctx, shardings=shardings)
         pstore.build(state)
         canary.attach_parity(pstore)
     if triage and canary is None:
@@ -337,9 +346,11 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
                                       warm=fused_warm,
                                       host_metrics=("loss", "grad_norm"))
         if fused_warm == "eager":
-            fused.warm(state, batch_for(cfg, pipe, 0))
+            fused.warm(state, host_batch(0))
         state = fused.load(state)
     pair = donate and canary is not None and fused is None
+    # a donated loop keeps every tensor of its state, recoveries included
+    pointers = [t.data_ptr() for t in leaves(state)] if donate else None
 
     rng = random.Random(seed + 7)
     rep = LoopReport()
@@ -349,6 +360,7 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
 
     s = 0
     while s < steps:
+        stats0 = kdigest.STATS.snapshot()
         if pair:
             # donated pair, arm half: slice s%K of the state the previous
             # step produced (one launch, no sync)
@@ -384,7 +396,7 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
                 # check of slice s%K, the step and the arm of slice
                 # (s+1)%K as one unit: one graph replay and one fetch
                 new_state, metrics, report = fused.step(
-                    s, state, batch_for(cfg, pipe, s))
+                    s, state, host_batch(s))
                 loss, grad_norm = metrics["loss"], metrics["grad_norm"]
             else:
                 new_state, metrics = step_fn(state, bfn(s))
@@ -408,6 +420,8 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
                 rep.losses.append(loss)
                 if verbose and s % max(1, steps // 10) == 0:
                     print(f"[train] step {s:5d} loss {loss:.4f}")
+                rep.digest_stats.add(tuple(b - a for a, b in zip(
+                    stats0, kdigest.STATS.snapshot())))
                 s += 1
                 rep.steps += 1
                 continue
@@ -462,6 +476,9 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
                         "seconds": fused.compile_seconds}
         if device.type == "cuda":
             out["fused"]["pool_bytes"] = fused.pool_bytes()
+    if pointers is not None:
+        out["pointers_kept"] = pointers == [t.data_ptr()
+                                            for t in leaves(state)]
     if ctx is not None:
         out["mesh"] = {"shape": ctx.shape, "devices": ctx.n_devices}
     return (out, state) if return_state else out

@@ -242,8 +242,10 @@ def adamw(lr_fn, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                      "t": new_t, "bc1": bc1, "bc2": bc2}
         return rebuild(out_p), new_state, {"grad_norm": gn, "lr": lr}
 
-    def update_(grads, state, params, step):
-        grads, gn = clipped(grads)
+    def update_(grads, state, params, step, grad_norm=None):
+        # with ``grad_norm`` the grads come clipped (``clip``) already
+        grads, gn = clipped(grads) if grad_norm is None else \
+            (grads, grad_norm)
         lr = lr_fn(step)
         t = state["t"]
         t.add_(1)

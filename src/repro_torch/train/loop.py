@@ -37,7 +37,8 @@ single-device one of the whole grads, so a 1 x N mesh steps bitwise as
 one device does.  Every rank clips with that norm and updates only its
 own blocks of the params and moments (AdamW's elementwise update; an
 optimizer whose update is not elementwise — Adafactor's factored stats,
-int8 moment blocks — updates the full tree and keeps its blocks).  The
+int8 moment blocks — updates the full tree and keeps its blocks); a
+donated mesh step writes those blocks into the rank's own tensors.  The
 ``iv`` block is replicated.  The ranks of the model axis that share a
 data coordinate compute the same rows: tensor-parallel compute (each
 rank its slice of the heads and the FFN) is later performance work.
@@ -46,7 +47,7 @@ rank its slice of the heads and the FFN) is later performance work.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -215,27 +216,54 @@ def make_train_step(arch_cfg, global_batch: int = 0,
 
 def pin_state_shardings(step_fn: Callable, ctx, shardings, *,
                         batch_sharded: bool = True) -> Callable:
-    """The mesh step of ``step_fn`` (a ``make_train_step`` step, not
-    donated): ``step(local_state, local_batch) -> (local_state',
-    metrics)`` on this rank's blocks (see the module docstring).
+    """The mesh step of ``step_fn`` (a ``make_train_step`` step):
+    ``step(local_state, local_batch) -> (local_state', metrics)`` on this
+    rank's blocks (see the module docstring); a donated ``step_fn``
+    gives a donated mesh step, which writes the rank's blocks in place
+    (every ``data_ptr`` kept) and steps bitwise as the functional one.
     ``batch_sharded`` is False when the batch is replicated over the
     batch axes (its rows do not divide them): every rank then has the
     whole batch's grads and takes no mean.  The step records its
-    original (``unpinned_step``), as the reference's pin does."""
+    original (``unpinned_step``), as the reference's pin does.
+
+    The step is two stages, ``step(s, b) == step.tail(s, step.front(s,
+    b))``: ``front`` runs every collective of the step (the params'
+    gather, the forward and backward, the grads' mean and the norm's
+    all-gather; for a whole-tree update the gathers of the grads and the
+    optimizer state) and returns the tensors the rest reads; ``tail`` is
+    device work only (the norm, the clip, the update, the ``iv``
+    advance), so a CUDA graph can hold it (``core/fused_step.py``)."""
+    from repro_torch.core.replay import copy_into
     from repro_torch.distributed import collectives as coll
     from repro_torch.distributed.sharding import gather_tree, local_tree
     from repro_torch.optim.optimizers import global_norm
-    if step_fn.donate:
-        from repro_torch.core.detect import MESH_FUSED
-        raise NotImplementedError(f"not ported yet: the donated step on a "
-                                  f"mesh: {MESH_FUSED}")
     opt = step_fn.opt
+    donate = step_fn.donate
     psh, osh = shardings["params"], shardings["opt"]
     group = ctx.group(ctx.batch_axes)
     n_dp = ctx.dp_size if batch_sharded else 1
     members = ctx.group_shards(ctx.batch_axes)
     flat_sh = [sh for _, sh in flatten_with_path(psh)]
     world = ctx.group(ctx.axis_names)
+    # the norm's sums: each leaf's distinct blocks are the rows of the
+    # shards of the group over its spec's axes; the leaves sharing a
+    # group are added as whole columns, row after row in group order
+    norm_rows: Dict[Tuple[int, ...], list] = {}
+    for i, sh in enumerate(flat_sh):
+        norm_rows.setdefault(tuple(ctx.group_shards(sh.axes)), []).append(i)
+    norm_masks: Dict[str, list] = {}
+
+    def masks_on(device):
+        """``[(rows, leaf mask)]`` on ``device``, uploaded once (before
+        any capture: ``front`` asks first)."""
+        key = str(device)
+        if key not in norm_masks:
+            n = len(flat_sh)
+            norm_masks[key] = [
+                (rows, torch.tensor([i in idx for i in range(n)],
+                                    device=device))
+                for rows, idx in norm_rows.items()]
+        return norm_masks[key]
 
     def batch_mean(grads, scalars):
         """This rank's blocks of the grads' mean over the batch axes, and
@@ -265,47 +293,85 @@ def pin_state_shardings(step_fn: Callable, ctx, shardings, *,
         return map_with_path(lambda p, _: out[leaf_key(p)], grads), \
             dict(zip(names, vals.unbind(0)))
 
-    def mesh_norm(local):
-        """The global norm of a grads tree of which this rank holds its
-        blocks: each leaf's squares summed over its distinct blocks (the
-        shards of the group over its spec's axes, in order), then over
-        the leaves in their order.  The batch-axes peers hold the same
-        blocks bitwise, so every rank computes the same norm."""
-        sums = torch.stack([torch.sum(torch.square(g.to(torch.float32)))
-                            for g in leaves(local)])
-        table = coll.all_gather(sums, world)
-        per_leaf = [coll.sum_rows(table[ctx.group_shards(sh.axes), i])
-                    for i, sh in enumerate(flat_sh)]
-        return torch.sqrt(torch.sum(torch.stack(per_leaf)))
+    def mesh_norm(table):
+        """The global norm of a grads tree of which each rank holds its
+        blocks, from ``table``, every rank's per-leaf sums of squares
+        (``(n_shards, n_leaves)``): each leaf's sums over its distinct
+        blocks, in group order, then over the leaves in their order.  The
+        batch-axes peers hold the same blocks bitwise, so every rank
+        computes the same norm."""
+        per_leaf = None
+        for rows, mask in masks_on(table.device):
+            acc = table[rows[0]].clone()
+            for r in rows[1:]:
+                acc.add_(table[r])
+            per_leaf = acc if per_leaf is None else \
+                torch.where(mask, acc, per_leaf)
+        return torch.sqrt(torch.sum(per_leaf))
 
-    def step(state, batch):
+    def front(state, batch):
+        """Every collective of the step; returns what ``tail`` reads."""
         params = state["params"]
         full = gather_tree(params, psh)
         loss, metrics, grads = step_fn.loss_and_grads(full, batch)
-        scalars = {"loss": loss, **metrics}
+        out = {"scalars": {"loss": loss, **metrics}}
         if n_dp == 1:
             # the whole batch's grads, whole: the single-device norm
-            gn = global_norm(grads)
-            local = local_tree(grads, psh)
+            out["grads"] = grads
         else:
-            local, scalars = batch_mean(grads, scalars)
-            gn = mesh_norm(local)
-            grads = None
+            local, out["scalars"] = batch_mean(grads, out["scalars"])
+            if opt.elementwise:
+                masks_on(loss.device)
+                sums = torch.stack([torch.sum(torch.square(
+                    g.to(torch.float32))) for g in leaves(local)])
+                out["local"] = local
+                out["table"] = coll.all_gather(sums, world)
+            else:
+                out["grads"] = gather_tree(local, psh)
+        if not opt.elementwise:
+            out["full"] = full
+            out["opt"] = gather_tree(state["opt"], osh)
+        return out
+
+    def tail(state, fr):
+        """Device work only: the norm, the clip, the update of this
+        rank's blocks (in place when donated) and the ``iv`` advance."""
+        params = state["params"]
         sched_pos = state["iv"]["sched_pos"]
         if opt.elementwise:
+            if n_dp == 1:
+                gn = global_norm(fr["grads"])
+                local = local_tree(fr["grads"], psh)
+            else:
+                local, gn = fr["local"], mesh_norm(fr["table"])
             clipped, gn = opt.clip(local, gn)
-            new_params, new_opt, stats = opt.update(
-                clipped, state["opt"], params, sched_pos, grad_norm=gn)
+            if donate:
+                stats = opt.update_(clipped, state["opt"], params,
+                                    sched_pos, grad_norm=gn)
+            else:
+                new_params, new_opt, stats = opt.update(
+                    clipped, state["opt"], params, sched_pos, grad_norm=gn)
         else:
-            if grads is None:
-                grads = gather_tree(local, psh)
             new_full, new_opt, stats = opt.update(
-                grads, gather_tree(state["opt"], osh), full, sched_pos)
+                fr["grads"], fr["opt"], fr["full"], sched_pos)
             new_params = local_tree(new_full, psh)
             new_opt = local_tree(new_opt, osh)
-        new_state = {"params": new_params, "opt": new_opt,
-                     "iv": advance_iv(state["iv"], step_fn.iv_steps)}
-        return new_state, {**scalars, **stats}
+            if donate:
+                copy_into(params, new_params)
+                copy_into(state["opt"], new_opt)
+        metrics = {**fr["scalars"], **stats}
+        if donate:
+            for name, inc in step_fn.iv_steps.items():
+                state["iv"][name].add_(inc)
+            return state, metrics
+        return {"params": new_params, "opt": new_opt,
+                "iv": advance_iv(state["iv"], step_fn.iv_steps)}, metrics
 
+    def step(state, batch):
+        return tail(state, front(state, batch))
+
+    step.front = front
+    step.tail = tail
+    step.donate = donate
     step.unpinned_step = getattr(step_fn, "unpinned_step", step_fn)
     return step

@@ -17,8 +17,14 @@ resilient loop on gloo ranks (one torch thread each).
 * **1 x 2** (data width 1): the mesh trajectory equals the single-device
   trajectory bitwise.
 * **The CLI**: ``train --mesh 4,2 --device cpu --smoke``.
-* **Refusals**: the mesh modes of later slices raise naming their ROADMAP
-  item.
+* **The modes** (in the same spawn): the donated mesh step bitwise the
+  functional one with every ``data_ptr`` kept (AdamW f32; Adafactor on
+  kimi-k2-1t-a32b), the fused mesh step's ``(K, K)`` over K steady steps,
+  storms == clean under ``--donate`` and ``--donate --fused-detect``,
+  each with and without ``--parity``, a flip in one replica of a block
+  escalating past triage, the CLI with every combination of the four
+  mode flags.
+* **Refusals**: the elastic modes raise naming their ROADMAP item.
 """
 
 import dataclasses
@@ -138,10 +144,6 @@ def test_mesh_modes_of_later_slices_raise():
     from repro_torch.launch.train import train
 
     cfg = get_config("iterpro-100m").smoke()
-    for flag in ("donate", "fused_detect", "triage", "parity"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            train(cfg, steps=1, global_batch=8, seq_len=32, mesh="4,2",
-                  device="cpu", **{flag: True})
     for kw in ({"elastic": True}, {"kill_row_at": 2}):
         with pytest.raises(NotImplementedError, match="elastic"):
             train(cfg, steps=1, global_batch=8, seq_len=32, mesh="4,2",
@@ -249,7 +251,129 @@ def _storm_ranks(ckpt_dir):
     on_disk = load_checkpoint(ckpt_dir, full)[0]
     return {"steady": steady, "stats": stats, "partial": partial,
             "round_trip": round_trip, "on_disk": _bitwise(on_disk, full),
-            "same": same, "summaries": summaries, "others": others}
+            "same": same, "summaries": summaries, "others": others,
+            "modes": _mode_ranks(ctx, cfg, runs["clean"][1])}
+
+
+# -- the training modes on the mesh (in the same spawn) -----------------------
+
+#: the modes whose storms must end on the clean run's bits
+STORM_MODES = {"donate": dict(donate=True),
+               "donate+fused": dict(donate=True, fused_detect=True),
+               "parity+donate": dict(parity=True, donate=True),
+               "parity+donate+fused": dict(parity=True, donate=True,
+                                           fused_detect=True)}
+CLI_FLAGS = ("--donate", "--fused-detect", "--triage", "--parity")
+FUSED_K = 2
+
+
+def _bound(ctx, cfg, donate: bool):
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.specs import bind_state
+    from repro_torch.train.loop import make_train_state, make_train_step
+    pipe = TokenPipeline(cfg.model.vocab_size, 32, 8, seed=0)
+    return bind_state(ctx, cfg, make_train_state(cfg, 0, global_batch=8),
+                      make_train_step(cfg, global_batch=8, donate=donate),
+                      pipe.batch_at)
+
+
+def _ptrs(tree):
+    from repro_torch.tree import leaves
+    return [t.data_ptr() for t in leaves(tree)]
+
+
+def _mode_ranks(ctx, cfg, clean):
+    """One rank's share of the mode scenarios: the donated mesh step
+    against the functional one (AdamW f32, and kimi-k2's Adafactor), the
+    fused step's steady accounting, storms in every mode, a flip in one
+    replica only, and the CLI with every flag combination."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.core.faults import flip_bit
+    from repro_torch.core.icp import promote
+    from repro_torch.core.microcheckpoint import MicroCheckpointer
+    from repro_torch.core.recover import RecoveryRuntime
+    from repro_torch.kernels import digest as kd
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.train import train
+
+    out = {}
+    # the donated mesh step, bitwise the functional one, pointers kept
+    for arch in ("iterpro-100m", "kimi-k2-1t-a32b"):
+        c = get_config(arch).smoke()
+        fs, fstep, fbfn, _ = _bound(ctx, c, False)
+        ds, dstep, dbfn, _ = _bound(ctx, c, True)
+        ptrs = _ptrs(ds)
+        for s in range(2):
+            fs, fm = fstep(fs, fbfn(s))
+            ds2, dm = dstep(ds, dbfn(s))
+            assert ds2 is ds
+        out[f"donated/{arch}"] = {
+            "same": _bitwise(ds, fs), "ptrs": ptrs == _ptrs(ds),
+            "loss": (float(fm["loss"]), float(dm["loss"]))}
+
+    # the fused donated mesh step: K rotations to warm, then K steady
+    # steps of one launch and one fetch each; bitwise the plain steps
+    fs, fstep, fbfn, _ = _bound(ctx, cfg, False)
+    ds, dstep, dbfn, _ = _bound(ctx, cfg, True)
+    canary = ChecksumCanary(ds, n_slices=FUSED_K, ctx=ctx)
+    factory = canary.fuse_into_step(dstep, donate=True)
+    reports = []
+    for s in range(2 * FUSED_K):
+        if s == FUSED_K:
+            kd.STATS.reset()
+        fs, _ = fstep(fs, fbfn(s))
+        ds, _, rep = factory.step(s, ds, dbfn(s))
+        reports.append(rep)
+    out["fused"] = {"stats": kd.STATS.snapshot(), "same": _bitwise(ds, fs),
+                    "clean": all(r is None for r in reports)}
+
+    # storms == clean in every mode (a flip every step, K=1)
+    out["storms"] = {}
+    for name, kw in STORM_MODES.items():
+        summary, st = train(cfg, mesh="4,2", inject_every=1, **SMOKE, **kw)
+        out["storms"][name] = {"summary": summary,
+                               "same": _bitwise(st, clean)}
+
+    # a flip in ONE replica of a block: replicas now disagree, so triage
+    # must not tolerate it (rung 0 refuses; replay from the snapshot)
+    st, step, bfn, sh = _bound(ctx, cfg, False)
+    micro = MicroCheckpointer(interval=1, ctx=ctx, shardings=sh)
+    canary = ChecksumCanary(st, n_slices=1, ctx=ctx)
+    rt = RecoveryRuntime(step_fn=step, batch_fn=bfn,
+                         iv_registry=promote(cfg, 8), micro=micro,
+                         canary=canary, triage=True, shardings=sh)
+    micro.maybe_snapshot(0, st)
+    key = "opt/v/groups/0/0/ffn/up/w"
+    truth = {k: t.clone() for k, t in zip(canary.plan.keys,
+                                          canary.plan.leaves(st))}
+    if ctx.shard_id == 0:
+        flip_bit(dict(zip(canary.plan.keys, canary.plan.leaves(st)))[key],
+                 5, 2)
+    rep = canary.check(0, st)
+    rep.resolve()
+    fixed, ev = rt.recover(st, rep, 0)
+    out["one_replica"] = {
+        "shards": rep.shards, "rung": ev.rung, "attempted": ev.attempted,
+        "detail": ev.report.detail,
+        "healed": all(torch.equal(a.view(-1).view(torch.uint8),
+                                  truth[k].view(-1).view(torch.uint8))
+                      for k, a in zip(canary.plan.keys,
+                                      canary.plan.leaves(fixed)))}
+
+    # the CLI on the mesh, every combination of the four mode flags
+    out["cli"] = {}
+    base = ["--arch", "iterpro-100m", "--smoke", "--mesh", "4,2", "--device",
+            "cpu", "--steps", "3", "--batch", "8", "--seq", "32", "--inject",
+            "1", "--canary-slices", "1", "--snapshot-interval", "2"]
+    for bits in range(1 << len(CLI_FLAGS)):
+        flags = [f for i, f in enumerate(CLI_FLAGS) if bits >> i & 1]
+        res = train_cli.main(base + flags)
+        out["cli"][" ".join(flags)] = {
+            k: res[k] for k in ("steps", "final_loss", "faults_injected",
+                                "faults_detected", "faults_recovered")}
+        out["cli"][" ".join(flags)]["rungs"] = res["recovery"]["by_rung"]
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -313,6 +437,78 @@ def test_steady_check_is_one_launch_one_fetch_on_every_rank(storms):
 def test_mesh_checkpoint_round_trip(storms):
     for r in storms:
         assert r["round_trip"] and r["on_disk"]
+
+
+def test_donated_mesh_step_is_bitwise_the_functional_one(storms):
+    """AdamW's in-place update of the rank's blocks and Adafactor's
+    whole-tree update written back into them (kimi-k2-1t-a32b) step
+    bitwise as the functional mesh step, every ``data_ptr`` kept."""
+    for r in storms:
+        for arch in ("iterpro-100m", "kimi-k2-1t-a32b"):
+            d = r["modes"][f"donated/{arch}"]
+            assert d["same"] and d["ptrs"], (arch, d)
+            assert d["loss"][0] == d["loss"][1], (arch, d)
+
+
+def test_fused_mesh_step_is_k_launches_k_fetches_over_k_steps(storms):
+    """The reference's ``(K, K, 0)`` over K steady steps on every rank
+    (the flag's all-reduce is no fetch), bitwise the plain steps."""
+    for r in storms:
+        f = r["modes"]["fused"]
+        assert tuple(f["stats"]) == (FUSED_K, FUSED_K), f
+        assert f["same"] and f["clean"], f
+
+
+def test_mode_storms_end_bitwise_equal_to_the_clean_run(storms):
+    """A params flip every step under ``--donate`` and ``--donate
+    --fused-detect``, each with and without ``--parity``: detected ==
+    injected == recovered and the final blocks are the clean run's on
+    every rank.  Donated, the fused reports are consumed (replay); the
+    donated pair checks before the step, so with a parity its reports
+    are rebuilt in place (``parity_xor``)."""
+    for r in storms:
+        for name, o in r["modes"]["storms"].items():
+            sm = o["summary"]
+            assert sm["faults_injected"] > 0, name
+            assert sm["faults_detected"] == sm["faults_injected"], name
+            assert sm["faults_recovered"] == sm["faults_detected"], name
+            assert o["same"], (name, r["modes"]["storms"])
+            assert sm["pointers_kept"], name
+            rungs = set(sm["recovery"]["by_rung"])
+            want = {"parity_xor"} if name == "parity+donate" \
+                else {"replay"}
+            assert rungs == want, (name, sm["recovery"])
+        assert {n: o["summary"]["recovery"]["by_rung"]
+                for n, o in r["modes"]["storms"].items()} == \
+            {n: o["summary"]["recovery"]["by_rung"]
+             for n, o in storms[0]["modes"]["storms"].items()}
+
+
+def test_flip_in_one_replica_escalates_past_triage(storms):
+    """The port holds each replica of a block on its own rank, so a flip
+    can leave replicas unequal (the reference's global array cannot):
+    triage refuses it on every rank, and the next rung heals it."""
+    for r in storms:
+        o = r["modes"]["one_replica"]
+        assert o["shards"] == {"opt/v/groups/0/0/ffn/up/w": [0]}, o
+        assert o["attempted"][0] == "triage" and o["rung"] != "triage", o
+        assert "replicas disagree" in o["detail"], o
+        assert o["healed"], o
+
+
+def test_train_cli_every_mode_combination_on_a_4x2_mesh(storms):
+    """``train --mesh 4,2`` with every combination of ``--donate``,
+    ``--fused-detect``, ``--triage`` and ``--parity`` (a flip every step):
+    each detects and recovers every flip and ends on the same loss."""
+    for r in storms:
+        cli = r["modes"]["cli"]
+        assert len(cli) == 1 << len(CLI_FLAGS)
+        for flags, o in cli.items():
+            assert o["steps"] == 3 and o["faults_injected"] == 2, flags
+            assert o["faults_detected"] == o["faults_injected"], flags
+            assert o["faults_recovered"] == o["faults_detected"], flags
+            assert o["final_loss"] == cli[""]["final_loss"], flags
+        assert cli == storms[0]["modes"]["cli"]
 
 
 def _one_by_two():

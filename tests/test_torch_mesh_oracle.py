@@ -12,7 +12,13 @@ the reference's shard_map paths refuse) and dumps, once per module:
 * four bound steps' losses and the state after them,
 * the shard_patch scenario of
   ``test_shard_local_recovery_restores_only_injured_shard``: the injured
-  shard ids, the rung, ``bytes_moved``, and the version-mismatch replay.
+  shard ids, the rung, ``bytes_moved``, and the version-mismatch replay;
+* the training modes: the programs of ``test_sharded_resilience.py::
+  test_donation_and_fused_detect_compose_on_mesh`` and
+  ``::test_partial_refresh_patches_without_generation_bump`` and of
+  ``test_parity.py::test_tp_sharded_slice_map_regression``; a sharded
+  parity build and three gated updates (every device's row); triage on
+  the sharded canary with a bit-2 and a bit-30 ``opt/v`` flip.
 
 Both packages start from the same bits: this process makes the
 reference's state (PRNGKey(0)) and the toy tree once and hands them to
@@ -152,10 +158,160 @@ CHILD = textwrap.dedent("""
     fixed2, ev2 = runtime.recover(bad, rep, 5)
     res["rung2"] = ev2.rung
     res["attempted2"] = list(ev2.attempted)
+
+    # -- donation and fused detection compose on the mesh --------------------
+    # (test_sharded_resilience.py::test_donation_and_fused_detect_compose_
+    # on_mesh, at K = inp["K"])
+    K = inp["K"]
+    plain = clone(state0)
+    for s in range(2 * K):
+        plain, _ = step(plain, bfn(s))
+    fstate = clone(state0)
+    fcan = ChecksumCanary(fstate, n_slices=K, ctx=ctx)
+    factory = fcan.fuse_into_step(raw, donate=True)
+    for s in range(2 * K):
+        if s == K:
+            kd.STATS.reset()
+        fstate, _, rep = factory.step(s, fstate, bfn(s))
+        assert rep is None
+    res["fused_stats"] = list(kd.STATS.snapshot())
+    res["fused_exact"] = all(
+        np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(
+            jax.tree_util.tree_leaves(fstate),
+            jax.tree_util.tree_leaves(plain)))
+    fused = {leaf_key(p): np.asarray(x) for p, x in
+             jax.tree_util.tree_flatten_with_path(fstate)[0]}
+
+    # -- partial refresh of a sharded canary (test_sharded_resilience.py::
+    # test_partial_refresh_patches_without_generation_bump) ------------------
+    pcan = ChecksumCanary(tree, n_slices=3, ctx=ctx)
+    st, ok = tree, True
+    for s in range(3):
+        pcan.arm_current(s, st)
+        ok = ok and pcan.check(s, st) is None
+    gen = pcan.generation
+    st = dict(st)
+    st["a"] = st["a"] * jnp.float32(1.5)
+    pcan.refresh(st, keys=["a"])
+    res["partial_gen_kept"] = pcan.generation == gen
+    for s in range(3, 6):
+        ok = ok and pcan.check(s, st) is None
+        pcan.arm_current(s + 1, st)
+    res["partial_ok"] = bool(ok)
+    res["partial_table"] = np.asarray(pcan.reference).tolist()
+
+    # -- the parity slice map (test_parity.py::
+    # test_tp_sharded_slice_map_regression, on the 4 x 2 mesh) ---------------
+    from repro.core.parity import ParityStore
+    tp = {}
+    leaf = jnp.arange(16 * 256, dtype=jnp.float32).reshape(16, 256)
+    shw = NamedSharding(mesh, P(None, "model"))
+    ps = ParityStore({"w": jax.device_put(leaf, shw)}, ctx=ctx)
+    ps.build({"w": jax.device_put(leaf, shw)}, 0)
+    tp["n_blocks"] = ps.plan.n_blocks["w"]
+    tp["device_block"] = list(ps.plan.device_block["w"])
+    tp["holders"] = list(ps.plan.block_devices("w", 1))
+    tp["parity"] = np.asarray(ps.parity).tolist()
+    wiped = np.asarray(leaf).copy()
+    wiped[:, 128:] = 0.0
+    rec = np.asarray(ps.reconstruct_shard(
+        jax.device_put(jnp.asarray(wiped), shw), "w", 1))
+    tp["rec_exact"] = bool(np.array_equal(rec, np.asarray(leaf)[:, 128:]))
+    rleaf = jnp.arange(512, dtype=jnp.float32)
+    shr = NamedSharding(mesh, P(None))
+    rps = ParityStore({"w": jax.device_put(rleaf, shr)}, ctx=ctx)
+    rps.build({"w": jax.device_put(rleaf, shr)}, 0)
+    tp["r_n_blocks"] = rps.plan.n_blocks["w"]
+    rec = np.asarray(rps.reconstruct_shard(
+        jax.device_put(jnp.zeros_like(rleaf), shr), "w", 0))
+    tp["r_rec_exact"] = bool(np.array_equal(rec.ravel(), np.asarray(rleaf)))
+    res["tp"] = tp
+
+    # -- a sharded parity build and three gated updates -----------------------
+    cur = clone(state0)
+    ps = ParityStore(cur, ctx=ctx)
+    ps.build(cur, 0)
+    rows = [np.asarray(ps.parity)]
+    update = jax.jit(ps.plan.update_leaves)
+    for new_np, flag in zip(inp["updates"], inp["flags"]):
+        new = jax.tree_util.tree_map_with_path(
+            lambda p, x: jax.device_put(jnp.asarray(new_np[leaf_key(p)]),
+                                        x.sharding)
+            if leaf_key(p) in new_np else x, cur)
+        ps.parity = update(ps.parity, ps.plan.leaves(cur),
+                           ps.plan.leaves(new), jnp.bool_(flag))
+        rows.append(np.asarray(ps.parity))
+        if not flag:
+            cur = new
+    res["parity_crow"] = int(rows[0].shape[1])
+
+    # -- triage on the sharded canary: a bit-2 and a bit-30 opt/v flip --------
+    tstate = clone(state0)
+    tcan = ChecksumCanary(tstate, n_slices=1, ctx=ctx)
+    tmicro = MicroCheckpointer(interval=1, ctx=ctx)
+    trt = RecoveryRuntime(step_fn=step, batch_fn=bfn,
+                          iv_registry=promote(cfg, inp["B"]), micro=tmicro,
+                          shardings=sh, canary=tcan, triage=True)
+    for s in range(2):
+        ns, _ = step(tstate, bfn(s))
+        assert tcan.check_and_arm(s, tstate, ns) is None
+        tstate = ns
+    tmicro.maybe_snapshot(2, tstate)
+    vkey = "opt/v/" + up
+    tri = {}
+    for name, (elem, bit) in inp["tri_flips"].items():
+        bad = inject(tstate, InjectionPlan("v/" + up, elem, bit, 0, "opt"))
+        ns, _ = step(bad, bfn(2))
+        rep = tcan.check_and_arm(2, bad, ns)
+        rep.resolve()
+        vleaf = [x for p, x in jax.tree_util.tree_flatten_with_path(bad)[0]
+                 if leaf_key(p) == vkey][0]
+        fbit, cands = trt._localise_flip(vkey, vleaf, np.asarray(vleaf))
+        fixed, ev = trt.recover(bad, rep, 2)
+        tri[name] = {"bit": int(fbit), "cands": [int(j) for j, _, _ in
+                                                 cands],
+                     "leaves": rep.leaves, "shards": rep.shards,
+                     "rung": ev.rung, "attempted": list(ev.attempted),
+                     "bytes": int(ev.bytes_moved)}
+        tstate = fixed
+        tcan.refresh(tstate)
+    res["triage"] = tri
+
     with open(out + ".json", "w") as f:
         json.dump(res, f)
     np.savez(out + ".npz", **truth)
+    np.savez(out + "_fused.npz", **fused)
+    np.save(out + "_parity.npy", np.stack(rows))
 """)
+
+
+FUSED_K = 2
+#: the gated parity updates: a fault flag each (a set flag keeps the
+#: parity, and the state, of the last healthy version)
+UPDATE_FLAGS = (False, True, False)
+UPDATE_KEYS = ("params/embed/table", "opt/m/groups/0/0/ffn/up/w",
+               "params/final_norm/scale")
+#: triage's flips in ``opt/v/`` + UP: (element, bit)
+TRI_FLIPS = {"b2": (1000, 2), "b30": (1007, 30)}
+
+
+def _updates(state):
+    """Three new values of a few leaves (the same bits for both
+    packages)."""
+    rng = np.random.default_rng(5)
+    flat = {}
+
+    def walk(prefix, t):
+        items = t.items() if isinstance(t, dict) else \
+            enumerate(t) if isinstance(t, (list, tuple)) else None
+        if items is None:
+            flat[prefix] = t
+            return
+        for k, v in items:
+            walk(f"{prefix}/{k}" if prefix else str(k), v)
+    walk("", state)
+    return [{k: (flat[k] + rng.standard_normal(flat[k].shape).astype(
+        np.float32)) for k in UPDATE_KEYS} for _ in UPDATE_FLAGS]
 
 
 def _toy(jax, jnp):
@@ -285,8 +441,151 @@ def _port_ranks(inp_path):
     fixed2, ev2 = runtime.recover(state, rep, 5)
     res["rung2"] = ev2.rung
     res["attempted2"] = list(ev2.attempted)
+    res.update(_port_modes(ctx, cfg, inp, toy, tsh, local))
     everyone = coll.gather_objects(res)
     return everyone if me == 0 else None
+
+
+def _port_modes(ctx, cfg, inp, toy, tsh, local):
+    """The oracle's training-mode scenarios on this rank."""
+    import torch
+    from repro_torch.bridge import state_from_numpy
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.core.faults import InjectionPlan, inject
+    from repro_torch.core.icp import promote
+    from repro_torch.core.microcheckpoint import MicroCheckpointer
+    from repro_torch.core.parity import ParityStore
+    from repro_torch.core.recover import RecoveryRuntime
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import (P, gather_tree, local_tree,
+                                                  shardings_for)
+    from repro_torch.kernels import digest as kd
+    from repro_torch.launch.specs import bind_state
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.tree import flatten_with_path, leaf_key, replace_leaves
+
+    res = {}
+    pipe = TokenPipeline(cfg.model.vocab_size, inp["S"], inp["B"], seed=0)
+
+    def bound(donate):
+        return bind_state(ctx, cfg, state_from_numpy(inp["state"]),
+                          make_train_step(cfg, global_batch=inp["B"],
+                                          donate=donate),
+                          lambda s: pipe.batch_at(s))
+
+    # donation and fused detection compose on the mesh
+    K = inp["K"]
+    plain, step, bfn, sh = bound(False)
+    fstate, dstep, dbfn, _ = bound(True)
+    factory = ChecksumCanary(fstate, n_slices=K, ctx=ctx).fuse_into_step(
+        dstep, donate=True)
+    for s in range(2 * K):
+        if s == K:
+            kd.STATS.reset()
+        plain, _ = step(plain, bfn(s))
+        fstate, _, rep = factory.step(s, fstate, dbfn(s))
+        assert rep is None
+    res["fused_stats"] = list(kd.STATS.snapshot())
+    res["fused_exact"] = all(
+        torch.equal(a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8))
+        for (_, a), (_, b) in zip(flatten_with_path(fstate),
+                                  flatten_with_path(plain)))
+    res["fused_state"] = {leaf_key(p): t.numpy() for p, t in
+                          flatten_with_path(gather_tree(fstate, sh))}
+
+    # partial refresh of a sharded canary
+    pcan = ChecksumCanary(local, n_slices=3, ctx=ctx)
+    st, ok = local, True
+    for s in range(3):
+        pcan.arm_current(s, st)
+        ok = ok and pcan.check(s, st) is None
+    gen = pcan.generation
+    st = dict(st, a=st["a"] * torch.tensor(1.5, dtype=torch.float32))
+    pcan.refresh(st, keys=["a"])
+    res["partial_gen_kept"] = pcan.generation == gen
+    for s in range(3, 6):
+        ok = ok and pcan.check(s, st) is None
+        pcan.arm_current(s + 1, st)
+    res["partial_ok"] = bool(ok)
+    res["partial_table"] = kd.fetch(
+        pcan.plan.gather_table(pcan.reference)).tolist()
+
+    # the parity slice map
+    tp = {}
+    leaf = torch.arange(16 * 256, dtype=torch.float32).reshape(16, 256)
+    wsh = shardings_for(ctx, {"w": P(None, "model")}, {"w": leaf})
+    mine = local_tree({"w": leaf}, wsh)
+    ps = ParityStore(mine, ctx=ctx, shardings=wsh)
+    ps.build(mine, 0)
+    tp["n_blocks"] = ps.plan.n_blocks["w"]
+    tp["device_block"] = list(ps.plan.device_block["w"])
+    tp["holders"] = list(ps.plan.block_devices("w", 1))
+    tp["parity"] = ps.parity.reshape(-1)[:ps.plan.row_words].tolist()
+    wiped = leaf.clone()
+    wiped[:, 128:] = 0.0
+    rec = ps.reconstruct_shard(wsh["w"].local(wiped), "w", 1)
+    tp["rec_exact"] = torch.equal(rec, leaf[:, 128:])
+    rleaf = torch.arange(512, dtype=torch.float32)
+    rsh = shardings_for(ctx, {"w": P(None)}, {"w": rleaf})
+    rps = ParityStore({"w": rleaf.clone()}, ctx=ctx, shardings=rsh)
+    rps.build({"w": rleaf.clone()}, 0)
+    tp["r_n_blocks"] = rps.plan.n_blocks["w"]
+    rec = rps.reconstruct_shard(torch.zeros_like(rleaf), "w", 0)
+    tp["r_rec_exact"] = torch.equal(rec, rleaf)
+    res["tp"] = tp
+
+    # a sharded parity build and three gated updates: this rank's row
+    cur, _, _, _ = bound(False)
+    ps = ParityStore(cur, ctx=ctx, shardings=sh)
+    ps.build(cur, 0)
+    rows = [ps.parity.reshape(-1)[:ps.plan.row_words].clone()]
+    shk = {leaf_key(p): x for p, x in flatten_with_path(sh)}
+    for new_np, flag in zip(inp["updates"], inp["flags"]):
+        new = replace_leaves(cur, {
+            k: shk[k].local(torch.from_numpy(v)) for k, v in new_np.items()})
+        ps.plan.update_leaves(ps.parity, ps.plan.leaves(cur),
+                              ps.plan.leaves(new), torch.tensor(flag))
+        rows.append(ps.parity.reshape(-1)[:ps.plan.row_words].clone())
+        if not flag:
+            cur = new
+    res["parity_rows"] = torch.stack(rows).numpy()
+
+    # triage on the sharded canary: a bit-2 and a bit-30 opt/v flip
+    tstate, _, _, _ = bound(False)
+    tcan = ChecksumCanary(tstate, n_slices=1, ctx=ctx)
+    tmicro = MicroCheckpointer(interval=1, ctx=ctx, shardings=sh)
+    trt = RecoveryRuntime(step_fn=step, batch_fn=bfn,
+                          iv_registry=promote(cfg, inp["B"]), micro=tmicro,
+                          shardings=sh, canary=tcan, triage=True)
+    for s in range(2):
+        ns, _ = step(tstate, bfn(s))
+        assert tcan.check_and_arm(s, tstate, ns) is None
+        tstate = ns
+    tmicro.maybe_snapshot(2, tstate)
+    vkey = "opt/v/" + inp["up"]
+    tri = {}
+    for name, (elem, bit) in inp["tri_flips"].items():
+        inject(tstate, InjectionPlan("v/" + inp["up"], elem, bit, 0, "opt"),
+               shardings=sh)
+        ns, _ = step(tstate, bfn(2))
+        rep = tcan.check_and_arm(2, tstate, ns)
+        rep.resolve()
+        mine = ctx.shard_id in rep.shards.get(vkey, ())
+        loc = None
+        if mine:
+            vleaf = {leaf_key(p): x for p, x in
+                     flatten_with_path(tstate)}[vkey]
+            fbit, js, _, _ = trt._localise_flip(vkey, vleaf, shk[vkey])
+            loc = (int(fbit), [int(j) for j in js])
+        fixed, ev = trt.recover(tstate, rep, 2)
+        tri[name] = {"loc": loc, "leaves": rep.leaves,
+                     "shards": rep.shards, "rung": ev.rung,
+                     "attempted": list(ev.attempted),
+                     "bytes": int(ev.bytes_moved)}
+        tstate = fixed
+        tcan.refresh(tstate)
+    res["triage"] = tri
+    return res
 
 
 @pytest.fixture(scope="module")
@@ -303,7 +602,9 @@ def both(tmp_path_factory):
         np.asarray, make_train_state(cfg, jax.random.PRNGKey(0),
                                      global_batch=B))
     inp = {"state": state, "toy": _toy(jax, jnp), "toy_specs": TOY_SPECS,
-           "B": B, "S": S, "up": UP}
+           "B": B, "S": S, "up": UP, "K": FUSED_K,
+           "updates": _updates(state), "flags": UPDATE_FLAGS,
+           "tri_flips": TRI_FLIPS}
     src = str(tmp / "input.pkl")
     with open(src, "wb") as f:
         pickle.dump(inp, f)
@@ -324,6 +625,9 @@ def both(tmp_path_factory):
         ref = json.load(f)
     with np.load(out + ".npz") as z:
         truth = {k: z[k] for k in z.files}
+    with np.load(out + "_fused.npz") as z:
+        ref["fused_state"] = {k: z[k] for k in z.files}
+    ref["parity_rows"] = np.load(out + "_parity.npy")
     return ref, truth, ranks
 
 
@@ -363,17 +667,7 @@ def test_bound_steps_losses_and_state(both):
     ref, truth, ranks = both
     np.testing.assert_allclose(ranks[0]["losses"], ref["losses"],
                                atol=F32_TOL, rtol=F32_TOL)
-    got = ranks[0]["state"]
-    assert got.keys() == truth.keys()
-    for k, want in truth.items():
-        if k.startswith(("iv/",)) or k == "opt/t":
-            assert int(got[k]) == int(want), k
-        elif k in ("opt/bc1", "opt/bc2"):
-            assert abs(int(got[k].view(np.int32))
-                       - int(want.view(np.int32))) <= 1, k
-        else:
-            np.testing.assert_allclose(got[k], want, atol=F32_TOL,
-                                       rtol=F32_TOL, err_msg=k)
+    _close_to(ranks[0]["state"], truth)
 
 
 def test_shard_patch_matches_reference(both):
@@ -397,3 +691,101 @@ def test_version_mismatch_escalates_to_replay(both):
     for r in ranks:
         assert r["rung2"] == ref["rung2"]
         assert "shard_patch" in r["attempted2"]
+
+
+def _close_to(got, want):
+    """Two states within the f32 tolerance (counters exact, the bias
+    corrections within 1 ulp)."""
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        if k.startswith("iv/") or k == "opt/t":
+            assert int(got[k]) == int(w), k
+        elif k in ("opt/bc1", "opt/bc2"):
+            assert abs(int(got[k].view(np.int32))
+                       - int(w.view(np.int32))) <= 1, k
+        else:
+            np.testing.assert_allclose(got[k], w, atol=F32_TOL,
+                                       rtol=F32_TOL, err_msg=k)
+
+
+def test_donation_and_fused_detect_compose_on_mesh(both):
+    """The reference's program: the donated fused step at K=2 on the 4 x 2
+    mesh is bitwise its plain sharded trajectory, with ``(K, K, 0)`` over
+    K steady steps; the port's is bitwise its own functional mesh step on
+    every rank, ``(K, K)``, and within the f32 tolerance of the
+    reference's state."""
+    ref, _, ranks = both
+    assert ref["fused_stats"] == [FUSED_K, FUSED_K, 0] and ref["fused_exact"]
+    for r in ranks:
+        assert tuple(r["fused_stats"]) == (FUSED_K, FUSED_K), r["fused_stats"]
+        assert r["fused_exact"], r["shard_id"]
+    _close_to(ranks[0]["fused_state"], ref["fused_state"])
+
+
+def test_partial_refresh_patches_without_generation_bump(both):
+    """``refresh(keys=...)`` on a sharded canary patches each rank's rows
+    in both generations with no bump; the donated pair keeps passing, and
+    the tables are the reference's, bitwise."""
+    ref, _, ranks = both
+    assert ref["partial_gen_kept"] and ref["partial_ok"]
+    for r in ranks:
+        assert r["partial_gen_kept"] and r["partial_ok"], r["shard_id"]
+        assert np.array_equal(np.asarray(r["partial_table"], np.int32),
+                              np.asarray(ref["partial_table"], np.int32))
+
+
+def test_tp_sharded_slice_map_regression(both):
+    """A TP-sharded, DP-replicated leaf has 2 unique blocks, its replicas
+    map onto them, a wiped block is rebuilt bitwise on every replica; a
+    replicated leaf is one block, rebuilt from the parity alone; each
+    rank's parity row is the reference's row of its device."""
+    ref, _, ranks = both
+    want = ref["tp"]
+    assert want["n_blocks"] == 2 and set(want["device_block"]) == {0, 1}
+    assert len(want["holders"]) == 4 and want["rec_exact"]
+    assert want["r_n_blocks"] == 1 and want["r_rec_exact"]
+    for r in ranks:
+        got = r["tp"]
+        for k in ("n_blocks", "device_block", "holders", "r_n_blocks"):
+            assert got[k] == want[k], (k, r["shard_id"])
+        assert got["rec_exact"] and got["r_rec_exact"], r["shard_id"]
+        assert got["parity"] == want["parity"][r["shard_id"]], r["shard_id"]
+
+
+def test_sharded_parity_rows_bitwise_after_build_and_gated_updates(both):
+    """The mesh parity of the smoke state, built, then updated three times
+    (the second's fault flag set: that delta is zeroed): every rank's row
+    is bitwise the reference's addressable row on the same device after
+    each."""
+    ref, _, ranks = both
+    rows = ref["parity_rows"]
+    assert rows.shape[:2] == (1 + len(UPDATE_FLAGS), 8)
+    assert rows.shape[2] == ref["parity_crow"]
+    assert np.array_equal(rows[2], rows[1])        # the gated update
+    assert not np.array_equal(rows[1], rows[0])
+    for r in ranks:
+        assert np.array_equal(r["parity_rows"], rows[:, r["shard_id"]]), \
+            r["shard_id"]
+
+
+def test_triage_on_sharded_canary_matches_reference(both):
+    """Rung 0 on the mesh: a bit-2 ``opt/v`` flip is tolerated and a bit-30
+    one escalates (to the version-matched shard_patch), as in the
+    reference; the ranks holding the injured block solve the same bit and
+    the same leaf-flat candidate words."""
+    ref, _, ranks = both
+    want = ref["triage"]
+    assert want["b2"]["rung"] == "triage" and want["b2"]["bytes"] == 0
+    assert want["b30"]["attempted"][0] == "triage"
+    assert want["b30"]["rung"] == "shard_patch"
+    for name, w in want.items():
+        holders = w["shards"]["opt/v/" + UP]
+        for r in ranks:
+            got = r["triage"][name]
+            for k in ("leaves", "shards", "rung", "attempted", "bytes"):
+                assert got[k] == w[k], (name, k, r["shard_id"])
+            if r["shard_id"] in holders:
+                assert got["loc"] == (w["bit"], w["cands"]), (name, r)
+            else:
+                assert got["loc"] is None
+

@@ -293,7 +293,10 @@ def test_plan_is_cached_per_structure(port):
     assert parity_plan_for(state, n_shards=1).n_shards == 2   # max(2, D)
 
 
-@pytest.mark.parametrize("kw", [dict(ctx=type("Ctx", (), {"enabled": True})()),
+# the mesh parity is ported (tests/test_torch_mesh_oracle.py); its
+# row-safe placement, on a mesh or off it, is the elastic slice's
+@pytest.mark.parametrize("kw", [dict(ctx=type("Ctx", (), {"enabled": True})(),
+                                     row_safe=True),
                                 dict(row_safe=True)])
 def test_mesh_parity_is_not_ported(port, kw):
     _, state, _, _ = port
@@ -305,8 +308,10 @@ def test_mesh_only_methods_raise(port):
     _, state, _, _ = port
     ps = _store(state)
     leaf = state["params"]["embed"]["table"]
-    for fn in (lambda: ps.reconstruct_shard(leaf, "params/embed/table", 0),
-               lambda: ps.plan.host_parity_flat(ps.parity),
+    # a block of a mesh store (ported); off the mesh a leaf is rebuilt whole
+    with pytest.raises(ValueError, match="mesh parity store only"):
+        ps.reconstruct_shard(leaf, "params/embed/table", 0)
+    for fn in (lambda: ps.plan.host_parity_flat(ps.parity),
                lambda: ps.plan.host_surviving_blocks("k", leaf),
                lambda: ps.plan.host_reconstruct_block("k", 0, None, {}),
                lambda: ps.plan.host_assemble_leaf("k", leaf),

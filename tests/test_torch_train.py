@@ -328,9 +328,10 @@ def test_train_cli_without_device_raises_without_a_card(monkeypatch):
                       "8"])
 
 
-# ``--mesh`` is ported (tests/test_torch_mesh.py); a mode of a later mesh
-# slice is refused on it
-@pytest.mark.parametrize("flag", [["--elastic"], ["--mesh", "4,2", "--donate"],
+# ``--mesh`` and its modes are ported (tests/test_torch_mesh.py); the
+# elastic slice's flags are refused, on the mesh too
+@pytest.mark.parametrize("flag", [["--elastic"],
+                                  ["--mesh", "4,2", "--elastic"],
                                   ["--kill-row-at", "3"]])
 def test_train_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
