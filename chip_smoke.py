@@ -345,41 +345,54 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        checkpoint or profile (12c holds them);
    13d. the launches of 10d's kernels on phase 13's paths (each > 0);
 14. resilient training on a device mesh: iterpro-100m at full width and
-   depth (f32, seed 0) on a 2 x 2 mesh, 4 ranks spawned by
-   ``launch.mesh.spawn`` sharing the card over gloo (each holding its own
-   blocks of the state), batch 8 x 128, K=1, a snapshot every 2 steps,
-   3 steps a run through ``train(mesh="2,2")``: clean; a params flip
-   every step (step 1 has no version-matched snapshot: replay; step 2
-   has: shard_patch, its bytes exactly the injured blocks'); an iv storm
-   (eq1) with a disk checkpoint at step 0; every storm's final blocks
-   bitwise the clean run's on every rank; each rank's launches
-   (``pack_rows``, ``row_checksums``; rank 0 ``checksum_tiles``), its
-   ``pack_rows`` and ``row_checksums`` bitwise their plain versions on
-   its own blocks, a steady check's STATS (1, 1), the mesh step's host
-   p50, recovery ms by rung and the step's three parts timed alone
-   (gather the params, forward + backward, the grads' mean); in the same
-   ranks the training modes: (a) ``--donate --fused-detect`` at K=2,
-   clean: every rank's final blocks bitwise the functional clean run's,
-   every local leaf's ``data_ptr`` kept, ``STATS`` (1, 1) a step, the
-   graphs captured (the head and the tail of each rotation and read
-   table: the step's collectives run between them) and their pool's
-   bytes, the step's host p50; (b) the same with ``--parity`` and a
-   params flip at step 2 in the checked slice: the fused report
-   consumed and replayed, the final blocks bitwise the clean run's, the
-   parity kept by the fused tail's gated update (``xor_update_tiles``);
-   (c) the donated pair with triage and the mesh parity: through
-   ``train(mesh=..., donate=True, triage=True, parity=True)`` under a
-   params flip at step 2 (``parity_xor`` or ``replay``, every
-   ``data_ptr`` kept, the final blocks bitwise the clean run's), then
-   the same composition driven by hand to place two flips: a bit-30
-   flip in an ``opt/v`` FFN leaf escalates past triage and is repaired
-   by ``parity_xor`` (or ``replay`` when it does not localise), the run
-   ends bitwise the clean run's, each rank's parity row then bitwise its
-   plain version's (``xor_fold_tiles``, ``xor_update_tiles`` on the
-   rank's exchanged stream), then a bit-2 flip in the same leaf is
+   6 of its 12 layers (f32, seed 0; 14d runs all 12) on a 2 x 2 mesh, 4
+   ranks spawned by ``launch.mesh.spawn`` sharing the card over gloo
+   (each holding its own blocks of the state), batch 8 x 128, K=1, a
+   snapshot every 2 steps, 3 steps a run through ``train(mesh="2,2")``:
+   clean; a params flip every step (step 1 has no version-matched
+   snapshot: replay; step 2 has: shard_patch, its bytes exactly the
+   injured blocks'); an iv storm (eq1) with a disk checkpoint at step 0;
+   every storm's final blocks bitwise the clean run's on every rank;
+   each rank's launches (``pack_rows``, ``row_checksums``; rank 0
+   ``checksum_tiles``), its ``pack_rows`` and ``row_checksums`` bitwise
+   their plain versions on its own blocks, a steady check's STATS (1,
+   1), the mesh step's host p50, recovery ms by rung and the step's three
+   parts timed alone (gather the params, forward + backward, the grads'
+   mean); in the same ranks the training modes: (b) ``--donate
+   --fused-detect --parity`` at K=2 under a params flip at step 2 in the
+   checked slice (the clean fused run 14a was is cut: its checks hold
+   here): the fused report consumed and replayed, every rank's final
+   blocks bitwise the clean run's, every local leaf's ``data_ptr`` kept,
+   ``STATS`` (1, 1) a step, the graphs captured (the head and the tail of
+   each rotation and read table: the step's collectives run between
+   them) and their pool's bytes, the parity kept by the fused tail's
+   gated update (``xor_update_tiles``); (c) the donated pair with triage
+   and the mesh parity: through ``train(mesh=..., donate=True,
+   triage=True, parity=True)`` under a params flip at step 2
+   (``parity_xor`` or ``replay``, every ``data_ptr`` kept, the final
+   blocks bitwise the clean run's), then the same composition driven by
+   hand on the initial state (no step loop) to place two flips: a
+   bit-30 flip in an ``opt/v`` FFN leaf escalates past triage and is
+   repaired by ``parity_xor`` (or ``replay`` when it does not localise)
+   back to the state's bits before the flip, each rank's parity row then
+   bitwise its plain version's (``xor_fold_tiles``, ``xor_update_tiles``
+   on the rank's exchanged stream), then a bit-2 flip in the same leaf is
    tolerated by triage with 0 bytes moved, the same verdict on every
    rank, ``checksum_tiles`` launched only on the ranks holding the block
    (bitwise its plain version there) and the next full check clean;
+   (d) elastic hard loss, last (``[mesh-elastic]`` lines): iterpro-100m
+   at all 12 layers with ``fsdp``, ``train(parity, elastic,
+   kill_row_at=2, donate, fused_detect)``, 4 steps: row 1 (ranks 2-3)
+   dies before step 2; its blocks are gathered first as the drill's
+   oracle, then overwritten with ``ELASTIC_POISON``; the survivors take
+   ``remesh`` alone (no disk restore, blocks rebuilt from the row-safe
+   parity, their own blocks certified, none uncertified), resume on
+   blocks bitwise the oracle's, finish 4 steps at 1 x 2 on the losses and
+   final blocks of a clean 1 x 2 run from the oracle, STATS (1, 1) a
+   step, 4 graphs captured again on the new context, every kernel of the
+   path launched; the event's downtime, reconstruction and re-bind
+   seconds and bytes printed beside the replay and checkpoint times; the
+   dead ranks launch nothing after the loss;
    then one JSON line describing every kernel (the 8 ports, the layout
    kernel ``flash_layout_kv`` of the flash port, ``pack_rows`` at 8f's
    two shapes and at 9a's 1-byte canary), then the device line.
@@ -3618,22 +3631,30 @@ def recurrent_phase(torch, phase: int, arch: str, serve_kw: dict,
 
 
 MESH, MESH_STEPS = "2,2", 3    # phase 14: 4 ranks share the one card
-MESH_K = 2                     # 14a/14b: the fused runs' canary K
+MESH_K = 2                     # 14b: the fused run's canary K
+#: 14-14c run 6 of iterpro-100m's 12 layers (a time cut); 14d runs all
+#: 12
+MESH_LAYERS = 6
+#: 14d: 4 steps, row 1 (ranks 2-3) dies before step 2
+ELASTIC_STEPS, ELASTIC_KILL = 4, 2
+#: the byte a rank of the lost row writes over its blocks once the
+#: drill's oracle has read them
+ELASTIC_POISON = 0x5A
 #: 14c: the triage and parity flips, in an ``opt/v`` FFN leaf (its blocks
 #: split over ``model``, replicated over ``data``: 2 holders each)
 MESH_FLIP_LEAF = "groups/0/0/ffn/up/w"
 MESH_FLIP_ELEMENT = 1000
 
 
-def _mesh_pair_rungs(cfg, seq: int, steps: int, dev, clean) -> dict:
+def _mesh_pair_rungs(cfg, seq: int, dev) -> dict:
     """14c, in a rank: the donated pair (``arm_current`` / ``check``,
     K=1) with triage and the mesh parity, as ``train(mesh=..., donate=,
     triage=, parity=)`` composes them, driven by hand to place its two
-    flips: bit 30 of an ``opt/v`` FFN word at step 1 (triage refuses it;
-    ``parity_xor`` or ``replay`` repairs it; the run must end on the
-    clean run's bits), then, after the run, bit 2 of another word of the
-    same leaf (tolerated)."""
-    import numpy as np
+    flips on the initial state (no step loop: 14c's ``train()``
+    run steps the composition): bit 30 of an ``opt/v`` FFN
+    word (triage refuses it; ``parity_xor`` or ``replay`` repairs it;
+    the state must come back to its bits before the flip), then bit 2 of
+    another word of the same leaf (tolerated)."""
     import torch
     from repro_torch.core.detect import ChecksumCanary
     from repro_torch.core.faults import InjectionPlan, inject
@@ -3692,33 +3713,25 @@ def _mesh_pair_rungs(cfg, seq: int, steps: int, dev, clean) -> dict:
                 "shards": rep.shards})
             return new
 
-        s, flipped, step_ms = 0, False, []
-        while s < steps:
-            canary.arm_current(s, state)
-            micro.record_iv(s, state["iv"])
-            micro.maybe_snapshot(s, state)
-            if s == 1 and not flipped:
-                inject(state, InjectionPlan("v/" + MESH_FLIP_LEAF,
-                                            MESH_FLIP_ELEMENT, 30, s,
-                                            "opt"), shardings=sh)
-                flipped = True
-            rep = canary.check(s, state)
-            if rep is not None:
-                state = recover(s, rep)
-                canary.refresh(state)
-                pstore.rebuild(state, s)
-                continue
-            t0 = time.perf_counter()
-            state, m = step(state, bfn(s))
-            float(m["loss"])                # the step's own fetch
-            step_ms.append(1e3 * (time.perf_counter() - t0))
-            s += 1
-        out["p50_step_ms"] = float(np.median(step_ms))
-        out["same"] = _same_state(torch, clean, state)
+        canary.arm_current(0, state)
+        micro.record_iv(0, state["iv"])
+        micro.maybe_snapshot(0, state)
+        truth = {k: t.clone() for k, t in zip(canary.plan.keys,
+                                              canary.plan.leaves(state))}
+        inject(state, InjectionPlan("v/" + MESH_FLIP_LEAF,
+                                    MESH_FLIP_ELEMENT, 30, 0, "opt"),
+               shardings=sh)
+        state = recover(0, canary.check(0, state))
+        canary.refresh(state)
+        pstore.rebuild(state, 0)
+        out["same"] = _same_state(torch, dict(zip(
+            canary.plan.keys, canary.plan.leaves(state))), truth)
+        del truth
         out["ptrs_kept"] = ptrs == [t.data_ptr() for t in leaves_of(state)]
+        steps = 1
 
-        # the parity row over the final state against its plain version:
-        # the fold of the rank's exchanged stream, and a gated update of it
+        # the parity row over the state against its plain version: the
+        # fold of the rank's exchanged stream, and a gated update of it
         canary.arm_current(steps, state)
         pp = pstore.plan
         recv = pp.exchange(pp.stream_mat(pp.leaves(state)))
@@ -3758,18 +3771,99 @@ def _mesh_pair_rungs(cfg, seq: int, steps: int, dev, clean) -> dict:
     return out
 
 
+def _elastic_drill(seq: int, dev, device: str, smoke: bool) -> dict:
+    """14d, in a rank, last of phase 14 (a rank of the lost row leaves):
+    iterpro-100m at full width and depth with ``fsdp`` (the row-safe
+    parity then covers the data-sharded leaves), ``train(parity,
+    elastic, kill_row_at=2, donate, fused_detect)``, 4 steps at K=1.
+    At the kill point every rank gathers the whole state (the drill's
+    oracle: the only read of the dead row's blocks, kept away from the
+    recovery), then the dead row's ranks overwrite their blocks with
+    ``ELASTIC_POISON`` and return.  A survivor checks its resumed blocks
+    against the oracle's, its losses and final blocks against a clean
+    functional run on the 1 x 2 mesh from the oracle, and counts the
+    path's kernel launches; a dead rank counts its launches after the
+    loss (0)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import gather_tree, local_tree
+    from repro_torch.kernels import _build
+    from repro_torch.launch.specs import bind_state
+    from repro_torch.launch.train import batch_for, cuda_numerics, train
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.tree import leaves as leaves_of
+
+    cfg = get_config("iterpro-100m")
+    if smoke:
+        cfg = cfg.smoke()
+    cfg = dataclasses.replace(cfg, sharding=dataclasses.replace(
+        cfg.sharding, fsdp=True))
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    box = {}
+
+    def on_kill(ctx, state, sh, rows):
+        box.update(ctx=ctx, rows=rows, oracle=gather_tree(state, sh))
+        if ctx.coords(ctx.shard_id)[ctx.data_axis] in rows:
+            for t in leaves_of(state):
+                t.reshape(-1).view(torch.uint8).fill_(ELASTIC_POISON)
+            del box["oracle"]              # a dead rank keeps nothing
+            sync()
+            box["at_kill"] = dict(_build.LAUNCHES)
+        return on_resume
+
+    def on_resume(ctx, state, sh):
+        box["resumed_same"] = _same_state(torch, state,
+                                          local_tree(box["oracle"], sh))
+
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    summary, st = train(cfg, steps=ELASTIC_STEPS, global_batch=T_BATCH,
+                        seq_len=seq, canary_slices=1, snapshot_interval=2,
+                        mesh=MESH, device=device, verbose=False,
+                        return_state=True, parity=True, elastic=True,
+                        kill_row_at=ELASTIC_KILL, donate=True,
+                        fused_detect=True, on_kill=on_kill)
+    sync()
+    out = {"secs": time.perf_counter() - t0, "summary": summary,
+           "launches": dict(_build.LAUNCHES)}
+    if summary.get("dead"):
+        out["after_kill"] = {k: v - box["at_kill"].get(k, 0)
+                             for k, v in out["launches"].items()
+                             if v != box["at_kill"].get(k, 0)}
+        return out
+    out["resumed_same"] = box["resumed_same"]
+    dctx = box["ctx"].degrade(box["rows"])
+    pipe = TokenPipeline(cfg.model.vocab_size, seq, T_BATCH, seed=0)
+    with cuda_numerics(dev):
+        clean, step, bfn, _ = bind_state(
+            dctx, cfg, box.pop("oracle"),
+            make_train_step(cfg, global_batch=T_BATCH),
+            lambda s: batch_for(cfg, pipe, s))
+        losses = []
+        for s in range(ELASTIC_KILL, ELASTIC_STEPS):
+            clean, m = step(clean, bfn(s))
+            losses.append(float(m["loss"]))
+    out["clean_losses"] = losses
+    out["same"] = _same_state(torch, st, clean)
+    return out
+
+
 def _mesh_rank(steps: int, work: str, device: str = "cuda",
                smoke: bool = False) -> dict:
     """One rank of phase 14, a spawned process on ``cuda:0`` beside the
-    other three: six runs of ``train(mesh=...)`` (clean; a params flip
-    every step: the odd steps have no version-matched snapshot and
-    replay, the even ones take shard_patch; an iv storm, with a disk
-    checkpoint at step 0; 14a-14c's modes) and 14c's placed flips
-    (``_mesh_pair_rungs``) with the launch counts of their kernels, then
-    this rank's
-    ``pack_rows`` and ``row_checksums`` against their plain versions on
-    its own blocks and one steady check's STATS.  ``device="cpu"`` and
-    ``smoke`` dry-run it on the CPU at the smoke size."""
+    other three: at 6 of iterpro-100m's 12 layers, five runs of
+    ``train(mesh=...)`` (clean; a params flip every step: the odd steps
+    have no version-matched snapshot and replay, the even ones take
+    shard_patch; an iv storm, with a disk checkpoint at step 0; 14b's and
+    14c's modes) and 14c's placed flips (``_mesh_pair_rungs``) with the
+    launch counts of their kernels, then this rank's ``pack_rows`` and
+    ``row_checksums`` against their plain versions on its own blocks and
+    one steady check's STATS; last, 14d at all 12 layers
+    (``_elastic_drill``), after which the ranks of the lost row are out.
+    ``device="cpu"`` and ``smoke`` dry-run it on the CPU at the smoke
+    size."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.detect import ChecksumCanary
@@ -3785,10 +3879,10 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
     from repro_torch.tree import leaves as leaves_of
 
     entered = time.time()
-    cfg = get_config("iterpro-100m")
+    cfg = _full_width("iterpro-100m", n_layers=MESH_LAYERS)
     seq = T_SEQ
     if smoke:
-        cfg, seq = cfg.smoke(), 32
+        cfg, seq = get_config("iterpro-100m").smoke(), 32
     common = dict(steps=steps, global_batch=T_BATCH, seq_len=seq,
                   canary_slices=1, snapshot_interval=2, mesh=MESH,
                   device=device, verbose=False, return_state=True)
@@ -3799,9 +3893,9 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
     plans = {"clean": {}, "params": dict(inject_every=1),
              "iv": dict(inject_every=2, inject_target="iv",
                         checkpoint_dir=work, checkpoint_interval=2 * steps),
-             # 14a, 14b: the flip lands in the slice checked at its step
-             # (one flip, at step 2: the time cut)
-             "donate+fused": fused,
+             # 14b (and the checks of the clean fused run 14a was): the
+             # flip lands in the slice checked at its step (one flip, at
+             # step 2: the time cut)
              "donate+fused+parity storm": dict(
                  fused, parity=True, inject_every=2,
                  inject_armed_only=True),
@@ -3828,7 +3922,7 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
     # parity, driven by hand
     _build.LAUNCHES.clear()
     t0 = time.perf_counter()
-    pair = _mesh_pair_rungs(cfg, seq, steps, dev, clean)
+    pair = _mesh_pair_rungs(cfg, seq, dev)
     sync()
     secs["donate+triage+parity flips"] = time.perf_counter() - t0
     by_run["donate+triage+parity flips"] = dict(_build.LAUNCHES)
@@ -3883,7 +3977,7 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
 
     def timed(fn):
         sync()
-        coll.barrier(ctx.device)
+        coll.barrier(ctx.device, ctx.group(ctx.axis_names))
         t0 = time.perf_counter()
         out = fn()
         sync()
@@ -3896,8 +3990,10 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
     # the same bytes cross as in the step: each peer's half of the grads
     _, mean_ms = timed(lambda: coll.sum_rows(coll.all_to_all(
         flat, ctx.group(ctx.batch_axes))))
-    del full, grads, flat
-    return {
+    del full, grads, flat, local, clean
+    # 14d, last: the ranks of the lost row leave
+    elastic = _elastic_drill(seq, dev, device, smoke)
+    return {"elastic": elastic,
         "shard": ctx.shard_id, "device": str(ctx.device),
         "name": torch.cuda.get_device_name(ctx.device)
         if device == "cuda" else "cpu",
@@ -3917,17 +4013,17 @@ def check_mesh_modes(r: dict, device: str) -> None:
     """Phase 14's mode runs in one rank's result: asserts and its
     ``[mesh-modes]`` line."""
     sm = r["summaries"]
-    a, b, c = sm["donate+fused"], sm["donate+fused+parity storm"], r["pair"]
-    for name in ("donate+fused", "donate+fused+parity storm"):
-        assert r["same"][name], f"{name} != clean on rank {r['shard']}"
-        assert sm[name]["pointers_kept"], (name, sm[name])
+    b, c = sm["donate+fused+parity storm"], r["pair"]
+    assert r["same"]["donate+fused+parity storm"], \
+        f"14b != clean on rank {r['shard']}"
+    assert b["pointers_kept"], b
     # every fused report under donation is consumed: replay, never the
     # in-place rungs (the parity is attached)
     assert set(b["recovery"]["by_rung"]) == {"replay"}, b["recovery"]
-    assert a["digest_per_step"] == [[1, 1]], a
+    assert b["digest_per_step"] == [[1, 1]], b
     if device == "cuda":
         # the head and the tail of each rotation and read table
-        assert a["fused"]["captures"] == 4 * MESH_K, a["fused"]
+        assert b["fused"]["captures"] == 4 * MESH_K, b["fused"]
     first, tol = c["events"]
     assert first["attempted"][0] == "triage", first
     assert first["rung"] in ("parity_xor", "replay"), first
@@ -3947,14 +4043,13 @@ def check_mesh_modes(r: dict, device: str) -> None:
     d = sm["donate+triage+parity storm"]
     assert set(d["recovery"]["by_rung"]) <= {"parity_xor", "replay"}, d
     assert d["pointers_kept"], d
-    print(f"[mesh-modes] rank {r['shard']}: (a) --donate --fused-detect "
-          f"K={MESH_K}: final blocks == clean bitwise, every data_ptr "
-          f"kept, STATS a step {a['digest_per_step']}, "
-          f"{a['fused'].get('captures', a['fused'].get('builds'))} graphs "
-          f"(pool {a['fused'].get('pool_bytes', 0) / 2**20:.1f} MiB), "
-          f"host p50 {a['p50_step_ms']:.1f} ms, run "
-          f"{r['secs']['donate+fused']:.1f} s; (b) + --parity, a flip "
-          f"at step 2 in the checked slice: {b['faults_detected']} "
+    print(f"[mesh-modes] rank {r['shard']}: (b) --donate --fused-detect "
+          f"--parity K={MESH_K}, a flip at step 2 in the checked slice: "
+          f"final blocks == clean bitwise, every data_ptr kept, STATS a "
+          f"step {b['digest_per_step']}, "
+          f"{b['fused'].get('captures', b['fused'].get('builds'))} graphs "
+          f"(pool {b['fused'].get('pool_bytes', 0) / 2**20:.1f} MiB), "
+          f"{b['faults_detected']} "
           f"consumed reports -> {b['recovery']['by_rung']}, recovery p50 "
           f"{b['p50_recovery_ms']:.1f} ms, host p50 "
           f"{b['p50_step_ms']:.1f} ms, == clean bitwise, run "
@@ -3964,10 +4059,10 @@ def check_mesh_modes(r: dict, device: str) -> None:
           f"{d['p50_recovery_ms']:.1f} ms, host p50 "
           f"{d['p50_step_ms']:.1f} ms, == clean bitwise, every data_ptr "
           f"kept, run {r['secs']['donate+triage+parity storm']:.1f} s; "
-          f"its placed flips by hand (step host p50 "
-          f"{c['p50_step_ms']:.1f} ms): bit 30 -> {first['attempted']}"
-          f" -> {first['rung']} ({first['bytes']} B, {first['ms']:.1f} "
-          f"ms), run == clean bitwise, parity row ({c['parity_words']} "
+          f"its placed flips by hand on the initial state: bit 30 -> "
+          f"{first['attempted']} -> {first['rung']} ({first['bytes']} B, "
+          f"{first['ms']:.1f} ms), state == its bits before the flip, "
+          f"parity row ({c['parity_words']} "
           f"words) == its plain fold, update == plain; bit 2 -> triage "
           f"({tol['bytes']} B, {tol['ms']:.1f} ms, shards {holders}), "
           f"checksum_tiles {c['triage_tiles']} (bitwise plain), next full "
@@ -4000,10 +4095,11 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
     assert [r["shard"] for r in ranks] == [0, 1, 2, 3], ranks
     assert all(r["device"] == ("cuda:0" if device == "cuda" else device)
                for r in ranks), ranks
-    print(f"[mesh] iterpro-100m (12 layers, d 768, f32) on a 2 x 2 mesh: "
-          f"{len(ranks)} ranks on {ranks[0]['name']} ({ranks[0]['device']}) "
-          f"over gloo, batch {T_BATCH} x {T_SEQ}, {MESH_STEPS} steps a run, "
-          f"K=1, snapshot every 2; spawn + 7 runs + checks {wall:.1f} s "
+    print(f"[mesh] iterpro-100m ({MESH_LAYERS} of 12 layers, d 768, f32) "
+          f"on a 2 x 2 mesh: {len(ranks)} ranks on {ranks[0]['name']} "
+          f"({ranks[0]['device']}) over gloo, batch {T_BATCH} x {T_SEQ}, "
+          f"{MESH_STEPS} steps a run, K=1, snapshot every 2; spawn + 6 "
+          f"runs + checks + 14d (12 layers) {wall:.1f} s "
           f"(the last rank started {up:.1f} s after the spawn) [{_SMI}]")
     for r in ranks:
         sm = r["summaries"]
@@ -4017,7 +4113,6 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
             assert r["same"][name], f"{name} storm != clean on rank " \
                                     f"{r['shard']}"
         rung = {n: sm[n]["recovery"]["by_rung"] for n in sm}
-        assert sm["donate+fused"]["faults_injected"] == 0, sm
         # MESH_STEPS = 3: flips at 1 (no snapshot of version 1: replay) and
         # 2 (the snapshot of version 2: shard_patch)
         assert rung["params"] == {"replay": 1, "shard_patch": 1}, rung
@@ -4051,6 +4146,72 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
     verdicts = [[(e["rung"], e["attempted"], e["bytes"])
                  for e in r["pair"]["events"]] for r in ranks]
     assert all(v == verdicts[0] for v in verdicts), verdicts
+    check_elastic(ranks, device)
+
+
+def check_elastic(ranks, device: str) -> None:
+    """14d's asserts and ``[mesh-elastic]`` lines: row 1 (ranks 2-3) died
+    before step 2; the survivors took one ``remesh`` and nothing else, no
+    disk restore, rebuilt blocks from the parity and certified theirs,
+    resumed bitwise on the oracle's blocks, finished 4 steps at 1 x 2 on
+    the losses and blocks of a clean 1 x 2 run from the oracle, 1 launch
+    + 1 fetch a step, the graphs captured again on the new context; the
+    dead ranks launched nothing after the loss."""
+    params = ranks[0]["summaries"]["params"]["recovery"]
+    ckpt = ranks[0]["summaries"]["iv"].get("checkpoints", {})
+    for r in ranks:
+        e = r["elastic"]
+        sm = e["summary"]
+        if r["shard"] in (2, 3):
+            assert sm.get("dead"), (r["shard"], sm)
+            assert e["after_kill"] == {}, e["after_kill"]
+            print(f"[mesh-elastic] rank {r['shard']} (row 1, lost before "
+                  f"step {ELASTIC_KILL}): blocks overwritten with "
+                  f"{ELASTIC_POISON:#x} after the oracle read them, "
+                  f"kernel launches after the loss {e['after_kill']} "
+                  f"[{_SMI}]")
+            continue
+        rec = sm["recovery"]
+        assert rec["by_rung"] == {"remesh": 1}, rec
+        assert sm["steps"] == ELASTIC_STEPS, sm
+        assert sm["faults_detected"] == sm["faults_recovered"] == 1, sm
+        [ev] = sm["elastic_events"]
+        assert tuple(ev["lost_rows"]) == (1,), ev
+        assert ev["disk_restores"] == 0 and ev["uncertified_blocks"] == 0, ev
+        assert ev["blocks_reconstructed"] > 0 < ev["certified_blocks"], ev
+        assert sm["mesh"]["shape"] == {"data": 1, "model": 2}, sm["mesh"]
+        assert e["resumed_same"], "resumed blocks != the oracle's"
+        assert sm["losses"][ELASTIC_KILL:] == e["clean_losses"], (
+            sm["losses"], e["clean_losses"])
+        assert e["same"], "final blocks != the clean 1 x 2 run's"
+        assert sm["digest_per_step"] == [[1, 1]], sm["digest_per_step"]
+        assert sm["pointers_kept"], sm
+        lc = e["launches"]
+        if device == "cuda":
+            # 4 = the head and tail of the one rotation, each read table
+            assert sm["fused"]["captures"] == 4, sm["fused"]
+            for k in ("xor_fold_tiles", "xor_update_tiles", "pack_rows",
+                      "row_checksums", "checksum_tiles"):
+                assert lc.get(k, 0) > 0, (k, lc)
+        print(f"[mesh-elastic] rank {r['shard']}: iterpro-100m (12 layers, "
+              f"fsdp) 2 x 2 -> {sm['mesh']['shape']} before step "
+              f"{ELASTIC_KILL} of {ELASTIC_STEPS}, --donate --fused-detect "
+              f"--parity --elastic K=1: rungs {rec['by_rung']}, downtime "
+              f"{ev['downtime_seconds']:.3f} s (reconstruct "
+              f"{ev['reconstruct_seconds']:.3f} s, re-bind + re-capture "
+              f"{ev['relower_seconds']:.3f} s), {ev['blocks_reconstructed']}"
+              f" blocks ({ev['bytes_reconstructed']} B) rebuilt from the "
+              f"parity, {ev['bytes_regathered']} B re-gathered "
+              f"({ev['leaves_regathered']} leaves), {ev['certified_blocks']}"
+              f" blocks certified, 0 disk restores; resumed blocks == "
+              f"oracle bitwise, losses {sm['losses']} (after the loss == a "
+              f"clean 1 x 2 run's), final blocks == its; STATS a step "
+              f"{sm['digest_per_step']}, {sm['fused']} graphs re-captured; "
+              f"launches {lc}; beside phase 14's replay p50 "
+              f"{params['p50_wall_ms_by_rung'].get('replay', 0):.1f} ms and "
+              f"checkpoint save {ckpt.get('blocking_seconds', 0):.3f} s "
+              f"blocking + {ckpt.get('write_seconds', 0):.3f} s written; "
+              f"run {e['secs']:.1f} s [{_SMI}]")
 
 
 def main() -> int:

@@ -196,7 +196,8 @@ class CheckpointManager:
             return load_checkpoint(self.directory, like_state)
         from repro_torch.distributed import collectives as coll
         from repro_torch.distributed.sharding import local_tree
-        coll.barrier(self.ctx.device)          # rank 0's write is done
+        # shard 0's write is done
+        coll.barrier(self.ctx.device, self.ctx.group(self.ctx.axis_names))
         like_full = tree_map(
             lambda sh: torch.empty(sh.shape, dtype=sh.dtype,
                                    device=self.ctx.device), self.shardings)

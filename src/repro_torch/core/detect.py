@@ -105,6 +105,11 @@ class FaultReport:
     #: snapshot + replay.  The donated pair's ``check`` runs before the
     #: step and reports ``False``.
     consumed: bool = False
+    #: HARD loss: rows of the data axis whose ranks are gone (a host
+    #: failure).  A non-empty tuple routes the ladder to the ``remesh``
+    #: rung (``launch/elastic.py``): in-place repair is meaningless when
+    #: the hardware itself is dead.
+    lost_rows: Tuple[int, ...] = ()
 
     def resolve(self) -> List[str]:
         """Materialise ``leaves`` from a deferred attribution (and, on a
@@ -162,6 +167,19 @@ def trap_loss_spike(step: int, metrics: Dict, history: Sequence[float],
         return FaultReport(step, "loss_spike",
                            detail=f"loss={fv:.3g} median={ref:.3g}")
     return None
+
+
+def evict_mesh(ctx) -> int:
+    """Drop the check+arm cores cached on ``ctx``'s digest plans (the
+    canary's per-rotation units; their packing buffers are the plans'):
+    the elastic remesh calls it before the plans go."""
+    mk = kdigest.mesh_key(ctx)
+    n = 0
+    for key, plan in kdigest._PLAN_CACHE.items():
+        if key[0] == "mesh" and key[1] == mk:
+            n += len(plan._check_arm)
+            plan._check_arm.clear()
+    return n
 
 
 class ChecksumCanary:
@@ -261,7 +279,8 @@ class ChecksumCanary:
         (a collective every rank runs once the all-reduced flag fired)."""
         if self.ctx is not None:
             from repro_torch.distributed import collectives as coll
-            mask = kdigest.fetch(coll.all_gather(bad_mask.reshape(-1)))
+            mask = kdigest.fetch(coll.all_gather(
+                bad_mask.reshape(-1), self.ctx.group(self.ctx.axis_names)))
             shards = {self._keys[i]: [int(d) for d in
                                       np.nonzero(mask[:, j])[0]]
                       for j, i in enumerate(chk) if mask[:, j].any()}
@@ -380,7 +399,8 @@ class ChecksumCanary:
         flag = bad.any()
         if self.ctx is not None:
             from repro_torch.distributed import collectives as coll
-            flag = coll.flag_max(flag)[0] > 0
+            flag = coll.flag_max(
+                flag, self.ctx.group(self.ctx.axis_names))[0] > 0
         if bool(kdigest.fetch(flag)):
             return self._report(step, range(len(self._keys)), bad,
                                 self.reference)
@@ -398,6 +418,29 @@ class ChecksumCanary:
         table = self._fault_reference
         table = kdigest.fetch(self.reference if table is None else table)
         return {k: table[i] for i, k in enumerate(self._keys)}
+
+    def surviving_reference_digests(self, dead):
+        """``fault_reference_digests`` under a hard loss, on a mesh: every
+        surviving rank's own rows, gathered over the survivors (a
+        collective only they take), never a dead rank's.  ``dead`` holds
+        shard ids.  Returns ``(digests, have)``: ``digests[k]`` the
+        ``(n_shards, 2)`` rows with the dead shards' zeroed, ``have[d]``
+        whether shard ``d``'s rows were read (the only rows a block may be
+        certified against)."""
+        if self.ctx is None:
+            raise ValueError("surviving_reference_digests needs a "
+                             "sharded canary")
+        from repro_torch.distributed import collectives as coll
+        surv, group = self.ctx.survivors(dead)
+        table = self._fault_reference
+        if table is None:
+            table = self.reference
+        rows = kdigest.fetch(coll.all_gather(table, group))
+        out = np.zeros((self.ctx.n_devices,) + rows.shape[1:], np.int32)
+        out[list(surv)] = rows
+        have = np.zeros(self.ctx.n_devices, bool)
+        have[list(surv)] = True
+        return {k: out[:, i] for i, k in enumerate(self._keys)}, have
 
     def fault_reference_digest(self, key: str) -> np.ndarray:
         """One leaf's row of ``fault_reference_digests``: the int32[2]

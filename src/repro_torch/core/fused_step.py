@@ -82,6 +82,7 @@ On the CPU the same stretches run eagerly, in the same order.
 from __future__ import annotations
 
 import time
+import weakref
 from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -98,6 +99,19 @@ from repro_torch.tree import flatten_with_path, leaves, tree_map
 #: the autograd engine and the kernels' host state); at least one per
 #: rotation, so every rotation runs eagerly once before its capture
 WARMUP_STEPS = 2
+
+#: every live factory on a mesh (``evict_mesh`` drops a lost mesh's)
+_ON_MESH: "weakref.WeakSet[FusedStepFactory]" = weakref.WeakSet()
+
+
+def evict_mesh(ctx) -> int:
+    """Close every live fused unit built on ``ctx``'s mesh (its axes and
+    ranks): after a hard loss its graphs hold the dead mesh's buffers.
+    Returns the units dropped (captured graphs on the card, eager
+    rotations on the CPU)."""
+    mk = kdigest.mesh_key(ctx)
+    return sum(f.close() for f in list(_ON_MESH)
+               if kdigest.mesh_key(f.canary.ctx) == mk)
 
 
 @dataclass
@@ -186,6 +200,22 @@ class FusedStepFactory:
         self._pool = None
         self._dropped = False
         self._phase = 0
+        if self.mesh:
+            _ON_MESH.add(self)
+
+    def close(self) -> int:
+        """Drop every unit, the graphs' memory pool, the storage and the
+        static arguments (the factory is unusable after it).  Returns the
+        units dropped."""
+        n = len(self._graphs) or len(self._rotations)
+        self._graphs.clear()
+        self._rotations.clear()
+        self._bufs, self._args, self._front, self._pool = [], None, None, None
+        _ON_MESH.discard(self)
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        return n
 
     # -- rotations -----------------------------------------------------------
 

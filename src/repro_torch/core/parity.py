@@ -49,14 +49,39 @@ injured block's group: its parity columns of the leaf's segment and the
 surviving block it first holds; the block goes to every rank holding it,
 so replicas stay bit-consistent.
 
-The row-safe placement (fold groups that survive a lost data row) and
-the hard-loss host helpers belong to the elastic slice; they raise
-``NotImplementedError``.
+Hard loss (``row_safe=True``, ``RowSafeParityPlan``; the reference's
+DESIGN.md §7).  The placement above puts parity row ``r`` on rank ``r``,
+so a lost data row takes its parity down with its blocks, and a leaf
+sharded over data and model loses several blocks of one flat fold.  The
+row-safe plan covers only the data-sharded leaves (a dim sharded over
+data and model jointly is excluded), groups each leaf's blocks by their
+projection on the non-data dims (a lost row erases at most one member of
+each group: the one erasure XOR inverts), gives each leaf ``n_groups x
+block_len`` stream columns, and lays the fold out as the reference's
+``(prod(non-batch axes), Crow)`` buffer replicated over the batch axes:
+a rank holds the row of its non-batch coordinate, so every surviving
+data row holds a whole copy.  The exchange sends only non-zero columns:
+a rank's first-held blocks, each cut at the buffer rows, go to the ranks
+holding those rows (one all-to-all over the group of all axes, each
+destination's part padded to the largest part of any pair); a receiver
+places every piece in the row of its member index within its group, a
+``(fold_width, row)`` matrix whose other words stay zero, and folds it
+with ``xor_fold_tiles`` (build) or ``xor_update_tiles`` (the gated
+update).
+
+The hard-loss helpers (``host_parity_flat``, ``host_surviving_blocks``,
+``host_reconstruct_block``, ``host_assemble_leaf``) are collectives over
+the survivors' group: they read only the surviving ranks' blocks and
+parity rows (the first surviving holder of each), never a dead rank's.
+Their results lie on the rank's device ("host" is the reference's name:
+its simulated mesh assembled on the host); the reconstruction XOR of a
+lost block, its group's parity segment and its surviving members, is one
+``xor_fold_tiles`` launch.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,10 +95,6 @@ from repro_torch.tree import flatten_with_path, leaf_key, replace_leaves
 LANES = _pk.LANES
 TILE_ROWS = _pk.TILE_ROWS
 TILE = TILE_ROWS * LANES
-
-_MESH = ("not ported yet: the row-safe parity placement and its host "
-         "helpers (ROADMAP.md queue 1, 'Mesh and elastic', the elastic "
-         "slice)")
 
 #: dtypes whose ``to_i32`` view is invertible (``from_i32`` restores the
 #: exact bits).  int64/float64 views are lossy, so leaves of those dtypes
@@ -156,20 +177,6 @@ class _PlanBase:
         ``update_leaves`` bit for bit."""
         if self.keys:
             self.stream_mat(old_leaves)
-
-    # -- hard-loss host helpers (the row-safe placement's) -------------------
-
-    def host_parity_flat(self, parity, dead=frozenset()):
-        raise NotImplementedError(_MESH)
-
-    def host_surviving_blocks(self, key, leaf, dead=frozenset()):
-        raise NotImplementedError(_MESH)
-
-    def host_reconstruct_block(self, key, blk, parity_flat, blocks):
-        raise NotImplementedError(_MESH)
-
-    def host_assemble_leaf(self, key, leaf, dead=frozenset()):
-        raise NotImplementedError(_MESH)
 
 
 class ParityPlan(_PlanBase):
@@ -305,6 +312,10 @@ class ParityPlan(_PlanBase):
     def reconstruct_shard(self, parity, leaf, key: str, blk: int):
         raise ValueError("reconstruct_shard: a mesh parity store only")
 
+    def host_parity_flat(self, parity, dead=frozenset()) -> torch.Tensor:
+        """The flat parity stream (off the mesh nothing can die)."""
+        return parity.reshape(-1)[:self.stream_len]
+
 
 class MeshParityPlan(_PlanBase):
     """This rank's parity plan on a mesh (see the module docstring): the
@@ -313,18 +324,24 @@ class MeshParityPlan(_PlanBase):
     and the exchange that replaces its fold over the device axis.  Every
     entry point that folds is a collective: every rank calls it."""
 
+    row_safe = False
+
     def __init__(self, ctx, keys: Tuple[str, ...],
                  shapes: Dict[str, Tuple[int, ...]],
                  dtypes: Dict[str, torch.dtype],
-                 slices: Dict[str, Tuple], device: torch.device):
+                 slices: Dict[str, Tuple], device: torch.device,
+                 groups: Optional[Dict[str, Tuple[Tuple[int, ...], ...]]]
+                 = None):
         super().__init__(keys, shapes, dtypes, ctx.n_devices)
-        D = self.n_shards
         self.ctx = ctx
         self.rank = ctx.shard_id
         #: key -> (unique ((start, stop), ...) boxes in first-seen
         #: mesh-flat order, shard id -> block id)
         self.slices = slices
         self.device = device
+        #: key -> fold groups (default: one group of every block, the
+        #: flat fold); each leaf carries ``n_groups x block_len`` columns
+        self.n_groups: Dict[str, int] = {}
         off = 0
         for k in keys:
             uniq, dev_to_blk = slices[k]
@@ -335,35 +352,145 @@ class MeshParityPlan(_PlanBase):
             self.block_len[k] = max(self.block_sizes[k])
             self.n_blocks[k] = len(uniq)
             self.device_block[k] = tuple(dev_to_blk)
-            self.groups[k] = (tuple(range(len(uniq))),)
-            self.block_group[k] = tuple((0, b) for b in range(len(uniq)))
+            self.groups[k] = (groups or {}).get(k) or \
+                (tuple(range(len(uniq))),)
+            bg = [(0, 0)] * len(uniq)
+            for g, members in enumerate(self.groups[k]):
+                for m, b in enumerate(members):
+                    bg[b] = (g, m)
+            self.block_group[k] = tuple(bg)
+            self.n_groups[k] = len(self.groups[k])
             self.offsets[k] = off
-            off += self.block_len[k]
+            off += self.n_groups[k] * self.block_len[k]
         self.stream_len = off
+        self._recv: Dict[str, torch.Tensor] = {}
+        self._layout()
+
+    def _layout(self) -> None:
+        """The buffer and the exchange: the reference's ``(D, Crow)``
+        row a rank, and the leaves this rank writes into its stream row
+        (it is the first holder of its block)."""
+        D = self.n_shards
         #: the reference's row width: the fold padded to D rows of whole
         #: lanes
-        crow = max(LANES, -(-off // D))
+        crow = max(LANES, -(-self.stream_len // D))
         self.row_words = -(-crow // LANES) * LANES
         self.n_tiles = max(1, -(-self.row_words // TILE))
         #: a chunk of the exchange: one row, padded to whole tiles
         self.chunk = self.n_tiles * TILE
         self.buffer_shape = (self.n_tiles, TILE_ROWS, LANES)
-        #: the leaves this rank writes into its stream row (it is the
-        #: first holder of its block), with the pieces of each: ``(dst
-        #: word in the (D, chunk) row, src word, length)``
+        self.n_rows = D
+        #: the pieces of each leaf written: ``(dst word in the (D, chunk)
+        #: row, src word, length)``
         self.mine: List[Tuple[int, List[Tuple[int, int, int]]]] = []
-        for i, k in enumerate(keys):
+        for i, k in enumerate(self.keys):
             blk = self.device_block[k][self.rank]
             if self.block_devices(k, blk)[0] == self.rank:
                 self.mine.append((i, self._pieces(self.offsets[k],
                                                   self.block_sizes[k][blk])))
-        self._recv: Dict[str, torch.Tensor] = {}
 
     def block_devices(self, key: str, blk: int) -> Tuple[int, ...]:
         """Shard ids holding block ``blk`` of ``key``: where a repair
         goes (every replica)."""
         return tuple(d for d, b in enumerate(self.device_block[key])
                      if b == blk)
+
+    def row_of(self, shard: int) -> int:
+        """The parity row shard ``shard`` holds (here: its own)."""
+        return shard
+
+    # -- hard loss: collectives over the survivors, reading only them -------
+
+    def host_parity_flat(self, parity: torch.Tensor,
+                         dead=frozenset()) -> torch.Tensor:
+        """The flat parity stream (``stream_len`` words, on the rank's
+        device) from the surviving ranks' rows only — the first surviving
+        holder of each row (collective over the survivors).  Raises when a
+        row died with the dead shards: the row-safe placement exists so
+        that a lost data row never takes one."""
+        from repro_torch.distributed import collectives as coll
+        holder = {}
+        for m, d in enumerate(d for d in range(self.n_shards)
+                              if d not in set(dead)):
+            holder.setdefault(self.row_of(d), m)
+        if len(holder) < self.n_rows:
+            raise RuntimeError(
+                "parity rows lost along with the dead devices — a hard "
+                "row loss needs the row_safe placement (ParityStore("
+                "row_safe=True))")
+        _, group = self.ctx.survivors(dead)
+        rows = coll.all_gather(parity.reshape(-1), group)
+        return torch.cat([rows[holder[r], :self.row_words]
+                          for r in range(self.n_rows)])[:self.stream_len]
+
+    def host_surviving_blocks(self, key: str, leaf: torch.Tensor,
+                              dead=frozenset()) -> Dict[int, torch.Tensor]:
+        """Block id -> its ``block_len`` int32 words (zero-padded), read
+        from the first surviving holder of each block (collective over the
+        survivors: each sends its own block)."""
+        from repro_torch.distributed import collectives as coll
+        surv, group = self.ctx.survivors(dead)
+        c = self.block_len[key]
+        row = torch.nn.functional.pad(_ref.to_i32(leaf),
+                                      (0, c - leaf.numel()))
+        rows = coll.all_gather(row, group)
+        out: Dict[int, torch.Tensor] = {}
+        for m, d in enumerate(surv):
+            out.setdefault(self.device_block[key][d], rows[m])
+        return out
+
+    def assemble_blocks(self, key: str, blocks: Dict[int, torch.Tensor]):
+        """``(full leaf, missing block ids)``: ``blocks`` (block id ->
+        words) placed at their boxes, the blocks absent listed."""
+        uniq, _ = self.slices[key]
+        first = next(iter(blocks.values()))
+        full = torch.zeros(self.shapes[key], dtype=self.dtypes[key],
+                           device=first.device)
+        for b, words in blocks.items():
+            full[tuple(slice(a, e) for a, e in uniq[b])] = self._block(
+                key, b, words)
+        return full, [b for b in range(self.n_blocks[key])
+                      if b not in blocks]
+
+    def host_assemble_leaf(self, key: str, leaf: torch.Tensor,
+                           dead=frozenset()):
+        """``(full leaf, missing block ids)``: the surviving blocks placed
+        at their boxes (collective over the survivors), the blocks with no
+        surviving holder listed for reconstruction."""
+        return self.assemble_blocks(
+            key, self.host_surviving_blocks(key, leaf, dead))
+
+    def _block(self, key: str, blk: int, words: torch.Tensor):
+        like = torch.empty(self.block_shapes[key][blk],
+                           dtype=self.dtypes[key], device="meta")
+        return _ref.from_i32(words[:self.block_sizes[key][blk]], like)
+
+    def host_reconstruct_block(self, key: str, blk: int,
+                               parity_flat: torch.Tensor,
+                               blocks: Dict[int, torch.Tensor]):
+        """Lost block ``blk`` (block shape, the leaf's dtype) from its
+        group's parity segment and the group's surviving members: one
+        ``xor_fold_tiles`` launch over them, exact by XOR algebra.  Local:
+        ``parity_flat`` and ``blocks`` are the collectives' results.
+        Raises on a double erasure in the group (not invertible)."""
+        g, _ = self.block_group[key][blk]
+        c = self.block_len[key]
+        nt = max(1, -(-c // TILE))
+        off = self.offsets[key] + g * c
+        members = [b for b in self.groups[key][g] if b != blk]
+        gone = [b for b in members if b not in blocks]
+        if gone:
+            raise RuntimeError(
+                f"double erasure in the fold group of {key}: blocks {blk} "
+                f"and {gone[0]} are both lost — XOR parity inverts a "
+                f"single erasure per group")
+        mat = torch.zeros((1 + len(members), nt * TILE), dtype=torch.int32,
+                          device=parity_flat.device)
+        mat[0, :c] = parity_flat[off:off + c]
+        for i, b in enumerate(members, 1):
+            mat[i, :c] = blocks[b]
+        acc = _pk.xor_fold_tiles(mat.view(-1, nt, TILE_ROWS, LANES))
+        return self._block(key, blk, acc.reshape(-1))
 
     def _pieces(self, off: int, n: int) -> List[Tuple[int, int, int]]:
         """Stream columns ``[off, off + n)`` cut at the rows' ends."""
@@ -472,7 +599,162 @@ class MeshParityPlan(_PlanBase):
         return _ref.from_i32(acc[:self.block_sizes[key][blk]], like)
 
 
+class RowSafeParityPlan(MeshParityPlan):
+    """This rank's row-safe parity plan (see the module docstring): fold
+    groups per leaf, the ``(rows, Crow)`` buffer of the reference's
+    row-safe placement held as the row of the rank's non-batch
+    coordinate, and the exchange of non-zero columns only."""
+
+    row_safe = True
+
+    def _layout(self) -> None:
+        D, ctx = self.n_shards, self.ctx
+        #: the buffer's axes: the non-batch ones (none: one row, every
+        #: rank a whole copy)
+        self.parity_axes = tuple(a for a in ctx.axis_names
+                                 if a not in ctx.batch_axes)
+        self.fold_width = max([1] + [max(len(g) for g in self.groups[k])
+                                     for k in self.keys])
+        self.n_rows = ctx.axis_size(self.parity_axes)
+        crow = max(LANES, -(-self.stream_len // self.n_rows))
+        self.row_words = -(-crow // LANES) * LANES
+        self.n_tiles = max(1, -(-self.row_words // TILE))
+        self.chunk = self.n_tiles * TILE
+        self.buffer_shape = (self.n_tiles, TILE_ROWS, LANES)
+        # every shard's pieces, cut at the rows' ends, each with its
+        # offset in the part it goes in: (leaf index, src word, row, col,
+        # n, member, offset)
+        placed = [[] for _ in range(D)]
+        fill = [[0] * self.n_rows for _ in range(D)]
+        for i, k in enumerate(self.keys):
+            c = self.block_len[k]
+            for b in range(self.n_blocks[k]):
+                p = self.block_devices(k, b)[0]
+                g, m = self.block_group[k][b]
+                start, n, j = self.offsets[k] + g * c, \
+                    self.block_sizes[k][b], 0
+                while j < n:
+                    row, col = divmod(start + j, self.row_words)
+                    take = min(n - j, self.row_words - col)
+                    placed[p].append((i, j, row, col, take, m,
+                                      fill[p][row]))
+                    fill[p][row] += take
+                    j += take
+        #: words of every part (a sender's pieces in one row), padded to
+        #: the largest of any (sender, row)
+        self.slot = max(1, max(max(f) for f in fill))
+        rows_of = [self.row_of(q) for q in range(D)]
+        #: this rank's sends: (leaf index, src word, n, [send offsets])
+        self.sends = [(i, j, n, [q * self.slot + at for q in range(D)
+                                 if rows_of[q] == row])
+                      for (i, j, row, col, n, m, at) in placed[self.rank]]
+        mine = rows_of[self.rank]
+        #: what this rank receives: (recv offset, matrix offset, n)
+        self.recvs = [(p * self.slot + at, m * self.chunk + col, n)
+                      for p in range(D)
+                      for (i, j, row, col, n, m, at) in placed[p]
+                      if row == mine]
+        self._mat: Dict[str, torch.Tensor] = {}
+
+    def row_of(self, shard: int) -> int:
+        """Shard ``shard``'s parity row: its coordinate over the
+        non-batch axes, row-major."""
+        c = self.ctx.coords(shard)
+        r = 0
+        for a in self.parity_axes:
+            r = r * self.ctx.shape[a] + c[a]
+        return r
+
+    def _buffers(self, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The send and receive buffers, ``(D * slot,)`` int32 each, and
+        (``_mat``) the fold matrix, allocated once per device; only the
+        pieces' words are ever written, so the rest stays zero."""
+        key = str(dev)
+        if key not in self._scratch:
+            n = self.n_shards * self.slot
+            self._scratch[key] = torch.zeros(n, dtype=torch.int32,
+                                             device=dev)
+            self._recv[key] = torch.zeros(n, dtype=torch.int32, device=dev)
+            self._mat[key] = torch.zeros(self.fold_width * self.chunk,
+                                         dtype=torch.int32, device=dev)
+        return self._scratch[key], self._recv[key]
+
+    def stream_mat(self, leaves: Sequence[torch.Tensor],
+                   other: Sequence[torch.Tensor] = (),
+                   xor: bool = False) -> torch.Tensor:
+        """This rank's send buffer: each first-held block's pieces in the
+        part of every rank holding their row (``other``: XOR ``other``'s;
+        ``xor``: XOR into what the buffer holds), written in place."""
+        buf, _ = self._buffers(leaves[0].device if leaves else self.device)
+        for i, j, n, outs in self.sends:
+            src = _ref.to_i32(leaves[i])[j:j + n]
+            b = _ref.to_i32(other[i])[j:j + n] if other else None
+            for o in outs:
+                dst = buf[o:o + n]
+                if b is not None:
+                    torch.bitwise_xor(src, b, out=dst)
+                elif xor:
+                    dst.bitwise_xor_(src)
+                else:
+                    dst.copy_(src)
+        return buf
+
+    def exchange(self, row: torch.Tensor) -> torch.Tensor:
+        """Every part to its rank (one all-to-all over the group of all
+        axes), each received piece into the fold matrix at its member's
+        row: ``(fold_width, n_tiles, TILE_ROWS, LANES)``."""
+        from repro_torch.distributed import collectives as coll
+        _, recv = self._buffers(row.device)
+        coll.all_to_all(row, self.ctx.group(self.ctx.axis_names), out=recv)
+        mat = self._mat[str(row.device)]
+        for src, dst, n in self.recvs:
+            mat[dst:dst + n].copy_(recv[src:src + n])
+        return mat.view(self.fold_width, self.n_tiles, TILE_ROWS, LANES)
+
+    def reconstruct_shard(self, parity: torch.Tensor, leaf: torch.Tensor,
+                          key: str, blk: int) -> torch.Tensor:
+        """Block ``blk`` of ``key`` rebuilt on every rank (collective):
+        each row's first holder shares its parity columns of the group's
+        segment, the first holder of each other member of the group its
+        block; all-gathered and folded with ``xor_fold_tiles``."""
+        from repro_torch.distributed import collectives as coll
+        c = self.block_len[key]
+        g, _ = self.block_group[key][blk]
+        seg = self.offsets[key] + g * c
+        nt = max(1, -(-c // TILE))
+        part = torch.zeros(nt * TILE, dtype=torch.int32, device=leaf.device)
+        r = self.row_of(self.rank)
+        if min(d for d in range(self.n_shards)
+               if self.row_of(d) == r) == self.rank:
+            lo = max(seg, r * self.row_words)
+            hi = min(seg + c, (r + 1) * self.row_words)
+            if lo < hi:
+                base = r * self.row_words
+                part[lo - seg:hi - seg] = \
+                    parity.reshape(-1)[lo - base:hi - base]
+        mine = self.device_block[key][self.rank]
+        if mine != blk and self.block_group[key][mine][0] == g \
+                and self.block_devices(key, mine)[0] == self.rank:
+            a = _ref.to_i32(leaf)
+            part[:a.numel()].bitwise_xor_(a)
+        rows = coll.all_gather(part, self.ctx.group(self.ctx.axis_names))
+        acc = _pk.xor_fold_tiles(rows.view(self.n_shards, nt, TILE_ROWS,
+                                           LANES)).reshape(-1)
+        return self._block(key, blk, acc)
+
+
 _PARITY_PLAN_CACHE: Dict[Tuple, _PlanBase] = {}
+
+
+def evict_mesh_plans(ctx) -> int:
+    """Drop every cached parity plan of ``ctx``'s mesh (its axes and its
+    ranks): after a hard loss they hold buffers of a mesh that is gone,
+    and a later mesh of the same shape must not meet them."""
+    mk = kdigest.mesh_key(ctx)
+    stale = [k for k in _PARITY_PLAN_CACHE if k[0] == "mesh" and k[1] == mk]
+    for k in stale:
+        del _PARITY_PLAN_CACHE[k]
+    return len(stale)
 
 
 def parity_plan_for(tree, *, mesh=None, n_shards: int = 4,
@@ -483,11 +765,16 @@ def parity_plan_for(tree, *, mesh=None, n_shards: int = 4,
     shapes, dtypes): off the mesh D = ``max(2, n_shards)``; with
     ``shardings`` (the ``LeafSharding`` tree of the state whose rank
     blocks ``tree`` holds) this rank's ``MeshParityPlan``, D the mesh's
-    size, the slice map derived from the shards' boxes."""
-    if mesh is not None or row_safe or batch_axes:
-        raise NotImplementedError(_MESH)
+    size, the slice map derived from the shards' boxes; with
+    ``row_safe`` too, its ``RowSafeParityPlan`` over the data-sharded
+    leaves (``batch_axes``, default the context's, name the data axes).
+    ``mesh`` is the reference's argument: the port's plans take the mesh
+    from ``shardings``."""
+    if (mesh is not None or row_safe) and shardings is None:
+        raise ValueError("row_safe parity requires a mesh (the state's "
+                         "shardings)")
     if shardings is not None:
-        return _mesh_plan_for(tree, shardings)
+        return _mesh_plan_for(tree, shardings, row_safe, batch_axes)
     entries = sorted(
         (leaf_key(p), tuple(x.shape), x.dtype)
         for p, x in flatten_with_path(tree)
@@ -504,17 +791,42 @@ def parity_plan_for(tree, *, mesh=None, n_shards: int = 4,
     return plan
 
 
-def _mesh_plan_for(tree, shardings) -> MeshParityPlan:
+def _dim_axes(entry) -> Tuple[str, ...]:
+    """A spec entry's axis names."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _row_safe_dims(sh, batch: set):
+    """The data dims of a leaf the row-safe plan covers (its dims sharded
+    over batch axes only), or None: no such dim, or a dim sharded over
+    batch and non-batch axes jointly (a lost row would erase two members
+    of one group)."""
+    per_dim = [set(_dim_axes(e)) for e in sh._entries()]
+    if any(ax & batch and ax - batch for ax in per_dim):
+        return None
+    dims = tuple(i for i, ax in enumerate(per_dim) if ax and ax <= batch)
+    return dims or None
+
+
+def _mesh_plan_for(tree, shardings, row_safe: bool = False,
+                   batch_axes: Tuple[str, ...] = ()) -> MeshParityPlan:
     """The reference's slice map: each covered leaf's shard boxes in
-    mesh-flat order, replicas deduplicated (first seen first)."""
+    mesh-flat order, replicas deduplicated (first seen first); row-safe,
+    the fold groups too (blocks with the same boxes on the non-data dims
+    fold together)."""
     by_sh = {leaf_key(p): sh for p, sh in flatten_with_path(shardings)}
     entries = []
-    ctx = None
+    ctx = next(iter(by_sh.values())).ctx
+    batch = set(batch_axes or ctx.batch_axes)
     for p, x in flatten_with_path(tree):
         k = leaf_key(p)
         sh = by_sh[k]
-        ctx = sh.ctx
         if not _covered(k, sh.dtype, sh.shape):
+            continue
+        dims = _row_safe_dims(sh, batch) if row_safe else None
+        if row_safe and dims is None:
             continue
         uniq: List[Tuple] = []
         seen: Dict[Tuple, int] = {}
@@ -526,17 +838,28 @@ def _mesh_plan_for(tree, shardings) -> MeshParityPlan:
                 b = seen[span] = len(uniq)
                 uniq.append(span)
             dev_to_blk.append(b)
+        groups = None
+        if row_safe:
+            gmap: Dict[Tuple, List[int]] = {}
+            for b, span in enumerate(uniq):
+                gmap.setdefault(tuple(s for i, s in enumerate(span)
+                                      if i not in dims), []).append(b)
+            groups = tuple(tuple(g) for g in gmap.values())
         entries.append((k, sh.shape, sh.dtype,
-                        (tuple(uniq), tuple(dev_to_blk))))
+                        (tuple(uniq), tuple(dev_to_blk)), groups))
     entries.sort(key=lambda e: e[0])
     device = _tree_device(tree)
-    key = ("mesh", ctx.axes, ctx.rank, str(device), tuple(entries))
+    key = ("mesh", kdigest.mesh_key(ctx), ctx.rank, str(device), row_safe,
+           tuple(entries))
     plan = _PARITY_PLAN_CACHE.get(key)
     if plan is None:
-        plan = MeshParityPlan(ctx, tuple(e[0] for e in entries),
-                              {e[0]: e[1] for e in entries},
-                              {e[0]: e[2] for e in entries},
-                              {e[0]: e[3] for e in entries}, device)
+        keys = tuple(e[0] for e in entries)
+        parts = ({e[0]: e[1] for e in entries},
+                 {e[0]: e[2] for e in entries},
+                 {e[0]: e[3] for e in entries})
+        kind = RowSafeParityPlan if row_safe else MeshParityPlan
+        plan = kind(ctx, keys, *parts, device,
+                    groups={e[0]: e[4] for e in entries})
         _PARITY_PLAN_CACHE[key] = plan
     return plan
 
@@ -559,13 +882,14 @@ class ParityStore:
     def __init__(self, tree, *, ctx=None, n_shards: int = 4,
                  row_safe: bool = False, shardings=None):
         on_mesh = ctx is not None and getattr(ctx, "enabled", False)
-        if row_safe:
-            raise NotImplementedError(_MESH)
         if on_mesh and shardings is None:
             raise ValueError("a mesh parity store needs the state's "
                              "shardings (its tree holds a rank's blocks)")
+        # off the mesh no row can be lost: the plain placement
+        row_safe = row_safe and on_mesh
         self.plan = parity_plan_for(
-            tree, n_shards=n_shards,
+            tree, n_shards=n_shards, row_safe=row_safe,
+            batch_axes=tuple(ctx.batch_axes) if row_safe else (),
             shardings=shardings if on_mesh else None)
         self.device = _tree_device(tree)
         self.parity = self.plan.make_buffer(self.device)

@@ -25,6 +25,13 @@ rung that cannot certify an exact repair escalates — exact-or-abort):
                           (``core/parity.py``): no snapshot read, no
                           step replayed
     rung 5  replay        pure-step replay from a verified micro-snapshot
+    remesh                a HARD loss (``FaultReport.lost_rows``: the ranks
+                          of whole data rows are gone): the elastic
+                          handler (``launch/elastic.ElasticManager.hook``)
+                          rebuilds the dead rows' blocks from the row-safe
+                          parity, certifies the survivors' and shrinks the
+                          mesh; the ladder of such a report is [remesh,
+                          checkpoint]
     rung 6  checkpoint    classic disk restore + replay
 
 Under donation (``donated=True``: the loop's step writes the state in
@@ -58,8 +65,9 @@ norm), each rank holding it digests its block where it lies (one
 fault-time reference and maps the candidate words to leaf-flat indices
 through its box.  ``parity_xor`` rebuilds the injured block from the
 mesh parity (``core/parity.MeshParityPlan``) and places it on every
-rank holding it.  Not ported yet: remesh (aborts "not ported"; its
-constructor argument raises ``NotImplementedError``).
+rank holding it.  During a hard-loss recovery the lockstep verdicts are
+agreed over the survivors' group (the dead ranks take no part), and a
+remesh leaves the runtime on the degraded context.
 
 ``plan_serving_recovery`` is the serving engine's policy:
 
@@ -114,12 +122,6 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.optim.optimizers import QBLOCK
 from repro_torch.tree import flatten_with_path, leaf_key, leaves, \
     replace_leaves
-
-#: what each unported rung (and its constructor argument) waits for
-_NOT_PORTED = {
-    RUNG_REMESH: "remesh (ROADMAP.md queue 1, 'Mesh and elastic', the "
-                 "elastic slice)",
-}
 
 #: triage epsilon certificate: a mantissa perturbation of an EMA moment is
 #: tolerable when |new - old| <= max(REL_EPS * max(|old|, |new|), ABS_FLOOR)
@@ -179,7 +181,10 @@ class RecoveryRuntime:
                   the snapshot's and the step's (implied by ``donated``)
     shardings   : the mesh's ``LeafSharding`` tree of the state (this
                   rank's blocks); enables shard_patch and lockstep
-    elastic     : not ported; raises
+    elastic     : optional hard-loss handler ``(state, report, step) ->
+                  ElasticResume`` (``launch/elastic.ElasticManager.hook``:
+                  core/ takes a callable and imports nothing of launch/);
+                  enables the remesh rung
     """
 
     def __init__(self, *, step_fn, batch_fn, iv_registry: IVRegistry,
@@ -191,10 +196,6 @@ class RecoveryRuntime:
                  canary: Optional[ChecksumCanary] = None,
                  triage: bool = False, donated: bool = False,
                  reuse_state: bool = False, shardings=None, elastic=None):
-        if elastic:
-            raise NotImplementedError(
-                f"RecoveryRuntime(elastic=...): not ported yet: "
-                f"{_NOT_PORTED[RUNG_REMESH]}")
         self.shardings = shardings
         self.ctx = next(iter(leaves(shardings))).ctx if shardings else None
         self.step_fn = step_fn
@@ -209,6 +210,12 @@ class RecoveryRuntime:
         self.triage = triage
         self.donated = donated
         self.reuse_state = reuse_state or donated
+        self.elastic = elastic
+        #: the remesh rung's resume bundle (new context, state, step,
+        #: batch function, canary, parity) for the loop to swap in
+        self.pending_remesh = None
+        #: the survivors' group while a hard loss is being recovered
+        self._survivors = None
         self.events: List[RecoveryEvent] = []
         self._last_replayed = 0
         self._last_patched_bytes = 0
@@ -495,7 +502,7 @@ class RecoveryRuntime:
             if self.ctx is not None:
                 from repro_torch.distributed import collectives as coll
                 injured = sorted(set().union(
-                    *coll.gather_objects(injured)))
+                    *coll.gather_objects(injured, self._group())))
         covered = [k for k in injured if store.covers(k)]
         if not covered:
             raise RecoveryAbort("no injured leaf is parity-covered")
@@ -577,7 +584,8 @@ class RecoveryRuntime:
                 bad = leaf.is_floating_point() and not bool(
                     kdigest.fetch(torch.isfinite(leaf).all()))
             return sorted({plan.device_block[key][d] for d, b in
-                           enumerate(coll.gather_objects(bad)) if b})
+                           enumerate(coll.gather_objects(
+                               bad, self._group())) if b})
         if ref is not None:
             matches = [d for d in range(plan.n_blocks[key])
                        if np.array_equal(_digest(
@@ -603,13 +611,20 @@ class RecoveryRuntime:
         runtime may reuse them, else none (a new state)."""
         return state if self.reuse_state else None
 
+    def _group(self):
+        """The group of the lockstep verdicts: the mesh's, or during a
+        hard-loss recovery the survivors'."""
+        if self._survivors is not None:
+            return self._survivors
+        return self.ctx.group(self.ctx.axis_names)
+
     def _agree(self, ok: bool) -> bool:
         """``ok`` on every rank (the identity off the mesh): each rank-local
         verdict goes through here before any rank acts on it."""
         if self.ctx is None:
             return ok
         from repro_torch.distributed import collectives as coll
-        return coll.agree(ok, self.ctx.device)
+        return coll.agree(ok, self.ctx.device, self._group())
 
     def _rung_shard_patch(self, state, report: FaultReport, step: int):
         """Restore ONLY the injured (leaf, shard) blocks from the snapshot.
@@ -678,14 +693,46 @@ class RecoveryRuntime:
         """Classic restore (digest-verified at load) + replay to ``step``."""
         if self.checkpoint is None:
             raise RecoveryAbort("no checkpoint loader configured")
+        if report.lost_rows and self.ctx is not None:
+            raise RecoveryAbort(
+                "ranks of the mesh are gone: a restore needs a mesh they "
+                "are not part of (restart the job)")
         ck_state, ck_step = self.checkpoint()
         res = replay(self.step_fn, self.batch_fn, ck_state, ck_step, step,
                      like_state=state, into=self._into(state))
         self._last_replayed = res.steps_replayed
         return res.state, f"restored step {ck_step} + replayed to {step}"
 
-    def _rung_not_ported(self, state, report: FaultReport, step: int):
-        raise RecoveryAbort("not ported")
+    def _rung_remesh(self, state, report: FaultReport, step: int):
+        """HARD loss: ranks are gone, not corrupt — shrink the mesh and go
+        on training.  Delegates to the elastic handler (survivor-honest
+        gather and certification, parity reconstruction of the dead rows'
+        blocks, eviction of the dead mesh's caches, the re-bind on the
+        degraded context) and moves the runtime onto the new context, so
+        every later rung and replay runs there.  The whole resume bundle
+        is left on ``pending_remesh`` for the loop."""
+        if self.elastic is None:
+            raise RecoveryAbort("no elastic handler attached")
+        if not report.lost_rows:
+            raise RecoveryAbort("report names no lost rows")
+        resume = self.elastic(state, report, step)
+        self.pending_remesh = resume
+        self.step_fn = resume.step
+        self.batch_fn = resume.bfn
+        self.shardings = resume.shardings
+        self.ctx = resume.ctx
+        if resume.canary is not None:
+            self.canary = resume.canary
+        if resume.pstore is not None:
+            self.parity = resume.pstore
+        ev = resume.event
+        self._last_patched_bytes = ev.bytes_reconstructed
+        return resume.state, (
+            f"remeshed dp {ev.old_dp}->{ev.new_dp} (rows {ev.lost_rows} "
+            f"lost), {ev.blocks_reconstructed} blocks "
+            f"({ev.bytes_reconstructed} B) parity-reconstructed, "
+            f"{ev.certified_blocks} survivor blocks certified, "
+            f"re-bound in {ev.relower_seconds:.2f}s")
 
     _RUNGS = {
         RUNG_TRIAGE: _rung_triage,
@@ -695,7 +742,7 @@ class RecoveryRuntime:
         RUNG_REPLICA: _rung_replica,
         RUNG_PARITY: _rung_parity,
         RUNG_REPLAY: _rung_replay,
-        RUNG_REMESH: _rung_not_ported,
+        RUNG_REMESH: _rung_remesh,
         RUNG_CHECKPOINT: _rung_checkpoint,
     }
 
@@ -711,6 +758,17 @@ class RecoveryRuntime:
         report.resolve()
         ladder = list(ladder) if ladder is not None else self._ladder(report)
         verify = verify or _default_verify
+        if report.lost_rows and self.ctx is not None:
+            self._survivors = self.ctx.survivors(
+                d for r in report.lost_rows
+                for d in self.ctx.row_devices(r))[1]
+        try:
+            return self._climb(state, report, step, verify, ladder)
+        finally:
+            self._survivors = None
+
+    def _climb(self, state, report: FaultReport, step: int, verify,
+               ladder: Sequence[str]):
         ev = RecoveryEvent(step=step, report=report)
         t0 = time.perf_counter()
         for rung in ladder:
@@ -737,8 +795,9 @@ class RecoveryRuntime:
                 ev.report.detail += f" | {rung}: post-verify failed " \
                                     f"{bad[:2] or 'on another rank'}"
                 continue
-            if self.donated:
-                # the live tensors keep their addresses
+            if self.donated and rung != RUNG_REMESH:
+                # the live tensors keep their addresses (a remesh makes a
+                # state of other shapes)
                 cand = copy_into(state, cand)
             ev.rung = rung
             ev.recovered = True
@@ -753,8 +812,13 @@ class RecoveryRuntime:
         raise RecoveryFailed(str(report))
 
     def _ladder(self, report: FaultReport) -> List[str]:
-        """The ladder: the donated pivot, else the Recovery Table, else by
-        leaf class; triage ahead when it applies."""
+        """The ladder: a hard loss's, the donated pivot, else the Recovery
+        Table, else by leaf class; triage ahead when it applies."""
+        if report.lost_rows:
+            # the ranks themselves are gone: nothing to patch into, and
+            # the snapshots lie on the dead mesh — remesh onto the
+            # survivors; only the disk checkpoint sits below it
+            return [RUNG_REMESH, RUNG_CHECKPOINT]
         if self.donated:
             # the step writes the state in place: only the donated pair's
             # reports (consumed=False, checked before the step) leave live

@@ -144,21 +144,23 @@ def flag_max(flag: torch.Tensor, group=None) -> torch.Tensor:
     return all_reduce(flag.to(torch.int32).reshape(1), "max", group)
 
 
-def agree(ok: bool, device: torch.device, group=None) -> bool:
-    """True only when ``ok`` holds on every rank: the one verdict every
-    rank acts on, so no rank takes a branch alone."""
+def agree(ok: bool, device: torch.device, group) -> bool:
+    """True only when ``ok`` holds on every rank of ``group``: the one
+    verdict every rank acts on, so no rank takes a branch alone."""
     v = torch.tensor([1 if ok else 0], dtype=torch.int32, device=device)
     return bool(all_reduce(v, "min", group).item())
 
 
-def barrier(device: torch.device) -> None:
-    """A barrier that is an all-reduce on ``device`` (the rank's): gloo's
-    own barrier does not take a device."""
-    agree(True, device)
+def barrier(device: torch.device, group) -> None:
+    """A barrier over ``group`` (None: every process of the job, as the
+    launcher's exit barrier) that is an all-reduce on ``device`` (the
+    rank's): gloo's own barrier does not take a device."""
+    agree(True, device, group)
 
 
-def gather_objects(obj) -> List:
-    """Every rank's picklable ``obj``, in rank order (off the hot path)."""
-    out: List = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
+def gather_objects(obj, group) -> List:
+    """Every rank's picklable ``obj`` over ``group``, in group-rank order
+    (off the hot path)."""
+    out: List = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out

@@ -22,7 +22,21 @@ A context has two states, as in the reference:
 
 ``constrain`` / ``constrain_batch`` are the identity: the port's layout
 is explicit (``distributed/sharding.py`` gives every leaf its box), not a
-hint to a partitioner.  ``degrade`` (elastic remesh) is a later slice.
+hint to a partitioner.
+
+``degrade(dead_rows)`` is the context after a hard loss of rows of the
+data axis (elastic remesh, ``launch/elastic.py``): the same axis names
+over the surviving ranks.  A live context builds the survivors' mesh and
+every group anew over their world ranks — the group of all axes is the
+survivors' group, never WORLD — and only the survivors take part: a
+group is made with ``use_local_synchronization`` (only its members enter
+the call; its name hashes its ranks, so no job-wide counter has to agree
+with the dead ranks), and the ``DeviceMesh`` is built without a backend
+of its own.  Groups are cached by their ranks (``group_of``), so a
+second loss reuses the groups that survive it.  After the loss the
+ranks keep their world numbers, and ``shard_id`` is a survivor's
+position in the new mesh-flat order (when row 0 of a 2 x 2 mesh dies,
+world rank 2 is shard 0).
 """
 
 from __future__ import annotations
@@ -34,8 +48,36 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-_ELASTIC = "elastic remesh (ROADMAP.md queue 1, 'Mesh and elastic', the " \
-           "elastic slice)"
+#: world ranks (sorted) -> the process group over them, made by
+#: ``group_of`` (only its members take part)
+_GROUPS: Dict[Tuple[int, ...], object] = {}
+
+
+def group_of(ranks) -> object:
+    """The process group over world ranks ``ranks``, made once a process
+    and only by its members (``use_local_synchronization``): every member
+    calls this with the same ranks, no other process does.
+
+    torch names such a group by its ranks AND the number of groups the
+    calling process already holds.  Members whose histories differ — a
+    survivor of an earlier loss and a process that was in that loss's
+    dead row, which a drill in one job runs again — would name it apart
+    and wait for each other forever.  The name here is the ranks' alone,
+    unique since a process makes each set of ranks once."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+    key = tuple(sorted(int(r) for r in ranks))
+    g = _GROUPS.get(key)
+    if g is None:
+        name = "repro_ranks_" + "_".join(map(str, key))
+        saved = c10d._process_group_name
+        c10d._process_group_name = lambda *a, **kw: name
+        try:
+            g = dist.new_group(list(key), use_local_synchronization=True)
+        finally:
+            c10d._process_group_name = saved
+        _GROUPS[key] = g
+    return g
 
 
 @dataclass(frozen=True)
@@ -184,8 +226,62 @@ class DistContext:
         return tuple(d for d in range(self.n_devices)
                      if self.coords(d)[self.data_axis] == row)
 
+    def survivors(self, dead) -> Tuple[Tuple[int, ...], object]:
+        """``(surviving shard ids in mesh-flat order, their process
+        group)`` when the shards ``dead`` are gone: what a survivor's
+        collectives take between a loss and the remesh.  The group is made
+        by the survivors alone; a dead shard may not ask."""
+        dead = {int(d) for d in dead}
+        surv = tuple(d for d in range(self.n_devices) if d not in dead)
+        if self.shard_id not in surv:
+            raise ValueError(f"shard {self.shard_id} is dead: only "
+                             f"survivors read the surviving state")
+        order = self.device_order()
+        return surv, group_of(order[d] for d in surv)
+
     def degrade(self, dead_rows) -> "DistContext":
-        raise NotImplementedError(f"not ported yet: {_ELASTIC}")
+        """The context after losing ``dead_rows`` of the data axis: the
+        same axis names over the surviving rows.  Every artifact built on
+        this context (shardings, digest and parity plans, shard ids) must
+        be rebuilt on the returned one.  A live context must be degraded
+        on a surviving rank; it makes the survivors' groups (every
+        survivor calls it, with the same rows)."""
+        if not self.enabled:
+            raise ValueError("cannot degrade a local context")
+        n = self.shape[self.data_axis]
+        dead = {int(r) for r in dead_rows}
+        bad = dead - set(range(n))
+        if bad:
+            raise ValueError(f"dead rows {sorted(bad)} outside data axis "
+                             f"of size {n}")
+        if len(dead) == n:
+            raise RuntimeError("no surviving data rows to remesh onto")
+        names = self.axis_names
+        shape = tuple(n - len(dead) if a == self.data_axis else s
+                      for a, s in self.axes)
+        if self.mesh is None:
+            return DistContext.for_shape(shape, names, fsdp=self.fsdp)
+        order = self.device_order()
+        ranks = [order[d] for d in range(self.n_devices)
+                 if self.coords(d)[self.data_axis] not in dead]
+        if self.rank not in ranks:
+            raise ValueError(f"rank {self.rank} lies in a dead row "
+                             f"{sorted(dead)}: only survivors degrade")
+        from torch.distributed.device_mesh import DeviceMesh
+        grid = torch.tensor(ranks).reshape(shape)
+        mesh = DeviceMesh(self.device.type, grid, mesh_dim_names=names,
+                          _init_backend=False)
+        groups = {}
+        for k in range(1, len(names) + 1):
+            for sub in itertools.combinations(names, k):
+                mine = DistContext.for_shape(shape, names).group_shards(
+                    sub, ranks.index(self.rank))
+                groups[frozenset(sub)] = group_of(ranks[d] for d in mine)
+        return DistContext(axes=tuple(zip(names, shape)),
+                           batch_axes=self.batch_axes,
+                           model_axis=self.model_axis, fsdp=self.fsdp,
+                           mesh=mesh, rank=self.rank, device=self.device,
+                           groups=groups)
 
     # -- layout hints: the identity (the port's layout is explicit) --------
 

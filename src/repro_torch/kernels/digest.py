@@ -448,7 +448,24 @@ class ShardedDigestPlan(DigestPlan):
         """``(n_shards, rows, 2)``: every rank's table in shard order
         (collective)."""
         from repro_torch.distributed import collectives as coll
-        return coll.all_gather(table)
+        return coll.all_gather(table, self.ctx.group(self.ctx.axis_names))
+
+
+def mesh_key(ctx) -> Tuple:
+    """What names a mesh in a cache key: its axes and its ranks in
+    mesh-flat order (after a hard loss a mesh of the same shape may be
+    made of other ranks)."""
+    return (ctx.axes, ctx.device_order())
+
+
+def evict_mesh(ctx) -> int:
+    """Drop every cached digest plan of ``ctx``'s mesh: after a hard loss
+    they hold buffers (the pack ring) of a mesh that is gone."""
+    mk = mesh_key(ctx)
+    stale = [k for k in _PLAN_CACHE if k[0] == "mesh" and k[1] == mk]
+    for k in stale:
+        del _PLAN_CACHE[k]
+    return len(stale)
 
 
 def sharded_plan_for(tree, ctx) -> ShardedDigestPlan:
@@ -460,7 +477,7 @@ def sharded_plan_for(tree, ctx) -> ShardedDigestPlan:
     device = flat[0][1].device
     sig = tuple(sorted((leaf_key(p), tuple(x.shape), str(x.dtype))
                        for p, x in flat))
-    key = ("mesh", ctx.axes, ctx.rank, str(device), sig)
+    key = ("mesh", mesh_key(ctx), ctx.rank, str(device), sig)
     plan = _PLAN_CACHE.get(key)
     if plan is None:
         plan = ShardedDigestPlan(
@@ -569,7 +586,8 @@ class ShardedCheckArm(CheckArm):
         if not self.nc:
             return flag
         from repro_torch.distributed import collectives as coll
-        return coll.flag_max(flag)[0] > 0
+        ctx = self.plan.ctx
+        return coll.flag_max(flag, ctx.group(ctx.axis_names))[0] > 0
 
 
 def check_arm_subcomputation(plan: DigestPlan, chk: Sequence[int],

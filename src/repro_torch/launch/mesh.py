@@ -13,7 +13,11 @@ traceback; the others are stopped.  ``spawn`` returns every rank's result
 in rank order.
 
 Inside a rank ``make_context(spec)`` builds the ``DeviceMesh`` over the
-initialised group and returns the rank's ``DistContext``.
+initialised group and returns the rank's ``DistContext``;
+``make_degraded_mesh`` the context after a hard loss of data rows.
+A rank of a lost row (``train(kill_row_at=...)``) returns from its work
+and waits in the exit barrier, the one collective it takes after the
+loss.
 """
 
 from __future__ import annotations
@@ -82,6 +86,29 @@ def make_context(mesh_spec: Optional[str], device: torch.device, *,
     return DistContext.for_mesh(mesh, device, fsdp=fsdp)
 
 
+def make_degraded_mesh(lost_data_slices: int = 1, *,
+                       multi_pod: bool = False, base=None,
+                       dead=None) -> DistContext:
+    """The context after losing rows of the data axis (a failed host
+    takes out a whole model row).  With ``base`` (a live or shape-only
+    ``DistContext``): ``base.degrade`` of the rows ``dead`` (default the
+    trailing ``lost_data_slices``) — on a live mesh, called by the
+    survivors.  Without: the reference's production mesh ((16 - lost) x
+    16, or (32 - lost) x 16 multi-pod, ``("data", "model")``) as a
+    shape-only context."""
+    if base is not None:
+        n = base.shape[base.data_axis]
+        rows = set(int(r) for r in dead) if dead is not None else \
+            set(range(n - lost_data_slices, n))
+        if not set(range(n)) - rows:
+            raise ValueError("no data slices left")
+        return base.degrade(sorted(rows))
+    rows = (32 if multi_pod else 16) - lost_data_slices
+    if rows < 1:
+        raise ValueError("no data slices left")
+    return DistContext.for_shape((rows, 16), ("data", "model"))
+
+
 def _rank_main(rank: int, world: int, store: str, device_type: str,
                out_dir: str, fn: Callable, args: Tuple, kwargs: dict):
     torch.set_num_threads(1)
@@ -95,7 +122,7 @@ def _rank_main(rank: int, world: int, store: str, device_type: str,
         pickle.dump(result, f)
     # every rank leaves together: a rank that exits while another still
     # reads a collective would fail it
-    coll.barrier(device)
+    coll.barrier(device, None)
     dist.destroy_process_group()
     # skip the interpreter's teardown: a transport thread of the group
     # still joinable there aborts the process (SIGABRT, "terminate called

@@ -53,7 +53,7 @@ import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.serving import Request, ServingEngine
 
-_MESH = "mesh serving (ROADMAP.md queue 1, 'Mesh and elastic': serve --mesh)"
+_MESH = "mesh serving (ROADMAP.md queue 1 item 6.4: serve --mesh)"
 
 
 def make_requests(cfg, n_requests: int, prompt_len: int, gen_tokens: int,

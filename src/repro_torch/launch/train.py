@@ -81,8 +81,21 @@ each rank holds its row, kept current through one all-to-all and one
 XOR kernel a step; the ``parity_xor`` rung rebuilds an injured block on
 every rank holding it).
 
-Not ported yet, each raising ``NotImplementedError``: ``--elastic`` and
-``--kill-row-at`` (ROADMAP.md, queue 1).
+``--elastic`` (with ``--mesh`` and ``--parity``) arms the hard-loss path
+(``launch/elastic.py``): the parity takes the row-safe placement (its rows
+replicated over the data axis, so a lost data row never takes the parity
+covering its own blocks), and a report with ``lost_rows`` takes the
+``remesh`` rung: the survivors rebuild the dead rows' blocks from their
+blocks and the parity, certify theirs against their own digest rows,
+shrink the mesh along ``data`` and go on with the same global batch (the
+new context's state, step, batch function, canary, parity, snapshots —
+the first of the resumed state — and, with ``--fused-detect``,
+re-captured graphs swapped in).
+``--kill-row-at N`` is the drill: before step N the highest surviving
+data row dies — its ranks drop their state and return at once, and take
+no part in any collective but the launcher's exit barrier; the call
+returns the summary of the first survivor, with ``elastic_events`` and
+the mesh's new shape.
 """
 
 from __future__ import annotations
@@ -104,6 +117,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core.detect import (LOSS_WINDOW, ChecksumCanary,
+                                     FaultReport,
                                      trap_loss_spike, trap_nonfinite)
 from repro_torch.core.faults import inject, sample_plan
 from repro_torch.core.icp import promote
@@ -116,7 +130,7 @@ from repro_torch.distributed.sharding import gather_tree, global_struct
 from repro_torch.kernels import digest as kdigest
 from repro_torch.launch.mesh import (in_group, make_context, parse_mesh,
                                      rank_device, spawn)
-from repro_torch.launch.specs import bind_state, state_shardings
+from repro_torch.launch.specs import bind_state
 from repro_torch.serving.engine import resolve_device
 from repro_torch.train.loop import make_train_state, make_train_step
 from repro_torch.tree import leaves, tree_map
@@ -124,12 +138,7 @@ from repro_torch.tree import leaves, tree_map
 SRC_LEN = 64        # source frames of an enc-dec batch (the reference's)
 N_PATCHES = 16      # patches of a VLM batch (the reference's)
 
-_UNPORTED = {
-    "elastic": "elastic remesh (ROADMAP.md queue 1, 'Mesh and elastic', "
-               "the elastic slice)",
-    "kill_row_at": "the row-loss drill (ROADMAP.md queue 1, 'Mesh and "
-                   "elastic', the elastic slice)",
-}
+
 @dataclass
 class LoopReport:
     steps: int = 0
@@ -142,6 +151,7 @@ class LoopReport:
     #: the distinct (launches, fetches) of the digest subsystem over the
     #: steps taken
     digest_stats: set = field(default_factory=set)
+    elastic_events: List[Dict] = field(default_factory=list)
 
     def summary(self) -> Dict:
         step_ms = 1e3 * np.asarray(self.step_seconds, np.float64)
@@ -159,6 +169,8 @@ class LoopReport:
             "p50_step_ms": float(np.median(step_ms)) if step_ms.size
             else 0.0,
             "digest_per_step": sorted(list(x) for x in self.digest_stats),
+            **({"elastic_events": list(self.elastic_events)}
+               if self.elastic_events else {}),
         }
 
 
@@ -213,7 +225,8 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
           fused_warm: str = "eager", mesh: Optional[str] = None,
           parity: bool = False, triage: bool = False, elastic: bool = False,
           kill_row_at: Optional[int] = None, verbose: bool = True,
-          device=None, return_state: bool = False):
+          device=None, return_state: bool = False, on_kill=None,
+          _final: Optional[dict] = None):
     """Run the recovery-wrapped loop; returns the loop report dict (and
     the final state with ``return_state``: on a mesh, called from a rank,
     that rank's blocks; called off the mesh, the whole state on the
@@ -223,11 +236,23 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
     serving engine's ``inject_armed_only``), so under a K-slice canary
     every storm flip is detected.  ``detectors=False`` runs
     without the traps and the canary (then ``parity``, ``triage`` and
-    ``fused_detect`` raise, as in the reference)."""
-    asked = {"elastic": elastic, "kill_row_at": kill_row_at is not None}
-    for name, on in asked.items():
-        if on:
-            raise NotImplementedError(f"not ported yet: {_UNPORTED[name]}")
+    ``fused_detect`` raise, as in the reference).  ``elastic`` needs
+    ``mesh`` and ``parity``, ``kill_row_at`` needs ``elastic``.
+    ``on_kill(ctx, state, shardings, rows)``, the drill's hook, runs on
+    every rank at the kill point, before any rank learns of the loss
+    (an oracle reads the doomed blocks there; nothing of the recovery
+    does); a callable it returns runs on each survivor with ``(ctx,
+    state, shardings)`` of the resumed run, right after the remesh.
+    ``_final``: a dict that receives the final shardings (the spawned
+    rank's gather)."""
+    if elastic and not mesh:
+        raise ValueError("elastic requires mesh='dp,tp' (a hard loss "
+                         "shrinks the data axis of a device mesh)")
+    if elastic and not parity:
+        raise ValueError("elastic requires parity=True (dead rows' "
+                         "shards are rebuilt from the XOR parity)")
+    if kill_row_at is not None and not elastic:
+        raise ValueError("kill_row_at requires elastic=True")
     ctx = None
     if mesh:
         if not in_group():
@@ -242,11 +267,15 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
                       canary_slices=canary_slices, detectors=detectors,
                       donate=donate, fused_detect=fused_detect,
                       fused_warm=fused_warm, parity=parity, triage=triage,
+                      elastic=elastic, kill_row_at=kill_row_at,
                       mesh=mesh, verbose=verbose, device=device,
-                      return_state=return_state)
+                      return_state=return_state, on_kill=on_kill)
             dev = resolve_device(device)
-            return spawn(_rank_train, parse_mesh(mesh)[0], (cfg, kw),
-                         device=dev.type)[0]
+            ranks = spawn(_rank_train, parse_mesh(mesh)[0], (cfg, kw),
+                          device=dev.type)
+            # the first survivor's (a rank of a lost row has no run)
+            return next(r for r in ranks if not (
+                r[0] if return_state else r).get("dead"))
         device = rank_device(dist.get_rank(), resolve_device(device).type)
         ctx = make_context(mesh, device, fsdp=cfg.sharding.fsdp)
         verbose = verbose and ctx.shard_id == 0
@@ -262,20 +291,25 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
                       canary_slices=canary_slices, detectors=detectors,
                       donate=donate, fused_detect=fused_detect,
                       fused_warm=fused_warm, parity=parity, triage=triage,
-                      verbose=verbose, device=device,
-                      return_state=return_state, ctx=ctx)
+                      elastic=elastic, kill_row_at=kill_row_at,
+                      on_kill=on_kill, verbose=verbose, device=device,
+                      return_state=return_state, ctx=ctx, final=_final)
 
 
 def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
            checkpoint_dir, checkpoint_interval, inject_every, inject_target,
            inject_armed_only,
            canary_slices, detectors, donate, fused_detect, fused_warm,
-           parity, triage, verbose, device, return_state, ctx=None):
+           parity, triage, elastic, kill_row_at, on_kill, verbose, device,
+           return_state, ctx=None, final=None):
     pipe = TokenPipeline(cfg.model.vocab_size, seq_len, global_batch,
                          seed=seed)
     state = make_train_state(cfg, seed, global_batch=global_batch,
                              device=device)
     step_fn = make_train_step(cfg, global_batch=global_batch, donate=donate)
+
+    def global_batch_at(s):
+        return batch_for(cfg, pipe, s)
 
     def bfn(s):
         return {k: v.to(device) for k, v in batch_for(cfg, pipe, s).items()}
@@ -293,8 +327,7 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
     shardings = table = sampled = batch_sh = None
     if ctx is not None:
         # every rank built the same full state: keep this rank's blocks
-        bound = bind_state(ctx, cfg, state, step_fn,
-                           lambda s: batch_for(cfg, pipe, s))
+        bound = bind_state(ctx, cfg, state, step_fn, global_batch_at)
         state, step_fn, bfn, shardings = bound
         batch_sh = bound.batch_shardings
         sampled = global_struct(shardings)
@@ -319,35 +352,52 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
                              "maintenance rides the canary's launches and "
                              "reconstruction certifies against its digests)")
         # maintenance rides the canary; reconstruction certifies against
-        # the canary's digests
-        pstore = ParityStore(state, ctx=ctx, shardings=shardings)
+        # the canary's digests.  Under elastic the row-safe placement: a
+        # dead data row never takes the parity of its own blocks
+        pstore = ParityStore(state, ctx=ctx, shardings=shardings,
+                             row_safe=elastic)
         pstore.build(state)
         canary.attach_parity(pstore)
     if triage and canary is None:
         raise ValueError("triage requires detectors=True (rung 0 "
                          "classifies against the canary's digest pair)")
+    emgr = None
+    if elastic:
+        from repro_torch.launch.elastic import ElasticManager
+        emgr = ElasticManager(ctx, verbose=verbose)
+
+    def elastic_hook():
+        return emgr.hook(raw_step=step_fn, cfg=cfg, batch_fn=global_batch_at,
+                         canary=canary, pstore=pstore,
+                         shardings=shardings) if emgr is not None else None
     runtime = RecoveryRuntime(
         step_fn=step_fn, batch_fn=bfn,
         iv_registry=promote(cfg, global_batch), micro=micro,
         parity=pstore, checkpoint=ckpt.loader(state) if ckpt else None,
         canary=canary, triage=triage, donated=donate,
-        shardings=shardings, table=table,
+        shardings=shardings, table=table, elastic=elastic_hook(),
         # the faulty state is replaced by the repaired one: a replay
         # writes into its tensors, two state versions on the card
         reuse_state=True)
     fused = None
-    if fused_detect:
-        if canary is None:
-            raise ValueError("fused_detect requires detectors=True "
-                             "(the canary IS the in-step detector)")
-        # the batch goes in from the host: the factory uploads it into the
-        # graphs' static inputs
-        fused = canary.fuse_into_step(step_fn, donate=donate,
-                                      warm=fused_warm,
-                                      host_metrics=("loss", "grad_norm"))
+    if fused_detect and canary is None:
+        raise ValueError("fused_detect requires detectors=True "
+                         "(the canary IS the in-step detector)")
+
+    def fuse(state, s):
+        """The fused unit on the current canary and step, its graphs
+        captured (``eager``) for step ``s``'s batch; ``(unit, state in
+        its storage)``."""
+        # the batch goes in from the host: the factory uploads it into
+        # the graphs' static inputs
+        unit = canary.fuse_into_step(step_fn, donate=donate,
+                                     warm=fused_warm,
+                                     host_metrics=("loss", "grad_norm"))
         if fused_warm == "eager":
-            fused.warm(state, host_batch(0))
-        state = fused.load(state)
+            unit.warm(state, host_batch(s))
+        return unit, unit.load(state)
+    if fused_detect:
+        fused, state = fuse(state, 0)
     pair = donate and canary is not None and fused is None
     # a donated loop keeps every tensor of its state, recoveries included
     pointers = [t.data_ptr() for t in leaves(state)] if donate else None
@@ -357,6 +407,7 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
     n_snapshots, snapshot_seconds = 0, 0.0
     history = deque(maxlen=LOSS_WINDOW)   # the spike trap's window
     last_inject = -1
+    on_resume = None
 
     s = 0
     while s < steps:
@@ -386,10 +437,30 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
             rep.faults_injected += 1
             last_inject = s
 
+        report = None
+        if emgr is not None and s == kill_row_at and not emgr.dead:
+            # the drill: the highest surviving data row dies here.  Its
+            # ranks drop their state and leave; the survivors take an
+            # external hard-loss report straight to the remesh rung
+            rows = (emgr.kill_target(),)
+            if on_kill is not None:
+                on_resume = on_kill(ctx, state, shardings, rows)
+            if ctx.coords(ctx.shard_id)[ctx.data_axis] in rows:
+                if fused is not None:
+                    fused.close()
+                del state, fused
+                out = rep.summary()
+                out.update(dead=True, mesh={"shape": ctx.shape,
+                                            "devices": ctx.n_devices})
+                return (out, None) if return_state else out
+            report = FaultReport(
+                s, "external", lost_rows=rows,
+                detail=f"simulated hard loss of data row {rows[0]}")
         # donated pair, check half: the step is about to overwrite the
         # state, so this is its last readable moment (one launch, one
         # fetch)
-        report = canary.check(s, state) if pair else None
+        if report is None and pair:
+            report = canary.check(s, state)
         if report is None:
             t0 = time.perf_counter()
             if fused is not None:
@@ -446,11 +517,51 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
                 print(f"[train] recovered via {ev.rung} in "
                       f"{rep.recovery_ms[-1]:.1f} ms")
         except RecoveryFailed:
-            if ckpt is None:
+            if ckpt is None or report.lost_rows:
                 raise
             state, s = ckpt.restore(state)
             if verbose:
                 print(f"[train] cold restore to step {s}")
+        resume = runtime.pending_remesh
+        if resume is not None:
+            # a hard loss: the remesh rung rebuilt everything on the
+            # degraded context — swap the loop's working set wholesale;
+            # the canary and parity come freshly armed
+            runtime.pending_remesh = None
+            ctx, state, step_fn = resume.ctx, resume.state, resume.step
+            bfn, shardings = resume.bfn, resume.shardings
+            batch_sh, sampled = resume.batch_shardings, \
+                global_struct(resume.shardings)
+            canary, pstore = resume.canary, resume.pstore
+            micro = runtime.micro = MicroCheckpointer(
+                interval=snapshot_interval, ctx=ctx, shardings=shardings)
+            if ckpt:
+                # shard 0 of the degraded mesh writes
+                ckpt.ctx, ckpt.shardings = ctx, shardings
+                runtime.checkpoint = ckpt.loader(state)
+            # a second loss composes (the manager is on the new context)
+            runtime.elastic = elastic_hook()
+            ev = resume.event
+            if fused is not None:
+                # the old unit went with the old mesh's caches
+                t0 = time.perf_counter()
+                fused, state = fuse(state, s)
+                dt = time.perf_counter() - t0
+                ev.relower_seconds += dt
+                ev.downtime_seconds += dt
+            if pointers is not None:
+                pointers = [t.data_ptr() for t in leaves(state)]
+            if s % snapshot_interval:
+                # the old snapshots lay on the dead mesh: without one of
+                # the resumed (certified) state a fault before the next
+                # interval could not replay (the loop's top takes it at
+                # an interval step)
+                micro.snapshot(s, state)
+            if on_resume is not None:
+                on_resume(ctx, state, shardings)
+            verbose = verbose and ctx.shard_id == 0
+            rep.elastic_events.append(ev.to_dict())
+            continue
         # a repaired, replayed or restored state is the new reference:
         # stale digests would fire a spurious fault on the next step
         if canary is not None:
@@ -481,23 +592,25 @@ def _train(cfg, *, steps, global_batch, seq_len, seed, snapshot_interval,
                                             for t in leaves(state)]
     if ctx is not None:
         out["mesh"] = {"shape": ctx.shape, "devices": ctx.n_devices}
+    if elastic:
+        out["losses"] = list(rep.losses)
+    if final is not None:
+        final["shardings"] = shardings
     return (out, state) if return_state else out
 
 
 def _rank_train(cfg, kw):
     """One spawned rank of ``train(mesh=...)`` called off the mesh; a
-    state it returns is the whole state, gathered from every rank's
-    blocks, on the host."""
-    out = train(cfg, **kw)
+    state it returns is the whole state, gathered from every (surviving)
+    rank's blocks, on the host."""
     if not kw.get("return_state"):
-        return out
-    out, state = out
-    device = next(iter(leaves(state))).device
-    ctx = make_context(kw["mesh"], device, fsdp=cfg.sharding.fsdp)
-    meta = make_train_state(cfg, kw["seed"],
-                            global_batch=kw["global_batch"], device="meta")
-    shardings, _ = state_shardings(ctx, cfg, meta)
-    return out, tree_map(lambda t: t.cpu(), gather_tree(state, shardings))
+        return train(cfg, **kw)
+    final = {}
+    out, state = train(cfg, **kw, _final=final)
+    if state is None:                       # a rank of a lost row
+        return out, None
+    return out, tree_map(lambda t: t.cpu(),
+                         gather_tree(state, final["shardings"]))
 
 
 def main(argv=None):
@@ -543,13 +656,19 @@ def main(argv=None):
                          "flips (dead bytes, sub-epsilon moment "
                          "perturbations) in place, zero bytes moved")
     ap.add_argument("--elastic", action="store_true",
-                    help="not ported yet (raises)")
+                    help="arm the hard-loss remesh path (needs --mesh and "
+                         "--parity): row-safe parity placement, and a "
+                         "lost_rows report shrinks the data axis, rebuilds "
+                         "the dead rows' blocks from the parity and resumes "
+                         "with the same global batch")
     ap.add_argument("--mesh", default=None,
                     help="dp,tp (e.g. 4,2): one process per mesh device, "
                          "the state sharded over them, shard-local "
                          "detection and the shard_patch rung")
     ap.add_argument("--kill-row-at", type=int, default=None,
-                    help="not ported yet (raises)")
+                    metavar="STEP",
+                    help="drill: the highest surviving data row dies just "
+                         "before STEP (needs --elastic)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)

@@ -24,7 +24,17 @@ resilient loop on gloo ranks (one torch thread each).
   each with and without ``--parity``, a flip in one replica of a block
   escalating past triage, the CLI with every combination of the four
   mode flags.
-* **Refusals**: the elastic modes raise naming their ROADMAP item.
+* **Elastic hard loss** (in the same spawn): the CLI's drill, 4 x 2 ->
+  3 x 2 before step 3 of 6, functional and ``--donate --fused-detect``;
+  an ``on_loss`` of row 0 (world rank 2 becomes shard 0); two losses in
+  one process, 4 x 2 -> 3 x 2 -> 2 x 2, with no plan, canary unit or
+  fused unit of an older context left.  The dead ranks poison their
+  blocks once the test's oracle read them; every survivor's state is
+  bitwise the oracle's, its losses bitwise a clean run on the degraded
+  mesh from the oracle, a steady check (1, 1), and after the loss no
+  survivor makes a collective on WORLD.
+* **Refusals**: ``serve --mesh`` and ``relower_degraded`` raise naming
+  their ROADMAP items.
 """
 
 import dataclasses
@@ -138,21 +148,19 @@ def test_parse_mesh_and_backend_rule():
 
 
 def test_mesh_modes_of_later_slices_raise():
+    """What is still unported raises naming its ROADMAP item: mesh
+    serving (queue 1, item 6.4) and the degraded-mesh compile of the XLA
+    tooling (item 7); the elastic entry points of this slice do not."""
     from repro_torch.configs import get_config
-    from repro_torch.core.recover import RecoveryRuntime
-    from repro_torch.distributed.context import DistContext
-    from repro_torch.launch.train import train
+    from repro_torch.launch.elastic import relower_degraded
+    from repro_torch.launch.serve import serve
 
     cfg = get_config("iterpro-100m").smoke()
-    for kw in ({"elastic": True}, {"kill_row_at": 2}):
-        with pytest.raises(NotImplementedError, match="elastic"):
-            train(cfg, steps=1, global_batch=8, seq_len=32, mesh="4,2",
-                  device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="elastic"):
-        RecoveryRuntime(step_fn=None, batch_fn=None, iv_registry=None,
-                        micro=None, elastic=object())
-    with pytest.raises(NotImplementedError, match="elastic"):
-        DistContext.for_shape((4, 2), ("data", "model")).degrade([1])
+    with pytest.raises(NotImplementedError, match="item 6.4: serve --mesh"):
+        serve(cfg, n_requests=1, prompt_len=4, gen_tokens=1, mesh="4,2",
+              device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        relower_degraded(cfg, None)
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +260,8 @@ def _storm_ranks(ckpt_dir):
     return {"steady": steady, "stats": stats, "partial": partial,
             "round_trip": round_trip, "on_disk": _bitwise(on_disk, full),
             "same": same, "summaries": summaries, "others": others,
-            "modes": _mode_ranks(ctx, cfg, runs["clean"][1])}
+            "modes": _mode_ranks(ctx, cfg, runs["clean"][1]),
+            "elastic": _elastic_ranks(cfg)}
 
 
 # -- the training modes on the mesh (in the same spawn) -----------------------
@@ -373,6 +382,280 @@ def _mode_ranks(ctx, cfg, clean):
             k: res[k] for k in ("steps", "final_loss", "faults_injected",
                                 "faults_detected", "faults_recovered")}
         out["cli"][" ".join(flags)]["rungs"] = res["recovery"]["by_rung"]
+    return out
+
+
+# -- elastic hard loss (in the same spawn) ------------------------------------
+
+#: the byte a rank of a lost row writes over its blocks once the oracle
+#: has read them: a survivor that read a dead block would see it
+POISON = 0x5A
+KILL, ELASTIC_STEPS = 3, 6
+#: the drill's modes: (train flags, fsdp).  Without fsdp no leaf is
+#: data-sharded and the survivors re-gather every leaf (the CLI's drill);
+#: with it the row-safe parity covers the data-sharded leaves, kept by
+#: the donated pair's rebuild or the fused unit's gated update
+ELASTIC_MODES = {"functional": ({}, False),
+                 "donate": (dict(donate=True), True),
+                 "donate+fused": (dict(donate=True, fused_detect=True),
+                                  True),
+                 # a flip every 2 steps in the checked slice of a K=2
+                 # canary, before and after the loss (the snapshot of the
+                 # resumed state replays the one after)
+                 "storm": (dict(donate=True, triage=True, canary_slices=2,
+                                inject_every=2, inject_armed_only=True),
+                           True)}
+
+
+def _fsdp(cfg):
+    return dataclasses.replace(cfg, sharding=dataclasses.replace(
+        cfg.sharding, fsdp=True))
+
+
+def _poison(state):
+    from repro_torch.tree import leaves
+    for t in leaves(state):
+        t.reshape(-1).view(torch.uint8).fill_(POISON)
+
+
+def _row_of(ctx):
+    return ctx.coords(ctx.shard_id)[ctx.data_axis]
+
+
+class _WorldSpy:
+    """Records every collective a rank makes through ``torch.distributed``
+    while active, and counts those on WORLD (``group`` None or the
+    default group)."""
+
+    OPS = ("all_reduce", "all_gather_into_tensor", "all_to_all_single",
+           "all_gather_object", "broadcast", "barrier")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.calls, self.world, self._saved = 0, [], {}
+        for name in self.OPS:
+            fn = self._saved[name] = getattr(dist, name)
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                self.calls += 1
+                g = kw.get("group")
+                if g is None or g is dist.group.WORLD:
+                    self.world.append(_name)
+                return _fn(*a, **kw)
+            setattr(dist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+
+
+def _continue(ctx, cfg, full, batch, first, last, donate=False):
+    """A clean functional run on ``ctx`` from the full state ``full``
+    over steps ``[first, last)``: (losses, this rank's final blocks)."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.specs import bind_state
+    from repro_torch.train.loop import make_train_step
+    seq = 32 if batch == 8 else 16
+    pipe = TokenPipeline(cfg.model.vocab_size, seq, batch, seed=0)
+    st, step, bfn, _ = bind_state(
+        ctx, cfg, full, make_train_step(cfg, global_batch=batch),
+        pipe.batch_at)
+    losses = []
+    for s in range(first, last):
+        st, m = step(st, bfn(s))
+        losses.append(float(m["loss"]))
+    return losses, st
+
+
+def _train_drills(cfg):
+    """The CLI's drill, 4 x 2 -> 3 x 2 (row 3 dies before step 3 of 6),
+    in each of ``ELASTIC_MODES``: the dead ranks poison their blocks after
+    the oracle read them; each survivor resumes on the oracle's blocks,
+    and its final blocks and losses must equal a clean 3 x 2 run from
+    the oracle."""
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_map
+    out = {}
+    for name, (kw, fsdp) in ELASTIC_MODES.items():
+        c = _fsdp(cfg) if fsdp else cfg
+        box = {}
+
+        def on_kill(ctx, state, sh, rows):
+            box.update(ctx=ctx, rows=rows, oracle=tree_map(
+                torch.clone, gather_tree(state, sh)))
+            if _row_of(ctx) in rows:
+                _poison(state)
+                box["poisoned"] = True
+            return on_resume
+
+        def on_resume(ctx, state, sh):
+            box["resumed"] = _bitwise(gather_tree(state, sh), box["oracle"])
+
+        summary, st = train(c, mesh="4,2", parity=True, elastic=True,
+                            kill_row_at=KILL, on_kill=on_kill,
+                            **{**SMOKE, "steps": ELASTIC_STEPS, **kw})
+        res = {"summary": summary, "poisoned": box.get("poisoned", False),
+               "resumed": box.get("resumed")}
+        if not summary.get("dead"):
+            losses, clean = _continue(box["ctx"].degrade(box["rows"]), c,
+                                      box["oracle"], 8, KILL, ELASTIC_STEPS)
+            res["clean_losses"] = losses
+            res["same"] = _bitwise(st, clean)
+        out[name] = res
+    return out
+
+
+def _bound_fsdp(ctx, cfg, batch=12):
+    from repro_torch.core.detect import ChecksumCanary
+    from repro_torch.core.parity import ParityStore
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.specs import bind_state
+    from repro_torch.train.loop import make_train_state, make_train_step
+    pipe = TokenPipeline(cfg.model.vocab_size, 16, batch, seed=0)
+    state, step, bfn, sh = bind_state(
+        ctx, cfg, make_train_state(cfg, 0, global_batch=batch),
+        make_train_step(cfg, global_batch=batch), pipe.batch_at)
+    canary = ChecksumCanary(state, n_slices=1, ctx=ctx)
+    pstore = ParityStore(state, ctx=ctx, row_safe=True, shardings=sh)
+    pstore.build(state)
+    canary.attach_parity(pstore)
+    return state, step, bfn, sh, canary, pstore, pipe
+
+
+def _loss_and_continue(emgr, cfg, at, rows, state, step, sh, canary,
+                       pstore, pipe, steps=2):
+    """One hard loss of ``rows`` before step ``at`` on the survivors (a
+    WORLD spy running): the resume, its state against the oracle (taken
+    first, with every rank), ``steps`` checked steps on the new mesh and
+    one steady check, against a clean run from the oracle."""
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.kernels import digest as kd
+    ctx = emgr.ctx
+    oracle = gather_tree(state, sh)
+    if _row_of(ctx) in rows:
+        _poison(state)
+        return {"dead": True}, None
+    with _WorldSpy() as spy:
+        r = emgr.on_loss(step=at, dead_rows=rows, state=state,
+                         raw_step=step, cfg=cfg, batch_fn=pipe.batch_at,
+                         canary=canary, pstore=pstore, shardings=sh)
+        res = {"rank": r.ctx.rank, "shard_id": r.ctx.shard_id,
+               "shape": r.ctx.shape, "event": r.event.to_dict(),
+               "same": _bitwise(gather_tree(r.state, r.shardings), oracle)}
+        st, losses, clean_checks = r.state, [], True
+        for s in range(at, at + steps):
+            if s == at + steps - 1:
+                kd.STATS.reset()
+            ns, m = r.step(st, r.bfn(s))
+            clean_checks &= r.canary.check_and_arm(s, st, ns) is None
+            losses.append(float(m["loss"]))
+            st = ns
+        res["stats"] = kd.STATS.snapshot()
+    res.update(losses=losses, checks_clean=clean_checks,
+               world_calls=spy.world, calls=spy.calls,
+               clean_losses=_continue(ctx.degrade(rows), cfg, oracle,
+                                      pipe.global_batch, at,
+                                      at + steps)[0])
+    return res, (r, st)
+
+
+def _row_safe_rebuilds(pstore, state, sh):
+    """The ``parity_xor`` rung's rebuild on the row-safe placement
+    (``RowSafeParityPlan.reconstruct_shard``, collective): every block of
+    every covered leaf rebuilt with its holders' copies zeroed, against
+    the block itself.  Returns the blocks rebuilt bitwise and in all."""
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.tree import flatten_with_path, leaf_key
+    plan = pstore.plan
+    full = {leaf_key(p): t for p, t in flatten_with_path(
+        gather_tree(state, sh))}
+    local = {leaf_key(p): t for p, t in flatten_with_path(state)}
+    by_sh = {leaf_key(p): s for p, s in flatten_with_path(sh)}
+    exact = n = 0
+    for key in plan.keys:
+        for b in range(plan.n_blocks[key]):
+            mine = plan.device_block[key][plan.rank] == b
+            leaf = torch.zeros_like(local[key]) if mine else local[key]
+            got = pstore.reconstruct_shard(leaf, key, b)
+            d = plan.block_devices(key, b)[0]
+            exact += _bitwise({"x": got}, {"x": full[key][by_sh[key].box(d)]})
+            n += 1
+    return exact, n
+
+
+def _elastic_ranks(cfg):
+    """One rank's share of the elastic scenarios: the CLI's drill in two
+    modes, an ``on_loss`` of row 0 (world rank 2 becomes shard 0), and
+    two losses in one process, 4 x 2 -> 3 x 2 -> 2 x 2, where nothing
+    keyed on an older context survives."""
+    from repro_torch.core import fused_step
+    from repro_torch.core import parity as cp
+    from repro_torch.kernels import digest as kd
+    from repro_torch.launch.elastic import ElasticManager
+    from repro_torch.launch.mesh import make_context
+
+    out = {"train": _train_drills(cfg)}
+    fcfg = _fsdp(cfg)
+
+    # row 0 dies: a world rank is not its shard id after the loss
+    ctx = make_context("4,2", torch.device("cpu"))
+    state, step, bfn, sh, canary, pstore, pipe = _bound_fsdp(ctx, fcfg)
+    for s in range(2):
+        ns, _ = step(state, bfn(s))
+        assert canary.check_and_arm(s, state, ns) is None
+        state = ns
+    out["rebuilt"] = _row_safe_rebuilds(pstore, state, sh)
+    out["row0"], _ = _loss_and_continue(
+        ElasticManager(ctx), fcfg, 2, (0,), state, step, sh, canary,
+        pstore, pipe)
+    out["row0"]["covers"] = len(pstore.plan.keys)
+
+    # two losses in one process: 4 x 2 -> 3 x 2 -> 2 x 2
+    ctx0 = make_context("4,2", torch.device("cpu"))
+    state, step, bfn, sh, canary, pstore, pipe = _bound_fsdp(ctx0, fcfg)
+    fused = canary.fuse_into_step(step)
+    fused.warm(state, bfn(0))
+    ns, _ = step(state, bfn(0))
+    assert canary.check_and_arm(0, state, ns) is None
+    emgr = ElasticManager(ctx0)
+    twice = []
+
+    def stale(c):
+        mk = kd.mesh_key(c)
+        return (sum(k[0] == "mesh" and k[1] == mk for k in kd._PLAN_CACHE)
+                + sum(k[0] == "mesh" and k[1] == mk
+                      for k in cp._PARITY_PLAN_CACHE)
+                + sum(kd.mesh_key(f.canary.ctx) == mk
+                      for f in fused_step._ON_MESH))
+    before = stale(ctx0)
+    for at, rows in ((1, (3,)), (2, (2,))):
+        old = emgr.ctx
+        res, resumed = _loss_and_continue(emgr, fcfg, at, rows, ns, step,
+                                          sh, canary, pstore, pipe, steps=1)
+        if resumed is None:
+            twice.append(res)
+            break
+        res["stale_old"] = stale(old)
+        res["fused_closed"] = not fused._rotations
+        r, ns = resumed
+        step, sh, canary, pstore = r.step, r.shardings, r.canary, r.pstore
+        fused = canary.fuse_into_step(step)
+        fused.warm(ns, r.bfn(at + 1))
+        twice.append(res)
+    if twice and "dead" not in twice[-1]:
+        try:
+            emgr.on_loss(step=3, dead_rows=(0, 1), state=ns, raw_step=step,
+                         cfg=fcfg, batch_fn=pipe.batch_at, canary=canary,
+                         pstore=pstore, shardings=sh)
+            twice.append({"all_lost": "no error"})
+        except RuntimeError as e:
+            twice.append({"all_lost": str(e)})
+        twice.append({"dead_slices": sorted(emgr.dead),
+                      "slice_ids": emgr.slice_ids, "stale_first": before})
+    out["twice"] = twice
     return out
 
 
@@ -545,3 +828,105 @@ def test_train_cli_on_a_4x2_mesh():
     assert out["steps"] == 4 and out["faults_injected"] == 1
     assert out["faults_detected"] == out["faults_injected"]
     assert out["faults_recovered"] == out["faults_detected"]
+
+
+# -- elastic hard loss ----------------------------------------------------------
+
+def test_elastic_train_drill_remeshes_and_continues_bitwise(storms):
+    """``train --mesh 4,2 --parity --elastic --kill-row-at 3`` (6 steps),
+    functional, ``--donate`` and ``--donate --fused-detect`` (the last two
+    with fsdp: blocks rebuilt from the row-safe parity): row 3's ranks
+    poison their blocks and leave; the survivors take one ``remesh`` (no
+    disk restore), finish at 3 x 2, and end on the blocks and losses of a
+    clean 3 x 2 run from the oracle state, 1 launch + 1 fetch a step (the
+    donated pair: 2 launches, its arm and its check); under a storm of
+    flips before and after the loss every flip is repaired exactly."""
+    for rank, r in enumerate(storms):
+        assert sorted(r["elastic"]["train"]) == sorted(ELASTIC_MODES)
+        for name, o in r["elastic"]["train"].items():
+            sm = o["summary"]
+            if rank // 2 == 3:
+                assert sm.get("dead") and o["poisoned"], (rank, name)
+                continue
+            assert not o["poisoned"], (rank, name)
+            storm = sm["faults_injected"]
+            assert sm["steps"] == ELASTIC_STEPS, (name, sm)
+            assert sm["faults_detected"] == sm["faults_recovered"] == \
+                1 + storm, (name, sm)
+            assert sm["recovery"]["by_rung"].pop("remesh") == 1, name
+            assert sum(sm["recovery"]["by_rung"].values()) == storm, name
+            [ev] = sm["elastic_events"]
+            assert tuple(ev["lost_rows"]) == tuple(ev["lost_slices"]) == (3,)
+            assert ev["disk_restores"] == 0 and ev["new_dp"] == 3, ev
+            # K=1 certifies every surviving block; at K=2 the slice armed
+            # a step earlier mismatches (not strict)
+            assert ev["certified_blocks"] > 0, ev
+            assert (ev["uncertified_blocks"] == 0) == (not storm), ev
+            assert (ev["blocks_reconstructed"] > 0) == \
+                ELASTIC_MODES[name][1], (name, ev)
+            assert sm["mesh"] == {"shape": {"data": 3, "model": 2},
+                                  "devices": 6}, name
+            assert o["resumed"] and o["same"], (rank, name)
+            assert sm["losses"][KILL:] == o["clean_losses"], (rank, name)
+            # the donated pair: its arm and its check, one fetch
+            want = [[2, 1]] if name in ("donate", "storm") else [[1, 1]]
+            assert sm["digest_per_step"] == want, (name, sm)
+            if name != "functional":
+                assert sm["pointers_kept"], name
+
+
+def test_elastic_loss_of_row_zero_renumbers_the_shards(storms):
+    """Row 0 dies (fsdp: the row-safe parity covers the data-sharded
+    leaves): world rank ``r`` becomes shard ``r - 2``, the dead rows'
+    blocks are rebuilt from the parity, the state is bitwise the oracle,
+    and from the loss on no survivor calls a collective on WORLD."""
+    for rank, r in enumerate(storms):
+        o = r["elastic"]["row0"]
+        if rank < 2:
+            assert o.get("dead"), rank
+            continue
+        assert o["covers"] > 0
+        exact, n = r["elastic"]["rebuilt"]
+        assert exact == n > 0, (rank, exact, n)
+        assert (o["rank"], o["shard_id"]) == (rank, rank - 2), o
+        assert o["shape"] == {"data": 3, "model": 2}
+        ev = o["event"]
+        assert tuple(ev["lost_rows"]) == (0,) and ev["disk_restores"] == 0, ev
+        assert ev["blocks_reconstructed"] > 0, ev
+        assert ev["uncertified_blocks"] == 0 < ev["certified_blocks"], ev
+        assert o["same"] and o["checks_clean"], o
+        assert o["losses"] == o["clean_losses"], o
+        assert tuple(o["stats"]) == (1, 1), o
+        assert o["calls"] > 0 and o["world_calls"] == [], o
+
+
+def test_elastic_two_losses_leave_nothing_of_the_older_meshes(storms):
+    """4 x 2 -> 3 x 2 -> 2 x 2 in one process: each loss keeps the
+    survivors' state bitwise the oracle and their losses a clean run's;
+    after each, no digest or parity plan and no fused unit of the older
+    mesh is left; the manager keeps the original slice ids; losing every
+    row left refuses."""
+    for rank, r in enumerate(storms):
+        twice = r["elastic"]["twice"]
+        if rank >= 6:
+            assert twice == [{"dead": True}], rank
+            continue
+        first = twice[0]
+        assert first["shape"] == {"data": 3, "model": 2}, first
+        if rank >= 4:
+            assert twice[1] == {"dead": True} and len(twice) == 2, rank
+        else:
+            second, refused, book = twice[1:]
+            assert second["shape"] == {"data": 2, "model": 2}, second
+            assert tuple(second["event"]["lost_slices"]) == (2,), second["event"]
+            assert "no surviving" in refused["all_lost"], refused
+            assert book["dead_slices"] == [2, 3], book
+            assert book["slice_ids"] == [0, 1], book
+            assert book["stale_first"] > 0, book
+        for o in twice[:2 if rank < 4 else 1]:
+            assert o["stale_old"] == 0 and o["fused_closed"], o
+            assert o["same"] and o["checks_clean"], o
+            assert o["losses"] == o["clean_losses"], o
+            assert tuple(o["stats"]) == (1, 1), o
+            assert o["event"]["uncertified_blocks"] == 0, o["event"]
+            assert o["world_calls"] == [], o

@@ -13,6 +13,9 @@ the reference's shard_map paths refuse) and dumps, once per module:
 * the shard_patch scenario of
   ``test_shard_local_recovery_restores_only_injured_shard``: the injured
   shard ids, the rung, ``bytes_moved``, and the version-mismatch replay;
+* the elastic programs of ``tests/test_elastic.py`` (its toy tree's
+  row-safe parity and reconstructions, the chaos drill, two drills in
+  one process, the CLI's drill);
 * the training modes: the programs of ``test_sharded_resilience.py::
   test_donation_and_fused_detect_compose_on_mesh`` and
   ``::test_partial_refresh_patches_without_generation_bump`` and of
@@ -277,6 +280,161 @@ CHILD = textwrap.dedent("""
         tcan.refresh(tstate)
     res["triage"] = tri
 
+    # -- elastic (tests/test_elastic.py) --------------------------------------
+    # TestRowSafeReconstruction on its toy tree: the row-safe plan, every
+    # row's survivor parity, the reconstructions, the dedup edge, the
+    # legacy refusal and the degraded target
+    from repro.launch.elastic import ElasticManager, _host_regather
+    el = {}
+    etree = {k: put(v, *inp["etoy_specs"][k])
+             for k, v in inp["etoy"].items()}
+    eps = ParityStore(etree, ctx=ctx, row_safe=True)
+    eps.build(etree)
+    eplan = eps.plan
+    el["keys"] = list(eplan.keys)
+    el["groups"] = {k: [list(g) for g in eplan.groups[k]]
+                    for k in eplan.keys}
+    el["offsets"] = {k: int(eplan.offsets[k]) for k in eplan.keys}
+    el["stream_len"] = int(eplan.stream_len)
+    el["buffer_shape"] = list(eplan.buffer_shape)
+    pflats, recon = [], []
+    for row in range(4):
+        dead = set(ctx.row_devices(row))
+        pflats.append(np.asarray(eplan.host_parity_flat(eps.parity, dead)))
+        ok = True
+        for key, leaf in etree.items():
+            if key in eplan.key_set:
+                full, missing = eplan.host_assemble_leaf(key, leaf, dead)
+                blocks = eplan.host_surviving_blocks(key, leaf, dead)
+                uniq, _ = eplan.slices[key]
+                for b in missing:
+                    full[tuple(slice(a, e) for a, e in uniq[b])] = \
+                        eplan.host_reconstruct_block(key, b, pflats[-1],
+                                                     blocks)
+            else:
+                full = _host_regather(leaf, dead)
+            ok = ok and np.array_equal(
+                np.atleast_1d(np.asarray(full)).view(np.uint8),
+                np.atleast_1d(inp["etoy"][key]).view(np.uint8))
+        recon.append(bool(ok))
+    el["recon_ok"] = recon
+    dead2 = set(ctx.row_devices(2))
+    uniq, dmap = eplan.slices["wdup"]
+    el["wdup"] = [len(uniq), len(dmap),
+                  sorted(eplan.host_surviving_blocks("wdup", etree["wdup"],
+                                                     dead2)),
+                  list(eplan.host_assemble_leaf("wdup", etree["wdup"],
+                                                dead2)[1])]
+    legacy = ParityStore(etree, ctx=ctx)
+    legacy.build(etree)
+    try:
+        legacy.plan.host_parity_flat(legacy.parity, set(ctx.row_devices(1)))
+        el["legacy"] = "no error"
+    except RuntimeError as e:
+        el["legacy"] = str(e)
+    try:
+        ElasticManager(ctx).on_loss(
+            step=0, dead_rows=(1,), state=etree,
+            raw_step=lambda s, b: (s, {}), cfg=None,
+            batch_fn=lambda s: None, pstore=legacy)
+        el["legacy_on_loss"] = "no error"
+    except RuntimeError as e:
+        el["legacy_on_loss"] = str(e)
+    res["elastic_toy"] = el
+    np.save(out + "_pflats.npy", np.stack(pflats))
+
+    # the chaos drill (_DRILL): fsdp, B=12, S=16, row 3 lost before step 3
+    import dataclasses
+    from repro.core.detect import FaultReport
+    from repro.core.parity import ParityStore as PS
+    fcfg = dataclasses.replace(cfg, sharding=dataclasses.replace(
+        cfg.sharding, fsdp=True))
+    EB, ES, KILL, STEPS = 12, 16, 3, 7
+    epipe = TokenPipeline(fcfg.model.vocab_size, ES, EB, seed=0)
+    dstate, draw, dbfn, dsh = bind_state(
+        ctx, fcfg, jax.tree_util.tree_map(jnp.asarray, inp["state"]),
+        make_train_step(fcfg, global_batch=EB), lambda s: epipe.batch_at(s))
+    dstep = jax.jit(draw)
+    dcan = ChecksumCanary(dstate, n_slices=1, ctx=ctx)
+    dps = PS(dstate, ctx=ctx, row_safe=True)
+    dps.build(dstate)
+    dcan.attach_parity(dps)
+    emgr = ElasticManager(ctx)
+    drt = RecoveryRuntime(
+        step_fn=dstep, batch_fn=dbfn, iv_registry=promote(fcfg, EB),
+        micro=MicroCheckpointer(interval=2, ctx=ctx), parity=dps,
+        shardings=dsh, canary=dcan,
+        elastic=emgr.hook(raw_step=draw, cfg=fcfg,
+                          batch_fn=lambda s: epipe.batch_at(s),
+                          canary=dcan, pstore=dps))
+    dr = {"covers": len(dps.plan.keys), "losses": []}
+    for s in range(KILL):
+        ns, m = dstep(dstate, dbfn(s))
+        assert dcan.check_and_arm(s, dstate, ns) is None
+        dr["losses"].append(float(m["loss"]))
+        dstate = ns
+    doracle = jax.tree_util.tree_map(np.asarray, dstate)
+    dstate, dev_ = drt.recover(dstate, FaultReport(KILL, "external",
+                                                   lost_rows=(3,)), KILL)
+    resume = drt.pending_remesh
+    dr["rung"], dr["attempted"] = dev_.rung, list(dev_.attempted)
+    dr["event"] = {k: (list(v) if isinstance(v, tuple) else v)
+                   for k, v in resume.event.to_dict().items()}
+    dr["new_dp"] = int(resume.ctx.mesh.shape["data"])
+    dr["same"] = all(np.array_equal(np.atleast_1d(a).view(np.uint8),
+                                    np.atleast_1d(b).view(np.uint8))
+                     for a, b in zip(jax.tree_util.tree_leaves(resume.state),
+                                     jax.tree_util.tree_leaves(doracle)))
+    resumed = {leaf_key(p): np.asarray(x) for p, x in
+               jax.tree_util.tree_flatten_with_path(resume.state)[0]}
+    st, after = resume.state, []
+    for s in range(KILL, STEPS):
+        ns, m = resume.step(st, resume.bfn(s))
+        assert resume.canary.check_and_arm(s, st, ns) is None
+        after.append(float(m["loss"]))
+        st = ns
+    dr["after"] = after
+    res["drill"] = dr
+    np.savez(out + "_drill.npz", **resumed)
+
+    # two drills in one process (test_two_drills_in_one_process_...)
+    tstate, traw, tbfn, tsh = bind_state(
+        ctx, fcfg, jax.tree_util.tree_map(jnp.asarray, inp["state"]),
+        make_train_step(fcfg, global_batch=EB), lambda s: epipe.batch_at(s))
+    tst = jax.jit(traw)
+    tcan2 = ChecksumCanary(tstate, n_slices=1, ctx=ctx)
+    tps = PS(tstate, ctx=ctx, row_safe=True)
+    tps.build(tstate)
+    tcan2.attach_parity(tps)
+    ns, m = tst(tstate, tbfn(0))
+    assert tcan2.check_and_arm(0, tstate, ns) is None
+    tmgr = ElasticManager(ctx)
+    two = []
+    r1 = tmgr.on_loss(step=1, dead_rows=(3,), state=ns, raw_step=traw,
+                      cfg=fcfg, batch_fn=lambda s: epipe.batch_at(s),
+                      canary=tcan2, pstore=tps)
+    two.append({k: (list(v) if isinstance(v, tuple) else v)
+                for k, v in r1.event.to_dict().items()})
+    st1, m = r1.step(r1.state, r1.bfn(1))
+    assert r1.canary.check_and_arm(1, r1.state, st1) is None
+    r2 = tmgr.on_loss(step=2, dead_rows=(2,), state=st1,
+                      raw_step=r1.raw_step, cfg=fcfg,
+                      batch_fn=lambda s: epipe.batch_at(s),
+                      canary=r1.canary, pstore=r1.pstore)
+    two.append({k: (list(v) if isinstance(v, tuple) else v)
+                for k, v in r2.event.to_dict().items()})
+    res["two"] = {"events": two, "dead": sorted(tmgr.dead),
+                  "slice_ids": list(tmgr.slice_ids),
+                  "shapes": [dict(r1.ctx.mesh.shape),
+                             dict(r2.ctx.mesh.shape)]}
+
+    # the CLI drill (test_train_cli_elastic_kill_row_smoke)
+    from repro.launch.train import train as jtrain
+    cli = jtrain(cfg, steps=6, global_batch=8, seq_len=16, canary_slices=1,
+                 mesh="4,2", parity=True, elastic=True, kill_row_at=3,
+                 verbose=False)
+    res["cli"] = json.loads(json.dumps(cli))
+
     with open(out + ".json", "w") as f:
         json.dump(res, f)
     np.savez(out + ".npz", **truth)
@@ -312,6 +470,23 @@ def _updates(state):
     walk("", state)
     return [{k: (flat[k] + rng.standard_normal(flat[k].shape).astype(
         np.float32)) for k in UPDATE_KEYS} for _ in UPDATE_FLAGS]
+
+
+#: tests/test_elastic.py's toy tree: data in dim 0, data in a middle dim,
+#: bf16 over (model, data), data-sharded and replicated over model (the
+#: dedup edge), replicated (the re-gather path)
+ETOY_SPECS = {"w0": ("data", "model"), "w3d": (None, "data", "model"),
+              "wbf": ("model", "data"), "wdup": ("data", None), "wrep": ()}
+
+
+def _etoy(jax, jnp):
+    k = jax.random.PRNGKey
+    return {"w0": np.asarray(jax.random.normal(k(0), (12, 8))),
+            "w3d": np.asarray(jax.random.normal(k(1), (1, 60, 64))),
+            "wbf": np.asarray(jax.random.normal(k(2), (4, 12)).astype(
+                jnp.bfloat16)),
+            "wdup": np.asarray(jax.random.normal(k(3), (12, 6))),
+            "wrep": np.asarray(jax.random.normal(k(4), (8,)))}
 
 
 def _toy(jax, jnp):
@@ -442,7 +617,8 @@ def _port_ranks(inp_path):
     res["rung2"] = ev2.rung
     res["attempted2"] = list(ev2.attempted)
     res.update(_port_modes(ctx, cfg, inp, toy, tsh, local))
-    everyone = coll.gather_objects(res)
+    res.update(_port_elastic(ctx, cfg, inp))
+    everyone = coll.gather_objects(res, ctx.group(ctx.axis_names))
     return everyone if me == 0 else None
 
 
@@ -588,6 +764,199 @@ def _port_modes(ctx, cfg, inp, toy, tsh, local):
     return res
 
 
+def _port_elastic(ctx, cfg, inp):
+    """The oracle's elastic programs on this rank: the row-safe toy tree
+    (every row's survivor parity and reconstructions, the dedup edge, the
+    legacy refusals), the chaos drill, two drills in one process and the
+    CLI drill.  A rank of a lost row poisons its blocks and skips to the
+    next program (it takes no collective of the survivors)."""
+    import dataclasses
+    import torch
+    from repro_torch.bridge import state_from_numpy
+    from repro_torch.core.detect import ChecksumCanary, FaultReport
+    from repro_torch.core.icp import promote
+    from repro_torch.core.microcheckpoint import MicroCheckpointer
+    from repro_torch.core.parity import ParityStore
+    from repro_torch.core.recover import RecoveryRuntime
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import (P, gather_tree, local_tree,
+                                                  shardings_for)
+    from repro_torch.kernels import digest as kd
+    from repro_torch.launch.elastic import ElasticManager, _host_regather
+    from repro_torch.launch.mesh import make_context
+    from repro_torch.launch.specs import bind_state
+    from repro_torch.launch.train import train
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.tree import flatten_with_path, leaf_key, leaves
+
+    def row_of(c):
+        return c.coords(c.shard_id)[c.data_axis]
+
+    def poison(state):
+        for t in leaves(state):
+            t.reshape(-1).view(torch.uint8).fill_(0x5A)
+
+    def same_bits(a, b):
+        return torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+    res = {}
+    # -- the row-safe toy tree ------------------------------------------------
+    etoy = state_from_numpy(inp["etoy"])
+    esh = shardings_for(ctx, {k: P(*v) for k, v in inp["etoy_specs"].items()},
+                        etoy)
+    elocal = local_tree(etoy, esh)
+    eps = ParityStore(elocal, ctx=ctx, row_safe=True, shardings=esh)
+    eps.build(elocal)
+    plan = eps.plan
+    el = {"keys": list(plan.keys),
+          "groups": {k: [list(g) for g in plan.groups[k]] for k in plan.keys},
+          "offsets": {k: int(plan.offsets[k]) for k in plan.keys},
+          "stream_len": int(plan.stream_len),
+          "buffer_shape": [plan.n_rows, plan.row_words],
+          "pflats": {}, "recon_ok": {}}
+    for row in range(ctx.shape["data"]):
+        if row_of(ctx) == row:
+            continue
+        dead = set(ctx.row_devices(row))
+        pflat = plan.host_parity_flat(eps.parity, dead)
+        el["pflats"][row] = pflat.numpy()
+        ok = True
+        for key, leaf in elocal.items():
+            if key in plan.key_set:
+                blocks = plan.host_surviving_blocks(key, leaf, dead)
+                full, missing = plan.assemble_blocks(key, blocks)
+                uniq, _ = plan.slices[key]
+                for b in missing:
+                    full[tuple(slice(a, e) for a, e in uniq[b])] = \
+                        plan.host_reconstruct_block(key, b, pflat, blocks)
+            else:
+                full = _host_regather(leaf, dead, esh[key])
+            ok = ok and same_bits(full, etoy[key])
+        el["recon_ok"][row] = ok
+    if row_of(ctx) != 2:
+        dead2 = set(ctx.row_devices(2))
+        uniq, dmap = plan.slices["wdup"]
+        blocks = plan.host_surviving_blocks("wdup", elocal["wdup"], dead2)
+        el["wdup"] = [len(uniq), len(dmap), sorted(blocks),
+                      plan.assemble_blocks("wdup", blocks)[1]]
+    legacy = ParityStore(elocal, ctx=ctx, shardings=esh)
+    legacy.build(elocal)
+    for name, fn in (
+            ("legacy", lambda: legacy.plan.host_parity_flat(
+                legacy.parity, set(ctx.row_devices(1)))),
+            ("legacy_on_loss", lambda: ElasticManager(ctx).on_loss(
+                step=0, dead_rows=(1,), state=elocal, raw_step=None,
+                cfg=None, batch_fn=None, pstore=legacy, shardings=esh))):
+        try:
+            fn()
+            el[name] = "no error"
+        except RuntimeError as e:
+            el[name] = str(e)
+    res["elastic_toy"] = el
+
+    # -- the chaos drill -------------------------------------------------------
+    fcfg = dataclasses.replace(cfg, sharding=dataclasses.replace(
+        cfg.sharding, fsdp=True))
+    EB, ES, KILL, STEPS = 12, 16, 3, 7
+    pipe = TokenPipeline(fcfg.model.vocab_size, ES, EB, seed=0)
+
+    def bound(c):
+        st, step, bfn, sh = bind_state(
+            c, fcfg, state_from_numpy(inp["state"]),
+            make_train_step(fcfg, global_batch=EB), pipe.batch_at)
+        can = ChecksumCanary(st, n_slices=1, ctx=c)
+        ps = ParityStore(st, ctx=c, row_safe=True, shardings=sh)
+        ps.build(st)
+        can.attach_parity(ps)
+        return st, step, bfn, sh, can, ps
+
+    dctx = make_context("4,2", torch.device("cpu"))
+    st, step, bfn, sh, can, ps = bound(dctx)
+    emgr = ElasticManager(dctx)
+    rt = RecoveryRuntime(
+        step_fn=step, batch_fn=bfn, iv_registry=promote(fcfg, EB),
+        micro=MicroCheckpointer(interval=2, ctx=dctx, shardings=sh),
+        parity=ps, shardings=sh, canary=can,
+        elastic=emgr.hook(raw_step=step, cfg=fcfg, batch_fn=pipe.batch_at,
+                          canary=can, pstore=ps, shardings=sh))
+    dr = {"covers": len(ps.plan.keys), "losses": []}
+    for s in range(KILL):
+        ns, m = step(st, bfn(s))
+        assert can.check_and_arm(s, st, ns) is None
+        dr["losses"].append(float(m["loss"]))
+        st = ns
+    oracle = gather_tree(st, sh)
+    if row_of(dctx) == 3:
+        poison(st)
+        dr["dead"] = True
+    else:
+        st, ev = rt.recover(st, FaultReport(KILL, "external",
+                                            lost_rows=(3,)), KILL)
+        resume = rt.pending_remesh
+        dr["rung"], dr["attempted"] = ev.rung, list(ev.attempted)
+        dr["event"] = {k: (list(v) if isinstance(v, tuple) else v)
+                       for k, v in resume.event.to_dict().items()}
+        dr["new_dp"] = resume.ctx.shape["data"]
+        full = gather_tree(resume.state, resume.shardings)
+        want = {leaf_key(p): t for p, t in flatten_with_path(oracle)}
+        dr["same"] = all(same_bits(t, want[leaf_key(p)])
+                         for p, t in flatten_with_path(full))
+        if resume.ctx.shard_id == 0:
+            dr["state"] = {leaf_key(p): t.numpy()
+                           for p, t in flatten_with_path(full)}
+        after = []
+        for s in range(KILL, STEPS):
+            if s == STEPS - 2:
+                kd.STATS.reset()
+            ns, m = resume.step(st, resume.bfn(s))
+            assert resume.canary.check_and_arm(s, st, ns) is None
+            after.append(float(m["loss"]))
+            st = ns
+        dr["stats"] = kd.STATS.snapshot()
+        dr["after"] = after
+        ob, ostep, obfn, _ = bind_state(
+            resume.ctx, fcfg, oracle, make_train_step(fcfg, global_batch=EB),
+            pipe.batch_at)
+        clean = []
+        for s in range(KILL, STEPS):
+            ob, m = ostep(ob, obfn(s))
+            clean.append(float(m["loss"]))
+        dr["clean"] = clean
+    res["drill"] = dr
+
+    # -- two drills in one process ---------------------------------------------
+    tctx = make_context("4,2", torch.device("cpu"))
+    st, step, bfn, sh, can, ps = bound(tctx)
+    ns, _ = step(st, bfn(0))
+    assert can.check_and_arm(0, st, ns) is None
+    tmgr = ElasticManager(tctx)
+    two = {"events": [], "shapes": []}
+    for at, rows in ((1, (3,)), (2, (2,))):
+        if row_of(tmgr.ctx) in rows:
+            poison(ns)
+            two["dead_at"] = at
+            break
+        r = tmgr.on_loss(step=at, dead_rows=rows, state=ns, raw_step=step,
+                         cfg=fcfg, batch_fn=pipe.batch_at, canary=can,
+                         pstore=ps, shardings=sh)
+        two["events"].append({k: (list(v) if isinstance(v, tuple) else v)
+                              for k, v in r.event.to_dict().items()})
+        two["shapes"].append(r.ctx.shape)
+        ns2, m = r.step(r.state, r.bfn(at))
+        assert r.canary.check_and_arm(at, r.state, ns2) is None
+        ns, step, sh, can, ps = ns2, r.step, r.shardings, r.canary, r.pstore
+    two["dead"], two["slice_ids"] = sorted(tmgr.dead), list(tmgr.slice_ids)
+    res["two"] = two
+
+    # -- the CLI drill ---------------------------------------------------------
+    res["cli"] = train(cfg, steps=6, global_batch=8, seq_len=16,
+                       canary_slices=1, mesh="4,2", parity=True,
+                       elastic=True, kill_row_at=3, device="cpu",
+                       verbose=False)
+    return res
+
+
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
     import jax
@@ -604,7 +973,8 @@ def both(tmp_path_factory):
     inp = {"state": state, "toy": _toy(jax, jnp), "toy_specs": TOY_SPECS,
            "B": B, "S": S, "up": UP, "K": FUSED_K,
            "updates": _updates(state), "flags": UPDATE_FLAGS,
-           "tri_flips": TRI_FLIPS}
+           "tri_flips": TRI_FLIPS, "etoy": _etoy(jax, jnp),
+           "etoy_specs": ETOY_SPECS}
     src = str(tmp / "input.pkl")
     with open(src, "wb") as f:
         pickle.dump(inp, f)
@@ -628,6 +998,9 @@ def both(tmp_path_factory):
     with np.load(out + "_fused.npz") as z:
         ref["fused_state"] = {k: z[k] for k in z.files}
     ref["parity_rows"] = np.load(out + "_parity.npy")
+    ref["pflats"] = np.load(out + "_pflats.npy")
+    with np.load(out + "_drill.npz") as z:
+        ref["drill_state"] = {k: z[k] for k in z.files}
     return ref, truth, ranks
 
 
@@ -789,3 +1162,106 @@ def test_triage_on_sharded_canary_matches_reference(both):
             else:
                 assert got["loc"] is None
 
+
+
+# -- elastic hard loss (tests/test_elastic.py's programs) ------------------------
+
+#: the event's counts, which the port must equal exactly
+EVENT_COUNTS = ("lost_rows", "lost_slices", "old_dp", "new_dp",
+                "bytes_reconstructed", "bytes_regathered",
+                "blocks_reconstructed", "leaves_regathered",
+                "certified_blocks", "uncertified_blocks", "disk_restores")
+
+
+def _counts(ev):
+    return {k: list(ev[k]) if isinstance(ev[k], (list, tuple)) else ev[k]
+            for k in EVENT_COUNTS}
+
+
+def test_row_safe_plan_and_survivor_parity_bitwise(both):
+    """``TestRowSafeReconstruction``: the row-safe plan's keys, fold
+    groups and offsets, and for every lost row the parity stream the
+    survivors assemble (``host_parity_flat``) bitwise the reference's;
+    every leaf reconstructed bitwise; the dedup edge; the legacy
+    placement refused with the reference's messages."""
+    ref, _, ranks = both
+    el = ref["elastic_toy"]
+    assert el["keys"] == ["w0", "w3d", "wbf", "wdup"]
+    assert el["recon_ok"] == [True] * 4
+    for rank, r in enumerate(ranks):
+        e = r["elastic_toy"]
+        for k in ("keys", "groups", "offsets", "stream_len",
+                  "buffer_shape", "legacy", "legacy_on_loss"):
+            assert e[k] == el[k], (rank, k, e[k], el[k])
+        assert sorted(e["pflats"]) == [w for w in range(4) if w != rank // 2]
+        for row, flat in e["pflats"].items():
+            assert np.array_equal(flat, ref["pflats"][row]), (rank, row)
+        assert all(e["recon_ok"].values()), (rank, e["recon_ok"])
+        if rank // 2 != 2:
+            assert e["wdup"] == el["wdup"] == [4, 8, [0, 1, 3], [2]]
+
+
+def test_chaos_drill_matches_reference(both):
+    """``_DRILL`` (fsdp, row 3 lost before step 3): the rung, the event's
+    counts and the new width exactly the reference's; the losses before
+    and after within the f32 tolerance, the resumed state too; on the
+    port the resumed state is bitwise its own oracle, the losses after
+    the loss bitwise a clean 3 x 2 run's, STATS (2, 2) over two steps."""
+    ref, _, ranks = both
+    dr = ref["drill"]
+    assert dr["rung"] == "remesh" and dr["attempted"] == ["remesh"]
+    assert dr["same"] and dr["new_dp"] == 3 and dr["covers"] > 0
+    for rank, r in enumerate(ranks):
+        d = r["drill"]
+        assert d["covers"] == dr["covers"]
+        np.testing.assert_allclose(d["losses"], dr["losses"], atol=F32_TOL,
+                                   rtol=F32_TOL)
+        if rank // 2 == 3:
+            assert d.get("dead"), rank
+            continue
+        assert (d["rung"], d["attempted"]) == (dr["rung"], dr["attempted"])
+        assert _counts(d["event"]) == _counts(dr["event"]), rank
+        assert d["new_dp"] == dr["new_dp"] and d["same"], rank
+        np.testing.assert_allclose(d["after"], dr["after"], atol=F32_TOL,
+                                   rtol=F32_TOL)
+        assert d["after"] == d["clean"], rank
+        assert tuple(d["stats"]) == (2, 2), d["stats"]
+    _close_to(ranks[0]["drill"]["state"], ref["drill_state"])
+
+
+def test_two_drills_match_reference(both):
+    """4 x 2 -> 3 x 2 -> 2 x 2: each loss's counts and shape the
+    reference's, the slice bookkeeping its original ids."""
+    ref, _, ranks = both
+    two = ref["two"]
+    assert two["dead"] == [2, 3] and two["slice_ids"] == [0, 1]
+    for rank, r in enumerate(ranks):
+        t = r["two"]
+        n = {3: 0, 2: 1}.get(rank // 2, 2)
+        assert len(t["events"]) == n, (rank, t)
+        assert t.get("dead_at") == (None if n == 2 else n + 1), rank
+        for got, want in zip(t["events"], two["events"]):
+            assert _counts(got) == _counts(want), rank
+        assert t["shapes"] == two["shapes"][:n], rank
+        if n == 2:
+            assert (t["dead"], t["slice_ids"]) == (two["dead"],
+                                                   two["slice_ids"])
+
+
+def test_train_cli_drill_matches_reference(both):
+    """``train(mesh="4,2", parity=True, elastic=True, kill_row_at=3)``
+    (``test_train_cli_elastic_kill_row_smoke``): 6 steps, one remesh, the
+    event's counts and the new shape the reference's."""
+    ref, _, ranks = both
+    want = ref["cli"]
+    assert want["recovery"]["by_rung"] == {"remesh": 1}
+    for rank, r in enumerate(ranks):
+        got = r["cli"]
+        if rank // 2 == 3:
+            assert got["dead"], rank
+            continue
+        for k in ("steps", "faults_detected", "faults_recovered", "mesh"):
+            assert got[k] == want[k], (rank, k)
+        assert got["recovery"]["by_rung"] == want["recovery"]["by_rung"]
+        [ev], [wev] = got["elastic_events"], want["elastic_events"]
+        assert _counts(ev) == _counts(wev), rank

@@ -293,15 +293,22 @@ def test_plan_is_cached_per_structure(port):
     assert parity_plan_for(state, n_shards=1).n_shards == 2   # max(2, D)
 
 
-# the mesh parity is ported (tests/test_torch_mesh_oracle.py); its
-# row-safe placement, on a mesh or off it, is the elastic slice's
+# the mesh parity and its row-safe placement are ported
+# (tests/test_torch_mesh*.py): a mesh store still needs the state's
+# shardings, and off the mesh ``row_safe`` keeps the plain placement, as
+# the reference's store does (no row to lose)
 @pytest.mark.parametrize("kw", [dict(ctx=type("Ctx", (), {"enabled": True})(),
                                      row_safe=True),
                                 dict(row_safe=True)])
 def test_mesh_parity_is_not_ported(port, kw):
     _, state, _, _ = port
-    with pytest.raises(NotImplementedError, match="Mesh and elastic"):
-        ParityStore(state, **kw)
+    if "ctx" in kw:
+        with pytest.raises(ValueError, match="shardings"):
+            ParityStore(state, **kw)
+        return
+    ps = ParityStore(state, **kw)
+    assert ps.plan is _store(state).plan
+    assert not getattr(ps.plan, "row_safe", False)
 
 
 def test_mesh_only_methods_raise(port):
@@ -311,13 +318,16 @@ def test_mesh_only_methods_raise(port):
     # a block of a mesh store (ported); off the mesh a leaf is rebuilt whole
     with pytest.raises(ValueError, match="mesh parity store only"):
         ps.reconstruct_shard(leaf, "params/embed/table", 0)
-    for fn in (lambda: ps.plan.host_parity_flat(ps.parity),
-               lambda: ps.plan.host_surviving_blocks("k", leaf),
-               lambda: ps.plan.host_reconstruct_block("k", 0, None, {}),
-               lambda: ps.plan.host_assemble_leaf("k", leaf),
-               lambda: parity_plan_for(state, mesh=object())):
-        with pytest.raises(NotImplementedError, match="Mesh and elastic"):
-            fn()
+    # the hard-loss helpers: off the mesh the parity stream is the
+    # buffer's words (the reference's), the block reads are a mesh
+    # plan's (collectives over the survivors; tests/test_torch_mesh*.py)
+    assert torch.equal(ps.plan.host_parity_flat(ps.parity),
+                       ps.parity.reshape(-1)[:ps.plan.stream_len])
+    for name in ("host_surviving_blocks", "host_reconstruct_block",
+                 "host_assemble_leaf"):
+        assert not hasattr(ps.plan, name), name
+    with pytest.raises(ValueError, match="shardings"):
+        parity_plan_for(state, mesh=object())
 
 
 # ---------------------------------------------------------------------------

@@ -300,13 +300,15 @@ def _mesh_shardings():
                                          torch.float32)}}
 
 
-# ``shardings`` is ported (the mesh slice); elastic is refused beside it
+# ``shardings`` (the mesh slice) and ``elastic`` (the elastic slice) are
+# ported: the runtime keeps the hard-loss handler for its remesh rung
 @pytest.mark.parametrize("kw", [{"shardings": _mesh_shardings(),
                                  "elastic": lambda *a: None},
                                 {"elastic": lambda *a: None}])
 def test_unported_runtime_arguments_raise(port, kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _runtime(port, **kw)
+    rt, _ = _runtime(port, **kw)
+    assert rt.elastic is kw["elastic"] and rt.pending_remesh is None
+    assert (rt.ctx is not None) == ("shardings" in kw)
 
 
 @pytest.mark.parametrize("kw", [{"triage": True}, {"donated": True},

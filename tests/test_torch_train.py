@@ -13,6 +13,7 @@ ulp and to the port's own ``derived_ivs`` recomputation bit for bit.
 """
 
 import os
+import re
 
 import jax
 import numpy as np
@@ -328,13 +329,17 @@ def test_train_cli_without_device_raises_without_a_card(monkeypatch):
                       "8"])
 
 
-# ``--mesh`` and its modes are ported (tests/test_torch_mesh.py); the
-# elastic slice's flags are refused, on the mesh too
+# ``--mesh``, its modes and ``--elastic`` are ported
+# (tests/test_torch_mesh.py): the elastic flags without what they need
+# raise the reference's ValueErrors, before any rank is spawned
 @pytest.mark.parametrize("flag", [["--elastic"],
                                   ["--mesh", "4,2", "--elastic"],
                                   ["--kill-row-at", "3"]])
 def test_train_cli_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    want = {"--kill-row-at": "kill_row_at requires elastic=True",
+            "--mesh": "elastic requires parity=True",
+            "--elastic": "elastic requires mesh='dp,tp'"}[flag[0]]
+    with pytest.raises(ValueError, match=re.escape(want)):
         tlaunch.main(["--smoke", "--device", "cpu", "--steps", "1"] + flag)
 
 
