@@ -3494,7 +3494,8 @@ R_STORMS = ("parity", "iv", "fused")
 
 def train_recurrent(torch, arch: str, label: str, model_kw: dict, *,
                     storms=R_STORMS, checkpoint: bool = True,
-                    profile: bool = True, parity_kw=None):
+                    profile: bool = True, parity_kw=None,
+                    fused_clean: bool = True):
     """10c-13c: ``arch`` trained at full width (bf16 params, the config's
     optimizer, microbatch and remat; global batch 8 x 128, an enc-dec
     batch with 64 source frames, a VLM batch with 16 patches), its model
@@ -3510,7 +3511,10 @@ def train_recurrent(torch, arch: str, label: str, model_kw: dict, *,
     armed-slice storm (replay; == clean); with ``checkpoint`` a
     checkpoint of the final state written and read back, bitwise; with
     ``profile`` the donate+fused hot path (``profile_modes``; the runs
-    print the functional host p50).  Each storm dropped and the two flags
+    print the functional host p50).  Without ``fused_clean`` the
+    donate+fused clean run is dropped and the storm (``fused`` in
+    ``storms``) holds its checks: its graphs, its final state == the
+    functional clean run's.  Each storm dropped and the three flags
     are the script's time cuts (each path is held in full by one phase;
     the ``--parity`` storm runs in every phase: it launches the parity
     kernels).  Returns the phase's launches."""
@@ -3554,11 +3558,14 @@ def train_recurrent(torch, arch: str, label: str, model_kw: dict, *,
     kw4 = dict(steps=R_STEPS, canary_slices=R_SLICES, donate=True,
                fused_detect=True, disk=False)
     _drop_plans(torch)
-    fused, state = train_full_width(torch, cfg, f"{label} donate+fused "
-                                    f"K={R_SLICES} clean", **kw4)
-    assert fused["fused"]["captures"] == 2 * R_SLICES, fused
-    assert _same_state(torch, state, clean_host), \
-        f"{arch} donate+fused clean final state differs from functional"
+    assert fused_clean or "fused" in storms
+    state = None
+    if fused_clean:
+        fused, state = train_full_width(torch, cfg, f"{label} donate+fused "
+                                        f"K={R_SLICES} clean", **kw4)
+        assert fused["fused"]["captures"] == 2 * R_SLICES, fused
+        assert _same_state(torch, state, clean_host), \
+            f"{arch} donate+fused clean final state differs from functional"
     stormed = "no armed-slice storm (the time cut)"
     if "fused" in storms:
         del state
@@ -3572,6 +3579,11 @@ def train_recurrent(torch, arch: str, label: str, model_kw: dict, *,
         assert _same_state(torch, state, clean_host), \
             f"{arch} donate+fused storm final state differs from clean"
         stormed = f"armed-slice storm ({f} flip, replay) == clean"
+        if not fused_clean:
+            # the storm holds the clean run's checks (the time cut)
+            assert storm["fused"]["captures"] >= 2 * R_SLICES, storm
+            fused = storm
+            stormed += " (no clean run: the time cut)"
     ckpt = "no checkpoint (the time cut)"
     if checkpoint:
         d = WORK / f"{label}_ckpt"
@@ -3591,8 +3603,9 @@ def train_recurrent(torch, arch: str, label: str, model_kw: dict, *,
                 f"bitwise")
     print(f"[{label}] donate+fused K={R_SLICES}: "
           f"{fused['fused']['captures']} graphs (their pool "
-          f"{fused['fused']['pool_bytes'] / 2**30:.3f} GiB), clean == "
-          f"functional clean, {stormed}, bitwise; {ckpt} [{_SMI}]")
+          f"{fused['fused']['pool_bytes'] / 2**30:.3f} GiB), "
+          f"{'clean == functional clean, ' if fused_clean else ''}"
+          f"{stormed}, bitwise; {ckpt} [{_SMI}]")
     launches = _phase_end(torch, label)
     if profile:
         # the profile starts from a card holding only this state (the
@@ -3632,9 +3645,17 @@ def recurrent_phase(torch, phase: int, arch: str, serve_kw: dict,
 
 MESH, MESH_STEPS = "2,2", 3    # phase 14: 4 ranks share the one card
 MESH_K = 2                     # 14b: the fused run's canary K
-#: 14-14c run 6 of iterpro-100m's 12 layers (a time cut); 14d runs all
-#: 12
-MESH_LAYERS = 6
+#: 14-14c and 14e's (e2) run 4 of iterpro-100m's 12 layers (a time
+#: cut); 14d and 14e's (e1) run all 12
+MESH_LAYERS = 4
+#: 14e: the mesh serving runs' traffic, (requests, new tokens each, a
+#: flip every N accepted tokens, in the slice the next step checks):
+#: prompts of 32 tokens through 4 slots, K=4; (e2) is shrunk first (the
+#: time cut)
+MS_PROMPT, MS_SLOTS, MS_K = 32, 4, 4
+MS_TRAFFIC = {"e1": (4, 8, 4), "e2": (2, 4, 4)}
+#: 14e (e2): the shard whose replica alone takes the dense run's flips
+MS_ONE_RANK = 1
 #: 14d: 4 steps, row 1 (ranks 2-3) dies before step 2
 ELASTIC_STEPS, ELASTIC_KILL = 4, 2
 #: the byte a rank of the lost row writes over its blocks once the
@@ -3650,8 +3671,8 @@ def _mesh_pair_rungs(cfg, seq: int, dev) -> dict:
     """14c, in a rank: the donated pair (``arm_current`` / ``check``,
     K=1) with triage and the mesh parity, as ``train(mesh=..., donate=,
     triage=, parity=)`` composes them, driven by hand to place its two
-    flips on the initial state (no step loop: 14c's ``train()``
-    run steps the composition): bit 30 of an ``opt/v`` FFN
+    flips on the initial state (no step loop: 14b's ``train()`` run
+    steps triage and the mesh parity with the fused donated step): bit 30 of an ``opt/v`` FFN
     word (triage refuses it; ``parity_xor`` or ``replay`` repairs it;
     the state must come back to its bits before the flip), then bit 2 of
     another word of the same leaf (tolerated)."""
@@ -3771,6 +3792,199 @@ def _mesh_pair_rungs(cfg, seq: int, dev) -> dict:
     return out
 
 
+def _mesh_serve(dev, device: str, smoke: bool) -> dict:
+    """14e, in a rank, before 14d: ``serve --mesh`` — the serving engine on
+    the 2 x 2 mesh (``ServingEngine(ctx=...)``: the rank's param blocks
+    gathered into the storage the model reads once an iteration, the
+    replicated covered state, the shard-local canary whose flag is
+    all-reduced after the graph's replay), iterpro-100m at full width,
+    f32, seed 0, prompts of ``MS_PROMPT`` tokens through 4 slots, K=4,
+    the traffic and the flips' cadence of ``MS_TRAFFIC`` (the flips in
+    the slice the next step checks):
+
+    * (e1) all 12 layers, paged, donated, ``parity``; after the run
+      ``corrupt_param`` + ``scrub_params``;
+    * (e2) ``MESH_LAYERS`` layers, dense, ping-pong, the storm's flips
+      in rank ``MS_ONE_RANK``'s replica only.
+
+    Each run's token logs must equal those of a single-device engine on
+    shard 0 over the same gathered params (clean, no canary), gathered to
+    every rank.  Returns what ``check_mesh_serve`` asserts and prints:
+    the summary, the faults as this rank saw them, graphs and pointers,
+    a steady step's STATS, the launches of the run (with the scrub), the
+    gather, flag all-reduce and scrub times, and (e1) the path's kernels
+    against their plain versions on the rank's own data."""
+    import random
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import parity as cp
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import digest as kd
+    from repro_torch.kernels import paged_kv as pkv
+    from repro_torch.kernels import parity as pk
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_context
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tree import leaves as leaves_of
+
+    ctx = make_context(MESH, dev)
+    group = ctx.group(ctx.axis_names)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def timed(fn, n):
+        """Median host ms of ``fn`` over ``n`` calls, every rank entering
+        each call together (synchronised)."""
+        ms = []
+        for _ in range(n):
+            sync()
+            coll.barrier(ctx.device, group)
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(ms))
+
+    def same_bits(a, b):
+        return torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+    runs = {"e1": (None, dict(donate=True, parity=True), None),
+            "e2": (MESH_LAYERS, dict(donate=False, paged=False),
+                   [MS_ONE_RANK])}
+    out = {}
+    for name, (layers, kw, ranks) in runs.items():
+        cfg = _full_width("iterpro-100m", **(
+            {} if layers is None else dict(n_layers=layers)))
+        if smoke:
+            cfg = get_config("iterpro-100m").smoke()
+
+        n_req, n_gen, every = MS_TRAFFIC[name]
+
+        def reqs():
+            return make_requests(cfg, n_req, MS_PROMPT, n_gen,
+                                 np.random.default_rng(0))
+        _build.LAUNCHES.clear()
+        sync()
+        t0 = time.perf_counter()
+        eng = ServingEngine(cfg, ctx=ctx, n_slots=MS_SLOTS,
+                            max_len=MS_PROMPT + n_gen + 1,
+                            canary_slices=MS_K, max_replays=10**6, seed=0,
+                            **kw)
+        faults = []
+
+        def spy(report, finite, now, queue, _h=eng.handle_fault):
+            victims = _h(report, finite, now, queue)
+            faults.append((None if report is None else report.shards,
+                           list(victims)))
+            return victims
+        eng.handle_fault = spy
+        if ranks is not None:
+            def confined(rng, _f=eng.corrupt_slot, **k):
+                return _f(rng, ranks=ranks, **k)
+            eng.corrupt_slot = confined
+        rng = random.Random(0)
+        eng.warm()
+        ptrs = [t.data_ptr() for t in (*leaves_of(eng.params),
+                                       *leaves_of(eng.blocks))]
+        rep = eng.run(reqs(), inject_every=every, inject_rng=rng)
+        sync()
+        r = {"summary": rep.summary(), "secs": time.perf_counter() - t0,
+             "faults": faults, "graphs": len(eng._graphs),
+             "layers": cfg.model.n_layers,
+             "logs": {q: w["tokens"] for q, w in rep.per_request.items()}}
+        kd.STATS.reset()
+        eng.engine_step()
+        r["stats"] = kd.STATS.snapshot()
+        if kw.get("parity"):
+            pst = eng.parity_store
+            before = [t.clone() for t in leaves_of(eng.blocks)]
+            key, _ = eng.corrupt_param(rng)
+            sync()
+            t1 = time.perf_counter()
+            r["scrub"] = eng.scrub_params()
+            sync()
+            r["scrub_ms"] = 1e3 * (time.perf_counter() - t1)
+            r["healed"] = all(same_bits(a, b) for a, b in
+                              zip(leaves_of(eng.blocks), before))
+            del before
+            sh = dict(zip(pst.plan.keys, pst.plan.leaves(eng._psh)))[key]
+            r["expect_moved"] = sh.nbytes_local * len(
+                pst.plan.block_devices(key,
+                                       pst.plan.device_block[key][
+                                           ctx.shard_id]))
+            r["flip_key"] = key
+        r["ptrs_kept"] = ptrs == [t.data_ptr() for t in (
+            *leaves_of(eng.params), *leaves_of(eng.blocks))]
+        r["launches"] = dict(_build.LAUNCHES)
+        saved = dict(_build.LAUNCHES)
+        # what a step's parts cost alone: the iteration's gather and the
+        # flag's all-reduce
+        r["gather_ms"] = timed(eng.refresh_params, 2)
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+        r["allreduce_ms"] = timed(lambda: coll.flag_max(flag, group), 5)
+        # the reference tokens: one device, the same (gathered) params
+        single = None
+        if ctx.shard_id == 0:
+            one = ServingEngine(
+                cfg, device=dev, n_slots=MS_SLOTS,
+                max_len=MS_PROMPT + n_gen + 1, canary_slices=0,
+                params=eng.params,
+                **{k: v for k, v in kw.items() if k in ("donate", "paged")})
+            single = {q: w["tokens"] for q, w in
+                      one.run(reqs()).per_request.items()}
+            del one
+        r["single"] = coll.gather_objects(single, group)[0]
+        if name == "e1":
+            # the path's kernels against their plain versions, on this
+            # rank's own replica, pool and blocks (launches not counted)
+            plan = eng.canary.plan
+            lay = plan.layout(tuple(range(plan.n_leaves)))
+            lv = plan.leaves(eng._view())
+            bk = torch.zeros(lay.padded_rows * ck.LANES, dtype=torch.int32,
+                             device=dev)
+            bp = bk.clone()
+            ck.pack_rows(bk, lv, lay.starts)
+            ref.pack_rows_ref(bp, lv, lay.starts)
+            rows = bk.view(-1, ck.LANES)
+            r["pack_err"] = _max_err(torch, bk, bp)
+            r["rows_err"] = _max_err(torch, ck.row_checksums(rows),
+                                     ref.row_checksums_ref(rows))
+            pool = leaves_of(eng.pool)[0]
+            tbl = (torch.arange(eng.S * eng.max_blocks, dtype=torch.int32,
+                                device=dev) % eng.n_blocks).view(
+                eng.S, eng.max_blocks)
+            r["gather_err"] = _max_err(
+                torch, ref.to_i32(pkv.gather_blocks(pool, tbl)),
+                ref.to_i32(ref.gather_blocks_ref(pool, tbl)))
+            blk = dict(zip(pst.plan.keys, pst.plan.leaves(eng.blocks)))[key]
+            words = ref.to_i32(blk)
+            r["tiles_err"] = _max_err(torch, ck.checksum_tiles(words),
+                                      ref.checksum_tiles_ref(words))
+            pp = pst.plan
+            recv = pp.exchange(pp.stream_mat(pp.leaves(eng.blocks)))
+            fold = pk.xor_fold_tiles(recv)
+            r["fold_err"] = _max_err(torch, fold,
+                                     ref.xor_fold_tiles_ref(recv))
+            r["fold_is_parity"] = _max_err(torch, fold, pst.parity) == 0
+            r["words"] = int(rows.numel())
+            del bk, bp, rows, recv, fold
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(saved)
+        out[name] = r
+        eng.close()
+        del eng
+        # the mesh's plans go with the runs (14d builds its own)
+        kd._PLAN_CACHE.clear()
+        cp._PARITY_PLAN_CACHE.clear()
+        if device == "cuda":
+            _release(torch)
+    return out
+
+
 def _elastic_drill(seq: int, dev, device: str, smoke: bool) -> dict:
     """14d, in a rank, last of phase 14 (a rank of the lost row leaves):
     iterpro-100m at full width and depth with ``fsdp`` (the row-safe
@@ -3853,15 +4067,16 @@ def _elastic_drill(seq: int, dev, device: str, smoke: bool) -> dict:
 def _mesh_rank(steps: int, work: str, device: str = "cuda",
                smoke: bool = False) -> dict:
     """One rank of phase 14, a spawned process on ``cuda:0`` beside the
-    other three: at 6 of iterpro-100m's 12 layers, five runs of
-    ``train(mesh=...)`` (clean; a params flip every step: the odd steps
-    have no version-matched snapshot and replay, the even ones take
-    shard_patch; an iv storm, with a disk checkpoint at step 0; 14b's and
-    14c's modes) and 14c's placed flips (``_mesh_pair_rungs``) with the
-    launch counts of their kernels, then this rank's ``pack_rows`` and
+    other three: at ``MESH_LAYERS`` of iterpro-100m's 12 layers, four
+    runs of ``train(mesh=...)`` (clean; a params flip every step: the odd
+    steps have no version-matched snapshot and replay, the even ones take
+    shard_patch; an iv storm, with a disk checkpoint at step 0; 14b's
+    modes) and 14c's placed flips (``_mesh_pair_rungs``) with the launch
+    counts of their kernels, then this rank's ``pack_rows`` and
     ``row_checksums`` against their plain versions on its own blocks and
-    one steady check's STATS; last, 14d at all 12 layers
-    (``_elastic_drill``), after which the ranks of the lost row are out.
+    one steady check's STATS; then 14e, the serving engine on the mesh
+    (``_mesh_serve``); last, 14d at all 12 layers (``_elastic_drill``),
+    after which the ranks of the lost row are out.
     ``device="cpu"`` and ``smoke`` dry-run it on the CPU at the smoke
     size."""
     import torch
@@ -3893,17 +4108,13 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
     plans = {"clean": {}, "params": dict(inject_every=1),
              "iv": dict(inject_every=2, inject_target="iv",
                         checkpoint_dir=work, checkpoint_interval=2 * steps),
-             # 14b (and the checks of the clean fused run 14a was): the
-             # flip lands in the slice checked at its step (one flip, at
-             # step 2: the time cut)
+             # 14b (and the checks of the clean fused run 14a was, and
+             # of 14c's run through the entry point: triage in the
+             # composition): the flip lands in the slice checked at its
+             # step (one flip, at step 2: the time cut)
              "donate+fused+parity storm": dict(
-                 fused, parity=True, inject_every=2,
-                 inject_armed_only=True),
-             # 14c through the entry point: the donated pair with triage
-             # and the mesh parity under a params flip at step 2 (triage
-             # refuses a params word; parity_xor or replay repairs it)
-             "donate+triage+parity storm": dict(
-                 donate=True, triage=True, parity=True, inject_every=2)}
+                 fused, parity=True, triage=True, inject_every=2,
+                 inject_armed_only=True)}
     sync()
     runs, secs, by_run = {}, {}, {}
     for name, kw in plans.items():
@@ -3991,9 +4202,14 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
     _, mean_ms = timed(lambda: coll.sum_rows(coll.all_to_all(
         flat, ctx.group(ctx.batch_axes))))
     del full, grads, flat, local, clean
+    # 14e: the serving engine on the mesh (before 14d: after it only the
+    # surviving row's two ranks are left)
+    t0 = time.perf_counter()
+    serving = _mesh_serve(dev, device, smoke)
+    secs["14e"] = time.perf_counter() - t0
     # 14d, last: the ranks of the lost row leave
     elastic = _elastic_drill(seq, dev, device, smoke)
-    return {"elastic": elastic,
+    return {"elastic": elastic, "serving": serving,
         "shard": ctx.shard_id, "device": str(ctx.device),
         "name": torch.cuda.get_device_name(ctx.device)
         if device == "cuda" else "cpu",
@@ -4009,6 +4225,81 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
         if device == "cuda" else 0.0}
 
 
+def check_mesh_serve(ranks, device: str) -> None:
+    """14e's asserts and ``[mesh-serve]`` lines: in both runs every rank's
+    logs == the single-device engine's (storm == clean), detected ==
+    injected == recovered, nothing dropped, every rank the same faults
+    and victims, a steady step 1 launch + 1 fetch, 2K graphs a rank with
+    every pointer kept; (e1) the scrub repairs one leaf in place, moving
+    its block once per holder, the blocks back to their bits, and the
+    path's five kernels launched on every rank and bitwise their plain
+    versions on the rank's data; (e2) every report names shard
+    ``MS_ONE_RANK`` alone."""
+    for name in ("e1", "e2"):
+        first = ranks[0]["serving"][name]
+        for r in ranks:
+            e = r["serving"][name]
+            sm, f = e["summary"], e["summary"]["faults"]
+            assert e["logs"] == first["single"], (name, r["shard"])
+            n_req, n_gen, every = MS_TRAFFIC[name]
+            assert sm["completed"] == n_req and sm["dropped"] == 0, sm
+            assert f["injected"] > 0, (name, f)
+            assert f["detected"] == f["injected"] == f["recovered"], f
+            assert e["faults"] == first["faults"], (name, r["shard"])
+            assert tuple(e["stats"]) == (1, 1), (name, e["stats"])
+            assert e["ptrs_kept"], (name, r["shard"])
+            lc = e["launches"]
+            if device == "cuda":
+                assert e["graphs"] == 2 * MS_K, (name, e["graphs"])
+                for k in ("pack_rows", "row_checksums"):
+                    assert lc.get(k, 0) > 0, (name, k, lc)
+            extra = ""
+            if name == "e1":
+                sc = e["scrub"]
+                assert sc["repaired"] == 1 and sc["failed"] == [], sc
+                assert sc["bytes_moved"] == e["expect_moved"], sc
+                assert sc == first["scrub"], (sc, first["scrub"])
+                assert e["healed"] and e["fold_is_parity"], r["shard"]
+                for k in ("pack_err", "rows_err", "gather_err",
+                          "tiles_err", "fold_err"):
+                    assert e[k] == 0, (k, e[k])
+                if device == "cuda":
+                    for k in ("gather_blocks", "checksum_tiles",
+                              "xor_fold_tiles"):
+                        assert lc.get(k, 0) > 0, (k, lc)
+                extra = (f"; scrub of a flip in {e['flip_key']}: "
+                         f"checked {sc['checked']}, repaired "
+                         f"{sc['repaired']}, {sc['bytes_moved']} B moved "
+                         f"(the block x its holders), parity "
+                         f"{sc['memory_bytes']} B, {e['scrub_ms']:.1f} ms, "
+                         f"blocks == their bits before the flip; "
+                         f"pack_rows, row_checksums ({e['words']} words), "
+                         f"gather_blocks, checksum_tiles, xor_fold_tiles "
+                         f"bitwise their plain versions on the rank's data")
+            else:
+                for shards, victims in e["faults"]:
+                    assert shards and victims, e["faults"]
+                    assert all(v == [MS_ONE_RANK] for v in
+                               shards.values()), shards
+                extra = (f"; every report names shard {MS_ONE_RANK} "
+                         f"alone, every rank evicts the same slots")
+            print(f"[mesh-serve] rank {r['shard']} ({name}): iterpro-100m "
+                  f"({e['layers']} of 12 layers, d 768, f32) "
+                  f"{'paged donated --parity' if name == 'e1' else 'dense ping-pong'}"
+                  f" on the 2 x 2 mesh, K={MS_K}, {n_req} requests x "
+                  f"{MS_PROMPT} + {n_gen}, a flip every {every} tokens: "
+                  f"logs == one device's; faults "
+                  f"{f}, {sm['engine_steps']} steps; decode p50 "
+                  f"{sm['p50_decode_ms']:.1f} ms, p99 "
+                  f"{sm['p99_decode_ms']:.1f} ms (gloo-bound); the "
+                  f"iteration's gather alone {e['gather_ms']:.1f} ms, the "
+                  f"flag's "
+                  f"all-reduce {e['allreduce_ms']:.2f} ms; STATS a steady "
+                  f"step {tuple(e['stats'])}, {e['graphs']} graphs, every "
+                  f"pointer kept; launches {lc}{extra}; run "
+                  f"{e['secs']:.1f} s [{_SMI}]")
+
+
 def check_mesh_modes(r: dict, device: str) -> None:
     """Phase 14's mode runs in one rank's result: asserts and its
     ``[mesh-modes]`` line."""
@@ -4018,7 +4309,7 @@ def check_mesh_modes(r: dict, device: str) -> None:
         f"14b != clean on rank {r['shard']}"
     assert b["pointers_kept"], b
     # every fused report under donation is consumed: replay, never the
-    # in-place rungs (the parity is attached)
+    # in-place rungs (the parity and triage are in the ladder)
     assert set(b["recovery"]["by_rung"]) == {"replay"}, b["recovery"]
     assert b["digest_per_step"] == [[1, 1]], b
     if device == "cuda":
@@ -4038,13 +4329,9 @@ def check_mesh_modes(r: dict, device: str) -> None:
         for k in ("xor_fold_tiles", "xor_update_tiles", "checksum_tiles"):
             assert r["launches"].get(k, 0) > 0, (k, r["launches"])
     assert c["tiles_err"] == 0, c
-    # 14c through train(): the params flip escalates past triage, the
-    # donated run keeps every tensor and ends on the clean run's bits
-    d = sm["donate+triage+parity storm"]
-    assert set(d["recovery"]["by_rung"]) <= {"parity_xor", "replay"}, d
-    assert d["pointers_kept"], d
     print(f"[mesh-modes] rank {r['shard']}: (b) --donate --fused-detect "
-          f"--parity K={MESH_K}, a flip at step 2 in the checked slice: "
+          f"--triage --parity K={MESH_K}, a flip at step 2 in the checked "
+          f"slice: "
           f"final blocks == clean bitwise, every data_ptr kept, STATS a "
           f"step {b['digest_per_step']}, "
           f"{b['fused'].get('captures', b['fused'].get('builds'))} graphs "
@@ -4053,13 +4340,9 @@ def check_mesh_modes(r: dict, device: str) -> None:
           f"consumed reports -> {b['recovery']['by_rung']}, recovery p50 "
           f"{b['p50_recovery_ms']:.1f} ms, host p50 "
           f"{b['p50_step_ms']:.1f} ms, == clean bitwise, run "
-          f"{r['secs']['donate+fused+parity storm']:.1f} s; (c) "
-          f"train(donate, triage, parity), a params flip at step 2: "
-          f"{d['recovery']['by_rung']} in "
-          f"{d['p50_recovery_ms']:.1f} ms, host p50 "
-          f"{d['p50_step_ms']:.1f} ms, == clean bitwise, every data_ptr "
-          f"kept, run {r['secs']['donate+triage+parity storm']:.1f} s; "
-          f"its placed flips by hand on the initial state: bit 30 -> "
+          f"{r['secs']['donate+fused+parity storm']:.1f} s; (c) the "
+          f"donated pair with triage and the mesh parity, its placed "
+          f"flips by hand on the initial state: bit 30 -> "
           f"{first['attempted']} -> {first['rung']} ({first['bytes']} B, "
           f"{first['ms']:.1f} ms), state == its bits before the flip, "
           f"parity row ({c['parity_words']} "
@@ -4079,8 +4362,10 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
     bytes and an odd-step flip replays; every rank launches ``pack_rows``
     and ``row_checksums`` (rank 0
     also ``checksum_tiles``, the checkpoint's) and holds the first two
-    bitwise against their plain versions on its own blocks.
-    ``device="cpu"`` and ``smoke`` dry-run it on the CPU."""
+    bitwise against their plain versions on its own blocks; 14e serves
+    on the mesh (``check_mesh_serve``) and 14d loses a row
+    (``check_elastic``).  ``device="cpu"`` and ``smoke`` dry-run it on
+    the CPU."""
     from repro_torch.launch.mesh import spawn
     if device == "cuda":
         _phase_start(torch)
@@ -4098,14 +4383,14 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
     print(f"[mesh] iterpro-100m ({MESH_LAYERS} of 12 layers, d 768, f32) "
           f"on a 2 x 2 mesh: {len(ranks)} ranks on {ranks[0]['name']} "
           f"({ranks[0]['device']}) over gloo, batch {T_BATCH} x {T_SEQ}, "
-          f"{MESH_STEPS} steps a run, K=1, snapshot every 2; spawn + 6 "
-          f"runs + checks + 14d (12 layers) {wall:.1f} s "
+          f"{MESH_STEPS} steps a run, K=1, snapshot every 2; spawn + 4 "
+          f"runs + checks + 14e (mesh serving) + 14d (12 layers) "
+          f"{wall:.1f} s "
           f"(the last rank started {up:.1f} s after the spawn) [{_SMI}]")
     for r in ranks:
         sm = r["summaries"]
         assert sm["clean"]["faults_injected"] == 0, sm["clean"]
-        for name in ("params", "iv", "donate+fused+parity storm",
-                     "donate+triage+parity storm"):
+        for name in ("params", "iv", "donate+fused+parity storm"):
             f = sm[name]
             assert f["faults_injected"] > 0, (name, f)
             assert f["faults_detected"] == f["faults_injected"], (name, f)
@@ -4146,6 +4431,7 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
     verdicts = [[(e["rung"], e["attempted"], e["bytes"])
                  for e in r["pair"]["events"]] for r in ranks]
     assert all(v == verdicts[0] for v in verdicts), verdicts
+    check_mesh_serve(ranks, device)
     check_elastic(ranks, device)
 
 
@@ -4481,7 +4767,7 @@ def main() -> int:
     recurrent_phase(torch, 13, QWEN, {}, dict(n_layers=Q_TRAIN_LAYERS),
                     long=long_vlm, requests=vlm_requests(Q_GRID),
                     patch_rows=Q_GRID ** 2, checkpoint=False, profile=False,
-                    parity_kw=Q_PARITY)
+                    parity_kw=Q_PARITY, fused_clean=False)
     _stamp("phase 13")
 
     # -- phase 14: resilient training on a 2 x 2 mesh ---------------------

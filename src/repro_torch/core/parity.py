@@ -399,6 +399,12 @@ class MeshParityPlan(_PlanBase):
         """The parity row shard ``shard`` holds (here: its own)."""
         return shard
 
+    @property
+    def memory_bytes(self) -> int:
+        """The reference's figure: its whole ``(rows, Crow)`` buffer over
+        the mesh (a rank holds one tile-padded row of it)."""
+        return self.n_rows * self.row_words * 4
+
     # -- hard loss: collectives over the survivors, reading only them -------
 
     def host_parity_flat(self, parity: torch.Tensor,
@@ -566,9 +572,10 @@ class MeshParityPlan(_PlanBase):
 
     def reconstruct_leaf(self, parity, leaf, key: str, shard: int):
         raise NotImplementedError(
-            "not ported yet: the whole-leaf rebuild of a mesh parity store, "
-            "the at-rest scrub's (serve --mesh, ROADMAP.md queue 1, 'Mesh "
-            "and elastic')")
+            "a mesh parity store rebuilds one block at a time "
+            "(reconstruct_shard, as the scrub does): a rank holds a block, "
+            "not the whole leaf, and the reference has no whole-leaf "
+            "rebuild on a mesh either")
 
     def reconstruct_shard(self, parity: torch.Tensor, leaf: torch.Tensor,
                           key: str, blk: int) -> torch.Tensor:
@@ -938,11 +945,26 @@ class ParityStore:
         """The leaf with block ``shard`` reconstructed."""
         return self.plan.reconstruct_leaf(self.parity, leaf, key, shard)
 
+    def shard_digests(self, tree) -> Dict[str, np.ndarray]:
+        """On a mesh: every covered leaf's ``(n_shards, 2)`` digest rows
+        in shard order — each rank digests its own block of ``tree``
+        (``checksum_tiles``) and the rows are all-gathered (one
+        collective).  The reference's ``host_shard_checksums`` rows."""
+        from repro_torch.distributed import collectives as coll
+        plan = self.plan
+        if not plan.keys:
+            return {}
+        mine = torch.stack([kops.checksum(x) for x in plan.leaves(tree)])
+        rows = kdigest.fetch(coll.all_gather(
+            mine, plan.ctx.group(plan.ctx.axis_names)))
+        return {k: rows[:, i] for i, k in enumerate(plan.keys)}
+
     def scrub(self, tree, refs: Dict[str, np.ndarray]):
         """At-rest verify-and-repair sweep (the serving-side use: params
         never change while serving, so one parity build at load time and
         this sweep detect AND repair silent at-rest corruption with no
-        reload).
+        reload).  On a mesh ``tree`` holds the rank's blocks and ``refs``
+        the per-shard rows (``shard_digests``): see ``_scrub_mesh``.
 
         ``refs`` holds each leaf's healthy whole-leaf digest pair, recorded
         at build time.  A leaf whose digest differs is repaired by trial
@@ -954,6 +976,8 @@ class ParityStore:
         instead and leaves it untouched (exact-or-abort: the caller
         escalates to a reload).  Returns ``(repaired_tree, stats)``."""
         plan = self.plan
+        if isinstance(plan, MeshParityPlan):
+            return tree, self._scrub_mesh(tree, refs)
         stats = {"checked": 0, "repaired": 0, "bytes_moved": 0,
                  "failed": []}
         repaired: Dict[str, torch.Tensor] = {}
@@ -979,3 +1003,48 @@ class ParityStore:
         if not repaired:
             return tree, stats
         return replace_leaves(tree, repaired), stats
+
+    def _scrub_mesh(self, tree, refs: Dict[str, np.ndarray]) -> Dict:
+        """The reference's mesh branch (every rank, a collective): the
+        per-shard rows of every leaf (one all-gather) against ``refs``;
+        the bad shards of a leaf must map to ONE block (else the leaf
+        fails); ``reconstruct_shard`` rebuilds it from the parity and the
+        survivors; the candidate is certified before anything is written
+        (the holders' rows of the rebuilt block and the others' rows of
+        their own must give ``refs`` back; else the leaf fails, left
+        untouched: exact-or-abort) and every holder installs it in place
+        (``copy_``: every pointer kept).  ``bytes_moved`` counts the block
+        once per holder.  Returns the stats."""
+        from repro_torch.distributed import collectives as coll
+        plan = self.plan
+        group = plan.ctx.group(plan.ctx.axis_names)
+        stats = {"checked": 0, "repaired": 0, "bytes_moved": 0,
+                 "failed": []}
+        got = self.shard_digests(tree)
+        for key, leaf in zip(plan.keys, plan.leaves(tree)):
+            ref = refs.get(key)
+            if ref is None:
+                continue
+            stats["checked"] += 1
+            ref = np.asarray(ref)
+            bad = np.nonzero(np.any(got[key] != ref, axis=-1))[0]
+            if not len(bad):
+                continue
+            blocks = sorted({plan.device_block[key][int(i)] for i in bad})
+            if len(blocks) > 1:
+                stats["failed"].append(key)
+                continue
+            block = self.reconstruct_shard(leaf, key, blocks[0])
+            holders = plan.block_devices(key, blocks[0])
+            mine = plan.rank in holders
+            rows = kdigest.fetch(coll.all_gather(
+                kops.checksum(block if mine else leaf), group))
+            if not np.array_equal(rows, ref):
+                stats["failed"].append(key)
+                continue
+            if mine:
+                leaf.copy_(block.reshape(leaf.shape))
+            stats["bytes_moved"] += \
+                block.numel() * block.element_size() * len(holders)
+            stats["repaired"] += 1
+        return stats

@@ -407,20 +407,31 @@ def global_struct(shardings):
     return tree_map(lambda sh: sh.meta(), shardings)
 
 
-def gather_tree(tree, shardings):
+def gather_tree(tree, shardings, out=None):
     """Full tensors from every rank's blocks; a replicated leaf is taken
     as it is.  Collective: one ``all_gather`` per (set of axes the leaves
-    are sharded over, dtype), the blocks packed into one buffer."""
+    are sharded over, dtype), the blocks packed into one buffer.  With
+    ``out`` (a tree of full-shape tensors, e.g. a previous result) the
+    gathered leaves are written into its tensors in place, so every
+    ``data_ptr`` of ``out`` is kept (a captured graph may read them); a
+    replicated leaf is copied in unless ``out`` holds that very tensor.
+    Returns ``out`` then."""
     flat = flatten_with_path(tree)
     shs = [sh for _, sh in flatten_with_path(shardings)]
+    dst = None if out is None else \
+        {leaf_key(p): t for p, t in flatten_with_path(out)}
     full: Dict[str, torch.Tensor] = {}
     groups: Dict[Tuple, List[int]] = {}
     for i, ((path, t), sh) in enumerate(zip(flat, shs)):
         if sh.axes:
             key = (tuple(sorted(sh.axes)), str(sh.dtype))
             groups.setdefault(key, []).append(i)
-        else:
+        elif dst is None:
             full[leaf_key(path)] = t
+        else:
+            o = full[leaf_key(path)] = dst[leaf_key(path)]
+            if o is not t:
+                o.copy_(t)
     for key in sorted(groups):
         axes, idx = key[0], groups[key]
         ctx = shs[idx[0]].ctx
@@ -431,9 +442,12 @@ def gather_tree(tree, shardings):
         for i in idx:
             (path, t), sh = flat[i], shs[i]
             n = math.prod(sh.local_shape)
-            out = torch.empty(sh.shape, dtype=sh.dtype, device=t.device)
+            o = torch.empty(sh.shape, dtype=sh.dtype, device=t.device) \
+                if dst is None else dst[leaf_key(path)]
             for m, d in enumerate(members):
-                out[sh.box(d)] = rows[m, off:off + n].view(sh.local_shape)
-            full[leaf_key(path)] = out
+                o[sh.box(d)] = rows[m, off:off + n].view(sh.local_shape)
+            full[leaf_key(path)] = o
             off += n
+    if out is not None:
+        return out
     return map_with_path(lambda p, _: full[leaf_key(p)], tree)

@@ -22,7 +22,8 @@ The near-zero-downtime answer, run here by the survivors alone:
 3. **Elastic re-mesh** — ``DistContext.degrade`` builds the survivors'
    mesh and groups, every cache keyed on the dead mesh is evicted
    (``invalidate_mesh_caches``: digest and parity plans, the canary's
-   units, the fused step's graphs), and ``launch/specs.bind_state`` runs
+   units, the fused step's graphs, the serving engines' graphs and
+   gathered params), and ``launch/specs.bind_state`` runs
    the one binding recipe on the degraded context.  A fresh canary and
    row-safe parity are built there and training resumes at the reduced
    data width.
@@ -180,14 +181,16 @@ def invalidate_mesh_caches(ctx: DistContext) -> Dict[str, int]:
     units, the digest and parity plans (their pack rings and exchange
     buffers).  After a hard loss they hold buffers of a mesh that is
     gone, and a second loss in the same process must not meet them.
-    Serving has no mesh cache yet (``serve --mesh`` is not ported)."""
+    ``"serving"`` counts the serving engines' graphs, check+arm cores and
+    gathered params storage (``serving/engine.evict_mesh``)."""
     from repro_torch.core import detect, fused_step
     from repro_torch.core import parity as core_parity
+    from repro_torch.serving import engine as serving_engine
     return {"fused_step": fused_step.evict_mesh(ctx),
+            "serving": serving_engine.evict_mesh(ctx),
             "fused_canary": detect.evict_mesh(ctx),
             "digest_plans": kdigest.evict_mesh(ctx),
-            "parity_plans": core_parity.evict_mesh_plans(ctx),
-            "serving": 0}
+            "parity_plans": core_parity.evict_mesh_plans(ctx)}
 
 
 # ---------------------------------------------------------------------------

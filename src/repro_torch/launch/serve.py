@@ -4,6 +4,8 @@ continuous-batching engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch iterpro-100m
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --requests 4 --prompt-len 16 --gen 12 --inject 5
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --mesh 4,2 --requests 4 --prompt-len 16 --gen 12 --inject 5 --parity
 
 ``--arch`` takes every dense configuration (``iterpro-100m``,
 ``h2o-danube-1.8b``, ``gemma3-1b``, ``gemma3-27b``, ``command-r-35b``),
@@ -38,8 +40,17 @@ per-slot cache; ``--prefill-chunk C`` prefills prompts C tokens at a
 time, interleaved with decode steps.  ``--parity`` adds the at-rest XOR
 parity over the params and an end-of-run ``scrub_params`` (reported
 under ``"parity"``); with ``--inject`` one param bit is flipped after the
-run so the scrub repairs it.  ``--mesh`` is not ported yet and raises
-(ROADMAP.md, queue 1).
+run so the scrub repairs it.
+
+``--mesh dp,tp`` (e.g. ``4,2``) serves on a device mesh: one process per
+mesh device (``launch/mesh.spawn``; on a one-card machine the ranks
+share the card over gloo), each holding its blocks of the params
+(``launch/specs.param_shardings``) and a replica of the covered state,
+with the shard-local canary and, with ``--parity``, the mesh parity over
+the params and its per-shard scrub (``serving/engine.py``).  Every other
+flag composes with it.  Rank 0's summary is returned, with ``"mesh":
+{"shape": ..., "devices": n}``; ``--mesh 4,2 --device cpu`` spawns 8
+gloo ranks on the CPU.
 """
 
 from __future__ import annotations
@@ -51,9 +62,10 @@ import random
 import numpy as np
 
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import (in_group, make_context, parse_mesh,
+                                     rank_device, spawn)
 from repro_torch.serving import Request, ServingEngine
-
-_MESH = "mesh serving (ROADMAP.md queue 1 item 6.4: serve --mesh)"
+from repro_torch.serving.engine import resolve_device
 
 
 def make_requests(cfg, n_requests: int, prompt_len: int, gen_tokens: int,
@@ -91,10 +103,27 @@ def serve(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
     forces the dense cache; ``prefill_chunk`` > 0 prefills in chunks.
     ``parity=True`` builds the at-rest parity over the params and ends the
     run with a scrub (summary entry ``"parity"``); with ``inject_every``
-    one param bit is flipped first, so the scrub repairs it."""
+    one param bit is flipped first, so the scrub repairs it.  ``mesh``
+    ('dp,tp'): called off a process group, one rank is spawned per mesh
+    device and rank 0's summary returned; called in a rank, it serves as
+    that rank (its engine on the rank's context)."""
     del fused_detect  # detection is always in-step fused
+    ctx = None
     if mesh:
-        raise NotImplementedError(f"not ported yet: {_MESH}")
+        if not in_group():
+            kw = dict(n_requests=n_requests, prompt_len=prompt_len,
+                      gen_tokens=gen_tokens, seed=seed,
+                      inject_every=inject_every, verbose=verbose,
+                      canary_slices=canary_slices, donate=donate,
+                      mesh=mesh, n_slots=n_slots, paged=paged,
+                      block_size=block_size, prefill_chunk=prefill_chunk,
+                      parity=parity, device=device)
+            return spawn(_rank_serve, parse_mesh(mesh)[0], (cfg, kw),
+                         device=resolve_device(device).type)[0]
+        import torch.distributed as dist
+        device = rank_device(dist.get_rank(), resolve_device(device).type)
+        ctx = make_context(mesh, device, fsdp=cfg.sharding.fsdp)
+        verbose = verbose and ctx.shard_id == 0
     random.seed(seed)
     np.random.seed(seed % 2**32)
     rng = random.Random(seed)
@@ -108,7 +137,7 @@ def serve(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
         # works) — the drop bound is a benchmark knob, not a CLI one
         max_replays=10**6, verbose=verbose, paged=paged,
         block_size=block_size, prefill_chunk=prefill_chunk, device=device,
-        parity=parity)
+        parity=parity, ctx=ctx)
     reqs = make_requests(cfg, n_requests, prompt_len, gen_tokens, nprng)
     eng.warm()
     out = eng.run(reqs, inject_every=inject_every, inject_rng=rng).summary()
@@ -118,9 +147,16 @@ def serve(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
             # the run, so the scrub demonstrates detection + XOR repair
             eng.corrupt_param(rng)
         out["parity"] = eng.scrub_params()
+    if ctx is not None:
+        out["mesh"] = {"shape": ctx.shape, "devices": ctx.n_devices}
     if verbose:
         print(json.dumps(out, indent=1))
     return out
+
+
+def _rank_serve(cfg, kw):
+    """One spawned rank of ``serve(mesh=...)`` called off the mesh."""
+    return serve(cfg, **kw)
 
 
 def main(argv=None):
@@ -155,7 +191,9 @@ def main(argv=None):
                          "pool is the default where the family supports "
                          "it)")
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet (raises; ROADMAP.md queue 1)")
+                    help="dp,tp (e.g. 4,2): one process per mesh device, "
+                         "the params sharded over them, the covered state "
+                         "replicated, the canary shard-local")
     ap.add_argument("--parity", action="store_true",
                     help="at-rest XOR parity over the static params: an "
                          "end-of-run scrub detects and repairs silent "

@@ -1,9 +1,11 @@
-"""The train state's shardings and the one mesh-binding recipe —
-counterpart of the sharding half of ``repro/launch/specs.py``.
+"""The train state's and the params' shardings and the one mesh-binding
+recipe — counterpart of the sharding half of ``repro/launch/specs.py``.
 
 ``state_shardings`` gives every leaf of a train state its spec
 (``distributed/sharding.py``) and its ``LeafSharding`` (the spec with the
-leaf's global shape: index boxes, local blocks, gathers).  ``bind_state``
+leaf's global shape: index boxes, local blocks, gathers);
+``param_shardings`` does the same for a bare param tree (the serving
+engine's).  ``bind_state``
 is the recipe every mesh loop goes through: derive the shardings, keep
 this rank's blocks of the state, wrap the step to the mesh step
 (``train/loop.pin_state_shardings``) and wrap the batch function to this
@@ -29,6 +31,13 @@ def state_shardings(ctx: DistContext, cfg, state):
     specs = {"params": pspecs, "opt": ospecs,
              "iv": tree_map(lambda _: P(), state["iv"])}
     return shardings_for(ctx, specs, state), specs
+
+
+def param_shardings(ctx: DistContext, cfg, params):
+    """``(LeafSharding tree, spec tree)`` of a bare param tree — the
+    serving-side twin of ``state_shardings``."""
+    specs = param_specs(ctx, params, cfg.sharding, cfg.model)
+    return shardings_for(ctx, specs, params), specs
 
 
 def batch_shardings(ctx: DistContext, batch):

@@ -77,13 +77,38 @@ off-mesh ``repro/serving/engine.py``.
   writes the params, so one XOR parity build at construction and the
   digests recorded beside it let ``scrub_params`` detect and repair a
   silently flipped weight with no reload.
-
-Not ported yet (ROADMAP.md, queue 1): mesh serving.
+* **On a mesh** (``ctx``: a meshed ``DistContext``, one engine per rank;
+  the reference's mesh mode).  The params shard per
+  ``launch/specs.param_shardings`` and the engine holds only the rank's
+  blocks (``blocks``): those are the at-rest weights the parity covers,
+  the adversary flips and the scrub repairs.  The port has no
+  tensor-parallel compute, so the model reads a whole-params tree in
+  fixed storage (``params``; a replicated leaf is its block itself),
+  gathered from every rank's blocks by ``gather_tree(..., out=)``
+  eagerly once per ``run`` iteration, before the first admission,
+  prefill chunk or engine step that reads it: no token is computed from
+  weights older than the blocks at the start of its iteration, and the
+  gathered copy is never kept as the weights.  The covered state (cache
+  or pool, ``pos``, ``tok``, ``amask``, the forced buffer) is
+  replicated: every rank holds all of it and runs the same scheduler on
+  the same requests in lockstep.  The canary is shard-local over the
+  rank's replica (a ``ShardedDigestPlan``); a graph cannot hold a gloo
+  collective, so a step's graph records the body up to
+  ``CheckArm.finish_local`` (with a lane's non-finite logits folded into
+  the local flag) and ``reduce_flag`` (the flag's MAX all-reduce) runs
+  eagerly after the replay, before the one fetch: a steady step is the
+  iteration's gather, one replay, one all-reduce and one fetch.  Once
+  the flag fired every rank gathers the mismatch masks and the lanes'
+  finite bits (``FaultReport.shards`` names the injured replicas), so
+  every rank evicts the same victims.  ``evict_mesh`` drops a mesh's
+  engines' graphs, cores and gathered storage.
 """
 
 from __future__ import annotations
 
+import math
 import time
+import weakref
 from collections import Counter, deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set, Tuple
@@ -99,9 +124,11 @@ from repro_torch.core.faults import bit_width, flip_bit
 from repro_torch.core.parity import ParityStore
 from repro_torch.core.recover import plan_serving_recovery
 from repro_torch.core.replay import copy_into
+from repro_torch.distributed.sharding import gather_tree, local_tree
 from repro_torch.kernels import _build
 from repro_torch.kernels import digest as kdigest
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.specs import param_shardings
 from repro_torch.models.registry import get_model
 from repro_torch.serving import paged as pgd
 from repro_torch.serving.paged import (AdmissionError, BlockAllocator,
@@ -113,6 +140,19 @@ from repro_torch.tree import (flatten_with_path, leaf_key, leaves,
 #: eager steps on the card before the first capture (lazy initialisation
 #: of cuBLAS and the kernels' host state); at least one per rotation
 WARMUP_STEPS = 2
+
+#: every live engine on a mesh (``evict_mesh`` drops a lost mesh's)
+_ON_MESH: "weakref.WeakSet[ServingEngine]" = weakref.WeakSet()
+
+
+def evict_mesh(ctx) -> int:
+    """Close every live engine on ``ctx``'s mesh (its axes and ranks):
+    after a hard loss its graphs, check+arm cores and gathered params
+    storage belong to a mesh that is gone.  Returns the entries dropped
+    (graphs + cores + gathered-storage trees)."""
+    mk = kdigest.mesh_key(ctx)
+    return sum(e.close() for e in list(_ON_MESH)
+               if kdigest.mesh_key(e.ctx) == mk)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -230,19 +270,26 @@ class ServingEngine:
                     chunks interleaved with engine steps (paged only)
     pool_blocks   : pool blocks incl. scratch block 0 (0 = every slot can
                     hold a max-size request)
+    ctx           : DistContext for mesh serving (this rank's param blocks,
+                    the replicated covered state, the shard-local canary)
+                    or None
     device        : torch device; None = the CUDA card, raising if none
-    params        : ready params (same tree as ``init_lm``), e.g. bridged
+                    (on a mesh the rank's, ``ctx.device``)
+    params        : ready params (same tree as ``init_lm``; on a mesh the
+                    GLOBAL tree, the rank keeps its blocks), e.g. bridged
                     from the reference; None = the port's seeded init
     parity        : keep an XOR parity over the params (``scrub_params``)
     """
 
     def __init__(self, cfg, *, n_slots: int = 4, max_len: int = 64,
-                 canary_slices: int = 4, donate: bool = True, seed: int = 0,
-                 max_replays: int = 8, verbose: bool = False,
+                 canary_slices: int = 4, donate: bool = True, ctx=None,
+                 seed: int = 0, max_replays: int = 8, verbose: bool = False,
                  paged: Optional[bool] = None, block_size: int = 8,
                  prefill_chunk: int = 0, pool_blocks: int = 0, device=None,
                  params=None, parity: bool = False):
-        self.device = dev = resolve_device(device)
+        self.ctx = ctx if (ctx is not None and ctx.enabled) else None
+        self.device = dev = (self.ctx.device if self.ctx is not None
+                             else resolve_device(device))
         if dev.type == "cuda":
             # f32 projections as in the reference: no TF32 anywhere
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -258,21 +305,43 @@ class ServingEngine:
         self.block_size = bs = int(block_size)
         self.prefill_chunk = int(prefill_chunk)
         self.max_len = int(max_len)
-        self.params = (params if params is not None
-                       else self.model.init(self.m, seed, dev))
+        full = (params if params is not None
+                else self.model.init(self.m, seed, dev))
+        #: on a mesh: the rank's param blocks (the at-rest weights), their
+        #: shardings, and the whole-params storage the model reads
+        self._blocks = self._psh = self._whole = None
+        self._stale = False
+        if self.ctx is not None:
+            self._psh, _ = param_shardings(self.ctx, cfg, full)
+            self._blocks = tree_map(lambda t: t.to(dev),
+                                    local_tree(full, self._psh))
+            self._whole = tree_map(
+                lambda b, sh: b if not sh.axes else torch.empty(
+                    sh.shape, dtype=sh.dtype, device=dev),
+                self._blocks, self._psh)
+            full = self._whole
+            self._stale = True
+            _ON_MESH.add(self)
+        self.params = full
 
         # at-rest parity over the STATIC params: one build here and the
         # healthy digests recorded beside it (one fetch) let
-        # ``scrub_params`` detect and repair at-rest corruption
+        # ``scrub_params`` detect and repair at-rest corruption; on a
+        # mesh over the rank's blocks, the digests per shard
         self.parity_store: Optional[ParityStore] = None
         self._param_refs: Optional[Dict[str, np.ndarray]] = None
         if parity:
-            self.parity_store = ParityStore(self.params)
-            self.parity_store.build(self.params)
-            plan = self.parity_store.plan
-            table = kdigest.fetch(torch.stack(
-                [kops.checksum(x) for x in plan.leaves(self.params)]))
-            self._param_refs = dict(zip(plan.keys, table))
+            at_rest = self.blocks
+            self.parity_store = ParityStore(at_rest, ctx=self.ctx,
+                                            shardings=self._psh)
+            self.parity_store.build(at_rest)
+            if self.ctx is not None:
+                self._param_refs = self.parity_store.shard_digests(at_rest)
+            else:
+                plan = self.parity_store.plan
+                table = kdigest.fetch(torch.stack(
+                    [kops.checksum(x) for x in plan.leaves(at_rest)]))
+                self._param_refs = dict(zip(plan.keys, table))
 
         # layout: the paged pool unless forced off or unsupported
         self.paged = False
@@ -331,7 +400,7 @@ class ServingEngine:
         self._cores: Dict[int, Optional[kdigest.CheckArm]] = {}
         if self.K:
             self.canary = ChecksumCanary(self._view_of(self._versions[0]),
-                                         n_slices=self.K)
+                                         n_slices=self.K, ctx=self.ctx)
             self.plan = self.canary.plan
             if self.paged:
                 self._block_keys = [
@@ -372,6 +441,45 @@ class ServingEngine:
         # a captured graph reads the params it was captured with
         self._params = value
         self._graphs: Dict[Tuple[int, int], _Graph] = {}
+
+    @property
+    def blocks(self):
+        """The at-rest params: on a mesh this rank's blocks, else
+        ``params``."""
+        return self._blocks if self.ctx is not None else self.params
+
+    def refresh_params(self) -> None:
+        """On a mesh: gather every rank's blocks into the whole-params
+        storage the model reads, in place (a collective, eager, outside
+        any graph; the storage keeps its pointers, so the graphs stay
+        valid).  Off the mesh nothing."""
+        if self.ctx is None:
+            return
+        if self._whole is None:
+            raise RuntimeError("this engine was closed (evict_mesh)")
+        gather_tree(self._blocks, self._psh, out=self._whole)
+        self._stale = False
+
+    def _ensure_params(self) -> None:
+        """Gather unless this iteration already did (on a mesh)."""
+        if self._stale:
+            self.refresh_params()
+
+    def close(self) -> int:
+        """Drop the graphs, the check+arm cores and, on a mesh, the
+        gathered params storage; the engine is unusable after it.  Returns
+        the entries dropped."""
+        n = (len(self._graphs) + sum(c is not None
+                                     for c in self._cores.values())
+             + (self._whole is not None))
+        self._graphs.clear()
+        self._cores.clear()
+        self._pool = None
+        if self.ctx is not None:
+            self._whole = self._params = None
+            self._stale = True
+        _ON_MESH.discard(self)
+        return n
 
     def _gen(self) -> int:
         return (self.canary.generation if self.canary is not None
@@ -477,7 +585,14 @@ class ServingEngine:
             lv = self._views[0 if self.donate else 1 - b]
             core.pack_arm(buf, [lv[i] for i in core.arm], desc=descs[1])
             tables = self.canary._tables
-            flag, bad = core.finish(buf, tables[g & 1], tables[1 - (g & 1)])
+            # the local flag: on a mesh ``engine_step`` reduces it over
+            # the ranks after the replay (a graph cannot hold the
+            # collective), with a lane's non-finite logits folded in, so
+            # a fault any rank sees is acted on by every rank
+            flag, bad = core.finish_local(buf, tables[g & 1],
+                                          tables[1 - (g & 1)])
+            if self.ctx is not None:
+                flag = flag | (self.amask & ~finite).any()
             parts.insert(0, flag.to(torch.int32).reshape(1))
         elif self.canary is not None:
             # a rotation with nothing to digest: a flag that never fires
@@ -544,6 +659,7 @@ class ServingEngine:
         and, on the card, capture every graph of the step (2K; one or two
         without a canary).  Returns wall seconds; idempotent."""
         t0 = time.perf_counter()
+        self._ensure_params()
         if self.device.type == "cuda":
             _build.lib()
         if self.canary is not None:
@@ -575,7 +691,12 @@ class ServingEngine:
         fetch of the fault flag with the token payload beside it (with no
         canary an uncounted payload transfer: the data plane).
 
+        On a mesh the flag is all-reduced (MAX) after the replay, before
+        the fetch; when it fired every rank gathers the masks and the
+        lanes' finite bits, so all act on the same report and lanes.
+
         Returns ``(tokens (S,), finite (S,) bool, report|None)``."""
+        self._ensure_params()
         if self._replay and not self._graphs:
             self.warm()
         s = self.step_count
@@ -592,34 +713,67 @@ class ServingEngine:
             host, bad = self._body(r, g)
         report = None
         if self.canary is not None:
+            core = self._rotation(r)
+            if self.ctx is not None and core is not None:
+                host[:1].copy_(core.reduce_flag(host[:1]).to(host.dtype))
             self.canary.commit_update(self.canary.begin_update()[1])
             vals = kdigest.fetch(host)          # the step's ONE fault sync
             fired, vals = bool(vals[0]), vals[1:]
             if fired:
-                report = FaultReport(
-                    s, "checksum", detail=("paged block canary"
-                                           if self.paged else "slot canary"),
-                    resolver=self._resolver(self._rotation(r).chk,
-                                            bad.clone()))
+                detail = "paged block canary" if self.paged \
+                    else "slot canary"
+                if self.ctx is None:
+                    report = FaultReport(s, "checksum", detail=detail,
+                                         resolver=self._resolver(
+                                             core.chk, bad.clone()))
+                else:
+                    report, vals = self._mesh_fault(s, detail, core, bad,
+                                                    vals)
         else:
             vals = host.cpu().numpy()
         self.step_count += 1
+        if self.ctx is not None:
+            self._stale = True
         return vals[:self.S], vals[self.S:].astype(bool), report
+
+    def _mesh_fault(self, s: int, detail: str, core, bad, vals):
+        """The fault path of a mesh step (every rank, the flag having
+        fired on all): the mismatch masks gathered (``FaultReport.shards``
+        names the injured replicas; no mismatch on any rank: no report,
+        as off the mesh) and the lanes' finite bits ANDed over the
+        ranks.  Returns ``(report | None, vals)``."""
+        from repro_torch.distributed import collectives as coll
+        group = self.ctx.group(self.ctx.axis_names)
+        fin = torch.from_numpy(np.ascontiguousarray(
+            vals[self.S:])).to(torch.int32).to(self.device)
+        vals = vals.copy()
+        vals[self.S:] = kdigest.fetch(coll.all_reduce(fin, "min", group))
+        leaves, shards = self._resolver(core.chk, bad)()
+        if not leaves:
+            return None, vals
+        return FaultReport(s, "checksum", leaves=leaves, shards=shards,
+                           detail=detail), vals
 
     def _resolver(self, chk, bad):
         """Attribution closure.  Paged: (leaf, block) keys of blocks a
         request owned AT DETECTION TIME become ``slotNNN/blockNNNN/...``
         keys; unowned blocks keep their raw keys (nobody to evict).
-        Dense: the (leaf, slot) keys as they are."""
+        Dense: the (leaf, slot) keys as they are.  On a mesh the closure
+        returns ``(leaves, shards)`` (the masks gathered: a
+        collective)."""
         can = self.canary
-        if not self.paged:
-            return lambda: can._attribute(chk, bad)
-        owner = dict(self.alloc.owner)
+        owner = dict(self.alloc.owner) if self.paged else {}
 
         def xlat(k):
             b = block_of_leaf(k)
             o = owner.get(b) if b is not None else None
             return k if o is None else f"{slot_leaf_prefix(o)}/{k}"
+        if self.ctx is not None:
+            def attribution():
+                got, shards = can._attribution(chk, bad)
+                return (sorted(xlat(k) for k in got),
+                        {xlat(k): v for k, v in shards.items()})
+            return attribution
         return lambda: sorted(xlat(k) for k in can._attribute(chk, bad))
 
     # -- scheduler: admission / acceptance / eviction ------------------------
@@ -720,6 +874,7 @@ class ServingEngine:
         engine steps.  Dense, the prefilled cache goes into the slot in
         one in-place write, its ``pos`` the slot's position."""
         self.check_admissible(rq)
+        self._ensure_params()
         if self.paged:
             self._admit_paged(rq, slot, now_s, interleave=interleave)
             return
@@ -770,6 +925,7 @@ class ServingEngine:
         only the valid rows: scratch block 0 is not written).  With
         ``refresh`` the touched blocks are re-certified; the last unit
         activates the lane."""
+        self._ensure_params()
         st = self._prefilling[slot]
         rq, off = st["rq"], st["off"]
         P = len(rq.prompt)
@@ -946,9 +1102,14 @@ class ServingEngine:
 
     def corrupt_slot(self, rng, slot: Optional[int] = None,
                      key: Optional[str] = None, bit: Optional[int] = None,
-                     armed_only: bool = False) -> Tuple[int, str, int]:
+                     armed_only: bool = False,
+                     ranks: Optional[Sequence[int]] = None
+                     ) -> Tuple[int, str, int]:
         """Flip one bit of one element of one canary unit of the live
-        state, in place.
+        state, in place.  On a mesh every rank draws the same values and
+        flips the same element of its replica (the reference's replicated
+        flip); ``ranks`` (shard ids) confines the flip to those ranks'
+        replicas — one device's fault, a test hook of the same model.
 
         A slot target is the set of units the slot owns.  ``armed_only``
         restricts the pick to units armed for the NEXT step's check (the
@@ -1001,32 +1162,60 @@ class ServingEngine:
             start = u * per
             if self.paged:
                 u = self.alloc.owner.get(u, -1)
-        e = rng.randrange(per) if per > 1 else 0
+        # the reference draws the element of every dense unit, a 1-element
+        # ``pos`` too, and none for a paged ``pos`` unit
+        e = rng.randrange(per) if per > 1 or not self.paged else 0
         b = bit if bit is not None else rng.randrange(bit_width(unit))
-        flip_bit(unit, start + e, b)
+        if self._flips_here(ranks):
+            flip_bit(unit, start + e, b)
         self.report.faults_injected += 1
         rid = self.slot_rid[u] if 0 <= u < self.S else None
         if rid is not None:
             self.report.injured_rids.add(rid)
         return u, key, b
 
+    def _flips_here(self, ranks) -> bool:
+        """Does a flip confined to ``ranks`` (shard ids; None: every
+        rank) land in this rank's replica?"""
+        if ranks is None:
+            return True
+        if self.ctx is None:
+            raise ValueError("ranks= confines a flip to ranks of a mesh")
+        return self.ctx.shard_id in set(ranks)
+
     def corrupt_param(self, rng, key: Optional[str] = None,
-                      bit: Optional[int] = None) -> Tuple[str, int]:
+                      bit: Optional[int] = None,
+                      ranks: Optional[Sequence[int]] = None
+                      ) -> Tuple[str, int]:
         """Flip one bit of one element of a parity-covered param leaf —
         the at-rest weight-rot adversary ``scrub_params`` exists for.  The
         flip goes into a copy of the leaf that replaces it in this
         engine's params tree, so another engine built over the same
-        params is untouched.  Returns (leaf key, bit)."""
+        params is untouched.  On a mesh the element is drawn over the
+        GLOBAL leaf, as the reference does, and every rank holding it
+        flips its block in place (``ranks``: only those shard ids' blocks
+        — one device's fault).  Returns (leaf key, bit)."""
         if self.parity_store is None:
             raise ValueError("corrupt_param requires parity=True")
         plan = self.parity_store.plan
         if key is None:
             key = plan.keys[rng.randrange(len(plan.keys))]
-        leaf = dict(zip(plan.keys, plan.leaves(self.params)))[key]
-        e = rng.randrange(max(1, leaf.numel()))
-        b = bit if bit is not None else rng.randrange(bit_width(leaf))
-        flipped = flip_bit(leaf.clone(), e, b)
-        self.params = replace_leaves(self.params, {key: flipped})
+        leaf = dict(zip(plan.keys, plan.leaves(self.blocks)))[key]
+        if self.ctx is not None:
+            sh = {leaf_key(p): x for p, x in
+                  flatten_with_path(self._psh)}[key]
+            e = rng.randrange(max(1, math.prod(sh.shape)))
+            b = bit if bit is not None else rng.randrange(bit_width(leaf))
+            j = sh.local_index(e)
+            if j is not None and self._flips_here(ranks):
+                flip_bit(leaf, j, b)
+            self._stale = True
+        else:
+            self._flips_here(ranks)
+            e = rng.randrange(max(1, leaf.numel()))
+            b = bit if bit is not None else rng.randrange(bit_width(leaf))
+            flipped = flip_bit(leaf.clone(), e, b)
+            self.params = replace_leaves(self.params, {key: flipped})
         self.report.faults_injected += 1
         return key, b
 
@@ -1034,14 +1223,20 @@ class ServingEngine:
         """At-rest integrity sweep over the params: verify every covered
         leaf against the load-time digests and XOR-reconstruct an injured
         block from the parity and its peers (no reload).  Repaired params
-        are installed, so later decode steps use healthy weights.  Returns
-        the scrub stats with the parity's ``memory_bytes``."""
+        are installed, so later decode steps use healthy weights.  On a
+        mesh (a collective) the per-shard digests name the injured block
+        and every holder installs its repair in place (the graphs keep
+        their pointers).  Returns the scrub stats with the parity's
+        ``memory_bytes``."""
         if self.parity_store is None:
             raise ValueError("scrub_params requires parity=True")
-        new_params, stats = self.parity_store.scrub(self.params,
+        new_params, stats = self.parity_store.scrub(self.blocks,
                                                     self._param_refs)
         if stats["repaired"]:
-            self.params = new_params
+            if self.ctx is None:
+                self.params = new_params
+            else:
+                self._stale = True
             self.report.faults_detected += stats["repaired"]
             self.report.faults_recovered += stats["repaired"]
         stats["memory_bytes"] = self.parity_store.memory_bytes
@@ -1058,7 +1253,19 @@ class ServingEngine:
         every N ACCEPTED tokens, by default into the canary's protected
         window (``inject_armed_only``), so every storm fault is detected
         and the recovery path is what gets measured.  ``clock`` overrides
-        the engine clock (seconds; default: wall time since this call)."""
+        the engine clock (seconds; default: wall time since this call).
+
+        On a mesh every rank runs this loop over the same requests in
+        lockstep, and the params are gathered once an iteration, before
+        the first admission, prefill chunk or step that reads them.  A
+        wall clock would admit open-loop arrivals at different times on
+        different ranks, so arrivals after 0 need a ``clock`` that every
+        rank reads alike (a ``VirtualClock``)."""
+        if self.ctx is not None and clock is None and any(
+                rq.arrival_s > 0 for rq in requests):
+            raise ValueError("mesh serving admits in lockstep: open-loop "
+                             "arrivals need a clock every rank reads "
+                             "alike (e.g. VirtualClock)")
         queue = RequestQueue(requests)
         rep = self.report
         rep.requests += len(requests)
@@ -1067,6 +1274,8 @@ class ServingEngine:
         next_inject = rep.tokens_out + inject_every
         interleave = self.paged and self.prefill_chunk > 0
         while True:
+            # a new iteration reads the blocks anew (on a mesh)
+            self._stale = self.ctx is not None
             while True:
                 free = self.free_slots()
                 if not free:

@@ -33,8 +33,19 @@ resilient loop on gloo ranks (one torch thread each).
   bitwise the oracle's, its losses bitwise a clean run on the degraded
   mesh from the oracle, a steady check (1, 1), and after the loss no
   survivor makes a collective on WORLD.
-* **Refusals**: ``serve --mesh`` and ``relower_degraded`` raise naming
-  their ROADMAP items.
+* **Mesh serving** (in the same spawn, before the elastic drills):
+  ``ServingEngine(ctx=...)`` at the iterpro-100m smoke — paged, donated,
+  K=4, ``parity`` under an armed storm, then ``corrupt_param`` +
+  ``scrub_params``; dense ping-pong; paged with ``prefill_chunk``; a
+  storm placed in rank 5's replica only; kimi-k2-1t-a32b (fsdp +
+  expert-parallel blocks) with parity, a storm and a scrub — every
+  rank's token logs bitwise the single-device engine's over the same
+  params, detected == injected == recovered, 0 dropped, a steady step
+  ``STATS`` (1, 1), each rank's blocks after the scrub bitwise their
+  bits before the flip, ``evict_mesh`` counting the engine's entries;
+  ``serve(mesh=...)`` and the CLI inside the ranks; ``gather_tree(out=)``
+  equal to ``gather_tree()`` with every pointer kept.
+* **Refusals**: ``relower_degraded`` raises naming its ROADMAP item.
 """
 
 import dataclasses
@@ -113,6 +124,44 @@ def test_specs_match_reference(arch, opt, mesh):
         assert any(s for s in got.values())     # something is sharded
 
 
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_shardings_match_reference(arch, mesh):
+    """The serving engine's ``param_shardings`` of a bare param tree:
+    specs equal the reference's ``launch/specs.param_shardings`` on an
+    ``AbstractMesh``, and each ``LeafSharding`` carries the leaf's global
+    shape and dtype."""
+    import jax
+    from jax.sharding import AbstractMesh, PartitionSpec as JP
+    from repro.configs import get_config as jcfg
+    from repro.distributed.context import DistContext as JCtx
+    from repro.kernels.ops import leaf_key as jkey
+    from repro.launch.specs import param_shardings as jparam_shardings
+    from repro.launch.specs import params_struct
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import DistContext
+    from repro_torch.launch.specs import param_shardings
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import flatten_with_path, leaf_key
+
+    shape, axes = MESHES[mesh]
+    jc = jcfg(arch).smoke()
+    jctx = JCtx.for_mesh(AbstractMesh(shape, axes), fsdp=jc.sharding.fsdp)
+    _, jspecs = jparam_shardings(jctx, jc, params_struct(jc))
+    want = {jkey(p): tuple(s) for p, s in jax.tree_util.tree_flatten_with_path(
+        jspecs, is_leaf=lambda x: isinstance(x, JP))[0]}
+
+    tc = get_config(arch).smoke()
+    params = get_model(tc.model).init(tc.model, 0, "meta")
+    ctx = DistContext.for_shape(shape, axes, fsdp=tc.sharding.fsdp)
+    sh, specs = param_shardings(ctx, tc, params)
+    assert {leaf_key(p): tuple(s) for p, s in
+            flatten_with_path(specs)} == want
+    for (_, t), (_, s) in zip(flatten_with_path(params),
+                              flatten_with_path(sh)):
+        assert (s.shape, s.dtype) == (tuple(t.shape), t.dtype)
+
+
 def test_boxes_tile_every_leaf_once():
     """Every element of a leaf lies in the box of exactly the shards that
     differ only along the axes its spec does not name, and
@@ -147,18 +196,22 @@ def test_parse_mesh_and_backend_rule():
     assert choose_backend("cpu", 8, 0) == "gloo"
 
 
-def test_mesh_modes_of_later_slices_raise():
-    """What is still unported raises naming its ROADMAP item: mesh
-    serving (queue 1, item 6.4) and the degraded-mesh compile of the XLA
-    tooling (item 7); the elastic entry points of this slice do not."""
+def test_mesh_modes_of_later_slices_raise(storms):
+    """What is still unported raises naming its ROADMAP item: the
+    degraded-mesh compile of the XLA tooling (item 7).  Mesh serving (item
+    6.4) serves: ``serve --mesh 4,2`` ran inside the spawn's ranks, and
+    ``invalidate_mesh_caches`` reports the serving engines it drops."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.elastic import relower_degraded
-    from repro_torch.launch.serve import serve
+    from repro_torch.distributed.context import DistContext
+    from repro_torch.launch.elastic import (invalidate_mesh_caches,
+                                            relower_degraded)
 
     cfg = get_config("iterpro-100m").smoke()
-    with pytest.raises(NotImplementedError, match="item 6.4: serve --mesh"):
-        serve(cfg, n_requests=1, prompt_len=4, gen_tokens=1, mesh="4,2",
-              device="cpu")
+    assert all(r["serving"]["serve"]["mesh"]["devices"] == 8
+               for r in storms)
+    got = invalidate_mesh_caches(DistContext.for_shape((4, 2),
+                                                       ("data", "model")))
+    assert got["serving"] == 0, got
     with pytest.raises(NotImplementedError, match="item 7"):
         relower_degraded(cfg, None)
 
@@ -260,8 +313,157 @@ def _storm_ranks(ckpt_dir):
     return {"steady": steady, "stats": stats, "partial": partial,
             "round_trip": round_trip, "on_disk": _bitwise(on_disk, full),
             "same": same, "summaries": summaries, "others": others,
+            "serving": _serve_ranks(ctx),
             "modes": _mode_ranks(ctx, cfg, runs["clean"][1]),
             "elastic": _elastic_ranks(cfg)}
+
+
+# -- mesh serving (in the same spawn) -------------------------------------------
+
+#: the serving scenarios: (arch, engine flags, storm cadence, scrub).
+#: Every run serves SERVE_REQS requests of SERVE_PROMPT tokens, SERVE_GEN
+#: new tokens each, through 4 slots
+SERVE_REQS, SERVE_PROMPT, SERVE_GEN = 4, 8, 6
+SERVE_RUNS = {
+    "paged+parity": ("iterpro-100m", dict(donate=True, parity=True), 3,
+                     True),
+    "dense": ("iterpro-100m", dict(donate=False, paged=False), 3, False),
+    "chunked": ("iterpro-100m", dict(donate=True, prefill_chunk=3), 3,
+                False),
+    "rank5": ("iterpro-100m", dict(donate=True), 3, False),
+    "kimi": ("kimi-k2-1t-a32b", dict(donate=True, parity=True), 3, True),
+}
+#: the shard whose replica alone takes the "rank5" run's flips
+ONE_RANK = 5
+
+
+def _serve_requests(cfg):
+    from repro_torch.launch.serve import make_requests
+    return make_requests(cfg, SERVE_REQS, SERVE_PROMPT, SERVE_GEN,
+                         np.random.default_rng(0))
+
+
+def _serve_one(ctx, name):
+    """One serving scenario on this rank: the mesh engine's run (and
+    scrub), its faults as every rank saw them, a steady step's STATS, and
+    on shard 0 the single-device engine's clean logs over the same
+    (gathered) params."""
+    import random
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import digest as kd
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tree import leaves
+
+    arch, kw, every, scrub = SERVE_RUNS[name]
+    cfg = get_config(arch).smoke()
+    eng = ServingEngine(cfg, n_slots=4, ctx=ctx, device="cpu", seed=0,
+                        max_len=SERVE_PROMPT + SERVE_GEN + 1,
+                        canary_slices=4, max_replays=10**6, **kw)
+    faults = []
+    handle = eng.handle_fault
+
+    def spy(report, finite, now, queue):
+        victims = handle(report, finite, now, queue)
+        faults.append((eng.step_count, None if report is None else
+                       (report.leaves, report.shards), list(victims)))
+        return victims
+    eng.handle_fault = spy
+    if name == "rank5":
+        flip = eng.corrupt_slot
+        eng.corrupt_slot = lambda rng, **k: flip(rng, ranks=[ONE_RANK], **k)
+    rng = random.Random(0)
+    eng.warm()
+    rep = eng.run(_serve_requests(cfg), inject_every=every, inject_rng=rng)
+    out = {"logs": {rid: r["tokens"] for rid, r in rep.per_request.items()},
+           "summary": rep.summary(), "faults": faults}
+    kd.STATS.reset()
+    eng.engine_step()
+    out["stats"] = kd.STATS.snapshot()
+    if scrub:
+        before = [t.clone() for t in leaves(eng.blocks)]
+        out["flip"] = eng.corrupt_param(rng)
+        out["flipped"] = any(not torch.equal(a, b) for a, b in
+                             zip(leaves(eng.blocks), before))
+        out["scrub"] = eng.scrub_params()
+        plan = eng.parity_store.plan
+        key = out["flip"][0]
+        sh = dict(zip(plan.keys, plan.leaves(eng._psh)))[key]
+        out["expect_moved"] = sh.nbytes_local * len(plan.block_devices(
+            key, plan.device_block[key][ctx.shard_id]))
+        out["healed"] = all(
+            torch.equal(a.view(-1).view(torch.uint8),
+                        b.view(-1).view(torch.uint8))
+            for a, b in zip(leaves(eng.blocks), before))
+    eng.refresh_params()          # a collective: every rank gathers
+    if ctx.shard_id == 0:
+        flags = {k: v for k, v in kw.items() if k in ("paged",
+                                                     "prefill_chunk")}
+        one = ServingEngine(cfg, n_slots=4, device="cpu", canary_slices=0,
+                            max_len=SERVE_PROMPT + SERVE_GEN + 1,
+                            params=eng.params, **flags)
+        out["single"] = {rid: r["tokens"] for rid, r in
+                         one.run(_serve_requests(cfg)).per_request.items()}
+    return eng, out
+
+
+def _serve_ranks(ctx):
+    """This rank's share of the mesh serving scenarios."""
+    import gc
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving.engine import evict_mesh
+    from repro_torch.tree import leaves
+
+    res = {}
+    for name in SERVE_RUNS:
+        eng, res[name] = _serve_one(ctx, name)
+        del eng
+    gc.collect()
+    # evict_mesh closes the live engines of this mesh: the last one's
+    # graphs (none on the CPU), cores and gathered storage
+    eng, _ = _serve_one(ctx, "dense")
+    full = gather_tree(eng.blocks, eng._psh)
+    whole = eng.params
+    ptrs = [t.data_ptr() for t in leaves(whole)]
+    gather_tree(eng.blocks, eng._psh, out=whole)
+    res["gather_out"] = {
+        "ptrs": ptrs == [t.data_ptr() for t in leaves(whole)],
+        "same": _bitwise(whole, full),
+        # a replicated leaf of the storage is the rank's block itself
+        "aliased": sum(t is b for t, b in zip(leaves(whole),
+                                              leaves(eng.blocks))),
+        "replicated": sum(not sh.axes for sh in leaves(eng._psh))}
+    # a mesh engine admits in lockstep: open-loop arrivals need a clock
+    # every rank reads alike
+    from repro_torch.serving import Request
+    late = Request(rid=9, prompt=np.zeros(4, np.int32), max_new_tokens=1,
+                   arrival_s=1.0)
+    try:
+        eng.run([late])
+        res["wall_clock_refused"] = False
+    except ValueError:
+        res["wall_clock_refused"] = True
+    want = len(eng._graphs) + sum(
+        c is not None for c in eng._cores.values()) + 1
+    gc.collect()
+    res["evicted"] = (evict_mesh(ctx), want)
+    try:
+        eng.engine_step()
+        res["closed"] = False
+    except RuntimeError:
+        res["closed"] = True
+    del eng
+    # the entry points inside a rank
+    from repro_torch.configs import get_config
+    res["serve"] = serve_cli.serve(
+        get_config("iterpro-100m").smoke(), n_requests=SERVE_REQS,
+        prompt_len=SERVE_PROMPT, gen_tokens=SERVE_GEN, inject_every=3,
+        mesh="4,2", device="cpu", parity=True, verbose=False)
+    res["cli"] = serve_cli.main([
+        "--smoke", "--device", "cpu", "--mesh", "4,2", "--requests", "4",
+        "--prompt-len", "16", "--gen", "12", "--inject", "5", "--parity",
+        "--dense", "--prefill-chunk", "5", "--donate"])
+    return res
 
 
 # -- the training modes on the mesh (in the same spawn) -----------------------
@@ -690,6 +892,96 @@ def test_storms_end_bitwise_equal_to_the_clean_run(storms):
                         o["recovery"]["shard_patches"])
                     for n, o in x.items()}
         assert what(sm) == what(storms[0]["summaries"])
+
+
+def test_mesh_serving_matches_the_single_device_engine(storms):
+    """Every scenario's token logs on every rank are bitwise the
+    single-device engine's clean logs over the same params (storm ==
+    clean); detected == injected == recovered, nothing dropped; every
+    rank saw the same faults at the same steps and evicted the same
+    slots; a steady step is 1 launch + 1 fetch."""
+    for name, (arch, kw, every, scrub) in SERVE_RUNS.items():
+        first = storms[0]["serving"][name]
+        for r in storms:
+            got = r["serving"][name]
+            assert got["logs"] == first["single"], (name, r["serving"])
+            sm = got["summary"]
+            f = sm["faults"]
+            assert sm["completed"] == SERVE_REQS and sm["dropped"] == 0, \
+                (name, sm)
+            assert f["injected"] > 0, (name, f)
+            assert f["detected"] == f["injected"] == f["recovered"], \
+                (name, f)
+            assert got["faults"] == first["faults"], name
+            assert tuple(got["stats"]) == (1, 1), (name, got["stats"])
+
+
+def test_mesh_serving_flip_in_one_replica_names_its_shard(storms):
+    """The "rank5" storm flips rank 5's replica only: every rank flags
+    at the same steps, each report's shards are [5], and every rank
+    evicts the same slots."""
+    faults = storms[0]["serving"]["rank5"]["faults"]
+    assert faults
+    for step, report, victims in faults:
+        leaves, shards = report
+        assert leaves and victims, (step, report)
+        assert all(v == [ONE_RANK] for v in shards.values()), shards
+
+
+def test_mesh_serving_scrub_repairs_the_block_on_every_holder(storms):
+    """``corrupt_param`` + ``scrub_params`` on the mesh: one leaf
+    repaired, nothing failed, ``bytes_moved`` the block's bytes times its
+    holders, every rank's blocks bitwise their bits before the flip; the
+    parity is the reference's size (checked by the oracle file)."""
+    for name in ("paged+parity", "kimi"):
+        flipped = 0
+        for r in storms:
+            got = r["serving"][name]
+            sc = got["scrub"]
+            assert sc["repaired"] == 1 and sc["failed"] == [], (name, sc)
+            assert sc["bytes_moved"] == got["expect_moved"], (name, sc)
+            assert got["healed"], (name, r["serving"])
+            assert sc == storms[0]["serving"][name]["scrub"], name
+            flipped += got["flipped"]
+        assert flipped >= 1, name
+
+
+def test_gather_tree_out_and_evict_mesh_on_the_serving_engine(storms):
+    """``gather_tree(out=)`` equals ``gather_tree()`` and keeps every
+    pointer of ``out`` (its replicated leaves are the rank's blocks
+    themselves); ``serving.engine.evict_mesh`` drops the live engine's
+    cores and gathered storage, counts them, and the engine refuses to
+    step after it; its ``run`` refuses open-loop arrivals on a wall clock
+    (the ranks would admit at different times)."""
+    for r in storms:
+        g = r["serving"]["gather_out"]
+        assert g["ptrs"] and g["same"], g
+        assert g["aliased"] == g["replicated"] > 0, g
+        got, want = r["serving"]["evicted"]
+        assert got == want > 1, (got, want)
+        assert r["serving"]["closed"]
+        assert r["serving"]["wall_clock_refused"]
+
+
+def test_serve_entry_points_inside_the_ranks(storms):
+    """``serve(mesh="4,2")`` and ``main([... "--mesh", "4,2"])`` called
+    inside the ranks serve as those ranks: every request completes, the
+    storm is detected and recovered, the scrub repairs the flipped
+    param, the summary names the mesh, every rank the same counters."""
+    for r in storms:
+        for what in ("serve", "cli"):
+            out = r["serving"][what]
+            f = out["faults"]
+            assert out["completed"] == 4 and out["dropped"] == 0, out
+            assert f["injected"] > 0 and \
+                f["detected"] == f["injected"] == f["recovered"], f
+            assert out["parity"]["repaired"] == 1, out["parity"]
+            assert out["parity"]["failed"] == [], out["parity"]
+            assert out["mesh"] == {"shape": {"data": 4, "model": 2},
+                                   "devices": 8}, out["mesh"]
+            for k in ("tokens_out", "faults", "replay_tokens",
+                      "engine_steps", "parity"):
+                assert out[k] == storms[0]["serving"][what][k], (what, k)
 
 
 def test_fsdp_and_expert_parallel_layouts_train_on_the_mesh(storms):

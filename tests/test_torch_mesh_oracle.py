@@ -435,6 +435,56 @@ CHILD = textwrap.dedent("""
                  verbose=False)
     res["cli"] = json.loads(json.dumps(cli))
 
+    # -- mesh serving: the reference's engine with ctx (its own seed-0
+    # params, checked against the ones the port's ranks are given) ---------
+    import random
+    from repro.serving import Request as SReq, ServingEngine as SEng
+    srv = {}
+    for name, prog in inp["serve"].items():
+        scfg = get_config(prog["arch"]).smoke()
+        eng = SEng(scfg, ctx=ctx, seed=0, max_replays=10**6, **prog["eng"])
+        mine = {leaf_key(p): np.asarray(x) for p, x in
+                jax.tree_util.tree_flatten_with_path(eng.params)[0]}
+        want = {leaf_key(p): np.asarray(x) for p, x in
+                jax.tree_util.tree_flatten_with_path(
+                    inp["sparams"][prog["arch"]])[0]}
+        first = {}
+
+        def spy(report, *a, _h=eng.handle_fault, _f=first, **k):
+            v = _h(report, *a, **k)
+            if report is not None and not _f:
+                _f["leaves"] = list(report.leaves)
+                _f["shards"] = {q: [int(d) for d in w]
+                                for q, w in report.shards.items()}
+            return v
+        eng.handle_fault = spy
+        rng = random.Random(0)
+        reqs = [SReq(rid=i, prompt=np.asarray(p, np.int32),
+                     max_new_tokens=inp["serve_gen"])
+                for i, p in enumerate(inp["serve_prompts"])]
+        eng.warm()
+        rep = eng.run(reqs, inject_every=prog["inject"], inject_rng=rng)
+        sm = rep.summary()
+        r = {"same_params": sorted(mine) == sorted(want) and all(
+                 np.array_equal(np.atleast_1d(mine[k]).view(np.uint8),
+                                np.atleast_1d(want[k]).view(np.uint8))
+                 for k in want),
+             "logs": {str(q): w["tokens"]
+                      for q, w in rep.per_request.items()},
+             "summary": {k: sm[k] for k in inp["serve_keys"]},
+             "first": first,
+             "keys": list(eng.canary.plan.keys),
+             "table": np.asarray(eng.canary.reference).tolist()}
+        if prog["eng"].get("parity"):
+            r["refs"] = {k: np.asarray(v).tolist()
+                         for k, v in eng._param_refs.items()}
+            r["parity"] = np.asarray(eng.parity_store.parity).tolist()
+            r["memory_bytes"] = int(eng.parity_store.memory_bytes)
+            r["flip"] = list(eng.corrupt_param(rng))
+            r["scrub"] = eng.scrub_params()
+        srv[name] = r
+    res["serve"] = json.loads(json.dumps(srv))
+
     with open(out + ".json", "w") as f:
         json.dump(res, f)
     np.savez(out + ".npz", **truth)
@@ -451,6 +501,22 @@ UPDATE_KEYS = ("params/embed/table", "opt/m/groups/0/0/ffn/up/w",
                "params/final_norm/scale")
 #: triage's flips in ``opt/v/`` + UP: (element, bit)
 TRI_FLIPS = {"b2": (1000, 2), "b30": (1007, 30)}
+#: mesh serving: the programs both packages run (the engine's flags, the
+#: storm's cadence), every one over the same 4 requests of 8 tokens, 6
+#: new tokens each, 4 slots
+SERVE = {"paged+parity": {"arch": "iterpro-100m", "inject": 3,
+                          "eng": dict(n_slots=4, max_len=15, canary_slices=4,
+                                      donate=True, parity=True)},
+         "dense": {"arch": "iterpro-100m", "inject": 3,
+                   "eng": dict(n_slots=4, max_len=15, canary_slices=4,
+                               donate=False, paged=False)},
+         "kimi": {"arch": "kimi-k2-1t-a32b", "inject": 3,
+                  "eng": dict(n_slots=4, max_len=15, canary_slices=4,
+                              donate=True, parity=True)}}
+SERVE_GEN = 6
+SERVE_KEYS = ("requests", "completed", "dropped", "tokens_out",
+              "engine_steps", "admissions", "admission_rejected", "slots",
+              "faults", "replay_tokens", "retracted_tokens")
 
 
 def _updates(state):
@@ -617,6 +683,7 @@ def _port_ranks(inp_path):
     res["rung2"] = ev2.rung
     res["attempted2"] = list(ev2.attempted)
     res.update(_port_modes(ctx, cfg, inp, toy, tsh, local))
+    res["serve"] = _port_serve(ctx, inp)
     res.update(_port_elastic(ctx, cfg, inp))
     everyone = coll.gather_objects(res, ctx.group(ctx.axis_names))
     return everyone if me == 0 else None
@@ -762,6 +829,61 @@ def _port_modes(ctx, cfg, inp, toy, tsh, local):
         tcan.refresh(tstate)
     res["triage"] = tri
     return res
+
+
+def _port_serve(ctx, inp):
+    """The oracle's mesh serving programs on this rank, over the
+    reference's params (bridged): logs, counters, the first report, this
+    rank's canary rows and parity row, the per-shard param refs, the
+    scrub."""
+    import random
+    from repro_torch.bridge import state_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import digest as kd
+    from repro_torch.serving import Request, ServingEngine
+
+    out = {}
+    for name, prog in inp["serve"].items():
+        cfg = get_config(prog["arch"]).smoke()
+        eng = ServingEngine(cfg, ctx=ctx, device="cpu", max_replays=10**6,
+                            params=state_from_numpy(
+                                inp["sparams"][prog["arch"]]),
+                            **prog["eng"])
+        first = {}
+
+        def spy(report, *a, _h=eng.handle_fault, _f=first, **k):
+            v = _h(report, *a, **k)
+            if report is not None and not _f:
+                _f["leaves"] = list(report.leaves)
+                _f["shards"] = {q: [int(d) for d in w]
+                                for q, w in report.shards.items()}
+            return v
+        eng.handle_fault = spy
+        rng = random.Random(0)
+        reqs = [Request(rid=i, prompt=np.asarray(p, np.int32),
+                        max_new_tokens=inp["serve_gen"])
+                for i, p in enumerate(inp["serve_prompts"])]
+        eng.warm()
+        rep = eng.run(reqs, inject_every=prog["inject"], inject_rng=rng)
+        sm = rep.summary()
+        r = {"logs": {str(q): w["tokens"]
+                      for q, w in rep.per_request.items()},
+             "summary": {k: sm[k] for k in inp["serve_keys"]},
+             "first": first,
+             "keys": list(eng.canary.plan.keys),
+             "table": kd.fetch(eng.canary.plan.gather_table(
+                 eng.canary.reference)).tolist()}
+        if prog["eng"].get("parity"):
+            pst = eng.parity_store
+            r["refs"] = {k: np.asarray(v).tolist()
+                         for k, v in eng._param_refs.items()}
+            r["parity"] = pst.parity.reshape(-1)[
+                :pst.plan.row_words].tolist()
+            r["memory_bytes"] = pst.memory_bytes
+            r["flip"] = list(eng.corrupt_param(rng))
+            r["scrub"] = eng.scrub_params()
+        out[name] = json.loads(json.dumps(r))
+    return out
 
 
 def _port_elastic(ctx, cfg, inp):
@@ -966,15 +1088,27 @@ def both(tmp_path_factory):
     from repro_torch.launch.mesh import spawn
 
     tmp = tmp_path_factory.mktemp("mesh_oracle")
+    from repro.models.registry import get_model as jmodel
+
     cfg = get_config("iterpro-100m").smoke()
     state = jax.tree_util.tree_map(
         np.asarray, make_train_state(cfg, jax.random.PRNGKey(0),
                                      global_batch=B))
+    sparams = {}
+    for arch in sorted({p["arch"] for p in SERVE.values()}):
+        m = get_config(arch).smoke().model
+        sparams[arch] = jax.tree_util.tree_map(
+            np.asarray, jmodel(m).init(m, jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.model.vocab_size, size=8).astype(np.int32)
+               for _ in range(4)]
     inp = {"state": state, "toy": _toy(jax, jnp), "toy_specs": TOY_SPECS,
            "B": B, "S": S, "up": UP, "K": FUSED_K,
            "updates": _updates(state), "flags": UPDATE_FLAGS,
            "tri_flips": TRI_FLIPS, "etoy": _etoy(jax, jnp),
-           "etoy_specs": ETOY_SPECS}
+           "etoy_specs": ETOY_SPECS, "serve": SERVE, "sparams": sparams,
+           "serve_prompts": prompts, "serve_gen": SERVE_GEN,
+           "serve_keys": SERVE_KEYS}
     src = str(tmp / "input.pkl")
     with open(src, "wb") as f:
         pickle.dump(inp, f)
@@ -1176,6 +1310,53 @@ EVENT_COUNTS = ("lost_rows", "lost_slices", "old_dp", "new_dp",
 def _counts(ev):
     return {k: list(ev[k]) if isinstance(ev[k], (list, tuple)) else ev[k]
             for k in EVENT_COUNTS}
+
+
+@pytest.mark.parametrize("name", sorted(SERVE))
+def test_mesh_serving_matches_reference(both, name):
+    """The reference's mesh engine (params sharded by its
+    ``param_shardings``, the covered state replicated, the shard-local
+    canary) and the port's 8 ranks over the same params: every request's
+    tokens, the summary's counters, the first report's leaves and shard
+    ids, bitwise; every device's canary read table: the same plan keys,
+    every device's rows equal (replicas), paged, the ``pos`` rows bitwise
+    the reference's — the K/V rows digest floats the port's decode
+    computes within 2e-5 of the reference's, not bit for bit (its tokens
+    are equal), and the reference's dense step advances a free lane's
+    ``pos`` too (its vmapped decode runs every lane; the port's, and both
+    paged steps, only the active lanes'); with parity the per-shard param refs, every device's parity
+    row, ``memory_bytes`` and the scrub's stats after the same
+    ``corrupt_param`` draw, bitwise."""
+    ref, _, ranks = both
+    want = ref["serve"][name]
+    assert want["same_params"], name
+    assert want["summary"]["faults"]["injected"] > 0, want["summary"]
+    assert want["first"]["leaves"] and want["first"]["shards"], want
+    wtab = np.asarray(want["table"])
+    pos = [i for i, k in enumerate(want["keys"]) if k.endswith("/pos")
+           and SERVE[name]["eng"].get("paged", True)]
+    assert wtab.shape[0] == 8
+    assert all(np.array_equal(wtab[d], wtab[0]) for d in range(8))
+    for r in ranks:
+        got = r["serve"][name]
+        for k in ("logs", "summary", "first", "keys"):
+            assert got[k] == want[k], (name, k, r["shard_id"])
+        gtab = np.asarray(got["table"])
+        assert gtab.shape == wtab.shape, name
+        assert all(np.array_equal(gtab[d], gtab[0]) for d in range(8))
+        assert np.array_equal(gtab[:, pos], wtab[:, pos]), name
+        if SERVE[name]["eng"].get("parity"):
+            assert got["refs"] == want["refs"], name
+            assert got["parity"] == want["parity"][r["shard_id"]], \
+                (name, r["shard_id"])
+            assert got["memory_bytes"] == want["memory_bytes"], name
+            assert got["flip"] == want["flip"], name
+            assert got["scrub"] == want["scrub"], (name, got["scrub"],
+                                                   want["scrub"])
+    if name == "paged+parity":
+        assert want["memory_bytes"] == 200_704
+        assert want["scrub"]["checked"] == 11
+        assert want["scrub"]["repaired"] == 1
 
 
 def test_row_safe_plan_and_survivor_parity_bitwise(both):

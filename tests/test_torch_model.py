@@ -151,20 +151,37 @@ def test_unported_model_options_raise():
     """The VLM options build since the VLM slice: ``family="vlm"`` with
     ``m_rope`` and ``patch_dim`` gives the transformer's tree with
     ``patch_proj`` (the reference's leaves); a family the port does not
-    know still raises, and so does mesh serving, still unported."""
-    from repro_torch.launch import serve as tserve
+    know still raises.  Mesh serving is ported: the VLM tree's param
+    specs on a 4 x 2 mesh (what the serving engine shards by) equal the
+    reference's."""
+    from jax.sharding import AbstractMesh
+    from jax.sharding import PartitionSpec as JP
+    from repro.distributed import sharding as jsh
+    from repro.distributed.context import DistContext as JCtx
+    from repro.kernels.ops import leaf_key as jkey
+    from repro_torch.distributed.context import DistContext
+    from repro_torch.launch.specs import param_shardings
     base = get_config("iterpro-100m").smoke().model
     vlm = dataclasses.replace(base, family="vlm", m_rope=True, patch_dim=32)
     model = get_model(vlm)
     assert model.module is TT
     tree = model.init(vlm, 0, "cpu")
-    jtree = JT.init_lm(jget("iterpro-100m").smoke().model.__class__(
-        **dataclasses.asdict(vlm)), jax.random.PRNGKey(0))
+    jm = jget("iterpro-100m").smoke().model.__class__(
+        **dataclasses.asdict(vlm))
+    jtree = JT.init_lm(jm, jax.random.PRNGKey(0))
     assert _sig(tree) == _sig(jax.tree_util.tree_map(np.asarray, jtree))
     assert tuple(tree["patch_proj"]["w"].shape) == (32, vlm.d_model)
     with pytest.raises(NotImplementedError):
         get_model(dataclasses.replace(base, family="retrieval"))
-    with pytest.raises(NotImplementedError):
-        tserve.serve(get_config("iterpro-100m").smoke(), n_requests=1,
-                     prompt_len=4, gen_tokens=2, mesh="4,2",
-                     verbose=False, device="cpu")
+    cfg = dataclasses.replace(get_config("iterpro-100m").smoke(), model=vlm)
+    ctx = DistContext.for_shape((4, 2), ("data", "model"))
+    _, specs = param_shardings(ctx, cfg, tree)
+    jspecs = jsh.param_specs(
+        JCtx.for_mesh(AbstractMesh((4, 2), ("data", "model"))), jtree,
+        jget("iterpro-100m").smoke().sharding, jm)
+    want = {jkey(p): tuple(s) for p, s in
+            jax.tree_util.tree_flatten_with_path(
+                jspecs, is_leaf=lambda x: isinstance(x, JP))[0]}
+    got = {leaf_key(p): tuple(s) for p, s in flatten_with_path(specs)}
+    assert got == want
+    assert got["patch_proj/w"] == (None, "model")

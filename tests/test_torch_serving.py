@@ -332,8 +332,24 @@ def test_serve_summary_is_seeded(cfg):
         assert out[k] == again[k], k
 
 
-@pytest.mark.parametrize("flag", [dict(mesh="4,2")])
+@pytest.mark.parametrize("flag", [dict(mesh="1,2")])
 def test_unported_serve_options_raise(cfg, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve(cfg, n_requests=1, prompt_len=4, gen_tokens=2, verbose=False,
-              device="cpu", **flag)
+    """``--mesh`` serves since mesh serving was ported: ``serve(mesh="1,2",
+    device="cpu")`` spawns two gloo ranks (params split over ``model``,
+    the covered state replicated) and gives the off-mesh ``serve``'s
+    summary: the same tokens, storm, recoveries and scrub."""
+    kw = dict(n_requests=2, prompt_len=8, gen_tokens=4, seed=7,
+              inject_every=3, verbose=False, device="cpu", parity=True)
+    mesh = serve(cfg, **kw, **flag)
+    off = serve(cfg, **kw)
+    assert mesh.pop("mesh") == {"shape": {"data": 1, "model": 2},
+                                "devices": 2}
+    assert mesh["parity"].pop("memory_bytes") > 0
+    off["parity"].pop("memory_bytes")
+    for k in ("requests", "completed", "dropped", "tokens_out",
+              "engine_steps", "admissions", "faults", "replay_tokens",
+              "retracted_tokens"):
+        assert mesh[k] == off[k], k
+    assert mesh["parity"]["repaired"] == off["parity"]["repaired"] == 1
+    assert mesh["parity"]["checked"] == off["parity"]["checked"]
+    assert mesh["parity"]["failed"] == off["parity"]["failed"] == []

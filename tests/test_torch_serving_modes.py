@@ -357,5 +357,13 @@ def test_serve_cli_accepts_every_flag_but_mesh(capsys):
                 "--fused-detect"])
     assert out["completed"] == 2 and out["dropped"] == 0
     assert '"completed": 2' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--smoke", "--device", "cpu", "--mesh", "4,2"])
+    # --mesh composes with every other flag (two gloo ranks here)
+    mesh = main(["--smoke", "--device", "cpu", "--requests", "2",
+                 "--prompt-len", "9", "--gen", "4", "--inject", "3",
+                 "--dense", "--prefill-chunk", "5", "--donate",
+                 "--fused-detect", "--mesh", "1,2"])
+    assert mesh["mesh"] == {"shape": {"data": 1, "model": 2},
+                            "devices": 2}
+    for k in ("completed", "dropped", "tokens_out", "faults",
+              "engine_steps"):
+        assert mesh[k] == out[k], k

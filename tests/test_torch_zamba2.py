@@ -750,12 +750,13 @@ def test_serve_cli():
     """``python -m repro_torch.launch.serve --arch zamba2-7b --smoke
     --device cpu`` with a storm (and ``--dense``, ``--donate``,
     ``--parity``): detected == injected == recovered, 0 dropped, and the
-    scrub accounts for the one flipped weight.  At seed 0 the flip is a
-    high bit of ``shared/attn/wq/w`` whose trial repair digests back to
-    the reference in more than one block: the port reports that leaf
-    failed and leaves it as it is (exact-or-abort, ``ParityStore.scrub``)
-    where the reference installs its first match; a flip with one match
-    is repaired bitwise (``test_scrub_repairs_a_shared_weight``)."""
+    scrub accounts for the one flipped weight.  At seed 0 the storm's
+    draws leave the post-run flip at bit 30 of ``shared/in_fuse/w``
+    (element 5409), whose one trial repair digests back to the
+    reference: repaired, its block's 8,192 bytes moved.  (The dense
+    storm draws the element of a 1-element ``pos`` unit, as the
+    reference does; before that the flip landed on the ambiguous one of
+    ``test_scrub_refuses_an_ambiguous_shared_weight_flip``.)"""
     out = tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                        "--requests", "4", "--prompt-len", "16", "--gen",
                        "12", "--inject", "5", "--dense", "--donate",
@@ -763,8 +764,29 @@ def test_serve_cli():
     f = out["faults"]
     assert f["injected"] > 0 and f["detected"] == f["injected"]
     assert f["recovered"] == f["detected"] and out["dropped"] == 0
-    assert out["parity"]["repaired"] == 0
-    assert out["parity"]["failed"] == ["shared/attn/wq/w"]
+    assert out["parity"]["repaired"] == 1
+    assert out["parity"]["failed"] == []
+    assert out["parity"]["bytes_moved"] == 8192
+
+
+def test_scrub_refuses_an_ambiguous_shared_weight_flip():
+    """Bit 21 of element 604 of ``shared/attn/wq/w`` (the smoke's seed-0
+    params): its trial repair digests back to the reference in more than
+    one block, so the port reports the leaf failed and leaves it as it
+    is (exact-or-abort, ``ParityStore.scrub``) where the reference
+    installs its first match; a flip with one match is repaired bitwise
+    (``test_scrub_repairs_a_shared_weight``)."""
+    from repro_torch.core.faults import flip_bit
+    from repro_torch.tree import replace_leaves
+    key = "shared/attn/wq/w"
+    eng = ServingEngine(get_config(ARCH).smoke(), n_slots=1, max_len=16,
+                        canary_slices=0, device="cpu", parity=True)
+    healthy = _flat_t(eng.params)[key]
+    flipped = flip_bit(healthy.clone(), 604, 21)
+    eng.params = replace_leaves(eng.params, {key: flipped})
+    stats = eng.scrub_params()
+    assert stats["repaired"] == 0 and stats["failed"] == [key], stats
+    assert torch.equal(_flat_t(eng.params)[key], flipped)
 
 
 @pytest.mark.parametrize("key", ["shared/attn/wq/w",
