@@ -345,9 +345,12 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        checkpoint or profile (12c holds them);
    13d. the launches of 10d's kernels on phase 13's paths (each > 0);
 14. resilient training on a device mesh: iterpro-100m at full width and
-   6 of its 12 layers (f32, seed 0; 14d runs all 12) on a 2 x 2 mesh, 4
-   ranks spawned by ``launch.mesh.spawn`` sharing the card over gloo
-   (each holding its own blocks of the state), batch 8 x 128, K=1, a
+   ``MESH_LAYERS`` of its 12 layers (f32, seed 0; 14d and 14e's e1 run
+   all 12) on a 2 x 2 mesh, 4 ranks spawned by ``launch.mesh.spawn``
+   sharing the card over gloo (each holding its own blocks of the
+   state), tensor-parallel (each rank computes its heads, FFN columns
+   and vocabulary rows from its blocks in place: no params gather in a
+   step), batch 8 x 128, K=1, a
    snapshot every 2 steps, 3 steps a run through ``train(mesh="2,2")``:
    clean; a params flip every step (step 1 has no version-matched
    snapshot: replay; step 2 has: shard_patch, its bytes exactly the
@@ -356,9 +359,11 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    each rank's launches (``pack_rows``, ``row_checksums``; rank 0
    ``checksum_tiles``), its ``pack_rows`` and ``row_checksums`` bitwise
    their plain versions on its own blocks, a steady check's STATS (1,
-   1), the mesh step's host p50, recovery ms by rung and the step's three
-   parts timed alone (gather the params, forward + backward, the grads'
-   mean); in the same ranks the training modes: (b) ``--donate
+   1), the mesh step's host p50, recovery ms by rung, the model-axis
+   collectives of a forward and backward and the step's three parts
+   timed alone (forward + backward with the model-axis sums, the grads'
+   exchange, the norm's all-gather); in the same ranks the training
+   modes: (b) ``--donate
    --fused-detect --parity`` at K=2 under a params flip at step 2 in the
    checked slice (the clean fused run 14a was is cut: its checks hold
    here): the fused report consumed and replayed, every rank's final
@@ -380,6 +385,20 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    tolerated by triage with 0 bytes moved, the same verdict on every
    rank, ``checksum_tiles`` launched only on the ranks holding the block
    (bitwise its plain version there) and the next full check clean;
+   (f) the MoE mesh schedules at full width (``[mesh-moe]`` lines,
+   ``_moe_mesh_calls``): on contexts the four ranks make anew,
+   grok-1-314b's MoE layer (bf16) on 2 x 2 with fsdp, ``tp_ragged``
+   (the ZeRO gather of the expert blocks over data timed alone), and
+   kimi-k2-1t-a32b's on 1 x 4, ``ep_a2a`` and ``ep_token_a2a`` (96
+   experts a rank, the shared expert tensor-parallel, capacity 8), each
+   rank building only its blocks; every output and ``lb_loss`` within
+   3e-2 of one device's ``_moe_local_math`` over the same rows (shard 0
+   builds the whole layer once the ranks freed theirs), token-a2a's
+   within 3e-2 of ep_a2a's;
+   (e) mesh serving (``[mesh-serve]`` lines, ``_mesh_serve``),
+   tensor-parallel: two graphs a rotation and read table around the
+   eager model, no params gather in the run, the model-axis collectives
+   of a steady step, tokens == one device's;
    (d) elastic hard loss, last (``[mesh-elastic]`` lines): iterpro-100m
    at all 12 layers with ``fsdp``, ``train(parity, elastic,
    kill_row_at=2, donate, fused_detect)``, 4 steps: row 1 (ranks 2-3)
@@ -3794,10 +3813,12 @@ def _mesh_pair_rungs(cfg, seq: int, dev) -> dict:
 
 def _mesh_serve(dev, device: str, smoke: bool) -> dict:
     """14e, in a rank, before 14d: ``serve --mesh`` — the serving engine on
-    the 2 x 2 mesh (``ServingEngine(ctx=...)``: the rank's param blocks
-    gathered into the storage the model reads once an iteration, the
-    replicated covered state, the shard-local canary whose flag is
-    all-reduced after the graph's replay), iterpro-100m at full width,
+    the 2 x 2 mesh (``ServingEngine(ctx=...)``: tensor-parallel, the model
+    reads the rank's param blocks in place, with no params gather; the
+    replicated covered state; each step two graphs a rotation and read
+    table around the eager model and its model-axis collectives; the
+    shard-local canary whose flag is all-reduced after the tail graph's
+    replay), iterpro-100m at full width,
     f32, seed 0, prompts of ``MS_PROMPT`` tokens through 4 slots, K=4,
     the traffic and the flips' cadence of ``MS_TRAFFIC`` (the flips in
     the slice the next step checks):
@@ -3808,18 +3829,22 @@ def _mesh_serve(dev, device: str, smoke: bool) -> dict:
       in rank ``MS_ONE_RANK``'s replica only.
 
     Each run's token logs must equal those of a single-device engine on
-    shard 0 over the same gathered params (clean, no canary), gathered to
-    every rank.  Returns what ``check_mesh_serve`` asserts and prints:
-    the summary, the faults as this rank saw them, graphs and pointers,
-    a steady step's STATS, the launches of the run (with the scrub), the
-    gather, flag all-reduce and scrub times, and (e1) the path's kernels
-    against their plain versions on the rank's own data."""
+    shard 0 over the same params (the blocks gathered once after the
+    run; clean, no canary), gathered to every rank.  Returns what
+    ``check_mesh_serve`` asserts and prints: the summary, the faults as
+    this rank saw them, graphs and pointers, the params gathers of the
+    run (none), a steady step's STATS and model-axis collectives, the
+    launches of the run (with the scrub), the flag all-reduce and scrub
+    times, and (e1) the path's kernels against their plain versions on
+    the rank's own data."""
     import random
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import parity as cp
     from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.sharding import GATHERS, gather_tree
     from repro_torch.kernels import _build
     from repro_torch.kernels import checksum as ck
     from repro_torch.kernels import digest as kd
@@ -3890,15 +3915,19 @@ def _mesh_serve(dev, device: str, smoke: bool) -> dict:
         eng.warm()
         ptrs = [t.data_ptr() for t in (*leaves_of(eng.params),
                                        *leaves_of(eng.blocks))]
+        GATHERS.clear()
         rep = eng.run(reqs(), inject_every=every, inject_rng=rng)
         sync()
         r = {"summary": rep.summary(), "secs": time.perf_counter() - t0,
-             "faults": faults, "graphs": len(eng._graphs),
+             "faults": faults, "graphs": eng.n_graphs,
+             "gathers": dict(GATHERS), "tp": eng.params is eng.blocks,
              "layers": cfg.model.n_layers,
              "logs": {q: w["tokens"] for q, w in rep.per_request.items()}}
         kd.STATS.reset()
+        TP.CALLS.clear()
         eng.engine_step()
         r["stats"] = kd.STATS.snapshot()
+        r["tp_calls"] = dict(TP.CALLS)
         if kw.get("parity"):
             pst = eng.parity_store
             before = [t.clone() for t in leaves_of(eng.blocks)]
@@ -3921,22 +3950,23 @@ def _mesh_serve(dev, device: str, smoke: bool) -> dict:
             *leaves_of(eng.params), *leaves_of(eng.blocks))]
         r["launches"] = dict(_build.LAUNCHES)
         saved = dict(_build.LAUNCHES)
-        # what a step's parts cost alone: the iteration's gather and the
-        # flag's all-reduce
-        r["gather_ms"] = timed(eng.refresh_params, 2)
+        # what a step's part costs alone: the flag's all-reduce
         flag = torch.zeros((), dtype=torch.bool, device=dev)
         r["allreduce_ms"] = timed(lambda: coll.flag_max(flag, group), 5)
-        # the reference tokens: one device, the same (gathered) params
+        # the reference tokens: one device, the same params (the blocks
+        # gathered once, here, by every rank)
+        full = gather_tree(eng.blocks, eng._psh)
         single = None
         if ctx.shard_id == 0:
             one = ServingEngine(
                 cfg, device=dev, n_slots=MS_SLOTS,
                 max_len=MS_PROMPT + n_gen + 1, canary_slices=0,
-                params=eng.params,
+                params=full,
                 **{k: v for k, v in kw.items() if k in ("donate", "paged")})
             single = {q: w["tokens"] for q, w in
                       one.run(reqs()).per_request.items()}
             del one
+        del full
         r["single"] = coll.gather_objects(single, group)[0]
         if name == "e1":
             # the path's kernels against their plain versions, on this
@@ -3983,6 +4013,194 @@ def _mesh_serve(dev, device: str, smoke: bool) -> dict:
         if device == "cuda":
             _release(torch)
     return out
+
+
+#: 14f: the MoE mesh schedules at full width, one layer call each:
+#: (config, mesh, fsdp, the schedules, capacity factor; 0 = the
+#: config's).  kimi's calls run at capacity 8 (nothing drops), so its
+#: token-a2a output, whose two capacity stages drop otherwise than the
+#: local math, is held against ep_a2a's and one device's
+MOE_CALLS = {"grok": ("grok-1-314b", "2,2", True, ("tp_ragged",), 0.0),
+             "kimi": ("kimi-k2-1t-a32b", "1,4", False,
+                      ("ep_a2a", "ep_token_a2a"), 8.0)}
+MOE_TOKENS = 256              # tokens a data row (a batch of 2 x 128)
+MOE_SEED = 7
+
+
+def _moe_mesh_calls(dev, device: str, smoke: bool) -> dict:
+    """14f, in a rank, before 14e: each MoE layer of ``MOE_CALLS`` at full
+    width (bf16) on a context the four ranks make anew (its own groups),
+    the rank building only its blocks of the expert stacks (every matrix
+    drawn, so the stream is one device's; ``moe.moe_init(boxes=)``), then
+    one ``moe_apply`` per schedule on its data row's ``MOE_TOKENS`` tokens
+    (drawn from ``MOE_SEED``): grok-1-314b on 2 x 2 with fsdp
+    (``tp_ragged``; the ZeRO gather of its expert blocks over ``data``
+    timed alone first), kimi-k2-1t-a32b on 1 x 4 (``ep_a2a`` and
+    ``ep_token_a2a``, 96 experts a rank, its shared expert
+    tensor-parallel).  When every rank has freed its blocks, shard 0
+    builds the whole layer and runs one device's ``_moe_local_math``
+    (and shared expert) over each data row's tokens: every rank's output
+    and ``lb_loss`` must hold it within the bf16 bound 3e-2 of the
+    largest entry.  Returns (on shard 0) what ``check_moe_mesh``
+    prints."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.sharding import P, LeafSharding
+    from repro_torch.launch.mesh import make_context
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.tree import tree_map
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    release = (lambda: _release(torch)) if device == "cuda" else \
+        (lambda: None)
+    out = {}
+    for name, (arch, mesh, fsdp, impls, cf) in MOE_CALLS.items():
+        m = (get_config(arch).smoke() if smoke else _full_width(arch)).model
+        if cf:
+            m = dataclasses.replace(m, moe_capacity=cf)
+        ctx = make_context(mesh, dev, fsdp=fsdp)
+        world = ctx.group(ctx.axis_names)
+        tp = TP.TensorParallel(ctx)
+
+        def timed(fn):
+            sync()
+            coll.barrier(ctx.device, world)
+            t0 = time.perf_counter()
+            got = fn()
+            sync()
+            return got, 1e3 * (time.perf_counter() - t0)
+
+        E, d = m.n_experts, m.d_model
+        ff = m.moe_d_ff or m.d_ff
+        dt = getattr(torch, m.param_dtype)
+        ep = M.use_ep(dataclasses.replace(m, moe_impl=impls[0]), ctx)
+        data = "data" if fsdp else None
+        specs = {"gate": P(None, "model", data, None) if ep else
+                 P(None, None, data, "model"),
+                 "down": P(None, "model", None, data) if ep else
+                 P(None, None, "model", data)}
+        specs["up"] = specs["gate"]
+        shapes = {"gate": (1, E, d, ff), "up": (1, E, d, ff),
+                  "down": (1, E, ff, d)}
+        boxes = {k: LeafSharding(ctx, specs[k], shapes[k], dt).box(
+            ctx.shard_id) for k in specs}
+        (p, init_ms) = timed(lambda: M.moe_init(
+            torch.Generator(device=dev).manual_seed(MOE_SEED), m, dt, dev,
+            1, boxes=boxes))
+        p = tree_map(lambda t: t[0], p)
+        if "shared" in p:           # its columns / rows over the model axis
+            fs = p["shared"]["gate"]["w"].shape[1]
+            lo, hi = tp.span(fs // tp.size)
+            p["shared"] = {"gate": {"w": p["shared"]["gate"]["w"][:, lo:hi]
+                                    .contiguous()},
+                           "up": {"w": p["shared"]["up"]["w"][:, lo:hi]
+                                  .contiguous()},
+                           "down": {"w": p["shared"]["down"]["w"][lo:hi]
+                                    .contiguous()}}
+        block_gb = sum(p[k].numel() * p[k].element_size()
+                       for k in specs) / 1e9
+        rows = ctx.dp_size
+        x_all = torch.randn((rows * MOE_TOKENS, d), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(MOE_SEED + 1)).to(dt)
+        row = ctx.coords(ctx.shard_id).get("data", 0)
+        x = x_all[row * MOE_TOKENS:(row + 1) * MOE_TOKENS]
+        r = {"mesh": mesh, "E_local": int(p["gate"].shape[0]),
+             "block_gb": block_gb, "init_ms": init_ms, "calls": {}}
+        if fsdp:
+            # the ZeRO-3 gather of the layer's expert blocks over data,
+            # alone; the schedule then finds them whole
+            (g, u, dn), r["gather_ms"] = timed(lambda: (
+                M._zero_gather(p["gate"], 1, ctx),
+                M._zero_gather(p["up"], 1, ctx),
+                M._zero_gather(p["down"], 2, ctx)))
+            r["gather_gb"] = block_gb * (ctx.dp_size - 1)
+            p.update(gate=g, up=u, down=dn)
+            del g, u, dn
+        ys = {}
+        for impl in impls:
+            c = dataclasses.replace(m, moe_impl=impl)
+            TP.CALLS.clear()
+            with torch.no_grad():
+                (y, aux), ms = timed(lambda: M.moe_apply(p, c, x[None],
+                                                         tp=tp))
+            ys[impl] = y[0].float().cpu()
+            r["calls"][impl] = {"ms": ms, "lb": float(aux["lb_loss"]),
+                                "collectives": dict(TP.CALLS)}
+        del p, y
+        release()
+        mine = coll.gather_objects((row, ys, {k: v["lb"] for k, v in
+                                              r["calls"].items()}), world)
+        if ctx.shard_id == 0:
+            # one device, the whole layer, after the ranks freed theirs
+            full = tree_map(lambda t: t[0], M.moe_init(
+                torch.Generator(device=dev).manual_seed(MOE_SEED), m, dt,
+                dev, 1))
+            for impl in impls:
+                c = dataclasses.replace(m, moe_impl=impl)
+                worst, lbw, peer = 0.0, 0.0, 0.0
+                with torch.no_grad():
+                    want = {}
+                    for q in range(rows):
+                        xq = x_all[q * MOE_TOKENS:(q + 1) * MOE_TOKENS]
+                        y1, a1 = M._moe_local_math(xq, full, c)
+                        if "shared" in full:
+                            y1 = y1 + L.mlp_apply(full["shared"], xq)
+                        lb = a1["lb_loss"]
+                        if impl == "ep_token_a2a":
+                            lb = sum(M._moe_local_math(h, full, c)[1][
+                                "lb_loss"] for h in xq.chunk(tp.size)) \
+                                / tp.size
+                        want[q] = (y1.float().cpu(), float(lb))
+                lbs = [sum(want[q][1] for q in range(rows)) / rows]
+                for q, got, lbg in mine:
+                    y1 = want[q][0]
+                    scale = float(y1.abs().max())
+                    worst = max(worst, float((got[impl] - y1).abs().max())
+                                / scale)
+                    lbw = max(lbw, abs(lbg[impl] - lbs[0]))
+                    if impl != impls[0]:
+                        peer = max(peer, float(
+                            (got[impl] - got[impls[0]]).abs().max())
+                            / scale)
+                r["calls"][impl].update(err=worst, lb_err=lbw,
+                                        vs_first=peer)
+            del full
+            release()
+        coll.barrier(ctx.device, world)
+        out[name] = r
+    return out
+
+
+def check_moe_mesh(ranks, device: str) -> None:
+    """14f's asserts and ``[mesh-moe]`` lines (shard 0 held every rank's
+    output against one device's)."""
+    first = ranks[0]["moe"]
+    for name, r in first.items():
+        arch, mesh, fsdp, impls, cf = MOE_CALLS[name]
+        for impl in impls:
+            c = r["calls"][impl]
+            assert c["err"] <= 3e-2 and c["lb_err"] <= 3e-2, (name, impl, c)
+            assert c["vs_first"] <= 3e-2, (name, impl, c)
+        gather = (f"; the ZeRO gather of its expert blocks over data alone "
+                  f"{r['gather_ms']:.1f} ms ({r['gather_gb']:.2f} GB a rank "
+                  f"received)" if fsdp else "")
+        calls = "; ".join(
+            f"{i}: {c['ms']:.1f} ms, |y - one device| / max "
+            f"{c['err']:.2e}, lb_loss off by {c['lb_err']:.2e}"
+            + (f", vs {impls[0]} {c['vs_first']:.2e}" if i != impls[0]
+               else "") + f", collectives {c['collectives']}"
+            for i, c in r["calls"].items())
+        print(f"[mesh-moe] {arch} MoE layer (bf16) on {mesh} "
+              f"({'fsdp, ' if fsdp else ''}capacity "
+              f"{cf or 'of the config'}), {MOE_TOKENS} tokens a data row: "
+              f"{r['E_local']} experts a rank, {r['block_gb']:.2f} GB of "
+              f"expert blocks a rank built in {r['init_ms']:.0f} ms{gather};"
+              f" {calls} [{_SMI}]")
 
 
 def _elastic_drill(seq: int, dev, device: str, smoke: bool) -> dict:
@@ -4174,10 +4392,13 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
     del canary, plan, bk, bp, rows
 
     # where a mesh step's time goes: its three parts, each timed alone
-    # (host clock, synchronised; every rank in lockstep)
+    # (host clock, synchronised; every rank in lockstep): the forward and
+    # backward with the model axis's collectives (tensor-parallel: no
+    # params gather), the grads' exchange, the norm's all-gather
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.distributed import collectives as coll
-    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.sharding import GATHERS, gather_tree
     from repro_torch.train.loop import make_train_step
     pipe = TokenPipeline(cfg.model.vocab_size, seq, T_BATCH, seed=0)
     rows_of = pipe.batch_at(0)["tokens"].shape[0] // ctx.dp_size
@@ -4194,14 +4415,28 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
         sync()
         return out, 1e3 * (time.perf_counter() - t0)
 
-    full, gather_ms = timed(lambda: gather_tree(local["params"],
-                                                shardings["params"]))
-    (_, _, grads), grad_ms = timed(lambda: raw.loss_and_grads(full, batch))
+    tp = TP.for_model(ctx, cfg.model)
+    GATHERS.clear()
+    read = gather_tree(local["params"], shardings["params"],
+                       axes=ctx.batch_axes)
+    no_gather = not GATHERS         # no fsdp leaf: the blocks themselves
+    TP.CALLS.clear()
+    (_, _, grads), grad_ms = timed(lambda: raw.loss_and_grads(read, batch,
+                                                              tp=tp))
+    tp_calls = dict(TP.CALLS)
     flat = torch.cat([g.reshape(-1) for g in leaves_of(grads)])
     # the same bytes cross as in the step: each peer's half of the grads
     _, mean_ms = timed(lambda: coll.sum_rows(coll.all_to_all(
         flat, ctx.group(ctx.batch_axes))))
-    del full, grads, flat, local, clean
+    sums = torch.stack([torch.sum(torch.square(g.float()))
+                        for g in leaves_of(grads)])
+    _, norm_ms = timed(lambda: coll.all_gather(sums, ctx.group(
+        ctx.axis_names)))
+    del read, grads, flat, local, clean, sums
+    # 14f: the MoE mesh schedules at full width, one layer call each
+    t0 = time.perf_counter()
+    moe = _moe_mesh_calls(dev, device, smoke)
+    secs["14f"] = time.perf_counter() - t0
     # 14e: the serving engine on the mesh (before 14d: after it only the
     # surviving row's two ranks are left)
     t0 = time.perf_counter()
@@ -4209,7 +4444,8 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
     secs["14e"] = time.perf_counter() - t0
     # 14d, last: the ranks of the lost row leave
     elastic = _elastic_drill(seq, dev, device, smoke)
-    return {"elastic": elastic, "serving": serving,
+    return {"elastic": elastic, "serving": serving, "moe": moe,
+        "tp_calls": tp_calls, "no_gather": no_gather,
         "shard": ctx.shard_id, "device": str(ctx.device),
         "name": torch.cuda.get_device_name(ctx.device)
         if device == "cuda" else "cpu",
@@ -4219,8 +4455,8 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
         "patch_exact": patch_exact,
         "local_bytes": sum(nbytes.values()), **kernels,
         "steady": steady, "stats": stats,
-        "parts_ms": {"gather params": gather_ms, "forward+backward":
-                     grad_ms, "grad mean": mean_ms},
+        "parts_ms": {"forward+backward (model-axis sums)": grad_ms,
+                     "grads' exchange": mean_ms, "norm": norm_ms},
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30
         if device == "cuda" else 0.0}
 
@@ -4234,7 +4470,9 @@ def check_mesh_serve(ranks, device: str) -> None:
     its block once per holder, the blocks back to their bits, and the
     path's five kernels launched on every rank and bitwise their plain
     versions on the rank's data; (e2) every report names shard
-    ``MS_ONE_RANK`` alone."""
+    ``MS_ONE_RANK`` alone.  Tensor-parallel: no params gather in the run,
+    two graphs a rotation and read table (4K a rank), the model axis's
+    collectives a steady step printed."""
     for name in ("e1", "e2"):
         first = ranks[0]["serving"][name]
         for r in ranks:
@@ -4248,9 +4486,11 @@ def check_mesh_serve(ranks, device: str) -> None:
             assert e["faults"] == first["faults"], (name, r["shard"])
             assert tuple(e["stats"]) == (1, 1), (name, e["stats"])
             assert e["ptrs_kept"], (name, r["shard"])
+            assert e["tp"] and e["gathers"] == {}, (name, e["gathers"])
+            assert e["tp_calls"].get("reduce_sum", 0) > 0, e["tp_calls"]
             lc = e["launches"]
             if device == "cuda":
-                assert e["graphs"] == 2 * MS_K, (name, e["graphs"])
+                assert e["graphs"] == 4 * MS_K, (name, e["graphs"])
                 for k in ("pack_rows", "row_checksums"):
                     assert lc.get(k, 0) > 0, (name, k, lc)
             extra = ""
@@ -4291,11 +4531,13 @@ def check_mesh_serve(ranks, device: str) -> None:
                   f"logs == one device's; faults "
                   f"{f}, {sm['engine_steps']} steps; decode p50 "
                   f"{sm['p50_decode_ms']:.1f} ms, p99 "
-                  f"{sm['p99_decode_ms']:.1f} ms (gloo-bound); the "
-                  f"iteration's gather alone {e['gather_ms']:.1f} ms, the "
-                  f"flag's "
+                  f"{sm['p99_decode_ms']:.1f} ms (tensor-parallel, no "
+                  f"params gather in the run: gather_tree calls "
+                  f"{e['gathers']}); model-axis collectives a steady step "
+                  f"{e['tp_calls']}; the flag's "
                   f"all-reduce {e['allreduce_ms']:.2f} ms; STATS a steady "
-                  f"step {tuple(e['stats'])}, {e['graphs']} graphs, every "
+                  f"step {tuple(e['stats'])}, {e['graphs']} graphs (head "
+                  f"and tail a rotation and read table), every "
                   f"pointer kept; launches {lc}{extra}; run "
                   f"{e['secs']:.1f} s [{_SMI}]")
 
@@ -4410,6 +4652,9 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
             assert r["shard"] != 0 or lc.get("checksum_tiles", 0) > 0, lc
         assert r["pack_err"] == 0 and r["rows_err"] == 0, r
         assert r["steady"] and tuple(r["stats"]) == (1, 1), r
+        # tensor-parallel: no params gather before the forward
+        assert r["no_gather"], r["shard"]
+        assert r["tp_calls"].get("reduce_sum", 0) > 0, r["tp_calls"]
         ms = {n: {k: round(v, 3) for k, v in
                   sm[n]["recovery"]["p50_wall_ms_by_rung"].items()}
               for n in ("params", "iv")}
@@ -4424,6 +4669,8 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
               f"clean bitwise; launches {lc}; pack_rows and row_checksums "
               f"bitwise their plain versions on the rank's blocks "
               f"({r['words']} words); steady check STATS {r['stats']}; "
+              f"tensor-parallel, no params gather: model-axis collectives "
+              f"a forward + backward {r['tp_calls']}; "
               f"a step's parts alone: "
               + ", ".join(f"{k} {v:.1f} ms" for k, v in
                           r["parts_ms"].items())
@@ -4432,6 +4679,7 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
                  for e in r["pair"]["events"]] for r in ranks]
     assert all(v == verdicts[0] for v in verdicts), verdicts
     check_mesh_serve(ranks, device)
+    check_moe_mesh(ranks, device)
     check_elastic(ranks, device)
 
 

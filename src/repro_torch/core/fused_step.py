@@ -62,10 +62,11 @@ inputs have fixed storage is a graph keyed by (rotation, read table):
     blocks (with a parity attached and donated, the old covered blocks
     into the delta);
   * the step's front (eager): every collective of the mesh step — the
-    params' gather, the forward and backward (their input, the gathered
-    params, is a new tensor of the collective each step), the grads'
-    mean and the norm's all-gather; its outputs are copied into fixed
-    storage;
+    forward and backward with their model-axis collectives
+    (tensor-parallel, on the rank's blocks in place; a whole-params
+    family reads the params' gather, a new tensor each step), the
+    grads' mean and the norm's all-gather; its outputs are copied into
+    fixed storage;
   * the tail (graph): the rest of the step (norm, clip, update, the
     ``iv`` advance), the arm pack of slice ``(s+1) % K`` of the output
     blocks, the ``row_checksums`` launch, the compare against the read

@@ -139,6 +139,31 @@ def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
     return sum_rows(all_gather(t, group))
 
 
+def shift(t: torch.Tensor, group) -> torch.Tensor:
+    """Point-to-point along the group: group rank ``i`` sends ``t`` to rank
+    ``i + 1`` and receives rank ``i - 1``'s (the first rank receives
+    zeros; the last sends nothing).  Gloo's ``send``/``recv`` are not in
+    ``GLOO_CUDA_OPS``: a card's tensor goes through a pinned host
+    buffer."""
+    n = dist.get_world_size(group)
+    i = dist.get_rank(group)
+    src = t.contiguous()
+    staged = _staged("send", src)
+    if staged:
+        src = _host(src)
+    got = torch.zeros_like(src)
+    works = []
+    if i + 1 < n:
+        works.append(dist.isend(src, dist.get_global_rank(group, i + 1),
+                                group=group))
+    if i > 0:
+        works.append(dist.irecv(got, dist.get_global_rank(group, i - 1),
+                                group=group))
+    for w in works:
+        w.wait()
+    return got.to(t.device) if staged else got
+
+
 def flag_max(flag: torch.Tensor, group=None) -> torch.Tensor:
     """A device flag (bool or int) as the int32 maximum over the group."""
     return all_reduce(flag.to(torch.int32).reshape(1), "max", group)

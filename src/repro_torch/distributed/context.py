@@ -169,6 +169,21 @@ class DistContext:
         return self.shape.get(self.model_axis, 1) if self.enabled else 1
 
     @property
+    def tp_rank(self) -> int:
+        """This rank's coordinate on the model axis (0 without one)."""
+        if not self.enabled or self.model_axis not in self.shape:
+            return 0
+        return self.coords(self.shard_id)[self.model_axis]
+
+    def model_range(self, sharding, dim: int) -> Tuple[int, int]:
+        """``[start, stop)`` of dim ``dim`` of a leaf that this rank's
+        block holds, read from its ``LeafSharding`` box: the head,
+        column or vocabulary range tensor-parallel compute reads."""
+        b = sharding.box(self.shard_id)[dim]
+        return (b.start or 0,
+                sharding.shape[dim] if b.stop is None else b.stop)
+
+    @property
     def n_devices(self) -> int:
         """Mesh size: the shard count of every sharded resilience
         artifact."""

@@ -28,7 +28,10 @@ product of its axes' sizes, the chunk index running row-major over the
 axes in spec order), ``local`` cuts a rank's block out of a full tensor
 and ``gather_tree`` puts full tensors back together from every rank's
 blocks, one ``all_gather`` for the leaves of one dtype sharded over the
-same axes.
+same axes; with ``axes`` it gathers over those axes only (the fsdp
+leaves over the batch axes: the blocks tensor-parallel compute reads,
+``without(axes)``'s boxes).  ``GATHERS`` counts its calls that moved
+blocks.
 The guards make every split even, so every rank's block of a leaf has
 the same shape and the single-device digest layout holds on every rank.
 """
@@ -36,6 +39,7 @@ the same shape and the single-device digest layout holds on every rank.
 from __future__ import annotations
 
 import math
+from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -45,6 +49,10 @@ from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.context import DistContext
 from repro_torch.tree import flatten_with_path, leaf_key, map_with_path, \
     tree_map
+
+#: ``gather_tree`` calls that moved blocks, by the axes asked for
+#: ("all" or the axes' names)
+GATHERS: Counter = Counter()
 
 # weight names whose *output* (last) dim shards over the model axis
 _OUT_MODEL = {"wq", "wk", "wv", "gate", "up", "in_proj", "w_up", "head",
@@ -341,6 +349,34 @@ class LeafSharding:
             out.append(slice(idx * step, (idx + 1) * step))
         return tuple(out)
 
+    def without(self, axes) -> "LeafSharding":
+        """This leaf's sharding with ``axes`` gathered: the spec's entries
+        lose those axes (an entry that mixes them with others cannot be
+        gathered apart and raises)."""
+        out = []
+        for e in self._entries():
+            names = () if e is None else \
+                ((e,) if isinstance(e, str) else tuple(e))
+            kept = tuple(a for a in names if a not in axes)
+            if kept and len(kept) != len(names):
+                raise ValueError(f"spec entry {e!r} mixes gathered and kept "
+                                 f"axes")
+            out.append(kept or None)
+        return LeafSharding(self.ctx, PartitionSpec(*out), self.shape,
+                            self.dtype)
+
+    def within(self, outer: "LeafSharding",
+               shard: int) -> Tuple[slice, ...]:
+        """``box(shard)`` relative to ``outer.box(shard)`` (``outer`` a
+        coarser sharding of the leaf, e.g. ``without(axes)``): where
+        shard ``shard``'s block sits in its ``outer`` block."""
+        out = []
+        for b, o, d in zip(self.box(shard), outer.box(shard), self.shape):
+            lo = (b.start or 0) - (o.start or 0)
+            hi = (d if b.stop is None else b.stop) - (o.start or 0)
+            out.append(slice(lo, hi))
+        return tuple(out)
+
     def span(self, shard: int) -> Tuple[Tuple[int, int], ...]:
         """``box(shard)`` as ``((start, stop), ...)`` (the reference's
         normalised ``devices_indices_map`` entry): replicas of one block
@@ -407,12 +443,14 @@ def global_struct(shardings):
     return tree_map(lambda sh: sh.meta(), shardings)
 
 
-def gather_tree(tree, shardings, out=None):
+def gather_tree(tree, shardings, out=None, axes=None):
     """Full tensors from every rank's blocks; a replicated leaf is taken
     as it is.  Collective: one ``all_gather`` per (set of axes the leaves
     are sharded over, dtype), the blocks packed into one buffer.  With
-    ``out`` (a tree of full-shape tensors, e.g. a previous result) the
-    gathered leaves are written into its tensors in place, so every
+    ``axes`` only those axes are gathered: a leaf comes back as its block
+    of ``sh.without(axes)`` (a leaf not sharded over them, as it is).
+    With ``out`` (a tree of full-shape tensors, e.g. a previous result)
+    the gathered leaves are written into its tensors in place, so every
     ``data_ptr`` of ``out`` is kept (a captured graph may read them); a
     replicated leaf is copied in unless ``out`` holds that very tensor.
     Returns ``out`` then."""
@@ -423,8 +461,9 @@ def gather_tree(tree, shardings, out=None):
     full: Dict[str, torch.Tensor] = {}
     groups: Dict[Tuple, List[int]] = {}
     for i, ((path, t), sh) in enumerate(zip(flat, shs)):
-        if sh.axes:
-            key = (tuple(sorted(sh.axes)), str(sh.dtype))
+        mine = tuple(a for a in sh.axes if axes is None or a in axes)
+        if mine:
+            key = (tuple(sorted(mine)), str(sh.dtype))
             groups.setdefault(key, []).append(i)
         elif dst is None:
             full[leaf_key(path)] = t
@@ -432,20 +471,25 @@ def gather_tree(tree, shardings, out=None):
             o = full[leaf_key(path)] = dst[leaf_key(path)]
             if o is not t:
                 o.copy_(t)
+    if groups:
+        GATHERS["all" if axes is None else ",".join(axes)] += 1
     for key in sorted(groups):
-        axes, idx = key[0], groups[key]
+        gaxes, idx = key[0], groups[key]
         ctx = shs[idx[0]].ctx
         rows = coll.all_gather(torch.cat([flat[i][1].reshape(-1)
-                                          for i in idx]), ctx.group(axes))
-        members = ctx.group_shards(axes)
+                                          for i in idx]), ctx.group(gaxes))
+        members = ctx.group_shards(gaxes)
         off = 0
         for i in idx:
             (path, t), sh = flat[i], shs[i]
             n = math.prod(sh.local_shape)
-            o = torch.empty(sh.shape, dtype=sh.dtype, device=t.device) \
+            outer = sh.without(gaxes)
+            o = torch.empty(outer.local_shape, dtype=sh.dtype,
+                            device=t.device) \
                 if dst is None else dst[leaf_key(path)]
             for m, d in enumerate(members):
-                o[sh.box(d)] = rows[m, off:off + n].view(sh.local_shape)
+                o[sh.within(outer, d)] = \
+                    rows[m, off:off + n].view(sh.local_shape)
             full[leaf_key(path)] = o
             off += n
     if out is not None:

@@ -19,6 +19,23 @@ caches for windowed layers and an untied, soft-capped head.  Qwen2-VL's
 m-rope (``m_rope``) rotates each section of the frequency slots with its
 own stream of a ``(B, S, 3)`` position tensor (t, h, w); the attention
 mask and the keys' positions then read the t stream.
+
+Tensor-parallel compute (``tp``, a ``distributed.tensor_parallel.
+TensorParallel``; None is exactly the single-device function): the
+attention, MLP, embedding and unembedding functions take the rank's
+blocks.  ``wq/wk/wv`` are column-parallel over whole heads (GQA's map
+``h -> h // (H / KV)`` stays inside a rank when both counts divide the
+axis), ``wo`` row-parallel with a sum over the model axis and its bias
+added once after it; where the spec guard replicated ``wk/wv`` (KV heads
+that do not divide the axis) every rank computes them whole and reads
+the heads its query heads need, and where it replicated the query heads
+the whole attention is replicated.  The MLP is ``gate/up`` columns then
+the ``down`` rows and a sum; the embedding a vocabulary-parallel lookup
+(rows outside the rank's range give zero, then a sum); the serving
+logits the rank's vocabulary rows gathered over the axis.  A replicated
+leaf read inside a parallel region (q/k-norm scales, replicated
+``wk/wv``) enters it through ``copy_in``, so its gradient is summed over
+the axis like the region's input's.
 """
 
 from __future__ import annotations
@@ -28,6 +45,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import tensor_parallel as TP
 
 Q_CHUNK = 1024              # chunk sizes of ``attention_flash``
 KV_CHUNK = 1024
@@ -266,16 +285,73 @@ def attn_init(gen, cfg, dtype, device, count: int):
     return p
 
 
-def attn_qkv(p, cfg, x, positions, *, theta: float = 0.0):
-    """q/k/v projections, q/k rmsnorm over the head dim (``qk_norm``),
-    then rope at ``theta`` (the layer's own; ``cfg.rope_theta`` if 0):
-    ``positions`` (B, S), or (B, S, 3) under ``m_rope``."""
+def heads_plan(cfg, tp):
+    """How this rank computes attention: None when it is replicated (no
+    ``tp``, or query heads the axis does not divide), else ``(kv_split,
+    sel)``: ``kv_split`` when the KV heads shard too (the rank's q heads
+    read its own KV heads), and ``sel`` the KV heads of a whole-heads
+    tensor (the cache; replicated ``wk/wv``) the rank's query heads read:
+    ``(lo, hi)`` when they form whole GQA groups of a contiguous range,
+    else a list, one KV head per query head."""
+    if tp is None or not tp.splits(cfg.n_heads):
+        return None
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if tp.splits(KV):
+        return True, tp.span(KV // tp.size)
+    hq, G = H // tp.size, H // KV
+    idx = [(tp.rank * hq + i) // G for i in range(hq)]
+    lo, hi = idx[0], idx[-1] + 1
+    if hq % (hi - lo) == 0 and \
+            idx == [lo + i // (hq // (hi - lo)) for i in range(hq)]:
+        return False, (lo, hi)
+    return False, idx
+
+
+def select_heads(t, sel):
+    """The KV heads ``sel`` (``heads_plan``) of ``t`` (..., KV, Dh)."""
+    if sel is None:
+        return t
+    if isinstance(sel, tuple):
+        return t[..., sel[0]:sel[1], :]
+    return t[..., sel, :]
+
+
+def full_heads(t, cfg, tp):
+    """K or V rows (..., KV_local, Dh) of the rank's heads gathered to
+    every head over the model axis (a no-op where ``wk/wv`` are
+    replicated or there is no ``tp``): what the replicated cache
+    stores."""
+    plan = heads_plan(cfg, tp)
+    if plan is None or not plan[0]:
+        return t
+    return TP.gather_cat(t, tp, dim=t.dim() - 2)
+
+
+def _row_out(p, x, tp):
+    """A row-parallel projection: the rank's partial product summed over
+    the model axis, the bias (replicated) added once after the sum."""
+    if tp is None:
+        return dense(p, x)
+    y = TP.reduce_sum(x @ p["w"].to(x.dtype), tp)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def _qkv(p, cfg, x, positions, theta, tp, plan):
+    if plan is not None:
+        x = TP.copy_in(x, tp)
+        ci = lambda d: {n: TP.copy_in(t, tp) for n, t in d.items()}  # noqa
+        p = dict(p)
+        for n in ("q_norm", "k_norm") + (() if plan[0] else ("wk", "wv")):
+            if n in p:
+                p[n] = ci(p[n])
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     theta = theta or cfg.rope_theta
-    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-    k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    q = dense(p["wq"], x).reshape(B, S, -1, hd)
+    k = dense(p["wk"], x).reshape(B, S, -1, hd)
+    v = dense(p["wv"], x).reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -283,16 +359,35 @@ def attn_qkv(p, cfg, x, positions, *, theta: float = 0.0):
     return rope(q, positions, theta), rope(k, positions, theta), v
 
 
+def attn_qkv(p, cfg, x, positions, *, theta: float = 0.0, tp=None):
+    """q/k/v projections, q/k rmsnorm over the head dim (``qk_norm``),
+    then rope at ``theta`` (the layer's own; ``cfg.rope_theta`` if 0):
+    ``positions`` (B, S), or (B, S, 3) under ``m_rope``.  Under ``tp``
+    the rank's query heads, and its KV heads (all of them where ``wk/wv``
+    are replicated)."""
+    return _qkv(p, cfg, x, positions, theta, tp, heads_plan(cfg, tp))
+
+
+def _attending(k, plan):
+    """The KV heads a freshly projected ``k`` offers the rank's query
+    heads: its own when the KV heads shard, else the plan's selection."""
+    return k if plan is None or plan[0] else select_heads(k, plan[1])
+
+
 def attn_apply(p, cfg, x, positions, *, window: int = 0, causal: bool = True,
-               theta: float = 0.0):
+               theta: float = 0.0, tp=None):
     """Full-sequence attention (train / prefill).  Returns (y, (k, v)).
     Under ``m_rope`` the mask reads the t stream, ``positions[..., 0]``
-    (patches of one image share t = 0, so they attend to one another)."""
-    q, k, v = attn_qkv(p, cfg, x, positions, theta=theta)
+    (patches of one image share t = 0, so they attend to one another).
+    Under ``tp`` the (k, v) returned are the rank's KV heads
+    (``full_heads`` gathers them for a cache)."""
+    plan = heads_plan(cfg, tp)
+    q, k, v = _qkv(p, cfg, x, positions, theta, tp, plan)
     pos1 = positions[..., 0] if cfg.m_rope else positions
-    o = attention(q, k, v, pos1, pos1, window=window,
-                  causal=causal, attn_softcap=cfg.attn_softcap)
-    y = dense(p["wo"], o.reshape(x.shape[0], x.shape[1], -1))
+    o = attention(q, _attending(k, plan), _attending(v, plan), pos1, pos1,
+                  window=window, causal=causal, attn_softcap=cfg.attn_softcap)
+    y = _row_out(p["wo"], o.reshape(x.shape[0], x.shape[1], -1),
+                 tp if plan is not None else None)
     return y, (k, v)
 
 
@@ -310,8 +405,17 @@ def cache_kpos(pos, capacity: int, ring: bool = False):
     return torch.where(j <= p, j, torch.full_like(j, -1))
 
 
+def _new_rows(k, v, plan, tp):
+    """A step's new K and V rows over every head (one gather of both
+    when the rank computed only its own)."""
+    if plan is None or not plan[0]:
+        return k, v
+    kv = TP.gather_cat(torch.stack([k, v]), tp, dim=3)
+    return kv[0], kv[1]
+
+
 def attn_decode(p, cfg, x, pos, k_cache, v_cache, *, window: int = 0,
-                theta: float = 0.0):
+                theta: float = 0.0, tp=None):
     """Single-token decode, the cache written IN PLACE.
 
     x (B,1,d); pos (B,) int32, each row's absolute position;
@@ -321,12 +425,17 @@ def attn_decode(p, cfg, x, pos, k_cache, v_cache, *, window: int = 0,
     linear, written at ``min(pos, C-1)`` (the reference's clamped
     ``dynamic_update_slice``).  Under ``m_rope`` the new token rotates
     at ``pos`` on all three streams, as in the reference, built on the
-    device (no host sync in a captured step).  Returns y (B,1,d)."""
+    device (no host sync in a captured step).  Under ``tp`` the cache
+    stays whole (a replica on every rank): the new rows of the rank's KV
+    heads are gathered over the model axis before they are written, and
+    the rank's query heads read their heads of it.  Returns y (B,1,d)."""
     B = x.shape[0]
+    plan = heads_plan(cfg, tp)
     positions = pos[:, None].to(torch.int32)
     rope_pos = positions[..., None].expand(B, 1, 3) if cfg.m_rope \
         else positions
-    q, k, v = attn_qkv(p, cfg, x, rope_pos, theta=theta)
+    q, k, v = _qkv(p, cfg, x, rope_pos, theta, tp, plan)
+    k, v = _new_rows(k, v, plan, tp)
     C = k_cache.shape[1]
     ring = window > 0 and C <= window
     rows = torch.arange(B, device=x.device)
@@ -335,14 +444,17 @@ def attn_decode(p, cfg, x, pos, k_cache, v_cache, *, window: int = 0,
     k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
     kpos = cache_kpos(pos, C, ring)
-    o = attention_direct(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+    sel = None if plan is None else plan[1]
+    o = attention_direct(q, select_heads(k_cache, sel).to(q.dtype),
+                         select_heads(v_cache, sel).to(q.dtype),
                          positions, kpos, window=window,
                          attn_softcap=cfg.attn_softcap)
-    return dense(p["wo"], o.reshape(B, 1, -1))
+    return _row_out(p["wo"], o.reshape(B, 1, -1),
+                    tp if plan is not None else None)
 
 
 def attn_prefill_chunk(p, cfg, x, qpos, k_ctx, v_ctx, ctx_kpos, *,
-                       window: int = 0, theta: float = 0.0):
+                       window: int = 0, theta: float = 0.0, tp=None):
     """Chunked-prefill attention: a span of new tokens attends to an
     external KV context plus itself, causally.
 
@@ -350,17 +462,24 @@ def attn_prefill_chunk(p, cfg, x, qpos, k_ctx, v_ctx, ctx_kpos, *,
     k_ctx/v_ctx (B,T,KV,Dh) the already-cached context; ctx_kpos (B,T)
     the context rows' absolute key positions (< 0 = unwritten, masked).
     Linear caches only.  Returns (y (B,C,d), k, v) with k/v (B,C,KV,Dh)
-    the chunk's new cache rows for the caller to store.  1-D rope only:
-    the paged engine that calls it refuses m-rope."""
+    the chunk's new cache rows for the caller to store (every head, also
+    under ``tp``).  1-D rope only: the paged engine that calls it refuses
+    m-rope."""
     B, C = x.shape[:2]
-    q, k, v = attn_qkv(p, cfg, x, qpos, theta=theta)
-    k_all = torch.cat([k_ctx.to(q.dtype), k.to(q.dtype)], dim=1)
-    v_all = torch.cat([v_ctx.to(q.dtype), v.to(q.dtype)], dim=1)
+    plan = heads_plan(cfg, tp)
+    q, k, v = _qkv(p, cfg, x, qpos, theta, tp, plan)
+    sel = None if plan is None else plan[1]
+    k_all = torch.cat([select_heads(k_ctx, sel).to(q.dtype),
+                       _attending(k, plan).to(q.dtype)], dim=1)
+    v_all = torch.cat([select_heads(v_ctx, sel).to(q.dtype),
+                       _attending(v, plan).to(q.dtype)], dim=1)
     kpos_all = torch.cat([ctx_kpos.to(torch.int32).expand(B, -1),
                           qpos.to(torch.int32)], dim=1)
     o = attention_direct(q, k_all, v_all, qpos, kpos_all, window=window,
                          causal=True, attn_softcap=cfg.attn_softcap)
-    return dense(p["wo"], o.reshape(B, C, -1)), k, v
+    k, v = _new_rows(k, v, plan, tp)
+    return _row_out(p["wo"], o.reshape(B, C, -1),
+                    tp if plan is not None else None), k, v
 
 
 def mlp_init(gen, d_model: int, d_ff: int, dtype, device, count: int, *,
@@ -376,18 +495,39 @@ def mlp_init(gen, d_model: int, d_ff: int, dtype, device, count: int, *,
     }
 
 
-def mlp_apply(p, x):
-    """SwiGLU."""
-    return dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
+def mlp_apply(p, x, tp=None):
+    """SwiGLU.  Under ``tp`` (the caller passes it when the axis splits
+    the FFN width) the rank's ``gate/up`` columns, then its ``down`` rows
+    and a sum over the model axis."""
+    if tp is None:
+        return dense(p["down"], F.silu(dense(p["gate"], x))
+                     * dense(p["up"], x))
+    x = TP.copy_in(x, tp)
+    return _row_out(p["down"], F.silu(dense(p["gate"], x))
+                    * dense(p["up"], x), tp)
 
 
-def embed(p, tokens, compute_dtype):
-    return p["table"][tokens.to(torch.int64)].to(compute_dtype)
+def embed(p, tokens, compute_dtype, tp=None):
+    """The lookup; under ``tp`` (the axis splits the vocabulary) each rank
+    looks up the tokens of its rows ``[start, start + V_local)`` (zeros
+    for the rest) and the rows are summed over the model axis: exactly
+    one rank adds a nonzero row, so the sum is the lookup's bits."""
+    ids = tokens.to(torch.int64)
+    if tp is None:
+        return p["table"][ids].to(compute_dtype)
+    n = p["table"].shape[0]
+    ids = ids - tp.span(n)[0]
+    mine = (ids >= 0) & (ids < n)
+    rows = p["table"][ids.clamp(0, n - 1)].to(compute_dtype)
+    rows = torch.where(mine[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return TP.reduce_sum(rows, tp)
 
 
-def unembed(p_embed, x, *, w_head=None, logit_softcap_v: float = 0.0):
-    """f32 vocab logits, soft-capped when ``logit_softcap_v`` is set: tied
-    (``x @ table.T``) unless an untied head ``w_head`` (d, V) is given."""
+def local_logits(p_embed, x, *, w_head=None, logit_softcap_v: float = 0.0):
+    """f32 logits over the vocabulary rows the table (or head columns)
+    given holds, soft-capped (elementwise, so a vocabulary slice caps as
+    the whole does)."""
     x = x.to(torch.float32)
     if w_head is None:
         logits = torch.einsum("bsd,vd->bsv", x,
@@ -395,6 +535,20 @@ def unembed(p_embed, x, *, w_head=None, logit_softcap_v: float = 0.0):
     else:
         logits = torch.einsum("bsd,dv->bsv", x, w_head.to(torch.float32))
     return softcap(logits, logit_softcap_v)
+
+
+def unembed(p_embed, x, *, w_head=None, logit_softcap_v: float = 0.0,
+            tp=None):
+    """f32 vocab logits, soft-capped when ``logit_softcap_v`` is set: tied
+    (``x @ table.T``) unless an untied head ``w_head`` (d, V) is given.
+    Under ``tp`` (the axis splits the vocabulary) each rank computes its
+    rows and the slices are gathered in vocabulary order: every rank
+    holds the whole logits (serving takes its greedy token over them)."""
+    logits = local_logits(p_embed, x, w_head=w_head,
+                          logit_softcap_v=logit_softcap_v)
+    if tp is None:
+        return logits
+    return TP.gather_cat(logits, tp, dim=-1)
 
 
 def cross_entropy(logits, labels, mask=None):

@@ -29,6 +29,15 @@ layer's window when that is below ``max_len`` (a ring cache), else
 advance every serving slot at its own depth (the reference vmapped a B=1
 decode over the slots).  ``decode_step`` writes the new key and value
 rows into the cache IN PLACE.
+
+Tensor-parallel compute (``tp``: given on a mesh with a model axis for
+the ``dense`` and ``moe`` families, None elsewhere): ``forward``,
+``train_loss``, ``prefill``, ``prefill_chunk`` and ``decode_step`` take
+the rank's blocks and thread ``tp`` to every layer (``layers.py``'s parallel attention, MLP, embedding and logits;
+``moe.py``'s mesh schedules).  Norms, scales, the sandwich norm and the
+parallel block act on replicated activations after the sums.  The loss
+is vocabulary-parallel per chunk (``chunked_ce``).  Caches stay whole:
+a prefill gathers each layer's K/V heads over the model axis.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.tree import flatten_with_path, leaf_key, map_with_path, \
@@ -159,18 +169,24 @@ def embed_scale(cfg) -> float:
     return math.sqrt(cfg.d_model) if cfg.sandwich_norm else 1.0
 
 
-def _embed(params, cfg, tokens):
+def _vocab_tp(cfg, tp):
+    """``tp`` when the model axis splits the vocabulary, else None."""
+    return tp if tp is not None and tp.splits(cfg.vocab_size) else None
+
+
+def _embed(params, cfg, tokens, tp=None):
     """Token embedding in the compute dtype, times ``embed_scale``.  The
     reference multiplies by a weakly typed Python scalar, which JAX
     first rounds to the array's dtype; so is it here."""
-    x = L.embed(params["embed"], tokens, _dtype(cfg.compute_dtype))
+    x = L.embed(params["embed"], tokens, _dtype(cfg.compute_dtype),
+                _vocab_tp(cfg, tp))
     scale = embed_scale(cfg)
     if scale != 1.0:
         x = x * torch.tensor(scale, dtype=x.dtype).item()
     return x
 
 
-def _embed_inputs(params, cfg, batch):
+def _embed_inputs(params, cfg, batch, tp=None):
     """The reference's ``_embed_inputs``: the token embedding, and under
     ``patch_dim`` with ``patch_embeds`` in the batch the patches cast to
     the compute dtype, projected by ``patch_proj`` and prepended, the
@@ -179,7 +195,7 @@ def _embed_inputs(params, cfg, batch):
     under ``m_rope``).  Returns (x, positions, loss_mask or None)."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, tp)
     mask = batch.get("loss_mask")
     if cfg.patch_dim and "patch_embeds" in batch:
         patches = L.dense(params["patch_proj"],
@@ -202,61 +218,65 @@ def _embed_inputs(params, cfg, batch):
 # blocks
 # ---------------------------------------------------------------------------
 
-def _ffn(p, cfg, desc: LayerDesc, h, min_capacity: int = 0):
+def _ffn(p, cfg, desc: LayerDesc, h, min_capacity: int = 0, tp=None):
     """The layer's FFN: (out, load-balance term or None)."""
     if desc.moe:
-        y, aux = M.moe_apply(p["ffn"], cfg, h, min_capacity=min_capacity)
+        y, aux = M.moe_apply(p["ffn"], cfg, h, min_capacity=min_capacity,
+                             tp=tp)
         return y, aux["lb_loss"]
-    return L.mlp_apply(p["ffn"], h), None
+    return L.mlp_apply(p["ffn"], h, tp if tp is not None
+                       and tp.splits(cfg.d_ff) else None), None
 
 
 def _residual(p, cfg, desc: LayerDesc, x, h, attn_out,
-              min_capacity: int = 0):
+              min_capacity: int = 0, tp=None):
     """The block's tail after attention: the sandwich's post-norms and
     the parallel form (attention and FFN both read ``h``), as in the
     reference's ``block_apply``.  Returns (x, lb or None)."""
     if cfg.sandwich_norm:
         attn_out = L.rmsnorm(p["ln1_post"], attn_out, cfg.norm_eps)
     if cfg.parallel_block:
-        ffn_out, lb = _ffn(p, cfg, desc, h, min_capacity)
+        ffn_out, lb = _ffn(p, cfg, desc, h, min_capacity, tp)
         return x + attn_out + ffn_out, lb
     x = x + attn_out
     ffn_out, lb = _ffn(p, cfg, desc, L.rmsnorm(p["ln2"], x, cfg.norm_eps),
-                       min_capacity)
+                       min_capacity, tp)
     if cfg.sandwich_norm:
         ffn_out = L.rmsnorm(p["ln2_post"], ffn_out, cfg.norm_eps)
     return x + ffn_out, lb
 
 
-def block_apply(p, cfg, desc: LayerDesc, x, positions):
+def block_apply(p, cfg, desc: LayerDesc, x, positions, tp=None):
     """Full-sequence block.  Returns (x, (k, v), lb or None)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out, kv = L.attn_apply(p["attn"], cfg, h, positions,
-                                window=desc.window, theta=desc.theta)
-    x, lb = _residual(p, cfg, desc, x, h, attn_out)
+                                window=desc.window, theta=desc.theta, tp=tp)
+    x, lb = _residual(p, cfg, desc, x, h, attn_out, tp=tp)
     return x, kv, lb
 
 
-def block_decode(p, cfg, desc: LayerDesc, x, pos, k_cache, v_cache):
+def block_decode(p, cfg, desc: LayerDesc, x, pos, k_cache, v_cache,
+                 tp=None):
     """Single-token block; writes the caches in place.  Returns x.  An
     MoE FFN runs every row's token with a capacity of at least the batch
     (``moe.py``: the reference decoded each slot alone)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out = L.attn_decode(p["attn"], cfg, h, pos, k_cache, v_cache,
-                             window=desc.window, theta=desc.theta)
+                             window=desc.window, theta=desc.theta, tp=tp)
     return _residual(p, cfg, desc, x, h, attn_out,
-                     min_capacity=x.shape[0] * x.shape[1])[0]
+                     min_capacity=x.shape[0] * x.shape[1], tp=tp)[0]
 
 
-def block_chunk(p, cfg, desc: LayerDesc, x, qpos, ck, cv, ctx_kpos):
+def block_chunk(p, cfg, desc: LayerDesc, x, qpos, ck, cv, ctx_kpos,
+                tp=None):
     """Chunked-prefill block: a C-token span attends to an external KV
     context plus itself (paged serving).  Returns (x, k, v) with k/v the
     chunk's new cache rows."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out, k, v = L.attn_prefill_chunk(p["attn"], cfg, h, qpos, ck, cv,
                                           ctx_kpos, window=desc.window,
-                                          theta=desc.theta)
-    return _residual(p, cfg, desc, x, h, attn_out)[0], k, v
+                                          theta=desc.theta, tp=tp)
+    return _residual(p, cfg, desc, x, h, attn_out, tp=tp)[0], k, v
 
 
 # ---------------------------------------------------------------------------
@@ -271,12 +291,13 @@ def cache_capacity(desc: LayerDesc, max_len: int) -> int:
 
 
 def forward(params, cfg, x, positions, *, collect_cache: bool = False,
-            cache_sizes=None, remat: bool = False):
+            cache_sizes=None, remat: bool = False, tp=None):
     """Walk every layer.  Returns (hidden, lb_sum, caches|None): the f32
     sum of the MoE layers' load-balance terms (0 without experts); with
     ``collect_cache`` each group yields ``[{"k", "v"}]`` leaves
     ``(count, B, cache_sizes(desc), KV, Dh)`` laid out by
-    ``_pack_cache``."""
+    ``_pack_cache`` (every head: under ``tp`` each layer's are gathered
+    over the model axis)."""
     caches = [] if collect_cache else None
     lb_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (count, pattern) in enumerate(derive_groups(cfg)):
@@ -286,17 +307,17 @@ def forward(params, cfg, x, positions, *, collect_cache: bool = False,
             for j, desc in enumerate(pattern):
                 if remat:
                     x, lb = checkpoint(lambda p, h, d=desc: _remat_body(
-                        p, cfg, d, h, positions), per_layer[j][l], x,
+                        p, cfg, d, h, positions, tp), per_layer[j][l], x,
                         use_reentrant=False)
                     lb_total = lb_total + lb
                     continue
                 x, (k, v), lb = block_apply(per_layer[j][l], cfg, desc, x,
-                                            positions)
+                                            positions, tp)
                 if lb is not None:
                     lb_total = lb_total + lb
                 if collect_cache:
-                    outs[j]["k"].append(k)
-                    outs[j]["v"].append(v)
+                    outs[j]["k"].append(L.full_heads(k, cfg, tp))
+                    outs[j]["v"].append(L.full_heads(v, cfg, tp))
         if collect_cache:
             caches.append([
                 {n: _pack_cache(torch.stack(o[n]), desc, cache_sizes(desc))
@@ -305,9 +326,9 @@ def forward(params, cfg, x, positions, *, collect_cache: bool = False,
     return x, lb_total, caches
 
 
-def _remat_body(p, cfg, desc: LayerDesc, x, positions):
+def _remat_body(p, cfg, desc: LayerDesc, x, positions, tp=None):
     """A recomputed block's outputs: (x, lb; 0 on a dense layer)."""
-    x, _, lb = block_apply(p, cfg, desc, x, positions)
+    x, _, lb = block_apply(p, cfg, desc, x, positions, tp)
     return x, (torch.zeros((), dtype=torch.float32, device=x.device)
                if lb is None else lb)
 
@@ -332,19 +353,28 @@ def _head_weight(params, cfg):
     return None if cfg.tie_embeddings else params["head"]["w"]
 
 
-def logits_fn(params, cfg, hidden):
+def logits_fn(params, cfg, hidden, tp=None):
+    """f32 logits over the whole vocabulary (under ``tp`` the rank's rows
+    gathered over the model axis)."""
     return L.unembed(params["embed"], hidden,
                      w_head=_head_weight(params, cfg),
-                     logit_softcap_v=cfg.logit_softcap)
+                     logit_softcap_v=cfg.logit_softcap,
+                     tp=_vocab_tp(cfg, tp))
 
 
-def chunked_ce(params, cfg, hidden, targets, mask=None, chunk=LOSS_CHUNK):
+def chunked_ce(params, cfg, hidden, targets, mask=None, chunk=LOSS_CHUNK,
+               tp=None):
     """Cross-entropy over sequence chunks, so (B, S, V) logits are never
     materialised for the whole sequence.  Logits are f32 through the
     tied table or the untied head, soft-capped; the label log-prob is an
     iota-compare-reduce, as in the reference (no gather: its backward is
-    elementwise, hence deterministic on the card)."""
+    elementwise, hence deterministic on the card).  Under ``tp`` (the
+    axis splits the vocabulary) each rank computes its vocabulary rows'
+    logits and the chunk's maximum, sum of exponentials and target logit
+    are combined over the model axis (``TP.vocab_logsumexp_and_target``):
+    the same loss bits on every rank."""
     B, S, _ = hidden.shape
+    vtp = _vocab_tp(cfg, tp)
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
     chunk = min(chunk, S)
@@ -354,6 +384,9 @@ def chunked_ce(params, cfg, hidden, targets, mask=None, chunk=LOSS_CHUNK):
     else:
         w, eq = head.to(torch.float32), "bsd,dv->bsv"
     vocab = torch.arange(cfg.vocab_size, device=hidden.device)
+    if vtp is not None:
+        hidden = TP.copy_in(hidden, vtp)
+        start = vtp.span(w.shape[0] if head is None else w.shape[1])[0]
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s0 in range(0, S, chunk):
@@ -361,6 +394,11 @@ def chunked_ce(params, cfg, hidden, targets, mask=None, chunk=LOSS_CHUNK):
         t = targets[:, s0:s0 + chunk].to(torch.int64)
         m = mask[:, s0:s0 + chunk].to(torch.float32)
         logits = L.softcap(torch.einsum(eq, h, w), cfg.logit_softcap)
+        if vtp is not None:
+            logz, ll = TP.vocab_logsumexp_and_target(logits, t, start, vtp)
+            tot = tot + ((logz - ll) * m).sum()
+            cnt = cnt + m.sum()
+            continue
         logz = torch.logsumexp(logits, dim=-1)
         ll = torch.where(vocab == t[..., None], logits,
                          torch.zeros((), dtype=logits.dtype,
@@ -370,43 +408,44 @@ def chunked_ce(params, cfg, hidden, targets, mask=None, chunk=LOSS_CHUNK):
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def train_loss(params, cfg, batch, *, remat: bool = False):
+def train_loss(params, cfg, batch, *, remat: bool = False, tp=None):
     """batch: tokens (B,S), targets (B,S) [, loss_mask, patch_embeds,
     positions].  Returns (loss, metrics) with the reference's metric
     keys: with experts the loss adds ``LB_COEF`` times the mean
     load-balance term over the layers, and ``lb`` reports the sum.  With
     patches the targets are padded at the front with ``Np`` labels the
     mask ignores."""
-    x, positions, mask = _embed_inputs(params, cfg, batch)
+    x, positions, mask = _embed_inputs(params, cfg, batch, tp)
     targets = batch["targets"]
     if x.shape[1] > targets.shape[1]:
         targets = F.pad(targets, (x.shape[1] - targets.shape[1], 0))
-    hidden, lb, _ = forward(params, cfg, x, positions, remat=remat)
-    ce = chunked_ce(params, cfg, hidden, targets, mask)
+    hidden, lb, _ = forward(params, cfg, x, positions, remat=remat, tp=tp)
+    ce = chunked_ce(params, cfg, hidden, targets, mask, tp=tp)
     loss = ce + LB_COEF * lb / max(cfg.n_layers, 1) if cfg.n_experts \
         else ce
     return loss, {"ce": ce, "lb": lb}
 
 
-def prefill(params, cfg, batch, *, max_len: Optional[int] = None):
+def prefill(params, cfg, batch, *, max_len: Optional[int] = None,
+            tp=None):
     """Build a decode cache from a full prompt.  batch["tokens"] (B, P)
     [, patch_embeds (B, Np, patch_dim), positions (B, Np + P, 3)]: S =
     Np + P rows.  Each layer's cache holds ``cache_capacity(desc,
     max_len or S)`` rows and ``pos`` is S.  Returns (last-position logits
     (B, V), cache)."""
-    x, positions, _ = _embed_inputs(params, cfg, batch)
+    x, positions, _ = _embed_inputs(params, cfg, batch, tp)
     B, S = x.shape[:2]
     max_len = max_len or S
     hidden, _, caches = forward(
         params, cfg, x, positions, collect_cache=True,
-        cache_sizes=lambda desc: cache_capacity(desc, max_len))
-    logits = logits_fn(params, cfg, hidden[:, -1:, :])[:, 0]
+        cache_sizes=lambda desc: cache_capacity(desc, max_len), tp=tp)
+    logits = logits_fn(params, cfg, hidden[:, -1:, :], tp)[:, 0]
     pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, {"groups": caches, "pos": pos}
 
 
 def prefill_chunk(params, cfg, batch, ctx_cache, ctx_kpos, pos0: int,
-                  valid: int):
+                  valid: int, tp=None):
     """Prefill one fixed-size chunk of a prompt against an external KV
     context (paged serving).
 
@@ -425,7 +464,7 @@ def prefill_chunk(params, cfg, batch, ctx_cache, ctx_kpos, pos0: int,
     keeps them out of the valid logits."""
     tokens = batch["tokens"]
     B, C = tokens.shape
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, tp)
     qpos = (int(pos0) + torch.arange(C, dtype=torch.int32,
                                      device=x.device))[None, :].expand(B, C)
     new_groups = []
@@ -437,24 +476,24 @@ def prefill_chunk(params, cfg, batch, ctx_cache, ctx_kpos, pos0: int,
             for j, desc in enumerate(pattern):
                 x, k, v = block_chunk(_layer(stacked[j], l), cfg, desc, x,
                                       qpos, cache_g[j]["k"][l],
-                                      cache_g[j]["v"][l], ctx_kpos)
+                                      cache_g[j]["v"][l], ctx_kpos, tp)
                 outs[j]["k"].append(k)
                 outs[j]["v"].append(v)
         new_groups.append([{n: torch.stack(o[n]) for n in ("k", "v")}
                            for o in outs])
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     last = max(int(valid) - 1, 0)
-    logits = logits_fn(params, cfg, x[:, last:last + 1, :])[:, 0]
+    logits = logits_fn(params, cfg, x[:, last:last + 1, :], tp)[:, 0]
     return logits, {"groups": new_groups}
 
 
-def decode_step(params, cfg, cache, token):
+def decode_step(params, cfg, cache, token, tp=None):
     """One serving step: token (B,) -> (logits (B, V), cache').
 
     Each batch row decodes at its own ``cache["pos"]``; the key/value
     leaves of ``cache`` are updated in place (a ring leaf at ``pos %
     capacity``) and returned in ``cache'`` with ``pos + 1``."""
-    x = _embed(params, cfg, token[:, None])
+    x = _embed(params, cfg, token[:, None], tp)
     pos = cache["pos"].to(torch.int32)
     for gi, (count, pattern) in enumerate(derive_groups(cfg)):
         stacked = params["groups"][gi]
@@ -462,9 +501,9 @@ def decode_step(params, cfg, cache, token):
         for l in range(count):
             for j, desc in enumerate(pattern):
                 x = block_decode(_layer(stacked[j], l), cfg, desc, x, pos,
-                                 cache_g[j]["k"][l], cache_g[j]["v"][l])
+                                 cache_g[j]["k"][l], cache_g[j]["v"][l], tp)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = logits_fn(params, cfg, x)[:, 0]
+    logits = logits_fn(params, cfg, x, tp)[:, 0]
     return logits, {"groups": cache["groups"], "pos": pos + 1}
 
 

@@ -81,27 +81,39 @@ off-mesh ``repro/serving/engine.py``.
   the reference's mesh mode).  The params shard per
   ``launch/specs.param_shardings`` and the engine holds only the rank's
   blocks (``blocks``): those are the at-rest weights the parity covers,
-  the adversary flips and the scrub repairs.  The port has no
-  tensor-parallel compute, so the model reads a whole-params tree in
-  fixed storage (``params``; a replicated leaf is its block itself),
-  gathered from every rank's blocks by ``gather_tree(..., out=)``
-  eagerly once per ``run`` iteration, before the first admission,
-  prefill chunk or engine step that reads it: no token is computed from
-  weights older than the blocks at the start of its iteration, and the
-  gathered copy is never kept as the weights.  The covered state (cache
-  or pool, ``pos``, ``tok``, ``amask``, the forced buffer) is
-  replicated: every rank holds all of it and runs the same scheduler on
-  the same requests in lockstep.  The canary is shard-local over the
-  rank's replica (a ``ShardedDigestPlan``); a graph cannot hold a gloo
-  collective, so a step's graph records the body up to
-  ``CheckArm.finish_local`` (with a lane's non-finite logits folded into
-  the local flag) and ``reduce_flag`` (the flag's MAX all-reduce) runs
-  eagerly after the replay, before the one fetch: a steady step is the
-  iteration's gather, one replay, one all-reduce and one fetch.  Once
-  the flag fired every rank gathers the mismatch masks and the lanes'
-  finite bits (``FaultReport.shards`` names the injured replicas), so
-  every rank evicts the same victims.  ``evict_mesh`` drops a mesh's
-  engines' graphs, cores and gathered storage.
+  the adversary flips and the scrub repairs.  For the ``dense`` and
+  ``moe`` families the compute is tensor-parallel
+  (``distributed/tensor_parallel.py``): the model reads the rank's blocks
+  in place (``params`` is ``blocks``), its heads, FFN columns and
+  vocabulary rows, with the model axis's collectives inside the decode
+  (each layer's new K/V rows gathered so the cache stays a replica, the
+  row-parallel sums, the logits gathered over the vocabulary); only
+  ``fsdp`` leaves are gathered, over the batch axes, for each call that
+  reads them, as the reference's partitioner does.  The other families
+  (``ssm``, ``hybrid``, ``encdec``, ``vlm``; their tensor-parallel
+  compute is ROADMAP queue 1) read a whole-params tree in fixed storage
+  (``params``; a replicated leaf is its block itself), gathered from
+  every rank's blocks by ``gather_tree(..., out=)`` eagerly once per
+  ``run`` iteration, before the first admission, prefill chunk or
+  engine step that reads it (``refresh_params``): no token is computed
+  from weights older than the blocks at the start of its iteration.
+  The covered state (cache or pool, ``pos``, ``tok``, ``amask``, the
+  forced buffer) is replicated: every rank holds all of it and runs the
+  same scheduler on the same requests in lockstep.  The canary is
+  shard-local over the rank's replica (a ``ShardedDigestPlan``).  A
+  graph cannot hold a gloo collective (and NCCL refuses two ranks on one
+  card), so on the card a whole-params step's graph records the body up
+  to ``CheckArm.finish_local`` (with a lane's non-finite logits folded
+  into the local flag), and a tensor-parallel step is two graphs a
+  rotation and read table around the eager model: the head (the check
+  pack, the ping-pong copy, the paged gather view) and the tail (the
+  scatter, ``pos`` advance, forced select over the logits the model
+  left in fixed storage, arm pack, ``finish_local``).  ``reduce_flag``
+  (the flag's MAX all-reduce) runs eagerly after the replay, before the
+  one fetch.  Once the flag fired every rank gathers the mismatch masks
+  and the lanes' finite bits (``FaultReport.shards`` names the injured
+  replicas), so every rank evicts the same victims.  ``evict_mesh``
+  drops a mesh's engines' graphs, cores and gathered storage.
 """
 
 from __future__ import annotations
@@ -124,6 +136,7 @@ from repro_torch.core.faults import bit_width, flip_bit
 from repro_torch.core.parity import ParityStore
 from repro_torch.core.recover import plan_serving_recovery
 from repro_torch.core.replay import copy_into
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import gather_tree, local_tree
 from repro_torch.kernels import _build
 from repro_torch.kernels import digest as kdigest
@@ -247,6 +260,15 @@ class _Graph:
     launches: Counter
 
 
+@dataclass
+class _Split:
+    """A tensor-parallel engine step's two graphs (head and tail) around
+    the eager model, and the decode view the head leaves for it."""
+    head: _Graph
+    tail: _Graph
+    view: Dict
+
+
 class ServingEngine:
     """Iteration-level scheduler + batched decoder + rotating canary.
 
@@ -308,21 +330,34 @@ class ServingEngine:
         full = (params if params is not None
                 else self.model.init(self.m, seed, dev))
         #: on a mesh: the rank's param blocks (the at-rest weights), their
-        #: shardings, and the whole-params storage the model reads
+        #: shardings, and (a whole-params family) the storage the model
+        #: reads; tensor-parallel, the model reads the blocks
         self._blocks = self._psh = self._whole = None
-        self._stale = False
+        self._stale = self._closed = False
+        self._tp = TP.for_model(self.ctx, self.m)
+        self._mkw = {} if self._tp is None else {"tp": self._tp}
+        self._zero = False
         if self.ctx is not None:
             self._psh, _ = param_shardings(self.ctx, cfg, full)
             self._blocks = tree_map(lambda t: t.to(dev),
                                     local_tree(full, self._psh))
-            self._whole = tree_map(
-                lambda b, sh: b if not sh.axes else torch.empty(
-                    sh.shape, dtype=sh.dtype, device=dev),
-                self._blocks, self._psh)
-            full = self._whole
-            self._stale = True
+            if self._tp is None:
+                self._whole = tree_map(
+                    lambda b, sh: b if not sh.axes else torch.empty(
+                        sh.shape, dtype=sh.dtype, device=dev),
+                    self._blocks, self._psh)
+                full = self._whole
+                self._stale = True
+            else:
+                full = self._blocks
+                batch = set(self.ctx.batch_axes)
+                self._zero = any(batch & set(sh.axes)
+                                 for sh in leaves(self._psh))
             _ON_MESH.add(self)
         self.params = full
+        #: the tensor-parallel step's logits, where the eager model leaves
+        #: them for the tail graph (allocated before the first capture)
+        self._logits: Optional[torch.Tensor] = None
 
         # at-rest parity over the STATIC params: one build here and the
         # healthy digests recorded beside it (one fetch) let
@@ -449,21 +484,42 @@ class ServingEngine:
         return self._blocks if self.ctx is not None else self.params
 
     def refresh_params(self) -> None:
-        """On a mesh: gather every rank's blocks into the whole-params
-        storage the model reads, in place (a collective, eager, outside
-        any graph; the storage keeps its pointers, so the graphs stay
-        valid).  Off the mesh nothing."""
-        if self.ctx is None:
-            return
-        if self._whole is None:
+        """On a mesh, a whole-params family: gather every rank's blocks
+        into the whole-params storage the model reads, in place (a
+        collective, eager, outside any graph; the storage keeps its
+        pointers, so the graphs stay valid).  Off the mesh, and
+        tensor-parallel (the model reads the blocks in place), nothing."""
+        if self._closed:
             raise RuntimeError("this engine was closed (evict_mesh)")
+        if self._whole is None:
+            return
         gather_tree(self._blocks, self._psh, out=self._whole)
         self._stale = False
 
     def _ensure_params(self) -> None:
-        """Gather unless this iteration already did (on a mesh)."""
+        """Gather unless this iteration already did (a whole-params
+        family on a mesh)."""
+        if self._closed:
+            raise RuntimeError("this engine was closed (evict_mesh)")
         if self._stale:
             self.refresh_params()
+
+    def _read(self):
+        """The params tree the model reads: tensor-parallel with fsdp
+        leaves, the blocks with those gathered over the batch axes (a
+        collective each call, as the reference's partitioner gathers
+        them in each step); else ``params``."""
+        if self._zero:
+            return gather_tree(self._blocks, self._psh,
+                               axes=self.ctx.batch_axes)
+        return self.params
+
+    @property
+    def n_graphs(self) -> int:
+        """CUDA graphs held: one per rotation and read table, two for a
+        tensor-parallel step (head and tail)."""
+        return sum(2 if isinstance(e, _Split) else 1
+                   for e in self._graphs.values())
 
     def close(self) -> int:
         """Drop the graphs, the check+arm cores and, on a mesh, the
@@ -477,7 +533,8 @@ class ServingEngine:
         self._pool = None
         if self.ctx is not None:
             self._whole = self._params = None
-            self._stale = True
+            self._stale = False
+            self._closed = True
         _ON_MESH.discard(self)
         return n
 
@@ -544,46 +601,72 @@ class ServingEngine:
 
     # -- the engine step: the body, and its graphs on the card ---------------
 
-    def _decode(self, ver):
-        """Gather, batched decode, in-place scatter-back and position
-        advance on state version ``ver``.  Returns (next tokens (S,),
+    def _decode_view(self, ver):
+        """The decode cache the model reads and writes in place: the
+        pool's blocks gathered (paged) or the slot-major cache."""
+        if self.paged:
+            return pgd.gathered_cache({"groups": ver["groups"]}, self.bt,
+                                      ver["pos"])
+        return decode_view(ver)
+
+    def _model(self, view):
+        """The batched decode over ``view`` (its new K/V rows written in
+        place): the step's logits (S, V).  Tensor-parallel, it holds the
+        model axis's collectives."""
+        return self.model.decode_step(self._read(), self.m, view, self.tok,
+                                      **self._mkw)[0]
+
+    def _decode_out(self, ver, view, logits):
+        """In-place scatter-back (paged) and position advance on state
+        version ``ver``, the forced select.  Returns (next tokens (S,),
         finite (S,)) on the device."""
         if self.paged:
-            pool = {"groups": ver["groups"]}
-            gcache = pgd.gathered_cache(pool, self.bt, ver["pos"])
-            logits, ngc = self.model.decode_step(self.params, self.m,
-                                                 gcache, self.tok)
-            pgd.scatter_token(pool, ngc["groups"], self.bt, ver["pos"],
-                              self.amask, self.block_size)
-        else:
-            logits, _ = self.model.decode_step(self.params, self.m,
-                                               decode_view(ver), self.tok)
+            pgd.scatter_token({"groups": ver["groups"]}, view["groups"],
+                              self.bt, ver["pos"], self.amask,
+                              self.block_size)
         ver["pos"].add_(self.amask.to(torch.int32))
         nxt = torch.where(self._forced[0] != 0, self._forced[1],
                           logits.argmax(-1).to(torch.int32))
         self.tok.copy_(nxt)
         return nxt, torch.isfinite(logits).all(dim=-1)
 
+    def _versions_of(self, g: int):
+        b = 0 if self.donate else g & 1
+        return b, self._versions[b], self._versions[0 if self.donate
+                                                     else 1 - b]
+
+    def _head(self, r: int, g: int, desc=None):
+        """The step's device work before the model: the check pack (before
+        any state write), the ping-pong copy and the decode view."""
+        b, inp, out = self._versions_of(g)
+        core = self._rotation(r) if self.canary is not None else None
+        if core is not None:
+            lv = self._views[b]
+            core.pack_check(core.buffer(), [lv[i] for i in core.chk],
+                            desc=desc)
+        if out is not inp:
+            copy_into(out, inp)
+        return self._decode_view(out)
+
     def _body(self, r: int, g: int, descs=(None, None)):
         """One engine step of rotation ``r`` against read table ``g``:
         what a graph records, and what runs eagerly on the CPU.  Returns
         (host vector: [flag,] tokens, finite; mismatch mask | None)."""
-        b = 0 if self.donate else g & 1
-        inp, out = self._versions[b], self._versions[0 if self.donate
-                                                     else 1 - b]
+        view = self._head(r, g, descs[0])
+        return self._tail(r, g, view, self._model(view), descs[1])
+
+    def _tail(self, r: int, g: int, view, logits, desc=None):
+        """The step's device work after the model: scatter, advance,
+        forced select, the arm pack and the local check."""
+        b, _, out = self._versions_of(g)
         core = self._rotation(r) if self.canary is not None else None
-        if core is not None:
-            buf = core.buffer()
-            lv = self._views[b]
-            core.pack_check(buf, [lv[i] for i in core.chk], desc=descs[0])
-        if out is not inp:
-            copy_into(out, inp)
-        nxt, finite = self._decode(out)
+        nxt, finite = self._decode_out(out, view, logits)
         parts = [nxt, finite.to(torch.int32)]
         bad = None
         if core is not None:
+            buf = core.buffer()
             lv = self._views[0 if self.donate else 1 - b]
-            core.pack_arm(buf, [lv[i] for i in core.arm], desc=descs[1])
+            core.pack_arm(buf, [lv[i] for i in core.arm], desc=desc)
             tables = self.canary._tables
             # the local flag: on a mesh ``engine_step`` reduces it over
             # the ranks after the replay (a graph cannot hold the
@@ -609,8 +692,26 @@ class ServingEngine:
         return sorted({self._key(r, g) for r in range(max(1, self.K))
                        for g in (0, 1)})
 
-    def _capture(self, r: int, g: int) -> _Graph:
-        """Capture rotation ``r``'s step against read table ``g``."""
+    def _record(self, fn):
+        """Capture ``fn()`` as one graph in the engine's pool: ``(graph,
+        fn's result, the kernel launches one replay makes)``."""
+        before = Counter(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self._pool):
+            got = fn()
+        self.capture_seconds += time.perf_counter() - t0
+        self.n_captures += 1
+        # nothing ran during the capture: its kernels count at each replay
+        launches = Counter(_build.LAUNCHES)
+        launches.subtract(before)
+        _build.LAUNCHES.subtract(launches)
+        return graph, got, +launches
+
+    def _capture(self, r: int, g: int):
+        """Capture rotation ``r``'s step against read table ``g``: one
+        graph, or (tensor-parallel) the head and the tail around the
+        eager model."""
         b = 0 if self.donate else g & 1
         core = self._rotation(r) if self.canary is not None else None
         descs = (None, None)
@@ -619,18 +720,15 @@ class ServingEngine:
             lout = self._views[0 if self.donate else 1 - b]
             descs = core.descriptors([lin[i] for i in core.chk],
                                      [lout[i] for i in core.arm])
-        before = Counter(_build.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool):
-            host, bad = self._body(r, g, descs)
-        self.capture_seconds += time.perf_counter() - t0
-        self.n_captures += 1
-        # nothing ran during the capture: its kernels count at each replay
-        launches = Counter(_build.LAUNCHES)
-        launches.subtract(before)
-        _build.LAUNCHES.subtract(launches)
-        return _Graph(graph, host, bad, descs, +launches)
+        if self._tp is None:
+            graph, (host, bad), lt = self._record(
+                lambda: self._body(r, g, descs))
+            return _Graph(graph, host, bad, descs, lt)
+        hg, view, lh = self._record(lambda: self._head(r, g, descs[0]))
+        tg, (host, bad), lt = self._record(
+            lambda: self._tail(r, g, view, self._logits, descs[1]))
+        return _Split(_Graph(hg, None, None, descs, lh),
+                      _Graph(tg, host, bad, descs, lt), view)
 
     def _capture_all(self) -> None:
         """Warm up eagerly (every rotation once, on a side stream), then
@@ -649,6 +747,10 @@ class ServingEngine:
             for i in range(max(WARMUP_STEPS, self.K)):
                 self._body(i % max(1, self.K), i)
         torch.cuda.current_stream().wait_stream(side)
+        if self._tp is not None and self._logits is None:
+            self._logits = torch.zeros((self.S, self.m.vocab_size),
+                                       dtype=torch.float32,
+                                       device=self.device)
         for r, g in self._graph_keys():
             self._graphs[(r, g)] = self._capture(r, g)
         for t, v in zip(mutable, saved):
@@ -706,6 +808,11 @@ class ServingEngine:
         kdigest.STATS.launches += 1
         if self._replay:
             ent = self._graphs[self._key(r, g)]
+            if isinstance(ent, _Split):
+                ent.head.graph.replay()
+                _build.LAUNCHES.update(ent.head.launches)
+                self._logits.copy_(self._model(ent.view))
+                ent = ent.tail
             ent.graph.replay()
             _build.LAUNCHES.update(ent.launches)
             host, bad = ent.host, ent.bad
@@ -732,7 +839,7 @@ class ServingEngine:
         else:
             vals = host.cpu().numpy()
         self.step_count += 1
-        if self.ctx is not None:
+        if self._whole is not None:
             self._stale = True
         return vals[:self.S], vals[self.S:].astype(bool), report
 
@@ -878,9 +985,9 @@ class ServingEngine:
         if self.paged:
             self._admit_paged(rq, slot, now_s, interleave=interleave)
             return
-        logits, sub = self.model.prefill(self.params, self.m,
+        logits, sub = self.model.prefill(self._read(), self.m,
                                          self._batch(rq),
-                                         max_len=self.max_len)
+                                         max_len=self.max_len, **self._mkw)
         keys = [k for k in sub if k != "pos"]
         copy_into({k: tree_map(lambda t: t[slot], self.cache[k])
                    for k in keys}, {k: sub[k] for k in keys})
@@ -932,8 +1039,8 @@ class ServingEngine:
         bs = self.block_size
         pool, bt_row = self.pool, self.bt[slot]
         if self.prefill_chunk <= 0:
-            logits, sub = self.model.prefill(self.params, self.m,
-                                             self._batch(rq))
+            logits, sub = self.model.prefill(self._read(), self.m,
+                                             self._batch(rq), **self._mkw)
             pgd.scatter_span(pool, sub["groups"], bt_row, 0, P, bs)
             end = P
         else:
@@ -942,9 +1049,10 @@ class ServingEngine:
             chunk = np.zeros((C,), np.int32)
             chunk[:valid] = np.asarray(rq.prompt, np.int32)[off:off + valid]
             logits, new_kv = self.model.prefill_chunk(
-                self.params, self.m, {"tokens": self._prompt(chunk)},
+                self._read(), self.m, {"tokens": self._prompt(chunk)},
                 pgd.ctx_from_pool(pool, bt_row, bs, off),
-                pgd.ctx_kpos(off, self.max_len, self.device), off, valid)
+                pgd.ctx_kpos(off, self.max_len, self.device), off, valid,
+                **self._mkw)
             pgd.scatter_span(pool, new_kv["groups"], bt_row, off, valid, bs)
             end = off + valid
         st["off"] = end
@@ -1209,7 +1317,7 @@ class ServingEngine:
             j = sh.local_index(e)
             if j is not None and self._flips_here(ranks):
                 flip_bit(leaf, j, b)
-            self._stale = True
+            self._stale = self._whole is not None
         else:
             self._flips_here(ranks)
             e = rng.randrange(max(1, leaf.numel()))
@@ -1236,7 +1344,7 @@ class ServingEngine:
             if self.ctx is None:
                 self.params = new_params
             else:
-                self._stale = True
+                self._stale = self._whole is not None
             self.report.faults_detected += stats["repaired"]
             self.report.faults_recovered += stats["repaired"]
         stats["memory_bytes"] = self.parity_store.memory_bytes
@@ -1275,7 +1383,7 @@ class ServingEngine:
         interleave = self.paged and self.prefill_chunk > 0
         while True:
             # a new iteration reads the blocks anew (on a mesh)
-            self._stale = self.ctx is not None
+            self._stale = self._whole is not None
             while True:
                 free = self.free_slots()
                 if not free:

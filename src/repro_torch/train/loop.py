@@ -24,24 +24,30 @@ with the canary's ``arm_current``/``check`` pair or the fused step.
 
 On a mesh, ``pin_state_shardings`` turns a step into the mesh step (the
 counterpart of the reference's layout pin): every rank holds only its own
-blocks of the state, gathers each param to full over the axes it is
-sharded on and runs the forward and backward on its own rows of the
-batch.  The grads' mean over the batch axes is taken on this rank's
-blocks only: each peer sends it the grads cut to its blocks (one
-all-to-all), and the rows are added in group-rank order, so every rank
-computes the same bits, replicated copies stay equal and a replay
-reproduces the trajectory.  The global norm adds each leaf's squares
-over its distinct blocks, then over the leaves, the same on every rank;
-with one rank on the batch axes there is no mean, and the norm is the
-single-device one of the whole grads, so a 1 x N mesh steps bitwise as
-one device does.  Every rank clips with that norm and updates only its
-own blocks of the params and moments (AdamW's elementwise update; an
-optimizer whose update is not elementwise — Adafactor's factored stats,
-int8 moment blocks — updates the full tree and keeps its blocks); a
-donated mesh step writes those blocks into the rank's own tensors.  The
-``iv`` block is replicated.  The ranks of the model axis that share a
-data coordinate compute the same rows: tensor-parallel compute (each
-rank its slice of the heads and the FFN) is later performance work.
+blocks of the state and runs the forward and backward on its own rows of
+the batch.  For the ``dense`` and ``moe`` families the compute is
+tensor-parallel (``distributed/tensor_parallel.py``): the rank reads its
+model-axis blocks in place (its heads, FFN columns and vocabulary rows)
+and gathers only its ``fsdp`` leaves over the batch axes (ZeRO-3), so its
+grads come out model-local; the families ``ssm``, ``hybrid``, ``encdec``
+and ``vlm`` still gather every param to full over the axes it is sharded
+on and compute whole (their tensor-parallel compute is ROADMAP queue 1).
+The grads' mean over the batch axes is taken on this rank's blocks only:
+each peer sends it the grads cut to its blocks (one all-to-all), and the
+rows are added in group-rank order, so every rank computes the same
+bits, replicated copies stay equal and a replay reproduces the
+trajectory.  The global norm adds each leaf's squares over its distinct
+blocks, then over the leaves, the same on every rank; a whole-params
+family on one rank of the batch axes takes no mean, and its norm is the
+single-device one of the whole grads, so its 1 x N mesh steps bitwise as
+one device does (a tensor-parallel one rounds its model-axis sums
+otherwise: within the f32 tolerance).  Every rank clips with that norm
+and updates only its own blocks of the params and moments (AdamW's
+elementwise update; an optimizer whose update is not elementwise —
+Adafactor's factored stats, int8 moment blocks — gathers the params,
+grads and state, updates the full tree and keeps its blocks); a donated
+mesh step writes those blocks into the rank's own tensors.  The ``iv``
+block is replicated.
 """
 
 from __future__ import annotations
@@ -133,7 +139,7 @@ def make_train_step(arch_cfg, global_batch: int = 0,
     n_micro = tp.microbatch
     acc_dtype = getattr(torch, tp.grad_reduce_dtype)
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, kw):
         # fresh leaf views that require grad: the state's own tensors are
         # neither written nor marked
         flat = flatten_with_path(params)
@@ -141,7 +147,7 @@ def make_train_step(arch_cfg, global_batch: int = 0,
         with torch.enable_grad():
             loss, metrics = model.train_loss(
                 map_with_path(lambda p, _: req[leaf_key(p)], params), mcfg,
-                batch, remat=remat)
+                batch, remat=remat, **kw)
             # a leaf the loss does not reach (a hybrid stack too shallow
             # to invoke its shared block) gets zeros, as under jax.grad
             grads = torch.autograd.grad(loss, list(req.values()),
@@ -149,7 +155,7 @@ def make_train_step(arch_cfg, global_batch: int = 0,
                                         materialize_grads=True)
         return loss.detach(), metrics, dict(zip(req, grads))
 
-    def accumulate(params, batch, acc):
+    def accumulate(params, batch, acc, kw):
         """One slice's loss; its gradients added into ``acc`` in place."""
         req = {leaf_key(p): t.detach().requires_grad_(True)
                for p, t in flatten_with_path(params)}
@@ -159,7 +165,7 @@ def make_train_step(arch_cfg, global_batch: int = 0,
         with torch.enable_grad():
             loss, _ = model.train_loss(
                 map_with_path(lambda p, _: req[leaf_key(p)], params), mcfg,
-                batch, remat=remat)
+                batch, remat=remat, **kw)
             torch.autograd.backward(loss, inputs=list(req.values()))
         for k, r in req.items():
             if r.grad is None:
@@ -170,9 +176,11 @@ def make_train_step(arch_cfg, global_batch: int = 0,
                 acc[k].copy_(r.grad)      # accumulated out of place
         return loss.detach()
 
-    def loss_and_grads(params, batch):
+    def loss_and_grads(params, batch, tp=None):
         """``(loss, metrics, grads)`` of ``batch`` (microbatched as the
-        plan says); ``grads`` has the tree of ``params``."""
+        plan says); ``grads`` has the tree of ``params`` (under ``tp``,
+        a ``TensorParallel``, the rank's model-axis blocks)."""
+        kw = {} if tp is None else {"tp": tp}
         if n_micro and n_micro > 1:
             acc = {leaf_key(p): torch.zeros(t.shape, dtype=acc_dtype,
                                             device=t.device)
@@ -180,11 +188,11 @@ def make_train_step(arch_cfg, global_batch: int = 0,
             lsum = torch.zeros((), dtype=torch.float32,
                                device=leaves(params)[0].device)
             for mb in _split_micro(batch, n_micro):
-                lsum = lsum + accumulate(params, mb, acc)
+                lsum = lsum + accumulate(params, mb, acc, kw)
             by_key = {k: a.div_(n_micro) for k, a in acc.items()}
             loss, metrics = lsum / n_micro, {}
         else:
-            loss, metrics, by_key = grads_of(params, batch)
+            loss, metrics, by_key = grads_of(params, batch, kw)
         return loss, metrics, map_with_path(lambda p, _: by_key[leaf_key(p)],
                                             params)
 
@@ -208,6 +216,7 @@ def make_train_step(arch_cfg, global_batch: int = 0,
 
     # the pieces the mesh step (``pin_state_shardings``) puts together
     train_step.loss_and_grads = loss_and_grads
+    train_step.model_cfg = mcfg
     train_step.opt = opt
     train_step.iv_steps = steps
     train_step.donate = donate
@@ -227,14 +236,17 @@ def pin_state_shardings(step_fn: Callable, ctx, shardings, *,
     original (``unpinned_step``), as the reference's pin does.
 
     The step is two stages, ``step(s, b) == step.tail(s, step.front(s,
-    b))``: ``front`` runs every collective of the step (the params'
-    gather, the forward and backward, the grads' mean and the norm's
-    all-gather; for a whole-tree update the gathers of the grads and the
+    b))``: ``front`` runs every collective of the step (tensor-parallel:
+    the fsdp leaves' gather over the batch axes, the forward and backward
+    with their model-axis collectives; else the params' gather and the
+    forward and backward; then the grads' mean and the norm's all-gather;
+    for a whole-tree update the gathers of the params, the grads and the
     optimizer state) and returns the tensors the rest reads; ``tail`` is
     device work only (the norm, the clip, the update, the ``iv``
     advance), so a CUDA graph can hold it (``core/fused_step.py``)."""
     from repro_torch.core.replay import copy_into
     from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.distributed.sharding import gather_tree, local_tree
     from repro_torch.optim.optimizers import global_norm
     opt = step_fn.opt
@@ -244,6 +256,11 @@ def pin_state_shardings(step_fn: Callable, ctx, shardings, *,
     n_dp = ctx.dp_size if batch_sharded else 1
     members = ctx.group_shards(ctx.batch_axes)
     flat_sh = [sh for _, sh in flatten_with_path(psh)]
+    tp = TP.for_model(ctx, step_fn.model_cfg)
+    # the blocks the forward reads: model-local (tensor-parallel) or whole
+    read_sh = [sh.without(ctx.batch_axes) if tp is not None
+               else sh.without(sh.axes) for sh in flat_sh]
+    me = ctx.shard_id
     world = ctx.group(ctx.axis_names)
     # the norm's sums: each leaf's distinct blocks are the rows of the
     # shards of the group over its spec's axes; the leaves sharing a
@@ -277,8 +294,8 @@ def pin_state_shardings(step_fn: Callable, ctx, shardings, *,
             by_dtype.setdefault(g.dtype, []).append(i)
         for dtype in sorted(by_dtype, key=str):
             idx = by_dtype[dtype]
-            send = torch.cat([flat[i][1][flat_sh[i].box(q)].reshape(-1)
-                              for q in members for i in idx])
+            send = torch.cat([flat[i][1][flat_sh[i].within(read_sh[i], q)]
+                              .reshape(-1) for q in members for i in idx])
             mean = coll.sum_rows(coll.all_to_all(send, group)).div_(n_dp)
             off = 0
             for i in idx:
@@ -309,17 +326,35 @@ def pin_state_shardings(step_fn: Callable, ctx, shardings, *,
                 torch.where(mask, acc, per_leaf)
         return torch.sqrt(torch.sum(per_leaf))
 
+    def own(grads):
+        """This rank's blocks of grads it holds whole over the batch axes
+        (no mean: one rank on them, or a replicated batch)."""
+        flat = flatten_with_path(grads)
+        cut = {}
+        for i, (path, g) in enumerate(flat):
+            box = flat_sh[i].within(read_sh[i], me)
+            whole = all(b.start == 0 and b.stop == n
+                        for b, n in zip(box, g.shape))
+            cut[leaf_key(path)] = g if whole else g[box].contiguous()
+        return map_with_path(lambda p, _: cut[leaf_key(p)], grads)
+
     def front(state, batch):
         """Every collective of the step; returns what ``tail`` reads."""
         params = state["params"]
-        full = gather_tree(params, psh)
-        loss, metrics, grads = step_fn.loss_and_grads(full, batch)
+        if tp is None:
+            read = gather_tree(params, psh)
+        else:
+            read = gather_tree(params, psh, axes=ctx.batch_axes)
+        loss, metrics, grads = step_fn.loss_and_grads(read, batch, tp=tp)
         out = {"scalars": {"loss": loss, **metrics}}
-        if n_dp == 1:
+        if n_dp == 1 and tp is None:
             # the whole batch's grads, whole: the single-device norm
             out["grads"] = grads
         else:
-            local, out["scalars"] = batch_mean(grads, out["scalars"])
+            if n_dp == 1:
+                local = own(grads)
+            else:
+                local, out["scalars"] = batch_mean(grads, out["scalars"])
             if opt.elementwise:
                 masks_on(loss.device)
                 sums = torch.stack([torch.sum(torch.square(
@@ -329,7 +364,8 @@ def pin_state_shardings(step_fn: Callable, ctx, shardings, *,
             else:
                 out["grads"] = gather_tree(local, psh)
         if not opt.elementwise:
-            out["full"] = full
+            # a whole-tree update: the params, grads and state gathered
+            out["full"] = read if tp is None else gather_tree(params, psh)
             out["opt"] = gather_tree(state["opt"], osh)
         return out
 
@@ -339,7 +375,7 @@ def pin_state_shardings(step_fn: Callable, ctx, shardings, *,
         params = state["params"]
         sched_pos = state["iv"]["sched_pos"]
         if opt.elementwise:
-            if n_dp == 1:
+            if "table" not in fr:
                 gn = global_norm(fr["grads"])
                 local = local_tree(fr["grads"], psh)
             else:
@@ -372,6 +408,7 @@ def pin_state_shardings(step_fn: Callable, ctx, shardings, *,
 
     step.front = front
     step.tail = tail
+    step.tp = tp
     step.donate = donate
     step.unpinned_step = getattr(step_fn, "unpinned_step", step_fn)
     return step

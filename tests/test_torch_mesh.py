@@ -14,8 +14,15 @@ resilient loop on gloo ranks (one torch thread each).
   train (command-r-35b within 2e-5 of one device); a steady check is 1
   launch + 1 fetch on every rank; a partial refresh keeps the
   generation; a mesh checkpoint round trip.
-* **1 x 2** (data width 1): the mesh trajectory equals the single-device
-  trajectory bitwise.
+* **Tensor-parallel compute** (in the same spawn): iterpro-100m and
+  gemma3-1b (one KV head: ``wk/wv`` replicated by the guard) on 4 x 2
+  within 2e-5 of one device, gemma3-1b's storm == clean, every leaf
+  replicated over the model axis bitwise equal on the model-axis peers;
+  the serving runs read the blocks in place (no params gather but the
+  fsdp leaves' over the batch axes).
+* **1 x 2** (data width 1): the rank's blocks updated from one device's
+  grads bitwise one device's update of them; the trajectory within 2e-5
+  of one device's (tensor-parallel sums round otherwise).
 * **The CLI**: ``train --mesh 4,2 --device cpu --smoke``.
 * **The modes** (in the same spawn): the donated mesh step bitwise the
   functional one with every ``data_ptr`` kept (AdamW f32; Adafactor on
@@ -277,7 +284,21 @@ def _storm_ranks(ckpt_dir):
         ctx, cfg, make_train_state(cfg, 0, global_batch=8),
         make_train_step(cfg, global_batch=8), pipe.batch_at)
     canary = ChecksumCanary(state, n_slices=3, ctx=ctx)
+    from repro_torch.distributed import sharding
+    sharding.GATHERS.clear()
     ns, _ = step(state, bfn(0))
+    # tensor-parallel: the step reads the rank's blocks, no params gather;
+    # an fsdp config's step gathers those leaves over the batch axes only
+    gathers = {"iterpro-100m": dict(sharding.GATHERS)}
+    c = get_config("command-r-35b").smoke()
+    cst, cstep, cbfn, _ = bind_state(
+        ctx, c, make_train_state(c, 0, global_batch=8),
+        make_train_step(c, global_batch=8),
+        TokenPipeline(c.model.vocab_size, 32, 8, seed=0).batch_at)
+    sharding.GATHERS.clear()
+    cstep(cst, cbfn(0))
+    gathers["command-r-35b"] = dict(sharding.GATHERS)
+    del cst
     kd.STATS.reset()
     steady = canary.check_and_arm(0, state, ns) is None
     stats = kd.STATS.snapshot()
@@ -304,6 +325,24 @@ def _storm_ranks(ckpt_dir):
             others[arch]["err"] = _max_rel_err(
                 _full(c, "4,2", local), single)
 
+    # tensor-parallel against one device: iterpro-100m (every projection
+    # split) and gemma3-1b (one KV head: wk/wv replicated by the guard);
+    # the model-axis peers' replicated leaves bitwise equal
+    tp = {"iterpro-100m": {
+        "err": _state_close(_full(cfg, "4,2", runs["clean"][1]),
+                            train(cfg, **SMOKE)[1]),
+        "peers": all(_peers_equal(ctx, cfg, st)
+                     for _, st in runs.values())}}
+    c = get_config("gemma3-1b").smoke()
+    out, local = train(c, mesh="4,2", **kw)
+    storm, st = train(c, mesh="4,2", inject_every=1, **kw)
+    one, single = train(c, **kw)
+    tp["gemma3-1b"] = {"out": out, "storm": storm, "one": one,
+                       "storm_same": _bitwise(st, local),
+                       "err": _state_close(_full(c, "4,2", local), single),
+                       "peers": _peers_equal(ctx, c, local)
+                       and _peers_equal(ctx, c, st)}
+
     ckpt = CheckpointManager(ckpt_dir, interval=1, ctx=ctx, shardings=sh)
     ckpt.save(3, ns)
     back, at = ckpt.restore(ns)
@@ -313,9 +352,26 @@ def _storm_ranks(ckpt_dir):
     return {"steady": steady, "stats": stats, "partial": partial,
             "round_trip": round_trip, "on_disk": _bitwise(on_disk, full),
             "same": same, "summaries": summaries, "others": others,
+            "tp": tp, "gathers": gathers,
             "serving": _serve_ranks(ctx),
             "modes": _mode_ranks(ctx, cfg, runs["clean"][1]),
             "elastic": _elastic_ranks(cfg)}
+
+
+def _peers_equal(ctx, cfg, local):
+    """Every leaf the spec does not shard over the model axis holds the
+    same bits on this rank and its model-axis peers (collective)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.specs import state_shardings
+    from repro_torch.train.loop import make_train_state
+    from repro_torch.tree import leaves
+    sh, _ = state_shardings(ctx, cfg, make_train_state(
+        cfg, 0, global_batch=8, device="meta"))
+    mine = [t.reshape(-1).view(torch.uint8)
+            for t, s in zip(leaves(local), leaves(sh))
+            if ctx.model_axis not in s.axes]
+    rows = coll.all_gather(torch.cat(mine), ctx.group(ctx.model_axis))
+    return all(torch.equal(rows[0], r) for r in rows[1:])
 
 
 # -- mesh serving (in the same spawn) -------------------------------------------
@@ -332,6 +388,7 @@ SERVE_RUNS = {
                 False),
     "rank5": ("iterpro-100m", dict(donate=True), 3, False),
     "kimi": ("kimi-k2-1t-a32b", dict(donate=True, parity=True), 3, True),
+    "gemma3": ("gemma3-1b", dict(donate=True), 3, False),
 }
 #: the shard whose replica alone takes the "rank5" run's flips
 ONE_RANK = 5
@@ -350,10 +407,13 @@ def _serve_one(ctx, name):
     (gathered) params."""
     import random
     from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.kernels import digest as kd
     from repro_torch.serving import ServingEngine
     from repro_torch.tree import leaves
 
+    from repro_torch.distributed.sharding import gather_tree
     arch, kw, every, scrub = SERVE_RUNS[name]
     cfg = get_config(arch).smoke()
     eng = ServingEngine(cfg, n_slots=4, ctx=ctx, device="cpu", seed=0,
@@ -373,9 +433,15 @@ def _serve_one(ctx, name):
         eng.corrupt_slot = lambda rng, **k: flip(rng, ranks=[ONE_RANK], **k)
     rng = random.Random(0)
     eng.warm()
+    sharding.GATHERS.clear()
+    TP.CALLS.clear()
     rep = eng.run(_serve_requests(cfg), inject_every=every, inject_rng=rng)
     out = {"logs": {rid: r["tokens"] for rid, r in rep.per_request.items()},
-           "summary": rep.summary(), "faults": faults}
+           "summary": rep.summary(), "faults": faults,
+           # tensor-parallel: the model reads the blocks in place; only
+           # fsdp leaves are gathered (over the batch axes), each call
+           "tp": eng.params is eng.blocks and eng._whole is None,
+           "gathers": dict(sharding.GATHERS), "tp_calls": dict(TP.CALLS)}
     kd.STATS.reset()
     eng.engine_step()
     out["stats"] = kd.STATS.snapshot()
@@ -394,13 +460,14 @@ def _serve_one(ctx, name):
             torch.equal(a.view(-1).view(torch.uint8),
                         b.view(-1).view(torch.uint8))
             for a, b in zip(leaves(eng.blocks), before))
-    eng.refresh_params()          # a collective: every rank gathers
+    # the whole params from every rank's blocks (a collective)
+    full = gather_tree(eng.blocks, eng._psh)
     if ctx.shard_id == 0:
         flags = {k: v for k, v in kw.items() if k in ("paged",
                                                      "prefill_chunk")}
         one = ServingEngine(cfg, n_slots=4, device="cpu", canary_slices=0,
                             max_len=SERVE_PROMPT + SERVE_GEN + 1,
-                            params=eng.params, **flags)
+                            params=full, **flags)
         out["single"] = {rid: r["tokens"] for rid, r in
                          one.run(_serve_requests(cfg)).per_request.items()}
     return eng, out
@@ -412,7 +479,7 @@ def _serve_ranks(ctx):
     from repro_torch.distributed.sharding import gather_tree
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serving.engine import evict_mesh
-    from repro_torch.tree import leaves
+    from repro_torch.tree import leaves, tree_map
 
     res = {}
     for name in SERVE_RUNS:
@@ -423,7 +490,10 @@ def _serve_ranks(ctx):
     # graphs (none on the CPU), cores and gathered storage
     eng, _ = _serve_one(ctx, "dense")
     full = gather_tree(eng.blocks, eng._psh)
-    whole = eng.params
+    # fixed whole-params storage, as a whole-params family's engine keeps
+    whole = tree_map(lambda b, sh: b if not sh.axes else torch.empty(
+        sh.shape, dtype=sh.dtype), eng.blocks, eng._psh)
+    gather_tree(eng.blocks, eng._psh, out=whole)
     ptrs = [t.data_ptr() for t in leaves(whole)]
     gather_tree(eng.blocks, eng._psh, out=whole)
     res["gather_out"] = {
@@ -444,7 +514,8 @@ def _serve_ranks(ctx):
     except ValueError:
         res["wall_clock_refused"] = True
     want = len(eng._graphs) + sum(
-        c is not None for c in eng._cores.values()) + 1
+        c is not None for c in eng._cores.values()) + \
+        (eng._whole is not None)
     gc.collect()
     res["evicted"] = (evict_mesh(ctx), want)
     try:
@@ -916,6 +987,49 @@ def test_mesh_serving_matches_the_single_device_engine(storms):
             assert tuple(got["stats"]) == (1, 1), (name, got["stats"])
 
 
+def test_tensor_parallel_training_holds_one_device(storms):
+    """Tensor-parallel on 4 x 2 (iterpro-100m: every projection split;
+    gemma3-1b: its one KV head's ``wk/wv`` replicated): the state after
+    the steps within 2e-5 of one device's, the storm bitwise its clean
+    run, and every leaf replicated over the model axis bitwise equal on
+    the model-axis peers, on every rank."""
+    for r in storms:
+        tp = r["tp"]
+        for arch, o in tp.items():
+            assert o["err"] == [], (arch, o["err"])
+            assert o["peers"], arch
+        g = tp["gemma3-1b"]
+        assert g["storm"]["faults_injected"] > 0
+        assert g["storm"]["faults_recovered"] == \
+            g["storm"]["faults_detected"] == g["storm"]["faults_injected"]
+        assert g["storm_same"]
+        assert abs(g["out"]["final_loss"] - g["one"]["final_loss"]) <= 2e-5
+
+
+def test_tensor_parallel_step_gathers_no_params(storms):
+    """The mesh step's front reads the rank's blocks in place: no
+    ``gather_tree`` of the params (iterpro-100m), only the fsdp leaves'
+    over the batch axes (command-r-35b: one gather, over ``data``)."""
+    for r in storms:
+        assert r["gathers"] == {"iterpro-100m": {},
+                                "command-r-35b": {"data": 1}}, r["gathers"]
+
+
+def test_mesh_serving_reads_the_blocks_in_place(storms):
+    """The tensor-parallel engine's model reads the rank's blocks (no
+    whole-params storage): a run makes no params gather, except the fsdp
+    leaves' over the batch axes (kimi-k2-1t-a32b), and the model axis's
+    collectives ran."""
+    for r in storms:
+        for name, got in r["serving"].items():
+            if name not in SERVE_RUNS:
+                continue
+            assert got["tp"], name
+            want = {"data"} if name == "kimi" else set()
+            assert set(got["gathers"]) == want, (name, got["gathers"])
+            assert got["tp_calls"]["reduce_sum"] > 0, name
+
+
 def test_mesh_serving_flip_in_one_replica_names_its_shard(storms):
     """The "rank5" storm flips rank 5's replica only: every rank flags
     at the same steps, each report's shards are [5], and every rank
@@ -1088,26 +1202,70 @@ def test_train_cli_every_mode_combination_on_a_4x2_mesh(storms):
 
 def _one_by_two():
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import local_tree
+    from repro_torch.launch.mesh import make_context
+    from repro_torch.launch.specs import bind_state
     from repro_torch.launch.train import train
+    from repro_torch.train.loop import make_train_state, make_train_step
+    ctx = make_context("1,2", torch.device("cpu"))
     out = {}
     for opt in sorted(OPTS):
         cfg = _with_opt(get_config("iterpro-100m").smoke(), opt)
         kw = dict(SMOKE, steps=2)
         mesh, local = train(cfg, mesh="1,2", **kw)
-        out[opt] = (mesh, _full(cfg, "1,2", local)), train(cfg, **kw)
+        # the rank's blocks updated from one device's grads (the tail of
+        # the mesh step) against one device's update of those blocks
+        state0 = make_train_state(cfg, 0, global_batch=8)
+        raw = make_train_step(cfg, global_batch=8)
+        batch = TokenPipeline(cfg.model.vocab_size, 32, 8, seed=0).batch_at(0)
+        loss, _, grads = raw.loss_and_grads(state0["params"], batch)
+        one_step, _ = raw(state0, batch)
+        bound = bind_state(ctx, cfg, make_train_state(cfg, 0, global_batch=8),
+                           raw, lambda s: batch)
+        fr = {"scalars": {"loss": loss}, "grads": grads}
+        if not raw.opt.elementwise:
+            fr.update(full=state0["params"], opt=state0["opt"])
+        blocks, _ = bound.step.tail(bound.state, fr)
+        same = _bitwise(blocks, local_tree(one_step, bound.shardings))
+        out[opt] = (mesh, _full(cfg, "1,2", local)), train(cfg, **kw), same
     return out
 
 
+def _state_close(got, want, tol=2e-5):
+    """Every float leaf within ``tol`` (absolute and relative), counters
+    exact, int8 moment payloads within one step of their rounding."""
+    from repro_torch.tree import flatten_with_path, leaf_key
+    fw = {leaf_key(p): t for p, t in flatten_with_path(want)}
+    bad = []
+    for p, t in flatten_with_path(got):
+        k, w = leaf_key(p), fw[leaf_key(p)]
+        if t.is_floating_point():
+            ok = torch.allclose(t.double(), w.double(), atol=tol, rtol=tol)
+        elif t.dtype == torch.int8:
+            ok = int((t.int() - w.int()).abs().max()) <= 1
+        else:
+            ok = torch.equal(t, w)
+        if not ok:
+            bad.append(k)
+    return bad
+
+
 def test_data_width_one_equals_single_device_bitwise():
-    """AdamW's elementwise update of the rank's blocks, and the whole-tree
-    update of int8 moments and Adafactor, each bitwise one device's."""
+    """Tensor-parallel on 1 x 2: AdamW's elementwise update of the rank's
+    blocks, and the whole-tree update of int8 moments and Adafactor,
+    from one device's grads, are each bitwise one device's update of
+    those blocks; the loss and the state after two steps hold one
+    device's within 2e-5 (the model axis's sums round otherwise than
+    one device's whole products)."""
     from repro_torch.launch.mesh import spawn
     runs = spawn(_one_by_two, (1, 2), device="cpu")[0]
     assert sorted(runs) == sorted(OPTS)
-    for opt, ((mesh, ms), (single, ss)) in runs.items():
+    for opt, ((mesh, ms), (single, ss), same) in runs.items():
         assert mesh["mesh"]["devices"] == 2, opt
-        assert mesh["final_loss"] == single["final_loss"], opt
-        assert _bitwise(ms, ss), opt
+        assert same, opt
+        assert abs(mesh["final_loss"] - single["final_loss"]) <= 2e-5, opt
+        assert _state_close(ms, ss) == [], opt
 
 
 def test_train_cli_on_a_4x2_mesh():

@@ -16,6 +16,12 @@ the reference's shard_map paths refuse) and dumps, once per module:
 * the elastic programs of ``tests/test_elastic.py`` (its toy tree's
   row-safe parity and reconstructions, the chaos drill, two drills in
   one process, the CLI's drill);
+* ``tests/test_moe.py``'s EP_PROG (a 2 x 4 mesh, fsdp) for every
+  ``moe_impl`` at capacity 8.0 and 1.25, at its 32 tokens and at 512
+  (each rank's rows of the mesh output, ``lb_loss``, the rows capacity
+  1.25 drops) and
+  ``tests/test_pipeline.py``'s PIPE_PROG (S 4, M 6, B 2, d 8), the port
+  running each on contexts its 8 ranks make anew;
 * the training modes: the programs of ``test_sharded_resilience.py::
   test_donation_and_fused_detect_compose_on_mesh`` and
   ``::test_partial_refresh_patches_without_generation_bump`` and of
@@ -440,6 +446,7 @@ CHILD = textwrap.dedent("""
     import random
     from repro.serving import Request as SReq, ServingEngine as SEng
     srv = {}
+    ys = {}
     for name, prog in inp["serve"].items():
         scfg = get_config(prog["arch"]).smoke()
         eng = SEng(scfg, ctx=ctx, seed=0, max_replays=10**6, **prog["eng"])
@@ -485,11 +492,43 @@ CHILD = textwrap.dedent("""
         srv[name] = r
     res["serve"] = json.loads(json.dumps(srv))
 
+    # -- tests/test_moe.py's EP_PROG, every moe_impl and two capacities ---
+    from repro.configs.base import ModelConfig
+    from repro.models import moe as M
+    mctx = DistContext.for_mesh(jax.make_mesh((2, 4), ("data", "model")),
+                                fsdp=True)
+    mp = jax.tree_util.tree_map(jnp.asarray, inp["moe_p"])
+    moe = {}
+    for impl, cf, size in inp["moe_cases"]:
+        mx = jnp.asarray(inp["moe_x"][size])
+        mcfg = ModelConfig(family="moe", n_layers=1, d_model=16,
+                           n_heads=2, n_kv_heads=2, d_ff=32,
+                           vocab_size=64, n_experts=8, top_k=2,
+                           moe_d_ff=32, moe_impl=impl, moe_capacity=cf,
+                           param_dtype="float32",
+                           compute_dtype="float32")
+        with mctx.mesh:
+            y, aux = jax.jit(lambda p, x, c=mcfg: M.moe_apply(
+                p, c, x, mctx))(mp, mx)
+        moe[f"{impl}/{cf}/{size}"] = {"ep": bool(M.use_ep(mcfg, mctx)),
+                                      "lb": float(aux["lb_loss"])}
+        ys[f"{impl}/{cf}/{size}"] = np.asarray(y).reshape(-1, 16)
+    res["moe"] = moe
+    # -- tests/test_pipeline.py's PIPE_PROG ---------------------------------
+    from repro.distributed.pipeline import pipeline_apply
+    pmesh = jax.make_mesh((4,), ("stage",))
+    pp = jax.tree_util.tree_map(jnp.asarray, inp["pipe_p"])
+    with pmesh:
+        ys["pipe"] = np.asarray(pipeline_apply(
+            lambda p, x: jnp.tanh(x @ p["w"] + p["b"]), pp,
+            jnp.asarray(inp["pipe_x"]), pmesh, axis="stage"))
+
     with open(out + ".json", "w") as f:
         json.dump(res, f)
     np.savez(out + ".npz", **truth)
     np.savez(out + "_fused.npz", **fused)
     np.save(out + "_parity.npy", np.stack(rows))
+    np.savez(out + "_ys.npz", **ys)
 """)
 
 
@@ -684,6 +723,7 @@ def _port_ranks(inp_path):
     res["attempted2"] = list(ev2.attempted)
     res.update(_port_modes(ctx, cfg, inp, toy, tsh, local))
     res["serve"] = _port_serve(ctx, inp)
+    res["moe_pipe"] = _port_moe_pipe(inp)
     res.update(_port_elastic(ctx, cfg, inp))
     everyone = coll.gather_objects(res, ctx.group(ctx.axis_names))
     return everyone if me == 0 else None
@@ -883,6 +923,99 @@ def _port_serve(ctx, inp):
             r["flip"] = list(eng.corrupt_param(rng))
             r["scrub"] = eng.scrub_params()
         out[name] = json.loads(json.dumps(r))
+    return out
+
+
+#: EP_PROG's schedules, capacities and token counts: its 32 tokens
+#: (16 a data row: no expert passes the minimum capacity of 8, so 1.25
+#: drops nothing there either) and 512, where 1.25 drops rows
+MOE_IMPLS = ("ep_a2a", "ep_token_a2a", "tp_ragged")
+MOE_CFS = (8.0, 1.25)
+MOE_SIZES = (8, 128)           # sequence length of EP_PROG's (4, S, 16)
+MOE_CASES = tuple((i, c, n) for i in MOE_IMPLS for c in MOE_CFS
+                  for n in MOE_SIZES)
+
+
+def _moe_prog(jax, jnp):
+    """EP_PROG's params and tokens (PRNGKey(0)), and PIPE_PROG's (S 4,
+    M 6, B 2, d 8) with its sequential truth."""
+    from repro.configs.base import ModelConfig
+    from repro.models import moe as M
+    cfg = ModelConfig(family="moe", n_layers=1, d_model=16, n_heads=2,
+                      n_kv_heads=2, d_ff=32, vocab_size=64, n_experts=8,
+                      top_k=2, moe_d_ff=32, param_dtype="float32",
+                      compute_dtype="float32")
+    key = jax.random.PRNGKey(0)
+    p = jax.tree_util.tree_map(np.asarray, M.moe_init(key, cfg,
+                                                      jnp.float32))
+    x = {n: np.asarray(jax.random.normal(jax.random.fold_in(key, i + 1),
+                                         (4, n, cfg.d_model)))
+         for i, n in enumerate(MOE_SIZES)}
+    S, Mb, Bp, d = 4, 6, 2, 8
+    ks = jax.random.split(key, S)
+    pp = {"w": np.asarray(jnp.stack([jax.random.normal(k, (d, d)) * 0.3
+                                     for k in ks])),
+          "b": np.asarray(jnp.stack([jax.random.normal(k, (d,)) * 0.1
+                                     for k in ks]))}
+    xs = np.asarray(jax.random.normal(jax.random.fold_in(key, 9),
+                                      (Mb, Bp, d)))
+    truth = xs
+    for i in range(S):
+        truth = np.tanh(truth @ pp["w"][i] + pp["b"][i])
+    return {"moe_p": p, "moe_x": x, "moe_cases": MOE_CASES,
+            "pipe_p": pp, "pipe_x": xs,
+            "pipe_truth": truth.astype(np.float32)}
+
+
+def _port_moe_pipe(inp):
+    """EP_PROG on a 2 x 4 context made by the 8 ranks (fsdp: the expert
+    blocks split over data too, gathered per call), each rank's data
+    rows; PIPE_PROG over a 4-wide stage axis (two pipelines)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.bridge import state_from_numpy
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.context import DistContext
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.distributed.sharding import P, LeafSharding
+    from repro_torch.launch.mesh import make_context
+    from repro_torch.models import moe as M
+
+    ctx = make_context("2,4", torch.device("cpu"), fsdp=True)
+    tp = TP.TensorParallel(ctx)
+    row = ctx.coords(ctx.shard_id)["data"]
+    p = state_from_numpy(inp["moe_p"])
+    out = {"row": row}
+    for impl, cf, size in MOE_CASES:
+        x = torch.from_numpy(inp["moe_x"][size])[2 * row:2 * row + 2]
+        cfg = ModelConfig(family="moe", n_layers=1, d_model=16,
+                          n_heads=2, n_kv_heads=2, d_ff=32,
+                          vocab_size=64, n_experts=8, top_k=2,
+                          moe_d_ff=32, moe_impl=impl, moe_capacity=cf,
+                          param_dtype="float32",
+                          compute_dtype="float32")
+        ep = M.use_ep(cfg, ctx)
+        specs = {"gate": P("model", "data", None) if ep else
+                 P(None, "data", "model"),
+                 "down": P("model", None, "data") if ep else
+                 P(None, "model", "data")}
+        specs["up"] = specs["gate"]
+        blocks = {"router": p["router"]}
+        for k, sp in specs.items():
+            blocks[k] = LeafSharding(ctx, sp, tuple(p[k].shape),
+                                     p[k].dtype).local(p[k])
+        with torch.no_grad():
+            y, aux = M.moe_apply(blocks, cfg, x, tp=tp)
+        out[f"{impl}/{cf}/{size}"] = {"ep": ep,
+                                      "lb": float(aux["lb_loss"]),
+                                      "y": y.reshape(-1, 16).numpy()}
+    mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "stage"))
+    sctx = DistContext.for_mesh(mesh, torch.device("cpu"))
+    out["pipe"] = pipeline_apply(
+        lambda q, h: torch.tanh(h @ q["w"] + q["b"]),
+        state_from_numpy(inp["pipe_p"]), torch.from_numpy(inp["pipe_x"]),
+        sctx, axis="stage").numpy()
     return out
 
 
@@ -1108,7 +1241,7 @@ def both(tmp_path_factory):
            "tri_flips": TRI_FLIPS, "etoy": _etoy(jax, jnp),
            "etoy_specs": ETOY_SPECS, "serve": SERVE, "sparams": sparams,
            "serve_prompts": prompts, "serve_gen": SERVE_GEN,
-           "serve_keys": SERVE_KEYS}
+           "serve_keys": SERVE_KEYS, **_moe_prog(jax, jnp)}
     src = str(tmp / "input.pkl")
     with open(src, "wb") as f:
         pickle.dump(inp, f)
@@ -1135,6 +1268,9 @@ def both(tmp_path_factory):
     ref["pflats"] = np.load(out + "_pflats.npy")
     with np.load(out + "_drill.npz") as z:
         ref["drill_state"] = {k: z[k] for k in z.files}
+    with np.load(out + "_ys.npz") as z:
+        ref["ys"] = {k: z[k] for k in z.files}
+    ref["pipe_truth"] = inp["pipe_truth"]
     return ref, truth, ranks
 
 
@@ -1175,6 +1311,53 @@ def test_bound_steps_losses_and_state(both):
     np.testing.assert_allclose(ranks[0]["losses"], ref["losses"],
                                atol=F32_TOL, rtol=F32_TOL)
     _close_to(ranks[0]["state"], truth)
+
+
+@pytest.mark.parametrize("size", MOE_SIZES)
+@pytest.mark.parametrize("cf", MOE_CFS)
+@pytest.mark.parametrize("impl", MOE_IMPLS)
+def test_moe_mesh_schedules_match_reference(both, impl, cf, size):
+    """``tests/test_moe.py``'s EP_PROG on a 2 x 4 mesh (fsdp) for every
+    ``moe_impl``: each rank's rows of the port's mesh output within 2e-5
+    of the reference's mesh output, its ``lb_loss`` (averaged over every
+    axis) too, the same schedule (``use_ep``); at capacity 1.25 the same
+    rows dropped (the rows whose output differs from capacity 8.0's),
+    some of them at 512 tokens."""
+    ref, _, ranks = both
+    key = f"{impl}/{cf}/{size}"
+    n = 2 * size                    # tokens a data row
+    want = ref["ys"][key]
+    assert ref["moe"][key]["ep"] == (impl != "tp_ragged")
+    for r in ranks:
+        got = r["moe_pipe"][key]
+        row = r["moe_pipe"]["row"]
+        rows = slice(n * row, n * row + n)
+        assert got["ep"] == ref["moe"][key]["ep"], key
+        np.testing.assert_allclose(got["y"], want[rows], atol=F32_TOL,
+                                   rtol=F32_TOL, err_msg=key)
+        assert abs(got["lb"] - ref["moe"][key]["lb"]) <= F32_TOL, key
+        if cf != 8.0:
+            full = r["moe_pipe"][f"{impl}/8.0/{size}"]["y"]
+            wfull = ref["ys"][f"{impl}/8.0/{size}"][rows]
+            dropped = np.abs(got["y"] - full).max(axis=1) > 1e-5
+            wdropped = np.abs(want[rows] - wfull).max(axis=1) > 1e-5
+            assert np.array_equal(dropped, wdropped), key
+    if cf != 8.0 and size == MOE_SIZES[-1]:
+        assert (np.abs(want - ref["ys"][f"{impl}/8.0/{size}"]).max(axis=1)
+                > 1e-5).any(), "capacity 1.25 drops nothing"
+
+
+def test_pipeline_matches_reference_and_sequential_truth(both):
+    """``tests/test_pipeline.py``'s PIPE_PROG (S 4, M 6, B 2, d 8): the
+    port's ``pipeline_apply`` on every rank within 1e-5 of the
+    sequential truth and of the reference's output."""
+    ref, _, ranks = both
+    truth = ref["pipe_truth"]
+    assert np.abs(ref["ys"]["pipe"] - truth).max() < 1e-5
+    for r in ranks:
+        got = r["moe_pipe"]["pipe"]
+        assert np.abs(got - truth).max() < 1e-5
+        assert np.abs(got - ref["ys"]["pipe"]).max() < 1e-5
 
 
 def test_shard_patch_matches_reference(both):
