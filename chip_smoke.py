@@ -32,7 +32,7 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    block size 16, canary K=4, TF32 off, the engine step captured as 8
    CUDA graphs (K rotations x 2 read tables; their capture seconds
    printed) — once clean and once under a fault storm (one bit flip
-   every 8 accepted tokens).  Asserts detected == injected > 0, recovered
+   every 16 accepted tokens).  Asserts detected == injected > 0, recovered
    == detected, nothing dropped, storm tokens identical to clean tokens,
    and a launch count above 0 for every serving kernel (a graph replay
    counts the kernels captured in it);
@@ -45,7 +45,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    the launch counts set to 0 just before it and read just after: the
    step's body run eagerly on the card (the yardstick), the paged engine
    donated and not, the dense slot-major cache (at the pool's capacity)
-   donated and not, and ``prefill_chunk=32``.  Per mode: 8 graphs
+   donated (its ping-pong mode is the time cut: 10a-13a serve it) and
+   ``prefill_chunk=32``.  Per mode: 8 graphs
    captured (none for the yardstick) with their seconds and their pool's
    bytes, clean tokens bitwise equal to phase 5's captured paged engine's
    (so captured == uncaptured, donated == not, dense == paged, chunked ==
@@ -54,9 +55,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    == clean (phase 5 storms the paged donated engine; the uncaptured
    body and the dense ping-pong mode run no storm: the time cut), every
    kernel of the path launched; then
-   8 steady steps under torch.profiler: one ``cudaGraphLaunch`` and no
-   ``cudaLaunchKernel`` a step (captured modes), ``digest.STATS`` 1
-   launch + 1 fetch a step, every pointer the step reads unchanged; the
+   4 steady steps under torch.profiler (the time cut; 9c-13a profile
+   8): one ``cudaGraphLaunch`` and no ``cudaLaunchKernel`` a step
+   (captured modes), ``digest.STATS`` 1 launch + 1 fetch a step, every
+   pointer the step reads unchanged; the
    mode's decode p50 / p99, device busy ms a step and kernels by name;
 6. the training kernels (``checksum_tiles``, ``vote3_tiles``) at the
    training path's shapes (the embedding leaf, an FFN leaf, a norm scale)
@@ -91,8 +93,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    ``repro_torch.launch.train.train`` — batch 8, seq 128, 20 steps,
    snapshot every 4, canary K=1, a disk checkpoint every 10 steps, TF32
    off, deterministic algorithms on — once clean and once with a bit
-   flip in the params every 6 steps (no ``iv`` storm since PR 25, the
-   time cut: 13c and 14 hold one, through ``eq1``).  Asserts detected ==
+   flip in the params every 6 steps (no ``iv`` storm, the time cut:
+   14 holds one on the mesh, through ``eq1``).  Asserts detected ==
    injected == recovered > 0, recovery rate 1, the params storm's final
    state bitwise equal to the clean run's; then the ``replica_vote`` rung
    (``RecoveryRuntime(replicas=...)``) on a flipped embedding leaf and
@@ -111,11 +113,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    step; then, at full width, a low-mantissa flip of the embedding
    repaired by ``parity_xor`` alone (0 steps replayed, bitwise), and 4
    canary steps whose incrementally kept parity equals a fresh build;
-7f. the training modes at phase 7's settings: ``--donate`` clean and
-   under the params storm (no donated iv storm since PR 25, the time
-   cut).  Asserts
-   the clean final state bitwise equal to the functional clean run's,
-   each storm's to its clean run's, detected == injected == recovered,
+7f. the training modes at phase 7's settings: ``--donate`` under the
+   params storm (no donated clean run or iv storm: the time cuts).
+   Asserts the storm's final state bitwise equal to the functional
+   clean run's, detected == injected == recovered,
    replay only under donation (never eq1) (the K=1
    ``--fused-detect`` modes, donated or not, run no storm here: their
    storms are held at K=4 below and by 9e-13c, their K=1 graphs by 7i
@@ -147,7 +148,7 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    after, its peak memory printed:
    8a. gemma3-1b served paged through the captured step (phase 5's
        traffic: 8 requests, prompt 128, 32 new tokens, 4 slots, K=4),
-       clean and under a flip every 8 accepted tokens: 8 graphs, storm
+       clean and under a flip every 16 accepted tokens: 8 graphs, storm
        tokens == clean, detected == injected == recovered; decode p50 /
        p99 and device busy ms a step with where it goes;
    8b. gemma3-1b at 6 of its 26 layers (one 5 local + 1 global group;
@@ -167,8 +168,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        and one disk checkpoint a run, their seconds):
        functional clean and under a params storm (a flip every 2 steps,
        detected == injected == recovered, final state == clean's
-       bitwise), then ``--donate --fused-detect`` clean (2 graphs over
-       bf16 leaves) == the functional clean run's, bitwise;
+       bitwise); no ``--donate --fused-detect`` run (the time cut:
+       7h-7i and 10c hold it);
    8f. ``pack_rows`` on 2-byte leaves, read in place and zero-extended:
        edge cases bitwise (bf16 / f16 / int16 leaves of odd lengths at
        2-, 4- and 6-byte offsets, a chunk boundary inside a leaf, a leaf
@@ -226,9 +227,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        PR 25, the time cut: 12c holds a round trip, 7b the rung);
        host step p50 and the steady peak (no device profile of the
        step: the time cut);
-       then ``--donate --fused-detect`` clean and under flips in the
-       slice checked at their step (replay only), each == donated clean,
-       bitwise, when the donated peak (which already holds the plan's
+       then ``--donate --fused-detect`` under flips in the slice
+       checked at their step (replay only; no fused clean run, the time
+       cut: the storm holds its checks), == donated clean, bitwise, when
+       the donated peak (which already holds the plan's
        packing ring, the K rotations' only packing buffer; the fused
        factory adopts the loop's state, so it adds no version) fits 97 %
        of the card (else the arithmetic is printed and the storm runs
@@ -257,11 +259,11 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    10c. trained (global batch 8 x 128, AdamW, remat; 4 steps, one flip
        a storm): K=1 functional clean, a params storm under ``--parity``
        (``parity_xor``, == clean bitwise); ``--donate --fused-detect`` at
-       K=4 clean (8 graphs, == the functional clean run) and under an
-       armed-slice storm (replay, == clean) (the runs print the
-       functional host p50; no iv storm, held in 13c and 14, and no
-       checkpoint round trip or donate+fused profile (7a-7b hold the
-       checkpoint, 12c the profile): the time cuts);
+       K=4 under an armed-slice storm (replay, == clean; its graphs hold
+       the clean run's checks) (the runs print the functional host p50;
+       no fused clean run, no iv storm (14 holds one), no checkpoint
+       round trip or donate+fused profile (7a-7b, 7j hold them): the time
+       cuts);
    10d. the launches of ``pack_rows``, ``row_checksums``,
        ``checksum_tiles``, ``xor_update_tiles`` and ``xor_fold_tiles`` on
        phase 10's paths (each > 0);
@@ -307,10 +309,9 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        (AdamW with f32 moments, remat, batch 8 x 128 with 64 source
        frames), the memory of the runs reckoned first: clean, the
        ``--parity`` storm, the donate+fused clean run (no iv or
-       armed-slice storm, held in 10c and 13c: the time cut; no
-       checkpoint round trip since PR 25, held in 7a-7b), then the
-       donate+fused hot path's host step p50, device busy and kernels a
-       step (one profiled step) and steady peak;
+       armed-slice storm, held in 14 and 10c: the time cut; no
+       checkpoint round trip, held in 7a-7b; no donate+fused profile,
+       held in 7j);
    12d. the launches of 10d's kernels on phase 12's paths (each > 0);
 13. the VLM family (qwen2-vl-7b) at full width, bf16 (d 3584, 28/4
    heads of 128, d_ff 18,944 SwiGLU, QKV biases, vocab 152,064, untied
@@ -340,9 +341,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        checked at its step (at K=1 the ring, the parity's stream scratch
        and the functional step's two versions do not fit the card; at
        K=4 it peaks at 74.0 GiB, so the cuBLAS workspaces the earlier
-       phases' captures left are dropped first), the
-       iv storm, the donate+fused clean run and its armed-slice storm; no
-       checkpoint or profile (12c holds them);
+       phases' captures left are dropped first) and the donate+fused
+       armed-slice storm (no iv storm, no donate+fused clean run, no
+       checkpoint or profile: the time cuts; 14 holds an iv storm, the
+       storm the fused run's checks, 12c the rest);
    13d. the launches of 10d's kernels on phase 13's paths (each > 0);
 14. resilient training on a device mesh: iterpro-100m at full width and
    ``MESH_LAYERS`` of its 12 layers (f32, seed 0; 14d and 14e's e1 run
@@ -398,7 +400,26 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    (e) mesh serving (``[mesh-serve]`` lines, ``_mesh_serve``),
    tensor-parallel: two graphs a rotation and read table around the
    eager model, no params gather in the run, the model-axis collectives
-   of a steady step, tokens == one device's;
+   of a steady step, tokens == one device's (e1 at 6 new tokens: the
+   time cut);
+   (g) the ssm, hybrid, encdec and vlm families on the mesh
+   (``[mesh-fam]`` lines, ``_mesh_families``), tensor-parallel at full
+   width (bf16, seed 0): xlstm-350m at 8 of 24 layers (7 mLSTM blocks
+   and its first sLSTM), zamba2-7b at 6 of 81 (one pattern period: 5
+   Mamba-2 blocks and the shared block with its LoRA), seamless at 1 + 1
+   of 24 + 24 (with its cross-attention), qwen2-vl-7b at 1 of 28 (an
+   8 x 8 patch image a request); each trained 2 steps of 4 x 32 (no
+   microbatch: the time cut), clean and under a params flip every step
+   (final state == clean bitwise), no ``gather_tree`` but the fsdp
+   leaves' over ``data``, the model-axis collectives alike on every
+   rank, the replicated leaves bitwise on the peers; served dense,
+   donated, K=4 (xlstm with ``parity`` and a scrub), 4 slots, prompts of
+   32, 4 new tokens, clean then with one flip in a slot (tokens ==
+   clean), the caches bitwise on the peers, a steady step's collectives
+   and bytes, decode p50 / p99; the mesh's first loss within 3e-2 of
+   one device's, its first decode logits within 1e-3 in f32 and in bf16
+   within 3e-2 or one device's own bf16-to-f32 distance (shard 0, after
+   the ranks freed their blocks);
    (d) elastic hard loss, last (``[mesh-elastic]`` lines): iterpro-100m
    at all 12 layers with ``fsdp``, ``train(parity, elastic,
    kill_row_at=2, donate, fused_detect)``, 4 steps: row 1 (ranks 2-3)
@@ -444,7 +465,9 @@ F32_TOL = 2e-5                # the reference's f32 tolerance
 BF16_TOL = 3e-2               # the reference's bf16 tolerance
 SPIN_CYCLES = 20_000_000      # ~10 ms device spin that hides host enqueue
 
-N_REQUESTS, PROMPT, GEN, SLOTS, BLOCK, K, INJECT = 8, 128, 32, 4, 16, 4, 8
+# serving storms flip every 16 accepted tokens (the time cut: every
+# serving path still storms, with half the flips)
+N_REQUESTS, PROMPT, GEN, SLOTS, BLOCK, K, INJECT = 8, 128, 32, 4, 16, 4, 16
 CHUNK = 32                    # --prefill-chunk of phase 5d's chunked mode
 # the dense cache at the paged pool's capacity (max_len rounded up to whole
 # blocks), so that both layouts attend over the same rows
@@ -798,8 +821,8 @@ SERVE_MODES = (
     ("paged", dict()),
     ("paged, no donation", dict(donate=False)),
     ("dense", dict(paged=False, max_len=DENSE_LEN)),
-    ("dense, no donation", dict(paged=False, max_len=DENSE_LEN,
-                                donate=False)),
+    # no dense ping-pong mode here (the time cut: 10a-13a serve it at
+    # full width, 14e's e2 on the mesh)
     ("chunked", dict(prefill_chunk=CHUNK)),
 )
 
@@ -1411,8 +1434,8 @@ def train_run(torch, cfg, name, slices: int = 1, **kw):
 
 def run_training(torch, cfg):
     """Phase 7a: clean and params-storm runs of the training entry point
-    (no iv storm since PR 25, the time cut: 13c and 14 hold one, through
-    eq1); returns {name: (summary, final state)}."""
+    (no iv storm, the time cut: 14 holds one on the mesh, through eq1);
+    returns {name: (summary, final state)}."""
     from repro_torch.tree import leaves
     runs = {}
     for name, kw in (("clean", {}),
@@ -1741,18 +1764,13 @@ MODES = (("donate", dict(donate=True)),)
 
 
 def run_modes(torch, cfg, runs):
-    """Phase 7f: ``--donate`` at phase 7's settings, clean and under the
-    params storm; then the K=4 modes.
-    The clean final state must be bitwise the functional clean run's,
-    each storm's its clean run's, detected == injected == recovered;
-    donation recovers by replay only."""
+    """Phase 7f: ``--donate`` at phase 7's settings under the params
+    storm (no donated clean run, the time cut: the storm's final state
+    must be bitwise the functional clean run's); then the K=4 modes.
+    Detected == injected == recovered; donation recovers by replay
+    only."""
     clean_state = runs["clean"][1]
     for name, kw in MODES:
-        out, state = train_run(torch, cfg, f"{name} clean", **kw)
-        assert out["steps"] == T_STEPS and out["faults_detected"] == 0, out
-        assert _same_state(torch, state, clean_state), \
-            f"{name}: clean final state differs from the functional run's"
-        del state
         out, state = train_run(torch, cfg, f"{name} params storm",
                                inject_every=T_INJECT, **kw)
         assert out["faults_injected"] > 0, out
@@ -1762,8 +1780,8 @@ def run_modes(torch, cfg, runs):
         assert _same_state(torch, state, clean_state), \
             f"{name}: storm final state differs from the clean run's"
         del state
-        print(f"[modes] {name}: clean final state == functional clean "
-              f"state, storm final state == clean, bitwise")
+        print(f"[modes] {name}: storm final state == functional clean "
+              f"state, bitwise")
     # no donated iv storm since PR 25, the time cut: the donated replay
     # is held by the donate params storm above, the donated ladder for an
     # iv report by tests/test_torch_donate.py
@@ -2383,9 +2401,9 @@ def train_gemma(torch):
     ``G_CUT_LAYERS`` of its 26 layers (one 5 local + 1 global group; the
     depth cut keeps the whole script within its time limit),
     K=1: functional clean and under a params storm (detected == injected
-    == recovered, final state == clean's bitwise), then ``--donate
-    --fused-detect`` clean (2 captured graphs over bf16 leaves) == the
-    functional clean run's, bitwise.  Returns the phase's launches."""
+    == recovered, final state == clean's bitwise); no ``--donate
+    --fused-detect`` run (the time cut: 7h-7i hold it, 10c over bf16
+    leaves).  Returns the phase's launches."""
     cfg = _full_width(GEMMA, n_layers=G_CUT_LAYERS)
     _phase_start(torch)
     clean, state = train_full_width(torch, cfg, "train-gemma clean",
@@ -2402,21 +2420,13 @@ def train_gemma(torch):
     assert _same_state(torch, state, clean_host), \
         "gemma3-1b params storm final state differs from the clean run's"
     del state
-    fused, state = train_full_width(
-        torch, cfg, "train-gemma donate+fused clean", canary_slices=1,
-        donate=True, fused_detect=True)
-    assert fused["fused"]["captures"] == 2, fused
-    assert _same_state(torch, state, clean_host), \
-        "gemma3-1b donate+fused clean final state differs from functional"
     del clean_host
     launches = _phase_end(torch, "train-gemma")
     for kernel in ("pack_rows", "row_checksums", "checksum_tiles"):
         assert launches.get(kernel, 0) > 0, (kernel, launches)
     print(f"[train-gemma] {G_CUT_LAYERS} of its 26 layers (the depth cut): "
-          f"params storm final state == clean final state, "
-          f"donate+fused ({fused['fused']['captures']} graphs) clean == "
-          f"functional clean, bitwise")
-    del state
+          f"params storm final state == clean final state, bitwise (no "
+          f"donate+fused run: the time cut; 7h-7i and 10c hold it)")
     return launches
 
 
@@ -2973,9 +2983,10 @@ def train_grok(torch):
     Adafactor (bf16 factored stats), its microbatch 8 (global batch 8 x
     128), K=4, ``--donate``, 4 steps, clean (no disk checkpoint since
     PR 25: the time cut).
-    Then ``--donate --fused-detect`` clean and under flips in the slice
-    checked at their step (replay only), each bitwise the donated clean
-    run, when the donated peak (which holds the plan's packing ring, the
+    Then ``--donate --fused-detect`` under flips in the slice checked at
+    their step (replay only; no fused clean run: the time cut, the storm
+    holds its checks), bitwise the donated clean run, when the donated
+    peak (which holds the plan's packing ring, the
     fused step's only packing buffer; the factory adopts the loop's
     state) fits 97 % of the card; else the arithmetic is printed and the
     storm runs donated, unfused.  Returns the phase's launches."""
@@ -3053,18 +3064,16 @@ def train_grok(torch):
         print("[train-grok] donated params storm final state == clean "
               "final state, bitwise")
         return launches
-    fused, state, fpeak = _train_moe(torch, cfg, "train-grok donate+fused "
-                                     "clean", fused_detect=True)
-    pool = fused["fused"]["pool_bytes"] / 2**30
-    assert fused["fused"]["captures"] == 2 * M_SLICES, fused
-    assert _same_state(torch, state, clean_host), \
-        "grok donate+fused clean final state differs from donated clean"
-    del state
+    # the donate+fused clean run is the time cut: the storm holds its
+    # checks (its first 2K captures, its final state == donated clean)
     fstorm = storm_run("train-grok donate+fused storm", fused_detect=True)
+    fused = fstorm
+    pool = fused["fused"]["pool_bytes"] / 2**30
+    assert fused["fused"]["captures"] >= 2 * M_SLICES, fused
     f = fstorm["faults_injected"]
-    print(f"[train-grok] donate+fused ({fused['fused']['captures']} graphs "
-          f"in {fused['fused']['seconds']:.1f} s, graph pool {pool:.3f} GiB)"
-          f" clean and armed-slice storm ({f} flips, rungs "
+    print(f"[train-grok] donate+fused (graphs captured in "
+          f"{fused['fused']['seconds']:.1f} s, graph pool {pool:.3f} GiB; "
+          f"no clean run: the time cut) armed-slice storm ({f} flips, rungs "
           f"{fstorm['recovery']['by_rung']}; {fstorm['fused']['captures']} "
           f"captures: "
           + ("the graphs dropped for the eager replay, which needs their "
@@ -3073,8 +3082,7 @@ def train_grok(torch):
              "none dropped")
           + ") == "
           f"donated clean, bitwise; host step p50 "
-          f"{fused['p50_step_ms']:.3f} ms, peak {fpeak:.3f} GiB allocated "
-          f"(the graph pool's allocations in it) [{_SMI}]")
+          f"{fused['p50_step_ms']:.3f} ms [{_SMI}]")
     return launches
 
 
@@ -3672,7 +3680,7 @@ MESH_LAYERS = 4
 #: prompts of 32 tokens through 4 slots, K=4; (e2) is shrunk first (the
 #: time cut)
 MS_PROMPT, MS_SLOTS, MS_K = 32, 4, 4
-MS_TRAFFIC = {"e1": (4, 8, 4), "e2": (2, 4, 4)}
+MS_TRAFFIC = {"e1": (4, 6, 4), "e2": (2, 4, 4)}
 #: 14e (e2): the shard whose replica alone takes the dense run's flips
 MS_ONE_RANK = 1
 #: 14d: 4 steps, row 1 (ranks 2-3) dies before step 2
@@ -4203,6 +4211,394 @@ def check_moe_mesh(ranks, device: str) -> None:
               f" {calls} [{_SMI}]")
 
 
+#: 14g: the ssm, hybrid, encdec and vlm families, tensor-parallel, at
+#: full width (bf16, seed 0), each at the smallest depth that holds every
+#: kind of block it has: (config, the model's fields changed; the smoke
+#: dry run's pattern fields)
+MF_CONFIGS = {
+    "xlstm": ("xlstm-350m", dict(n_layers=8), dict(mlstm_ratio=1)),
+    "zamba2": ("zamba2-7b", dict(n_layers=6), dict(hybrid_ratio=1)),
+    "seamless": ("seamless-m4t-large-v2", dict(n_layers=1, n_enc_layers=1),
+                 {}),
+    "qwen2-vl": ("qwen2-vl-7b", dict(n_layers=1), {})}
+MF_BATCH, MF_SEQ, MF_STEPS = 4, 32, 2   # 14g's training: 2 steps a run
+MF_PROMPT, MF_GEN, MF_SLOTS, MF_K = 32, 4, 4, 4
+MF_FLIP_EVERY = 8             # one flip in the serving storm's 16 tokens
+MF_IMAGE = 8                  # a VLM request's 8 x 8 patch image
+MF_PARITY = "xlstm"           # its serving run keeps the params' parity
+
+
+def _mf_requests(cfg, base: int):
+    """14g's serving requests (rids from ``base``): ``MF_SLOTS`` prompts
+    of ``MF_PROMPT`` tokens; an enc-dec request's source of max_len
+    frames (``make_requests``), a VLM request's 8 x 8 image of patches at
+    (t, h, w) = (0, row, col) and its text from ``MF_IMAGE`` on all three
+    streams."""
+    import numpy as np
+    from repro_torch.launch.serve import make_requests
+    rng = np.random.default_rng(0)
+    reqs = make_requests(cfg, MF_SLOTS, MF_PROMPT, MF_GEN, rng)
+    m = cfg.model
+    for rq in reqs:
+        rq.rid += base
+        if m.patch_dim:
+            n = MF_IMAGE * MF_IMAGE
+            pos = np.zeros((1, n + MF_PROMPT, 3), np.int32)
+            pos[0, :n, 1] = np.arange(n) // MF_IMAGE
+            pos[0, :n, 2] = np.arange(n) % MF_IMAGE
+            pos[0, n:, :] = (MF_IMAGE + np.arange(MF_PROMPT))[:, None]
+            rq.features = {"patch_embeds": rng.standard_normal(
+                (1, n, m.patch_dim), dtype=np.float32), "positions": pos}
+    return reqs
+
+
+def _mf_max_len(cfg) -> int:
+    rows = MF_PROMPT + MF_GEN + 1
+    return rows + MF_IMAGE * MF_IMAGE if cfg.model.patch_dim else rows
+
+
+def _peers_bits(torch, ctx, tensors) -> bool:
+    """The tensors hold the same bits on every model-axis peer
+    (collective: their bytes gathered over the model axis)."""
+    from repro_torch.distributed import collectives as coll
+    if not tensors:
+        return True
+    mine = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors])
+    rows = coll.all_gather(mine, ctx.group(ctx.model_axis))
+    return all(torch.equal(rows[0], r) for r in rows[1:])
+
+
+def _mesh_families(dev, device: str, smoke: bool) -> dict:
+    """14g, in a rank, after 14e and before 14d: each family of
+    ``MF_CONFIGS`` on the 2 x 2 mesh, tensor-parallel from the rank's
+    blocks in place.  Training (``train(mesh=...)``, ``MF_STEPS`` steps
+    of ``MF_BATCH`` x ``MF_SEQ``, donated, K=``MF_K``, a snapshot every
+    2): clean, then a params flip every step in the slice its step
+    checks, whose final state must be the clean run's bits; the
+    ``gather_tree`` calls of the runs (the fsdp leaves' over ``data``
+    only), the model axis's collectives and bytes, and the leaves
+    replicated over the model axis bitwise on the peers.  Serving
+    (dense, donated, K=4, ``MF_SLOTS`` slots, prompts of ``MF_PROMPT``,
+    ``MF_GEN`` new tokens; xlstm with ``parity``): a clean run, then the
+    same requests with one flip in a slot (at ``MF_FLIP_EVERY`` tokens),
+    whose tokens must be the clean run's; the recurrent and cross caches
+    bitwise on the peers; a steady step's STATS, collectives and bytes;
+    decode p50 / p99; for xlstm ``corrupt_param`` + ``scrub_params``.
+    Then the mesh's first loss (batch 0, the data rows' mean) and first
+    decode logits (request 0: its prefill's argmax decoded; in bf16, and
+    in f32 from the same blocks cast), the model's own functions on the
+    blocks; when every rank has freed its blocks, shard 0 builds the
+    whole model (the same seed) and computes them on one device.
+    Returns what ``check_mesh_families`` asserts and prints."""
+    import random
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import parity as cp
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.sharding import GATHERS
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import digest as kd
+    from repro_torch.launch.mesh import make_context
+    from repro_torch.launch.specs import state_shardings
+    from repro_torch.launch.train import batch_for, train
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving import ServingEngine
+    from repro_torch.train.loop import make_train_state
+    from repro_torch.tree import leaves as leaves_of
+    from repro_torch.tree import tree_map
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    release = (lambda: _release(torch)) if device == "cuda" else \
+        (lambda: None)
+    out = {}
+    for name, (arch, full_kw, smoke_kw) in MF_CONFIGS.items():
+        if smoke:
+            cfg = get_config(arch).smoke()
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, **smoke_kw))
+        else:
+            cfg = _full_width(arch, **full_kw)
+        # the config's microbatch slices a data row's 2 sequences no
+        # further (the cut is listed in PERF.md)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, microbatch=0))
+        m = cfg.model
+        model = get_model(m)
+        ctx = make_context(MESH, dev, fsdp=cfg.sharding.fsdp)
+        world = ctx.group(ctx.axis_names)
+        release()
+        r = {"layers": m.n_layers, "secs": {}, "launches": {},
+             "free_gib": torch.cuda.mem_get_info()[0] / 2**30
+             if device == "cuda" else 0.0}
+        # donated (one state version) at K=MF_K (a ring of 1.25x the
+        # rank's state, not K=1's 2x): four ranks share the card's 80 GB
+        common = dict(steps=MF_STEPS, global_batch=MF_BATCH,
+                      seq_len=MF_SEQ, canary_slices=MF_K,
+                      snapshot_interval=2, donate=True, mesh=MESH,
+                      device=device, verbose=False, return_state=True)
+        runs = {}
+        for run, kw in (("clean", {}), ("params", dict(
+                inject_every=1, inject_armed_only=True))):
+            _build.LAUNCHES.clear()
+            GATHERS.clear()
+            TP.CALLS.clear()
+            TP.BYTES.clear()
+            sync()
+            t0 = time.perf_counter()
+            out_, st = train(cfg, **{**common, **kw})
+            sync()
+            # the clean blocks wait on the host; the storm's are compared
+            # on the card (``_same_state`` copies a leaf at a time)
+            runs[run] = (out_, tree_map(lambda t: t.cpu(), st)
+                         if run == "clean" else st)
+            del st
+            kd._PLAN_CACHE.clear()
+            release()
+            r["secs"]["train " + run] = time.perf_counter() - t0
+            r["launches"]["train " + run] = dict(_build.LAUNCHES)
+            r.setdefault("gathers", {})[run] = dict(GATHERS)
+            if run == "clean":
+                r["train_calls"] = dict(TP.CALLS)
+                r["train_bytes"] = dict(TP.BYTES)
+        r["train"] = {n: v[0] for n, v in runs.items()}
+        r["same"] = _same_state(torch, runs["params"][1], runs["clean"][1])
+        sh, _ = state_shardings(ctx, cfg, make_train_state(
+            cfg, 0, global_batch=MF_BATCH, device="meta"))
+        local = runs["params"][1]
+        r["peers"] = _peers_bits(torch, ctx, [
+            t for t, s in zip(leaves_of(local), leaves_of(sh))
+            if ctx.model_axis not in s.axes])
+        del runs, local
+        kd._PLAN_CACHE.clear()
+        cp._PARITY_PLAN_CACHE.clear()
+        release()
+
+        # serving: clean, then the same requests with one flip
+        _build.LAUNCHES.clear()
+        sync()
+        t0 = time.perf_counter()
+        eng = ServingEngine(cfg, ctx=ctx, n_slots=MF_SLOTS,
+                            max_len=_mf_max_len(cfg), canary_slices=MF_K,
+                            donate=True, seed=0, max_replays=10**6,
+                            parity=name == MF_PARITY)
+        eng.warm()
+        r["secs"]["serve build + warm"] = time.perf_counter() - t0
+        GATHERS.clear()
+        logs = {}
+        for run, every in (("clean", 0), ("storm", MF_FLIP_EVERY)):
+            base = 0 if run == "clean" else 100
+            n0 = len(eng.report.decode_ms)
+            t0 = time.perf_counter()
+            rep = eng.run(_mf_requests(cfg, base), inject_every=every,
+                          inject_rng=random.Random(0))
+            sync()
+            r["secs"]["serve " + run] = time.perf_counter() - t0
+            logs[run] = {q - base: w["tokens"] for q, w in
+                         rep.per_request.items() if q >= base
+                         and (run == "storm" or q < 100)}
+            if run == "clean":
+                ms = rep.decode_ms[n0:]
+                r["decode_ms"] = (float(np.percentile(ms, 50)),
+                                  float(np.percentile(ms, 99)))
+        r["serve_logs"] = logs
+        r["serve_summary"] = eng.report.summary()
+        r["serve_gathers"] = dict(GATHERS)
+        r["tp"] = eng.params is eng.blocks
+        r["graphs"] = eng.n_graphs
+        r["cache_peers"] = _peers_bits(torch, ctx, leaves_of(eng.cache))
+        kd.STATS.reset()
+        TP.CALLS.clear()
+        TP.BYTES.clear()
+        eng.engine_step()
+        sync()
+        r["stats"] = kd.STATS.snapshot()
+        r["step_calls"] = dict(TP.CALLS)
+        r["step_bytes"] = dict(TP.BYTES)
+        if eng.parity_store is not None:
+            rng = random.Random(1)
+            before = [t.clone() for t in leaves_of(eng.blocks)]
+            r["flip"] = eng.corrupt_param(rng)
+            r["scrub"] = eng.scrub_params()
+            r["healed"] = all(torch.equal(a.reshape(-1).view(torch.uint8),
+                                          b.reshape(-1).view(torch.uint8))
+                              for a, b in zip(leaves_of(eng.blocks),
+                                              before))
+            del before
+        r["launches"]["serve"] = dict(_build.LAUNCHES)
+
+        # the mesh's first loss and first decode logits, from the blocks
+        pipe = TokenPipeline(m.vocab_size, MF_SEQ, MF_BATCH, seed=0)
+        batch0 = batch_for(cfg, pipe, 0)
+        rows = MF_BATCH // ctx.dp_size
+        row = ctx.coords(ctx.shard_id).get("data", 0)
+        mine = {k: v[row * rows:(row + 1) * rows].to(dev)
+                for k, v in batch0.items()}
+        rq = _mf_requests(cfg, 0)[0]
+        rqb = {k: torch.as_tensor(v).to(dev) for k, v in
+               rq.features.items()}
+        rqb["tokens"] = torch.as_tensor(rq.prompt[None]).to(dev)
+        m32 = dataclasses.replace(m, param_dtype="float32",
+                                  compute_dtype="float32")
+
+        def first_logits(params, mc, tp=None, tok=None):
+            """Request 0's prefill, then one decode of ``tok`` (default:
+            the prefill's argmax): (token, logits on the host)."""
+            lg, cache = model.prefill(params, mc, rqb,
+                                      max_len=_mf_max_len(cfg), tp=tp)
+            if tok is None:
+                tok = lg.argmax(-1).to(torch.int32)
+            dl = model.decode_step(params, mc, cache, tok, tp=tp)[0]
+            return tok, dl[0].float().cpu()
+
+        with torch.no_grad():
+            read = eng._read()
+            loss = model.train_loss(read, m, mine, remat=False,
+                                    tp=eng._tp)[0]
+            tok, dl = first_logits(read, m, eng._tp)
+            # the same blocks in f32: the parallel compute without bf16's
+            # rounding (one device's bf16 decode of a deep recurrent
+            # model lies far from its own f32 one)
+            read32 = tree_map(lambda t: t.float(), read)
+            _, dl32 = first_logits(read32, m32, eng._tp, tok)
+            mesh_out = (row, float(loss), int(tok[0]), dl, dl32)
+            del read, read32
+        eng.close()
+        del eng
+        kd._PLAN_CACHE.clear()
+        cp._PARITY_PLAN_CACHE.clear()
+        release()
+        got = coll.gather_objects((mesh_out, r["train_calls"],
+                                   r["serve_logs"]), world)
+        r["calls_alike"] = all(g[1] == got[0][1] for g in got)
+        if ctx.shard_id == 0:
+            # one device, the whole model, after the ranks freed theirs
+            full = model.init(m, 0, dev)
+            with torch.no_grad():
+                batch = {k: v.to(dev) for k, v in batch0.items()}
+                one_loss = float(model.train_loss(full, m, batch,
+                                                  remat=False)[0])
+                tok = torch.tensor([got[0][0][2]], dtype=torch.int32,
+                                   device=dev)
+                _, want = first_logits(full, m, tok=tok)
+                full = tree_map(lambda t: t.float(), full)
+                _, want32 = first_logits(full, m32, tok=tok)
+            losses = {}
+            for g in got:
+                losses.setdefault(g[0][0], g[0][1])
+            mesh_loss = sum(losses[k] for k in sorted(losses)) / len(losses)
+            scale = float(want32.abs().max())
+            r["vs_one"] = {
+                "loss": abs(mesh_loss - one_loss) / abs(one_loss),
+                "logits": max(float((g[0][3] - want).abs().max())
+                              for g in got) / scale,
+                "logits_f32": max(float((g[0][4] - want32).abs().max())
+                                  for g in got) / scale,
+                "bf16_vs_f32": float((want - want32).abs().max()) / scale,
+                "mesh_loss": mesh_loss, "one_loss": one_loss}
+            del full
+            release()
+        coll.barrier(ctx.device, world)
+        out[name] = r
+    return out
+
+
+def check_mesh_families(ranks, device: str) -> None:
+    """14g's asserts and ``[mesh-fam]`` lines: per family, on every
+    rank, the params storm's final state the clean run's bits, no
+    ``gather_tree`` but the fsdp leaves' over ``data``, the model-axis
+    collectives alike on every rank, the replicated leaves and the caches
+    bitwise on the peers, the serving storm's tokens the clean run's with
+    detected == injected == recovered, a steady step 1 launch + 1 fetch,
+    the kernels of the path launched on the card; on shard 0 the mesh's
+    first loss within 3e-2 of one device's, its first decode logits in
+    f32 within 1e-3 and in bf16 within 3e-2 or within one device's own
+    bf16-to-f32 distance (a deep recurrent model's bf16 logits part from
+    its f32 ones by more than 3e-2 on one device already)."""
+    for name, (arch, _, _) in MF_CONFIGS.items():
+        first = ranks[0]["families"][name]
+        _print_family(arch, first)
+        for rr in ranks:
+            r = rr["families"][name]
+            tf = r["train"]["params"]
+            assert tf["faults_injected"] > 0, (name, tf)
+            assert tf["faults_detected"] == tf["faults_injected"] == \
+                tf["faults_recovered"], (name, tf)
+            assert r["same"], f"14g {name}: storm != clean on rank " \
+                              f"{rr['shard']}"
+            for g in (*r["gathers"].values(), r["serve_gathers"]):
+                assert set(g) <= {"data"}, (name, r["gathers"])
+            assert r["calls_alike"] and r["peers"], name
+            assert r["tp"] and r["cache_peers"], name
+            sm = r["serve_summary"]
+            f = sm["faults"]
+            assert f["injected"] == f["detected"] == f["recovered"] == 1, \
+                (name, f)
+            assert sm["dropped"] == 0, (name, sm)
+            assert r["serve_logs"]["storm"] == r["serve_logs"]["clean"] \
+                == first["serve_logs"]["clean"], name
+            assert tuple(r["stats"]) == (1, 1), (name, r["stats"])
+            if "scrub" in r:
+                assert r["scrub"]["repaired"] == 1 and r["healed"], \
+                    (name, r["scrub"])
+            lc = _launch_total(r)
+            if device == "cuda":
+                assert lc.get("pack_rows", 0) > 0 and \
+                    lc.get("row_checksums", 0) > 0, (name, lc)
+                if "scrub" in r:
+                    assert lc.get("checksum_tiles", 0) > 0 and \
+                        lc.get("xor_fold_tiles", 0) > 0, (name, lc)
+        vs = first["vs_one"]
+        # the mesh's bf16 logits: within 3e-2 of one device's, or no
+        # further from them than one device's bf16 logits are from its
+        # own f32 ones; in f32 within 1e-3 (the parallel compute itself)
+        assert vs["loss"] <= 3e-2 and vs["logits_f32"] <= 1e-3, (name, vs)
+        assert vs["logits"] <= max(3e-2, vs["bf16_vs_f32"]), (name, vs)
+
+
+def _launch_total(r) -> dict:
+    lc = {}
+    for v in r["launches"].values():
+        for k, n in v.items():
+            lc[k] = lc.get(k, 0) + n
+    return lc
+
+
+def _print_family(arch, r) -> None:
+    """A ``[mesh-fam]`` line: shard 0's numbers of one 14g config."""
+    vs = r["vs_one"]
+    step_b = sum(r["step_bytes"].values())
+    print(f"[mesh-fam] {arch} ({r['layers']} layers, full width, bf16) "
+          f"on 2 x 2, tensor-parallel: train {MF_STEPS} steps of "
+          f"{MF_BATCH} x {MF_SEQ} donated, K={MF_K}, clean / params storm "
+          f"{r['secs']['train clean']:.1f} / "
+          f"{r['secs']['train params']:.1f} s (host p50 "
+          f"{r['train']['clean']['p50_step_ms']:.1f} ms a step; storm "
+          f"{r['train']['params']['faults_injected']} flips, rungs "
+          f"{r['train']['params']['recovery']['by_rung']}; same "
+          f"{r['same']}), gathers {r['gathers']}, model-axis collectives "
+          f"a run {r['train_calls']} ({sum(r['train_bytes'].values())} B "
+          f"a rank received); serving: decode p50 {r['decode_ms'][0]:.1f}"
+          f" / p99 {r['decode_ms'][1]:.1f} ms, a steady step's model-axis "
+          f"collectives {r['step_calls']} ({step_b} B a rank received), "
+          f"STATS {r['stats']}, {r['graphs']} graphs, faults "
+          f"{r['serve_summary']['faults']}, tokens == clean "
+          f"{r['serve_logs']['storm'] == r['serve_logs']['clean']}, "
+          f"caches on the peers {r['cache_peers']}"
+          + (f", scrub {r['scrub']}" if "scrub" in r else "")
+          + f"; first loss {vs['mesh_loss']:.5f} vs one device "
+          f"{vs['one_loss']:.5f} (rel {vs['loss']:.2e}), first decode "
+          f"logits |mesh - one| / max: bf16 {vs['logits']:.2e} (one "
+          f"device's bf16 vs its f32 {vs['bf16_vs_f32']:.2e}), f32 "
+          f"{vs['logits_f32']:.2e}; launches rank 0 {_launch_total(r)}; "
+          f"the card {r['free_gib']:.2f} GiB free at the start; "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in r["secs"].items())
+          + f" [{_SMI}]")
+
+
 def _elastic_drill(seq: int, dev, device: str, smoke: bool) -> dict:
     """14d, in a rank, last of phase 14 (a rank of the lost row leaves):
     iterpro-100m at full width and depth with ``fsdp`` (the row-safe
@@ -4442,9 +4838,14 @@ def _mesh_rank(steps: int, work: str, device: str = "cuda",
     t0 = time.perf_counter()
     serving = _mesh_serve(dev, device, smoke)
     secs["14e"] = time.perf_counter() - t0
+    # 14g: the ssm, hybrid, encdec and vlm families on the mesh
+    t0 = time.perf_counter()
+    families = _mesh_families(dev, device, smoke)
+    secs["14g"] = time.perf_counter() - t0
     # 14d, last: the ranks of the lost row leave
     elastic = _elastic_drill(seq, dev, device, smoke)
     return {"elastic": elastic, "serving": serving, "moe": moe,
+        "families": families,
         "tp_calls": tp_calls, "no_gather": no_gather,
         "shard": ctx.shard_id, "device": str(ctx.device),
         "name": torch.cuda.get_device_name(ctx.device)
@@ -4611,6 +5012,16 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
     from repro_torch.launch.mesh import spawn
     if device == "cuda":
         _phase_start(torch)
+        # the earlier phases' captures left cuBLAS workspaces (as 10c-13c
+        # drop them): four ranks need the card's memory
+        getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+        _release(torch)
+        free, total = torch.cuda.mem_get_info()
+        print(f"[mesh] before the spawn: this process holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; "
+              f"the card {free / 2**30:.2f} of {total / 2**30:.2f} GiB free "
+              f"[{_SMI}]")
     work = WORK / "mesh"
     shutil.rmtree(work, ignore_errors=True)
     t0, t0_wall = time.perf_counter(), time.time()
@@ -4680,6 +5091,7 @@ def mesh_phase(torch, device: str = "cuda", smoke: bool = False) -> None:
     assert all(v == verdicts[0] for v in verdicts), verdicts
     check_mesh_serve(ranks, device)
     check_moe_mesh(ranks, device)
+    check_mesh_families(ranks, device)
     check_elastic(ranks, device)
 
 
@@ -4852,9 +5264,10 @@ def main() -> int:
     for name in kernels:
         assert launches.get(name, 0) > 0, f"{name} never launched"
     check_serving_parity(torch, cfg, clean_eng, common)
+    # 4 profiled steady steps a mode (the time cut; 9c-13a profile 8)
     serve_modes(torch, cfg, clean_eng.params, common, reqs,
                 {rid: r["tokens"] for rid, r in clean.per_request.items()},
-                storms=STORM_MODES)
+                steps=4, storms=STORM_MODES)
     del clean_eng, storm_eng
     torch.cuda.empty_cache()
     _stamp("phases 1-5")
@@ -4993,9 +5406,11 @@ def main() -> int:
     launches[label] = bytes_entry["launches"]
 
     # -- phases 10 and 11: the xLSTM and hybrid families at full width ----
+    # no donate+fused clean run (the time cut: the fused storm holds its
+    # checks, as 13c's does)
     recurrent_phase(torch, 10, XLSTM, dict(n_layers=X_LAYERS),
                     dict(n_layers=X_LAYERS), storms=("parity", "fused"),
-                    checkpoint=False, profile=False)
+                    checkpoint=False, profile=False, fused_clean=False)
     _stamp("phase 10")
     recurrent_phase(torch, 11, ZAMBA, dict(n_layers=Z_SERVE_LAYERS),
                     dict(n_layers=Z_TRAIN_LAYERS), storms=("parity",),
@@ -5007,15 +5422,20 @@ def main() -> int:
     # no checkpoint round trip since PR 25, the time cut (7a-7b hold the
     # checkpoint: saved every 10 steps, loaded digest-verified by the
     # rung, a corrupted one refused; 14 the mesh checkpoint)
+    # no donate+fused profile (the time cut: 7j holds the hot-path one)
     recurrent_phase(torch, 12, SEAMLESS, s_layers, s_layers,
-                    storms=("parity",), long=long_encdec, checkpoint=False)
+                    storms=("parity",), long=long_encdec, checkpoint=False,
+                    profile=False)
     _stamp("phase 12")
 
     # -- phase 13: the VLM family at full width ---------------------------
+    # no iv storm (the time cut: phase 14's iv storm takes eq1 through
+    # train() on the card)
     recurrent_phase(torch, 13, QWEN, {}, dict(n_layers=Q_TRAIN_LAYERS),
                     long=long_vlm, requests=vlm_requests(Q_GRID),
                     patch_rows=Q_GRID ** 2, checkpoint=False, profile=False,
-                    parity_kw=Q_PARITY, fused_clean=False)
+                    parity_kw=Q_PARITY, fused_clean=False,
+                    storms=("parity", "fused"))
     _stamp("phase 13")
 
     # -- phase 14: resilient training on a 2 x 2 mesh ---------------------

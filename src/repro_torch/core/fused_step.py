@@ -63,8 +63,9 @@ inputs have fixed storage is a graph keyed by (rotation, read table):
     into the delta);
   * the step's front (eager): every collective of the mesh step — the
     forward and backward with their model-axis collectives
-    (tensor-parallel, on the rank's blocks in place; a whole-params
-    family reads the params' gather, a new tensor each step), the
+    (tensor-parallel, on the rank's blocks in place; a mesh with no
+    model axis wider than 1 reads the params' gather, a new tensor each
+    step), the
     grads' mean and the norm's all-gather; its outputs are copied into
     fixed storage;
   * the tail (graph): the rest of the step (norm, clip, update, the

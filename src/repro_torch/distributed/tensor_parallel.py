@@ -29,11 +29,20 @@ group must issue the same collectives in the same order; whether a
 region is parallel is a property of the config and the axis size alone
 (``TensorParallel.splits``, the spec guard's rule), never of a rank.
 
-``for_model`` gives the model code its ``TensorParallel`` (None off the
-mesh, on a mesh with no model axis, and for a family whose compute is
-not tensor-parallel yet: ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` read
-a whole-params gather, ROADMAP queue 1).  ``CALLS`` counts the model
-axis's collectives by kind.
+A leaf the reference cuts by width where the cut does not line up with
+what the next op reads (a fused projection ``[xm | z]`` or ``[z | x | B |
+C | dt]``, cross-attention columns that are not whole heads, a patch or
+source projection, the sLSTM's pre-activations where the axis does not
+divide its heads) is computed as the output columns of the rank's block
+in place and those are gathered in group order (``gather_cols``: a
+concatenation, so the same bits on every rank; backward, the rank's
+slice of the replicated gradient).  The parameter is never gathered.
+
+``for_model`` gives the model code its ``TensorParallel`` on a mesh whose
+model axis is wider than 1, for every family; None off the mesh and on a
+mesh with no model axis (pure data parallelism, where the mesh step
+gathers the fsdp leaves whole).  ``CALLS`` counts the model axis's
+collectives by kind and ``BYTES`` what a rank received through them.
 """
 
 from __future__ import annotations
@@ -45,11 +54,10 @@ import torch
 
 from repro_torch.distributed import collectives as coll
 
-#: the model families whose mesh compute is tensor-parallel
-TP_FAMILIES = ("dense", "moe")
-
 #: the model-axis collectives issued, by kind (forward and backward)
 CALLS: Counter = Counter()
+#: the bytes a rank received through them, by kind
+BYTES: Counter = Counter()
 
 
 class TensorParallel:
@@ -83,8 +91,8 @@ class TensorParallel:
 def for_model(ctx, model_cfg) -> Optional[TensorParallel]:
     """The model's ``TensorParallel`` on ``ctx`` (see the module
     docstring), or None."""
-    if ctx is None or not ctx.enabled or ctx.tp_size == 1 \
-            or model_cfg.family not in TP_FAMILIES:
+    del model_cfg              # every family computes on its blocks
+    if ctx is None or not ctx.enabled or ctx.tp_size == 1:
         return None
     return TensorParallel(ctx)
 
@@ -95,6 +103,7 @@ def for_model(ctx, model_cfg) -> Optional[TensorParallel]:
 
 def _gather(x: torch.Tensor, tp: TensorParallel, kind: str) -> torch.Tensor:
     CALLS[kind] += 1
+    BYTES[kind] += x.numel() * x.element_size() * (tp.size - 1)
     return coll.all_gather(x, tp.group)
 
 
@@ -104,13 +113,17 @@ def _sum(x: torch.Tensor, tp: TensorParallel, kind: str) -> torch.Tensor:
 
 class _CopyIn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tp):
+    def forward(ctx, tp, *xs):
         ctx.tp = tp
-        return x.view_as(x)
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
-    def backward(ctx, g):
-        return _sum(g.contiguous(), ctx.tp, "copy_in/backward"), None
+    def backward(ctx, *gs):
+        # the tensors' gradients summed in one collective
+        flat = _sum(torch.cat([g.reshape(-1) for g in gs]), ctx.tp,
+                    "copy_in/backward")
+        return (None,) + tuple(t.view_as(g) for t, g in zip(
+            flat.split([g.numel() for g in gs]), gs))
 
 
 class _ReduceSum(torch.autograd.Function):
@@ -136,23 +149,50 @@ class _GatherRows(torch.autograd.Function):
         return g[lo:lo + ctx.n], None
 
 
+class _GatherCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tp, dim, *xs):
+        ctx.tp, ctx.dim = tp, dim
+        ctx.widths = [x.shape[dim] for x in xs]
+        got = _gather(torch.cat(xs, dim=dim), tp, "gather_cols")
+        parts = [p.split(ctx.widths, dim=dim) for p in got.unbind(0)]
+        return tuple(torch.cat([p[i] for p in parts], dim=dim)
+                     for i in range(len(xs)))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        r = ctx.tp.rank
+        return (None, None) + tuple(g.narrow(ctx.dim, r * n, n)
+                                    for g, n in zip(gs, ctx.widths))
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp):
         ctx.tp = tp
         CALLS["all_to_all"] += 1
+        BYTES["all_to_all"] += x.numel() * x.element_size() \
+            * (tp.size - 1) // tp.size
         return coll.all_to_all(x, tp.group).view(x.shape)
 
     @staticmethod
     def backward(ctx, g):
         CALLS["all_to_all/backward"] += 1
+        BYTES["all_to_all/backward"] += g.numel() * g.element_size() \
+            * (ctx.tp.size - 1) // ctx.tp.size
         return coll.all_to_all(g, ctx.tp.group).view(g.shape), None
 
 
 def copy_in(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """Enter a parallel region: identity forward, the group's gradients
     summed in group-rank order backward."""
-    return _CopyIn.apply(x, tp)
+    return _CopyIn.apply(tp, x)[0]
+
+
+def copy_in_many(xs, tp: TensorParallel):
+    """``copy_in`` of several tensors of one dtype, their gradients
+    summed in one collective."""
+    return _CopyIn.apply(tp, *xs)
 
 
 def reduce_sum(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
@@ -165,6 +205,22 @@ def gather_rows(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """Every rank's rows of ``x`` (dim 0), in group-rank order; backward
     this rank's rows of the (replicated) gradient."""
     return _GatherRows.apply(x, tp)
+
+
+def gather_cols(x: torch.Tensor, tp: TensorParallel,
+                dim: int = -1) -> torch.Tensor:
+    """Every rank's block of ``x`` concatenated along ``dim`` in
+    group-rank order (the output columns of a width-cut leaf, whole on
+    every rank, the same bits); backward this rank's slice of the
+    (replicated) gradient.  The input is the rank's own product, so a
+    replicated tensor that feeds it enters through ``copy_in``."""
+    return _GatherCols.apply(tp, dim % x.dim(), x)[0]
+
+
+def gather_cols_many(xs, tp: TensorParallel, dim: int = -1):
+    """``gather_cols`` of several tensors of one dtype and the same other
+    dims in one collective."""
+    return _GatherCols.apply(tp, dim % xs[0].dim(), *xs)
 
 
 def all_to_all(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:

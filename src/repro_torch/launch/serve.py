@@ -47,12 +47,11 @@ mesh device (``launch/mesh.spawn``; on a one-card machine the ranks
 share the card over gloo), each holding its blocks of the params
 (``launch/specs.param_shardings``) and a replica of the covered state,
 with the shard-local canary and, with ``--parity``, the mesh parity over
-the params and its per-shard scrub (``serving/engine.py``).  The
-``dense`` and ``moe`` families decode tensor-parallel from the rank's
-blocks in place (no params gather in a step); ``ssm``, ``hybrid``,
-``encdec`` and ``vlm`` gather the whole params once a ``run`` iteration
-(their tensor-parallel compute is the next item of ROADMAP queue 1).
-Every other flag composes with it.  Rank 0's summary is returned, with ``"mesh":
+the params and its per-shard scrub (``serving/engine.py``).  Every
+family decodes tensor-parallel from the rank's blocks in place (no
+params gather in a step; a mesh with no model axis wider than 1 gathers
+its fsdp leaves whole once a ``run`` iteration).  Every other flag
+composes with it.  Rank 0's summary is returned, with ``"mesh":
 {"shape": ..., "devices": n}``; ``--mesh 4,2 --device cpu`` spawns 8
 gloo ranks on the CPU.
 """

@@ -64,12 +64,11 @@ either) and Adafactor.
 ``--mesh dp,tp`` (e.g. ``4,2``) runs the resilient loop on a device mesh:
 one process per mesh device (``launch/mesh.spawn``; on a one-card machine
 the ranks share the card over gloo), every rank holding only its own
-blocks of the state (``launch/specs.bind_state``).  For the ``dense``
-and ``moe`` families the model axis computes tensor-parallel (the rank's
-heads, FFN columns, experts and vocabulary rows from its blocks in
-place; ``distributed/tensor_parallel.py``); ``ssm``, ``hybrid``,
-``encdec`` and ``vlm`` gather the whole params for each step (their
-tensor-parallel compute is the next item of ROADMAP queue 1).  No flag
+blocks of the state (``launch/specs.bind_state``).  For every family
+the model axis computes tensor-parallel (the rank's heads, FFN columns,
+experts, recurrent projections and vocabulary rows from its blocks in
+place; ``distributed/tensor_parallel.py``); only a mesh with no model
+axis wider than 1 gathers the params whole for each step.  No flag
 chooses between the two.  The canary goes
 shard-local (each rank digests its own blocks; the one fetched flag is
 all-reduced), snapshots carry per-(leaf, shard) metadata, and recovery

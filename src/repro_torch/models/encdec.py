@@ -24,6 +24,17 @@ as in the port's transformer.  ``prefill`` ends with the BOS decode at
 position 0, so its cache has ``pos`` = 1.  ``decode_step`` writes the
 new self-attention rows into the cache IN PLACE, with no host sync, so
 a CUDA graph can capture it.
+
+Tensor-parallel compute (``tp``, on a mesh with a model axis; None is
+exactly the single-device model): ``src_proj``'s columns are the rank's,
+gathered; the encoder's (non-causal) and decoder's self-attention and
+FFN are ``layers.py``'s parallel regions (the biases of a row-parallel
+``down`` added once, after the sum); the cross-attention, whose leaves
+the reference cuts by width (the whole-heads rule reads ``attn``, not
+``xattn``), computes the rank's heads where the cut falls on whole heads
+and gathers the width-cut columns elsewhere (``layers.project``); the
+vocabulary is parallel where the axis divides it.  The cache stays
+whole: ``prefill`` gathers the memory K/V to every head once.
 """
 
 from __future__ import annotations
@@ -31,9 +42,10 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import dense, dense_init, rmsnorm, \
+from repro_torch.models.layers import dense_init, rmsnorm, \
     rmsnorm_init
 
 
@@ -61,61 +73,115 @@ def dec_block_init(gen, cfg, dt, device, count: int = 0) -> dict:
                               bias=cfg.use_bias)}
 
 
-def enc_block_apply(p, cfg, x, positions):
+def _ffn_tp(cfg, tp):
+    """``tp`` when the model axis splits the FFN width, else None."""
+    return tp if tp is not None and tp.splits(cfg.d_ff) else None
+
+
+def enc_block_apply(p, cfg, x, positions, tp=None):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out, _ = L.attn_apply(p["attn"], cfg, h, positions, window=0,
-                               causal=False)
+                               causal=False, tp=tp)
     x = x + attn_out
-    return x + L.mlp_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + L.mlp_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+                           _ffn_tp(cfg, tp))
 
 
-def _cross_kv(p, cfg, memory):
-    """Cross-attention K/V of the encoder memory (no rope)."""
+def _entered(t, tp, plan):
+    """``t`` (an activation or a replicated leaf's dict) entering the
+    cross-attention's parallel region, or as it is off any region."""
+    if plan is None:
+        return t
+    if isinstance(t, dict):
+        return {k: TP.copy_in(v, tp) for k, v in t.items()}
+    return TP.copy_in(t, tp)
+
+
+def _cross_kv(p, cfg, memory, tp=None):
+    """Cross-attention K/V of the encoder memory (no rope).  Under ``tp``
+    the KV heads the rank's query heads read (``layers.heads_plan``): its
+    own where the KV heads split, else every KV head, a width-cut block
+    of them gathered (``layers.project``); ``layers.full_heads`` gathers
+    the rank's own for the cache."""
     B, Ss, _ = memory.shape
     hd = cfg.resolved_head_dim
-    k = dense(p["xattn"]["wk"], memory).reshape(B, Ss, cfg.n_kv_heads, hd)
-    v = dense(p["xattn"]["wv"], memory).reshape(B, Ss, cfg.n_kv_heads, hd)
+    xa = p["xattn"]
+    plan = L.heads_plan(cfg, tp)
+    want = L.head_widths(cfg, tp, plan)[1]
+    m_in = _entered(memory, tp, plan)
+    n = cfg.n_kv_heads * hd
+    k = L.project(xa["wk"], memory, m_in, n, want, tp, plan).reshape(
+        B, Ss, -1, hd)
+    v = L.project(xa["wv"], memory, m_in, n, want, tp, plan).reshape(
+        B, Ss, -1, hd)
     if cfg.qk_norm:
-        k = rmsnorm(p["xattn"]["k_norm"], k, cfg.norm_eps)
+        k = rmsnorm(_entered(xa["k_norm"], tp, plan), k, cfg.norm_eps)
     return k, v
 
 
-def _cross_attend(p, cfg, x, mem_k, mem_v):
+def _cross_attend(p, cfg, x, mem_k, mem_v, tp=None):
     """Cross attention: queries from x (no rope), keys from the memory,
-    every source row attended (non-causal)."""
+    every source row attended (non-causal).  ``mem_k`` / ``mem_v`` hold
+    the KV heads the rank's query heads read (all of them without
+    ``tp``); ``wo`` is row-parallel over the rank's heads, or over its
+    width-cut rows under replicated attention (``layers.attn_out``)."""
     B, St, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = dense(p["xattn"]["wq"], x).reshape(B, St, cfg.n_heads, hd)
+    xa = p["xattn"]
+    plan = L.heads_plan(cfg, tp)
+    want = L.head_widths(cfg, tp, plan)[0]
+    q = L.project(xa["wq"], x, _entered(x, tp, plan),
+                  cfg.n_heads * hd, want, tp, plan).reshape(B, St, -1, hd)
     if cfg.qk_norm:
-        q = rmsnorm(p["xattn"]["q_norm"], q, cfg.norm_eps)
+        q = rmsnorm(_entered(xa["q_norm"], tp, plan), q, cfg.norm_eps)
     qpos = L.make_positions(B, St, x.device)
     kpos = L.make_positions(B, mem_k.shape[1], x.device)
     o = L.attention(q, mem_k, mem_v, qpos, kpos, window=0, causal=False,
                     attn_softcap=cfg.attn_softcap)
-    return dense(p["xattn"]["wo"], o.reshape(B, St, -1))
+    return L.attn_out(xa["wo"], o.reshape(B, St, -1), cfg, tp, plan)
 
 
-def _cross_ffn(p, cfg, x, mem_k, mem_v):
+def _cross_ffn(p, cfg, x, mem_k, mem_v, tp=None):
     """The decoder block's tail after self-attention."""
     x = x + _cross_attend(p, cfg, rmsnorm(p["ln_x"], x, cfg.norm_eps),
-                          mem_k, mem_v)
-    return x + L.mlp_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+                          mem_k, mem_v, tp)
+    return x + L.mlp_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+                           _ffn_tp(cfg, tp))
 
 
-def dec_block_apply(p, cfg, x, positions, mem_k, mem_v):
-    """Full-sequence decoder block.  Returns (x, (k, v))."""
+def _read_heads(cfg, tp, k, v, cache: bool):
+    """The KV heads of ``k``/``v`` the rank's query heads attend: of the
+    whole cache (``cache``) the plan's selection, of ``_cross_kv``'s
+    output ``layers._attending``'s."""
+    plan = L.heads_plan(cfg, tp)
+    if plan is None:
+        return k, v
+    if cache:
+        return L.select_heads(k, plan[1]), L.select_heads(v, plan[1])
+    return L._attending(k, plan), L._attending(v, plan)
+
+
+def dec_block_apply(p, cfg, x, positions, mem_k, mem_v, tp=None):
+    """Full-sequence decoder block (``mem_k`` / ``mem_v`` from
+    ``_cross_kv``).  Returns (x, (k, v))."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    attn_out, kv = L.attn_apply(p["attn"], cfg, h, positions, window=0)
-    return _cross_ffn(p, cfg, x + attn_out, mem_k, mem_v), kv
+    attn_out, kv = L.attn_apply(p["attn"], cfg, h, positions, window=0,
+                                tp=tp)
+    mem_k, mem_v = _read_heads(cfg, tp, mem_k, mem_v, cache=False)
+    return _cross_ffn(p, cfg, x + attn_out, mem_k, mem_v, tp), kv
 
 
-def dec_block_decode(p, cfg, x, pos, k_cache, v_cache, mem_k, mem_v):
+def dec_block_decode(p, cfg, x, pos, k_cache, v_cache, mem_k, mem_v,
+                     tp=None):
     """One token; its key and value rows written into the caches IN
-    PLACE.  Returns (x, k_cache, v_cache)."""
+    PLACE (every head: the caches are whole under ``tp`` too).  Returns
+    (x, k_cache, v_cache)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out = L.attn_decode(p["attn"], cfg, h, pos, k_cache, v_cache,
-                             window=0)
-    return _cross_ffn(p, cfg, x + attn_out, mem_k, mem_v), k_cache, v_cache
+                             window=0, tp=tp)
+    mem_k, mem_v = _read_heads(cfg, tp, mem_k, mem_v, cache=True)
+    return _cross_ffn(p, cfg, x + attn_out, mem_k, mem_v, tp), k_cache, \
+        v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -144,58 +210,68 @@ def init_lm(cfg, seed: int, device) -> dict:
     return params
 
 
-def encode(params, cfg, src_embeds, *, remat: bool = False):
+def encode(params, cfg, src_embeds, *, remat: bool = False, tp=None):
     """The encoder memory (B, Ss, d) of ``src_embeds``, cast to the
-    compute dtype before ``src_proj``."""
-    x = dense(params["src_proj"], src_embeds.to(T._dtype(cfg.compute_dtype)))
+    compute dtype before ``src_proj`` (under ``tp`` its columns
+    gathered)."""
+    x = L.gathered(params["src_proj"],
+                   src_embeds.to(T._dtype(cfg.compute_dtype)), cfg.d_model,
+                   tp)
     B, Ss, _ = x.shape
     positions = L.make_positions(B, Ss, x.device)
     for p in T._unbind(params["enc_blocks"], cfg.n_enc_layers):
         if remat:
-            x = checkpoint(lambda p, h: enc_block_apply(p, cfg, h, positions),
+            x = checkpoint(lambda p, h: enc_block_apply(p, cfg, h, positions,
+                                                        tp),
                            p, x, use_reentrant=False)
         else:
-            x = enc_block_apply(p, cfg, x, positions)
+            x = enc_block_apply(p, cfg, x, positions, tp)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def _dec_body(p, cfg, x, positions, memory):
+def _dec_body(p, cfg, x, positions, memory, tp=None):
     return dec_block_apply(p, cfg, x, positions,
-                           *_cross_kv(p, cfg, memory))[0]
+                           *_cross_kv(p, cfg, memory, tp), tp)[0]
 
 
-def train_loss(params, cfg, batch, *, remat: bool = True):
+def _embed(params, cfg, tokens, tp):
+    return L.embed(params["embed"], tokens, T._dtype(cfg.compute_dtype),
+                   T._vocab_tp(cfg, tp))
+
+
+def train_loss(params, cfg, batch, *, remat: bool = True, tp=None):
     """batch: src_embeds (B,Ss,fd), tokens (B,St), targets (B,St)
     [, loss_mask].  Returns (loss, {"ce"})."""
-    memory = encode(params, cfg, batch["src_embeds"], remat=remat)
+    memory = encode(params, cfg, batch["src_embeds"], remat=remat, tp=tp)
     tokens, targets = batch["tokens"], batch["targets"]
     B, St = tokens.shape
-    x = L.embed(params["embed"], tokens, T._dtype(cfg.compute_dtype))
+    x = _embed(params, cfg, tokens, tp)
     positions = L.make_positions(B, St, x.device)
     for p in T._unbind(params["dec_blocks"], cfg.n_layers):
         if remat:
             x = checkpoint(lambda p, h, mem: _dec_body(p, cfg, h, positions,
-                                                       mem),
+                                                       mem, tp),
                            p, x, memory, use_reentrant=False)
         else:
-            x = _dec_body(p, cfg, x, positions, memory)
+            x = _dec_body(p, cfg, x, positions, memory, tp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    ce = T.chunked_ce(params, cfg, x, targets, batch.get("loss_mask"))
+    ce = T.chunked_ce(params, cfg, x, targets, batch.get("loss_mask"), tp=tp)
     return ce, {"ce": ce}
 
 
-def prefill(params, cfg, batch, *, max_len=None):
+def prefill(params, cfg, batch, *, max_len=None, tp=None):
     """Encode the source; build every decoder layer's cross-attention K/V
     and a zeroed self-attention cache of ``max_len or Ss`` rows, then
     decode BOS (token 0) at position 0.  Returns (BOS logits (B,V),
-    cache with ``pos`` = 1)."""
-    memory = encode(params, cfg, batch["src_embeds"])
+    cache with ``pos`` = 1).  Under ``tp`` the memory K/V are gathered
+    to every head once here (the cache is whole on every rank)."""
+    memory = encode(params, cfg, batch["src_embeds"], tp=tp)
     B, Ss, _ = memory.shape
     max_len = max_len or Ss
-    kv = [_cross_kv(p, cfg, memory)
+    kv = [_cross_kv(p, cfg, memory, tp)
           for p in T._unbind(params["dec_blocks"], cfg.n_layers)]
-    mem_k = torch.stack([k for k, _ in kv])
-    mem_v = torch.stack([v for _, v in kv])
+    mem_k = torch.stack([L.full_heads(k, cfg, tp) for k, _ in kv])
+    mem_v = torch.stack([L.full_heads(v, cfg, tp) for _, v in kv])
     shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
     cache = {"mem_k": mem_k, "mem_v": mem_v,
@@ -204,22 +280,22 @@ def prefill(params, cfg, batch, *, max_len=None):
              "pos": torch.zeros((B,), dtype=torch.int32,
                                 device=mem_k.device)}
     bos = torch.zeros((B,), dtype=torch.int32, device=mem_k.device)
-    return decode_step(params, cfg, cache, bos)
+    return decode_step(params, cfg, cache, bos, tp)
 
 
-def decode_step(params, cfg, cache, token):
+def decode_step(params, cfg, cache, token, tp=None):
     """One step: token (B,) -> (logits (B,V), cache').  Each row decodes
     at its own ``cache["pos"]``; the ``k`` / ``v`` leaves are written in
     place, ``mem_k`` / ``mem_v`` only read; ``cache'`` holds the same
     leaves and ``pos + 1``."""
-    x = L.embed(params["embed"], token[:, None], T._dtype(cfg.compute_dtype))
+    x = _embed(params, cfg, token[:, None], tp)
     pos = cache["pos"].to(torch.int32)
     for l in range(cfg.n_layers):
         x, _, _ = dec_block_decode(T._layer(params["dec_blocks"], l), cfg, x,
                                    pos, cache["k"][l], cache["v"][l],
-                                   cache["mem_k"][l], cache["mem_v"][l])
+                                   cache["mem_k"][l], cache["mem_v"][l], tp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = T.logits_fn(params, cfg, x)[:, 0]
+    logits = T.logits_fn(params, cfg, x, tp)[:, 0]
     return logits, dict(cache, pos=pos + 1)
 
 

@@ -35,7 +35,12 @@ the ``down`` rows and a sum; the embedding a vocabulary-parallel lookup
 logits the rank's vocabulary rows gathered over the axis.  A replicated
 leaf read inside a parallel region (q/k-norm scales, replicated
 ``wk/wv``) enters it through ``copy_in``, so its gradient is summed over
-the axis like the region's input's.
+the axis like the region's input's.  A q/k/v or ``wo`` leaf cut by width
+where the plan reads whole heads (the cross-attention's leaves, which
+the whole-heads rule does not cover, and a LoRA-merged leaf: its block
+is the replicated weight's slice plus the factors' block) computes its
+block's columns (rows) in place: the columns are gathered over the axis
+(``gathered``), the rows summed.
 """
 
 from __future__ import annotations
@@ -338,20 +343,93 @@ def _row_out(p, x, tp):
     return y
 
 
+def gathered(p, x, n: int, tp):
+    """``dense(p, x)`` whose ``n`` output columns every rank needs whole:
+    where the leaf's columns are cut over the model axis (its block
+    narrower than ``n``) the rank's columns of the product, from ``x``
+    entered into the region, gathered in group order (a concatenation:
+    the same bits on every rank); else the whole product."""
+    return gathered_many([p], x, [n], tp)[0]
+
+
+def gathered_many(ps, x, ns, tp):
+    """``gathered`` for several projections of one input: the cut ones'
+    columns gathered in one collective, the input entering once."""
+    out = [dense(p, x) if tp is None or p["w"].shape[-1] == n else None
+           for p, n in zip(ps, ns)]
+    cut = [i for i, o in enumerate(out) if o is None]
+    if cut:
+        x_in = TP.copy_in(x, tp)
+        got = TP.gather_cols_many([dense(ps[i], x_in) for i in cut], tp)
+        for i, g in zip(cut, got):
+            out[i] = g
+    return out
+
+
+def head_widths(cfg, tp, plan):
+    """The q and k/v columns the plan reads: every head (replicated
+    attention), the rank's heads, or its query heads and every KV head
+    (replicated ``wk/wv``); (0, 0) without ``tp``."""
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    if tp is None:
+        return 0, 0
+    if plan is None:
+        return H, KV
+    return H // tp.size, (KV // tp.size if plan[0] else KV)
+
+
+def project(pw, x, x_in, n: int, want: int, tp, plan):
+    """One of the q/k/v projections under ``tp``: ``n`` the leaf's whole
+    width, ``want`` the columns the plan reads.  Off any region (no plan)
+    a whole leaf is the plain product; the plan's own heads are the
+    block's product of the entered input ``x_in``; a whole (replicated)
+    leaf read inside a region enters it itself; a column block narrower
+    than ``want`` (cut by width, not at the heads the plan reads) is
+    gathered, and, read at the rank's heads, enters the region after the
+    gather."""
+    w = pw["w"].shape[-1]
+    if tp is None or (plan is None and w == n):
+        return dense(pw, x)
+    if w == want:
+        if w == n:
+            pw = {k: TP.copy_in(t, tp) for k, t in pw.items()}
+        return dense(pw, x_in)
+    y = TP.gather_cols(dense(pw, x_in if x_in is not None
+                             else TP.copy_in(x, tp)), tp)
+    return y if plan is None else TP.copy_in(y, tp)
+
+
+def attn_out(pw, o, cfg, tp, plan):
+    """``wo`` over the attention's output ``o``: row-parallel over the
+    rank's heads; under replicated attention the plain product, or, where
+    the rows are cut by width (a LoRA-merged or cross-attention ``wo``),
+    the rank's rows of ``o`` through its block and a sum."""
+    if tp is not None and plan is None:
+        rows = pw["w"].shape[0]
+        if rows == cfg.n_heads * cfg.resolved_head_dim:
+            return dense(pw, o)
+        lo, hi = tp.span(rows)
+        o = TP.copy_in(o, tp)[..., lo:hi]
+    return _row_out(pw, o, tp)
+
+
 def _qkv(p, cfg, x, positions, theta, tp, plan):
+    x_in = None
     if plan is not None:
-        x = TP.copy_in(x, tp)
-        ci = lambda d: {n: TP.copy_in(t, tp) for n, t in d.items()}  # noqa
+        x_in = TP.copy_in(x, tp)
         p = dict(p)
-        for n in ("q_norm", "k_norm") + (() if plan[0] else ("wk", "wv")):
+        for n in ("q_norm", "k_norm"):
             if n in p:
-                p[n] = ci(p[n])
+                p[n] = {k: TP.copy_in(t, tp) for k, t in p[n].items()}
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     theta = theta or cfg.rope_theta
-    q = dense(p["wq"], x).reshape(B, S, -1, hd)
-    k = dense(p["wk"], x).reshape(B, S, -1, hd)
-    v = dense(p["wv"], x).reshape(B, S, -1, hd)
+    wq, wkv = head_widths(cfg, tp, plan)
+    H, KV = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    q = project(p["wq"], x, x_in, H, wq, tp, plan).reshape(B, S, -1, hd)
+    k = project(p["wk"], x, x_in, KV, wkv, tp, plan).reshape(B, S, -1, hd)
+    v = project(p["wv"], x, x_in, KV, wkv, tp, plan).reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -386,8 +464,8 @@ def attn_apply(p, cfg, x, positions, *, window: int = 0, causal: bool = True,
     pos1 = positions[..., 0] if cfg.m_rope else positions
     o = attention(q, _attending(k, plan), _attending(v, plan), pos1, pos1,
                   window=window, causal=causal, attn_softcap=cfg.attn_softcap)
-    y = _row_out(p["wo"], o.reshape(x.shape[0], x.shape[1], -1),
-                 tp if plan is not None else None)
+    y = attn_out(p["wo"], o.reshape(x.shape[0], x.shape[1], -1), cfg, tp,
+                 plan)
     return y, (k, v)
 
 
@@ -449,8 +527,7 @@ def attn_decode(p, cfg, x, pos, k_cache, v_cache, *, window: int = 0,
                          select_heads(v_cache, sel).to(q.dtype),
                          positions, kpos, window=window,
                          attn_softcap=cfg.attn_softcap)
-    return _row_out(p["wo"], o.reshape(B, 1, -1),
-                    tp if plan is not None else None)
+    return attn_out(p["wo"], o.reshape(B, 1, -1), cfg, tp, plan)
 
 
 def attn_prefill_chunk(p, cfg, x, qpos, k_ctx, v_ctx, ctx_kpos, *,
@@ -478,8 +555,7 @@ def attn_prefill_chunk(p, cfg, x, qpos, k_ctx, v_ctx, ctx_kpos, *,
     o = attention_direct(q, k_all, v_all, qpos, kpos_all, window=window,
                          causal=True, attn_softcap=cfg.attn_softcap)
     k, v = _new_rows(k, v, plan, tp)
-    return _row_out(p["wo"], o.reshape(B, C, -1),
-                    tp if plan is not None else None), k, v
+    return attn_out(p["wo"], o.reshape(B, C, -1), cfg, tp, plan), k, v
 
 
 def mlp_init(gen, d_model: int, d_ff: int, dtype, device, count: int, *,

@@ -20,6 +20,17 @@ floating-point ``cumsum`` on the card has no deterministic kernel, and
 the training step runs with deterministic algorithms on.  ``softplus``
 is ``logaddexp(x, 0)``, as ``jax.nn.softplus`` (``F.softplus`` turns
 linear above 20).
+
+Tensor-parallel compute (``tp``; None is exactly the single-device
+block): the reference cuts ``in_proj``'s columns (inside ``x`` at
+zamba2-7b), the conv's channels and the per-head vectors over the model
+axis.  A decode step writes the f32 SSM state whole and the cache is a
+replica on every rank, so the state never crosses the axis: the rank's
+``in_proj`` columns and conv channels are gathered, and so are the
+per-head factors its ``dt_bias``, ``A_log`` and ``D`` give (``dt``,
+``dt · A``, ``D · x``; ``_heads``); the scan then runs on every head on
+every rank.  The gated RMSNorm is replicated over the whole d_inner and
+``out_proj``'s rows end the block with a sum over the axis.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models.layers import dense, dense_init, rmsnorm, \
     rmsnorm_init
@@ -132,11 +144,13 @@ def _split_proj(cfg, proj):
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = SSD_CHUNK,
-                init_state=None, return_state: bool = False):
+                init_state=None, return_state: bool = False, dtA=None):
     """Chunked SSD scan.
 
     x (B,S,H,P), dt (B,S,H) (post-softplus), A (H,) negative,
-    Bm/Cm (B,S,N) shared across heads (single group).
+    Bm/Cm (B,S,N) shared across heads (single group); ``dtA`` (B,S,H),
+    when given, is ``dt · A`` already formed (then ``A`` is not read:
+    the tensor-parallel block gathers the products, not ``A_log``).
     Returns y (B,S,H,P) [, final_state (B,H,P,N) f32]."""
     Bb, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -146,13 +160,16 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = SSD_CHUNK,
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         dt, Bm, Cm = (F.pad(a, (0, 0, 0, pad)) for a in (dt, Bm, Cm))
+        if dtA is not None:
+            dtA = F.pad(dtA, (0, 0, 0, pad))
 
     xc = x.reshape(Bb, nc, Q, H, P).to(_F32)
     dtc = dt.reshape(Bb, nc, Q, H).to(_F32)
     Bc = Bm.reshape(Bb, nc, Q, N).to(_F32)
     Cc = Cm.reshape(Bb, nc, Q, N).to(_F32)
 
-    dA = (dtc * A[None, None, None, :]).transpose(2, 3)  # (B,nc,H,Q)
+    dA = (dtc * A[None, None, None, :] if dtA is None else
+          dtA.reshape(Bb, nc, Q, H).to(_F32)).transpose(2, 3)  # (B,nc,H,Q)
     seg = _cumsum(dA)                                    # (B,nc,H,Q)
 
     # ---- intra-chunk (quadratic within Q) --------------------------------
@@ -185,59 +202,111 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = SSD_CHUNK,
     return y
 
 
+def _conv_cols(x, w, b, tp):
+    """SiLU of the depthwise causal conv of ``x`` (B,S,C) in f32, cast to
+    ``x``'s dtype; under ``tp``, where the channels are cut over the
+    model axis, the rank's channels gathered in group order."""
+    if tp is None or w.shape[-1] == x.shape[-1]:
+        return F.silu(_causal_conv(x, w, b).to(_F32)).to(x.dtype)
+    lo, hi = tp.span(w.shape[-1])
+    blk = TP.copy_in(x, tp)[..., lo:hi]
+    return TP.gather_cols(F.silu(_causal_conv(blk, w, b).to(_F32))
+                          .to(x.dtype), tp)
+
+
+def _conv_step_cols(conv_in, p, tp):
+    """One decode step of the conv (``_conv_step``) over the channels of
+    ``p["conv_w"]``: under ``tp``, where they are cut, the rank's,
+    gathered."""
+    C = conv_in.shape[-1]
+    if tp is None or p["conv_w"].shape[-1] == C:
+        return _conv_step(conv_in, p)
+    lo, hi = tp.span(p["conv_w"].shape[-1])
+    return TP.gather_cols(_conv_step(conv_in[..., lo:hi], p), tp)
+
+
+def _heads(p, dt_raw, xh, tp):
+    """The per-head factors: ``dt`` (softplus of ``dt_raw + dt_bias``),
+    ``dt · A`` (``A = -exp(A_log)``) in f32 and ``D · x`` in ``xh``'s
+    dtype, each over every head.  Under ``tp``, where the model axis cuts
+    the per-head vectors, the rank's heads of each, gathered (the
+    recurrence then runs on every head on every rank)."""
+    H = xh.shape[-2]
+    Hl = p["A_log"].shape[-1]
+    lead = (None,) * (dt_raw.dim() - 1)
+    if tp is not None and Hl != H:
+        lo, hi = tp.span(Hl)
+        dt_raw, xh = TP.copy_in_many((dt_raw, xh), tp)
+        dt_raw, xh = dt_raw[..., lo:hi], xh[..., lo:hi, :]
+    dt = _softplus(dt_raw.to(_F32) + p["dt_bias"][lead])
+    dtA = dt * -torch.exp(p["A_log"])[lead]
+    Dx = xh * p["D"][lead + (slice(None), None)].to(xh.dtype)
+    if tp is not None and Hl != H:
+        dt, dtA = TP.gather_cols(torch.stack([dt, dtA]), tp).unbind(0)
+        Dx = TP.gather_cols(Dx, tp, dim=-2)
+    return dt, dtA, Dx
+
+
+def _gated_out(p, cfg, y, z, tp):
+    """``out_proj`` of the gated RMSNorm (replicated, over the whole
+    d_inner): under ``tp``, where its rows are cut, the rank's rows and a
+    sum over the model axis."""
+    y = rmsnorm(p["norm"], y, cfg.norm_eps) * F.silu(z.to(_F32)).to(y.dtype)
+    rows = p["out_proj"]["w"].shape[0]
+    if tp is None or rows == y.shape[-1]:
+        return dense(p["out_proj"], y)
+    lo, hi = tp.span(rows)
+    return L._row_out(p["out_proj"], TP.copy_in(y, tp)[..., lo:hi], tp)
+
+
 def mamba2_apply(p, cfg, x_in, *, return_state: bool = False,
-                 init_state=None, conv_init=None):
+                 init_state=None, conv_init=None, tp=None):
     """Full-sequence block: x_in (B,S,d) -> y (B,S,d) [, cache]; the cache
     is ``{'ssm': (B,H,P,N) f32, 'conv': (B,K-1,C)}`` for the decode."""
     Bb, S, d = x_in.shape
-    proj = dense(p["in_proj"], x_in)
-    z, xbc, dt_raw, (d_inner, H, N) = _split_proj(cfg, proj)
+    d_inner, H, N = _dims(cfg)
+    proj = L.gathered(p["in_proj"], x_in, 2 * d_inner + 2 * N + H, tp)
+    z, xbc, dt_raw, _ = _split_proj(cfg, proj)
     if conv_init is not None:
         xbc = torch.cat([conv_init.to(xbc.dtype), xbc], dim=1)
-    conv_out = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    conv_out = _conv_cols(xbc, p["conv_w"], p["conv_b"], tp).to(x_in.dtype)
     if conv_init is not None:
         conv_out = conv_out[:, conv_init.shape[1]:]
-    conv_out = F.silu(conv_out.to(_F32)).to(x_in.dtype)
     xs, Bm, Cm = conv_out.split([d_inner, N, N], dim=-1)
     xh = xs.reshape(Bb, S, H, d_inner // H)
-    dt = _softplus(dt_raw.to(_F32) + p["dt_bias"][None, None, :])
-    A = -torch.exp(p["A_log"])
-    y, state = ssd_chunked(xh, dt, A, Bm, Cm, init_state=init_state,
-                           return_state=True)
-    y = y + xh.to(y.dtype) * p["D"][None, None, :, None].to(y.dtype)
-    y = y.reshape(Bb, S, d_inner)
-    y = rmsnorm(p["norm"], y, cfg.norm_eps) * \
-        F.silu(z.to(_F32)).to(y.dtype)
-    out = dense(p["out_proj"], y)
+    dt, dtA, Dx = _heads(p, dt_raw, xh, tp)
+    y, state = ssd_chunked(xh, dt, None, Bm, Cm, init_state=init_state,
+                           return_state=True, dtA=dtA)
+    y = y + Dx.to(y.dtype)
+    out = _gated_out(p, cfg, y.reshape(Bb, S, d_inner), z, tp)
     if return_state:
         return out, {"ssm": state,
                      "conv": _conv_tail(xbc, p["conv_w"].shape[0])}
     return out
 
 
-def mamba2_decode(p, cfg, x_in, cache):
+def mamba2_decode(p, cfg, x_in, cache, tp=None):
     """Single-token recurrent step: x_in (B,1,d), cache {'ssm','conv'}.
     Returns (y (B,1,d), new cache leaves)."""
     Bb = x_in.shape[0]
-    proj = dense(p["in_proj"], x_in[:, 0, :])
-    z, xbc, dt_raw, (d_inner, H, N) = _split_proj(cfg, proj)
+    d_inner, H, N = _dims(cfg)
+    proj = L.gathered(p["in_proj"], x_in[:, 0, :], 2 * d_inner + 2 * N + H,
+                      tp)
+    z, xbc, dt_raw, _ = _split_proj(cfg, proj)
     # cache['conv'] (B, K-1, C) holds the previous K-1 conv inputs
     conv_in = torch.cat([cache["conv"],
                          xbc[:, None, :].to(cache["conv"].dtype)], dim=1)
-    conv_out = _conv_step(conv_in, p).to(x_in.dtype)
+    conv_out = _conv_step_cols(conv_in, p, tp).to(x_in.dtype)
     xs, Bm, Cm = conv_out.split([d_inner, N, N], dim=-1)
     xh = xs.reshape(Bb, H, d_inner // H).to(_F32)
-    dt = _softplus(dt_raw.to(_F32) + p["dt_bias"][None, :])
-    A = -torch.exp(p["A_log"])
-    dA = torch.exp(dt * A[None, :])                      # (B,H)
+    dt, dtA, Dx = _heads(p, dt_raw, xh, tp)
+    dA = torch.exp(dtA)                                  # (B,H)
     state = cache["ssm"] * dA[..., None, None] + \
         (xh * dt[..., None])[..., None] * Bm.to(_F32)[:, None, None, :]
     y = (state @ Cm.to(_F32)[:, None, :, None])[..., 0]  # (B,H,P)
-    y = y + xh * p["D"][None, :, None]
+    y = y + Dx
     y = y.reshape(Bb, d_inner).to(x_in.dtype)
-    y = rmsnorm(p["norm"], y, cfg.norm_eps) * \
-        F.silu(z.to(_F32)).to(y.dtype)
-    out = dense(p["out_proj"], y)[:, None, :]
+    out = _gated_out(p, cfg, y, z, tp)[:, None, :]
     return out, {"ssm": state, "conv": conv_in[:, 1:, :]}
 
 

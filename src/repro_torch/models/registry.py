@@ -14,6 +14,10 @@ encoder-decoder, whose ``prefill`` reads ``batch["src_embeds"]``).
     cache = model.make_decode_cache(cfg.model, B, max_len, device)
     loss, metrics = model.train_loss(params, cfg.model, batch, remat=...)
 
+On a mesh every entry point takes the rank's param blocks and ``tp=``
+(a ``distributed.tensor_parallel.TensorParallel``; None off the mesh):
+each family computes on its blocks in place.
+
 A family without ``prefill_chunk`` (xLSTM, the hybrid and enc-dec, as in
 the reference) is served from the dense slot-major cache
 (``serving.paged.paged_supported``), and so is the VLM: m-rope and patch

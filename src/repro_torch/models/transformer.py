@@ -30,12 +30,13 @@ advance every serving slot at its own depth (the reference vmapped a B=1
 decode over the slots).  ``decode_step`` writes the new key and value
 rows into the cache IN PLACE.
 
-Tensor-parallel compute (``tp``: given on a mesh with a model axis for
-the ``dense`` and ``moe`` families, None elsewhere): ``forward``,
+Tensor-parallel compute (``tp``: given on a mesh with a model axis,
+None elsewhere): ``forward``,
 ``train_loss``, ``prefill``, ``prefill_chunk`` and ``decode_step`` take
 the rank's blocks and thread ``tp`` to every layer (``layers.py``'s parallel attention, MLP, embedding and logits;
-``moe.py``'s mesh schedules).  Norms, scales, the sandwich norm and the
-parallel block act on replicated activations after the sums.  The loss
+``moe.py``'s mesh schedules; the VLM's ``patch_proj`` columns gathered).
+Norms, scales, the sandwich norm and the parallel block act on
+replicated activations after the sums.  The loss
 is vocabulary-parallel per chunk (``chunked_ce``).  Caches stay whole:
 a prefill gathers each layer's K/V heads over the model axis.
 """
@@ -190,16 +191,19 @@ def _embed_inputs(params, cfg, batch, tp=None):
     """The reference's ``_embed_inputs``: the token embedding, and under
     ``patch_dim`` with ``patch_embeds`` in the batch the patches cast to
     the compute dtype, projected by ``patch_proj`` and prepended, the
-    loss mask zero over them.  Positions are ``batch["positions"]`` when
-    given, else ``arange`` ((B, S), or three equal streams (B, S, 3)
-    under ``m_rope``).  Returns (x, positions, loss_mask or None)."""
+    loss mask zero over them (under ``tp`` the rank's ``patch_proj``
+    columns, gathered before they are prepended).  Positions are
+    ``batch["positions"]`` when given, else ``arange`` ((B, S), or three
+    equal streams (B, S, 3) under ``m_rope``).  Returns (x, positions,
+    loss_mask or None)."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     x = _embed(params, cfg, tokens, tp)
     mask = batch.get("loss_mask")
     if cfg.patch_dim and "patch_embeds" in batch:
-        patches = L.dense(params["patch_proj"],
-                          batch["patch_embeds"].to(x.dtype))
+        patches = L.gathered(params["patch_proj"],
+                             batch["patch_embeds"].to(x.dtype), cfg.d_model,
+                             tp)
         x = torch.cat([patches, x], dim=1)
         Np = patches.shape[1]
         zeros = torch.zeros((B, Np), dtype=torch.float32, device=x.device)

@@ -33,6 +33,20 @@ transformer.  ``decode_step`` writes every new leaf into the cache IN
 PLACE (the dense serving engine decodes through a view of its slot-major
 cache and ignores the returned tree), with no host sync, so a CUDA graph
 can capture it.
+
+Tensor-parallel compute (``tp``, on a mesh with a model axis; None is
+exactly the single-device model).  A decode step writes the recurrent
+states whole (the mLSTM's ``C`` is 4 MiB a slot a layer at full width),
+and the cache stays a replica on every rank, so the states never cross
+the model axis: the activations that feed them do.  The mLSTM gathers
+the rank's ``up`` columns (``[xm | z]``), its conv channels, its
+``wq``/``wk`` columns and its ``gates`` columns (cut across the ``i|f``
+boundary), runs the recurrence on every head on every rank, and leaves
+through its ``skip`` channels and ``down`` rows with a sum.  The sLSTM's
+``w`` and ``r`` blocks are whole heads where the axis divides them, so
+its time loop runs on the rank's heads and gathers the outputs and the
+small final carry.  The vocabulary and the sLSTM's FFN are
+``layers.py``'s parallel regions.
 """
 
 from __future__ import annotations
@@ -44,11 +58,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import dense, dense_init, rmsnorm, \
     rmsnorm_init
-from repro_torch.models.mamba2 import _causal_conv, _conv_step, \
+from repro_torch.models.mamba2 import _conv_cols, _conv_step_cols, \
     _conv_tail, _cumsum, _segsum
 from repro_torch.tree import leaves, tree_map
 
@@ -168,41 +183,58 @@ def mlstm_block_init(gen, cfg, dt, device, count: int) -> dict:
     }
 
 
-def _mlstm_qkvg(p, cfg, xm_conv, xm):
+def _mlstm_qkvg(p, cfg, xm_conv, xm, tp=None):
+    """q, k, v and the log-space gates over every head: under ``tp`` the
+    rank's ``wq``/``wk``/``gates`` columns gathered (the recurrence runs
+    on every head on every rank, so its state stays a replica)."""
     B, S, d_inner = xm.shape
     H = cfg.n_heads
     D = d_inner // H
-    q = dense(p["wq"], xm_conv).reshape(B, S, H, D)
-    k = dense(p["wk"], xm_conv).reshape(B, S, H, D)
+    q, k, g = L.gathered_many([p["wq"], p["wk"], p["gates"]], xm_conv,
+                              [d_inner, d_inner, 2 * H], tp)
+    q, k = q.reshape(B, S, H, D), k.reshape(B, S, H, D)
     v = xm.reshape(B, S, H, D)
-    g = dense(p["gates"], xm_conv).to(_F32)
+    g = g.to(_F32)
     ig, fg = g.split(H, dim=-1)                       # (B,S,H)
     fg = F.logsigmoid(fg + 3.0)                       # bias toward remember
     return q, k, v, ig, fg
 
 
-def mlstm_block_apply(p, cfg, x, *, return_state=False, cache=None):
+def _mlstm_out(p, cfg, x, y, conv, z, tp):
+    """``x + down((mh_norm(y) + skip · conv) · silu(z))``.  Under ``tp``,
+    where ``skip`` is cut over the model axis, the rank's channels
+    (``skip``'s block, ``down``'s rows) and a sum over the axis."""
+    y = rmsnorm(p["mh_norm"], y, cfg.norm_eps)
+    n = p["skip"].shape[-1]
+    if tp is not None and n != y.shape[-1]:
+        lo, hi = tp.span(n)
+        y, conv, z = (t[..., lo:hi] for t in TP.copy_in_many((y, conv, z),
+                                                             tp))
+    else:
+        tp = None
+    y = y + p["skip"].to(y.dtype) * conv
+    y = y * F.silu(z.to(_F32)).to(y.dtype)
+    return x + L._row_out(p["down"], y, tp)
+
+
+def mlstm_block_apply(p, cfg, x, *, return_state=False, cache=None,
+                      tp=None):
     B, S, d = x.shape
     h = rmsnorm(p["ln"], x, cfg.norm_eps)
-    up = dense(p["up"], h)
+    d_inner = p["mh_norm"]["scale"].shape[-1]
+    up = L.gathered(p["up"], h, 2 * d_inner, tp)
     xm, z = up.chunk(2, dim=-1)
     if cache is not None:
         ext = torch.cat([cache["conv"].to(xm.dtype), xm], dim=1)
-        conv = _causal_conv(ext, p["conv_w"],
-                            p["conv_b"])[:, cache["conv"].shape[1]:]
+        conv = _conv_cols(ext, p["conv_w"], p["conv_b"],
+                          tp)[:, cache["conv"].shape[1]:]
     else:
-        conv = _causal_conv(xm, p["conv_w"], p["conv_b"])
-    conv = F.silu(conv.to(_F32)).to(x.dtype)
-    q, k, v, ig, fg = _mlstm_qkvg(p, cfg, conv, xm)
+        conv = _conv_cols(xm, p["conv_w"], p["conv_b"], tp)
+    q, k, v, ig, fg = _mlstm_qkvg(p, cfg, conv, xm, tp)
     init_state = cache["state"] if cache is not None else None
     y, state = mlstm_chunked(q, k, v, ig, fg, init_state=init_state,
                              return_state=True)
-    d_inner = xm.shape[-1]
-    y = y.reshape(B, S, d_inner)
-    y = rmsnorm(p["mh_norm"], y, cfg.norm_eps)
-    y = y + p["skip"].to(y.dtype) * conv
-    y = y * F.silu(z.to(_F32)).to(y.dtype)
-    out = x + dense(p["down"], y)
+    out = _mlstm_out(p, cfg, x, y.reshape(B, S, d_inner), conv, z, tp)
     if return_state:
         tail = xm if cache is None else torch.cat(
             [cache["conv"].to(xm.dtype), xm], dim=1)
@@ -211,23 +243,22 @@ def mlstm_block_apply(p, cfg, x, *, return_state=False, cache=None):
     return out
 
 
-def mlstm_block_decode(p, cfg, x, cache):
+def mlstm_block_decode(p, cfg, x, cache, tp=None):
     """x (B,1,d).  Returns (x, new cache leaves)."""
     B, _, d = x.shape
     h = rmsnorm(p["ln"], x, cfg.norm_eps)
-    xm, z = dense(p["up"], h)[:, 0].chunk(2, dim=-1)
+    d_inner = p["mh_norm"]["scale"].shape[-1]
+    xm, z = L.gathered(p["up"], h, 2 * d_inner, tp)[:, 0].chunk(2, dim=-1)
     conv_in = torch.cat([cache["conv"],
                          xm[:, None, :].to(cache["conv"].dtype)], dim=1)
-    conv = _conv_step(conv_in, p).to(x.dtype)
-    q, k, v, ig, fg = _mlstm_qkvg(p, cfg, conv[:, None, :], xm[:, None, :])
+    conv = _conv_step_cols(conv_in, p, tp).to(x.dtype)
+    q, k, v, ig, fg = _mlstm_qkvg(p, cfg, conv[:, None, :], xm[:, None, :],
+                                  tp)
     y, state = mlstm_decode(q[:, 0], k[:, 0], v[:, 0], ig[:, 0], fg[:, 0],
                             cache["state"])
-    d_inner = xm.shape[-1]
     y = y.reshape(B, d_inner).to(x.dtype)
-    y = rmsnorm(p["mh_norm"], y, cfg.norm_eps)
-    y = y + p["skip"].to(y.dtype) * conv
-    y = y * F.silu(z.to(_F32)).to(y.dtype)
-    out = x + dense(p["down"], y)[:, None, :]
+    out = _mlstm_out(p, cfg, x, y[:, None, :], conv[:, None, :],
+                     z[:, None, :], tp)
     return out, {"state": state, "conv": conv_in[:, 1:, :]}
 
 
@@ -235,11 +266,16 @@ def mlstm_block_decode(p, cfg, x, cache):
 # sLSTM block
 # ---------------------------------------------------------------------------
 
+def _slstm_ff(cfg) -> int:
+    """The sLSTM block's FFN width: 4d/3 rounded up to 64."""
+    return int(math.ceil(4 * cfg.d_model / 3 / 64) * 64)
+
+
 def slstm_block_init(gen, cfg, dt, device, count: int) -> dict:
     d = cfg.d_model
     H = cfg.n_heads
     Dh = d // H
-    ff = int(math.ceil(4 * d / 3 / 64) * 64)
+    ff = _slstm_ff(cfg)
     lead = (count,)
     return {
         "ln": rmsnorm_init(d, dt, device, count),
@@ -274,42 +310,64 @@ def _slstm_cell(carry, wx, r, H, Dh):
     return (c, n, m_new, h_new), h_new
 
 
-def slstm_scan(p, cfg, conv_out, init=None):
-    """conv_out (B,S,d) -> (h (B,S,d), final carry)."""
+def slstm_scan(p, cfg, conv_out, init=None, tp=None):
+    """conv_out (B,S,d) -> (h (B,S,d), final carry).  Under ``tp``, where
+    the model axis splits the heads (``w``'s column block and ``r``'s are
+    then whole heads: ``w`` is read as (H, 4Dh) per head), the time loop
+    runs on the rank's heads and its outputs and final carry are
+    gathered over the axis; where ``w`` is cut but not at whole heads its
+    pre-activations are gathered and the loop runs on every head."""
     B, S, d = conv_out.shape
     H = cfg.n_heads
     Dh = d // H
-    wx = dense(p["w"], conv_out)                       # (B,S,4d)
+    Hl = p["r"].shape[0]
+    if tp is not None and Hl != H:
+        lo, hi = tp.span(Hl)
+        wx = dense(p["w"], TP.copy_in(conv_out, tp))     # (B,S,Hl*4Dh)
+        if init is not None:
+            init = tuple(t[:, lo:hi] for t in init)
+    else:
+        Hl = H
+        wx = L.gathered(p["w"], conv_out, 4 * d, tp)      # (B,S,4d)
     if init is None:
-        z = torch.zeros((B, H, Dh), dtype=_F32, device=conv_out.device)
-        init = (z, z, torch.full((B, H, Dh), -1e9, dtype=_F32,
+        z = torch.zeros((B, Hl, Dh), dtype=_F32, device=conv_out.device)
+        init = (z, z, torch.full((B, Hl, Dh), -1e9, dtype=_F32,
                                  device=conv_out.device), z)
     # the recurrent weights in f32 once, not at every step (the cell's
     # own cast is then a no-op, and so is its per-step gradient cast)
     r = p["r"].to(_F32)
     carry, hs = tuple(init), []
     for t in range(S):
-        carry, h = _slstm_cell(carry, wx[:, t], r, H, Dh)
+        carry, h = _slstm_cell(carry, wx[:, t], r, Hl, Dh)
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, d).to(conv_out.dtype)
+    h = torch.stack(hs, dim=1).reshape(B, S, Hl * Dh).to(conv_out.dtype)
+    if Hl != H:
+        h = TP.gather_cols(h, tp)
+        carry = tuple(TP.gather_cat(torch.stack(carry), tp, dim=2).unbind(0))
     return h, carry
 
 
-def slstm_block_apply(p, cfg, x, *, return_state=False, cache=None):
+def _slstm_tail(p, cfg, x, hs, tp):
+    hs = rmsnorm(p["gn"], hs, cfg.norm_eps)
+    x = x + hs
+    ftp = tp if tp is not None and tp.splits(_slstm_ff(cfg)) else None
+    return x + L.mlp_apply(p["ffn"], rmsnorm(p["ffn_ln"], x, cfg.norm_eps),
+                           ftp)
+
+
+def slstm_block_apply(p, cfg, x, *, return_state=False, cache=None,
+                      tp=None):
     B, S, d = x.shape
     h0 = rmsnorm(p["ln"], x, cfg.norm_eps)
     if cache is not None:
         ext = torch.cat([cache["conv"].to(h0.dtype), h0], dim=1)
-        conv = _causal_conv(ext, p["conv_w"],
-                            p["conv_b"])[:, cache["conv"].shape[1]:]
+        conv = _conv_cols(ext, p["conv_w"], p["conv_b"],
+                          tp)[:, cache["conv"].shape[1]:]
     else:
-        conv = _causal_conv(h0, p["conv_w"], p["conv_b"])
-    conv = F.silu(conv.to(_F32)).to(x.dtype)
+        conv = _conv_cols(h0, p["conv_w"], p["conv_b"], tp)
     init = cache["state"] if cache is not None else None
-    hs, carry = slstm_scan(p, cfg, conv, init)
-    hs = rmsnorm(p["gn"], hs, cfg.norm_eps)
-    x = x + hs
-    x = x + L.mlp_apply(p["ffn"], rmsnorm(p["ffn_ln"], x, cfg.norm_eps))
+    hs, carry = slstm_scan(p, cfg, conv, init, tp)
+    x = _slstm_tail(p, cfg, x, hs, tp)
     if return_state:
         tail = h0 if cache is None else torch.cat(
             [cache["conv"].to(h0.dtype), h0], dim=1)
@@ -318,16 +376,14 @@ def slstm_block_apply(p, cfg, x, *, return_state=False, cache=None):
     return x
 
 
-def slstm_block_decode(p, cfg, x, cache):
+def slstm_block_decode(p, cfg, x, cache, tp=None):
     """x (B,1,d).  Returns (x, new cache leaves)."""
     h0 = rmsnorm(p["ln"], x, cfg.norm_eps)
     conv_in = torch.cat([cache["conv"], h0.to(cache["conv"].dtype)], dim=1)
-    conv = _conv_step(conv_in, p).to(x.dtype)
-    hs, carry = slstm_scan(p, cfg, conv[:, None, :], cache["state"])
-    hs = rmsnorm(p["gn"], hs, cfg.norm_eps)
-    x = x + hs
-    x = x + L.mlp_apply(p["ffn"], rmsnorm(p["ffn_ln"], x, cfg.norm_eps))
-    return x, {"state": carry, "conv": conv_in[:, 1:, :]}
+    conv = _conv_step_cols(conv_in, p, tp).to(x.dtype)
+    hs, carry = slstm_scan(p, cfg, conv[:, None, :], cache["state"], tp)
+    return _slstm_tail(p, cfg, x, hs, tp), \
+        {"state": carry, "conv": conv_in[:, 1:, :]}
 
 
 # ---------------------------------------------------------------------------
@@ -374,20 +430,20 @@ def init_lm(cfg, seed: int, device) -> dict:
     return params
 
 
-def _group_body(ps, cfg, pattern, x, collect: bool):
+def _group_body(ps, cfg, pattern, x, collect: bool, tp=None):
     """One iteration of a group: its pattern's blocks in order.  Returns
     (x, [cache per block] | None)."""
     outs = [] if collect else None
     for p, kind in zip(ps, pattern):
         if collect:
-            x, cache = _APPLY[kind](p, cfg, x, return_state=True)
+            x, cache = _APPLY[kind](p, cfg, x, return_state=True, tp=tp)
             outs.append(cache)
         else:
-            x = _APPLY[kind](p, cfg, x)
+            x = _APPLY[kind](p, cfg, x, tp=tp)
     return x, outs
 
 
-def _forward(params, cfg, x, *, remat=False, collect=False):
+def _forward(params, cfg, x, *, remat=False, collect=False, tp=None):
     caches = [] if collect else None
     for gi, (count, pattern) in enumerate(derive_pattern(cfg)):
         per_pos = [T._unbind(p, count) for p in params["groups"][gi]]
@@ -396,9 +452,10 @@ def _forward(params, cfg, x, *, remat=False, collect=False):
             ps = [per_pos[j][l] for j in range(len(pattern))]
             if remat:
                 x = checkpoint(lambda ps, h, pat=pattern: _group_body(
-                    ps, cfg, pat, h, False)[0], ps, x, use_reentrant=False)
+                    ps, cfg, pat, h, False, tp)[0], ps, x,
+                    use_reentrant=False)
             else:
-                x, ys = _group_body(ps, cfg, pattern, x, collect)
+                x, ys = _group_body(ps, cfg, pattern, x, collect, tp)
                 outs.append(ys)
         if collect:
             caches.append([tree_map(lambda *ts: torch.stack(ts),
@@ -408,45 +465,52 @@ def _forward(params, cfg, x, *, remat=False, collect=False):
     return x, caches
 
 
-def train_loss(params, cfg, batch, *, remat: bool = True):
+def _embed(params, cfg, tokens, tp):
+    return L.embed(params["embed"], tokens, T._dtype(cfg.compute_dtype),
+                   T._vocab_tp(cfg, tp))
+
+
+def train_loss(params, cfg, batch, *, remat: bool = True, tp=None):
     tokens, targets = batch["tokens"], batch["targets"]
-    x = L.embed(params["embed"], tokens, T._dtype(cfg.compute_dtype))
-    hidden, _ = _forward(params, cfg, x, remat=remat)
-    ce = T.chunked_ce(params, cfg, hidden, targets, batch.get("loss_mask"))
+    x = _embed(params, cfg, tokens, tp)
+    hidden, _ = _forward(params, cfg, x, remat=remat, tp=tp)
+    ce = T.chunked_ce(params, cfg, hidden, targets, batch.get("loss_mask"),
+                      tp=tp)
     return ce, {"ce": ce}
 
 
-def prefill(params, cfg, batch, *, max_len=None):
+def prefill(params, cfg, batch, *, max_len=None, tp=None):
     """Run the prompt, batch["tokens"] (B,S).  Returns (last-position
     logits (B,V), decode cache); ``max_len`` is accepted for the
     registry's API (the recurrent cache does not grow)."""
     del max_len
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = L.embed(params["embed"], tokens, T._dtype(cfg.compute_dtype))
-    hidden, caches = _forward(params, cfg, x, collect=True)
-    logits = T.logits_fn(params, cfg, hidden[:, -1:, :])[:, 0]
+    x = _embed(params, cfg, tokens, tp)
+    hidden, caches = _forward(params, cfg, x, collect=True, tp=tp)
+    logits = T.logits_fn(params, cfg, hidden[:, -1:, :], tp)[:, 0]
     pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, {"groups": caches, "pos": pos}
 
 
-def decode_step(params, cfg, cache, token):
+def decode_step(params, cfg, cache, token, tp=None):
     """One step: token (B,) -> (logits (B,V), cache').  Every state and
     conv leaf of ``cache`` is overwritten in place (the new conv tail is
     a fresh tensor, so the shift does not read what it writes); ``cache'``
     holds the same leaves and ``pos + 1``."""
-    x = L.embed(params["embed"], token[:, None], T._dtype(cfg.compute_dtype))
+    x = _embed(params, cfg, token[:, None], tp)
     for gi, (count, pattern) in enumerate(derive_pattern(cfg)):
         stacked = params["groups"][gi]
         cache_g = cache["groups"][gi]
         for l in range(count):
             for j, kind in enumerate(pattern):
                 cl = T._layer(cache_g[j], l)
-                x, new = _DECODE[kind](T._layer(stacked[j], l), cfg, x, cl)
+                x, new = _DECODE[kind](T._layer(stacked[j], l), cfg, x, cl,
+                                       tp)
                 for dst, src in zip(leaves(cl), leaves(new)):
                     dst.copy_(src)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = T.logits_fn(params, cfg, x)[:, 0]
+    logits = T.logits_fn(params, cfg, x, tp)[:, 0]
     return logits, {"groups": cache["groups"],
                     "pos": cache["pos"].to(torch.int32) + 1}
 

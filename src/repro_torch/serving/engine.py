@@ -81,22 +81,24 @@ off-mesh ``repro/serving/engine.py``.
   the reference's mesh mode).  The params shard per
   ``launch/specs.param_shardings`` and the engine holds only the rank's
   blocks (``blocks``): those are the at-rest weights the parity covers,
-  the adversary flips and the scrub repairs.  For the ``dense`` and
-  ``moe`` families the compute is tensor-parallel
+  the adversary flips and the scrub repairs.  On a model axis wider
+  than 1 the compute is tensor-parallel for every family
   (``distributed/tensor_parallel.py``): the model reads the rank's blocks
-  in place (``params`` is ``blocks``), its heads, FFN columns and
-  vocabulary rows, with the model axis's collectives inside the decode
-  (each layer's new K/V rows gathered so the cache stays a replica, the
-  row-parallel sums, the logits gathered over the vocabulary); only
-  ``fsdp`` leaves are gathered, over the batch axes, for each call that
-  reads them, as the reference's partitioner does.  The other families
-  (``ssm``, ``hybrid``, ``encdec``, ``vlm``; their tensor-parallel
-  compute is ROADMAP queue 1) read a whole-params tree in fixed storage
-  (``params``; a replicated leaf is its block itself), gathered from
-  every rank's blocks by ``gather_tree(..., out=)`` eagerly once per
-  ``run`` iteration, before the first admission, prefill chunk or
-  engine step that reads it (``refresh_params``): no token is computed
-  from weights older than the blocks at the start of its iteration.
+  in place (``params`` is ``blocks``), its heads, FFN columns, recurrent
+  projections and vocabulary rows, with the model axis's collectives
+  inside the decode (each layer's new K/V rows gathered so the cache
+  stays a replica, the activations that feed a recurrent state gathered
+  so the state is computed whole on every rank, the row-parallel sums,
+  the logits gathered over the vocabulary); only ``fsdp`` leaves are
+  gathered, over the batch axes, once per ``run`` iteration (the blocks
+  do not change within one; the reference's partitioner gathers them in
+  each call, the same values).  A mesh with no model axis (pure data
+  parallelism) reads a whole-params tree in fixed storage (``params``; a
+  replicated leaf is its block itself), gathered from every rank's
+  blocks by ``gather_tree(..., out=)`` eagerly once per ``run``
+  iteration, before the first admission, prefill chunk or engine step
+  that reads it (``refresh_params``): no token is computed from weights
+  older than the blocks at the start of its iteration.
   The covered state (cache or pool, ``pos``, ``tok``, ``amask``, the
   forced buffer) is replicated: every rank holds all of it and runs the
   same scheduler on the same requests in lockstep.  The canary is
@@ -330,13 +332,15 @@ class ServingEngine:
         full = (params if params is not None
                 else self.model.init(self.m, seed, dev))
         #: on a mesh: the rank's param blocks (the at-rest weights), their
-        #: shardings, and (a whole-params family) the storage the model
-        #: reads; tensor-parallel, the model reads the blocks
+        #: shardings, and (no model axis: whole params) the storage the
+        #: model reads; tensor-parallel, the model reads the blocks
         self._blocks = self._psh = self._whole = None
         self._stale = self._closed = False
         self._tp = TP.for_model(self.ctx, self.m)
         self._mkw = {} if self._tp is None else {"tp": self._tp}
         self._zero = False
+        #: the fsdp leaves gathered over the batch axes (tensor-parallel)
+        self._zeroed = None
         if self.ctx is not None:
             self._psh, _ = param_shardings(self.ctx, cfg, full)
             self._blocks = tree_map(lambda t: t.to(dev),
@@ -351,9 +355,12 @@ class ServingEngine:
             else:
                 full = self._blocks
                 batch = set(self.ctx.batch_axes)
-                self._zero = any(batch & set(sh.axes)
-                                 for sh in leaves(self._psh))
+                self._zero = self._stale = any(batch & set(sh.axes)
+                                               for sh in leaves(self._psh))
             _ON_MESH.add(self)
+        #: whether the params the model reads are gathered, once a
+        #: ``run`` iteration (marked stale at its start and after a step)
+        self._refreshed = self._whole is not None or self._zero
         self.params = full
         #: the tensor-parallel step's logits, where the eager model leaves
         #: them for the tail graph (allocated before the first capture)
@@ -484,21 +491,28 @@ class ServingEngine:
         return self._blocks if self.ctx is not None else self.params
 
     def refresh_params(self) -> None:
-        """On a mesh, a whole-params family: gather every rank's blocks
+        """On a mesh with no model axis: gather every rank's blocks
         into the whole-params storage the model reads, in place (a
         collective, eager, outside any graph; the storage keeps its
-        pointers, so the graphs stay valid).  Off the mesh, and
-        tensor-parallel (the model reads the blocks in place), nothing."""
+        pointers, so the graphs stay valid).  Tensor-parallel with fsdp
+        leaves: the blocks with those gathered over the batch axes (a
+        new tree: the eager model reads it, no graph does).  Off the
+        mesh, and tensor-parallel without fsdp (the model reads the
+        blocks in place), nothing."""
         if self._closed:
             raise RuntimeError("this engine was closed (evict_mesh)")
-        if self._whole is None:
+        if self._whole is not None:
+            gather_tree(self._blocks, self._psh, out=self._whole)
+        elif self._zero:
+            self._zeroed = gather_tree(self._blocks, self._psh,
+                                       axes=self.ctx.batch_axes)
+        else:
             return
-        gather_tree(self._blocks, self._psh, out=self._whole)
         self._stale = False
 
     def _ensure_params(self) -> None:
-        """Gather unless this iteration already did (a whole-params
-        family on a mesh)."""
+        """Gather unless this iteration already did (whole params on a
+        mesh with no model axis, the fsdp leaves tensor-parallel)."""
         if self._closed:
             raise RuntimeError("this engine was closed (evict_mesh)")
         if self._stale:
@@ -506,12 +520,13 @@ class ServingEngine:
 
     def _read(self):
         """The params tree the model reads: tensor-parallel with fsdp
-        leaves, the blocks with those gathered over the batch axes (a
-        collective each call, as the reference's partitioner gathers
-        them in each step); else ``params``."""
+        leaves, the blocks with those gathered over the batch axes (once
+        a ``run`` iteration and after every engine step, as the whole
+        params are: every call of the iteration reads the same blocks);
+        else ``params``."""
         if self._zero:
-            return gather_tree(self._blocks, self._psh,
-                               axes=self.ctx.batch_axes)
+            self._ensure_params()
+            return self._zeroed
         return self.params
 
     @property
@@ -532,7 +547,7 @@ class ServingEngine:
         self._cores.clear()
         self._pool = None
         if self.ctx is not None:
-            self._whole = self._params = None
+            self._whole = self._params = self._zeroed = None
             self._stale = False
             self._closed = True
         _ON_MESH.discard(self)
@@ -839,8 +854,7 @@ class ServingEngine:
         else:
             vals = host.cpu().numpy()
         self.step_count += 1
-        if self._whole is not None:
-            self._stale = True
+        self._stale = self._refreshed
         return vals[:self.S], vals[self.S:].astype(bool), report
 
     def _mesh_fault(self, s: int, detail: str, core, bad, vals):
@@ -1317,7 +1331,7 @@ class ServingEngine:
             j = sh.local_index(e)
             if j is not None and self._flips_here(ranks):
                 flip_bit(leaf, j, b)
-            self._stale = self._whole is not None
+            self._stale = self._refreshed
         else:
             self._flips_here(ranks)
             e = rng.randrange(max(1, leaf.numel()))
@@ -1344,7 +1358,7 @@ class ServingEngine:
             if self.ctx is None:
                 self.params = new_params
             else:
-                self._stale = self._whole is not None
+                self._stale = self._refreshed
             self.report.faults_detected += stats["repaired"]
             self.report.faults_recovered += stats["repaired"]
         stats["memory_bytes"] = self.parity_store.memory_bytes
@@ -1383,7 +1397,7 @@ class ServingEngine:
         interleave = self.paged and self.prefill_chunk > 0
         while True:
             # a new iteration reads the blocks anew (on a mesh)
-            self._stale = self._whole is not None
+            self._stale = self._refreshed
             while True:
                 free = self.free_slots()
                 if not free:

@@ -25,20 +25,20 @@ with the canary's ``arm_current``/``check`` pair or the fused step.
 On a mesh, ``pin_state_shardings`` turns a step into the mesh step (the
 counterpart of the reference's layout pin): every rank holds only its own
 blocks of the state and runs the forward and backward on its own rows of
-the batch.  For the ``dense`` and ``moe`` families the compute is
-tensor-parallel (``distributed/tensor_parallel.py``): the rank reads its
-model-axis blocks in place (its heads, FFN columns and vocabulary rows)
-and gathers only its ``fsdp`` leaves over the batch axes (ZeRO-3), so its
-grads come out model-local; the families ``ssm``, ``hybrid``, ``encdec``
-and ``vlm`` still gather every param to full over the axes it is sharded
-on and compute whole (their tensor-parallel compute is ROADMAP queue 1).
+the batch.  On a model axis wider than 1 the compute is tensor-parallel
+for every family (``distributed/tensor_parallel.py``): the rank reads its
+model-axis blocks in place (its heads, FFN columns, recurrent
+projections and vocabulary rows) and gathers only its ``fsdp`` leaves
+over the batch axes (ZeRO-3), so its grads come out model-local; a mesh
+with no model axis (pure data parallelism) gathers every param to full
+over the axes it is sharded on and computes whole.
 The grads' mean over the batch axes is taken on this rank's blocks only:
 each peer sends it the grads cut to its blocks (one all-to-all), and the
 rows are added in group-rank order, so every rank computes the same
 bits, replicated copies stay equal and a replay reproduces the
 trajectory.  The global norm adds each leaf's squares over its distinct
 blocks, then over the leaves, the same on every rank; a whole-params
-family on one rank of the batch axes takes no mean, and its norm is the
+step on one rank of the batch axes takes no mean, and its norm is the
 single-device one of the whole grads, so its 1 x N mesh steps bitwise as
 one device does (a tensor-parallel one rounds its model-axis sums
 otherwise: within the f32 tolerance).  Every rank clips with that norm

@@ -19,7 +19,13 @@ resilient loop on gloo ranks (one torch thread each).
   within 2e-5 of one device, gemma3-1b's storm == clean, every leaf
   replicated over the model axis bitwise equal on the model-axis peers;
   the serving runs read the blocks in place (no params gather but the
-  fsdp leaves' over the batch axes).
+  fsdp leaves' over the batch axes).  The ssm, hybrid, encdec and vlm
+  families (``FAMILIES``: xlstm-350m, zamba2-7b, seamless, qwen2-vl) on
+  4 x 2: a bound step gathers only fsdp leaves over ``data``, a params
+  storm == clean bitwise, the state within 2e-5 of one device's, the
+  replicated leaves bitwise on the model-axis peers; each served under a
+  storm (``SERVE_RUNS``) with the tokens of one device's engine and the
+  decode cache bitwise on the model-axis peers.
 * **1 x 2** (data width 1): the rank's blocks updated from one device's
   grads bitwise one device's update of them; the trajectory within 2e-5
   of one device's (tensor-parallel sums round otherwise).
@@ -343,6 +349,31 @@ def _storm_ranks(ckpt_dir):
                        "peers": _peers_equal(ctx, c, local)
                        and _peers_equal(ctx, c, st)}
 
+    # the ssm, hybrid, encdec and vlm families on 4 x 2, tensor-parallel:
+    # one bound step's gathers, clean == storm bitwise, one device within
+    # 2e-5, the replicated leaves bitwise on the model-axis peers
+    from repro_torch.launch.train import batch_for
+    fam = {}
+    for arch in FAMILIES:
+        c = _family_cfg(arch)
+        fpipe = TokenPipeline(c.model.vocab_size, 32, 8, seed=0)
+        fst, fstep, fbfn, _ = bind_state(
+            ctx, c, make_train_state(c, 0, global_batch=8),
+            make_train_step(c, global_batch=8),
+            lambda s, c=c, fp=fpipe: batch_for(c, fp, s))
+        sharding.GATHERS.clear()
+        fstep(fst, fbfn(0))
+        del fst
+        gathered = dict(sharding.GATHERS)
+        out, local = train(c, mesh="4,2", **kw)
+        storm, st = train(c, mesh="4,2", inject_every=1, **kw)
+        one, single = train(c, **kw)
+        fam[arch] = {"gathers": gathered, "out": out, "storm": storm,
+                     "one": one, "storm_same": _bitwise(st, local),
+                     "err": _state_close(_full(c, "4,2", local), single),
+                     "peers": _peers_equal(ctx, c, local)
+                     and _peers_equal(ctx, c, st)}
+
     ckpt = CheckpointManager(ckpt_dir, interval=1, ctx=ctx, shardings=sh)
     ckpt.save(3, ns)
     back, at = ckpt.restore(ns)
@@ -352,7 +383,7 @@ def _storm_ranks(ckpt_dir):
     return {"steady": steady, "stats": stats, "partial": partial,
             "round_trip": round_trip, "on_disk": _bitwise(on_disk, full),
             "same": same, "summaries": summaries, "others": others,
-            "tp": tp, "gathers": gathers,
+            "tp": tp, "gathers": gathers, "families": fam,
             "serving": _serve_ranks(ctx),
             "modes": _mode_ranks(ctx, cfg, runs["clean"][1]),
             "elastic": _elastic_ranks(cfg)}
@@ -374,6 +405,23 @@ def _peers_equal(ctx, cfg, local):
     return all(torch.equal(rows[0], r) for r in rows[1:])
 
 
+#: the ssm, hybrid, encdec and vlm families at the smoke size with every
+#: kind of block they have in two layers (xLSTM[1:1]: an mLSTM and an
+#: sLSTM block; Zamba2: a Mamba-2 block and the shared block with its
+#: LoRA; the enc-dec's 2 + 2 layers with cross-attention; the VLM's
+#: patches and m-rope)
+FAMILIES = {"xlstm-350m": dict(mlstm_ratio=1),
+            "zamba2-7b": dict(hybrid_ratio=1),
+            "seamless-m4t-large-v2": {}, "qwen2-vl-7b": {}}
+
+
+def _family_cfg(arch):
+    from repro_torch.configs import get_config
+    c = get_config(arch).smoke()
+    return dataclasses.replace(c, model=dataclasses.replace(
+        c.model, **FAMILIES[arch]))
+
+
 # -- mesh serving (in the same spawn) -------------------------------------------
 
 #: the serving scenarios: (arch, engine flags, storm cadence, scrub).
@@ -389,15 +437,49 @@ SERVE_RUNS = {
     "rank5": ("iterpro-100m", dict(donate=True), 3, False),
     "kimi": ("kimi-k2-1t-a32b", dict(donate=True, parity=True), 3, True),
     "gemma3": ("gemma3-1b", dict(donate=True), 3, False),
+    # the recurrent, enc-dec and VLM families (dense slot-major caches;
+    # the VLM's requests carry 4 patches: 4 more rows)
+    "xlstm": ("xlstm-350m", dict(donate=True), 3, False),
+    "zamba2": ("zamba2-7b", dict(donate=True), 3, False),
+    "seamless": ("seamless-m4t-large-v2", dict(donate=True), 3, False),
+    "qwen2-vl": ("qwen2-vl-7b", dict(donate=True, max_len=SERVE_PROMPT
+                                     + SERVE_GEN + 5), 3, False),
 }
+#: the patches of a VLM request
+SERVE_PATCHES = 4
 #: the shard whose replica alone takes the "rank5" run's flips
 ONE_RANK = 5
 
 
 def _serve_requests(cfg):
+    """The scenario's requests; a VLM's each with ``SERVE_PATCHES``
+    patches on a grid at t = 0 and its text from 2 on all three
+    streams."""
     from repro_torch.launch.serve import make_requests
-    return make_requests(cfg, SERVE_REQS, SERVE_PROMPT, SERVE_GEN,
-                         np.random.default_rng(0))
+    rng = np.random.default_rng(0)
+    reqs = make_requests(cfg, SERVE_REQS, SERVE_PROMPT, SERVE_GEN, rng)
+    m = cfg.model
+    if m.patch_dim:
+        for rq in reqs:
+            n = SERVE_PATCHES
+            pos = np.zeros((1, n + SERVE_PROMPT, 3), np.int32)
+            pos[0, :n, 1], pos[0, :n, 2] = np.arange(n) // 2, np.arange(n) % 2
+            pos[0, n:, :] = (2 + np.arange(SERVE_PROMPT))[:, None]
+            rq.features = {"patch_embeds": rng.standard_normal(
+                (1, n, m.patch_dim), dtype=np.float32), "positions": pos}
+    return reqs
+
+
+def _cache_peers(ctx, eng):
+    """Every leaf of the engine's decode cache (the recurrent states, the
+    K/V, the cross-attention memory) holds the same bits on the model-axis
+    peers (collective)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.tree import leaves
+    mine = torch.cat([t.reshape(-1).view(torch.uint8)
+                      for t in leaves(eng.cache)])
+    rows = coll.all_gather(mine, ctx.group(ctx.model_axis))
+    return all(torch.equal(rows[0], r) for r in rows[1:])
 
 
 def _serve_one(ctx, name):
@@ -415,10 +497,13 @@ def _serve_one(ctx, name):
 
     from repro_torch.distributed.sharding import gather_tree
     arch, kw, every, scrub = SERVE_RUNS[name]
-    cfg = get_config(arch).smoke()
+    kw = dict(kw)
+    max_len = kw.pop("max_len", SERVE_PROMPT + SERVE_GEN + 1)
+    cfg = _family_cfg(arch) if arch in FAMILIES else \
+        get_config(arch).smoke()
     eng = ServingEngine(cfg, n_slots=4, ctx=ctx, device="cpu", seed=0,
-                        max_len=SERVE_PROMPT + SERVE_GEN + 1,
-                        canary_slices=4, max_replays=10**6, **kw)
+                        max_len=max_len, canary_slices=4,
+                        max_replays=10**6, **kw)
     faults = []
     handle = eng.handle_fault
 
@@ -441,7 +526,9 @@ def _serve_one(ctx, name):
            # tensor-parallel: the model reads the blocks in place; only
            # fsdp leaves are gathered (over the batch axes), each call
            "tp": eng.params is eng.blocks and eng._whole is None,
-           "gathers": dict(sharding.GATHERS), "tp_calls": dict(TP.CALLS)}
+           "gathers": dict(sharding.GATHERS), "tp_calls": dict(TP.CALLS),
+           "cache_peers": _cache_peers(ctx, eng) if not eng.paged
+           else None}
     kd.STATS.reset()
     eng.engine_step()
     out["stats"] = kd.STATS.snapshot()
@@ -466,8 +553,7 @@ def _serve_one(ctx, name):
         flags = {k: v for k, v in kw.items() if k in ("paged",
                                                      "prefill_chunk")}
         one = ServingEngine(cfg, n_slots=4, device="cpu", canary_slices=0,
-                            max_len=SERVE_PROMPT + SERVE_GEN + 1,
-                            params=full, **flags)
+                            max_len=max_len, params=full, **flags)
         out["single"] = {rid: r["tokens"] for rid, r in
                          one.run(_serve_requests(cfg)).per_request.items()}
     return eng, out
@@ -1015,6 +1101,39 @@ def test_tensor_parallel_step_gathers_no_params(storms):
                                 "command-r-35b": {"data": 1}}, r["gathers"]
 
 
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+def test_families_train_tensor_parallel_on_the_mesh(storms, arch):
+    """xLSTM, Zamba2, the enc-dec and the VLM on 4 x 2 compute on the
+    rank's blocks: a bound step gathers no params (the fsdp configs'
+    leaves over ``data`` only), a params flip every step ends bitwise on
+    the clean run, the state after the steps lies within 2e-5 of one
+    device's, and every leaf replicated over the model axis is bitwise
+    equal on the model-axis peers, on every rank."""
+    fsdp = _family_cfg(arch).sharding.fsdp
+    for r in storms:
+        o = r["families"][arch]
+        assert o["gathers"] == ({"data": 1} if fsdp else {}), \
+            (arch, o["gathers"])
+        f = o["storm"]
+        assert f["faults_injected"] > 0, (arch, f)
+        assert f["faults_recovered"] == f["faults_detected"] == \
+            f["faults_injected"], (arch, f)
+        assert o["storm_same"], arch
+        assert o["err"] == [], (arch, o["err"])
+        assert o["peers"], arch
+        assert abs(o["out"]["final_loss"] - o["one"]["final_loss"]) <= 2e-5
+
+
+def test_mesh_serving_caches_are_replicas_on_the_peers(storms):
+    """After every dense-layout run (the recurrent states, the K/V, the
+    enc-dec's memory K/V), the decode cache holds the same bits on every
+    model-axis peer."""
+    for r in storms:
+        for name, got in r["serving"].items():
+            if name in SERVE_RUNS and got["cache_peers"] is not None:
+                assert got["cache_peers"], (name, r["serving"])
+
+
 def test_mesh_serving_reads_the_blocks_in_place(storms):
     """The tensor-parallel engine's model reads the rank's blocks (no
     whole-params storage): a run makes no params gather, except the fsdp
@@ -1025,7 +1144,8 @@ def test_mesh_serving_reads_the_blocks_in_place(storms):
             if name not in SERVE_RUNS:
                 continue
             assert got["tp"], name
-            want = {"data"} if name == "kimi" else set()
+            want = {"data"} if name in ("kimi", "zamba2", "qwen2-vl") \
+                else set()
             assert set(got["gathers"]) == want, (name, got["gathers"])
             assert got["tp_calls"]["reduce_sum"] > 0, name
 

@@ -22,6 +22,12 @@ the reference's shard_map paths refuse) and dumps, once per module:
   1.25 drops) and
   ``tests/test_pipeline.py``'s PIPE_PROG (S 4, M 6, B 2, d 8), the port
   running each on contexts its 8 ranks make anew;
+* the ssm, hybrid, encdec and vlm families (xlstm-350m, zamba2-7b,
+  seamless, qwen2-vl smoke configs with every kind of block in two
+  layers), in a second child beside the first (``CHILD_FAM``): two bound
+  mesh steps from the same state (losses and state within the f32
+  tolerance) and the mesh engines' clean serving runs over the same
+  params (token logs bitwise);
 * the training modes: the programs of ``test_sharded_resilience.py::
   test_donation_and_fused_detect_compose_on_mesh`` and
   ``::test_partial_refresh_patches_without_generation_bump`` and of
@@ -532,6 +538,80 @@ CHILD = textwrap.dedent("""
 """)
 
 
+#: the reference's family programs, in a child of their own beside
+#: ``CHILD`` (the same 8 forced CPU devices and Auto axes)
+CHILD_FAM = textwrap.dedent("""
+    import os, sys, json, pickle
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    sys.path.insert(0, "src")
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import AxisType
+    _make_mesh = jax.make_mesh
+    jax.make_mesh = lambda shape, axes, **kw: _make_mesh(
+        shape, axes, axis_types=(AxisType.Auto,) * len(shape))
+    from repro.configs import get_config
+    from repro.data.pipeline import TokenPipeline
+    from repro.distributed.context import DistContext
+    from repro.kernels.ops import leaf_key
+    from repro.launch.specs import bind_state
+    from repro.serving import Request as SReq, ServingEngine as SEng
+    from repro.train.loop import make_train_step
+
+    src, out = sys.argv[1], sys.argv[2]
+    with open(src, "rb") as f:
+        inp = pickle.load(f)
+    mesh = jax.make_mesh((4, 2), ("data", "model"))
+    ctx = DistContext.for_mesh(mesh)
+
+    # -- the ssm, hybrid, encdec and vlm families: two bound mesh steps
+    # from the given state, and a clean mesh serving run over the
+    # engine's seed-0 params -----------------------------------------------
+    import dataclasses
+    from repro.launch.train import batch_for
+    fam = {}
+    for arch, kw in inp["fam"].items():
+        fcfg = get_config(arch).smoke()
+        fcfg = dataclasses.replace(fcfg, model=dataclasses.replace(
+            fcfg.model, **kw))
+        fpipe = TokenPipeline(fcfg.model.vocab_size, inp["S"], inp["B"],
+                              seed=0)
+        fst, fraw, fbfn, _ = bind_state(
+            ctx, fcfg, jax.tree_util.tree_map(jnp.asarray,
+                                              inp["fam_states"][arch]),
+            make_train_step(fcfg, global_batch=inp["B"]),
+            lambda s, c=fcfg, p=fpipe: batch_for(c, p, s))
+        fstep = jax.jit(fraw)
+        fl = []
+        for s in range(2):
+            fst, m = fstep(fst, fbfn(s))
+            fl.append(float(m["loss"]))
+        np.savez(out + "_fam_" + arch + ".npz",
+                 **{leaf_key(p): np.asarray(x) for p, x in
+                    jax.tree_util.tree_flatten_with_path(fst)[0]})
+        eng = SEng(fcfg, ctx=ctx, seed=0, **inp["fam_eng"])
+        mine = {leaf_key(p): np.asarray(x) for p, x in
+                jax.tree_util.tree_flatten_with_path(eng.params)[0]}
+        want = {leaf_key(p): np.asarray(x) for p, x in
+                jax.tree_util.tree_flatten_with_path(
+                    inp["fam_params"][arch])[0]}
+        reqs = [SReq(rid=i, prompt=np.asarray(p, np.int32),
+                     max_new_tokens=inp["serve_gen"],
+                     features=inp["fam_features"][arch][i])
+                for i, p in enumerate(inp["serve_prompts"])]
+        eng.warm()
+        rep = eng.run(reqs)
+        fam[arch] = {"losses": fl,
+                     "same_params": sorted(mine) == sorted(want) and all(
+                         np.array_equal(np.asarray(mine[k]),
+                                        np.asarray(want[k])) for k in want),
+                     "logs": {str(q): w["tokens"]
+                              for q, w in rep.per_request.items()}}
+    with open(out + "_fam.json", "w") as f:
+        json.dump(fam, f)
+
+""")
+
+
 FUSED_K = 2
 #: the gated parity updates: a fault flag each (a set flag keeps the
 #: parity, and the state, of the last healthy version)
@@ -553,6 +633,16 @@ SERVE = {"paged+parity": {"arch": "iterpro-100m", "inject": 3,
                   "eng": dict(n_slots=4, max_len=15, canary_slices=4,
                               donate=True, parity=True)}}
 SERVE_GEN = 6
+#: the ssm, hybrid, encdec and vlm families at the
+#: smoke size with every kind of block they have in two layers; each
+#: runs two bound mesh steps and a clean serving run (4 requests, dense,
+#: donated, no canary: the tokens are held, the canary and storms are
+#: the ``storms`` spawn's; the enc-dec's with a source of max_len frames,
+#: the VLM's text only, as the reference's CLI serves it)
+FAMILIES = {"xlstm-350m": dict(mlstm_ratio=1),
+            "zamba2-7b": dict(hybrid_ratio=1),
+            "seamless-m4t-large-v2": {}, "qwen2-vl-7b": {}}
+FAM_ENG = dict(n_slots=4, max_len=15, canary_slices=0, donate=True)
 SERVE_KEYS = ("requests", "completed", "dropped", "tokens_out",
               "engine_steps", "admissions", "admission_rejected", "slots",
               "faults", "replay_tokens", "retracted_tokens")
@@ -723,6 +813,7 @@ def _port_ranks(inp_path):
     res["attempted2"] = list(ev2.attempted)
     res.update(_port_modes(ctx, cfg, inp, toy, tsh, local))
     res["serve"] = _port_serve(ctx, inp)
+    res["fam"] = _port_families(ctx, inp)
     res["moe_pipe"] = _port_moe_pipe(inp)
     res.update(_port_elastic(ctx, cfg, inp))
     everyone = coll.gather_objects(res, ctx.group(ctx.axis_names))
@@ -923,6 +1014,56 @@ def _port_serve(ctx, inp):
             r["flip"] = list(eng.corrupt_param(rng))
             r["scrub"] = eng.scrub_params()
         out[name] = json.loads(json.dumps(r))
+    return out
+
+
+def _port_families(ctx, inp):
+    """The families' programs on this rank: two bound mesh steps from the
+    reference's state (losses; the gathered state on shard 0) and the
+    mesh engine's clean run over the reference's params (logs)."""
+    import dataclasses
+    import torch
+    from repro_torch.bridge import state_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch.specs import bind_state
+    from repro_torch.launch.train import batch_for
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.tree import flatten_with_path, leaf_key
+
+    out = {}
+    for arch, kw in inp["fam"].items():
+        cfg = get_config(arch).smoke()
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, **kw))
+        pipe = TokenPipeline(cfg.model.vocab_size, inp["S"], inp["B"],
+                             seed=0)
+        st, step, bfn, sh = bind_state(
+            ctx, cfg, state_from_numpy(inp["fam_states"][arch]),
+            make_train_step(cfg, global_batch=inp["B"]),
+            lambda s, c=cfg, p=pipe: batch_for(c, p, s))
+        losses = []
+        for s in range(2):
+            st, m = step(st, bfn(s))
+            losses.append(float(m["loss"]))
+        full = gather_tree(st, sh)
+        r = {"losses": losses}
+        if ctx.shard_id == 0:
+            r["state"] = {leaf_key(p): t.numpy()
+                          for p, t in flatten_with_path(full)}
+        eng = ServingEngine(cfg, ctx=ctx, device="cpu",
+                            params=state_from_numpy(inp["fam_params"][arch]),
+                            **inp["fam_eng"])
+        reqs = [Request(rid=i, prompt=np.asarray(p, np.int32),
+                        max_new_tokens=inp["serve_gen"],
+                        features={k: torch.from_numpy(v) for k, v in
+                                  inp["fam_features"][arch][i].items()})
+                for i, p in enumerate(inp["serve_prompts"])]
+        rep = eng.run(reqs)
+        r["logs"] = {str(q): w["tokens"] for q, w in rep.per_request.items()}
+        out[arch] = r
     return out
 
 
@@ -1235,31 +1376,54 @@ def both(tmp_path_factory):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.model.vocab_size, size=8).astype(np.int32)
                for _ in range(4)]
+    import dataclasses
+    fam_states, fam_params, fam_features = {}, {}, {}
+    for arch, kw in FAMILIES.items():
+        c = get_config(arch).smoke()
+        c = dataclasses.replace(c, model=dataclasses.replace(c.model, **kw))
+        fam_states[arch] = jax.tree_util.tree_map(
+            np.asarray, make_train_state(c, jax.random.PRNGKey(0),
+                                         global_batch=B))
+        fam_params[arch] = jax.tree_util.tree_map(
+            np.asarray, jmodel(c.model).init(c.model, jax.random.PRNGKey(0)))
+        fam_features[arch] = [
+            {"src_embeds": rng.standard_normal(
+                (1, FAM_ENG["max_len"], c.model.frontend_dim)).astype(
+                    np.float32)} if c.model.n_enc_layers else {}
+            for _ in prompts]
     inp = {"state": state, "toy": _toy(jax, jnp), "toy_specs": TOY_SPECS,
            "B": B, "S": S, "up": UP, "K": FUSED_K,
            "updates": _updates(state), "flags": UPDATE_FLAGS,
            "tri_flips": TRI_FLIPS, "etoy": _etoy(jax, jnp),
            "etoy_specs": ETOY_SPECS, "serve": SERVE, "sparams": sparams,
            "serve_prompts": prompts, "serve_gen": SERVE_GEN,
-           "serve_keys": SERVE_KEYS, **_moe_prog(jax, jnp)}
+           "serve_keys": SERVE_KEYS, "fam": FAMILIES,
+           "fam_states": fam_states, "fam_params": fam_params,
+           "fam_features": fam_features, "fam_eng": FAM_ENG,
+           **_moe_prog(jax, jnp)}
     src = str(tmp / "input.pkl")
     with open(src, "wb") as f:
         pickle.dump(inp, f)
     out = str(tmp / "oracle")
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
-    child = subprocess.Popen([sys.executable, "-c", CHILD, src, out],
-                             cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                             stderr=subprocess.PIPE, text=True)
+    children = [subprocess.Popen([sys.executable, "-c", code, src, out],
+                                 cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+                for code in (CHILD, CHILD_FAM)]
     try:
         ranks = spawn(_port_ranks, (4, 2), (src,), device="cpu")[0]
-        _, err = child.communicate(timeout=600)
+        errs = [c.communicate(timeout=600)[1] for c in children]
     finally:
-        if child.poll() is None:
-            child.kill()
-    assert child.returncode == 0, err[-3000:]
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+    for c, err in zip(children, errs):
+        assert c.returncode == 0, err[-3000:]
     with open(out + ".json") as f:
         ref = json.load(f)
+    with open(out + "_fam.json") as f:
+        ref["fam"] = json.load(f)
     with np.load(out + ".npz") as z:
         truth = {k: z[k] for k in z.files}
     with np.load(out + "_fused.npz") as z:
@@ -1271,6 +1435,9 @@ def both(tmp_path_factory):
     with np.load(out + "_ys.npz") as z:
         ref["ys"] = {k: z[k] for k in z.files}
     ref["pipe_truth"] = inp["pipe_truth"]
+    for arch in FAMILIES:
+        with np.load(out + "_fam_" + arch + ".npz") as z:
+            ref["fam"][arch]["state"] = {k: z[k] for k in z.files}
     return ref, truth, ranks
 
 
@@ -1311,6 +1478,24 @@ def test_bound_steps_losses_and_state(both):
     np.testing.assert_allclose(ranks[0]["losses"], ref["losses"],
                                atol=F32_TOL, rtol=F32_TOL)
     _close_to(ranks[0]["state"], truth)
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+def test_families_bound_steps_and_serving_match_reference(both, arch):
+    """xLSTM, Zamba2, the enc-dec and the VLM on 4 x 2, the port
+    tensor-parallel from the rank's blocks, the reference under GSPMD:
+    two bound steps from the same state, the losses on every rank and the
+    gathered state within the f32 tolerance; the mesh engines' clean
+    token logs over the same params, bitwise."""
+    ref, _, ranks = both
+    want = ref["fam"][arch]
+    assert want["same_params"], arch
+    for r in ranks:
+        got = r["fam"][arch]
+        np.testing.assert_allclose(got["losses"], want["losses"],
+                                   atol=F32_TOL, rtol=F32_TOL)
+        assert got["logs"] == want["logs"], (arch, r["shard_id"])
+    _close_to(ranks[0]["fam"][arch]["state"], want["state"])
 
 
 @pytest.mark.parametrize("size", MOE_SIZES)

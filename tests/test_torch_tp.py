@@ -15,7 +15,12 @@ parallel model against the single-device one, within the f32 tolerance.
   ``decode_step`` and ``prefill_chunk`` (logits and the whole caches)
   for a config whose heads all split (iterpro-100m), one with a
   replicated ``wk/wv`` (gemma3-1b: one KV head), one with replicated
-  attention (three query heads) and the two MoE configs; the three MoE
+  attention (three query heads), the two MoE configs, the xLSTM, hybrid,
+  enc-dec and VLM smoke configs with every kind of block they have in
+  two layers, and two where the axis divides neither the heads nor the
+  vocabulary (``xlstm-heads3``: the sLSTM's pre-activations gathered, its
+  ``r`` replicated; ``zamba2-heads3``: the shared block's attention
+  replicated while its LoRA factors are cut); the three MoE
   mesh schedules against ``_moe_local_math`` with their gradients; the
   model axis's collectives counted; ``pipeline_apply`` over two stages
   against the sequential composition.
@@ -142,7 +147,15 @@ def test_vocab_and_ffn_ranges_are_the_boxes():
 # ---------------------------------------------------------------------------
 
 ARCHS = ("iterpro-100m", "gemma3-1b", "heads3", "grok-1-314b",
-         "kimi-k2-1t-a32b")
+         "kimi-k2-1t-a32b", "xlstm-350m", "zamba2-7b",
+         "seamless-m4t-large-v2", "qwen2-vl-7b", "xlstm-heads3",
+         "zamba2-heads3")
+
+#: the recurrent families' smoke configs with every kind of block they
+#: have in their two layers: xLSTM[1:1] (an mLSTM and an sLSTM block),
+#: Zamba2 with the shared block after one Mamba-2 block
+PATTERN = {"xlstm-350m": dict(mlstm_ratio=1), "zamba2-7b": dict(
+    hybrid_ratio=1)}
 
 
 def _cfg(arch):
@@ -151,7 +164,49 @@ def _cfg(arch):
         c = get_config("iterpro-100m").smoke()
         return dataclasses.replace(c, model=dataclasses.replace(
             c.model, n_heads=3, n_kv_heads=1))
-    return get_config(arch).smoke()
+    if arch == "xlstm-heads3":
+        # the guard's replicated path in a recurrent family: 3 heads (the
+        # sLSTM's w cut off whole heads, its r replicated), a vocabulary
+        # of 255 (the embedding and head replicated); an mLSTM and an
+        # sLSTM block
+        c = get_config("xlstm-350m").smoke()
+        return dataclasses.replace(c, model=dataclasses.replace(
+            c.model, d_model=96, n_heads=3, n_kv_heads=3, vocab_size=255,
+            mlstm_ratio=1, n_layers=2))
+    if arch == "zamba2-heads3":
+        # the shared block's attention replicated by the whole-heads rule
+        # (3 query heads, 1 KV head) while its LoRA factors are cut by
+        # width: the merged q/k/v columns and wo rows are the replicated
+        # weight's slices plus the factors' blocks, gathered and summed
+        c = get_config("zamba2-7b").smoke()
+        return dataclasses.replace(c, model=dataclasses.replace(
+            c.model, n_heads=3, n_kv_heads=1, vocab_size=255,
+            hybrid_ratio=1))
+    c = get_config(arch).smoke()
+    if arch in PATTERN:
+        c = dataclasses.replace(c, model=dataclasses.replace(
+            c.model, **PATTERN[arch]))
+    return c
+
+
+def _batch(m, B, S, rng):
+    """Tokens and targets, and a family's inputs: source frames (enc-dec),
+    patches with their grid positions (VLM)."""
+    tok = torch.from_numpy(rng.integers(0, m.vocab_size, (B, S)))
+    batch = {"tokens": tok, "targets": torch.roll(tok, -1, 1)}
+    if m.n_enc_layers:
+        batch["src_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, 6, m.frontend_dim)).astype(np.float32))
+    if m.patch_dim:
+        Np = 4
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, Np, m.patch_dim)).astype(np.float32))
+        pos = np.zeros((B, Np + S, 3), np.int32)
+        pos[:, :Np, 1] = np.arange(Np) // 2
+        pos[:, :Np, 2] = np.arange(Np) % 2
+        pos[:, Np:, :] = (2 + np.arange(S))[None, :, None]
+        batch["positions"] = torch.from_numpy(pos)
+    return batch
 
 
 def _err(a, b):
@@ -163,30 +218,33 @@ def _model_checks(ctx, tp, arch):
     |parallel - single| of each, on this rank."""
     from repro_torch.distributed.sharding import local_tree
     from repro_torch.launch.specs import param_shardings
-    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
     from repro_torch.tree import (flatten_with_path, leaf_key, leaves,
                                   map_with_path)
 
     cfg = _cfg(arch)
     m = cfg.model
-    full = T.init_lm(m, 0, "cpu")
+    model = get_model(m)
+    full = model.init(m, 0, "cpu")
     g = torch.Generator().manual_seed(1)
     for _, t in flatten_with_path(full):     # norms and biases non-zero
-        if t.dim() <= 2 and t.shape[-1] == m.d_model and t.numel() < 4096:
+        if (t.dim() <= 2 and t.shape[-1] == m.d_model
+                and t.numel() < 4096) or not t.any():
             t.copy_(torch.randn(t.shape, generator=g) * 0.1)
     psh, _ = param_shardings(ctx, cfg, full)
     blocks = local_tree(full, psh)
     rng = np.random.default_rng(2)
     B, S = 2, 12
-    tok = torch.from_numpy(rng.integers(0, m.vocab_size, (B, S)))
-    batch = {"tokens": tok, "targets": torch.roll(tok, -1, 1)}
+    batch = _batch(m, B, S, rng)
+    tok = batch["tokens"]
+    serve = {k: v for k, v in batch.items() if k != "targets"}
     out = {}
 
     def loss_grads(p, **kw):
         req = {leaf_key(q): t.detach().requires_grad_(True)
                for q, t in flatten_with_path(p)}
         tree = map_with_path(lambda q, _: req[leaf_key(q)], p)
-        loss, _ = T.train_loss(tree, m, batch, **kw)
+        loss, _ = model.train_loss(tree, m, batch, remat=False, **kw)
         grads = torch.autograd.grad(loss, list(req.values()),
                                     allow_unused=True,
                                     materialize_grads=True)
@@ -196,27 +254,34 @@ def _model_checks(ctx, tp, arch):
     l2, g2 = loss_grads(blocks, tp=tp)
     out["loss"] = _err(l1, l2)
     shs = {leaf_key(q): sh for q, sh in flatten_with_path(psh)}
+    # a key bias's gradient is zero in exact arithmetic (the softmax is
+    # invariant to a shift of a query's scores): its rounding noise is
+    # held against the model's gradient scale, not its own
+    top = max(float(t.abs().max()) for t in g1.values())
     out["grads"] = max(_err(shs[k].local(g1[k]), g2[k]) / max(
-        float(g1[k].abs().max()), 1e-6) for k in g1)
+        top if k.endswith("wk/b") else float(g1[k].abs().max()), 1e-6)
+        for k in g1)
     with torch.no_grad():
-        lg1, c1 = T.prefill(full, m, batch, max_len=S + 4)
-        lg2, c2 = T.prefill(blocks, m, batch, max_len=S + 4, tp=tp)
+        lg1, c1 = model.prefill(full, m, serve, max_len=S + 8)
+        lg2, c2 = model.prefill(blocks, m, serve, max_len=S + 8, tp=tp)
         out["prefill"] = _err(lg1, lg2)
         out["cache"] = max(_err(a, b) for a, b in zip(
             leaves(c1), leaves(c2)))
         nt = lg1.argmax(-1).to(torch.int32)
-        d1, c1 = T.decode_step(full, m, c1, nt)
-        d2, c2 = T.decode_step(blocks, m, c2, nt, tp=tp)
+        d1, c1 = model.decode_step(full, m, c1, nt)
+        d2, c2 = model.decode_step(blocks, m, c2, nt, tp=tp)
         out["decode"] = _err(d1, d2)
         out["decode_cache"] = max(_err(a, b) for a, b in zip(
             leaves(c1), leaves(c2)))
+        if not hasattr(model, "prefill_chunk") or m.m_rope:
+            return out
         ctx_cache = {"groups": [[{n: v[n][:, :, :S] for n in ("k", "v")}
                                  for v in grp] for grp in c1["groups"]]}
         kpos = torch.arange(S, dtype=torch.int32)[None, :]
         chunk = {"tokens": tok[:, :4]}
-        p1, n1 = T.prefill_chunk(full, m, chunk, ctx_cache, kpos, S, 3)
-        p2, n2 = T.prefill_chunk(blocks, m, chunk, ctx_cache, kpos, S, 3,
-                                 tp=tp)
+        p1, n1 = model.prefill_chunk(full, m, chunk, ctx_cache, kpos, S, 3)
+        p2, n2 = model.prefill_chunk(blocks, m, chunk, ctx_cache, kpos, S,
+                                     3, tp=tp)
         out["chunk"] = _err(p1, p2)
         out["chunk_kv"] = max(_err(a, b) for a, b in zip(
             leaves(n1), leaves(n2)))
@@ -306,7 +371,10 @@ def _ranks():
     torch.manual_seed(0)
     ctx = make_context("1,2", torch.device("cpu"))
     tp = TP.for_model(ctx, _cfg("iterpro-100m").model)
-    res = {"tp_rank": ctx.tp_rank}
+    res = {"tp_rank": ctx.tp_rank,
+           # every family computes on the model axis
+           "families": {a: TP.for_model(ctx, _cfg(a).model) is not None
+                        for a in ARCHS}}
     # the vocabulary-parallel cross-entropy's reductions on a chunk
     from repro_torch.models import layers as L
     gen = torch.Generator().manual_seed(4)
@@ -331,6 +399,7 @@ def ranks():
 
 def test_vocab_parallel_cross_entropy_matches_the_whole_vocabulary(ranks):
     assert [r["tp_rank"] for r in ranks] == [0, 1]
+    assert all(all(r["families"].values()) for r in ranks), ranks[0]
     for r in ranks:
         assert r["ce"] <= TOL, r["ce"]
 
