@@ -184,7 +184,7 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        of the bf16 embedding timed; its launches on 8a, 8b and 8d (no
        profiled gemma3-1b train steps, the time cut: 7j and 12c profile
        the train step);
-   8e. h2o-danube-1.8b at full width and 6 of its 24 layers (the depth
+   8e. h2o-danube-1.8b at full width and 2 of its 24 layers (the depth
        cut keeps the whole script within its time limit)
        trained with its microbatch 8 (global batch 8:
        8 slices of one sequence), ``--donate``, K=4, 4 steps, clean and
@@ -280,8 +280,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        graph pool);
    11b. one prompt of 600 tokens (three 256-token SSD chunks, the last
        padded) as 10b;
-   11c. 7 of its 81 layers ((1, 5 Mamba-2 + the shared block), (1, 1
-       Mamba-2); 937,984,384 params) trained as 10c with the config's
+   11c. 6 of its 81 layers (one pattern period: 5 Mamba-2 + the shared
+       block; 860,178,496 params) trained as 10c with the config's
        AdamW, microbatch 8 and remat, the memory of the runs reckoned
        from shapes and printed first: clean, the ``--parity`` storm and
        the donate+fused clean run (no iv storm, armed-slice storm,
@@ -305,7 +305,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        logits within 3e-2 of the same prefill through
        ``attention_direct``, the first token's direct logit within twice
        that of the direct path's largest;
-   12c. 6 encoder + 6 decoder layers (903,543,808 params) trained as 10c
+   12c. 2 encoder + 2 decoder layers (651,688,960 params; the depth cut:
+       12a serves 6 + 6) trained as 10c
        (AdamW with f32 moments, remat, batch 8 x 128 with 64 source
        frames), the memory of the runs reckoned first: clean, the
        ``--parity`` storm, the donate+fused clean run (no iv or
@@ -433,6 +434,14 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
    path launched; the event's downtime, reconstruction and re-bind
    seconds and bytes printed beside the replay and checkpoint times; the
    dead ranks launch nothing after the loss;
+15. the dry-run (``[dryrun]`` lines, ``dryrun_phase``): iterpro-100m's
+   train cell at phase 7's shape (8 x 128, one device) traced on meta
+   tensors on the host (``launch/dryrun.trace_cell``); its
+   ``flops_per_device`` held equal to ``FlopCounterMode``'s count of one
+   real functional train step on the card at the same shape (meta and the
+   card dispatch the same work), and its roofline bound printed beside
+   phase 7's measured functional step p50 and the card's name and power
+   limit;
    then one JSON line describing every kernel (the 8 ports, the layout
    kernel ``flash_layout_kv`` of the flash port, ``pack_rows`` at 8f's
    two shapes and at 9a's 1-byte canary), then the device line.
@@ -2196,7 +2205,7 @@ CMD_LAYERS = 2                       # 8c: command-r-35b, 2 of its 40 layers
 G_STEPS, G_INJECT, G_INTERVAL = 6, 2, 8   # 8d: one snapshot + checkpoint
 G_CUT_LAYERS = 6                     # 8b, 8d: gemma3-1b 6 of 26 layers (5:1)
 D_STEPS, D_SLICES = 4, 4             # 8e: steps (one storm flip), canary K
-D_LAYERS = 6                         # 8e: h2o-danube-1.8b 6 of its 24 layers
+D_LAYERS = 2                         # 8e: h2o-danube-1.8b 2 of its 24 layers
 
 
 def _release(torch) -> None:
@@ -3093,12 +3102,13 @@ ZAMBA = "zamba2-7b"
 SEAMLESS = "seamless-m4t-large-v2"
 R_LONG = 600                  # 10b/11b: three 256-token chunks, one padded
 S_LONG = 4160                 # 12b: source frames, above FLASH_THRESHOLD
-S_LAYERS = 6                  # 12a-12c: 6 of its 24 encoder + 6 of 24 decoder
+S_LAYERS = 6                  # 12a-12b: 6 of its 24 encoder + 6 of 24 decoder
+S_TRAIN_LAYERS = 2            # 12c: 2 of its 24 encoder + 2 of 24 decoder
 R_STEPS, R_INJECT = 4, 2      # 10c/11c: steps, storm period (1 flip a run)
 R_SLICES = 4                  # 10c/11c: the donated fused runs' canary K
 X_LAYERS = 8                  # 10: xlstm-350m 8 of its 24 layers (7m + 1s)
 Z_SERVE_LAYERS = 13           # 11a/11b: zamba2-7b 13 of its 81 (2 x (5m + A) + m)
-Z_TRAIN_LAYERS = 7            # 11c: zamba2-7b 7 of its 81 layers
+Z_TRAIN_LAYERS = 6            # 11c: zamba2-7b 6 of its 81 layers
 QWEN = "qwen2-vl-7b"
 Q_GRID = 8                    # 13a: an 8 x 8 image a request (64 patches)
 Q_LONG_GRID = 64              # 13b: a 64 x 64 image, 4,224 keys with the prompt
@@ -5160,6 +5170,50 @@ def check_elastic(ranks, device: str) -> None:
               f"run {e['secs']:.1f} s [{_SMI}]")
 
 
+def dryrun_phase(torch, cfg, p50_ms: float) -> None:
+    """Phase 15: the dry-run cell of ``cfg``'s train step at phase 7's
+    shape on one device, against one real functional step on the card."""
+    import math
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import cuda_numerics
+    from repro_torch.train.loop import make_train_state, make_train_step
+    shape = ShapeSpec("phase7_train", T_SEQ, T_BATCH, "train")
+    t0 = time.perf_counter()
+    rec, _ = trace_cell(cfg, shape, make_mesh((1, 1), ("data", "model")))
+    traced_s = time.perf_counter() - t0
+    state = make_train_state(cfg, 0, global_batch=T_BATCH, device="cuda")
+    pipe = TokenPipeline(cfg.model.vocab_size, T_SEQ, T_BATCH, seed=0)
+    batch = {k: v.cuda() for k, v in pipe.batch_at(0).items()}
+    with cuda_numerics(torch.device("cuda")):
+        step = make_train_step(cfg, global_batch=T_BATCH)
+        with FlopCounterMode(display=False) as fc:
+            _, m = step(state, batch)
+        loss = float(m["loss"])
+    card = fc.get_total_flops()
+    meta = rec["op_cost"]["flops_per_device"]
+    assert rec["status"] == "ok" and meta == card > 0, (meta, card)
+    assert math.isfinite(loss), loss
+    r = rec["roofline"]
+    bound_ms = 1e3 * max(r["t_compute_s"], r["t_memory_s"],
+                         r["t_collective_s"])
+    print(f"[dryrun] {cfg.arch_id} train {T_BATCH} x {T_SEQ} on one "
+          f"device, traced on meta in {traced_s:.2f} s ({rec['ops']} ops): "
+          f"flops_per_device {meta:.0f} == FlopCounterMode on the card "
+          f"{card:.0f}")
+    print(f"[dryrun] roofline bound {bound_ms:.4f} ms ({r['bottleneck']}; "
+          f"compute {1e3 * r['t_compute_s']:.4f} ms at "
+          f"{rec['hardware']['peak_flops'] / 1e12:.1f} TFLOP/s, memory "
+          f"{1e3 * r['t_memory_s']:.4f} ms for "
+          f"{rec['op_cost']['hbm_bytes_per_device'] / 1e9:.3f} GB) against "
+          f"phase 7's measured functional step p50 {p50_ms:.3f} ms "
+          f"[{_SMI}]")
+    del state, batch
+
+
 def main() -> int:
     # deterministic cuBLAS for the training phase: read when the first
     # cuBLAS workspace is made, so before anything touches the card
@@ -5286,6 +5340,7 @@ def main() -> int:
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
     runs = run_training(torch, cfg)
+    p50_7 = runs["clean"][0]["p50_step_ms"]
     clean_state = runs["clean"][1]
     recover_on_card(torch, cfg, clean_state)
     torch.cuda.synchronize()
@@ -5423,7 +5478,10 @@ def main() -> int:
     # checkpoint: saved every 10 steps, loaded digest-verified by the
     # rung, a corrupted one refused; 14 the mesh checkpoint)
     # no donate+fused profile (the time cut: 7j holds the hot-path one)
-    recurrent_phase(torch, 12, SEAMLESS, s_layers, s_layers,
+    # trained at 2 + 2 layers (the depth cut: 12a serves 6 + 6)
+    recurrent_phase(torch, 12, SEAMLESS, s_layers,
+                    dict(n_layers=S_TRAIN_LAYERS,
+                         n_enc_layers=S_TRAIN_LAYERS),
                     storms=("parity",), long=long_encdec, checkpoint=False,
                     profile=False)
     _stamp("phase 12")
@@ -5441,6 +5499,10 @@ def main() -> int:
     # -- phase 14: resilient training on a 2 x 2 mesh ---------------------
     mesh_phase(torch)
     _stamp("phase 14")
+
+    # -- phase 15: the dry-run cell against the card ----------------------
+    dryrun_phase(torch, cfg, p50_7)
+    _stamp("phase 15")
 
     for name, r in train_kernels.items():
         kernels[name] = r

@@ -3,8 +3,10 @@
 Only the configurations the port runs are registered; smoke variants are
 ``get_config(id).smoke()`` or the ``<id>-smoke`` name."""
 
-from repro_torch.configs.base import (ArchConfig, ModelConfig, ShardingPlan,
-                                      TrainPlan)
+from repro_torch.configs.base import (ALL_SHAPES, DECODE_32K, LONG_500K,
+                                      PREFILL_32K, SHAPES_BY_NAME, TRAIN_4K,
+                                      ArchConfig, ModelConfig, ShapeSpec,
+                                      ShardingPlan, TrainPlan)
 from repro_torch.configs.command_r_35b import CONFIG as _COMMAND_R_35B
 from repro_torch.configs.gemma3_1b import CONFIG as _GEMMA3_1B
 from repro_torch.configs.gemma3_27b import CONFIG as _GEMMA3_27B
@@ -33,9 +35,15 @@ def get_config(arch_id: str) -> ArchConfig:
     if arch_id.endswith("-smoke"):
         return _REGISTRY[arch_id[: -len("-smoke")]].smoke()
     if arch_id not in _REGISTRY:
-        raise KeyError(f"{arch_id!r} is not ported (have {list_archs()})")
+        raise KeyError(f"unknown arch {arch_id!r} (have {list_archs()})")
     return _REGISTRY[arch_id]
 
 
-__all__ = ["ArchConfig", "ModelConfig", "ShardingPlan", "TrainPlan",
-           "get_config", "list_archs"]
+def get_shape(name: str) -> ShapeSpec:
+    return SHAPES_BY_NAME[name]
+
+
+__all__ = ["ALL_SHAPES", "DECODE_32K", "LONG_500K", "PREFILL_32K",
+           "SHAPES_BY_NAME", "TRAIN_4K", "ArchConfig", "ModelConfig",
+           "ShapeSpec", "ShardingPlan", "TrainPlan", "get_config",
+           "get_shape", "list_archs"]

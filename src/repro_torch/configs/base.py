@@ -1,17 +1,52 @@
 """Configuration dataclasses of the PyTorch port.
 
-A copy of the JAX package's ``configs/base.py`` restricted to what the
-port runs: the model hyper-parameters, the sharding and training plans,
-and the architecture config with its ``smoke()`` reduction.  The field
-names, defaults and the ``smoke()`` rule are the reference's, so a config
-built here describes the same model as its JAX twin and both packages
-lay their params out under the same leaf paths and shapes.
+A copy of the JAX package's ``configs/base.py``: the input shapes of the
+dry-run cells, the model hyper-parameters, the sharding and training
+plans, and the architecture config with its shape cells and its
+``smoke()`` reduction.  The field names, defaults, the shape-cell rule
+and the ``smoke()`` rule are the reference's, so a config built here
+describes the same model as its JAX twin and both packages lay their
+params out under the same leaf paths and shapes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field, replace
+from typing import Tuple
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One (seq_len, global_batch) workload cell.
+
+    ``kind`` selects the program a dry-run cell traces:
+      * ``train``   -> the train step (forward, backward, optimizer update)
+      * ``prefill`` -> prefill (forward, build the KV/state cache)
+      * ``decode``  -> decode_step (one new token against a seq_len cache)
+    """
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+    def __post_init__(self):
+        assert self.kind in ("train", "prefill", "decode"), self.kind
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                     LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
 
 
 @dataclass(frozen=True)
@@ -75,6 +110,25 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True when a 500k-token decode has bounded (non-full) attention
+        state on every full-attention layer, or no attention at all."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        if self.sliding_window > 0:
+            return True  # SWA on every layer
+        if self.local_global_ratio > 0:
+            # local:global mixes count as sub-quadratic (gemma3): local
+            # layers bound their KV, the rare global layers decode
+            # linearly against a sequence-sharded KV cache
+            return True
+        return False
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # every config is a decoder or an enc-dec
+
 
 @dataclass(frozen=True)
 class ShardingPlan:
@@ -108,6 +162,19 @@ class ArchConfig:
     model: ModelConfig
     sharding: ShardingPlan = field(default_factory=ShardingPlan)
     train: TrainPlan = field(default_factory=TrainPlan)
+
+    def shapes(self) -> Tuple[ShapeSpec, ...]:
+        """The shape cells this architecture runs (``long_500k`` needs
+        sub-quadratic attention)."""
+        return tuple(s for s in ALL_SHAPES
+                     if s.name != "long_500k" or self.model.is_subquadratic)
+
+    def skipped_shapes(self) -> Tuple[str, ...]:
+        have = {s.name for s in self.shapes()}
+        return tuple(s.name for s in ALL_SHAPES if s.name not in have)
+
+    def with_overrides(self, **kw) -> "ArchConfig":
+        return replace(self, **kw)
 
     def smoke(self) -> "ArchConfig":
         """Reduced config for CPU tests — the reference's rule, verbatim."""

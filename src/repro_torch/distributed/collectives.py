@@ -20,15 +20,26 @@ The reductions of the mesh step are deterministic: a gather (or an
 all-to-all) in group-rank order followed by a sum in that order
 (``sum_rows``), so every rank of the group computes the same bits and a
 replay reproduces them.
+
+``meta`` tensors (the dry-run, ``launch/dryrun.py``) take their own
+route, chosen by the tensor's device as a kernel wrapper chooses its
+kernel: the result is a ``meta`` tensor of the collective's output shape,
+the group's size is read off the group (a live one, or a
+``context.ShapeGroup``), and nothing reaches ``torch.distributed``.  While ``METER`` is a list, each such call
+appends ``(kind, input bytes, output bytes)`` on this rank, ``kind`` the
+reference's HLO collective kind (``all-gather``, ``all-reduce``,
+``all-to-all``, ``collective-permute``).
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed.context import ShapeGroup
 
 #: collectives found to take CUDA tensors under gloo (H100 probe, torch
 #: 2.11): called on the card's tensors directly
@@ -61,8 +72,28 @@ def init_process_group(rank: int, world: int, store_path: str,
     return backend
 
 
+#: the dry-run's record of the collectives called on ``meta`` tensors:
+#: ``(kind, input bytes, output bytes)``, appended while it is a list
+#: (``launch/op_cost.analyze`` sets it)
+METER: Optional[List[Tuple[str, int, int]]] = None
+
+
 def backend() -> str:
     return dist.get_backend()
+
+
+def group_size(group) -> int:
+    if isinstance(group, ShapeGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def _meta(kind: str, t: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out`` (the meta result), the call recorded in ``METER``."""
+    if METER is not None:
+        METER.append((kind, t.numel() * t.element_size(),
+                      out.numel() * out.element_size()))
+    return out
 
 
 def _staged(op: str, t: torch.Tensor) -> bool:
@@ -77,6 +108,8 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     """In-place all-reduce of ``t`` (``op``: sum, max, min); returns
     ``t``."""
+    if t.is_meta:
+        return _meta("all-reduce", t, t)
     if _staged("all_reduce", t):
         h = _host(t)
         dist.all_reduce(h, op=_OPS[op], group=group)
@@ -88,9 +121,11 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
 def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """``(group size, *t.shape)``: every rank's ``t`` in group-rank
     order."""
-    n = dist.get_world_size(group)
-    src = t.contiguous().reshape(-1)
+    n = group_size(group)
     shape = (n,) + tuple(t.shape)
+    if t.is_meta:
+        return _meta("all-gather", t, t.new_empty(shape))
+    src = t.contiguous().reshape(-1)
     if _staged("all_gather_into_tensor", src):
         h = _host(src)
         out = torch.empty(n * src.numel(), dtype=src.dtype)
@@ -109,7 +144,10 @@ def all_to_all(t: torch.Tensor, group=None,
     rank ``p`` sent here, written into ``out`` when given (a contiguous
     tensor of ``t``'s size, dtype and device: a receive buffer that keeps
     its storage)."""
-    n = dist.get_world_size(group)
+    n = group_size(group)
+    if t.is_meta:
+        return _meta("all-to-all", t, (t.new_empty(t.numel()) if out is None
+                                       else out).view(n, -1))
     src = t.contiguous().reshape(-1)
     if _staged("all_to_all_single", src):
         h = _host(src)
@@ -134,7 +172,7 @@ def sum_rows(rows: torch.Tensor) -> torch.Tensor:
 def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
     """The sum of every group rank's ``t``, added in group-rank order:
     the same bits on every rank, run after run."""
-    if dist.get_world_size(group) == 1:
+    if group_size(group) == 1:
         return t
     return sum_rows(all_gather(t, group))
 
@@ -145,6 +183,8 @@ def shift(t: torch.Tensor, group) -> torch.Tensor:
     zeros; the last sends nothing).  Gloo's ``send``/``recv`` are not in
     ``GLOO_CUDA_OPS``: a card's tensor goes through a pinned host
     buffer."""
+    if t.is_meta:
+        return _meta("collective-permute", t, torch.zeros_like(t))
     n = dist.get_world_size(group)
     i = dist.get_rank(group)
     src = t.contiguous()

@@ -33,9 +33,9 @@ a rank, and one ``xor_fold_tiles`` launch per lost block) + the re-bind
 (and, with ``--fused-detect``, the graphs' re-capture, which the
 training loop adds to ``relower_seconds``) — no disk restore, no replay.
 
-``relower_degraded`` (the reference's compile of a production-shape
-program on a degraded mesh) goes through the XLA dry-run tooling, which
-is not ported; it raises.
+``relower_degraded`` is the production-shape twin of the live path: the
+dry-run cell (``launch/dryrun.py``) of a program on the degraded
+production mesh, one rank's program traced on ``meta`` tensors.
 """
 
 from __future__ import annotations
@@ -53,10 +53,6 @@ from repro_torch.kernels import digest as kdigest
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import make_degraded_mesh
 from repro_torch.tree import flatten_with_path, leaf_key, map_with_path
-
-_DRYRUN = ("the degraded-mesh compile of a production-shape program (the "
-           "XLA dry-run tooling, ROADMAP.md queue 1 item 7)")
-
 
 # ---------------------------------------------------------------------------
 # events / resume bundle
@@ -407,6 +403,15 @@ class ElasticManager:
 
 def relower_degraded(cfg, shape, *, lost_slices: int = 1,
                      multi_pod: bool = False):
-    """The reference's compile of the cell's program on the degraded
-    production mesh: not ported (it goes through the dry-run tooling)."""
-    raise NotImplementedError(f"not ported yet: {_DRYRUN}")
+    """Re-trace the cell's program on the degraded production mesh.
+
+    Returns ``(record, ctx, seconds)``, where the reference returns
+    ``(compiled, mesh, seconds)``: the dry-run record of one rank's
+    program (``dryrun.trace_cell``) on ``ctx``, the shape-only context of
+    the (16 - lost) x 16 (or (32 - lost) x 16) mesh — the elastic-scaling
+    proof at production shape, with no state and no device."""
+    from repro_torch.launch.dryrun import trace_cell
+    t0 = time.perf_counter()
+    ctx = make_degraded_mesh(lost_slices, multi_pod=multi_pod)
+    record = trace_cell(cfg, shape, ctx)[0]
+    return record, ctx, time.perf_counter() - t0

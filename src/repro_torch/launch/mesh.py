@@ -15,6 +15,9 @@ in rank order.
 Inside a rank ``make_context(spec)`` builds the ``DeviceMesh`` over the
 initialised group and returns the rank's ``DistContext``;
 ``make_degraded_mesh`` the context after a hard loss of data rows.
+``make_production_mesh``, ``make_mesh`` and ``make_degraded_mesh``
+without ``base`` give shape-only contexts (no process behind them), the
+meshes the dry-run (``launch/dryrun.py``) traces a rank's program on.
 A rank of a lost row (``train(kill_row_at=...)``) returns from its work
 and waits in the exit barrier, the one collective it takes after the
 loss.
@@ -84,6 +87,25 @@ def make_context(mesh_spec: Optional[str], device: torch.device, *,
                          f"has {dist.get_world_size()}")
     mesh = init_device_mesh(device.type, shape, mesh_dim_names=axes)
     return DistContext.for_mesh(mesh, device, fsdp=fsdp)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DistContext:
+    """The reference's production mesh as a shape-only context: one pod
+    of 16 x 16 ``("data", "model")``; two pods add a leading ``pod``
+    axis (2 x 16 x 16)."""
+    if multi_pod:
+        return DistContext.for_shape((2, 16, 16), ("pod", "data", "model"))
+    return DistContext.for_shape((16, 16), ("data", "model"))
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> DistContext:
+    """A shape-only context of any shape (the dry-run's
+    ``variant["mesh_shape"]``)."""
+    return DistContext.for_shape(tuple(int(s) for s in shape), tuple(axes))
+
+
+def mesh_chip_count(ctx: DistContext) -> int:
+    return ctx.n_devices
 
 
 def make_degraded_mesh(lost_data_slices: int = 1, *,

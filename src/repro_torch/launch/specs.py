@@ -1,5 +1,16 @@
-"""The train state's and the params' shardings and the one mesh-binding
-recipe — counterpart of the sharding half of ``repro/launch/specs.py``.
+"""Shape-only stand-ins of every dry-run program's inputs, the train
+state's and the params' shardings and the one mesh-binding recipe —
+counterpart of ``repro/launch/specs.py``.
+
+``batch_struct``, ``state_struct``, ``params_struct`` and
+``cache_struct`` build the reference's ``jax.eval_shape`` trees as
+``device="meta"`` tensors (shapes and dtypes, no storage) through the
+port's own ``init``, optimizer ``init``, ``init_iv`` and
+``make_decode_cache``: the same leaf paths, shapes and dtypes.
+``input_specs(cfg, shape, ctx)`` gives a dry-run cell's input trees and
+their ``LeafSharding`` trees under the reference's keys.  Modality
+frontends are stubs, as in the reference: the audio and VLM cells take
+precomputed frame / patch embeddings (``src_embeds`` / ``patch_embeds``).
 
 ``state_shardings`` gives every leaf of a train state its spec
 (``distributed/sharding.py``) and its ``LeafSharding`` (the spec with the
@@ -14,13 +25,70 @@ rank's rows.  Off the mesh everything passes through untouched.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, Optional
+
+import torch
 
 from repro_torch.distributed.context import DistContext
-from repro_torch.distributed.sharding import (P, batch_specs, local_tree,
-                                              opt_state_specs, param_specs,
-                                              shardings_for)
+from repro_torch.distributed.sharding import (P, batch_specs, cache_specs,
+                                              local_tree, opt_state_specs,
+                                              param_specs, shardings_for)
 from repro_torch.tree import leaves, tree_map
+
+# Modality-stub geometry (backbone-only cells)
+SRC_FRAMES = 512       # seamless: pre-encoded audio frames per sample
+N_PATCHES = 256        # qwen2-vl: vision patches per sample
+
+_META = torch.device("meta")
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(int(s) for s in shape), dtype=dtype,
+                       device=_META)
+
+
+# ---------------------------------------------------------------------------
+# batch / cache / state structs (meta tensors: no storage)
+# ---------------------------------------------------------------------------
+
+def batch_struct(cfg, B: int, S: int) -> Dict[str, Any]:
+    m = cfg.model
+    batch = {"tokens": _sds((B, S), torch.int32),
+             "targets": _sds((B, S), torch.int32)}
+    if m.n_enc_layers:
+        batch["src_embeds"] = _sds((B, SRC_FRAMES, m.frontend_dim),
+                                   torch.float32)
+    if m.patch_dim:
+        batch["patch_embeds"] = _sds((B, N_PATCHES, m.patch_dim),
+                                     torch.float32)
+        if m.m_rope:
+            batch["positions"] = _sds((B, S + N_PATCHES, 3), torch.int32)
+    return batch
+
+
+def params_struct(cfg):
+    from repro_torch.launch.op_cost import fast_meta
+    from repro_torch.models.registry import get_model
+    with fast_meta():
+        return get_model(cfg.model).init(cfg.model, 0, _META)
+
+
+def state_struct(cfg, global_batch: int):
+    """The TrainState's meta tensors (params, optimizer state, ``iv``)."""
+    from repro_torch.launch.op_cost import fast_meta
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.loop import init_iv
+    params = params_struct(cfg)
+    with fast_meta():
+        opt = make_optimizer(cfg.train, 100_000).init(params)
+    return {"params": params, "opt": opt,
+            "iv": init_iv(cfg, global_batch, _META)}
+
+
+def cache_struct(cfg, B: int, max_len: int):
+    from repro_torch.models.registry import get_model
+    return get_model(cfg.model).make_decode_cache(cfg.model, B, max_len,
+                                                  _META)
 
 
 def state_shardings(ctx: DistContext, cfg, state):
@@ -43,6 +111,11 @@ def param_shardings(ctx: DistContext, cfg, params):
 def batch_shardings(ctx: DistContext, batch):
     specs = batch_specs(ctx, batch)
     return shardings_for(ctx, specs, batch), specs
+
+
+def cache_shardings(ctx: DistContext, cache):
+    specs = cache_specs(ctx, cache)
+    return shardings_for(ctx, specs, cache), specs
 
 
 class BoundState:
@@ -88,3 +161,41 @@ def bind_state(ctx: Optional[DistContext], cfg, state, raw_step: Callable,
                         batch_fn(s), bsh)
 
     return BoundState(local, step, bfn, shardings, specs, bsh)
+
+
+# ---------------------------------------------------------------------------
+# the public entry: one call per dry-run cell
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg, shape, ctx: DistContext):
+    """``(structs, shardings)`` of the cell's program inputs: the global
+    meta trees and their ``LeafSharding`` trees, under the reference's
+    keys.
+
+    train   -> step(state, batch)
+    prefill -> prefill(params, batch)
+    decode  -> decode_step(params, cache, token)
+    """
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        state_st = state_struct(cfg, B)
+        bat_st = batch_struct(cfg, B, S)
+        return {"state": state_st, "batch": bat_st}, \
+            {"state": state_shardings(ctx, cfg, state_st)[0],
+             "batch": batch_shardings(ctx, bat_st)[0]}
+    if shape.kind == "prefill":
+        p_st = params_struct(cfg)
+        bat_st = batch_struct(cfg, B, S)
+        bat_st.pop("targets")
+        return {"params": p_st, "batch": bat_st}, \
+            {"params": param_shardings(ctx, cfg, p_st)[0],
+             "batch": batch_shardings(ctx, bat_st)[0]}
+    if shape.kind == "decode":
+        p_st = params_struct(cfg)
+        c_st = cache_struct(cfg, B, S)
+        tok = _sds((B,), torch.int32)
+        return {"params": p_st, "cache": c_st, "token": tok}, \
+            {"params": param_shardings(ctx, cfg, p_st)[0],
+             "cache": cache_shardings(ctx, c_st)[0],
+             "token": shardings_for(ctx, P(None), tok)}
+    raise ValueError(shape.kind)

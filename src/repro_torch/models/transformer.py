@@ -70,7 +70,8 @@ def check_supported(cfg) -> None:
     """Raise for a family the transformer does not run: the registry
     sends ``ssm``, ``hybrid`` and ``encdec`` to their own modules."""
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+        raise NotImplementedError(f"family {cfg.family!r} has no model "
+                                  f"(the transformer runs dense, moe, vlm)")
 
 
 def derive_groups(cfg) -> Tuple[Tuple[int, Tuple[LayerDesc, ...]], ...]:
@@ -366,7 +367,7 @@ def logits_fn(params, cfg, hidden, tp=None):
                      tp=_vocab_tp(cfg, tp))
 
 
-def chunked_ce(params, cfg, hidden, targets, mask=None, chunk=LOSS_CHUNK,
+def chunked_ce(params, cfg, hidden, targets, mask=None, chunk=None,
                tp=None):
     """Cross-entropy over sequence chunks, so (B, S, V) logits are never
     materialised for the whole sequence.  Logits are f32 through the
@@ -381,7 +382,7 @@ def chunked_ce(params, cfg, hidden, targets, mask=None, chunk=LOSS_CHUNK,
     vtp = _vocab_tp(cfg, tp)
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
-    chunk = min(chunk, S)
+    chunk = min(chunk or LOSS_CHUNK, S)     # read at call time: a knob
     head = _head_weight(params, cfg)
     if head is None:
         w, eq = params["embed"]["table"].to(torch.float32), "bsd,vd->bsv"

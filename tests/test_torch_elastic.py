@@ -236,10 +236,18 @@ def test_train_value_errors_match_reference(kw):
 
 
 def test_relower_degraded_is_not_ported():
-    from repro_torch.configs import get_config
+    """Ported since the dry-run tooling (the name is kept): the
+    production-shape re-trace on the degraded mesh returns an ``ok``
+    record on a 15 x 16 context, with its seconds."""
+    from repro_torch.configs import get_config, get_shape
     from repro_torch.launch.elastic import relower_degraded
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        relower_degraded(get_config("iterpro-100m"), None, lost_slices=1)
+    rec, ctx, seconds = relower_degraded(
+        get_config("iterpro-100m").smoke(), get_shape("train_4k"),
+        lost_slices=1)
+    assert rec["status"] == "ok", rec
+    assert ctx.shape == {"data": 15, "model": 16} and ctx.rank is None
+    assert rec["chips"] == 240 and rec["op_cost"]["flops_per_device"] > 0
+    assert seconds > 0
 
 
 def test_row_safe_needs_a_mesh_and_stays_plain_off_it():

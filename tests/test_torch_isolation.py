@@ -117,3 +117,19 @@ print(sorted(k for k in sys.modules
     initialised, bad = res.stdout.strip().splitlines()[-2:]
     assert initialised == "False"
     assert bad == "[]"
+
+
+def test_importing_the_dryrun_changes_no_environment():
+    """The dry-run tooling sets no environment variable and touches no
+    device at import (the reference's sets ``XLA_FLAGS``): each module
+    executed anew leaves ``os.environ`` as it was."""
+    import importlib
+    names = ["repro_torch.launch.op_cost", "repro_torch.launch.accounting",
+             "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+             "repro_torch.launch.profile_cell"]
+    before = dict(os.environ)
+    for n in names:
+        importlib.reload(importlib.import_module(n))
+    assert dict(os.environ) == before
+    import torch.distributed as dist
+    assert not dist.is_initialized()

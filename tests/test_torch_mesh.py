@@ -210,11 +210,12 @@ def test_parse_mesh_and_backend_rule():
 
 
 def test_mesh_modes_of_later_slices_raise(storms):
-    """What is still unported raises naming its ROADMAP item: the
-    degraded-mesh compile of the XLA tooling (item 7).  Mesh serving (item
-    6.4) serves: ``serve --mesh 4,2`` ran inside the spawn's ranks, and
+    """Every mesh mode of the later slices runs (the name is kept from
+    when some raised): the degraded-mesh re-trace of the dry-run tooling
+    returns an ``ok`` record; mesh serving (item 6.4) serves: ``serve
+    --mesh 4,2`` ran inside the spawn's ranks, and
     ``invalidate_mesh_caches`` reports the serving engines it drops."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_shape
     from repro_torch.distributed.context import DistContext
     from repro_torch.launch.elastic import (invalidate_mesh_caches,
                                             relower_degraded)
@@ -225,8 +226,9 @@ def test_mesh_modes_of_later_slices_raise(storms):
     got = invalidate_mesh_caches(DistContext.for_shape((4, 2),
                                                        ("data", "model")))
     assert got["serving"] == 0, got
-    with pytest.raises(NotImplementedError, match="item 7"):
-        relower_degraded(cfg, None)
+    rec, ctx, _ = relower_degraded(cfg, get_shape("decode_32k"))
+    assert rec["status"] == "ok", rec
+    assert ctx.shape == {"data": 15, "model": 16}
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,9 @@ the reference's shard_map paths refuse) and dumps, once per module:
   layers), in a second child beside the first (``CHILD_FAM``): two bound
   mesh steps from the same state (losses and state within the f32
   tolerance) and the mesh engines' clean serving runs over the same
-  params (token logs bitwise);
+  params (token logs bitwise); and one forward of xlstm-350m-smoke in
+  bf16 (``X16``: a prefill and a decode step) on a 1 x 2 mesh against
+  one device, each package against itself (the bf16 drift of the mesh);
 * the training modes: the programs of ``test_sharded_resilience.py::
   test_donation_and_fused_detect_compose_on_mesh`` and
   ``::test_partial_refresh_patches_without_generation_bump`` and of
@@ -606,6 +608,39 @@ CHILD_FAM = textwrap.dedent("""
                                         np.asarray(want[k])) for k in want),
                      "logs": {str(q): w["tokens"]
                               for q, w in rep.per_request.items()}}
+    # -- xlstm-350m-smoke in bf16: a 1 x 2 mesh's prefill and decode
+    # logits against one device's (the mesh's bf16 drift) ----------------
+    from jax.sharding import NamedSharding, PartitionSpec
+    from repro.distributed.sharding import param_specs
+    from repro.models.registry import get_model
+    x16 = inp["x16"]
+    xcfg = get_config("xlstm-350m").smoke()
+    xcfg = dataclasses.replace(xcfg, model=dataclasses.replace(
+        xcfg.model, **x16["kw"]))
+    xm = get_model(xcfg.model)
+    xp = jax.tree_util.tree_map(jnp.asarray, x16["params"])
+
+    def xfwd(p, c):
+        lg, cache = xm.prefill(p, xcfg.model,
+                               {"tokens": jnp.asarray(x16["tokens"])}, c,
+                               max_len=x16["max_len"])
+        d, _ = xm.decode_step(p, xcfg.model, cache, jnp.asarray(x16["tok"]),
+                              c)
+        return lg, d
+
+    x_one = jax.jit(lambda p: xfwd(p, None))(xp)
+    mesh12 = jax.make_mesh((1, 2), ("data", "model"),
+                           devices=jax.devices()[:2])
+    ctx12 = DistContext.for_mesh(mesh12)
+    xsh = jax.tree_util.tree_map(
+        lambda sp: NamedSharding(mesh12, sp),
+        param_specs(ctx12, xp, xcfg.sharding, xcfg.model),
+        is_leaf=lambda v: isinstance(v, PartitionSpec))
+    with mesh12:
+        x_two = jax.jit(lambda p: xfwd(p, ctx12))(jax.device_put(xp, xsh))
+    fam["x16"] = {k: float(np.abs(np.asarray(a, np.float32) -
+                                  np.asarray(b, np.float32)).max())
+                  for k, a, b in zip(("prefill", "decode"), x_two, x_one)}
     with open(out + "_fam.json", "w") as f:
         json.dump(fam, f)
 
@@ -643,6 +678,12 @@ FAMILIES = {"xlstm-350m": dict(mlstm_ratio=1),
             "zamba2-7b": dict(hybrid_ratio=1),
             "seamless-m4t-large-v2": {}, "qwen2-vl-7b": {}}
 FAM_ENG = dict(n_slots=4, max_len=15, canary_slices=0, donate=True)
+#: the bf16 forward: xlstm-350m-smoke with both block kinds, 2 prompts
+#: of 8 tokens, a decode step
+X16 = dict(kw=dict(mlstm_ratio=1, param_dtype="bfloat16",
+                   compute_dtype="bfloat16"), max_len=16)
+#: the reference's bf16 tolerance (chip_smoke.py's ``BF16_TOL``)
+BF16_TOL = 3e-2
 SERVE_KEYS = ("requests", "completed", "dropped", "tokens_out",
               "engine_steps", "admissions", "admission_rejected", "slots",
               "faults", "replay_tokens", "retracted_tokens")
@@ -814,6 +855,7 @@ def _port_ranks(inp_path):
     res.update(_port_modes(ctx, cfg, inp, toy, tsh, local))
     res["serve"] = _port_serve(ctx, inp)
     res["fam"] = _port_families(ctx, inp)
+    res["x16"] = _port_x16(ctx, inp)
     res["moe_pipe"] = _port_moe_pipe(inp)
     res.update(_port_elastic(ctx, cfg, inp))
     everyone = coll.gather_objects(res, ctx.group(ctx.axis_names))
@@ -1065,6 +1107,42 @@ def _port_families(ctx, inp):
         r["logs"] = {str(q): w["tokens"] for q, w in rep.per_request.items()}
         out[arch] = r
     return out
+
+
+def _port_x16(ctx, inp):
+    """The bf16 forward on this rank: the model axis's prefill and decode
+    logits from the rank's blocks against one device's (whole params, no
+    ``tp``), the largest distance of each."""
+    import dataclasses
+    import torch
+    from repro_torch.bridge import state_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.sharding import gather_tree, local_tree
+    from repro_torch.launch.specs import param_shardings
+    from repro_torch.models.registry import get_model
+
+    x16 = inp["x16"]
+    cfg = get_config("xlstm-350m").smoke()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, **x16["kw"]))
+    model = get_model(cfg.model)
+    params = state_from_numpy(x16["params"])
+    psh, _ = param_shardings(ctx, cfg, params)
+    read = gather_tree(local_tree(params, psh), psh, axes=ctx.batch_axes)
+
+    def fwd(p, tp):
+        lg, cache = model.prefill(p, cfg.model, {
+            "tokens": torch.from_numpy(x16["tokens"])},
+            max_len=x16["max_len"], tp=tp)
+        d, _ = model.decode_step(p, cfg.model, cache,
+                                 torch.from_numpy(x16["tok"]), tp=tp)
+        return lg, d
+
+    two = fwd(read, TP.for_model(ctx, cfg.model))
+    one = fwd(params, None)
+    return {k: float((a.float() - b.float()).abs().max())
+            for k, a, b in zip(("prefill", "decode"), two, one)}
 
 
 #: EP_PROG's schedules, capacities and token counts: its 32 tokens
@@ -1391,6 +1469,14 @@ def both(tmp_path_factory):
                 (1, FAM_ENG["max_len"], c.model.frontend_dim)).astype(
                     np.float32)} if c.model.n_enc_layers else {}
             for _ in prompts]
+    xc = get_config("xlstm-350m").smoke()
+    xc = dataclasses.replace(xc, model=dataclasses.replace(
+        xc.model, **X16["kw"]))
+    x16 = dict(X16, params=jax.tree_util.tree_map(
+        np.asarray, jmodel(xc.model).init(xc.model, jax.random.PRNGKey(0))),
+        tokens=rng.integers(0, xc.model.vocab_size, size=(2, 8)).astype(
+            np.int32),
+        tok=rng.integers(0, xc.model.vocab_size, size=(2,)).astype(np.int32))
     inp = {"state": state, "toy": _toy(jax, jnp), "toy_specs": TOY_SPECS,
            "B": B, "S": S, "up": UP, "K": FUSED_K,
            "updates": _updates(state), "flags": UPDATE_FLAGS,
@@ -1399,7 +1485,7 @@ def both(tmp_path_factory):
            "serve_prompts": prompts, "serve_gen": SERVE_GEN,
            "serve_keys": SERVE_KEYS, "fam": FAMILIES,
            "fam_states": fam_states, "fam_params": fam_params,
-           "fam_features": fam_features, "fam_eng": FAM_ENG,
+           "fam_features": fam_features, "fam_eng": FAM_ENG, "x16": x16,
            **_moe_prog(jax, jnp)}
     src = str(tmp / "input.pkl")
     with open(src, "wb") as f:
@@ -1496,6 +1582,23 @@ def test_families_bound_steps_and_serving_match_reference(both, arch):
                                    atol=F32_TOL, rtol=F32_TOL)
         assert got["logs"] == want["logs"], (arch, r["shard_id"])
     _close_to(ranks[0]["fam"][arch]["state"], want["state"])
+
+
+def test_xlstm_bf16_mesh_drift_within_reference(both):
+    """The reference's bf16 xlstm drifts on a mesh as the port's does: a
+    1 x 2 mesh's decode logits against one device's, each package against
+    itself.  The port's distance is held at or under the reference's, or
+    within the reference's bf16 tolerance."""
+    ref, _, ranks = both
+    want = ref["fam"]["x16"]
+    print(f"[x16] mesh vs one device, bf16: reference {want}, port "
+          f"{ranks[0]['x16']}")
+    assert 0 < want["decode"] < BF16_TOL, want
+    for r in ranks:
+        got = r["x16"]
+        assert got == ranks[0]["x16"]
+        assert got["decode"] <= want["decode"] or \
+            got["decode"] <= BF16_TOL, (got, want)
 
 
 @pytest.mark.parametrize("size", MOE_SIZES)
