@@ -184,7 +184,7 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        of the bf16 embedding timed; its launches on 8a, 8b and 8d (no
        profiled gemma3-1b train steps, the time cut: 7j and 12c profile
        the train step);
-   8e. h2o-danube-1.8b at full width and 2 of its 24 layers (the depth
+   8e. h2o-danube-1.8b at full width and 6 of its 24 layers (the depth
        cut keeps the whole script within its time limit)
        trained with its microbatch 8 (global batch 8:
        8 slices of one sequence), ``--donate``, K=4, 4 steps, clean and
@@ -280,8 +280,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        graph pool);
    11b. one prompt of 600 tokens (three 256-token SSD chunks, the last
        padded) as 10b;
-   11c. 6 of its 81 layers (one pattern period: 5 Mamba-2 + the shared
-       block; 860,178,496 params) trained as 10c with the config's
+   11c. 7 of its 81 layers ((1, 5 Mamba-2 + the shared block), (1, 1
+       Mamba-2); 937,984,384 params) trained as 10c with the config's
        AdamW, microbatch 8 and remat, the memory of the runs reckoned
        from shapes and printed first: clean, the ``--parity`` storm and
        the donate+fused clean run (no iv storm, armed-slice storm,
@@ -305,8 +305,7 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
        logits within 3e-2 of the same prefill through
        ``attention_direct``, the first token's direct logit within twice
        that of the direct path's largest;
-   12c. 2 encoder + 2 decoder layers (651,688,960 params; the depth cut:
-       12a serves 6 + 6) trained as 10c
+   12c. 6 encoder + 6 decoder layers (903,543,808 params) trained as 10c
        (AdamW with f32 moments, remat, batch 8 x 128 with 64 source
        frames), the memory of the runs reckoned first: clean, the
        ``--parity`` storm, the donate+fused clean run (no iv or
@@ -2205,7 +2204,7 @@ CMD_LAYERS = 2                       # 8c: command-r-35b, 2 of its 40 layers
 G_STEPS, G_INJECT, G_INTERVAL = 6, 2, 8   # 8d: one snapshot + checkpoint
 G_CUT_LAYERS = 6                     # 8b, 8d: gemma3-1b 6 of 26 layers (5:1)
 D_STEPS, D_SLICES = 4, 4             # 8e: steps (one storm flip), canary K
-D_LAYERS = 2                         # 8e: h2o-danube-1.8b 2 of its 24 layers
+D_LAYERS = 6                         # 8e: h2o-danube-1.8b 6 of its 24 layers
 
 
 def _release(torch) -> None:
@@ -3102,13 +3101,12 @@ ZAMBA = "zamba2-7b"
 SEAMLESS = "seamless-m4t-large-v2"
 R_LONG = 600                  # 10b/11b: three 256-token chunks, one padded
 S_LONG = 4160                 # 12b: source frames, above FLASH_THRESHOLD
-S_LAYERS = 6                  # 12a-12b: 6 of its 24 encoder + 6 of 24 decoder
-S_TRAIN_LAYERS = 2            # 12c: 2 of its 24 encoder + 2 of 24 decoder
+S_LAYERS = 6                  # 12a-12c: 6 of its 24 encoder + 6 of 24 decoder
 R_STEPS, R_INJECT = 4, 2      # 10c/11c: steps, storm period (1 flip a run)
 R_SLICES = 4                  # 10c/11c: the donated fused runs' canary K
 X_LAYERS = 8                  # 10: xlstm-350m 8 of its 24 layers (7m + 1s)
 Z_SERVE_LAYERS = 13           # 11a/11b: zamba2-7b 13 of its 81 (2 x (5m + A) + m)
-Z_TRAIN_LAYERS = 6            # 11c: zamba2-7b 6 of its 81 layers
+Z_TRAIN_LAYERS = 7            # 11c: zamba2-7b 7 of its 81 layers
 QWEN = "qwen2-vl-7b"
 Q_GRID = 8                    # 13a: an 8 x 8 image a request (64 patches)
 Q_LONG_GRID = 64              # 13b: a 64 x 64 image, 4,224 keys with the prompt
@@ -5478,10 +5476,7 @@ def main() -> int:
     # checkpoint: saved every 10 steps, loaded digest-verified by the
     # rung, a corrupted one refused; 14 the mesh checkpoint)
     # no donate+fused profile (the time cut: 7j holds the hot-path one)
-    # trained at 2 + 2 layers (the depth cut: 12a serves 6 + 6)
-    recurrent_phase(torch, 12, SEAMLESS, s_layers,
-                    dict(n_layers=S_TRAIN_LAYERS,
-                         n_enc_layers=S_TRAIN_LAYERS),
+    recurrent_phase(torch, 12, SEAMLESS, s_layers, s_layers,
                     storms=("parity",), long=long_encdec, checkpoint=False,
                     profile=False)
     _stamp("phase 12")

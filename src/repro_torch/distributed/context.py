@@ -18,8 +18,8 @@ A context has two states, as in the reference:
   A context made by ``for_mesh`` holds a live ``DeviceMesh`` and the
   process groups of every set of axes; one made by ``for_shape`` holds
   only the shape (the reference's ``AbstractMesh``), enough for spec
-  generation and index boxes.  Given a ``rank``, a shape-only context is
-  that rank's view: ``tp_rank``, ``model_range`` and the boxes are the
+  generation and index boxes.  ``at_rank`` gives one rank's view of a
+  shape-only context: ``tp_rank``, ``model_range`` and the boxes are the
   rank's, and its groups are ``ShapeGroup``s (a size, no process
   behind them), which the collectives take only with ``meta`` tensors
   (the dry-run, ``launch/dryrun.py``).
@@ -117,33 +117,27 @@ class DistContext:
 
     @classmethod
     def for_shape(cls, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
-                  *, fsdp: bool = False, rank: Optional[int] = None,
-                  device: torch.device = torch.device("cpu")
-                  ) -> "DistContext":
+                  *, fsdp: bool = False) -> "DistContext":
         """A mesh of this shape with no processes behind it — what spec
-        generation and the index boxes need; with ``rank``, that rank's
-        view, its groups shape-only (``ShapeGroup``)."""
-        axes = tuple(zip(axis_names, (int(s) for s in shape)))
-        ctx = cls(axes=axes, batch_axes=_batch_axes(axis_names), fsdp=fsdp,
-                  rank=rank, device=device)
-        if rank is not None:
-            if not 0 <= rank < ctx.n_devices:
-                raise ValueError(f"rank {rank} outside a mesh of "
-                                 f"{ctx.n_devices}")
-            for k in range(1, len(axes) + 1):
-                for sub in itertools.combinations(axis_names, k):
-                    ctx.groups[frozenset(sub)] = ShapeGroup(
-                        len(ctx.group_shards(sub)))
-        return ctx
+        generation and the index boxes need."""
+        return cls(axes=tuple(zip(axis_names, (int(s) for s in shape))),
+                   batch_axes=_batch_axes(axis_names), fsdp=fsdp)
 
-    def at_rank(self, rank: int, device: torch.device = torch.device("cpu")
-                ) -> "DistContext":
-        """The shape-only view of rank ``rank`` of this context's shape."""
-        ctx = DistContext.for_shape(tuple(s for _, s in self.axes),
-                                    self.axis_names, fsdp=self.fsdp,
-                                    rank=rank, device=device)
-        return dataclasses.replace(ctx, batch_axes=self.batch_axes,
-                                   model_axis=self.model_axis)
+    def at_rank(self, rank: int) -> "DistContext":
+        """Rank ``rank``'s shape-only view of this context's mesh: its
+        ``tp_rank``, ``model_range`` and boxes, its groups ``ShapeGroup``s
+        and its device ``meta`` (the dry-run)."""
+        if not 0 <= rank < self.n_devices:
+            raise ValueError(f"rank {rank} outside a mesh of "
+                             f"{self.n_devices}")
+        ctx = dataclasses.replace(self, mesh=None, rank=rank,
+                                  device=torch.device("meta"), groups={})
+        names = self.axis_names
+        for k in range(1, len(names) + 1):
+            for sub in itertools.combinations(names, k):
+                ctx.groups[frozenset(sub)] = ShapeGroup(
+                    len(ctx.group_shards(sub)))
+        return ctx
 
     @classmethod
     def for_mesh(cls, mesh, device: torch.device, *,

@@ -46,8 +46,8 @@ The rank's program, by kind:
 ``variant`` drives experiments as the reference's does:
 ``{"mesh_shape": [64, 4], "mesh_axes": ["data", "model"],
 "flash_threshold": 2048, "q_chunk": ..., "kv_chunk": ..., "loss_chunk":
-..., "train": {"microbatch": 0}, "model": {"moe_impl": "..."}}``; the
-module knobs it sets are put back after the cell.
+..., "train": {"microbatch": 0}, "model": {"moe_impl": "..."}, "memo":
+false}``; the module knobs it sets are put back after the cell.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b \\
@@ -93,7 +93,8 @@ def knobs(variant: Optional[Dict]):
     table = (("flash_threshold", L, "FLASH_THRESHOLD", True),
              ("q_chunk", L, "Q_CHUNK", False),
              ("kv_chunk", L, "KV_CHUNK", False),
-             ("loss_chunk", T, "LOSS_CHUNK", False))
+             ("loss_chunk", T, "LOSS_CHUNK", False),
+             ("memo", OC, "MEMO", True))
     saved = [(mod, name, getattr(mod, name)) for _, mod, name, _ in table]
     try:
         for key, mod, name, none_only in table:
@@ -269,12 +270,12 @@ def trace_cell(cfg, shape, mesh):
     and the cost behind them with its per-op table."""
     t0 = time.perf_counter()
     chips = mesh_chip_count(mesh)
-    ctx = mesh.at_rank(0, _META)
+    ctx = mesh.at_rank(0)
     with OC.fast_meta():
         structs, shardings = input_specs(cfg, shape, ctx)
         rank = heaviest_rank(shardings, chips)
         if rank:
-            ctx = mesh.at_rank(rank, _META)
+            ctx = mesh.at_rank(rank)
             shardings = _on(ctx, shardings)
         args = rank_inputs(cfg, shape, ctx, structs, shardings)
     program = build_program(cfg, shape, ctx, shardings)

@@ -16,7 +16,11 @@ belong to):
   except views, aliases, metadata ops and allocations that write nothing
   (``_FREE``, the counterpart of the reference's ``_FREE_OPS``).  The
   reference counts a fusion's boundary, because XLA fuses; the port is
-  eager, every op a kernel of its own, so every op is counted whole.  Ops
+  eager, every op a kernel of its own, so every op is counted whole.  An
+  in-place write into part of its destination (``_WRITES``: a decode
+  cache's ``index_put_``, ``index_copy_``, ``scatter_``, ...) counts its
+  indices, its values and the bytes it writes, not the destination; a
+  ``copy_`` or ``fill_`` writes its destination without reading it.  Ops
   on host tensors (a scalar built on the CPU) are not counted.
 * **Collectives** by the reference's kinds (``all-gather``,
   ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
@@ -29,8 +33,10 @@ belong to):
 * **Peak live bytes** (``peak_bytes``): the high-water mark of the
   storages the program allocated, each freed when its last tensor dies
   (the storage of a view lives on with the view; autograd's saved tensors
-  keep theirs).  That is what an eager run's allocator must hold beside
-  the arguments, fragmentation and library workspaces aside.
+  keep theirs).  The arguments' storages are held as allocated before the
+  run, so an in-place write into one (a decode cache) allocates nothing.
+  That is what an eager run's allocator must hold beside the arguments,
+  fragmentation and library workspaces aside.
 
 ``while_trips`` is empty: the port's loops are Python loops, every trip
 dispatched, so nothing needs a trip count.
@@ -48,11 +54,13 @@ metadata of every op that neither mutates nor aliases, keyed by exactly
 those, and builds a repeated op's outputs with ``empty_strided`` (the
 same shapes, strides and dtypes): a layer or chunk loop pays the shape
 functions once.  ``fast_meta()`` is the memo alone, for building the
-shape-only inputs.
+shape-only inputs.  ``MEMO = False`` runs every op through its shape
+function (the dry-run's ``{"memo": false}`` variant), to time the memo.
 """
 
 from __future__ import annotations
 
+import math
 import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Tuple
@@ -83,7 +91,10 @@ _FREE = {aten._unsafe_view, aten.alias, aten.detach, aten.lift_fresh,
          aten.new_empty_strided, aten.empty_permuted, aten._local_scalar_dense,
          aten.resize_, aten.set_}
 
-#: op -> may its outputs' metadata be memoised (no mutation, no alias)
+#: memoise pure ops' output metadata (see the module docstring)
+MEMO = True
+#: op -> may its outputs' metadata be memoised (no mutation, no alias,
+#: none of ``_FREE``)
 _PURE: Dict[Any, bool] = {}
 #: op -> (has a CompositeImplicitAutograd decomposition, name, free)
 _OPS: Dict[Any, Tuple[bool, str, bool]] = {}
@@ -100,7 +111,10 @@ def _pure(func) -> bool:
     if ok is None:
         schema = func._schema
         ok = _PURE[func] = (
-            not func.is_view and not schema.is_mutable and
+            # _FREE's aliases (``_unsafe_view``, ``lift_fresh``) return
+            # their input's storage without saying so in their schema
+            not func.is_view and func._overloadpacket not in _FREE and
+            not schema.is_mutable and
             bool(schema.returns) and
             all(r.alias_info is None and str(r.type) in ("Tensor",
                                                           "Tensor[]")
@@ -141,7 +155,7 @@ def _rebuild(meta):
 
 def _run(func, args, kwargs):
     """``func(*args, **kwargs)``; a pure op's repeat built from the memo."""
-    if not _pure(func):
+    if not (MEMO and _pure(func)):
         return func(*args, **kwargs)
     try:
         key = (func, _sig(args), _sig(kwargs))
@@ -169,6 +183,52 @@ def _tensors(x) -> List[torch.Tensor]:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _index_put(self, indices, values, accumulate=False) -> int:
+    idx = [i for i in indices if i is not None]
+    if any(i.dtype in (torch.bool, torch.uint8) for i in idx):
+        n = values.numel()          # a mask's count is data: the values'
+    else:
+        n = math.prod(torch.broadcast_shapes(*(i.shape for i in idx)))
+        n *= math.prod(s for d, s in enumerate(self.shape)
+                       if d >= len(indices) or indices[d] is None)
+    return (sum(map(_nbytes, idx)) + _nbytes(values) +
+            (1 + accumulate) * n * self.element_size())
+
+
+def _scatter(self, dim, index, src=None, reduce=None, *, rmw=False,
+             **_) -> int:
+    n = index.numel()
+    read = n * src.element_size() if isinstance(src, torch.Tensor) else 0
+    return (_nbytes(index) + read +
+            (1 + (rmw or reduce is not None)) * n * self.element_size())
+
+
+def _scatter_rmw(self, dim, index, src, *args, **kwargs) -> int:
+    return _scatter(self, dim, index, src, rmw=True)
+
+
+def _index_copy(self, dim, index, source, *, rmw=False, **_) -> int:
+    return (_nbytes(index) + _nbytes(source) +
+            (1 + rmw) * source.numel() * self.element_size())
+
+
+def _index_add(self, dim, index, source, **_) -> int:
+    return _index_copy(self, dim, index, source, rmw=True)
+
+
+def _write(self, *rest, **_) -> int:
+    return _nbytes(self) + sum(_nbytes(t) for t in _tensors(list(rest)))
+
+
+#: in-place ops that write part of their destination, or write it
+#: without reading it -> their HBM bytes
+_WRITES = {aten.index_put_: _index_put, aten.index_copy_: _index_copy,
+           aten.index_add_: _index_add, aten.scatter_: _scatter,
+           aten.scatter_add_: _scatter_rmw,
+           aten.scatter_reduce_: _scatter_rmw,
+           aten.copy_: _write, aten.fill_: _write, aten.zero_: _write}
 
 
 @dataclass
@@ -207,6 +267,10 @@ class _Live:
         self.now = 0
         self.peak = 0
         self.seen = weakref.WeakSet()
+
+    def hold(self, t: torch.Tensor) -> None:
+        """``t``'s storage allocated before the run (an argument)."""
+        self.seen.add(t.untyped_storage())
 
     def add(self, t: torch.Tensor) -> None:
         s = t.untyped_storage()
@@ -266,7 +330,9 @@ class _Counter(TorchDispatchMode):
             if packet in flop_registry else 0
         nbytes = 0
         if not info[2]:
-            nbytes = sum(_nbytes(t) for t in tensors)
+            write = _WRITES.get(packet)
+            nbytes = write(*args, **kwargs) if write else \
+                sum(_nbytes(t) for t in tensors)
             for t in tensors[n_in:]:
                 self.live.add(t)
         row = self.cost.by_op.setdefault(info[1], [0, 0, 0])
@@ -282,6 +348,8 @@ def analyze(fn: Callable, *args, **kwargs) -> Tuple[OpCost, Any]:
     """``(OpCost, fn(*args, **kwargs))``, ``fn`` run on the arguments
     (``meta`` tensors: a rank's inputs) under the counting mode."""
     cost, live = OpCost(), _Live()
+    for t in _tensors(args) + _tensors(kwargs):
+        live.hold(t)
     saved, coll.METER = coll.METER, []
     try:
         with _Counter(cost, live):

@@ -211,7 +211,7 @@ def test_counts_equal_flop_counter_mode_on_a_mesh_step():
     from torch.utils.flop_counter import FlopCounterMode
     cfg = get_config("iterpro-100m").smoke()
     shape = ShapeSpec("smoke", S, B, "train")
-    ctx = make_mesh((2, 2), ("data", "model")).at_rank(3, META)
+    ctx = make_mesh((2, 2), ("data", "model")).at_rank(3)
     structs, shardings = TS.input_specs(cfg, shape, ctx)
     args = D.rank_inputs(cfg, shape, ctx, structs, shardings)
     step = D.build_program(cfg, shape, ctx, shardings)
@@ -229,7 +229,7 @@ def test_spmd_per_device_flops_and_collectives():
     computes its half of the columns (per-device FLOPs) and gathers them
     (one all-gather of max(in, out) bytes); the model's prefill computes
     half of one device's FLOPs, every collective its model-axis gathers."""
-    ctx = make_mesh((1, 2), ("data", "model")).at_rank(1, META)
+    ctx = make_mesh((1, 2), ("data", "model")).at_rank(1)
     tp = TP.for_model(ctx, None)
     assert (tp.size, tp.rank) == (2, 1)
     M, K, N = 512, 256, 1024
@@ -290,6 +290,62 @@ def test_peak_bytes_counts_live_storages():
 
     cost, out = OC.analyze(prog, torch.empty(n, device=META))
     assert cost.peak_bytes == 2 * 4 * n
+
+
+def test_in_place_writes_count_what_they_write():
+    """An indexed write into an argument counts its indices, its values
+    and the bytes it writes, whatever the destination's size, and
+    allocates nothing; ``copy_`` and ``fill_`` write without reading."""
+    b, kv, dh, k = 4, 2, 32, 3
+    row = b * kv * dh * 4
+
+    def prog(cache, v, rows, slot, dst, src, idx, part):
+        cache[rows, slot] = v
+        dst.copy_(src)
+        src.fill_(0.0)
+        dst.index_add_(1, idx, part)
+        dst.scatter_add_(1, rows[:, None].expand(b, k).contiguous(), part)
+
+    for c in (64, 4096):
+        args = (torch.empty(b, c, kv, dh, device=META),
+                torch.empty(b, kv, dh, device=META),
+                torch.empty(b, dtype=torch.int64, device=META),
+                torch.empty(b, dtype=torch.int64, device=META),
+                torch.empty(b, c, device=META),
+                torch.empty(b, c, device=META),
+                torch.empty(k, dtype=torch.int64, device=META),
+                torch.empty(b, k, device=META))
+        cost, _ = OC.analyze(prog, *args)
+        assert cost.by_op["aten.index_put_"][2] == 2 * 8 * b + 2 * row
+        assert cost.by_op["aten.copy_"][2] == 2 * 4 * b * c
+        assert cost.by_op["aten.fill_"][2] == 4 * b * c
+        assert cost.by_op["aten.index_add_"][2] == 8 * k + 3 * 4 * b * k
+        assert cost.by_op["aten.scatter_add_"][2] == 8 * b * k + 3 * 4 * b * k
+        # the index the program built for scatter_add_ is its one allocation
+        assert cost.peak_bytes == 8 * b * k
+
+
+def test_decode_cell_counts_its_cache_once():
+    """A decode cell's cache is an argument written in place: its new rows
+    count as written (a hand count), its temporaries hold no cache, and
+    the bytes that grow with the cache's length are the three passes over
+    K and V the eager program makes (the einsum's relayout reads and
+    writes each, the bmm reads it) beside its f32 scores."""
+    cfg = get_config("iterpro-100m").smoke()
+    n_layers = cfg.model.n_layers
+    mesh = make_mesh((1, 1), ("data", "model"))
+    (r1, c1), (r2, c2) = (D.trace_cell(cfg, ShapeSpec("d", c, B, "decode"),
+                                       mesh) for c in (S, 2 * S))
+    m1, m2 = r1["memory"], r2["memory"]
+    d_cache = m2["alias_size_in_bytes"] - m1["alias_size_in_bytes"]
+    row = d_cache // (2 * n_layers * S)     # one row of K (or V): B·KV·Dh
+    for cost in (c1, c2):                   # rows and slots int64, values
+        assert cost.by_op["aten.index_put_"] == [
+            2 * n_layers, 0, 2 * n_layers * (2 * 8 * B + 2 * row)]
+    assert m1["temp_size_in_bytes"] < m1["alias_size_in_bytes"]
+    assert m2["temp_size_in_bytes"] - m1["temp_size_in_bytes"] < d_cache
+    d_hbm = c2.hbm_bytes - c1.hbm_bytes
+    assert 3 * d_cache <= d_hbm < 3 * d_cache + d_cache // 4
 
 
 # ---------------------------------------------------------------------------
@@ -456,3 +512,21 @@ def test_loss_chunk_knob_is_read_at_call_time():
     whole = _port_cost("iterpro-100m", "train")
     assert chunked.flops == whole.flops
     assert chunked.by_op["aten.bmm"][0] > whole.by_op["aten.bmm"][0]
+
+
+@pytest.mark.parametrize("arch,kind", [("iterpro-100m", "train"),
+                                       ("xlstm-350m", "decode")])
+def test_memo_changes_no_count(arch, kind):
+    """``variant["memo"] = False`` runs every op through its shape
+    function: the record it gives is the memo's, count for count."""
+    cfg = get_config(arch).smoke()
+    shape = ShapeSpec("m", S, B, kind)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    with D.knobs({"memo": False}):
+        assert not OC.MEMO
+        slow, slow_cost = D.trace_cell(cfg, shape, mesh)
+    assert OC.MEMO
+    fast, fast_cost = D.trace_cell(cfg, shape, mesh)
+    for key in ("memory", "op_cost", "roofline", "ops"):
+        assert slow[key] == fast[key], key
+    assert slow_cost.by_op == fast_cost.by_op
