@@ -18,9 +18,9 @@ belong to):
   reference counts a fusion's boundary, because XLA fuses; the port is
   eager, every op a kernel of its own, so every op is counted whole.  An
   in-place write into part of its destination (``_WRITES``: a decode
-  cache's ``index_put_``, ``index_copy_``, ``scatter_``, ...) counts its
-  indices, its values and the bytes it writes, not the destination; a
-  ``copy_`` or ``fill_`` writes its destination without reading it.  Ops
+  cache's ``index_put_``) counts its indices, its values and the bytes
+  it writes, not the destination; a ``copy_`` or ``fill_`` writes its
+  destination without reading it.  Ops
   on host tensors (a scalar built on the CPU) are not counted.
 * **Collectives** by the reference's kinds (``all-gather``,
   ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
@@ -186,49 +186,24 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _index_put(self, indices, values, accumulate=False) -> int:
+    # integer indices (the port writes no mask): the elements written are
+    # the indices' broadcast shape by the dimensions they leave whole
     idx = [i for i in indices if i is not None]
-    if any(i.dtype in (torch.bool, torch.uint8) for i in idx):
-        n = values.numel()          # a mask's count is data: the values'
-    else:
-        n = math.prod(torch.broadcast_shapes(*(i.shape for i in idx)))
-        n *= math.prod(s for d, s in enumerate(self.shape)
-                       if d >= len(indices) or indices[d] is None)
+    n = math.prod(torch.broadcast_shapes(*(i.shape for i in idx)))
+    n *= math.prod(s for d, s in enumerate(self.shape)
+                   if d >= len(indices) or indices[d] is None)
     return (sum(map(_nbytes, idx)) + _nbytes(values) +
             (1 + accumulate) * n * self.element_size())
-
-
-def _scatter(self, dim, index, src=None, reduce=None, *, rmw=False,
-             **_) -> int:
-    n = index.numel()
-    read = n * src.element_size() if isinstance(src, torch.Tensor) else 0
-    return (_nbytes(index) + read +
-            (1 + (rmw or reduce is not None)) * n * self.element_size())
-
-
-def _scatter_rmw(self, dim, index, src, *args, **kwargs) -> int:
-    return _scatter(self, dim, index, src, rmw=True)
-
-
-def _index_copy(self, dim, index, source, *, rmw=False, **_) -> int:
-    return (_nbytes(index) + _nbytes(source) +
-            (1 + rmw) * source.numel() * self.element_size())
-
-
-def _index_add(self, dim, index, source, **_) -> int:
-    return _index_copy(self, dim, index, source, rmw=True)
 
 
 def _write(self, *rest, **_) -> int:
     return _nbytes(self) + sum(_nbytes(t) for t in _tensors(list(rest)))
 
 
-#: in-place ops that write part of their destination, or write it
-#: without reading it -> their HBM bytes
-_WRITES = {aten.index_put_: _index_put, aten.index_copy_: _index_copy,
-           aten.index_add_: _index_add, aten.scatter_: _scatter,
-           aten.scatter_add_: _scatter_rmw,
-           aten.scatter_reduce_: _scatter_rmw,
-           aten.copy_: _write, aten.fill_: _write, aten.zero_: _write}
+#: the in-place ops of the port's programs that write part of their
+#: destination, or write it without reading it -> their HBM bytes
+_WRITES = {aten.index_put_: _index_put, aten.copy_: _write,
+           aten.fill_: _write}
 
 
 @dataclass
